@@ -1,0 +1,6 @@
+from .abstract_accelerator import DeepSpeedAccelerator
+from .cuda_accelerator import CUDA_Accelerator
+from .real_accelerator import get_accelerator, resolve_device
+
+__all__ = ["DeepSpeedAccelerator", "CUDA_Accelerator", "get_accelerator",
+           "resolve_device"]

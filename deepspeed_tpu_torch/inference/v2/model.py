@@ -1,0 +1,417 @@
+"""Ragged-batch transformer forward over a paged KV cache.
+
+Port of ``deepspeed_tpu/inference/v2/model.py``. The same functions over the
+same packed metadata: dense projections run over the flat ``[T]`` token
+buffer (every scheduled token, prompt chunk or decode, shares the same
+matmuls — the Dynamic SplitFuse property); per-sequence grouping is a
+static-shape gather ``[S, Q]``; KV pages are scattered with the trash-block
+convention (pad writes land in block 0, never read).
+
+Where the JAX functions are jitted with the pools donated, these run eagerly
+and write the pools IN PLACE (``index_put_``); they still return the pools
+so the engine reads the same. Attention takes one of two paths per call:
+``"pallas"`` — the name of the kernel path, kept from the JAX package — runs
+the paged kernels of ``ops/paged_attention.py`` (hand-written Hopper
+kernels on a CUDA device, their plain versions on the CPU), ``"einsum"``
+runs the gathered-page reference path.
+
+Parameters are the flax tree as nested dicts of tensors
+(``models/convert.py``). Float32 matmuls run in full fp32 (TF32 off) so the
+fp32 path matches the JAX package's.
+"""
+
+import functools
+import math
+from typing import Tuple
+
+import torch
+
+from ...models.transformer import (TransformerConfig, apply_activation,
+                                   apply_rope, merge_partial_attention,
+                                   rope_table)
+from ...ops.paged_attention import (NEG_INF, gathered_paged_attention,
+                                    paged_flash_decode)
+from ...ops.paged_attention import paged_attention as paged_attention_kernel
+
+_LEFT_OUT = "(ROADMAP.md, modules left out of the first slice: {})"
+
+
+def exact_fp32() -> None:
+    """Full-precision fp32 matmuls and convolutions (no TF32): the fp32
+    serving path is held against the JAX package at fp32 tolerances."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def check_supported(cfg: TransformerConfig) -> None:
+    """Raise for the model families this slice does not serve."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE layers (_moe_mlp) " + _LEFT_OUT.format("MoE/ALiBi/window families"))
+    if cfg.position == "alibi" or cfg.layer_windows is not None:
+        raise NotImplementedError(
+            "ALiBi and windowed attention " + _LEFT_OUT.format(
+                "MoE/ALiBi/window families"))
+
+
+@functools.lru_cache(maxsize=8)
+def _rope_cs(device: str, seq_len: int, dim: int, theta: float):
+    return rope_table(seq_len, dim, theta, device=device)
+
+
+def _rope_tables(cfg, device):
+    if cfg.position != "rope":
+        return None
+    return _rope_cs(str(device), cfg.max_seq_len, cfg.rotary_dim,
+                    float(cfg.rope_theta))
+
+
+def _kv_write(pool, i, tgt_block, tgt_slot, vals):
+    """Scatter new KV rows ``vals`` [T', Hk, D] into layer ``i``'s pages
+    (in place; advanced indices around the head slice put the token axis
+    first, as in the JAX ``.at[i, block, :, slot]``)."""
+    pool[i][tgt_block, :, tgt_slot] = vals.to(pool.dtype)
+    return pool
+
+
+def _rms_norm(x, scale, eps):
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def _layer_norm(x, scale, bias, eps):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale
+    return out if bias is None else out + bias
+
+
+def _norm(cfg, p, x):
+    if cfg.norm == "rmsnorm":
+        return _rms_norm(x, p["scale"], cfg.norm_eps)
+    return _layer_norm(x, p["scale"], p.get("bias"), cfg.norm_eps)
+
+
+def _dense(p, x):
+    """flax DenseGeneral kernels ``[in, ...out]`` as one matmul over a 2-D
+    view of the kernel; optional bias."""
+    k = p["kernel"]
+    out = (x @ k.reshape(k.shape[0], -1).to(x.dtype)).reshape(
+        x.shape[0], *k.shape[1:])
+    if "bias" in p:
+        out = out + p["bias"].to(x.dtype)
+    return out
+
+
+def _dense_multi_in(p, x):
+    """o_proj DenseGeneral with axis=(-2,-1): kernel [H, D, hidden]."""
+    k = p["kernel"]
+    out = x.reshape(x.shape[0], -1) @ k.reshape(-1, k.shape[-1]).to(x.dtype)
+    if "bias" in p:
+        out = out + p["bias"].to(x.dtype)
+    return out
+
+
+def _rope(x, cos, sin, positions, interleaved=False):
+    """x: [T, H, D]; positions: [T] — the shared rotary over a flat token
+    buffer, batch of one."""
+    return apply_rope(x[None], cos, sin, positions[None],
+                      interleaved=interleaved)[0]
+
+
+def _qkv(cfg, ap, y, rope_cs, positions):
+    """Shared q/k/v projection + rotary for the packed and decode paths."""
+    qt = _dense(ap["q_proj"], y)                # [T, Hq, D]
+    kt = _dense(ap["k_proj"], y)                # [T, Hk, D]
+    vt = _dense(ap["v_proj"], y)
+    if cfg.position == "rope":
+        cos, sin = rope_cs
+        il = cfg.rotary_interleaved
+        qt = _rope(qt, cos, sin, positions, il)
+        kt = _rope(kt, cos, sin, positions, il)
+    return qt, kt, vt
+
+
+def _mlp(cfg, mp, y):
+    if cfg.activation == "swiglu":
+        hid = torch.nn.functional.silu(_dense(mp["gate_proj"], y)) * _dense(
+            mp["up_proj"], y)
+    else:
+        hid = apply_activation(cfg.activation, _dense(mp["up_proj"], y))
+    return _dense(mp["down_proj"], hid)
+
+
+def _block_out(cfg, lp, x, y, attn_out):
+    """Residual wiring after attention (sequential or parallel)."""
+    if cfg.parallel_residual:
+        y_mlp = y if cfg.parallel_shared_norm else _norm(cfg, lp["mlp_norm"], x)
+        return x + attn_out + _mlp(cfg, lp["mlp"], y_mlp)
+    x = x + attn_out
+    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], x))
+
+
+def _embed(cfg, params, tokens, positions):
+    x = params["embed"]["embedding"].to(cfg.dtype)[tokens]
+    if cfg.embed_norm:  # bloom word_embeddings_layernorm
+        x = _norm(cfg, params["embed_norm"], x)
+    if cfg.position == "learned":
+        x = x + params["pos_embed"][positions + cfg.pos_offset].to(cfg.dtype)
+    return x
+
+
+def _lm_logits(cfg, params, h_sel):
+    h_sel = h_sel.float()
+    if cfg.tie_embeddings:
+        return h_sel @ params["embed"]["embedding"].float().T
+    logits = h_sel @ params["lm_head"]["kernel"].float()
+    if cfg.lm_head_bias:
+        logits = logits + params["lm_head"]["bias"].float()
+    return logits
+
+
+def _sample(logits, generator, temperature, greedy):
+    if greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits / max(float(temperature), 1e-6), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+def paged_attention(qg, k_pool, v_pool, block_table, positions_g, q_valid,
+                    kv_len, return_stats: bool = False, scale=None):
+    """Grouped paged attention over gathered pages — the ``"einsum"`` path.
+
+    qg: [S, Q, Hq, D] grouped queries; k/v_pool: [N, Hk, bs, D] this layer's
+    pages; block_table: [S, B]; positions_g: [S, Q] absolute positions;
+    q_valid: [S, Q] bool; kv_len: [S]. Returns [S, Q, Hq, D] (and the
+    softmax ``(m, l)`` per row with ``return_stats``). ``scale`` overrides
+    1/sqrt(d)."""
+    return gathered_paged_attention(qg, k_pool, v_pool, block_table,
+                                    positions_g, q_valid, kv_len,
+                                    sm_scale=scale, return_stats=return_stats)
+
+
+def _ragged_hidden(params, cfg: TransformerConfig, kv_k, kv_v, tokens,
+                   positions, gather_idx, block_table, kv_len, start_pos,
+                   chunk_len, attn_impl: str):
+    """The packed ragged forward up to the final norm: final-norm hidden
+    states for EVERY packed token (``x [T, H]``). Writes this step's KV rows
+    into the pools in place. ``attn_impl``: "einsum" or "pallas"."""
+    check_supported(cfg)
+    T = tokens.shape[0]
+    bs = kv_k.shape[3]
+    tokens, positions = tokens.long(), positions.long()
+    gidx = gather_idx.long()
+    x = _embed(cfg, params, tokens, positions)                      # [T, H]
+    rope_cs = _rope_tables(cfg, tokens.device)
+
+    q_valid = gidx < T                                              # [S, Q]
+    safe_gather = torch.clamp(gidx, max=T - 1)
+    pos_g = torch.where(q_valid, positions[safe_gather],
+                        torch.zeros_like(safe_gather))              # [S, Q]
+    # scatter targets for new KV: pad/invalid -> trash block 0, slot 0
+    blk_of_pos = torch.take_along_dim(block_table.long(), pos_g // bs, dim=1)
+    zero = torch.zeros_like(pos_g)
+    tgt_block = torch.where(q_valid, blk_of_pos, zero).reshape(-1)
+    tgt_slot = torch.where(q_valid, pos_g % bs, zero).reshape(-1)
+
+    h, hk, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    flat_idx = gidx.reshape(-1)
+    for i in range(cfg.num_layers):
+        lp = params[f"layer_{i}"]
+        y = _norm(cfg, lp["attn_norm"], x)
+        ap = lp["attn"]
+        qt, kt, vt = _qkv(cfg, ap, y, rope_cs, positions)
+        # group per sequence (extra zero pad row at index T)
+        grouped = lambda a: torch.cat([a, torch.zeros_like(a[:1])])[gidx]
+        qg, kg, vg = grouped(qt), grouped(kt), grouped(vt)
+        _kv_write(kv_k, i, tgt_block, tgt_slot, kg.reshape(-1, hk, d))
+        _kv_write(kv_v, i, tgt_block, tgt_slot, vg.reshape(-1, hk, d))
+        if attn_impl == "pallas":
+            out = paged_attention_kernel(qg, kv_k[i], kv_v[i], block_table,
+                                         start_pos, chunk_len, kv_len,
+                                         sm_scale=cfg.attn_scale)
+        else:
+            out = paged_attention(qg, kv_k[i], kv_v[i], block_table, pos_g,
+                                  q_valid, kv_len, scale=cfg.attn_scale)
+        # ungroup back to the flat token buffer ([T+1] with pad row dropped)
+        flat = torch.zeros((T + 1, h, d), dtype=out.dtype, device=out.device)
+        flat[flat_idx] = out.reshape(-1, h, d)
+        attn_out = _dense_multi_in(ap["o_proj"], flat[:T])          # [T, H]
+        x = _block_out(cfg, lp, x, y, attn_out)
+    return _norm(cfg, params["final_norm"], x)
+
+
+def _ragged_forward_impl(params, cfg, kv_k, kv_v, tokens, positions,
+                         gather_idx, block_table, kv_len, logits_idx,
+                         start_pos, chunk_len, attn_impl):
+    x = _ragged_hidden(params, cfg, kv_k, kv_v, tokens, positions, gather_idx,
+                       block_table, kv_len, start_pos, chunk_len, attn_impl)
+    # logits only at the sample positions; logits_idx == T selects the zero
+    # pad row for non-sampling slots
+    h_sel = torch.cat([x, torch.zeros_like(x[:1])])[logits_idx.long()]
+    return _lm_logits(cfg, params, h_sel)
+
+
+@torch.inference_mode()
+def ragged_forward(params, cfg: TransformerConfig, kv_k, kv_v, tokens,
+                   positions, gather_idx, block_table, kv_len, logits_idx,
+                   start_pos=None, chunk_len=None, attn_impl: str = "einsum"
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One engine step over a packed ragged batch. Returns (logits [S, V]
+    fp32 at each sequence's logits_idx token, kv_k, kv_v) — the pools are
+    the arguments, updated in place."""
+    exact_fp32()
+    if start_pos is None:
+        if attn_impl == "pallas":
+            raise ValueError("attn_impl='pallas' requires start_pos/chunk_len "
+                             "(the contiguous-chunk invariant); only the "
+                             "einsum path can derive masks from gather_idx")
+        start_pos = chunk_len = kv_len  # unused by the einsum path
+    logits = _ragged_forward_impl(params, cfg, kv_k, kv_v, tokens, positions,
+                                  gather_idx, block_table, kv_len, logits_idx,
+                                  start_pos, chunk_len, attn_impl)
+    return logits, kv_k, kv_v
+
+
+@torch.inference_mode()
+def ragged_step(params, cfg: TransformerConfig, kv_k, kv_v, tokens, positions,
+                gather_idx, block_table, kv_len, logits_idx, start_pos,
+                chunk_len, generator, temperature, attn_impl: str = "einsum",
+                greedy: bool = True):
+    """Ragged step with on-device sampling: only ``[S]`` int32 tokens need
+    to cross to the host. ``generator`` (a ``torch.Generator`` on the
+    device) draws the samples when ``greedy`` is False."""
+    exact_fp32()
+    logits = _ragged_forward_impl(params, cfg, kv_k, kv_v, tokens, positions,
+                                  gather_idx, block_table, kv_len, logits_idx,
+                                  start_pos, chunk_len, attn_impl)
+    return _sample(logits, generator, temperature, greedy), kv_k, kv_v
+
+
+def verify_step(*args, **kwargs):
+    """Speculative-decode verification (JAX ``verify_step``)."""
+    raise NotImplementedError(
+        "verify_step " + _LEFT_OUT.format("spec decode / verify_step"))
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: TransformerConfig, kv_k, kv_v, wk, wv, toks, pos,
+                pool_len, block_table, active, t: int, attn_impl: str):
+    """One iteration of :func:`decode_loop` (the JAX scan body): logits
+    ``[S, V]`` for the tokens ``toks`` at positions ``pos``; writes their KV
+    rows into the in-window buffers ``wk``/``wv`` ``[L, W, S, Hk, D]`` at
+    step ``t``. Attention is over the FROZEN pool (``pool_len`` tokens per
+    sequence, paged kernel with stats) merged with the window (dense,
+    masked to steps ``<= t``) by the flash combine."""
+    check_supported(cfg)
+    S = toks.shape[0]
+    Hq, Hk, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    G = Hq // Hk
+    W = wk.shape[1]
+    sm = (1.0 / math.sqrt(D)) if cfg.attn_scale is None else float(cfg.attn_scale)
+    toks, pos = toks.long(), pos.long()
+    rope_cs = _rope_tables(cfg, toks.device)
+    x = _embed(cfg, params, toks, pos)                              # [S, H]
+    wmask = torch.arange(W, device=toks.device) <= t                # [W]
+    for i in range(cfg.num_layers):
+        lp = params[f"layer_{i}"]
+        y = _norm(cfg, lp["attn_norm"], x)
+        ap = lp["attn"]
+        qt, kt, vt = _qkv(cfg, ap, y, rope_cs, pos)                 # [S, H*, D]
+        wk[i, t] = kt.to(wk.dtype)
+        wv[i, t] = vt.to(wv.dtype)
+        if attn_impl == "pallas":
+            # resident-pool flash decode: the kernel resolves (layer, page)
+            # through the block table — no layer slice or gathered copy
+            o1, m1, l1 = paged_flash_decode(
+                qt, kv_k, kv_v, block_table, pos.to(torch.int32), pool_len,
+                layer=i, sm_scale=sm, return_stats=True)            # [S, Hq, *]
+        else:
+            o1, m1, l1 = paged_attention(
+                qt[:, None], kv_k[i], kv_v[i], block_table, pos[:, None],
+                active[:, None], pool_len, return_stats=True,
+                scale=cfg.attn_scale)
+            o1, m1, l1 = o1[:, 0], m1[:, 0], l1[:, 0]
+        # dense attention over the in-window tokens (incl. this one)
+        qr = qt.reshape(S, Hk, G, D)
+        lg2 = torch.einsum("shgd,wshd->shgw", qr.float(),
+                           wk[i].to(qt.dtype).float()) * sm
+        lg2 = torch.where(wmask, lg2, torch.full_like(lg2, NEG_INF))
+        m2 = lg2.amax(dim=-1)                                       # [S,Hk,G]
+        p2 = torch.where(wmask, torch.exp(lg2 - m2[..., None]),
+                         torch.zeros_like(lg2))
+        l2 = p2.sum(dim=-1)
+        acc2 = torch.einsum("shgw,wshd->shgd", p2.to(qt.dtype).float(),
+                            wv[i].to(qt.dtype).float())
+        o2 = acc2 / torch.where(l2 == 0, torch.ones_like(l2), l2)[..., None]
+        merged = merge_partial_attention(o1.reshape(S, Hk, G, D),
+                                         m1.reshape(S, Hk, G),
+                                         l1.reshape(S, Hk, G), o2, m2, l2)
+        attn_tok = merged.reshape(S, Hq, D).to(cfg.dtype)
+        attn_out = _dense_multi_in(ap["o_proj"], attn_tok)
+        x = _block_out(cfg, lp, x, y, attn_out)
+    x = _norm(cfg, params["final_norm"], x)
+    return _lm_logits(cfg, params, x)
+
+
+@torch.inference_mode()
+def decode_loop(params, cfg: TransformerConfig, kv_k, kv_v, tokens0, pos0,
+                block_table, active, generator, temperature, n_steps: int = 16,
+                attn_impl: str = "einsum", greedy: bool = True):
+    """``n_steps`` fused decode iterations with the frozen-pool-plus-window
+    algorithm of the JAX ``decode_loop``: the pool stays frozen during the
+    run, each step attends to it (paged kernel with ``(m, l)`` stats) and to
+    a small in-window buffer ``[L, n_steps, S, Hk, D]`` (dense, masked),
+    merged with the flash combine; the window is scattered into the pool
+    ONCE after the run, in place.
+
+    tokens0: [S] last sampled token per sequence; pos0: [S] its absolute
+    position (== tokens cached so far); block_table [S, B] must already cover
+    ``pos0 + n_steps``; active: [S] bool (inactive slots write to the trash
+    block). Returns (tokens [S, n_steps] int32, kv_k, kv_v)."""
+    exact_fp32()
+    S = tokens0.shape[0]
+    bs = kv_k.shape[3]
+    L, Hk, D = cfg.num_layers, cfg.kv_heads, cfg.head_dim
+    W = n_steps
+    dev = tokens0.device
+    wk = torch.zeros((L, W, S, Hk, D), dtype=cfg.dtype, device=dev)
+    wv = torch.zeros_like(wk)
+    pool_len = pos0  # tokens cached before this call — frozen for the run
+    toks, pos, out = tokens0, pos0, []
+    for t in range(n_steps):
+        logits = decode_step(params, cfg, kv_k, kv_v, wk, wv, toks, pos,
+                             pool_len, block_table, active, t, attn_impl)
+        toks = _sample(logits, generator, temperature, greedy)
+        out.append(toks)
+        pos = pos + 1
+
+    # one batched scatter of the whole window into the pool
+    tpos = pos0.long()[:, None] + torch.arange(W, device=dev)[None]  # [S, W]
+    blk = torch.take_along_dim(block_table.long(), tpos // bs, dim=1)
+    zero = torch.zeros_like(tpos)
+    blk = torch.where(active[:, None], blk, zero).reshape(-1)
+    slot = torch.where(active[:, None], tpos % bs, zero).reshape(-1)
+    wkt = wk.permute(0, 2, 1, 3, 4).reshape(L, S * W, Hk, D)        # [L,S*W,..]
+    wvt = wv.permute(0, 2, 1, 3, 4).reshape(L, S * W, Hk, D)
+    for i in range(L):
+        _kv_write(kv_k, i, blk, slot, wkt[i])
+        _kv_write(kv_v, i, blk, slot, wvt[i])
+    return torch.stack(out, dim=1), kv_k, kv_v
+
+
+# ---------------------------------------------------------------------------
+# TP-sharded decode projections (JAX model.py:612-707) wait for the comm
+# substrate of a later slice.
+# ---------------------------------------------------------------------------
+
+
+def _tp_not_ported(*args, **kwargs):
+    raise NotImplementedError(
+        "tensor-parallel decode " + _LEFT_OUT.format("TP decode"))
+
+
+resolve_decode_tp_impl = tp_decode_matmul = tp_decode_out_proj = \
+    tp_decode_logits = tp_greedy_token = _tp_not_ported
