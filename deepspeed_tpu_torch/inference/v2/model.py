@@ -20,15 +20,15 @@ Parameters are the flax tree as nested dicts of tensors
 fp32 path matches the JAX package's.
 """
 
-import functools
 import math
 from typing import Tuple
 
 import torch
 
-from ...models.transformer import (TransformerConfig, apply_activation,
-                                   apply_rope, merge_partial_attention,
-                                   rope_table)
+from ...models.transformer import (TransformerConfig, _block_out, _dense,
+                                   _dense_multi_in, _embed, _lm_logits, _norm,
+                                   _rope_tables, apply_rope,
+                                   merge_partial_attention)
 from ...ops.paged_attention import (NEG_INF, gathered_paged_attention,
                                     paged_flash_decode)
 from ...ops.paged_attention import paged_attention as paged_attention_kernel
@@ -54,63 +54,12 @@ def check_supported(cfg: TransformerConfig) -> None:
                 "MoE/ALiBi/window families"))
 
 
-@functools.lru_cache(maxsize=8)
-def _rope_cs(device: str, seq_len: int, dim: int, theta: float):
-    return rope_table(seq_len, dim, theta, device=device)
-
-
-def _rope_tables(cfg, device):
-    if cfg.position != "rope":
-        return None
-    return _rope_cs(str(device), cfg.max_seq_len, cfg.rotary_dim,
-                    float(cfg.rope_theta))
-
-
 def _kv_write(pool, i, tgt_block, tgt_slot, vals):
     """Scatter new KV rows ``vals`` [T', Hk, D] into layer ``i``'s pages
     (in place; advanced indices around the head slice put the token axis
     first, as in the JAX ``.at[i, block, :, slot]``)."""
     pool[i][tgt_block, :, tgt_slot] = vals.to(pool.dtype)
     return pool
-
-
-def _rms_norm(x, scale, eps):
-    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
-
-
-def _layer_norm(x, scale, bias, eps):
-    xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-    out = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale
-    return out if bias is None else out + bias
-
-
-def _norm(cfg, p, x):
-    if cfg.norm == "rmsnorm":
-        return _rms_norm(x, p["scale"], cfg.norm_eps)
-    return _layer_norm(x, p["scale"], p.get("bias"), cfg.norm_eps)
-
-
-def _dense(p, x):
-    """flax DenseGeneral kernels ``[in, ...out]`` as one matmul over a 2-D
-    view of the kernel; optional bias."""
-    k = p["kernel"]
-    out = (x @ k.reshape(k.shape[0], -1).to(x.dtype)).reshape(
-        x.shape[0], *k.shape[1:])
-    if "bias" in p:
-        out = out + p["bias"].to(x.dtype)
-    return out
-
-
-def _dense_multi_in(p, x):
-    """o_proj DenseGeneral with axis=(-2,-1): kernel [H, D, hidden]."""
-    k = p["kernel"]
-    out = x.reshape(x.shape[0], -1) @ k.reshape(-1, k.shape[-1]).to(x.dtype)
-    if "bias" in p:
-        out = out + p["bias"].to(x.dtype)
-    return out
 
 
 def _rope(x, cos, sin, positions, interleaved=False):
@@ -131,43 +80,6 @@ def _qkv(cfg, ap, y, rope_cs, positions):
         qt = _rope(qt, cos, sin, positions, il)
         kt = _rope(kt, cos, sin, positions, il)
     return qt, kt, vt
-
-
-def _mlp(cfg, mp, y):
-    if cfg.activation == "swiglu":
-        hid = torch.nn.functional.silu(_dense(mp["gate_proj"], y)) * _dense(
-            mp["up_proj"], y)
-    else:
-        hid = apply_activation(cfg.activation, _dense(mp["up_proj"], y))
-    return _dense(mp["down_proj"], hid)
-
-
-def _block_out(cfg, lp, x, y, attn_out):
-    """Residual wiring after attention (sequential or parallel)."""
-    if cfg.parallel_residual:
-        y_mlp = y if cfg.parallel_shared_norm else _norm(cfg, lp["mlp_norm"], x)
-        return x + attn_out + _mlp(cfg, lp["mlp"], y_mlp)
-    x = x + attn_out
-    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], x))
-
-
-def _embed(cfg, params, tokens, positions):
-    x = params["embed"]["embedding"].to(cfg.dtype)[tokens]
-    if cfg.embed_norm:  # bloom word_embeddings_layernorm
-        x = _norm(cfg, params["embed_norm"], x)
-    if cfg.position == "learned":
-        x = x + params["pos_embed"][positions + cfg.pos_offset].to(cfg.dtype)
-    return x
-
-
-def _lm_logits(cfg, params, h_sel):
-    h_sel = h_sel.float()
-    if cfg.tie_embeddings:
-        return h_sel @ params["embed"]["embedding"].float().T
-    logits = h_sel @ params["lm_head"]["kernel"].float()
-    if cfg.lm_head_bias:
-        logits = logits + params["lm_head"]["bias"].float()
-    return logits
 
 
 def _sample(logits, generator, temperature, greedy):

@@ -1,8 +1,10 @@
 from .convert import init_params, param_shapes, params_from_jax
-from .transformer import (TransformerConfig, apply_activation, apply_rope,
-                          gpt2_config, llama_config, merge_partial_attention,
-                          rope_table)
+from .transformer import (TransformerConfig, TransformerLM, apply_activation,
+                          apply_rope, attention_core, causal_lm_loss,
+                          gpt2_config, llama_config, make_loss_fn,
+                          merge_partial_attention, rope_table)
 
-__all__ = ["TransformerConfig", "apply_activation", "apply_rope",
-           "gpt2_config", "llama_config", "merge_partial_attention",
+__all__ = ["TransformerConfig", "TransformerLM", "apply_activation",
+           "apply_rope", "attention_core", "causal_lm_loss", "gpt2_config",
+           "llama_config", "make_loss_fn", "merge_partial_attention",
            "rope_table", "init_params", "param_shapes", "params_from_jax"]

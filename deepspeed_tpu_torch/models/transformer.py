@@ -1,19 +1,28 @@
-"""Transformer configuration and the shared numerics of the serving path.
+"""Transformer configuration, the shared numerics, and the training model.
 
-Port of the serving-path pieces of ``deepspeed_tpu/models/transformer.py``:
-the config (same field names, so a JAX config converts field by field), the
-rotary table and its two pairings, the non-gated activations, the flash
-combine of two partial attentions, and the family presets. The flax modules
-and the training code are not part of the port's first slice; the serving
-forward (``inference/v2/model.py``) runs on plain parameter dictionaries.
+Port of ``deepspeed_tpu/models/transformer.py``: the config (same field
+names, so a JAX config converts field by field), the rotary table and its
+two pairings, the activations, the flash combine, ``attention_core``, the
+causal LM as an ``nn.Module`` (``TransformerLM``), ``causal_lm_loss``,
+``make_loss_fn`` and the family presets.
+
+Parameters keep the flax layout of ``models/convert.py`` (nested dicts keyed
+by the flax paths), so one parameter tree serves the trainer and
+``InferenceEngineV2``; the functional pieces below (``_norm``, ``_dense``,
+``_mlp``, ``_embed``, ``_lm_logits``, ...) are the one definition of the
+numerics that both the serving forward (``inference/v2/model.py``) and the
+training forward run.
 """
 
 import dataclasses
+import functools
+import math
 from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,11 +57,16 @@ class TransformerConfig:
     attn_scale: Optional[float] = None          # gpt-neo trains UNSCALED (1.0)
     layer_windows: Optional[Any] = None         # gpt-neo local attention
     num_experts: int = 0                        # MoE (mixtral / qwen2_moe)
+    dropout: float = 0.0                        # > 0 not ported (TransformerLM raises)
     # execution
     dtype: Any = torch.bfloat16
+    remat: bool = False                         # True not ported (TransformerLM raises)
+    remat_policy: Optional[str] = None
+    attn_impl: str = "auto"                     # auto | xla | flash (the CUDA kernels)
     # serving fused-decode attention pin: auto | einsum | pallas (the name
     # of the kernel path, as in the JAX package)
     decode_attn_impl: str = "auto"
+    loss_impl: str = "auto"                     # auto | xla | fused (fused not ported)
 
     @property
     def head_dim(self):
@@ -145,6 +159,330 @@ def merge_partial_attention(out1, m1, l1, out2, m2, l2):
     den = torch.clamp(e1 + e2, min=1e-30)
     num = (out1.float() * e1[..., None] + out2.float() * e2[..., None])
     return num / den[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Shared functional numerics (the serving forward and the training forward)
+# ---------------------------------------------------------------------------
+
+_NOT_PORTED = "not ported yet: ROADMAP.md Queue A item 7 ({})"
+
+
+@functools.lru_cache(maxsize=8)
+def _rope_cs(device: str, seq_len: int, dim: int, theta: float):
+    # serving builds it under inference_mode; training must be able to save
+    # the same cached table for backward, so it is never an inference tensor
+    with torch.inference_mode(False):
+        return rope_table(seq_len, dim, theta, device=device)
+
+
+def _rope_tables(cfg, device):
+    if cfg.position != "rope":
+        return None
+    return _rope_cs(str(device), cfg.max_seq_len, cfg.rotary_dim,
+                    float(cfg.rope_theta))
+
+
+def _rms_norm(x, scale, eps):
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def _layer_norm(x, scale, bias, eps):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale
+    return out if bias is None else out + bias
+
+
+def _norm(cfg, p, x):
+    if cfg.norm == "rmsnorm":
+        return _rms_norm(x, p["scale"], cfg.norm_eps)
+    return _layer_norm(x, p["scale"], p.get("bias"), cfg.norm_eps)
+
+
+def _dense(p, x):
+    """flax DenseGeneral kernels ``[in, ...out]`` as one matmul over a 2-D
+    view of the kernel, in x's dtype; optional bias. x: ``[..., in]``."""
+    k = p["kernel"]
+    out = (x @ k.reshape(k.shape[0], -1).to(x.dtype)).reshape(
+        *x.shape[:-1], *k.shape[1:])
+    if "bias" in p:
+        out = out + p["bias"].to(x.dtype)
+    return out
+
+
+def _dense_multi_in(p, x):
+    """o_proj DenseGeneral with axis=(-2,-1): kernel [H, D, hidden];
+    x: ``[..., H, D]``."""
+    k = p["kernel"]
+    out = x.reshape(*x.shape[:-2], -1) @ k.reshape(-1, k.shape[-1]).to(x.dtype)
+    if "bias" in p:
+        out = out + p["bias"].to(x.dtype)
+    return out
+
+
+def _mlp(cfg, mp, y):
+    if cfg.activation == "swiglu":
+        hid = F.silu(_dense(mp["gate_proj"], y)) * _dense(mp["up_proj"], y)
+    else:
+        hid = apply_activation(cfg.activation, _dense(mp["up_proj"], y))
+    return _dense(mp["down_proj"], hid)
+
+
+def _block_out(cfg, lp, x, y, attn_out):
+    """Residual wiring after attention (sequential or parallel)."""
+    if cfg.parallel_residual:
+        y_mlp = y if cfg.parallel_shared_norm else _norm(cfg, lp["mlp_norm"], x)
+        return x + attn_out + _mlp(cfg, lp["mlp"], y_mlp)
+    x = x + attn_out
+    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], x))
+
+
+def _embed(cfg, params, tokens, positions):
+    """Token (and learned position) embeddings in ``cfg.dtype``; tokens
+    ``[...]``, positions broadcastable to them."""
+    x = params["embed"]["embedding"].to(cfg.dtype)[tokens]
+    if cfg.embed_norm:  # bloom word_embeddings_layernorm
+        x = _norm(cfg, params["embed_norm"], x)
+    if cfg.position == "learned":
+        x = x + params["pos_embed"][positions + cfg.pos_offset].to(cfg.dtype)
+    return x
+
+
+def _lm_logits(cfg, params, h):
+    """fp32 logits (the serving head; also the untied training head: the
+    flax ``lm_head`` is a float32 Dense over ``h.astype(float32)``)."""
+    h = h.float()
+    if cfg.tie_embeddings:
+        return h @ params["embed"]["embedding"].float().T
+    logits = h @ params["lm_head"]["kernel"].float()
+    if cfg.lm_head_bias:
+        logits = logits + params["lm_head"]["bias"].float()
+    return logits
+
+
+def alibi_slopes(num_heads: int, bf16_round: bool = True) -> np.ndarray:
+    """ALiBi per-head slopes (Press et al.; the HF falcon/bloom form,
+    geometric in 2^(-8/n), extended for non-pow2). ``bf16_round``: falcon/
+    bloom round the slopes through bfloat16; MPT keeps fp32."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(np.log2(n) - 3)))
+        return start * (start ** np.arange(n))
+
+    n2 = 2 ** int(np.floor(np.log2(num_heads)))
+    slopes = pow2_slopes(n2)
+    if n2 != num_heads:
+        extra = pow2_slopes(2 * n2)[0::2][: num_heads - n2]
+        slopes = np.concatenate([slopes, extra])
+    if not bf16_round:
+        return slopes.astype(np.float32)
+    return torch.from_numpy(slopes).to(torch.bfloat16).float().numpy()
+
+
+_FLASH_FALLBACK_WARNED = set()
+
+
+def _warn_flash_fallback(reason: str) -> None:
+    if reason in _FLASH_FALLBACK_WARNED:
+        return
+    _FLASH_FALLBACK_WARNED.add(reason)
+    from ..utils.logging import logger
+
+    logger.warning(f"attn_impl=flash requested but {reason} is unsupported by "
+                   "the flash kernel — using the plain attention for these call "
+                   "sites (one-time notice)")
+
+
+def attention_core(q, k, v, *, causal: bool = True, impl: str = "auto",
+                   positions_q=None, positions_kv=None, alibi=None,
+                   scale=None, window=None, alibi_post_scale=False):
+    """[B, S, H, D] attention with unexpanded GQA k/v ``[B, S, Hk, D]``.
+
+    ``flash`` runs the hand-written kernels (``ops/flash_attention.py``;
+    their plain versions for CPU tensors); ``xla`` is the plain grouped
+    einsum of the JAX package's XLA path (fp32 logits, softmax, probs in q's
+    dtype); ``auto`` picks ``flash`` when the kernels are built for q (a
+    tensor on the card, fp32 or bf16, head dim 64 or 128) and there is no
+    ALiBi bias or window. The JAX rule also asks for a sequence that is a
+    multiple of 128, the TPU kernel's block; the CUDA kernels mask a ragged
+    last tile, so any length takes them here. ``alibi``: per-head slopes
+    [H]; ``scale``: logits multiplier (default 1/sqrt(d)); ``window``: key j
+    visible iff q_pos - j < window."""
+    if impl == "auto":
+        from ..ops.flash_attention import kernel_takes
+
+        impl = "flash" if kernel_takes(q) and alibi is None and window is None else "xla"
+    if impl == "flash":
+        if alibi is None and window is None:
+            from ..ops.flash_attention import flash_attention
+
+            return flash_attention(q, k, v, causal=causal, sm_scale=scale)
+        _warn_flash_fallback("an ALiBi bias" if alibi is not None
+                             else "a local attention window")
+    elif impl != "xla":
+        raise ValueError(f"attn_impl must be auto, xla or flash, got {impl!r}")
+    b, sq, h, d = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    scale = (1.0 / math.sqrt(d)) if scale is None else float(scale)
+    dev = q.device
+    pq = positions_q if positions_q is not None else torch.arange(sq, device=dev)[:, None]
+    pk = positions_kv if positions_kv is not None else torch.arange(skv, device=dev)[None, :]
+    # falcon/bloom fold the 1/sqrt(d) scale into the slope; MPT adds it raw
+    sl_factor = 1.0 if alibi_post_scale else scale
+    if alibi is not None:
+        alibi = sl_factor * torch.as_tensor(alibi, dtype=torch.float32, device=dev)
+        dist = (pq - pk).float()                                  # [sq, skv]
+    mask = None
+    if causal:
+        mask = pq >= pk
+        if window is not None:
+            mask = mask & (pq - pk < window)
+    rep = h // hk
+    # GQA without materializing repeated kv heads: q grouped per kv head
+    qg = q.reshape(b, sq, hk, rep, d)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(), k.float()) * scale
+    if alibi is not None:
+        logits = logits - alibi.reshape(hk, rep)[None, :, :, None, None] * dist
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v.to(q.dtype))
+    return out.reshape(b, sq, h, d)
+
+
+def _attention(cfg, ap, y, rope_cs, alibi, window):
+    """The training attention block: projections, rotary, core, o_proj."""
+    q, k, v = _dense(ap["q_proj"], y), _dense(ap["k_proj"], y), _dense(ap["v_proj"], y)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q = apply_rope(q, cos, sin, interleaved=cfg.rotary_interleaved)
+        k = apply_rope(k, cos, sin, interleaved=cfg.rotary_interleaved)
+    impl = cfg.attn_impl
+    if impl == "auto":
+        from ..ops.fastpath import fastpath
+
+        impl = fastpath("attn_impl")
+    out = attention_core(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=True, impl=impl, alibi=alibi, scale=cfg.attn_scale,
+                         window=window, alibi_post_scale=cfg.alibi_post_scale)
+    return _dense_multi_in(ap["o_proj"], out)
+
+
+def _check_trainable(cfg: TransformerConfig) -> None:
+    if cfg.dropout > 0:
+        raise NotImplementedError(
+            "dropout > 0 is " + _NOT_PORTED.format("model: dropout, which needs "
+                                                   "a seeded Philox mask"))
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True is " + _NOT_PORTED.format(
+                "engine: runtime/activation_checkpointing.py"))
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE layers are " + _NOT_PORTED.format("model: mixtral / moe/*"))
+
+
+def lm_forward(cfg: TransformerConfig, params, tokens):
+    """The causal LM forward on a flax-layout parameter tree: tokens
+    ``[B, S]`` -> logits ``[B, S, V]`` (fp32 for an untied head; the tied
+    head attends in ``cfg.dtype``, as flax ``Embed.attend`` does)."""
+    _check_trainable(cfg)
+    tokens = tokens.long()
+    dev = tokens.device
+    x = _embed(cfg, params, tokens, torch.arange(tokens.shape[1], device=dev))
+    rope_cs = _rope_tables(cfg, dev)
+    alibi = (alibi_slopes(cfg.num_heads, bf16_round=not cfg.alibi_post_scale)
+             if cfg.position == "alibi" else None)
+    for i in range(cfg.num_layers):
+        lp = params[f"layer_{i}"]
+        window = cfg.layer_windows[i] if cfg.layer_windows is not None else None
+        y = _norm(cfg, lp["attn_norm"], x)
+        x = _block_out(cfg, lp, x, y, _attention(cfg, lp["attn"], y, rope_cs,
+                                                 alibi, window))
+    x = _norm(cfg, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        return x.to(cfg.dtype) @ params["embed"]["embedding"].to(cfg.dtype).T
+    return _lm_logits(cfg, params, x)
+
+
+class TransformerLM(nn.Module):
+    """Causal LM: ``forward(tokens [B, S]) -> logits [B, S, V]``.
+
+    Its parameters sit in a ``ParameterDict`` keyed by their flax paths
+    (``"layer_0/attn/q_proj/kernel"``, ...), so :func:`make_loss_fn` can run
+    it on any flax-layout tree through ``torch.func.functional_call``.
+    ``params`` (a nested tree, e.g. from ``init_params`` or
+    ``params_from_jax``) is used as is, without a copy; without it the
+    weights are drawn from ``seed`` on ``device``, which defaults to the
+    card and raises without one."""
+
+    def __init__(self, cfg: TransformerConfig, params=None, *, seed: int = 0,
+                 device="cuda"):
+        super().__init__()
+        _check_trainable(cfg)
+        from .convert import _flatten, init_params, param_shapes
+
+        if params is None:
+            params = init_params(cfg, seed=seed, device=device, dtype=torch.float32)
+        flat = _flatten(params)
+        want = param_shapes(cfg)
+        if set(flat) != set(want):
+            raise ValueError(f"parameter tree mismatch: missing "
+                             f"{sorted(set(want) - set(flat))}, extra "
+                             f"{sorted(set(flat) - set(want))}")
+        self.cfg = cfg
+        self.params = nn.ParameterDict(
+            {k: v if isinstance(v, nn.Parameter) else nn.Parameter(v)
+             for k, v in flat.items()})
+
+    def param_tree(self):
+        """The module's parameters as the nested flax-layout tree."""
+        from .convert import _nest
+
+        return _nest(dict(self.params.items()))
+
+    def forward(self, tokens):
+        return lm_forward(self.cfg, self.param_tree(), tokens)
+
+
+def causal_lm_loss(logits, tokens, loss_mask=None, z_loss: float = 0.0):
+    """Next-token cross entropy; ignores the final position."""
+    targets = tokens[:, 1:].long()
+    logits = logits[:, :-1]
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = logz - tgt_logit
+    if z_loss > 0:
+        nll = nll + z_loss * torch.square(logz)
+    if loss_mask is not None:
+        m = loss_mask[:, 1:].to(nll.dtype)
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)
+
+
+def make_loss_fn(model: TransformerLM):
+    """Engine-compatible ``loss = f(params, batch, rng=None)``: runs ``model``
+    on the flax-layout tree ``params`` (``torch.func.functional_call``) and
+    returns ``causal_lm_loss``. ``batch`` is the token tensor ``[B, S]`` or a
+    dict with ``tokens`` (and an optional ``loss_mask``). The LM loss is the
+    dense one: ``loss_impl`` resolves through ``resolve_loss_impl``, which
+    raises for the fused loss (not ported yet)."""
+    from ..sequence.cross_entropy import resolve_loss_impl
+    from .convert import _flatten
+
+    cfg = model.cfg
+
+    def loss_fn(params, batch, rng=None):
+        tokens = batch["tokens"] if isinstance(batch, dict) else batch
+        mask = batch.get("loss_mask") if isinstance(batch, dict) else None
+        resolve_loss_impl(cfg.loss_impl, cfg.vocab_size)
+        flat = {f"params.{k}": v for k, v in _flatten(params).items()}
+        logits = torch.func.functional_call(model, flat, (tokens,))
+        return causal_lm_loss(logits, tokens, mask)
+
+    return loss_fn
 
 
 # ---------------------------------------------------------------------------

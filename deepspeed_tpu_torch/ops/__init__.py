@@ -2,5 +2,8 @@
 as a kernel hand-written for Hopper, beside its plain PyTorch version.
 
 ``paged_attention`` — the two paged-attention kernels of the serving path
-(CUDA C++ in ``csrc/paged_attention.cu``, built by ``_build``).
+(``csrc/paged_attention.cu``); ``flash_attention`` — the flash forward and
+its two backward kernels of the training path (``csrc/flash_attention.cu``);
+``fused_adam`` — the multi-tensor Adam update (``csrc/fused_adam.cu``). All
+are CUDA C++ built by ``_build``.
 """

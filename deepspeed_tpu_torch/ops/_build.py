@@ -4,9 +4,9 @@ Each ``ops/csrc/*.cu`` source compiles with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface, loaded with ``ctypes``. Builds happen at first use, from
 the sources in the checkout only, into ``build/`` at the repository root,
-named by a hash of the sources and the flags, so a changed source rebuilds
-and an unchanged one is reused. A missing ``nvcc`` or a failed build raises:
-nothing falls back.
+named by a hash of that source, the shared headers and the flags, so a
+changed source rebuilds and an unchanged one is reused. A missing ``nvcc``
+or a failed build raises: nothing falls back.
 """
 
 import ctypes
@@ -40,11 +40,14 @@ def nvcc_path() -> str:
 
 
 def _library_path(source: str) -> Path:
+    """``build/<stem>-<hash>.so``: the hash covers the flags, this source and
+    the shared headers only, so editing one kernel's source rebuilds that
+    kernel and no other."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.iterdir()):           # the .cu and shared headers
-        if f.suffix in (".cu", ".cuh", ".h"):
-            h.update(f.name.encode())
-            h.update(f.read_bytes())
+    for f in [CSRC / source] + sorted(p for p in CSRC.iterdir()
+                                      if p.suffix in (".cuh", ".h")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -38,7 +38,7 @@ launch_counts: Dict[str, int] = {"paged_attention": 0,
 
 _SOURCE = "paged_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (64, 128)     # instantiated in csrc/paged_attention.cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {

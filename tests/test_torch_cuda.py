@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import fused_adam as adam
 from deepspeed_tpu_torch.ops import paged_attention as port
 
 pytestmark = pytest.mark.cuda
@@ -47,7 +49,7 @@ def _packed(rng, dtype, S, Q, Hq, Hk, D, bs, B, kv_lens, chunk_lens):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("D", [64, 128])
 def test_kernels_match_plain_versions_on_card(dtype, D):
     """Both kernels against their plain versions: a GQA ratio, ragged
     lengths incl. 0 and a partial page, stats on and off."""
@@ -101,7 +103,7 @@ def test_engine_kernel_path_matches_einsum_path_on_card():
                                                   RaggedInferenceEngineConfig)
     from deepspeed_tpu_torch.models import TransformerConfig, init_params
 
-    cfg = TransformerConfig(vocab_size=97, hidden_size=128,
+    cfg = TransformerConfig(vocab_size=97, hidden_size=256,
                             intermediate_size=192, num_layers=2, num_heads=4,
                             num_kv_heads=2, max_seq_len=256,
                             dtype=torch.float32)
@@ -117,3 +119,123 @@ def test_engine_kernel_path_matches_einsum_path_on_card():
         outs.append(eng.generate(prompts, max_new_tokens=12))
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+def _close(got, want, tol):
+    """Within ``tol`` of the reference's largest magnitude: the kernels sum
+    in another order, and in bf16 a value may round one ulp apart."""
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_match_plain_versions_on_card(D, dtype, causal):
+    """Forward (O, L) and both backward kernels against the plain versions:
+    GQA 8/2 and a sequence that is not a multiple of the tile."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    B, S, H, Hk = 2, 200, 8, 2
+    q, k, v, do = r(B, S, H, D), r(B, S, Hk, D), r(B, S, Hk, D), r(B, S, H, D)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    _close(o, o_ref, tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    got = fa.flash_attention_backward(q, k, v, o_ref, lse_ref, do, causal=causal)
+    want = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        _close(g, w, 2 * tol)
+
+
+def test_flash_wrapper_counts_launches_and_rejects_bad_inputs():
+    _need_card()
+    q = torch.randn(1, 128, 4, 64, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(1, 128, 2, 64, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    fa.reset_launch_counts()
+    fa.flash_attention(q, k, k).sum().backward()
+    assert fa.launch_counts == {"flash_attention_fwd": 1,
+                                "flash_attention_bwd_dkdv": 1,
+                                "flash_attention_bwd_dq": 1}
+    with pytest.raises(ValueError, match="dtype|float32 or bfloat16"):
+        fa.flash_attention_forward(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_forward(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                                   k[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_forward(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                   k, k)
+    assert fa.launch_counts["flash_attention_fwd"] == 1
+
+
+@pytest.mark.parametrize("bias_correction", [True, False])
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_fused_adam_kernel_matches_plain_version_on_card(adam_w_mode, bias_correction):
+    """One launch over odd-sized tensors (16-byte and scalar paths, several
+    chunks) against the plain version, in place and into ``updates``."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sizes = [1, 7, 4096, adam.CHUNK + 5, 3 * adam.CHUNK]
+    r = lambda n, s=1.0: s * torch.randn(n, generator=gen, device="cuda")
+    g = [r(n, 0.1) for n in sizes]
+    p = [r(n) for n in sizes]
+    m = [r(n, 0.01) for n in sizes]
+    v = [r(n, 0.001).abs() for n in sizes]
+    kw = dict(lr=3e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+              adam_w_mode=adam_w_mode, bias_correction=bias_correction, step=5)
+    want = [adam.adam_update_ref(*a, 3e-4, 0.9, 0.95, 1e-8, 0.1, adam_w_mode,
+                                 bias_correction, 5) for a in zip(g, m, v, p)]
+    adam.reset_launch_counts()
+    mu, vu, u = [x.clone() for x in m], [x.clone() for x in v], [torch.empty_like(x) for x in g]
+    adam.multi_tensor_adam(g, mu, vu, p, updates=u, **kw)
+    mi, vi, pi = [x.clone() for x in m], [x.clone() for x in v], [x.clone() for x in p]
+    adam.multi_tensor_adam(g, mi, vi, pi, **kw)
+    assert adam.launch_counts["fused_adam"] == 2
+    for i, (wu, wm, wv) in enumerate(want):
+        for got, ref in ((u[i], wu), (mu[i], wm), (vu[i], wv), (mi[i], wm), (vi[i], wv),
+                         (pi[i], p[i] + wu)):
+            _close(got, ref, 1e-6)
+    with pytest.raises(ValueError, match="float32"):
+        adam.multi_tensor_adam([g[0].half()], [m[0]], [v[0]], [p[0]], lr=1e-3)
+
+
+def test_auto_attention_takes_flash_kernels_at_ragged_length_on_card():
+    """``auto`` on the card runs the flash kernels at a sequence that is not
+    a multiple of 128, and agrees with the plain attention."""
+    _need_card()
+    from deepspeed_tpu_torch.models.transformer import attention_core
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda").requires_grad_(True)
+    q, k, v = r(2, 200, 8, 64), r(2, 200, 2, 64), r(2, 200, 2, 64)
+    fa.reset_launch_counts()
+    out = attention_core(q, k, v, impl="auto")
+    out.sum().backward()
+    assert fa.launch_counts == {"flash_attention_fwd": 1,
+                                "flash_attention_bwd_dkdv": 1,
+                                "flash_attention_bwd_dq": 1}
+    _close(out.detach(), attention_core(q, k, v, impl="xla").detach(), 1e-4)
+
+
+def test_config_adamw_launches_fused_adam_kernel_on_card():
+    """The config route (``build_optimizer``) takes the kernel for tensors
+    on the card: one launch per step over the whole tree."""
+    _need_card()
+    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+
+    tx = build_optimizer("adamw", {"lr": 1e-3, "weight_decay": 0.1})
+    params = {"a": torch.ones(5, device="cuda"), "b": {"c": torch.ones(3, 7, device="cuda")}}
+    grads = {"a": torch.full((5,), 0.5, device="cuda"),
+             "b": {"c": torch.full((3, 7), -0.5, device="cuda")}}
+    state = tx.init(params)
+    adam.reset_launch_counts()
+    state = tx.apply(grads, state, params)
+    assert adam.launch_counts["fused_adam"] == 1 and state.step == 1
+    # step 1 with bias correction: u = -lr * sign(g) - lr * wd * p
+    _close(params["a"], torch.full((5,), 1 - 1e-3 - 1e-4, device="cuda"), 1e-6)
+    _close(params["b"]["c"], torch.full((3, 7), 1 + 1e-3 - 1e-4, device="cuda"), 1e-6)

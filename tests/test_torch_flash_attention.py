@@ -1,0 +1,117 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+On CPU tensors the port's ``flash_attention`` runs the plain versions of its
+kernels (``flash_attention_ref`` forward, ``flash_attention_bwd_ref``
+backward) through the same ``torch.autograd.Function`` the card uses. The
+same seeded numpy inputs go through the JAX ``flash_attention`` (its Pallas
+kernels in interpret mode, as the JAX package's own tests run them) and the
+JAX ``attention_core(impl="xla")``: outputs, the logsumexp residual ``L``
+and the gradients of q, k and v must agree within 2e-4 in float32, the
+tolerance ``tests/unit/test_flash_attention.py`` uses (the packages sum in
+different orders).
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.models.transformer import attention_core as jax_attention_core
+from deepspeed_tpu_torch.models.transformer import attention_core
+from deepspeed_tpu_torch.ops import flash_attention as tfa
+
+# the module (the package re-exports a function of the same name)
+jfa = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")
+TOL = 2e-4
+
+
+def _inputs(B, S, H, Hk, D, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    return f(B, S, H, D), f(B, S, Hk, D), f(B, S, Hk, D), f(B, S, H, D)
+
+
+def _torch_grads(fn, q, k, v, w):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = fn(qt, kt, vt)
+    (out * torch.from_numpy(w)).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in (qt, kt, vt)]
+
+
+def _jax_grads(fn, q, k, v, w):
+    loss = lambda q_, k_, v_: jnp.sum(fn(q_, k_, v_) * w)
+    out = fn(q, k, v)
+    grads = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+# causal and full, MHA and GQA 8/2, S 128 and 256: each appears twice
+@pytest.mark.parametrize("causal,H,Hk,S", [(True, 4, 4, 128), (True, 8, 2, 256),
+                                           (False, 4, 4, 256), (False, 8, 2, 128)])
+def test_flash_forward_and_grads_match_jax(causal, H, Hk, S):
+    q, k, v, w = _inputs(1, S, H, Hk, 32, seed=S + H + int(causal))
+    got, got_g = _torch_grads(
+        lambda a, b, c: tfa.flash_attention(a, b, c, causal=causal), q, k, v, w)
+    pallas, pallas_g = _jax_grads(
+        lambda a, b, c: jfa.flash_attention(a, b, c, causal=causal, interpret=True),
+        q, k, v, w)
+    xla, xla_g = _jax_grads(
+        lambda a, b, c: jax_attention_core(a, b, c, causal=causal, impl="xla"),
+        q, k, v, w)
+    for want, want_g in ((pallas, pallas_g), (xla, xla_g)):
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+        for g, wg, name in zip(got_g, want_g, "qkv"):
+            np.testing.assert_allclose(g, wg, rtol=TOL, atol=TOL,
+                                       err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_logsumexp_residual_matches_jax(causal):
+    """``L = m + log l`` of the forward, the residual the backward reads,
+    against the Pallas forward's (lane-replicated) ``L``."""
+    q, k, v, _ = _inputs(2, 128, 8, 2, 32, seed=3)
+    _, lse = tfa.flash_attention_forward(*map(torch.from_numpy, (q, k, v)),
+                                         causal=causal)
+    qt, kt, vt = (jnp.swapaxes(jnp.asarray(x), 1, 2) for x in (q, k, v))
+    _, jl = jfa._flash_forward(qt, kt, vt, causal, 1.0 / np.sqrt(32), 128, 128, True)
+    assert lse.shape == (2, 8, 128) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl)[..., 0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_attention_core_matches_jax(impl):
+    """The port's ``attention_core`` (both implementations, a GQA group and
+    an explicit scale) against the JAX ``xla`` reference."""
+    q, k, v, _ = _inputs(2, 128, 8, 2, 32, seed=5)
+    got = attention_core(*map(torch.from_numpy, (q, k, v)), causal=True,
+                         impl=impl, scale=0.3)
+    want = jax_attention_core(*map(jnp.asarray, (q, k, v)), causal=True,
+                              impl="xla", scale=0.3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_bwd_ref_rounds_like_the_kernels_in_bf16():
+    """In bf16 the plain backward follows the kernels' roundings (P and dS
+    rounded to the input dtype before each product), so it tracks an fp32
+    autograd of the same attention within bf16 noise."""
+    q, k, v, w = _inputs(1, 128, 4, 2, 32, seed=9)
+    got, got_g = _torch_grads(
+        lambda a, b, c: tfa.flash_attention(a.bfloat16(), b.bfloat16(),
+                                            c.bfloat16()).float(), q, k, v, w)
+    want, want_g = _torch_grads(
+        lambda a, b, c: attention_core(a, b, c, impl="xla"), q, k, v, w)
+    np.testing.assert_allclose(got, want, atol=3e-2)
+    for g, wg in zip(got_g, want_g):
+        np.testing.assert_allclose(g, wg, atol=8e-2)
+
+
+def test_shape_checks():
+    q, k, v, _ = _inputs(1, 128, 6, 4, 32, seed=1)
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention(*map(torch.from_numpy, (q, k, v)))
+    with pytest.raises(ValueError, match="do not match"):
+        tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k[:, :64]),
+                            torch.from_numpy(v[:, :64]))

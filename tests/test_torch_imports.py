@@ -43,8 +43,11 @@ def _imported_modules(path: Path):
 def test_port_sources_exist():
     names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
     assert "chip_smoke.py" in names
-    assert "deepspeed_tpu_torch/ops/paged_attention.py" in names
-    assert (REPO / "deepspeed_tpu_torch/ops/csrc/paged_attention.cu").exists()
+    for op in ("paged_attention", "flash_attention", "fused_adam"):
+        assert f"deepspeed_tpu_torch/ops/{op}.py" in names
+        assert (REPO / f"deepspeed_tpu_torch/ops/csrc/{op}.cu").exists()
+    for mod in ("runtime/engine.py", "runtime/config.py", "ops/optimizers.py"):
+        assert f"deepspeed_tpu_torch/{mod}" in names
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -61,7 +64,9 @@ def test_default_cuda_device_raises_without_a_card():
     from deepspeed_tpu_torch.accelerator import get_accelerator, resolve_device
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
     from deepspeed_tpu_torch.inference.v2.ragged import BlockedKVCache
-    from deepspeed_tpu_torch.models import (TransformerConfig, init_params,
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import (TransformerConfig, TransformerLM,
+                                            init_params, make_loss_fn,
                                             params_from_jax)
 
     cfg = TransformerConfig(vocab_size=11, hidden_size=16, intermediate_size=8,
@@ -78,4 +83,9 @@ def test_default_cuda_device_raises_without_a_card():
         InferenceEngineV2(cfg, params)
     with pytest.raises(RuntimeError):
         BlockedKVCache(1, 4, 4, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TransformerLM(cfg)
+    loss_fn = make_loss_fn(TransformerLM(cfg, params))
+    with pytest.raises(RuntimeError, match="cuda"):
+        initialize(model=loss_fn, model_parameters=params, config={})
     assert resolve_device("cpu") == torch.device("cpu")
