@@ -19,7 +19,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    causal, bf16), a Llama-2-7B head shape (32/32, D 128), a non-causal
    case and an fp32 case; fused Adam over odd tensor sizes in AdamW and L2
    modes, bias correction on and off, and timed over TinyLlama's 201
-   tensors;
+   tensors; the fused LM loss (forward, dl, dh, dK) at TinyLlama's head
+   (T 8192, E 2048, V 32000, bf16) and a ragged shape (T 3007, E 1000,
+   V 50257, z_loss, half the rows at zero cotangent, untied and tied heads,
+   bf16 and fp32), timed beside its plain version and the library
+   composite (bf16 matmul + F.cross_entropy), and its peak extra memory
+   against the composite's;
 4. serving slice — Llama-2-7B at full width (bf16, seeded random weights
    made on the card) served by ``LLMServer`` over ``InferenceEngineV2``: 16
    requests with seeded prompt lengths in [128, 1024], 128 new tokens each.
@@ -32,15 +37,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. training slice — TinyLlama-1.1B at full width and depth (bf16 over fp32
    masters, seeded random weights made on the card) trained through
    ``initialize`` + ``train_batch`` (micro-batch 4 x 2048 tokens, gas 2,
-   AdamW through the fused Adam kernel, WarmupLR, ZeRO stage 3, clipping
-   1.0) on one repeated seeded batch: 2 warm-up and 8 timed steps; step
-   time, tokens/s, MFU and peak memory; the losses must be finite and fall,
-   and the flash kernels must launch exactly 22 x gas x steps times;
+   AdamW from the config through the fused Adam kernel, WarmupLR, ZeRO
+   stage 3, clipping 1.0, ``loss_impl: auto``, i.e. the fused loss) on one
+   repeated seeded batch: 2 warm-up and 8 timed steps; step time,
+   tokens/s, MFU and peak memory; the losses must be finite and fall, and
+   every kernel must launch exactly as often as the path runs it (flash
+   22 x gas x steps, fused loss forward gas x steps and each backward
+   kernel once per vocab chunk, Adam once per step);
 7. training path parity — TinyLlama widths at 2 layers: two ``train_batch``
    steps through the kernel path (flash kernels, Adam kernel, bf16), the
-   plain path (plain attention and Adam, bf16) and the plain path in
-   float32; loss, gradient norm and weight updates of the kernel path must
-   sit within twice the plain path's distance from float32.
+   plain path (plain attention, dense loss and Adam, bf16) and the plain
+   path in float32; loss, gradient norm and weight updates of the kernel
+   path (flash, fused loss, Adam) must sit within twice the plain path's
+   distance from float32;
+8. remat — TinyLlama widths at 4 layers, one step without remat, with
+   per-layer remat ("nothing_saveable", "dots_saveable") and with the
+   engine-level wrap: loss and grad norm agree, per-layer remat lowers the
+   peak memory, the flash forward launches twice as often;
+9. checkpoint — TinyLlama widths at 2 layers: 3 steps, save, a fresh
+   engine, load, 2 steps, against 5 uninterrupted steps: the state is
+   bitwise equal after the load, the losses are bitwise equal, and
+   ``zero_to_fp32`` returns the saved masters.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -532,6 +549,181 @@ def adam_phase(adam):
                                bound_by=b_by, max_abs_err=err)}
 
 
+def loss_case(dtype, T, E, V, seed, tied=False):
+    """Seeded fused-loss inputs on the card: final-norm-like hidden states
+    (unit scale), a head at init scale (K [E, V], or the transpose of a
+    [V, E] embedding when tied) and target ids."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    h = torch.randn(T, E, generator=gen, device="cuda").to(dtype)
+    k = 0.02 * torch.randn(*((V, E) if tied else (E, V)), generator=gen, device="cuda")
+    k = k.to(dtype)
+    t = torch.randint(0, V, (T,), generator=gen, device="cuda", dtype=torch.int32)
+    return h, (k.T if tied else k), t
+
+
+def loss_cotangents(lse, T, z_loss, masked, seed):
+    """(g_lse, g_tgt) of the masked mean of ``lse - tgt + z_loss lse^2``
+    (half the rows at zero weight when ``masked``): the cotangents the loss
+    hands the kernels' (lse, tgt) boundary."""
+    w = torch.ones(T, device="cuda")
+    if masked:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        w = (torch.rand(T, generator=gen, device="cuda") < 0.5).float()
+    w = w / w.sum().clamp(min=1.0)
+    return w * (1 + 2 * z_loss * lse), -w
+
+
+def fused_loss_phase(fl):
+    """The fused-loss kernels (forward, dl, dh, dK) against their plain
+    versions at TinyLlama's head (T 8192, E 2048, V 32000, bf16) and at a
+    ragged shape (T 3007, E 1000, V 50257, z_loss 1e-2, half the rows at
+    zero cotangent; untied and tied layouts; bf16 and fp32), one dl
+    workspace chunk against the plain dl, and at the main shape also with
+    the target term's cotangent at 0; then timed at
+    the main shape beside the plain versions and the library composite, and
+    the peak extra memory of one forward + backward against the dense
+    composite's."""
+    # lse and the target logit are fp32 sums of exact products that differ
+    # from the plain version's only in order; dl is rounded to the operand
+    # dtype from fp32 values that agree to ~1e-6, so a bf16 dl may land one
+    # ulp (2^-8) apart, and dh/dK sum thousands of such terms: their
+    # tolerance is relative to the reference's largest magnitude
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    main = dict(T=8192, E=2048, V=32000)
+    ragged = dict(T=3 * 1000 + 7, E=1000, V=50257)
+    # with a mean-loss cotangent the one-hot target term dominates dl, dh and
+    # dK; the softmax term g_lse exp(s - lse) is ~1e-3 of it at the main
+    # shape, under the bf16 tolerance. The "softmax term only" case sets
+    # g_tgt to 0 so that the exp term alone is compared
+    cases = [("tinyllama head", torch.bfloat16, main, False, 0.0, False, False),
+             ("tinyllama head, softmax term only", torch.bfloat16, main, False, 0.0, False,
+              True),
+             ("ragged untied, z_loss, masked", torch.bfloat16, ragged, False, 1e-2, True, False),
+             ("ragged tied, z_loss, masked", torch.bfloat16, ragged, True, 1e-2, True, False),
+             ("ragged untied, z_loss, masked", torch.float32, ragged, False, 1e-2, True, False),
+             ("ragged tied, z_loss, masked", torch.float32, ragged, True, 1e-2, True, False)]
+    ok, errs, timed = True, {}, None
+    for i, (name, dtype, shape, tied, z, masked, no_tgt) in enumerate(cases):
+        h, k, t = loss_case(dtype, seed=200 + i, tied=tied, **shape)
+        lse, tgt = fl.fused_nll_forward(h, k, t)
+        lse_r, tgt_r = fl.fused_nll_fwd_ref(h, k, t)
+        g_lse, g_tgt = loss_cotangents(lse_r, shape["T"], z, masked, seed=300 + i)
+        if no_tgt:
+            g_tgt = torch.zeros_like(g_tgt)
+        dh, dk = fl.fused_nll_backward(h, k, t, lse_r, g_lse, g_tgt)
+        dh_r, dk_r = fl.fused_nll_bwd_ref(h, k, t, lse_r, g_lse, g_tgt)
+        # one workspace chunk of the dl kernel (the last, ragged where V is)
+        # against the plain dl over the same columns
+        kvt, base = fl._layout(k)
+        vc = fl.chunk_width(shape["T"], shape["V"], h.element_size())
+        v0 = (shape["V"] - 1) // vc * vc
+        width = shape["V"] - v0
+        ws = torch.empty((shape["T"], vc), dtype=h.dtype, device="cuda")
+        fl.launch_dlogits(h, base, t, lse_r, g_lse, g_tgt, ws, v0, width, kvt)
+        dl_r = fl.fused_dlogits_ref(h, k, t, lse_r, g_lse, g_tgt, v0, width)
+        torch.cuda.synchronize()
+        e = {"lse": scaled_err(lse, lse_r), "tgt": scaled_err(tgt, tgt_r),
+             "dl": scaled_err(ws[:, :width], dl_r),
+             "dh": scaled_err(dh, dh_r), "dk": scaled_err(dk, dk_r)}
+        good = all(rel <= (1e-4 if key in ("lse", "tgt") else tol[dtype])
+                   for key, (_, rel) in e.items())
+        good &= dh.dtype == h.dtype and dk.dtype == k.dtype and dk.shape == k.shape
+        ok &= good
+        log(f"parity fused_loss {name} {str(dtype)[6:]} T{shape['T']} E{shape['E']} "
+            f"V{shape['V']} (dl chunk {v0}+{width}): "
+            + ", ".join(f"{key} max|err|={a:.3e} (rel {r:.2e})" for key, (a, r) in e.items())
+            + f" (tol rel lse/tgt 1e-4, dl/dh/dK {tol[dtype]:g}) {'ok' if good else 'FAIL'}")
+        if shape is main:
+            for kname, key in (("fused_loss_fwd", "lse"), ("fused_loss_fwd", "tgt"),
+                               ("fused_loss_dlogits", "dl"), ("fused_loss_dh", "dh"),
+                               ("fused_loss_dk", "dk")):
+                errs[kname] = max(errs.get(kname, 0.0), e[key][0])
+            if timed is None:
+                timed = (h, k, t, lse_r, g_lse, g_tgt)
+        del h, k, t, lse, tgt, lse_r, tgt_r, g_lse, g_tgt, dh, dk, dh_r, dk_r, ws, dl_r, base
+        torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("fused loss kernel parity FAILED (see lines above)")
+
+    h, k, t, lse, g_lse, g_tgt = timed
+    T, E = h.shape
+    V = k.shape[1]
+    vc = fl.chunk_width(T, V, h.element_size())
+    chunks = [(v0, min(vc, V - v0)) for v0 in range(0, V, vc)]
+    ws = torch.empty((T, vc), dtype=h.dtype, device="cuda")
+    dh, dk = torch.empty_like(h), torch.empty_like(k)
+    dh_acc = torch.empty((T, E), dtype=torch.float32, device="cuda")
+    n = len(chunks)
+    passes = {
+        "fused_loss_fwd": lambda: fl.fused_nll_forward(h, k, t),
+        "fused_loss_dlogits": lambda: [fl.launch_dlogits(h, k, t, lse, g_lse, g_tgt, ws, v0,
+                                                         w, 0) for v0, w in chunks],
+        "fused_loss_dh": lambda: [fl.launch_dh(ws, k, dh_acc, dh, v0, w, c == 0, c == n - 1, 0)
+                                  for c, (v0, w) in enumerate(chunks)],
+        "fused_loss_dk": lambda: [fl.launch_dk(h, ws, dk, v0, w, 0) for v0, w in chunks],
+    }
+    plain_fwd = cuda_ms(lambda: fl.fused_nll_fwd_ref(h, k, t), iters=3)
+    plain_bwd = cuda_ms(lambda: fl.fused_nll_bwd_ref(h, k, t, lse, g_lse, g_tgt), iters=3)
+    # the library composite: no single PyTorch call computes this function
+    hl = h.detach().clone().requires_grad_(True)
+    kl = k.detach().clone().requires_grad_(True)
+    tl = t.long()
+    lib_fwd = cuda_ms(lambda: F.cross_entropy(torch.matmul(hl, kl), tl), iters=5)
+    lib_loss = F.cross_entropy(torch.matmul(hl, kl), tl)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_loss, (hl, kl), retain_graph=True),
+                      iters=5)
+    del lib_loss
+    torch.cuda.empty_cache()
+    gemm = 2 * T * E * V
+    io = {"fused_loss_fwd": (T * E + E * V) * 2 + T * 4 + 2 * T * 4,
+          "fused_loss_dlogits": (T * E + E * V) * 2 + 4 * T * 4 + T * V * 2,
+          "fused_loss_dh": T * V * 2 + E * V * 2 + T * E * 2,
+          "fused_loss_dk": T * V * 2 + T * E * 2 + E * V * 2}
+    rows = {}
+    for name, fn in passes.items():
+        b_ms, b_by = bound(io[name], gemm, torch.bfloat16)
+        fwd = name == "fused_loss_fwd"
+        rows[name] = dict(ms=cuda_ms(fn, iters=10), plain_ms=plain_fwd if fwd else plain_bwd,
+                          library_ms=lib_fwd if fwd else lib_bwd, bound_ms=b_ms,
+                          bound_by=b_by, max_abs_err=errs[name])
+        r = rows[name]
+        log(f"timing {name} (bf16, T{T} E{E} V{V}{'' if fwd else f', {n} chunks of {vc}'}): "
+            f"kernel {r['ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({io[name]} B, "
+            f"{gemm} flop), plain {r['plain_ms']:.4f} ms, library composite "
+            f"{r['library_ms']:.4f} ms")
+    log("timing note: the library composite is torch.matmul (bf16) + F.cross_entropy "
+        "(forward) and its autograd backward (dh and dK together); the plain backward "
+        "also computes dh and dK together: compare them with dlogits + dh + dK")
+    del ws, dh, dk, dh_acc
+
+    # peak extra memory of one forward + backward, fused vs dense composite
+    def extra(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    hf = h.detach().clone().requires_grad_(True)
+    kf = k.detach().clone().requires_grad_(True)
+    fused_b = extra(lambda: torch.autograd.grad(
+        fl.fused_vocab_nll(hf, kf, t).mean(), (hf, kf)))
+    dense_b = extra(lambda: torch.autograd.grad(
+        F.cross_entropy(torch.matmul(hl, kl), tl), (hl, kl)))
+    log(f"memory fused_loss (T{T} E{E} V{V} bf16, one forward + backward incl. the "
+        f"dh/dK outputs): fused {fused_b / 2**20:.1f} MiB extra, dense composite "
+        f"{dense_b / 2**20:.1f} MiB extra (the [T, V] logits alone are "
+        f"{T * V * 4 / 2**20:.0f} MiB in fp32)")
+    if not fused_b < dense_b / 2:
+        raise SystemExit("fused loss: peak extra memory not far below the dense composite's")
+    del hf, kf, hl, kl, h, k, t
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice at full width
 # ---------------------------------------------------------------------------
@@ -738,15 +930,16 @@ TRAIN_CONFIG = {
                                                  "warmup_max_lr": 3e-4,
                                                  "warmup_num_steps": 4}},
     "zero_optimization": {"stage": 3}, "bf16": {"enabled": True},
-    "gradient_clipping": 1.0, "training_fastpath": {"loss_impl": "xla"},
+    "gradient_clipping": 1.0, "training_fastpath": {"loss_impl": "auto"},
     "steps_per_print": 10**9,
 }
 TRAIN_SEQ, WARMUP_STEPS, TIMED_STEPS = 2048, 2, 8
 
 
 def train_flops(cfg, n_matmul, tokens, seq):
-    """Model flops of one step: 6 * N_matmul * tokens (the fp32 LM head
-    counted in N, the embedding gather not), plus causal attention:
+    """Model flops of one step: 6 * N_matmul * tokens (the LM head counted
+    in N once: the fused loss's recompute of the logits is not model flop;
+    the embedding gather not counted), plus causal attention:
     QK^T and PV are 4 * D flops per visible (query, key) pair and head in
     the forward, 3x that forward and backward."""
     pairs_per_seq = seq * (seq + 1) // 2
@@ -755,20 +948,19 @@ def train_flops(cfg, n_matmul, tokens, seq):
 
 
 def train_phase(kernels, card, profile=False):
+    """TinyLlama-1.1B through initialize + train_batch, the optimizer and
+    schedule from the config (AdamW takes the fused Adam kernel on the
+    card), ``loss_impl: auto`` (the fused loss kernels on the card)."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
                                             make_loss_fn)
-    from deepspeed_tpu_torch.ops.optimizers import fused_adam
-    from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_schedule
 
     cfg = llama_config("1b", dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
     model = TransformerLM(cfg, params)
-    sched = build_lr_schedule("WarmupLR", TRAIN_CONFIG["scheduler"]["params"], 3e-4)
     engine, *_ = dst.initialize(model=make_loss_fn(model), model_parameters=params,
-                                config=TRAIN_CONFIG, lr_scheduler=sched,
-                                optimizer=fused_adam(lr=sched, use_pallas=True))
+                                config=TRAIN_CONFIG)
     n_params = sum(p.numel() for p in engine._masters)
     n_matmul = n_params - cfg.vocab_size * cfg.hidden_size      # no embedding gather
     gas, micro = engine.gas, engine.micro_batch_size
@@ -807,13 +999,21 @@ def train_phase(kernels, card, profile=False):
         f"6 x {n_matmul} matmul params x {tokens} tokens + causal attention; over "
         f"989 TFLOP/s bf16), max_memory_allocated {peak / 2**30:.2f} GiB")
     log(f"train: kernel launches {launches}")
-    want = cfg.num_layers * gas * (WARMUP_STEPS + TIMED_STEPS)
-    bad = [n for n in ("flash_attention_fwd", "flash_attention_bwd_dkdv",
-                       "flash_attention_bwd_dq") if launches[n] != want]
-    if bad or launches["fused_adam"] <= 0:
-        raise SystemExit(f"train: launch counts off ({bad} != {want} = {cfg.num_layers} "
-                         f"layers x gas {gas} x {WARMUP_STEPS + TIMED_STEPS} steps, or "
-                         f"fused_adam {launches['fused_adam']})")
+    from deepspeed_tpu_torch.ops.fused_loss import chunk_width
+
+    loss_chunks = -(-cfg.vocab_size // chunk_width(micro * TRAIN_SEQ, cfg.vocab_size, 2))
+    steps = WARMUP_STEPS + TIMED_STEPS
+    want = {n: cfg.num_layers * gas * steps for n in
+            ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")}
+    want["fused_adam"] = steps
+    want["fused_loss_fwd"] = gas * steps
+    for n in ("fused_loss_dlogits", "fused_loss_dh", "fused_loss_dk"):
+        want[n] = gas * steps * loss_chunks
+    bad = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
+    if bad:
+        raise SystemExit(f"train: launch counts off (got, want): {bad}; flash: {cfg.num_layers} "
+                         f"layers x gas {gas} x {steps} steps; fused loss: gas x steps "
+                         f"(x {loss_chunks} vocab chunks in the backward); Adam: one per step")
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit("train: a loss is not finite")
     if not losses[-1] < losses[WARMUP_STEPS]:
@@ -859,8 +1059,9 @@ def plain_adamw(lr, weight_decay):
 
 def train_parity_phase():
     """Two train_batch steps on TinyLlama widths at 2 layers through the
-    kernel path (flash + Adam kernels, bf16), the plain path (plain
-    attention and Adam, bf16) and the plain path in float32 (TF32 off), from
+    kernel path (flash, fused loss and Adam kernels, bf16), the plain path
+    (plain attention, dense loss and Adam, bf16) and the plain path in
+    float32 (TF32 off), from
     the same weights and batch. The kernel path's loss, gradient norm and
     weight updates must sit within NOISE_FACTOR x the plain path's own
     distance from float32 (updates by their L2 norm over all weights)."""
@@ -885,7 +1086,8 @@ def train_parity_phase():
     out = {}
     p0 = _flatten(init)
     for name, (attn, use_kernel, dtype) in runs.items():
-        cfg = dataclasses.replace(base, attn_impl=attn, dtype=dtype)
+        cfg = dataclasses.replace(base, attn_impl=attn, dtype=dtype,
+                                  loss_impl="fused" if use_kernel else "xla")
         params = _cast(init, torch.float32, copy=True)   # each run trains its own
         engine, *_ = dst.initialize(
             model=make_loss_fn(TransformerLM(cfg, params)), model_parameters=params,
@@ -917,6 +1119,151 @@ def train_parity_phase():
             raise SystemExit("train path parity FAILED")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: activation checkpointing
+# ---------------------------------------------------------------------------
+
+REMAT_RTOL = 1e-3
+
+
+def remat_phase(fa):
+    """TinyLlama widths at 4 layers, one train_batch step (micro 4 x 2048,
+    gas 2) from the same weights and batch without remat, with per-layer
+    remat under "nothing_saveable" and "dots_saveable", and with the
+    engine-level wrap. The recompute runs the same kernels on the same
+    inputs, so loss and grad norm must agree within REMAT_RTOL (relative);
+    per-layer remat must lower the step's peak memory; the flash forward
+    must launch twice as often (its kernel is no dot under either policy,
+    as a pallas_call is none in JAX)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
+                                            make_loss_fn)
+
+    base = llama_config("1b", num_layers=4, dtype=torch.bfloat16)
+    init = init_params(base, seed=5, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    batch = torch.randint(0, base.vocab_size, (2, 4, TRAIN_SEQ), generator=gen, device="cuda")
+    runs = {"none": ({}, {}),
+            "remat nothing_saveable": (dict(remat=True, remat_policy="nothing_saveable"), {}),
+            "remat dots_saveable": (dict(remat=True, remat_policy="dots_saveable"), {}),
+            "engine_wrap nothing_saveable": ({}, {"activation_checkpointing": {
+                "engine_wrap": True, "policy": "nothing_saveable"}})}
+    out = {}
+    for name, (model_over, config_over) in runs.items():
+        cfg = dataclasses.replace(base, **model_over)
+        params = _cast(init, torch.float32, copy=True)
+        engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                                    model_parameters=params,
+                                    config=dict(TRAIN_CONFIG, **config_over))
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        loss = float(engine.train_batch(batch))
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        out[name] = (loss, engine.get_global_grad_norm(), peak,
+                     fa.launch_counts["flash_attention_fwd"])
+        log(f"remat {name}: loss {loss:.6f}, grad norm {out[name][1]:.6f}, step peak "
+            f"{peak / 2**30:.2f} GiB above the resident state, flash fwd launches "
+            f"{out[name][3]}")
+        del engine, params
+        torch.cuda.empty_cache()
+    ref_loss, ref_norm, ref_peak, ref_fwd = out["none"]
+    for name, (loss, norm, peak, fwd) in out.items():
+        if name == "none":
+            continue
+        bad = (abs(loss - ref_loss) > REMAT_RTOL * abs(ref_loss)
+               or abs(norm - ref_norm) > REMAT_RTOL * abs(ref_norm) or fwd != 2 * ref_fwd
+               or (name.startswith("remat") and not peak < ref_peak))
+        log(f"remat {name} vs none: |dloss| {abs(loss - ref_loss):.3e}, |dgrad_norm| "
+            f"{abs(norm - ref_norm):.3e} (tol rel {REMAT_RTOL:g}), peak "
+            f"{peak / 2**30:.2f} vs {ref_peak / 2**30:.2f} GiB, flash fwd {fwd} vs "
+            f"{ref_fwd} {'FAIL' if bad else 'ok'}")
+        if bad:
+            raise SystemExit(f"remat {name} FAILED")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: checkpoint save and resume
+# ---------------------------------------------------------------------------
+
+
+def checkpoint_phase():
+    """TinyLlama widths at 2 layers (micro 2 x 2048, gas 2): 3 steps,
+    save_checkpoint into build/, a fresh engine, load_checkpoint, 2 more
+    steps, against 5 uninterrupted steps. Right after the load every
+    master, Adam moment, the step, the LR and the loss scale must equal the
+    saved engine's bitwise; the resumed losses must equal the uninterrupted
+    ones bitwise (the same kernels on the same state); zero_to_fp32 must
+    return the saved masters."""
+    import shutil
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint import zero_to_fp32
+    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
+                                            make_loss_fn)
+    from deepspeed_tpu_torch.models.convert import _flatten
+    from torch.utils import _pytree as pytree
+
+    cfg = llama_config("1b", num_layers=2, dtype=torch.bfloat16)
+    init = init_params(cfg, seed=7, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    batches = [torch.randint(0, cfg.vocab_size, (2, 2, TRAIN_SEQ), generator=gen,
+                             device="cuda") for _ in range(5)]
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=2)
+    ckpt_dir = REPO / "build" / "checkpoint_smoke"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def engine():
+        params = _cast(init, torch.float32, copy=True)
+        return dst.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                              model_parameters=params, config=config)[0]
+
+    def state(e):
+        return (list(e._masters) + pytree.tree_leaves(e.state.opt_state)
+                + [e.state.step, e.get_lr()[0], tuple(e.state.loss_scale)])
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+            for x, y in zip(a, b))
+
+    whole = engine()
+    want = [float(whole.train_batch(b)) for b in batches]
+    del whole
+    first = engine()
+    got = [float(first.train_batch(b)) for b in batches[:3]]
+    t0 = time.perf_counter()
+    first.save_checkpoint(str(ckpt_dir), client_state={"phase": "smoke"})
+    save_s = time.perf_counter() - t0
+    saved = [x.clone() if isinstance(x, torch.Tensor) else x for x in state(first)]
+    masters = {k: v.detach().float().cpu().numpy() for k, v in
+               _flatten(first.state.params).items()}
+    del first
+    torch.cuda.empty_cache()
+    resumed = engine()
+    t0 = time.perf_counter()
+    _, client = resumed.load_checkpoint(str(ckpt_dir))
+    load_s = time.perf_counter() - t0
+    state_equal = same(state(resumed), saved) and client == {"phase": "smoke"}
+    got += [float(resumed.train_batch(b)) for b in batches[3:]]
+    flat = zero_to_fp32(str(ckpt_dir))
+    fp32_equal = set(flat) == set(masters) and all(
+        np.array_equal(flat[k], masters[k]) for k in masters)
+    n_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    log(f"checkpoint (TinyLlama widths, 2 layers): save {save_s:.2f} s, load {load_s:.2f} s, "
+        f"{n_bytes / 2**30:.2f} GiB on disk; state bitwise equal after load: "
+        f"{state_equal}; zero_to_fp32 = masters: {fp32_equal}")
+    log(f"checkpoint losses resumed {got}, uninterrupted {want}; bitwise equal: {got == want}")
+    del resumed
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if not (state_equal and fp32_equal and got == want):
+        raise SystemExit("checkpoint resume FAILED")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -936,6 +1283,7 @@ def main() -> int:
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import fused_adam as adam
+    from deepspeed_tpu_torch.ops import fused_loss as fl
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
     t_start = time.perf_counter()
@@ -965,12 +1313,16 @@ def main() -> int:
     rows = kernel_phase(pa)
     rows.update(flash_phase(fa))
     rows.update(adam_phase(adam))
+    rows.update(fused_loss_phase(fl))
     # phase 4, 5: the serving path
     launches = slice_phase(pa, card, profile=args.profile)
     path_phase()
     # phase 6, 7: the training path
-    launches.update(train_phase((fa, adam), card, profile=args.profile))
+    launches.update(train_phase((fa, adam, fl), card, profile=args.profile))
     train_parity_phase()
+    # phase 8, 9: activation checkpointing, checkpoint save and resume
+    remat_phase(fa)
+    checkpoint_phase()
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"
@@ -981,6 +1333,10 @@ def main() -> int:
         "flash_attention_bwd_dkdv": ("flash_attention.cu", "flash_attention.py:149"),
         "flash_attention_bwd_dq": ("flash_attention.cu", "flash_attention.py:199"),
         "fused_adam": ("fused_adam.cu", "fused_adam.py:27"),
+        "fused_loss_fwd": ("fused_loss.cu", "fused_loss.py:73"),
+        "fused_loss_dlogits": ("fused_loss.cu", "fused_loss.py:152"),
+        "fused_loss_dh": ("fused_loss.cu", "fused_loss.py:164"),
+        "fused_loss_dk": ("fused_loss.cu", "fused_loss.py:185"),
     }
     kernels = [dict(name=n, route="cuda", source=csrc + origin[n][0],
                     replaces=pallas + origin[n][1], launches=launches[n],

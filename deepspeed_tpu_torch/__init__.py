@@ -10,13 +10,17 @@ its layout and public names module by module. Two paths are ported:
   model_parameters=params, config=...)`` -> ``engine.train_batch(batch)``,
   with the flash-attention forward and backward kernels
   (``ops/csrc/flash_attention.cu``) and the fused Adam kernel
-  (``ops/csrc/fused_adam.cu``).
+  (``ops/csrc/fused_adam.cu``); the LM loss takes the fused loss kernels
+  (``ops/csrc/fused_loss.cu``) on the card, layers may be recomputed in the
+  backward (``checkpointing``, ``remat``), and the engine saves and resumes
+  its whole state (``checkpoint``).
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; the
 plain PyTorch versions of the kernels run only when the caller passes
 ``device="cpu"``.
 """
 
+from .runtime import activation_checkpointing as checkpointing
 from .runtime.config import DeepSpeedTPUConfig, load_config
 from .runtime.engine import DeepSpeedTPUEngine, TrainState, initialize
 
@@ -26,4 +30,4 @@ DeepSpeedEngine = DeepSpeedTPUEngine
 __version__ = "0.1.0"
 
 __all__ = ["DeepSpeedEngine", "DeepSpeedTPUConfig", "DeepSpeedTPUEngine",
-           "TrainState", "initialize", "load_config"]
+           "TrainState", "checkpointing", "initialize", "load_config"]

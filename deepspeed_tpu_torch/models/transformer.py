@@ -60,13 +60,13 @@ class TransformerConfig:
     dropout: float = 0.0                        # > 0 not ported (TransformerLM raises)
     # execution
     dtype: Any = torch.bfloat16
-    remat: bool = False                         # True not ported (TransformerLM raises)
-    remat_policy: Optional[str] = None
+    remat: bool = False                         # recompute each layer in the backward
+    remat_policy: Optional[str] = None          # runtime/activation_checkpointing.POLICIES
     attn_impl: str = "auto"                     # auto | xla | flash (the CUDA kernels)
     # serving fused-decode attention pin: auto | einsum | pallas (the name
     # of the kernel path, as in the JAX package)
     decode_attn_impl: str = "auto"
-    loss_impl: str = "auto"                     # auto | xla | fused (fused not ported)
+    loss_impl: str = "auto"                     # auto | xla | fused (the CUDA kernels)
 
     @property
     def head_dim(self):
@@ -375,19 +375,25 @@ def _check_trainable(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             "dropout > 0 is " + _NOT_PORTED.format("model: dropout, which needs "
                                                    "a seeded Philox mask"))
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True is " + _NOT_PORTED.format(
-                "engine: runtime/activation_checkpointing.py"))
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE layers are " + _NOT_PORTED.format("model: mixtral / moe/*"))
 
 
-def lm_forward(cfg: TransformerConfig, params, tokens):
+def _layer(cfg, lp, x, rope_cs, alibi, window):
+    """One decoder layer of the training forward."""
+    y = _norm(cfg, lp["attn_norm"], x)
+    return _block_out(cfg, lp, x, y, _attention(cfg, lp["attn"], y, rope_cs, alibi, window))
+
+
+def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = False):
     """The causal LM forward on a flax-layout parameter tree: tokens
     ``[B, S]`` -> logits ``[B, S, V]`` (fp32 for an untied head; the tied
-    head attends in ``cfg.dtype``, as flax ``Embed.attend`` does)."""
+    head attends in ``cfg.dtype``, as flax ``Embed.attend`` does). With
+    ``return_hidden`` it returns the final-norm hidden states ``[B, S, E]``
+    in ``cfg.dtype`` instead (the fused loss consumes them). With
+    ``cfg.remat`` each layer is recomputed in the backward under
+    ``cfg.remat_policy`` (JAX: ``nn.remat(Block, policy=...)``)."""
     _check_trainable(cfg)
     tokens = tokens.long()
     dev = tokens.device
@@ -395,13 +401,17 @@ def lm_forward(cfg: TransformerConfig, params, tokens):
     rope_cs = _rope_tables(cfg, dev)
     alibi = (alibi_slopes(cfg.num_heads, bf16_round=not cfg.alibi_post_scale)
              if cfg.position == "alibi" else None)
+    layer = _layer
+    if cfg.remat:
+        from ..runtime.activation_checkpointing import checkpoint_wrapper
+
+        layer = checkpoint_wrapper(_layer, cfg.remat_policy)
     for i in range(cfg.num_layers):
-        lp = params[f"layer_{i}"]
         window = cfg.layer_windows[i] if cfg.layer_windows is not None else None
-        y = _norm(cfg, lp["attn_norm"], x)
-        x = _block_out(cfg, lp, x, y, _attention(cfg, lp["attn"], y, rope_cs,
-                                                 alibi, window))
+        x = layer(cfg, params[f"layer_{i}"], x, rope_cs, alibi, window)
     x = _norm(cfg, params["final_norm"], x)
+    if return_hidden:
+        return x.to(cfg.dtype)
     if cfg.tie_embeddings:
         return x.to(cfg.dtype) @ params["embed"]["embedding"].to(cfg.dtype).T
     return _lm_logits(cfg, params, x)
@@ -443,8 +453,8 @@ class TransformerLM(nn.Module):
 
         return _nest(dict(self.params.items()))
 
-    def forward(self, tokens):
-        return lm_forward(self.cfg, self.param_tree(), tokens)
+    def forward(self, tokens, return_hidden: bool = False):
+        return lm_forward(self.cfg, self.param_tree(), tokens, return_hidden)
 
 
 def causal_lm_loss(logits, tokens, loss_mask=None, z_loss: float = 0.0):
@@ -464,23 +474,46 @@ def causal_lm_loss(logits, tokens, loss_mask=None, z_loss: float = 0.0):
 
 def make_loss_fn(model: TransformerLM):
     """Engine-compatible ``loss = f(params, batch, rng=None)``: runs ``model``
-    on the flax-layout tree ``params`` (``torch.func.functional_call``) and
-    returns ``causal_lm_loss``. ``batch`` is the token tensor ``[B, S]`` or a
-    dict with ``tokens`` (and an optional ``loss_mask``). The LM loss is the
-    dense one: ``loss_impl`` resolves through ``resolve_loss_impl``, which
-    raises for the fused loss (not ported yet)."""
-    from ..sequence.cross_entropy import resolve_loss_impl
+    on the flax-layout tree ``params`` (``torch.func.functional_call``).
+    ``batch`` is the token tensor ``[B, S]`` or a dict with ``tokens`` (and
+    an optional ``loss_mask``). Each call chooses the loss once, on the
+    tokens' device and ``cfg.dtype`` (``sequence.cross_entropy``'s
+    ``_select_loss_impl``): when it comes out ``fused`` (``auto`` on the
+    card, fp32 or bf16), the model returns its final hidden states and the
+    fused kernels run on them and the head kernel, so the ``[B, S, V]``
+    logits never exist; otherwise the model's dense logits go through
+    ``causal_lm_loss``."""
+    from ..sequence.cross_entropy import _fused_lm_loss, _select_loss_impl
     from .convert import _flatten
 
     cfg = model.cfg
 
+    def _head_kernel(params):
+        if cfg.tie_embeddings:
+            return params["embed"]["embedding"].T
+        return params["lm_head"]["kernel"]
+
+    def _headless(device) -> bool:
+        """True when the loss should consume hidden states + the head
+        kernel: the fused loss chosen (a biased head keeps the dense path,
+        as in the JAX package)."""
+        return _select_loss_impl(cfg.loss_impl, cfg.vocab_size, device, cfg.dtype,
+                                 cfg.lm_head_bias) == "fused"
+
+    def _ce(out, params, tokens, mask, headless):
+        if headless:
+            return _fused_lm_loss(out, _head_kernel(params), tokens, loss_mask=mask,
+                                  z_loss=0.0)
+        return causal_lm_loss(out, tokens, mask)
+
     def loss_fn(params, batch, rng=None):
         tokens = batch["tokens"] if isinstance(batch, dict) else batch
         mask = batch.get("loss_mask") if isinstance(batch, dict) else None
-        resolve_loss_impl(cfg.loss_impl, cfg.vocab_size)
+        headless = _headless(tokens.device)
         flat = {f"params.{k}": v for k, v in _flatten(params).items()}
-        logits = torch.func.functional_call(model, flat, (tokens,))
-        return causal_lm_loss(logits, tokens, mask)
+        out = torch.func.functional_call(model, flat, (tokens,),
+                                         {"return_hidden": headless})
+        return _ce(out, params, tokens, mask, headless)
 
     return loss_fn
 

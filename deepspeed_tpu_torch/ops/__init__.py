@@ -4,6 +4,11 @@ as a kernel hand-written for Hopper, beside its plain PyTorch version.
 ``paged_attention`` — the two paged-attention kernels of the serving path
 (``csrc/paged_attention.cu``); ``flash_attention`` — the flash forward and
 its two backward kernels of the training path (``csrc/flash_attention.cu``);
-``fused_adam`` — the multi-tensor Adam update (``csrc/fused_adam.cu``). All
-are CUDA C++ built by ``_build``.
+``fused_adam`` — the multi-tensor Adam update (``csrc/fused_adam.cu``);
+``fused_loss`` — the LM head fused into the cross entropy, forward and
+backward (``csrc/fused_loss.cu``). All are CUDA C++ built by ``_build``.
 """
+
+from .fused_loss import fused_loss_ready, fused_vocab_nll
+
+__all__ = ["fused_vocab_nll", "fused_loss_ready"]

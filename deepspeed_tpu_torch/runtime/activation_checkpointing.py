@@ -1,0 +1,140 @@
+"""Activation checkpointing API (reference ``deepspeed.checkpointing``).
+
+Port of ``deepspeed_tpu/runtime/activation_checkpointing.py``. The JAX
+package maps rematerialization onto ``jax.checkpoint`` and a
+``jax.checkpoint_policies`` entry; here it is
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``:
+
+* policy ``None`` or ``"nothing_saveable"``: nothing inside the wrapped
+  function is kept; the backward re-runs it whole;
+* ``"dots_saveable"``: the outputs of matrix products (``aten.mm``,
+  ``addmm``, ``bmm``, ``baddbmm``) are kept and the rest recomputed,
+  through ``create_selective_checkpoint_contexts``;
+  ``"dots_with_no_batch_dims_saveable"`` keeps only the unbatched ones
+  (``mm``, ``addmm``), as the JAX policy does;
+* ``"everything_saveable"``: everything is kept (no recompute).
+
+A selective policy sees dispatcher ops only. The port's hand-written
+kernels launch from inside ``torch.autograd.Function``s through ``ctypes``,
+so no policy sees them and they re-run under every policy but
+``everything_saveable``; in JAX a ``pallas_call`` is not a dot either, so
+``dots_saveable`` recomputes them there too. Any other policy name raises.
+
+The wrapped function must be deterministic: dropout is not ported, so no
+RNG state is saved or restored around the recompute.
+"""
+
+from typing import Any, Callable, Optional
+
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint as _torch_checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+_config = {
+    "partition_activations": False,
+    "contiguous_memory_optimization": False,
+    "cpu_checkpointing": False,
+    "number_checkpoints": None,
+    "synchronize_checkpoint_boundary": False,
+    "profile": False,
+    "policy": None,
+}
+_configured = False
+_KEYS = ("partition_activations", "cpu_checkpointing",
+         "contiguous_memory_optimization", "number_checkpoints",
+         "synchronize_checkpoint_boundary", "profile", "policy")
+
+_aten = torch.ops.aten
+_UNBATCHED_DOTS = (_aten.mm.default, _aten.addmm.default)
+_DOTS = _UNBATCHED_DOTS + (_aten.bmm.default, _aten.baddbmm.default)
+_SAVED_OPS = {"dots_saveable": _DOTS, "dots_with_no_batch_dims_saveable": _UNBATCHED_DOTS}
+POLICIES = (None, "nothing_saveable", "everything_saveable") + tuple(_SAVED_OPS)
+
+
+def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
+              contiguous_checkpointing=None, num_checkpoints=None,
+              checkpoint_in_cpu=None, synchronize=None, profile=None,
+              policy: Optional[str] = None):
+    """Record the reference knob vocabulary and pick a remat policy (one of
+    :data:`POLICIES`). The storage knobs are accepted for config
+    compatibility and change nothing, except ``cpu_checkpointing``, which
+    :func:`checkpoint` refuses (ZeRO-Offload is not ported)."""
+    if deepspeed_config is not None:
+        act = getattr(deepspeed_config, "activation_checkpointing", None)
+        if isinstance(deepspeed_config, dict):
+            act = deepspeed_config.get("activation_checkpointing")
+        if act is not None and not isinstance(act, dict):
+            act = {f: getattr(act, f) for f in _KEYS if hasattr(act, f)}
+        if act:
+            for key in _KEYS:
+                if key in act and act[key] is not None:
+                    _config[key] = act[key]
+    for key, val in (("partition_activations", partition_activations),
+                     ("contiguous_memory_optimization", contiguous_checkpointing),
+                     ("number_checkpoints", num_checkpoints),
+                     ("cpu_checkpointing", checkpoint_in_cpu),
+                     ("synchronize_checkpoint_boundary", synchronize),
+                     ("profile", profile), ("policy", policy)):
+        if val is not None:
+            _config[key] = val
+    global _configured
+    _configured = True
+
+
+def is_configured() -> bool:
+    """Whether :func:`configure` has run (reference lazy-config idiom:
+    ``if not is_configured(): configure(...)``)."""
+    return _configured
+
+
+def get_config() -> dict:
+    return dict(_config)
+
+
+def checkpoint(function: Callable, *args) -> Any:
+    """Reference ``checkpointing.checkpoint(fn, *args)``: run ``fn`` now,
+    recompute its intermediates in the backward pass under the configured
+    policy. ``cpu_checkpointing`` (the JAX package offloads the saved dots
+    to pinned host memory) raises: it belongs with ZeRO-Offload."""
+    policy = _config.get("policy")
+    if policy is None and _config.get("cpu_checkpointing"):
+        raise NotImplementedError(
+            "activation_checkpointing.cpu_checkpointing is not ported yet: ROADMAP.md "
+            "Queue A item 7 (ZeRO-Offload, offload of saved activations to the host)")
+    return checkpoint_wrapper(function, policy)(*args)
+
+
+def model_parallel_reconfigure_tp_seed(seed) -> torch.Generator:
+    """Reference ``model_parallel_reconfigure_tp_seed``. The JAX package
+    returns a key the caller threads; the port returns a ``torch.Generator``
+    seeded with ``seed`` for the caller to pass on (there is no tp axis to
+    fold in until the comm substrate is ported)."""
+    return torch.Generator().manual_seed(int(seed))
+
+
+def _context_fn(policy: str):
+    saved = _SAVED_OPS[policy]
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy_fn)
+
+
+def checkpoint_wrapper(function: Callable, policy: Optional[str] = None) -> Callable:
+    """Return a recompute-wrapped callable (decorator form) under ``policy``
+    (one of :data:`POLICIES`); an unknown policy raises ``ValueError``."""
+    if policy not in POLICIES:
+        raise ValueError(f"remat policy {policy!r} is not supported by the port "
+                         f"(supported: {', '.join(str(p) for p in POLICIES)})")
+    if policy == "everything_saveable":
+        return function
+    kwargs = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy in _SAVED_OPS:
+        kwargs["context_fn"] = _context_fn(policy)
+
+    def wrapped(*args):
+        return _torch_checkpoint(function, *args, **kwargs)
+
+    return wrapped

@@ -21,6 +21,11 @@ gradient accumulators are the masters' ``.grad`` tensors, which autograd
 sums into in place, so a step holds one fp32 gradient buffer whatever
 ``gas`` is.
 
+``activation_checkpointing.engine_wrap`` recomputes the whole loss call in
+the backward under ``activation_checkpointing.policy``
+(``runtime/activation_checkpointing.py``); ``save_checkpoint`` and
+``load_checkpoint`` delegate to ``checkpoint/engine.py``.
+
 At world size 1 ZeRO stages 0-3 are the same math and all are accepted;
 world size > 1 and the config sections this trainer cannot honour yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
@@ -39,6 +44,10 @@ from ..utils.logging import log_dist
 from .config import DeepSpeedTPUConfig, load_config
 from .loss_scaler import LossScaleState, make_loss_scale_state, update_loss_scale
 from .lr_schedules import build_lr_schedule
+
+# the control plane's remat escalation ladder: no remat -> keep only matmul
+# outputs -> keep nothing (runtime/activation_checkpointing.POLICIES)
+REMAT_LADDER = (None, "dots_saveable", "nothing_saveable")
 
 
 def _not_ported(what: str, item: int, area: str) -> NotImplementedError:
@@ -59,9 +68,8 @@ def _check_supported(config: DeepSpeedTPUConfig, world_size: int) -> None:
          7, "ZeRO-Offload"),
         (zc.offload_param.device != "none", "zero_optimization.offload_param",
          7, "ZeRO-Offload"),
-        (config.activation_checkpointing.engine_wrap,
-         "activation_checkpointing.engine_wrap", 7,
-         "runtime/activation_checkpointing.py"),
+        (config.activation_checkpointing.cpu_checkpointing,
+         "activation_checkpointing.cpu_checkpointing", 7, "ZeRO-Offload"),
         ((config.pipeline.stages or 1) > 1, "pipeline.stages > 1", 8,
          "runtime/pipe/pipeline.py"),
         (config.tensor_parallel.enabled and config.tensor_parallel.tp_size > 1,
@@ -133,6 +141,17 @@ class DeepSpeedTPUEngine:
         configure_fastpath(attn_impl=tf.attn_impl, loss_impl=tf.loss_impl,
                            embedding_overlap=tf.embedding_overlap)
         self.loss_fn_raw = loss_fn
+        # engine-level remat (JAX engine.py): with engine_wrap, ``policy``
+        # wraps the whole loss call (an unknown policy raises here); None
+        # never wraps
+        ac = config.activation_checkpointing
+        self._remat_policy = ac.policy if ac.engine_wrap else None
+        self._loss_call = loss_fn
+        if self._remat_policy is not None:
+            from .activation_checkpointing import checkpoint_wrapper
+
+            self._loss_call = checkpoint_wrapper(loss_fn, self._remat_policy)
+        self.data_sampler = None   # a resumable loader, saved with the checkpoint
         self.gas = config.gradient_accumulation_steps
         self.micro_batch_size = config.train_micro_batch_size_per_gpu
         self.train_batch_size = config.train_batch_size
@@ -192,7 +211,7 @@ class DeepSpeedTPUEngine:
         """The loss of one micro-batch on the compute copy of the masters
         (autograd runs through the cast, so gradients land in fp32)."""
         compute = [p.to(self.compute_dtype) for p in self._masters]
-        return self.loss_fn_raw(self._tree(compute), batch).float()
+        return self._loss_call(self._tree(compute), batch).float()
 
     def _backward_micro(self, batch, scale: float) -> torch.Tensor:
         with torch.enable_grad():
@@ -374,6 +393,17 @@ class DeepSpeedTPUEngine:
     def zero_stage(self) -> int:
         return self.config.zero_optimization.stage
 
+    # checkpointing (delegates to checkpoint/engine.py) -----------------
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, **kw):
+        from ..checkpoint.engine import save_checkpoint as _save
+
+        return _save(self, save_dir, tag=tag, client_state=client_state, **kw)
+
+    def load_checkpoint(self, load_dir, tag=None, **kw):
+        from ..checkpoint.engine import load_checkpoint as _load
+
+        return _load(self, load_dir, tag=tag, **kw)
+
 
 def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
                model_parameters=None, training_data=None, lr_scheduler=None,
@@ -398,4 +428,5 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
 
         dataloader = DeepSpeedDataLoader(training_data,
                                          batch_size=cfg.train_micro_batch_size_per_gpu)
+        engine.data_sampler = dataloader
     return engine, engine.tx, dataloader, engine.lr_schedule

@@ -239,3 +239,131 @@ def test_config_adamw_launches_fused_adam_kernel_on_card():
     # step 1 with bias correction: u = -lr * sign(g) - lr * wd * p
     _close(params["a"], torch.full((5,), 1 - 1e-3 - 1e-4, device="cuda"), 1e-6)
     _close(params["b"]["c"], torch.full((3, 7), 1 + 1e-3 - 1e-4, device="cuda"), 1e-6)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_loss_kernels_match_plain_versions_on_card(dtype, tied):
+    """Forward (lse, tgt), dl, dh and dK against the plain versions at a
+    ragged token count, hidden size and vocab (several backward chunks),
+    untied [E, V] and tied [V, E] heads, targets incl. -1."""
+    _need_card()
+    from deepspeed_tpu_torch.ops import fused_loss as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    T, E, V = 517, 200, 1931
+    h = torch.randn(T, E, generator=gen, device="cuda").to(dtype)
+    k = 0.05 * torch.randn(*((V, E) if tied else (E, V)), generator=gen, device="cuda")
+    k = k.to(dtype).T if tied else k.to(dtype)
+    t = torch.randint(-1, V, (T,), generator=gen, device="cuda", dtype=torch.int32)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    fl.reset_launch_counts()
+    lse, tgt = fl.fused_nll_forward(h, k, t)
+    lse_r, tgt_r = fl.fused_nll_fwd_ref(h, k, t)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(tgt, tgt_r, rtol=1e-5, atol=1e-4)
+    g_lse = torch.rand(T, generator=gen, device="cuda") / T
+    g_tgt = -(torch.rand(T, generator=gen, device="cuda") > 0.5).float() / T
+    old = fl.WORKSPACE_BYTES
+    fl.WORKSPACE_BYTES = T * 512 * h.element_size()    # 4 chunks of 512 columns
+    try:
+        dh, dk = fl.fused_nll_backward(h, k, t, lse_r, g_lse, g_tgt)
+    finally:
+        fl.WORKSPACE_BYTES = old
+    want = fl.fused_nll_bwd_ref(h, k, t, lse_r, g_lse, g_tgt)
+    for g, w in zip((dh, dk), want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        _close(g, w, tol)
+    assert fl.launch_counts == {"fused_loss_fwd": 1, "fused_loss_dlogits": 4,
+                                "fused_loss_dh": 4, "fused_loss_dk": 4}
+
+
+def test_auto_loss_takes_fused_kernels_for_gpt2_vocab_on_card():
+    """``loss_impl: auto`` on the card runs the fused kernels at a vocab of
+    50257 (not a multiple of 128) and agrees with the dense loss."""
+    _need_card()
+    from deepspeed_tpu_torch.ops import fused_loss as fl
+    from deepspeed_tpu_torch.sequence import sharded_lm_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    h = torch.randn(2, 64, 96, generator=gen, device="cuda").requires_grad_(True)
+    k = (0.05 * torch.randn(96, 50257, generator=gen, device="cuda")).requires_grad_(True)
+    tokens = torch.randint(0, 50257, (2, 64), generator=gen, device="cuda")
+    fl.reset_launch_counts()
+    got = sharded_lm_loss(h, k, tokens)
+    g_got = torch.autograd.grad(got, (h, k))
+    assert fl.launch_counts["fused_loss_fwd"] == 1 and fl.launch_counts["fused_loss_dk"] >= 1
+    want = sharded_lm_loss(h, k, tokens, loss_impl="xla")
+    g_want = torch.autograd.grad(want, (h, k))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for g, w in zip(g_got, g_want):
+        _close(g, w, 1e-4)
+
+
+def test_fp16_model_with_auto_loss_trains_through_dense_loss_on_card():
+    """The fused-loss kernels are built for fp32 and bf16 only: an fp16
+    model under an fp16 engine with ``loss_impl: auto`` trains through the
+    dense loss, launching none of them, and its loss falls."""
+    _need_card()
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import (TransformerConfig, TransformerLM, init_params,
+                                            make_loss_fn)
+    from deepspeed_tpu_torch.ops import fused_loss as fl
+
+    cfg = TransformerConfig(vocab_size=256, hidden_size=128, intermediate_size=256,
+                            num_layers=2, num_heads=2, num_kv_heads=1, max_seq_len=64,
+                            dtype=torch.float16, loss_impl="auto")
+    params = init_params(cfg, seed=3, device="cuda", dtype=torch.float32)
+    engine = dst.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                            model_parameters=params,
+                            config={"train_micro_batch_size_per_gpu": 2,
+                                    "gradient_accumulation_steps": 1,
+                                    "optimizer": {"type": "adamw", "params": {"lr": 3e-3}},
+                                    "fp16": {"enabled": True, "initial_scale_power": 8},
+                                    "steps_per_print": 10**9})[0]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = torch.randint(0, 256, (2, 64), generator=gen, device="cuda")
+    fl.reset_launch_counts()
+    losses = [float(engine.train_batch(batch)) for _ in range(6)]
+    assert all(n == 0 for n in fl.launch_counts.values()), fl.launch_counts
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+
+def test_checkpoint_round_trip_is_bitwise_on_card(tmp_path):
+    """Save after two steps, load into a fresh engine on the card: the
+    masters, moments, step and LR are bitwise the saved ones, and the next
+    step gives the same loss as the engine that was saved."""
+    _need_card()
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import (TransformerConfig, TransformerLM, init_params,
+                                            make_loss_fn)
+    from torch.utils import _pytree as pytree
+
+    cfg = TransformerConfig(vocab_size=256, hidden_size=128, intermediate_size=256,
+                            num_layers=2, num_heads=2, num_kv_heads=1, max_seq_len=128,
+                            dtype=torch.bfloat16)
+    init = init_params(cfg, seed=1, device="cuda", dtype=torch.float32)
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+              "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+              "bf16": {"enabled": True}, "steps_per_print": 10**9}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = torch.randint(0, 256, (4, 128), generator=gen, device="cuda")
+
+    def engine():
+        p = pytree.tree_map(lambda x: x.clone(), init)
+        return dst.initialize(model=make_loss_fn(TransformerLM(cfg, p)), model_parameters=p,
+                              config=config)[0]
+
+    def state(e):
+        return list(e._masters) + pytree.tree_leaves(e.state.opt_state) + [
+            e.state.step, e.get_lr()[0]]
+
+    first = engine()
+    for _ in range(2):
+        first.train_batch(batch)
+    first.save_checkpoint(str(tmp_path))
+    resumed = engine()
+    resumed.load_checkpoint(str(tmp_path))
+    for a, b in zip(state(resumed), state(first)):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    assert float(resumed.train_batch(batch)) == float(first.train_batch(batch))

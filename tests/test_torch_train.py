@@ -18,7 +18,9 @@
 * The config and every LR schedule parse and evaluate to the same values
   in both packages (inline configs; the reference-corpus test needs a
   checkout the tier-1 run does not have).
-* What the trainer cannot honour yet raises ``NotImplementedError``.
+* What the trainer cannot honour yet raises ``NotImplementedError`` (the
+  fused loss and ``remat`` run: ``test_torch_fused_loss.py``,
+  ``test_torch_remat.py``).
 """
 
 import dataclasses
@@ -251,21 +253,13 @@ def test_unported_paths_raise():
     _, tcfg, params = tiny_pair()
     p = convert.params_from_jax(params, tcfg, device="cpu")
     loss_fn = ttf.make_loss_fn(ttf.TransformerLM(tcfg, p))
-    tokens = torch.zeros((4, 32), dtype=torch.long)
-    eng, *_ = tds.initialize(model=loss_fn, model_parameters=p, device="cpu",
-                             config=dict(TRAIN_CONFIG, training_fastpath={"loss_impl": "fused"}))
-    with pytest.raises(NotImplementedError, match="Queue B items 4-6"):
-        eng.train_batch(tokens)
-    fused_cfg = dataclasses.replace(tcfg, loss_impl="fused")
-    with pytest.raises(NotImplementedError, match="fused"):
-        ttf.make_loss_fn(ttf.TransformerLM(fused_cfg, p))(p, tokens)
     for over in ({"pipeline": {"stages": 2}}, {"sequence_parallel_size": 2},
                  {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
                  {"resilience": "snapshots"}, {"data_parallel_size": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tds.initialize(model=loss_fn, model_parameters=p, device="cpu",
                            config=dict(TRAIN_CONFIG, **over))
-    for over in (dict(dropout=0.1), dict(remat=True)):
+    for over in (dict(dropout=0.1),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttf.TransformerLM(dataclasses.replace(tcfg, **over), p)
 
