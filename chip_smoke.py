@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``deepspeed_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --cards N    # only: data-parallel training over NCCL on N cards
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -57,7 +58,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 9. checkpoint — TinyLlama widths at 2 layers: 3 steps, save, a fresh
    engine, load, 2 steps, against 5 uninterrupted steps: the state is
    bitwise equal after the load, the losses are bitwise equal, and
-   ``zero_to_fp32`` returns the saved masters.
+   ``zero_to_fp32`` returns the saved masters;
+10. block-quant kernels — quantize (nearest), quantize with stochastic
+   rounding and dequantize against their plain versions at a ragged size
+   (blocks 2048, 512, 128) and at TinyLlama-1.1B's flat gradient (n =
+   1,100,048,384, block 2048): nearest, dequantize and stochastic rounding
+   bitwise (the same Philox words), stochastic rounding also in
+   distribution; timed beside the bound, the plain version and the eager
+   torch composite;
+11. data-parallel training — two ranks (this script started with
+   ``--dp-child``) share cuda:0 over gloo and train TinyLlama widths at 4
+   layers (micro 2 x 2048 per rank, gas 2, ZeRO stage 0, bf16, fused loss)
+   for 5 steps in each of ``compressed_collectives`` none, int8 and
+   int8_sr from one seed and one global batch: the compressed first loss
+   bitwise equal to none's, every loss within 0.02 |ref| + 1e-3 of none's,
+   losses falling, masters bitwise equal across ranks, 2 quantize and 2
+   dequantize launches per rank per step, the ledger's logical and wire
+   bytes equal to the JAX package's formula; the none run against one
+   process on the same global batch; ``init_distributed`` on NCCL at world
+   size 1 with one all-reduce. Its step time is two ranks sharing one card,
+   not a scaling number.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -69,6 +89,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1264,12 +1285,398 @@ def checkpoint_phase():
         raise SystemExit("checkpoint resume FAILED")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the block-quant kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+QUANT_N = 1_100_048_384        # TinyLlama-1.1B's flat fp32 gradient
+QUANT_RAGGED_N = 2048 * 1000 + 37
+
+
+def sr_check(x, n, block, q_sr, s_sr, s_near):
+    """Stochastic rounding in distribution, chunked over blocks to bound
+    memory: the scales equal the nearest kernel's, every payload is
+    clamp(floor(x / s)) or clamp(floor(x / s) + 1), pad lanes are 0, and
+    |mean(q - x / s)| over the n elements is below 3 / sqrt(n). Returns
+    (ok, mean error)."""
+    nb = q_sr.shape[0]
+    ok = torch.equal(s_sr, s_near) and bool((q_sr.view(-1)[n:] == 0).all())
+    rows = max(1, (1 << 25) // block)
+    err = 0.0
+    for r0 in range(0, nb, rows):
+        r1 = min(nb, r0 + rows)
+        lo, hi = r0 * block, min(n, r1 * block)
+        xx = torch.zeros((r1 - r0) * block, device=x.device)
+        xx[:hi - lo] = x[lo:hi]
+        y = xx.view(-1, block) / s_near[r0:r1, None]
+        fl = torch.floor(y)
+        qf = q_sr[r0:r1].float()
+        ok &= bool(((qf == fl.clamp(-127, 127)) | (qf == (fl + 1).clamp(-127, 127))).all())
+        err += float((qf - y).reshape(-1)[:hi - lo].double().sum())
+    mean_err = err / n
+    return ok and abs(mean_err) < 3 / math.sqrt(n), mean_err
+
+
+def quant_phase(qk):
+    """The three block-quant kernels against their plain versions: a ragged
+    n = 2048 k + 37 at blocks 2048, 512 and 128, then TinyLlama-1.1B's flat
+    gradient (n = 1,100,048,384, block 2048, nb = 537,133). Round to nearest
+    and dequantize must equal the plain versions bitwise; stochastic
+    rounding must equal its plain version bitwise (the same Philox words)
+    and hold in distribution (sr_check). Timed at the main shape beside the
+    bound, the plain version and the eager torch composite."""
+    from deepspeed_tpu_torch.models import llama_config, param_shapes
+
+    n_model = sum(math.prod(s) for s in param_shapes(llama_config("1b")).values())
+    if n_model != QUANT_N:
+        raise SystemExit(f"quant: TinyLlama-1.1B has {n_model} parameters, not {QUANT_N}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    ok = True
+    errs = {"quantize_int8": 0.0, "quantize_int8_sr": 0.0, "dequantize_int8": 0.0}
+    cases = [(QUANT_RAGGED_N, b) for b in (2048, 512, 128)] + [(QUANT_N, 2048)]
+    rows = {}
+    for n, block in cases:
+        x = 1e-3 * torch.randn(n, generator=gen, device="cuda")
+        x[::1009] = 0.0
+        nb = -(-n // block)
+        q, s, shape = qk.quantize_int8(x, block)
+        q_ref, s_ref = qk.quantize_ref(x, n, nb, block)
+        near = torch.equal(q, q_ref) and torch.equal(s, s_ref)
+        del q_ref, s_ref
+        d = qk.dequantize_int8(q, s, shape)
+        d_err = (d - qk.dequantize_ref(q, s, n)).abs().max().item()
+        del d
+        sr_gen = torch.Generator().manual_seed(n + block)
+        seed = qk.draw_seed(torch.Generator().manual_seed(n + block))
+        q_sr, s_sr, _ = qk.quantize_int8(x, block, stochastic=True, generator=sr_gen)
+        q_sr_ref, _ = qk.quantize_ref(x, n, nb, block, seed)
+        sr_bitwise = torch.equal(q_sr, q_sr_ref)
+        sr_err = (q_sr.int() - q_sr_ref.int()).abs().max().item()
+        del q_sr_ref
+        sr_ok, mean_err = sr_check(x, n, block, q_sr, s_sr, s)
+        good = near and d_err == 0.0 and sr_bitwise and sr_ok
+        ok &= good
+        errs["quantize_int8"] = max(errs["quantize_int8"], 0.0 if near else float("inf"))
+        errs["quantize_int8_sr"] = max(errs["quantize_int8_sr"], float(sr_err))
+        errs["dequantize_int8"] = max(errs["dequantize_int8"], d_err)
+        log(f"parity quant n={n} block={block} (nb {nb}): nearest bitwise {near}, dequant "
+            f"max|err| {d_err:.3e}, sr bitwise {sr_bitwise} (max|dq| {sr_err}), sr in "
+            f"distribution {sr_ok} (mean(q - x/s) {mean_err:.3e}, bound "
+            f"{3 / math.sqrt(n):.3e}) {'ok' if good else 'FAIL'}")
+        if n != QUANT_N:
+            del x, q, s, q_sr, s_sr
+            continue
+        # timings at the main shape
+        xv = x.view(nb, block)
+
+        def composite():
+            a = xv.abs().amax(dim=1, keepdim=True)
+            sc = torch.where(a == 0, torch.ones_like(a), a / 127.0)
+            return torch.clamp(torch.round(xv / sc), -127, 127).to(torch.int8), sc
+
+        def composite_sr():
+            a = xv.abs().amax(dim=1, keepdim=True)
+            sc = torch.where(a == 0, torch.ones_like(a), a / 127.0)
+            u = torch.rand(xv.shape, device=xv.device)
+            return torch.clamp(torch.floor(xv / sc + u), -127, 127).to(torch.int8), sc
+
+        sr_seed = torch.Generator().manual_seed(1)
+        nbytes = 4 * n + n + 4 * nb      # read x (fp32), write q (int8) and scales
+        timings = {
+            "quantize_int8": (
+                lambda: qk.quantize_int8(x, block),
+                lambda: qk.quantize_ref(x, n, nb, block), composite, 6),
+            "quantize_int8_sr": (
+                lambda: qk.quantize_int8(x, block, stochastic=True, generator=sr_seed),
+                lambda: qk.quantize_ref(x, n, nb, block, seed), composite_sr, 30),
+            "dequantize_int8": (
+                lambda: qk.dequantize_int8(q, s, shape),
+                lambda: qk.dequantize_ref(q, s, n),
+                lambda: q.float() * s[:, None], 1),
+        }
+        for name, (kern, plain, lib, ops_per_elem) in timings.items():
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, iters=2, warmup=1)
+            lib_ms = cuda_ms(lib, iters=5, warmup=1)
+            # ops: fp32 and int32 arithmetic per element, counted at the fp32
+            # rate outside the tensor cores (Philox: ~25 int32 ops per element)
+            b_ms, b_by = bound(nbytes, ops_per_elem * n, torch.float32)
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                              bound_by=b_by, max_abs_err=errs[name])
+            log(f"timing {name} (n {n}, block {block}, nb {nb}): kernel {ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by} ({nbytes} B), plain {plain_ms:.4f} ms, library "
+                f"(eager torch composite) {lib_ms:.4f} ms")
+        del x, xv, q, s, q_sr, s_sr
+        torch.cuda.empty_cache()
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+    if not ok:
+        raise SystemExit("quant kernel parity FAILED")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 11: data-parallel training, two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# phase 11's world: two ranks on cuda:0 over gloo (NCCL refuses two ranks on
+# one device), TinyLlama widths at 4 layers. --cards N runs the same world
+# over NCCL with one rank per card at full depth instead.
+DP_SPEC = {"world": 2, "backend": "gloo", "layers": 4, "micro": 2, "steps": 5,
+           "modes": ["none", "int8", "int8_sr"]}
+DP_CONFIG = {
+    "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+    "zero_optimization": {"stage": 0}, "bf16": {"enabled": True},
+    "gradient_clipping": 1.0, "training_fastpath": {"loss_impl": "auto"},
+    "comms_logger": {"enabled": True}, "steps_per_print": 10**9,
+}
+
+
+def dp_batch(cfg, micro_total):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    return torch.randint(0, cfg.vocab_size, (DP_CONFIG["gradient_accumulation_steps"],
+                                             micro_total, TRAIN_SEQ), generator=gen,
+                         device="cuda")
+
+
+def dp_child(rank: int, workdir: Path) -> int:
+    """One rank of a data-parallel world (workdir/spec.json): each mode
+    trains ``steps`` steps from the same seeded weights on the same global
+    batch; writes losses, step times, peak memory, quant-kernel launches,
+    the ledger and whether the masters equal rank 0's bitwise to
+    workdir/out_<rank>.json."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
+                                            make_loss_fn)
+    from deepspeed_tpu_torch.ops import quant
+
+    spec = json.loads((workdir / "spec.json").read_text())
+    comm.init_distributed(dist_backend=spec["backend"], init_method=f"file://{workdir}/store",
+                          rank=rank, world_size=spec["world"], timeout=600)
+    cfg = llama_config("1b", num_layers=spec["layers"], dtype=torch.bfloat16)
+    batch = dp_batch(cfg, spec["micro"] * spec["world"])
+    out = {}
+    for mode in spec["modes"]:
+        params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+        config = dict(DP_CONFIG, train_micro_batch_size_per_gpu=spec["micro"],
+                      compressed_collectives={"mode": mode, "block": 2048})
+        engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                                    model_parameters=params, config=config)
+        ledger = comm.get_comms_logger()
+        ledger.reset()
+        quant.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(spec["steps"]):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            times.append(time.perf_counter() - t0)
+        launches = dict(quant.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        totals = ledger.totals().get("quantized_all_reduce")
+        flat = torch.cat([p.detach().reshape(-1) for p in engine._masters])
+        theirs = comm.broadcast(flat.clone(), src=0)
+        same = torch.tensor([int(torch.equal(flat, theirs))], device="cuda")
+        comm.all_reduce(same, op="min")
+        out[mode] = dict(losses=losses, times=times, launches=launches, peak=peak,
+                         ledger=totals, masters_equal=bool(same.item()),
+                         n=flat.numel(), reduce=engine._dp_grad_mode)
+        del engine, params, flat, theirs
+        torch.cuda.empty_cache()
+    (workdir / f"out_{rank}.json").write_text(json.dumps(out))
+    comm.barrier()
+    comm.destroy_process_group()
+    return 0
+
+
+def run_dp_world(spec, workdir: Path):
+    """Start spec["world"] ranks (this script with --dp-child), one card each
+    over NCCL or all on cuda:0 over gloo; returns their results."""
+    import shutil
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    (workdir / "spec.json").write_text(json.dumps(spec))
+    world = spec["world"]
+    logs = [open(workdir / f"log_{r}.txt", "w+") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dp-child", str(r), str(workdir)],
+        env=dict(os.environ, LOCAL_RANK=str(r if spec["backend"] == "nccl" else 0)),
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for r, f in enumerate(logs):
+            f.seek(0)
+            log(f"--- dp rank {r} (exit {codes[r]}) ---\n{f.read()[-6000:]}")
+        raise SystemExit(f"dp: a rank failed (exit codes {codes})")
+    for f in logs:
+        f.close()
+    return [json.loads((workdir / f"out_{r}.json").read_text()) for r in range(world)]
+
+
+def check_dp(spec, ranks, card):
+    """The checks of a data-parallel world: one loss across ranks, masters
+    bitwise equal, losses finite and falling; in each compressed mode the
+    first loss bitwise equal to none's, every loss within 0.02 |ref| + 1e-3
+    of it, 2 + 2 quant launches per rank per step, the ledger equal to the
+    JAX package's formula. Returns (ok, rank 0's results)."""
+    from deepspeed_tpu_torch.ops.quant import shard_layout
+
+    world, steps = spec["world"], spec["steps"]
+    r0 = ranks[0]
+    ref = r0["none"]["losses"]
+    n = r0["none"]["n"]
+    shard, shard_p, b1 = shard_layout(n, world, 2048)
+    wire = (world * shard_p + 4 * world * (shard_p // b1)) + (shard_p + 4 * (shard_p // b1))
+    tokens = DP_CONFIG["gradient_accumulation_steps"] * spec["micro"] * world * TRAIN_SEQ
+    where = (f"{world} ranks on cuda:0 over gloo: a correctness run, not a scaling number"
+             if spec["backend"] == "gloo" else f"{world} cards, one rank each, over NCCL")
+    ok = True
+    for mode in spec["modes"]:
+        a = r0[mode]
+        checks = {
+            "ranks report one loss": all(r[mode]["losses"] == a["losses"] for r in ranks),
+            "masters bitwise equal across ranks": all(r[mode]["masters_equal"]
+                                                      for r in ranks),
+            "losses finite and falling": (all(math.isfinite(x) for x in a["losses"])
+                                          and a["losses"][-1] < a["losses"][0]),
+            "reduction": a["reduce"] == (None if mode == "none" or world == 1 else mode),
+        }
+        if mode != "none":
+            kq = "quantize_int8" if mode == "int8" else "quantize_int8_sr"
+            want = {"quantize_int8": 0, "quantize_int8_sr": 0, "dequantize_int8": 2 * steps}
+            want[kq] = 2 * steps
+            checks.update({
+                "first loss bitwise equal to none's": a["losses"][0] == ref[0],
+                "losses within 0.02|ref| + 1e-3 of none": all(
+                    abs(x - y) < 0.02 * abs(y) + 1e-3 for x, y in zip(a["losses"], ref)),
+                "quant launches 2 + 2 per rank per step": all(
+                    r[mode]["launches"] == want for r in ranks),
+                "ledger bytes = the JAX formula": a["ledger"] is not None and (
+                    a["ledger"]["count"], a["ledger"]["bytes"], a["ledger"]["wire_bytes"]) == (
+                    steps, steps * 4 * n, steps * wire),
+            })
+        elif any(a["launches"].values()):
+            checks["no quant launches"] = False
+        good = all(checks.values())
+        ok &= good
+        step_s = float(np.mean(a["times"][1:]))
+        log(f"dp {mode} (world {world}): losses {a['losses']}; {step_s * 1e3:.1f} ms/step "
+            f"(steps 2-{steps}; {where}), {tokens / step_s:.0f} tokens/s, peak memory per "
+            f"rank {[round(r[mode]['peak'] / 2**30, 2) for r in ranks]} GiB; launches "
+            f"{a['launches']}; ledger {a['ledger']}; "
+            f"{'ok' if good else 'FAIL ' + str([k for k, v in checks.items() if not v])}")
+    log(f"dp [{card}]: TinyLlama widths, {spec['layers']} layers ({n} parameters), micro "
+        f"{spec['micro']} x {TRAIN_SEQ} per rank, gas "
+        f"{DP_CONFIG['gradient_accumulation_steps']}, {steps} steps per mode, {where}; "
+        f"wire bytes per reduction {wire} vs logical {4 * n} ({4 * n / wire:.2f}x)")
+    return ok, r0
+
+
+def dp_phase(card):
+    """Phase 11: DP_SPEC's world (dp_child), its checks, the none run against
+    one process on the same global batch, and NCCL at world size 1. Returns
+    the quant kernels' launches in the compressed runs."""
+    import shutil
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
+                                            make_loss_fn)
+
+    spec = DP_SPEC
+    workdir = REPO / "build" / "dp_smoke"
+    t0 = time.perf_counter()
+    ok, r0 = check_dp(spec, run_dp_world(spec, workdir), card)
+    log(f"dp: phase wall {time.perf_counter() - t0:.1f} s")
+
+    # the none run against one process on the same global batch
+    micro_total = spec["micro"] * spec["world"]
+    cfg = llama_config("1b", num_layers=spec["layers"], dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                                model_parameters=params,
+                                config=dict(DP_CONFIG, comms_logger={"enabled": False},
+                                            train_micro_batch_size_per_gpu=micro_total))
+    batch = dp_batch(cfg, micro_total)
+    single = [float(engine.train_batch(batch)) for _ in range(spec["steps"])]
+    del engine, params, batch
+    torch.cuda.empty_cache()
+    ref = r0["none"]["losses"]
+    one = (abs(ref[0] - single[0]) <= 1e-3 * abs(single[0]) and all(
+        abs(x - y) < 0.02 * abs(y) + 1e-3 for x, y in zip(ref[1:], single[1:])))
+    log(f"dp none vs one process (micro {micro_total}, gas "
+        f"{DP_CONFIG['gradient_accumulation_steps']}) on the same global batch: {single}; "
+        f"first within 1e-3 relative, later within 0.02|ref| + 1e-3: {one}")
+    ok &= one
+
+    # NCCL at world size 1
+    comm.init_distributed(dist_backend="nccl", init_method=f"file://{workdir}/nccl_store",
+                          rank=0, world_size=1)
+    x = torch.full((1024,), 2.0, device="cuda")
+    comm.all_reduce(x)
+    nccl_ok = comm.is_initialized() and bool((x == 2.0).all())
+    comm.destroy_process_group()
+    log(f"dp: init_distributed(nccl) at world size 1 + all_reduce of a CUDA tensor: {nccl_ok}")
+    ok &= nccl_ok
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not ok:
+        raise SystemExit("dp phase FAILED")
+    return {"quantize_int8": r0["int8"]["launches"]["quantize_int8"],
+            "quantize_int8_sr": r0["int8_sr"]["launches"]["quantize_int8_sr"],
+            "dequantize_int8": (r0["int8"]["launches"]["dequantize_int8"]
+                                + r0["int8_sr"]["launches"]["dequantize_int8"])}
+
+
+def cards_run(n_cards: int, card: str) -> int:
+    """--cards N: data-parallel training over NCCL, one rank per card, at
+    TinyLlama-1.1B's full depth (micro 4 x 2048 per rank, gas 2): one card
+    with the exact reduction as the baseline, then N cards in every mode,
+    each held to check_dp. Prints tokens/s and the scaling over one card."""
+    import shutil
+
+    base = dict(DP_SPEC, backend="nccl", layers=22, micro=4, steps=6)
+    workdir = REPO / "build" / "dp_cards"
+    ok1, one = check_dp(dict(base, world=1, modes=["none"]),
+                        run_dp_world(dict(base, world=1, modes=["none"]), workdir), card)
+    spec = dict(base, world=n_cards)
+    okn, many = check_dp(spec, run_dp_world(spec, workdir), card)
+    shutil.rmtree(workdir, ignore_errors=True)
+    t1 = float(np.mean(one["none"]["times"][1:]))
+    for mode in spec["modes"]:
+        tn = float(np.mean(many[mode]["times"][1:]))
+        log(f"dp cards {mode}: {n_cards} cards {tn * 1e3:.1f} ms/step vs one card "
+            f"{t1 * 1e3:.1f} ms/step: {n_cards * t1 / tn:.2f}x the tokens/s of one card "
+            f"({t1 / tn:.3f} scaling efficiency)")
+    return 0 if ok1 and okn else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace the serving run and one extra training step with "
                          "torch.profiler and print device time by kernel (slows "
                          "the runs it traces)")
+    ap.add_argument("--cards", type=int, default=0,
+                    help="instead of the phases: data-parallel training over NCCL on "
+                         "this many cards, one rank each, at full depth")
+    ap.add_argument("--dp-child", nargs=2, metavar=("RANK", "WORKDIR"),
+                    help=argparse.SUPPRESS)   # one rank of a dp world, started by it
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1280,11 +1687,14 @@ def main() -> int:
               "(deepspeed_tpu_torch/ missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if args.dp_child:
+        return dp_child(int(args.dp_child[0]), Path(args.dp_child[1]))
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import fused_adam as adam
     from deepspeed_tpu_torch.ops import fused_loss as fl
     from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import quant as qk
 
     t_start = time.perf_counter()
     # phase 1
@@ -1309,11 +1719,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
 
+    if args.cards:
+        if args.cards > count:
+            raise SystemExit(f"--cards {args.cards}: only {count} cards")
+        return cards_run(args.cards, card)
+
     # phase 3
     rows = kernel_phase(pa)
     rows.update(flash_phase(fa))
     rows.update(adam_phase(adam))
     rows.update(fused_loss_phase(fl))
+    # phase 10: the block-quant kernels
+    rows.update(quant_phase(qk))
     # phase 4, 5: the serving path
     launches = slice_phase(pa, card, profile=args.profile)
     path_phase()
@@ -1323,6 +1740,8 @@ def main() -> int:
     # phase 8, 9: activation checkpointing, checkpoint save and resume
     remat_phase(fa)
     checkpoint_phase()
+    # phase 11: data-parallel training, the compressed gradient all-reduce
+    launches.update(dp_phase(card))
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"
@@ -1337,6 +1756,9 @@ def main() -> int:
         "fused_loss_dlogits": ("fused_loss.cu", "fused_loss.py:152"),
         "fused_loss_dh": ("fused_loss.cu", "fused_loss.py:164"),
         "fused_loss_dk": ("fused_loss.cu", "fused_loss.py:185"),
+        "quantize_int8": ("quant.cu", "quant.py:32"),
+        "quantize_int8_sr": ("quant.cu", "quant.py:41"),
+        "dequantize_int8": ("quant.cu", "quant.py:55"),
     }
     kernels = [dict(name=n, route="cuda", source=csrc + origin[n][0],
                     replaces=pallas + origin[n][1], launches=launches[n],

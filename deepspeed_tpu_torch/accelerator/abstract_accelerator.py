@@ -29,6 +29,11 @@ class DeepSpeedAccelerator(abc.ABC):
         """The hardware's own name for the device (``"NVIDIA H100 80GB
         HBM3"``), not the framework's device string."""
 
+    # --- communication -------------------------------------------------
+    @abc.abstractmethod
+    def communication_backend_name(self) -> str:
+        """The ``torch.distributed`` backend of this device's collectives."""
+
     # --- synchronization -----------------------------------------------
     @abc.abstractmethod
     def synchronize(self, device_index: int = 0) -> None:

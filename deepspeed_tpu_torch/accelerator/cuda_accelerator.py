@@ -20,6 +20,9 @@ class CUDA_Accelerator(DeepSpeedAccelerator):
     def device_name(self, device_index: int = 0) -> str:
         return torch.cuda.get_device_name(device_index)
 
+    def communication_backend_name(self) -> str:
+        return "nccl"
+
     def synchronize(self, device_index: int = 0) -> None:
         torch.cuda.synchronize(device_index)
 

@@ -17,7 +17,10 @@ The layout is the JAX package's, with ``torch.save`` in place of orbax:
   ``<save_dir>/latest``               the most recent tag
 
 At world size 1 the stored tensors are the whole state, so ZeRO stages 0-3
-save and load alike and ``zero_to_fp32`` is a read. Loading copies into the
+save and load alike and ``zero_to_fp32`` is a read. Over several
+data-parallel ranks (ZeRO stage 0) the state is replicated: rank 0 writes
+it, every rank waits at a barrier until it is committed, and every rank
+loads the same files. Loading copies into the
 engine's existing master and moment tensors IN PLACE: the fused Adam kernel
 caches its device table on their pointers. Checkpoints written by the JAX
 package (orbax directories) are not read.
@@ -169,9 +172,14 @@ def _state_to_tree(engine) -> Dict[str, Any]:
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
                     client_state: Optional[dict] = None, save_latest: bool = True):
     """Reference ``engine.save_checkpoint:3140``: returns the tag's path."""
+    from .. import comm
+
     tag = tag if tag is not None else f"global_step{engine.global_steps}"
     save_dir = os.path.abspath(save_dir)
     path = os.path.join(save_dir, str(tag))
+    if comm.get_rank() != 0:
+        comm.barrier("save_checkpoint")   # rank 0 has committed the tag
+        return path
     ck = _get_ckpt_engine(engine)
     wait_pending_commits(save_dir)
     ck.save(_state_to_tree(engine), os.path.join(path, "state"))
@@ -183,7 +191,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         "global_steps": engine.global_steps,
         "skipped_steps": engine.skipped_steps,
         "config": engine.config.to_dict(),
-        "topology": {"pp": 1, "dp": 1, "ep": 1, "sp": 1, "tp": 1},
+        "topology": {"pp": 1, "dp": engine.dp_world, "ep": 1, "sp": 1, "tp": 1},
         "client_state": client_state or {},
     }
     sampler = getattr(engine, "data_sampler", None)
@@ -207,6 +215,10 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         t.start()
     else:
         _commit()
+    if comm.get_world_size() > 1:
+        # the other ranks may read the tag once they pass the barrier
+        wait_pending_commits(save_dir)
+        comm.barrier("save_checkpoint")
     return path
 
 

@@ -2,7 +2,11 @@
 
 ``DeepSpeedDataLoader`` yields micro-batches (numpy pytrees) from an
 indexable dataset in a seeded order, and records its position so that a
-fresh loader over the same dataset resumes the exact batch sequence;
+fresh loader over the same dataset resumes the exact batch sequence. With a
+``rank`` and ``world_size`` it is a distributed sampler: step i's global
+micro-batch is the next ``batch_size * world_size`` samples of the order,
+and each rank yields its contiguous ``batch_size`` of them, the slice
+``train_batch`` takes of a global batch;
 ``RepeatingLoader`` restarts an iterator at its end. The engine moves each
 batch to its device in ``train_batch``. The JAX module's curriculum hooks
 (``curriculum_fn``, the data-pipeline ``sampler``) and its device-prefetch
@@ -40,19 +44,25 @@ class DeepSpeedDataLoader:
     batches)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 collate_fn: Optional[Callable] = None, drop_last: bool = True):
+                 collate_fn: Optional[Callable] = None, drop_last: bool = True,
+                 rank: int = 0, world_size: int = 1):
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} outside a world of {world_size}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.collate_fn = collate_fn or _default_collate
         self.drop_last = drop_last
+        self.rank = rank
+        self.world_size = world_size
         self.epoch = 0
         self.global_step = 0
         self.batch_in_epoch = 0   # batches yielded in the current epoch
         self._resume_offset = 0   # batches to skip on the next __iter__
         n = len(dataset)
-        self.len = n // batch_size if drop_last else (n + batch_size - 1) // batch_size
+        step = batch_size * world_size
+        self.len = n // step if drop_last else (n + step - 1) // step
 
     def __len__(self):
         return self.len
@@ -77,8 +87,10 @@ class DeepSpeedDataLoader:
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
         self.batch_in_epoch = start
+        step = self.batch_size * self.world_size
         for i in range(start, self.len):
-            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+            idx = order[i * step:(i + 1) * step][self.rank * self.batch_size:
+                                                 (self.rank + 1) * self.batch_size]
             batch = self.collate_fn([self.dataset[int(j)] for j in idx])
             self.global_step += 1
             self.batch_in_epoch = i + 1

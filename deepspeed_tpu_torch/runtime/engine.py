@@ -26,9 +26,27 @@ the backward under ``activation_checkpointing.policy``
 (``runtime/activation_checkpointing.py``); ``save_checkpoint`` and
 ``load_checkpoint`` delegate to ``checkpoint/engine.py``.
 
-At world size 1 ZeRO stages 0-3 are the same math and all are accepted;
-world size > 1 and the config sections this trainer cannot honour yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Data parallelism (world size > 1, ZeRO stage 0; JAX ``engine.py:586-595,
+676-681, 940-1060``): ``train_batch`` takes the GLOBAL batch, ``[gas, micro
+* world, ...]`` or ``[gas * micro * world, ...]``, and each rank computes on
+its contiguous slice of the micro dimension (a ``data_iter`` yields this
+rank's micro-batches already: ``DeepSpeedDataLoader`` with a rank and
+world). Each rank accumulates its fp32 gradients over ``gas`` in ONE flat
+buffer (the masters' ``.grad`` tensors are views into it), divides by
+``loss_scale * gas``, and the step mean-reduces the buffer across ranks:
+``all_reduce(SUM)`` and a divide (gloo has no AVG), or, where the JAX
+package's compressed DP site is eligible (stage 0, pure dp, no fp16) and
+``compressed_collectives`` asks for it, one ``quantized_all_reduce`` (int8
+payloads, ``comm/compressed.py``; ``int8_sr`` seeded per step, rank and
+stage). Norm, clipping and the update then run on identical gradients, so
+the masters stay bitwise equal across ranks; the reported loss is the rank
+mean. The imperative ``forward``/``backward``/``step`` path reduces each
+micro-batch through the same transport; ``no_sync`` defers it.
+
+At world size 1 ZeRO stages 0-3 are the same math and all are accepted.
+ZeRO stages 1-3 at world size > 1 and the config sections this trainer
+cannot honour yet raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 import contextlib
@@ -38,8 +56,12 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from .. import comm
+from ..comm.compressed import configure_compression, quantized_all_reduce
 from ..ops.fastpath import configure_fastpath
 from ..ops.optimizers import build_optimizer
+from ..ops.quant import fold_in, seeded_generator
+from ..parallel.topology import Topology, set_topology
 from ..utils.logging import log_dist
 from .config import DeepSpeedTPUConfig, load_config
 from .loss_scaler import LossScaleState, make_loss_scale_state, update_loss_scale
@@ -58,11 +80,17 @@ def _not_ported(what: str, item: int, area: str) -> NotImplementedError:
 def _check_supported(config: DeepSpeedTPUConfig, world_size: int) -> None:
     """Raise for every switched-on section the trainer cannot honour yet,
     rather than ignore it."""
-    if world_size > 1 or (config.data_parallel_size or 1) > 1:
-        raise _not_ported(f"training at world size {max(world_size, config.data_parallel_size or 1)}",
-                          7, "comm substrate over torch.distributed, then ZeRO "
-                          "sharding over several cards")
+    dp = config.data_parallel_size
+    if dp is not None and dp != world_size:
+        raise _not_ported(f"data_parallel_size={dp} at world size {world_size} (a dp "
+                          "degree other than the world's)", 8,
+                          "model-parallel axes beside dp")
     zc = config.zero_optimization
+    if world_size > 1 and zc.stage >= 1:
+        raise _not_ported(f"ZeRO stage {zc.stage} at world size {world_size}", 7,
+                          "ZeRO sharding of optimizer state, gradients and parameters "
+                          "over several ranks")
+    cc = config.compressed_collectives
     checks = [
         (zc.offload_optimizer.device != "none", "zero_optimization.offload_optimizer",
          7, "ZeRO-Offload"),
@@ -77,8 +105,8 @@ def _check_supported(config: DeepSpeedTPUConfig, world_size: int) -> None:
         (config.sequence_parallel_size > 1, "sequence_parallel_size > 1", 8,
          "sequence/{layer,ring}.py"),
         (config.moe.enabled, "moe", 8, "moe/*"),
-        (config.compressed_collectives.mode != "none", "compressed_collectives", 8,
-         "comm/compressed.py"),
+        (cc.mode != "none" and cc.hierarchical, "compressed_collectives.hierarchical",
+         8, "hierarchical_quantized_all_reduce over the expert axis split"),
         (config.comm_planner.mode != "off", "comm_planner", 9, "comm/planner/*"),
         (config.resilience.enabled, "resilience", 9, "runtime/resilience/*"),
         (config.chaos.enabled, "chaos", 9, "runtime/resilience/chaos.py"),
@@ -130,13 +158,17 @@ class DeepSpeedTPUEngine:
         if isinstance(loss_fn, torch.nn.Module):
             raise TypeError("model must be a loss function f(params, batch[, rng]); "
                             "for a TransformerLM pass make_loss_fn(model)")
-        import torch.distributed as dist
-
-        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        world = comm.get_world_size()
         self.config = config
         config.finalize(world_dp_size=world)
         _check_supported(config, world)
         self.device = resolve_device(device)
+        self.topo = Topology()
+        set_topology(self.topo)
+        self.dp_world = self.topo.dp_size
+        self.dp_rank = comm.axis_index(self.topo.dp_axes)
+        comm.configure(comms_logger=config.comms_logger)
+        self._dp_grad_mode = self._resolve_dp_grad_site()
         tf = config.training_fastpath
         configure_fastpath(attn_impl=tf.attn_impl, loss_impl=tf.loss_impl,
                            embedding_overlap=tf.embedding_overlap)
@@ -176,6 +208,8 @@ class DeepSpeedTPUEngine:
             self.tx = build_optimizer(config.optimizer.type, opt_params)
 
         self._build_state(params)
+        self._compat_acc: Optional[torch.Tensor] = None   # reduced micro-batch grads
+        self._pending_local = False   # flat buffer holds grads not reduced yet
         self._compat_count = 0
         self._compat_pending = False
         self._no_sync_depth = 0
@@ -184,7 +218,28 @@ class DeepSpeedTPUEngine:
         self._metrics_dev: Dict[str, Any] = {}
         log_dist(f"engine initialized on {self.device}: zero_stage="
                  f"{config.zero_optimization.stage}, gas={self.gas}, "
-                 f"micro_bs={self.micro_batch_size}, dtype={self.compute_dtype}")
+                 f"micro_bs={self.micro_batch_size}, dtype={self.compute_dtype}, "
+                 f"dp={self.dp_world}, dp_grad_reduce={self._dp_grad_mode or 'exact'}")
+
+    def _resolve_dp_grad_site(self) -> Optional[str]:
+        """The compressed mode of the DP gradient reduction, or None for the
+        exact all-reduce (JAX ``engine.py:664-690``): the site needs pure
+        data parallelism at ZeRO stage 0 over more than one rank, and no
+        fp16, whose overflow check needs the non-finite values the exact
+        reduction carries."""
+        cc = self.config.compressed_collectives
+        configure_compression(cc.mode, block=cc.block, hierarchical=cc.hierarchical,
+                              sites=cc.site_map())
+        eligible = (self.config.zero_optimization.stage == 0 and self.dp_world > 1
+                    and not self.config.fp16.enabled)
+        if cc.mode == "none" or not cc.dp_gradients:
+            return None
+        if not eligible:
+            log_dist("compressed_collectives: DP gradient site needs pure data "
+                     "parallelism at ZeRO stage 0 without fp16 loss scaling — keeping "
+                     "the exact reduction (ZeRO++/MoE/Ulysses sites gate separately)")
+            return None
+        return cc.mode
 
     # ------------------------------------------------------------------
     def _build_state(self, params):
@@ -197,6 +252,17 @@ class DeepSpeedTPUEngine:
         # and dtype: such parameters are trained in place
         self._masters = [p.detach().to(self.device, store).requires_grad_(True)
                          for p in leaves]
+        self._flat_grad = None
+        if self.dp_world > 1:
+            # one flat buffer, reduced with one collective per step: the
+            # masters' .grad are views into it, which autograd accumulates
+            # into in place
+            self._flat_grad = torch.zeros(sum(p.numel() for p in self._masters),
+                                          dtype=store, device=self.device)
+            offset = 0
+            for p in self._masters:
+                p.grad = self._flat_grad[offset:offset + p.numel()].view_as(p)
+                offset += p.numel()
         opt_state = self.tx.init(self._tree(self._masters))
         ls = make_loss_scale_state(self.config.fp16.initial_scale_power,
                                    self.config.fp16.loss_scale,
@@ -225,15 +291,48 @@ class DeepSpeedTPUEngine:
                 p.grad = torch.zeros_like(p)
         return [p.grad for p in self._masters]
 
-    def _apply(self) -> Dict[str, Any]:
-        """Unscale, norm, clip, update (or skip on fp16 overflow), and reset
-        the accumulators; returns the step's metrics (device tensors)."""
+    def _sr_generator(self, *data: int) -> Optional[torch.Generator]:
+        """The dither generator of an ``int8_sr`` reduction, from the config
+        seed and ``data`` (the step, the micro-batch), as the JAX engine
+        folds ``0x0151`` into its step key; None for the other modes."""
+        if self._dp_grad_mode != "int8_sr":
+            return None
+        seed = self.config.seed
+        for d in data + (0x0151,):
+            seed = fold_in(seed, d)
+        return seeded_generator(seed)
+
+    def _reduce_grads(self, generator: Optional[torch.Generator]) -> None:
+        """Mean-reduce the flat gradient buffer across the dp ranks in place:
+        exact (SUM, then a divide) or the compressed int8 all-reduce."""
+        axis = self.topo.dp_axes
+        if self._dp_grad_mode is None:
+            comm.all_reduce(self._flat_grad, axis, op="mean")
+            return
+        cc = self.config.compressed_collectives
+        red = quantized_all_reduce(self._flat_grad, axis, block=cc.block,
+                                   stochastic=self._dp_grad_mode == "int8_sr",
+                                   generator=generator)
+        self._flat_grad.copy_(red)
+
+    def _rank_mean(self, loss: torch.Tensor) -> torch.Tensor:
+        """The loss averaged over the dp ranks (JAX ``lax.pmean``)."""
+        if self.dp_world > 1:
+            comm.all_reduce(loss, self.topo.dp_axes, op="mean")
+        return loss
+
+    def _apply(self, reduced: bool = False) -> Dict[str, Any]:
+        """Unscale, reduce across the dp ranks (unless ``reduced``), norm,
+        clip, update (or skip on fp16 overflow), and reset the accumulators;
+        returns the step's metrics (device tensors)."""
         cfg = self.config
         ls = self.state.loss_scale
         scale = ls.scale if self.fp16 else 1.0
         grads = self._grads()
         for g in grads:
             g.div_(scale * self.gas)
+        if self.dp_world > 1 and not reduced:
+            self._reduce_grads(self._sr_generator(self.state.step))
         norm = global_grad_norm(grads)
         overflow = self.fp16 and not bool(torch.isfinite(norm))
         clip = cfg.gradient_clipping
@@ -281,11 +380,28 @@ class DeepSpeedTPUEngine:
 
         return pytree.tree_map(reshape, batch)
 
+    def _rank_slice(self, batch, dim: int):
+        """This rank's contiguous share of ``dim`` of every batch leaf."""
+        if self.dp_world == 1:
+            return batch
+
+        def take(x):
+            m = x.shape[dim]
+            if m % self.dp_world:
+                raise ValueError(f"batch dim {dim} of size {m} is not divisible by the "
+                                 f"{self.dp_world} data-parallel ranks")
+            k = m // self.dp_world
+            return x.narrow(dim, self.dp_rank * k, k)
+
+        return pytree.tree_map(take, batch)
+
     def train_batch(self, batch=None, data_iter=None):
         """One full training step: ``gas`` micro-batches and the optimizer
-        update. ``batch`` leaves are ``[gas, micro, ...]`` or
-        ``[gas * micro, ...]``. Returns the mean micro-batch loss (a 0-dim
-        tensor on the device)."""
+        update. ``batch`` is the global batch: leaves ``[gas, micro * dp,
+        ...]`` or ``[gas * micro * dp, ...]``, of which this rank takes its
+        slice of the micro dimension; ``data_iter`` yields this rank's
+        micro-batches. Returns the mean micro-batch loss over all ranks (a
+        0-dim tensor on the device)."""
         if self._no_sync_depth > 0:
             raise RuntimeError("train_batch() applies the optimizer and is "
                                "incompatible with an open no_sync() context")
@@ -296,14 +412,15 @@ class DeepSpeedTPUEngine:
                 "window with backward()+step() or discard it with zero_grad()")
         if batch is None:
             mbs = [next(data_iter) for _ in range(self.gas)]
-            batch = pytree.tree_map(lambda *xs: torch.stack(
-                [torch.as_tensor(x) for x in xs]), *mbs)
-        batch = self._shape_batch(batch)
+            batch = self._shape_batch(pytree.tree_map(lambda *xs: torch.stack(
+                [torch.as_tensor(x) for x in xs]), *mbs))
+        else:
+            batch = self._rank_slice(self._shape_batch(batch), 1)
         scale = self.state.loss_scale.scale if self.fp16 else 1.0
         losses = [self._backward_micro(pytree.tree_map(lambda x: x[i], batch), scale)
                   for i in range(self.gas)]
         metrics = self._apply()
-        metrics["loss"] = torch.stack(losses).mean()
+        metrics["loss"] = self._rank_mean(torch.stack(losses).mean())
         self._metrics_dev = metrics
         self.global_steps += 1
         if self.global_steps % self.config.steps_per_print == 0:
@@ -322,10 +439,19 @@ class DeepSpeedTPUEngine:
     def forward(self, batch) -> float:
         """The loss of one micro-batch. Its gradients are accumulated at
         once (the JAX package fuses the two passes too), so a following
-        ``backward()`` only returns this loss."""
+        ``backward()`` only returns this loss. Over several ranks ``batch``
+        is the global micro-batch, of which this rank takes its slice of
+        dim 0; its gradients are mean-reduced at once (outside ``no_sync``)
+        and the loss is the rank mean."""
         batch = pytree.tree_map(lambda x: torch.as_tensor(x, device=self.device), batch)
+        batch = self._rank_slice(batch, 0)
         scale = self.state.loss_scale.scale if self.fp16 else 1.0
-        self._compat_loss = float(self._backward_micro(batch, scale))
+        loss = self._backward_micro(batch, scale)
+        if self.dp_world > 1:
+            self._pending_local = True
+            if self._no_sync_depth == 0:
+                self._reduce_pending()
+        self._compat_loss = float(self._rank_mean(loss))
         self._compat_pending = True
         self._compat_count += 1
         return self._compat_loss
@@ -342,9 +468,21 @@ class DeepSpeedTPUEngine:
         self._compat_pending = False
         return self._compat_loss
 
+    def _reduce_pending(self) -> None:
+        """Reduce the micro-batch gradients held in the flat buffer (and any
+        deferred by ``no_sync``) into the imperative path's accumulator."""
+        if self._compat_acc is None:
+            self._compat_acc = torch.zeros_like(self._flat_grad)
+        self._reduce_grads(self._sr_generator(self.state.step, self._compat_count + 1))
+        self._compat_acc.add_(self._flat_grad)
+        self._flat_grad.zero_()
+        self._pending_local = False
+
     @contextlib.contextmanager
     def no_sync(self):
-        """No optimizer step can fire on the imperative path inside."""
+        """No optimizer step can fire on the imperative path inside, and the
+        cross-rank gradient reduction waits until the first micro-batch
+        after it."""
         self._no_sync_depth += 1
         try:
             yield
@@ -359,7 +497,12 @@ class DeepSpeedTPUEngine:
         the accumulation boundary, as in the reference."""
         if not self.is_gradient_accumulation_boundary():
             return
-        self._metrics_dev = self._apply()
+        if self.dp_world > 1:
+            if self._pending_local:
+                self._reduce_pending()
+            self._flat_grad.copy_(self._compat_acc)
+            self._compat_acc.zero_()
+        self._metrics_dev = self._apply(reduced=self.dp_world > 1)
         self._compat_count = 0
         self._compat_pending = False
         self.global_steps += 1
@@ -369,6 +512,9 @@ class DeepSpeedTPUEngine:
         for p in self._masters:
             if p.grad is not None:
                 p.grad.zero_()
+        if self._compat_acc is not None:
+            self._compat_acc.zero_()
+        self._pending_local = False
         self._compat_count = 0
         self._compat_pending = False
 
@@ -415,11 +561,14 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
     ``model_parameters`` the parameter tree. The engine runs on ``device``,
     the card unless the caller passes ``"cpu"``. Returns ``(engine,
     optimizer, dataloader, lr_schedule)``; with ``training_data`` (an
-    indexable dataset) the dataloader yields its micro-batches, else it is
-    None."""
+    indexable dataset) the dataloader yields this rank's micro-batches, else
+    it is None. Joins the process group first (``comm.init_distributed``:
+    the launcher's environment; a no-op at world size 1)."""
     if mpu is not None or kwargs.get("frozen_params"):
         raise _not_ported("mpu / frozen_params", 7, "engine extras")
     cfg = load_config(config if config is not None else config_params)
+    if dist_init_required is not False:
+        comm.init_distributed()
     engine = DeepSpeedTPUEngine(model, model_parameters, cfg, optimizer=optimizer,
                                 lr_scheduler=lr_scheduler, device=device)
     dataloader = None
@@ -427,6 +576,7 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
         from .dataloader import DeepSpeedDataLoader
 
         dataloader = DeepSpeedDataLoader(training_data,
-                                         batch_size=cfg.train_micro_batch_size_per_gpu)
+                                         batch_size=cfg.train_micro_batch_size_per_gpu,
+                                         rank=engine.dp_rank, world_size=engine.dp_world)
         engine.data_sampler = dataloader
     return engine, engine.tx, dataloader, engine.lr_schedule

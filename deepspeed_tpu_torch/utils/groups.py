@@ -1,0 +1,54 @@
+"""Parallel-group accessors (reference ``deepspeed/utils/groups.py``).
+
+Port of ``deepspeed_tpu/utils/groups.py``. As in the JAX package a group is
+named by mesh axes of the live topology (``parallel/topology.py``): the
+accessors return the axis names that ``comm`` collectives take as ``axis``,
+and the topology resolves them to a ``torch.distributed`` process group.
+This slice has the data-parallel axis only; the expert, model and sequence
+groups raise (ROADMAP.md Queue A item 8).
+"""
+
+from typing import Tuple, Union
+
+from ..parallel.topology import get_topology
+
+Axis = Union[str, Tuple[str, ...]]
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"the {what} group is not ported yet: ROADMAP.md Queue A "
+                               "item 8 (expert, tensor and sequence parallelism)")
+
+
+def _get_data_parallel_group() -> Axis:
+    return get_topology().dp_axes
+
+
+def _get_data_parallel_world_size() -> int:
+    return get_topology().dp_size
+
+
+def _get_data_parallel_rank() -> int:
+    from .. import comm
+
+    return comm.axis_index(get_topology().dp_axes)
+
+
+def _clone_world_group() -> Axis:
+    return get_topology().all_axes
+
+
+def _get_model_parallel_group():
+    raise _not_ported("model-parallel")
+
+
+def _get_expert_parallel_group(group_name: str = "ep"):
+    raise _not_ported("expert-parallel")
+
+
+def _get_expert_data_parallel_group(group_name: str = "ep"):
+    raise _not_ported("expert-data-parallel")
+
+
+def _get_sequence_parallel_group():
+    raise _not_ported("sequence-parallel")

@@ -6,7 +6,8 @@ harness:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-This file imports only torch, numpy and the port.
+This file imports only torch, numpy, the port and the gloo-world launcher
+``tests/torch_dist_worker.py`` (torch only).
 """
 
 import numpy as np
@@ -16,6 +17,9 @@ import torch
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_adam as adam
 from deepspeed_tpu_torch.ops import paged_attention as port
+from deepspeed_tpu_torch.ops import quant
+
+from .torch_dist_worker import run_world
 
 pytestmark = pytest.mark.cuda
 
@@ -367,3 +371,56 @@ def test_checkpoint_round_trip_is_bitwise_on_card(tmp_path):
     for a, b in zip(state(resumed), state(first)):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
     assert float(resumed.train_batch(batch)) == float(first.train_batch(batch))
+
+
+@pytest.mark.parametrize("block", [2048, 512, 128])
+@pytest.mark.parametrize("n", [1, 2048, 2048 * 37 + 37])
+def test_quant_kernels_match_plain_versions_on_card(n, block):
+    """quantize (nearest and stochastic) and dequantize bitwise against
+    their plain versions; the stochastic kernel draws the plain version's
+    Philox words, and its pad lanes stay 0."""
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(n + block)
+    x = torch.randn(n, generator=gen, device="cuda")
+    nb = -(-n // block)
+    quant.reset_launch_counts()
+    q, s, shape = quant.quantize_int8(x, block)
+    q_ref, s_ref = quant.quantize_ref(x, n, nb, block)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    assert torch.equal(quant.dequantize_int8(q, s, shape), quant.dequantize_ref(q, s, n))
+    seed = quant.draw_seed(torch.Generator().manual_seed(3))
+    q_sr, s_sr, _ = quant.quantize_int8(x, block, stochastic=True,
+                                        generator=torch.Generator().manual_seed(3))
+    assert torch.equal(q_sr, quant.quantize_ref(x, n, nb, block, seed)[0])
+    assert torch.equal(s_sr, s) and bool((q_sr.view(-1)[n:] == 0).all())
+    assert quant.launch_counts == {"quantize_int8": 1, "quantize_int8_sr": 1,
+                                   "dequantize_int8": 1}
+    with pytest.raises(ValueError, match="block"):
+        quant.quantize_int8(x, 100)
+
+
+def test_two_rank_gloo_step_on_card(tmp_path):
+    """Two ranks share cuda:0 over gloo for one int8-compressed step: 2
+    quantize and 2 dequantize launches per rank, the masters bitwise equal
+    across the ranks."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    from deepspeed_tpu_torch.models import convert, init_params
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+
+    model = dict(vocab_size=97, hidden_size=64, intermediate_size=96, num_layers=2,
+                 num_heads=4, num_kv_heads=2, max_seq_len=32)
+    params = convert._flatten(init_params(TransformerConfig(**model), device="cpu",
+                                          dtype=torch.float32))
+    inputs = {"model": model, "params": convert._nest({k: v.numpy() for k, v in params.items()}),
+              "batches": [rng.integers(0, 97, (8, 32)).astype(np.int64)],
+              "config": {"train_micro_batch_size_per_gpu": 2,
+                         "gradient_accumulation_steps": 2, "steps_per_print": 10**9,
+                         "training_fastpath": {"attn_impl": "xla", "loss_impl": "xla"}}}
+    r0, r1 = run_world("cuda_step", 2, tmp_path, inputs, timeout=300)
+    assert r0["mode"] == "int8" and r0["loss"] == r1["loss"]
+    want = {"quantize_int8": 2, "quantize_int8_sr": 0, "dequantize_int8": 2}
+    assert r0["launches"] == r1["launches"] == want
+    for a, b in zip(r0["masters"], r1["masters"]):
+        np.testing.assert_array_equal(a, b)
