@@ -15,7 +15,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version and one library call computing the same function:
    the two paged-attention kernels at the serving slice's shapes (Llama-2-7B
    heads, a GQA shape, ragged kv lengths incl. 0 and a partial page, stats
-   on and off, bf16 and fp32); the flash-attention forward and its two
+   on and off, bf16 and fp32), and the decode kernel's int8 mode on the main
+   decode case's pools quantized by ``quantize_rows`` (layer 2, stats, bf16
+   and fp32 compute; library composite: gather + ``dequantize_rows`` +
+   SDPA); the block-sparse forward at Llama-2-7B's attention widths (B 1,
+   S 4096, H 32, D 128, block 64) over the bigbird (seed 0), fixed,
+   bslongformer, variable and local-window layouts, causal and not, at D 64,
+   block 128 and fp32, and an all-ones causal layout against the port's
+   flash forward (library: SDPA with the layout as a dense mask); the flash-attention forward and its two
    backward kernels at TinyLlama's shape (B 4, S 2048, 32/4 heads, D 64,
    causal, bf16), a Llama-2-7B head shape (32/32, D 128), a non-causal
    case and an fp32 case; fused Adam over odd tensor sizes in AdamW and L2
@@ -77,7 +84,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bytes equal to the JAX package's formula; the none run against one
    process on the same global batch; ``init_distributed`` on NCCL at world
    size 1 with one all-reduce. Its step time is two ranks sharing one card,
-   not a scaling number.
+   not a scaling number;
+12. int8 KV serving — phase 4's run with ``kv_cache_dtype="int8"``: every
+   request finishes, KV conservation, the decode kernel's int8 mode launches
+   (``paged_flash_decode_int8``) and no bf16-pool kernel does, the engine
+   resolves ``attn_impl`` einsum and ``decode_attn_impl`` pallas (the JAX
+   resolution), ``pool_nbytes`` equals 8 GiB of int8 + 256 MiB of scales,
+   the peak memory is below phase 4's; tok/s, TTFT and how many first
+   tokens equal phase 4's are printed. Then a float8_e4m3fn run at 2 layers
+   (4 requests x 32 tokens): the pool dtype, both paths einsum with
+   ``decode_attn_source`` fallback, pool bytes half of bf16's;
+13. int8 path parity — Llama-2-7B widths at 2 layers on seeded int8 pools:
+   ``decode_step`` and a 16-step ``decode_loop`` through the kernel path,
+   the einsum path (bf16) and the einsum path in float32; the kernel path's
+   logits within twice the einsum path's distance from float32;
+14. sparse attention path — forward and backward of
+   ``deepspeed_tpu_torch.ops.sparse_attention`` at phase 3's bigbird shape:
+   one kernel launch, the gradients finite and equal to autograd through
+   ``masked_dense_attention`` within 1e-3 of their largest value.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -87,6 +111,7 @@ checkout of the repository, the script exits non-zero and prints no result.
 import argparse
 import contextlib
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -235,11 +260,16 @@ def bound(nbytes, flops, dtype):
 def sdpa_packed(q, k_pool, v_pool, bt, start, chunk, kv_len, sm_scale):
     """Gathered pages + torch SDPA computing the packed function (timed as
     the library yardstick only; padded rows come out NaN, never compared)."""
+    return sdpa_gathered(q, k_pool[bt.long()], v_pool[bt.long()], start, chunk,
+                         kv_len, sm_scale)
+
+
+def sdpa_gathered(q, kg, vg, start, chunk, kv_len, sm_scale):
+    """torch SDPA over gathered pages ``[S, B, Hk, bs, D]``."""
     S, Q, Hq, D = q.shape
-    _, Hk, bs, _ = k_pool.shape
-    B = bt.shape[1]
-    kg = k_pool[bt.long()].permute(0, 2, 1, 3, 4).reshape(S, Hk, B * bs, D)
-    vg = v_pool[bt.long()].permute(0, 2, 1, 3, 4).reshape(S, Hk, B * bs, D)
+    _, B, Hk, bs, _ = kg.shape
+    kg = kg.permute(0, 2, 1, 3, 4).reshape(S, Hk, B * bs, D)
+    vg = vg.permute(0, 2, 1, 3, 4).reshape(S, Hk, B * bs, D)
     if Hq != Hk:
         kg = kg.repeat_interleave(Hq // Hk, dim=1)
         vg = vg.repeat_interleave(Hq // Hk, dim=1)
@@ -261,12 +291,46 @@ def sdpa_decode(q, k_pool, v_pool, bt, pos, kv_len, layer, sm_scale):
                        ones, kv_len, sm_scale)
 
 
+def int8_pools(k, v):
+    """``(int8 values, fp32 scales)`` pools quantized from fp pools by the
+    port's ``quantize_rows`` (the engine's quantize-on-scatter)."""
+    from deepspeed_tpu_torch.ops.quant import quantize_rows
+
+    return quantize_rows(k), quantize_rows(v)
+
+
+def decode_int8_work(q, k_vals, bt, pos, kv_len):
+    """(bytes, flops) of the decode function on int8 pools: each live K/V
+    row's D int8 values and fp32 scale read once, q read, o and the stats
+    written; 4*D flops per (query row, live slot)."""
+    S, Hq, D = q.shape
+    Hk = k_vals.shape[2]
+    it = q.element_size()
+    live = int(np.minimum(kv_len.cpu().numpy().astype(np.int64),
+                          pos.cpu().numpy().astype(np.int64) + 1).sum())
+    nbytes = live * Hk * (D + 4) * 2 + S * Hq * (2 * D * it + 8) + bt.numel() * 4
+    return nbytes, live * Hq * 4 * D
+
+
+def sdpa_decode_int8(q, kp, vp, bt, pos, kv_len, layer, sm_scale):
+    """The library composite of the int8 decode: gather the pages, dequantize
+    them (``dequantize_rows``), SDPA."""
+    from deepspeed_tpu_torch.ops.quant import dequantize_rows
+
+    btl = bt.long()
+    kg = dequantize_rows(kp[0][layer][btl], kp[1][layer][btl], q.dtype)
+    vg = dequantize_rows(vp[0][layer][btl], vp[1][layer][btl], q.dtype)
+    return sdpa_gathered(q[:, None], kg, vg, pos, torch.ones_like(kv_len),
+                         kv_len, sm_scale)
+
+
 def kernel_phase(pa):
     """Parity of both kernels with their plain versions over the slice's
     cases; returns the timing rows at the main path's shapes."""
     rng = np.random.default_rng(2024)
     ok = True
-    errs = {"paged_attention": 0.0, "paged_flash_decode": 0.0}
+    errs = {"paged_attention": 0.0, "paged_flash_decode": 0.0,
+            "paged_flash_decode_int8": 0.0}
     S, Q, D, bs, B = 16, 128, 128, 32, 64
     # a steady-state SplitFuse step of the slice: 14 decode rows over
     # contexts of 130..1150 tokens, two 121-token prompt chunks (one at the
@@ -335,6 +399,22 @@ def kernel_phase(pa):
             if spec is main_decode and dtype == torch.bfloat16:
                 errs["paged_flash_decode"] = err
                 timed["paged_flash_decode"] = ("decode", (q, k, v, bt, pos, kvl))
+            if spec is main_decode:
+                # the int8 mode on this case's pools, quantized by quantize_rows
+                kp, vp = int8_pools(k, v)
+                got = pa.paged_flash_decode(q, kp, vp, bt, pos, kvl, layer=2,
+                                            return_stats=True)
+                want = pa.paged_flash_decode_ref(q, kp, vp, bt, pos, kvl,
+                                                 layer=2, return_stats=True)
+                err, m_err, l_err, good = compare(got, want, dtype)
+                ok &= good
+                log(f"parity paged_flash_decode_int8 {name} {str(dtype)[6:]} "
+                    f"stats=True: max|o|err={err:.3e} m={m_err:.2e} "
+                    f"l={l_err:.2e} (tol {OUT_TOL[dtype]:g}) "
+                    f"{'ok' if good else 'FAIL'}")
+                if dtype == torch.bfloat16:
+                    errs["paged_flash_decode_int8"] = err
+                    timed["paged_flash_decode_int8"] = (q, kp, vp, bt, pos, kvl)
     if not ok:
         raise SystemExit("kernel parity FAILED (see lines above)")
 
@@ -361,6 +441,17 @@ def kernel_phase(pa):
             *dargs, layer=2, return_stats=True), iters=5),
         library_ms=cuda_ms(lambda: sdpa_decode(*dargs, 2, sm), iters=5),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=errs["paged_flash_decode"],
+        bytes=nbytes, flops=flops)
+    q, kp, vp, bt, pos, kvl = iargs = timed["paged_flash_decode_int8"]
+    nbytes, flops = decode_int8_work(q, kp[0], bt, pos, kvl)
+    b_ms, b_by = bound(nbytes, flops, q.dtype)
+    rows["paged_flash_decode_int8"] = dict(
+        ms=cuda_ms(lambda: pa.paged_flash_decode(*iargs, layer=2,
+                                                 return_stats=True)),
+        plain_ms=cuda_ms(lambda: pa.paged_flash_decode_ref(
+            *iargs, layer=2, return_stats=True), iters=5),
+        library_ms=cuda_ms(lambda: sdpa_decode_int8(*iargs, 2, sm), iters=5),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=errs["paged_flash_decode_int8"],
         bytes=nbytes, flops=flops)
     for name, r in rows.items():
         log(f"timing {name} (bf16, main-path shape): kernel {r['ms']:.4f} ms, "
@@ -488,6 +579,149 @@ def flash_phase(fa):
     log("timing note: plain and library backward times compute dQ, dK and dV "
         "together; compare them with dK/dV + dQ")
     return rows
+
+
+SPARSE_MAIN = dict(B=1, S=4096, H=32, D=128, block=64)   # Llama-2-7B heads
+
+
+def sparse_case(dtype, B, S, H, D, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    r = lambda: torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    return r(), r(), r()
+
+
+def sparse_work(live, B, S, H, D, block, it):
+    """(bytes, flops) of the sparse forward on these inputs: q, k, v read
+    once, o written once, the column lists read; 4*D*block^2 flops per live
+    (q-block, column) pair of the compacted layout (``live`` = its
+    ``cnt.sum()``), per batch."""
+    return 4 * B * S * H * D * it, 4 * D * block * block * live * B
+
+
+def sdpa_sparse(q, k, v, mask, sm_scale):
+    """torch SDPA with the layout expanded to a dense boolean mask (causal
+    folded in): one library call computing the same function (rows with no
+    live key come out NaN there; only timed)."""
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), attn_mask=mask[None],
+                                          scale=sm_scale)
+
+
+def sparse_phase(sa, fa):
+    """The sparse forward kernel against its plain version (the masked-dense
+    attention) at Llama-2-7B's attention widths (B 1, S 4096, H 32, D 128,
+    block 64) over every layout builder, causal and not; D 64; block 128;
+    fp32; an all-ones causal layout against the port's flash forward.
+    Timed at bigbird (seed 0), causal, bf16."""
+    tol = OUT_TOL   # summation order (fp32), one bf16 ulp (bf16)
+    B, S, H = SPARSE_MAIN["B"], SPARSE_MAIN["S"], SPARSE_MAIN["H"]
+    builders = {
+        "bigbird": lambda nb: sa.bigbird_layout(H, nb, seed=0),
+        "fixed": lambda nb: sa.fixed_layout(H, nb),
+        "bslongformer": lambda nb: sa.bslongformer_layout(H, nb),
+        "variable": lambda nb: sa.variable_layout(H, nb, num_random_blocks=1),
+        "local_window": lambda nb: sa.local_sliding_window_layout(H, nb),
+    }
+    cases = [(f"{n} causal={c}", n, c, 128, 64, torch.bfloat16)
+             for n in builders for c in (True, False)]
+    cases += [("bigbird D64", "bigbird", True, 64, 64, torch.bfloat16),
+              ("bigbird block128", "bigbird", True, 128, 128, torch.bfloat16),
+              ("bigbird fp32", "bigbird", True, 128, 64, torch.float32)]
+    ok, timed = True, None
+    for i, (name, lname, causal, D, block, dtype) in enumerate(cases):
+        layout = builders[lname](S // block)
+        q, k, v = sparse_case(dtype, B, S, H, D, seed=300 + i)
+        got = sa.sparse_attention(q, k, v, layout, causal=causal, block=block)
+        sl = sa._compact_layout(layout, causal, q.device)
+        want = sa.masked_dense_attention(
+            *(x.transpose(1, 2) for x in (q, k, v)), sl.layout, causal=causal,
+            sm_scale=D ** -0.5, block_q=block, block_k=block).transpose(1, 2)
+        err = (got.float() - want.float()).abs().max().item()
+        good = err <= tol[dtype] and bool(torch.isfinite(got).all())
+        ok &= good
+        empty = int((sl.cnt == 0).sum())
+        log(f"parity sparse_attention_fwd {name} D{D} block{block} "
+            f"{str(dtype)[6:]}: live pairs {int(sl.cnt.sum())} of "
+            f"{H * (S // block) ** 2}, empty q-blocks {empty}, max|o|err={err:.3e} "
+            f"(tol {tol[dtype]:g}) {'ok' if good else 'FAIL'}")
+        if i == 0:
+            timed = (q, k, v, layout, sl, err)
+        del got, want
+    # an all-ones causal layout is causal attention: the port's flash forward
+    q, k, v = sparse_case(torch.bfloat16, B, S, H, 128, seed=399)
+    ones = np.ones((H, S // 64, S // 64), bool)
+    err = (sa.sparse_attention(q, k, v, ones, causal=True, block=64).float()
+           - fa.flash_attention_forward(q, k, v, causal=True)[0].float()).abs().max().item()
+    good = err <= tol[torch.bfloat16]
+    ok &= good
+    log(f"parity sparse_attention_fwd all-ones causal vs flash forward bf16: "
+        f"max|o|err={err:.3e} (tol {tol[torch.bfloat16]:g}) {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise SystemExit("sparse kernel parity FAILED (see lines above)")
+
+    q, k, v, layout, sl, err = timed
+    D, block = SPARSE_MAIN["D"], SPARSE_MAIN["block"]
+    lo = torch.as_tensor(sl.layout, device="cuda")
+    mask = lo.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    mask &= torch.ones(S, S, dtype=torch.bool, device="cuda").tril()[None]
+    nbytes, flops = sparse_work(int(sl.cnt.sum()), B, S, H, D, block, q.element_size())
+    nbytes += sl.cols.numel() * 4 + sl.cnt.numel() * 4
+    b_ms, b_by = bound(nbytes, flops, q.dtype)
+    plain = lambda: sa.masked_dense_attention(
+        *(x.transpose(1, 2) for x in (q, k, v)), sl.layout, causal=True,
+        sm_scale=D ** -0.5, block_q=block, block_k=block)
+    row = dict(ms=cuda_ms(lambda: sa.sparse_attention(q, k, v, layout, causal=True,
+                                                      block=block)),
+               plain_ms=cuda_ms(plain, iters=3),
+               library_ms=cuda_ms(lambda: sdpa_sparse(q, k, v, mask, D ** -0.5), iters=5),
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes, flops=flops)
+    log(f"timing sparse_attention_fwd (bf16, B1 S4096 H32 D128 block64 bigbird "
+        f"causal, {int(sl.cnt.sum())} live pairs): kernel {row['ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop), plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms")
+    del mask
+    torch.cuda.empty_cache()
+    return {"sparse_attention_fwd": row}
+
+
+def sparse_path_phase(sa, sparse_op):
+    """Phase 14: forward and backward through the public entry point
+    (``deepspeed_tpu_torch.ops.sparse_attention``) at the full-width bigbird
+    shape. The forward launches the kernel once per call; the backward
+    recomputes through the plain version, so with the same cotangent the
+    gradients equal autograd through ``masked_dense_attention`` to rounding
+    (tolerance: 1e-3 of the largest gradient). Returns the launches."""
+    B, S, H, D, block = (SPARSE_MAIN[k] for k in ("B", "S", "H", "D", "block"))
+    layout = sa.bigbird_layout(H, S // block, seed=0)
+    q, k, v = (x.requires_grad_(True) for x in sparse_case(torch.bfloat16, B, S, H, D, 401))
+    w = sparse_case(torch.float32, B, S, H, D, 402)[0]
+    sa.reset_launch_counts()
+    out = sparse_op(q, k, v, layout, causal=True, block=block)
+    (out.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(sa.launch_counts)
+    ref = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    sl = sa._compact_layout(layout, True, q.device)
+    o_ref = sa.masked_dense_attention(*(x.transpose(1, 2) for x in ref), sl.layout,
+                                      causal=True, sm_scale=D ** -0.5, block_q=block,
+                                      block_k=block).transpose(1, 2)
+    (o_ref.float() * w).sum().backward()
+    errs = [(a.grad.float() - b.grad.float()).abs().max().item()
+            / max(b.grad.float().abs().max().item(), 1e-30) for a, b in zip((q, k, v), ref)]
+    finite = all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
+    o_err = (out.float() - o_ref.float()).abs().max().item()
+    good = (finite and max(errs) <= 1e-3 and o_err <= OUT_TOL[torch.bfloat16]
+            and launches["sparse_attention_fwd"] == 1)
+    log(f"sparse path (B1 S4096 H32 D128 block64 bigbird causal, bf16): forward "
+        f"launches {launches['sparse_attention_fwd']}, max|o|err {o_err:.3e}, grads "
+        f"finite {finite}, rel err dq/dk/dv {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
+        f"(tol 1e-3) {'ok' if good else 'FAIL'}")
+    if not good:
+        raise SystemExit("sparse path FAILED")
+    del q, k, v, w, out, ref, o_ref
+    torch.cuda.empty_cache()
+    return launches
 
 
 def adam_phase(adam):
@@ -770,7 +1004,14 @@ def device_time_breakdown(prof, wall_s: float, top: int = 15) -> None:
             f"{e.key[:90]}")
 
 
-def slice_phase(pa, card, profile=False):
+def slice_phase(pa, card, profile=False, kv=None, num_layers=None,
+                n_requests=16, new_tokens=128):
+    """Serve ``n_requests`` seeded prompts (lengths 128..1024) for
+    ``new_tokens`` each through ``LLMServer`` at Llama-2-7B widths with the
+    KV storage ``kv`` (``kv_cache_dtype``). Kernel launch counts are reset
+    just before and read just after the run. Gates: every request finishes
+    by length with in-vocabulary tokens, the server drains, KV conservation
+    holds. Returns what the run measured."""
     from deepspeed_tpu_torch.accelerator import get_accelerator
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceEngineConfig)
@@ -778,20 +1019,24 @@ def slice_phase(pa, card, profile=False):
     from deepspeed_tpu_torch.serving import FINISH_LENGTH, LLMServer, Request
 
     acc = get_accelerator()
-    cfg = llama_config("7b", dtype=torch.bfloat16)
+    over = {} if num_layers is None else {"num_layers": num_layers}
+    cfg = llama_config("7b", dtype=torch.bfloat16, **over)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(**SLICE),
-                               device="cuda")
+    engine = InferenceEngineV2(
+        cfg, params, RaggedInferenceEngineConfig(**SLICE, kv_cache_dtype=kv),
+        device="cuda")
     acc.synchronize()
-    log(f"slice: Llama-2-7B widths (hidden {cfg.hidden_size}, {cfg.num_layers} "
+    tag = f"slice[kv {kv or 'bf16'}]"
+    log(f"{tag}: Llama-2-7B widths (hidden {cfg.hidden_size}, {cfg.num_layers} "
         f"layers, {cfg.num_heads} heads, ffn {cfg.intermediate_size}, vocab "
-        f"{cfg.vocab_size}), bf16 seeded weights, KV pool "
-        f"{engine.kv.pool_nbytes() / 2**30:.2f} GiB, set-up "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{cfg.vocab_size}), bf16 seeded weights, KV pool {engine.kv.k.dtype} "
+        f"{engine.kv.pool_nbytes() / 2**30:.4f} GiB ({engine.kv.pool_nbytes()} B), "
+        f"attn_impl {engine.attn_impl}, decode_attn {engine.decode_attn_impl} "
+        f"({engine.decode_attn_source}), set-up {time.perf_counter() - t0:.1f} s")
     server = LLMServer(engine, fused_decode_chunk=16)
     rng = np.random.default_rng(7)
-    lens = rng.integers(128, 1025, 16)
+    lens = rng.integers(128, 1025, 16)[:n_requests]
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
 
     acc.reset_peak_memory_stats()
@@ -802,7 +1047,7 @@ def slice_phase(pa, card, profile=False):
     pa.reset_launch_counts()
     t0 = time.perf_counter()
     with trace:
-        resps = [server.submit(Request(p, max_new_tokens=128), block=True)
+        resps = [server.submit(Request(p, max_new_tokens=new_tokens), block=True)
                  for p in prompts]
         for r in resps:
             r.wait(timeout=900)
@@ -814,7 +1059,7 @@ def slice_phase(pa, card, profile=False):
         raise server.error
 
     finished = [r.done and r.finish_reason == FINISH_LENGTH
-                and len(r.tokens) == 128 for r in resps]
+                and len(r.tokens) == new_tokens for r in resps]
     in_vocab = all(0 <= t < cfg.vocab_size for r in resps for t in r.tokens)
     engine.kv.assert_conservation([s.blocks for s in engine.state_manager.all()])
     conserved = (not engine.state_manager.all()
@@ -823,28 +1068,72 @@ def slice_phase(pa, card, profile=False):
     tokens = sum(len(r.tokens) for r in resps)
     ttft = sorted(r.ttft_s for r in resps)
     peak = acc.max_memory_allocated()
-    log(f"slice: {sum(finished)}/16 requests finished by length, drain "
+    log(f"{tag}: {sum(finished)}/{n_requests} requests finished by length, drain "
         f"{drained}, tokens in vocab {in_vocab}, KV conservation "
         f"{'holds' if conserved else 'BROKEN'} ({engine.kv.free_blocks} free "
         f"of {engine.kv.num_blocks - 1})")
-    log(f"slice: prompt tokens {int(lens.sum())}, generated {tokens}, engine "
+    log(f"{tag}: prompt tokens {int(lens.sum())}, generated {tokens}, engine "
         f"steps {engine.steps}, kernel launches {launches} "
         f"(packed steps x {cfg.num_layers} layers; fused chunks x 16 steps x "
         f"{cfg.num_layers} layers)")
-    log(f"slice [{card}]: {tokens / wall:.1f} generated tok/s over {wall:.2f} s, "
+    log(f"{tag} [{card}]: {tokens / wall:.1f} generated tok/s over {wall:.2f} s, "
         f"TTFT p50 {snap['ttft']['p50_ms']:.1f} ms p99 "
         f"{snap['ttft']['p99_ms']:.1f} ms (mean {np.mean(ttft) * 1e3:.1f} ms), "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     if profile:
         device_time_breakdown(trace, wall)
     if not (all(finished) and drained and in_vocab and conserved):
-        raise SystemExit("slice FAILED")
-    for name, n in launches.items():
-        if n <= 0:
-            raise SystemExit(f"slice did not launch the {name} kernel")
+        raise SystemExit(f"{tag} FAILED")
+    out = dict(launches=launches, peak=peak, first=[r.tokens[0] for r in resps],
+               pool_nbytes=engine.kv.pool_nbytes(), pool_dtype=engine.kv.k.dtype,
+               resolution=(engine.attn_impl, engine.decode_attn_impl,
+                           engine.decode_attn_source), cfg=cfg)
     del server, engine, params
     torch.cuda.empty_cache()
-    return launches
+    return out
+
+
+def kv_quant_phase(pa, card, bf16_run, profile=False):
+    """Phase 12: the serving slice with int8 KV storage (16 requests, 128
+    new tokens, Llama-2-7B at full width and depth), then a short float8
+    run (2 layers at full width). Returns the int8 run's launches."""
+    run = slice_phase(pa, card, kv="int8", profile=profile)
+    cfg, c = run["cfg"], SLICE
+    rows = cfg.num_layers * c["num_kv_blocks"] * cfg.kv_heads * c["kv_block_size"]
+    want_bytes = 2 * rows * cfg.head_dim + 2 * rows * 4    # int8 values + fp32 scales
+    launches = run["launches"]
+    same_first = sum(a == b for a, b in zip(run["first"], bf16_run["first"]))
+    checks = {
+        "int8 decode kernel launched": launches["paged_flash_decode_int8"] > 0,
+        "no bf16-pool kernel launched": (launches["paged_attention"] == 0
+                                         and launches["paged_flash_decode"] == 0),
+        "attn_impl einsum, decode_attn_impl pallas": run["resolution"][:2]
+        == ("einsum", "pallas"),
+        f"pool_nbytes == {want_bytes}": run["pool_nbytes"] == want_bytes,
+        "peak below the bf16 run's": run["peak"] < bf16_run["peak"],
+    }
+    log(f"kv int8: pool {run['pool_nbytes'] / 2**30:.4f} GiB against bf16 "
+        f"{bf16_run['pool_nbytes'] / 2**30:.4f} GiB; peak "
+        f"{run['peak'] / 2**30:.2f} GiB against {bf16_run['peak'] / 2**30:.2f} GiB; "
+        f"first tokens equal to the bf16 run's: {same_first}/{len(run['first'])}; "
+        + ", ".join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    fp8 = slice_phase(pa, card, kv="float8_e4m3fn", num_layers=2, n_requests=4,
+                      new_tokens=32)
+    fcfg = fp8["cfg"]
+    bf16_bytes = (2 * fcfg.num_layers * c["num_kv_blocks"] * fcfg.kv_heads
+                  * c["kv_block_size"] * fcfg.head_dim * 2)
+    fchecks = {
+        "pool float8_e4m3fn": fp8["pool_dtype"] == torch.float8_e4m3fn,
+        "both paths einsum (fallback)": fp8["resolution"] == ("einsum", "einsum",
+                                                             "fallback"),
+        "pool bytes half of bf16's": 2 * fp8["pool_nbytes"] == bf16_bytes,
+        "no kernel launched": not any(fp8["launches"].values()),
+    }
+    log("kv float8 (2 layers): " + ", ".join(
+        f"{k}: {'ok' if v else 'FAIL'}" for k, v in fchecks.items()))
+    if not (all(checks.values()) and all(fchecks.values())):
+        raise SystemExit("kv quant phase FAILED")
+    return {"paged_flash_decode_int8": launches["paged_flash_decode_int8"]}
 
 
 # ---------------------------------------------------------------------------
@@ -938,6 +1227,66 @@ def path_phase():
         f"{tok_agree('einsum', 'fp32'):.3f}")
     if d_logits > NOISE_FACTOR * noise or d_step > NOISE_FACTOR * step_noise:
         raise SystemExit("path parity FAILED")
+
+
+def int8_path_phase():
+    """Phase 13: the int8 pools' decode through the model functions at
+    Llama-2-7B widths (2 layers, seeded weights): ``decode_step`` and a
+    16-step ``decode_loop`` on the kernel path (the decode kernel's int8
+    mode), the einsum path (gather + dequantize) in bf16, and the einsum
+    path in float32, each on its own copy of the same int8 pools. The kernel
+    path's logits must sit within twice the einsum path's distance from
+    float32."""
+    from deepspeed_tpu_torch.inference.v2 import model
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    cfg = llama_config("7b", num_layers=2, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=2, device=dev, dtype=torch.bfloat16)
+    S, bs, B, W = 8, 32, 64, 16
+    rng = np.random.default_rng(13)
+    pos0 = torch.from_numpy(rng.integers(100, 1900, S).astype(np.int32)).to(dev)
+    first = torch.from_numpy(rng.integers(0, cfg.vocab_size, S).astype(np.int32)).to(dev)
+    bt = (1 + torch.arange(S * B, dtype=torch.int32, device=dev)).reshape(S, B)
+    shape = (cfg.num_layers, 1 + S * B, cfg.kv_heads, bs, cfg.head_dim)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    kp, vp = int8_pools(torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16),
+                        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16))
+    active = torch.ones(S, dtype=torch.bool, device=dev)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    runs = {"kernel": ("pallas", cfg, params), "einsum": ("einsum", cfg, params),
+            "fp32": ("einsum", cfg32, _cast(params, torch.float32))}
+    copy = lambda p: tuple(t.clone() for t in p)
+    step_logits, toks = {}, {}
+    pa_counts = {}
+    for name, (impl, c, p) in runs.items():
+        wk = torch.zeros((c.num_layers, W, S, c.kv_heads, c.head_dim), dtype=c.dtype,
+                         device=dev)
+        step_logits[name] = model.decode_step(p, c, copy(kp), copy(vp), wk,
+                                              torch.zeros_like(wk), first, pos0, pos0,
+                                              bt, active, 0, impl)
+        pa.reset_launch_counts()
+        toks[name], _, _ = model.decode_loop(p, c, copy(kp), copy(vp), first, pos0, bt,
+                                             active, None, 1.0, n_steps=W,
+                                             attn_impl=impl)
+        pa_counts[name] = pa.launch_counts["paged_flash_decode_int8"]
+    sdist = lambda a, b: (step_logits[a] - step_logits[b]).abs().max().item()
+    d_step, noise = sdist("kernel", "einsum"), sdist("einsum", "fp32")
+    agree = lambda a, b: (toks[a] == toks[b]).float().mean().item()
+    good = d_step <= NOISE_FACTOR * noise and pa_counts["kernel"] == W * cfg.num_layers
+    log(f"int8 path parity decode step (2 layers, 8 seqs, ctx 100..1900): "
+        f"max|dlogits| kernel-einsum={d_step:.3e}, einsum-fp32={noise:.3e}, "
+        f"kernel-fp32={sdist('kernel', 'fp32'):.3e} (need kernel-einsum <= "
+        f"{NOISE_FACTOR:g} x einsum-fp32); decode_loop {W} greedy steps: int8 kernel "
+        f"launches {pa_counts['kernel']}, token agreement kernel-einsum "
+        f"{agree('kernel', 'einsum'):.3f}, kernel-fp32 {agree('kernel', 'fp32'):.3f}, "
+        f"einsum-fp32 {agree('einsum', 'fp32'):.3f} {'ok' if good else 'FAIL'}")
+    if not good:
+        raise SystemExit("int8 path parity FAILED")
+    del kp, vp, params, runs
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1669,9 +2018,9 @@ def cards_run(n_cards: int, card: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serving run and one extra training step with "
-                         "torch.profiler and print device time by kernel (slows "
-                         "the runs it traces)")
+                    help="trace the serving runs (bf16 and int8 KV) and one extra "
+                         "training step with torch.profiler and print device time "
+                         "by kernel (slows the runs it traces)")
     ap.add_argument("--cards", type=int, default=0,
                     help="instead of the phases: data-parallel training over NCCL on "
                          "this many cards, one rank each, at full depth")
@@ -1695,15 +2044,18 @@ def main() -> int:
     from deepspeed_tpu_torch.ops import fused_loss as fl
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import quant as qk
+    from deepspeed_tpu_torch.ops import sparse_attention as sparse_op
+    # the module (the package exports the op under the module's name)
+    sa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
 
     t_start = time.perf_counter()
     # phase 1
-    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    device_name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     card = smi.splitlines()[0]
-    log(f"device: {name} (count {count}), torch {torch.__version__}, "
+    log(f"device: {device_name} (count {count}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 parity: no TF32
@@ -1724,30 +2076,51 @@ def main() -> int:
             raise SystemExit(f"--cards {args.cards}: only {count} cards")
         return cards_run(args.cards, card)
 
+    def timed(label, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        log(f"phase time: {label} {time.perf_counter() - t:.1f} s")
+        return out
+
     # phase 3
-    rows = kernel_phase(pa)
-    rows.update(flash_phase(fa))
-    rows.update(adam_phase(adam))
-    rows.update(fused_loss_phase(fl))
+    rows = timed("3 paged", kernel_phase, pa)
+    rows.update(timed("3 flash", flash_phase, fa))
+    rows.update(timed("3 sparse", sparse_phase, sa, fa))
+    rows.update(timed("3 adam", adam_phase, adam))
+    rows.update(timed("3 fused loss", fused_loss_phase, fl))
     # phase 10: the block-quant kernels
-    rows.update(quant_phase(qk))
+    rows.update(timed("10 quant", quant_phase, qk))
     # phase 4, 5: the serving path
-    launches = slice_phase(pa, card, profile=args.profile)
-    path_phase()
+    bf16_run = timed("4 serving", slice_phase, pa, card, profile=args.profile)
+    launches = {n: bf16_run["launches"][n]
+                for n in ("paged_attention", "paged_flash_decode")}
+    for kernel, n in launches.items():
+        if n <= 0:
+            raise SystemExit(f"slice did not launch the {kernel} kernel")
+    timed("5 serving parity", path_phase)
+    # phase 12, 13: int8 and float8 KV serving, int8 path parity
+    launches.update(timed("12 int8/fp8 KV serving", kv_quant_phase, pa, card, bf16_run,
+                          profile=args.profile))
+    timed("13 int8 path parity", int8_path_phase)
+    # phase 14: sparse attention through its entry point
+    launches.update(timed("14 sparse path", sparse_path_phase, sa, sparse_op))
     # phase 6, 7: the training path
-    launches.update(train_phase((fa, adam, fl), card, profile=args.profile))
-    train_parity_phase()
+    launches.update(timed("6 training", train_phase, (fa, adam, fl), card,
+                          profile=args.profile))
+    timed("7 training parity", train_parity_phase)
     # phase 8, 9: activation checkpointing, checkpoint save and resume
-    remat_phase(fa)
-    checkpoint_phase()
+    timed("8 remat", remat_phase, fa)
+    timed("9 checkpoint", checkpoint_phase)
     # phase 11: data-parallel training, the compressed gradient all-reduce
-    launches.update(dp_phase(card))
+    launches.update(timed("11 data parallel", dp_phase, card))
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"
     origin = {
         "paged_attention": ("paged_attention.cu", "paged_attention.py:53"),
         "paged_flash_decode": ("paged_attention.cu", "paged_attention.py:224"),
+        "paged_flash_decode_int8": ("paged_attention_int8.cu", "paged_attention.py:224"),
+        "sparse_attention_fwd": ("sparse_attention.cu", "sparse_attention.py:151"),
         "flash_attention_fwd": ("flash_attention.cu", "flash_attention.py:52"),
         "flash_attention_bwd_dkdv": ("flash_attention.cu", "flash_attention.py:149"),
         "flash_attention_bwd_dq": ("flash_attention.cu", "flash_attention.py:199"),
@@ -1768,7 +2141,7 @@ def main() -> int:
                for n, r in rows.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": count}}))
     return 0
 

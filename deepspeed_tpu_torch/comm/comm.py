@@ -72,6 +72,14 @@ def log_compressed(op: str, logical_bytes: int, wire_bytes: int, latency_s: floa
                          hop_class=link)
 
 
+def log_local(op: str, nbytes: int) -> None:
+    """Ledger entry for LOCAL (device-memory) traffic an implementation
+    choice implies, such as the paged-decode pool bytes
+    (``inference/v2/model.py``: the einsum path's gathered copy against the
+    kernels' in-place page reads). No collective runs."""
+    _COMMS_LOGGER.append(op, int(nbytes))
+
+
 # ---------------------------------------------------------------------------
 # bootstrap
 # ---------------------------------------------------------------------------

@@ -10,9 +10,16 @@ scheduler, allocator, prefix index and packing are the JAX engine's; the
 forward runs eagerly on a ``torch.device`` with the paged KV pools updated in
 place.
 
-Left out of this slice (ROADMAP.md): speculative decoding
-(``spec_decode_batch``), quantized or storage-cast KV pools, the collective
-planner's decode-attention hook.
+KV storage (``kv_cache_dtype``): ``None`` keeps the pools in the compute
+dtype; ``"int8"`` stores quantized rows with per-row scales (quantized on
+scatter; prompt chunks attend on the gathered-dequant path, fused decode on
+the decode kernel's int8 mode); any float dtype name, such as
+``"float8_e4m3fn"``, is a storage cast served on the gathered path. The
+resolution of both attention paths follows the JAX engine and is visible in
+``attn_impl``, ``decode_attn_impl`` and ``decode_attn_source``.
+
+Left out (ROADMAP.md): speculative decoding (``spec_decode_batch``) and the
+collective planner's decode-attention hook.
 """
 
 from dataclasses import dataclass
@@ -23,6 +30,7 @@ import torch
 
 from ...accelerator import resolve_device
 from ...models.transformer import TransformerConfig
+from ...utils.logging import logger
 from .model import check_supported, decode_loop, ragged_step
 from .ragged.kv_cache import BlockedKVCache
 from .ragged.prefix_index import ROOT_HASH, chain_hashes, hash_block
@@ -43,18 +51,24 @@ class RaggedInferenceEngineConfig:
     kv_block_size: int = 32
     max_blocks_per_seq: int = 64
     dtype: str = "float32"
-    # KV pool storage dtype; only None (= the compute dtype) in this slice
+    # KV pool storage dtype: None = the compute dtype; "int8" = quantized
+    # rows with per-row fp32 scales (ops/quant.py quantize_rows); a float
+    # dtype name (e.g. "float8_e4m3fn") = a storage cast, dequantized on the
+    # gathered path
     kv_cache_dtype: Optional[str] = None
     greedy: bool = True
     temperature: float = 1.0
     seed: int = 0
-    # "auto" and "pallas" (the name of the kernel path, kept from the JAX
-    # package): the paged kernels — hand-written Hopper kernels on a CUDA
-    # device, their plain versions on the CPU. "einsum": the gathered-page
-    # reference path, only when asked for.
+    # "pallas" (the name of the kernel path, kept from the JAX package):
+    # the paged kernels — hand-written Hopper kernels on a CUDA device, their
+    # plain versions on the CPU. "einsum": the gathered-page reference path.
+    # "auto": the kernel path when the pools hold the compute dtype, else
+    # einsum (the packed kernel takes compute-dtype pools only).
     attn_backend: str = "auto"    # auto | pallas | einsum
     # fused-decode attention path (model.decode_loop) specifically:
-    # model field > this knob > attn_backend > the kernel path
+    # model field > this knob > attn_backend > the kernel path; a pool the
+    # decode kernel cannot read (a storage cast other than int8) falls back
+    # to einsum with a one-time warning
     decode_attn_backend: str = "auto"   # auto | pallas | einsum
     # decode iterations fused into one decode_batch() call
     decode_chunk: int = 16
@@ -76,6 +90,28 @@ class ReuseStats:
     cow_forks: int = 0               # shared blocks copy-on-write-forked
 
 
+_WARNED = set()
+
+
+def _warn_once(msg: str) -> None:
+    if msg not in _WARNED:
+        _WARNED.add(msg)
+        logger.warning(msg)
+
+
+def kv_storage_dtype(name: Optional[str], dtype: torch.dtype) -> torch.dtype:
+    """The pools' storage dtype for ``kv_cache_dtype`` ``name`` (``None``:
+    the compute dtype ``dtype``)."""
+    if name is None:
+        return dtype
+    found = getattr(torch, str(name), None)
+    if not (isinstance(found, torch.dtype)
+            and (found == torch.int8 or found.is_floating_point)):
+        raise ValueError(f"kv_cache_dtype={name!r} names neither int8 nor a "
+                         "torch float dtype (e.g. 'float8_e4m3fn', 'bfloat16')")
+    return found
+
+
 class InferenceEngineV2:
     """``InferenceEngineV2(cfg, params, config, device="cuda")``: ``cfg`` is
     the port's :class:`TransformerConfig`, ``params`` the flax-layout tree of
@@ -89,20 +125,16 @@ class InferenceEngineV2:
         self.cfg = cfg
         self.device = resolve_device(device)
         check_supported(cfg)
-        if c.kv_cache_dtype is not None:
-            raise NotImplementedError(
-                f"kv_cache_dtype={c.kv_cache_dtype!r}: quantized and "
-                "storage-cast KV pools are not in this slice (ROADMAP.md, "
-                "int8/fp8 KV)")
         for knob in (c.attn_backend, c.decode_attn_backend, cfg.decode_attn_impl):
             if knob not in _BACKENDS:
                 raise ValueError(f"attn backend must be auto|pallas|einsum, "
                                  f"got {knob!r}")
         dtype = getattr(torch, c.dtype)
+        kv_dtype = kv_storage_dtype(c.kv_cache_dtype, dtype)
         self.params = _cast_tree(params, dtype, self.device)
         self.kv = BlockedKVCache(cfg.num_layers, c.num_kv_blocks,
                                  c.kv_block_size, cfg.kv_heads, cfg.head_dim,
-                                 dtype=dtype, device=self.device,
+                                 dtype=kv_dtype, device=self.device,
                                  enable_prefix_index=c.enable_prefix_cache)
         self.state_manager = DSStateManager(self.kv)
         self.reuse = ReuseStats()
@@ -112,20 +144,61 @@ class InferenceEngineV2:
                                           max_blocks_per_seq=c.max_blocks_per_seq)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(c.seed))
-        self.attn_impl = "einsum" if c.attn_backend == "einsum" else "pallas"
-        self.decode_attn_impl = self._resolve_decode_attn()
+        # packed (prompt-chunk) path: the packed kernel takes compute-dtype
+        # pools; quantized and storage-cast pools dequantize on the gather
+        if c.attn_backend == "auto":
+            self.attn_impl = "pallas" if kv_dtype == dtype else "einsum"
+        elif c.attn_backend == "pallas" and kv_dtype != dtype:
+            _warn_once(
+                f"attn_backend='pallas' with kv_cache_dtype={c.kv_cache_dtype}: "
+                "the packed-step kernel takes compute-dtype pools, so prompt "
+                "chunks run the einsum gather; the fused decode path keeps "
+                "the pallas kernel (int8 dequant fused in-kernel)")
+            self.attn_impl = "einsum"
+        else:
+            self.attn_impl = c.attn_backend
+        self.decode_attn_impl, self.decode_attn_source = \
+            self._resolve_decode_attn(kv_dtype, dtype)
         self.steps = 0
         self.last_num_scheduled = 0
 
-    def _resolve_decode_attn(self) -> str:
-        """Fused-decode attention path: model field > decode_attn_backend >
-        attn_backend > the kernel path."""
+    def _decode_structural_bail(self, kv_dtype, dtype) -> Optional[str]:
+        """Why the decode kernel cannot serve this model and pool, or None.
+        It computes plain scaled causal attention over compute-dtype or int8
+        ``(values, scales)`` pools. (The ALiBi and window clauses stay
+        unreachable while ``check_supported`` refuses those families.)"""
+        if self.cfg.position == "alibi":
+            return "the ALiBi per-head bias rides the logits"
+        if self.cfg.layer_windows is not None:
+            return "per-layer attention windows mask the logits"
+        if kv_dtype != dtype and kv_dtype != torch.int8:
+            return (f"kv_cache_dtype={self.config.kv_cache_dtype} "
+                    "storage-cast pools dequantize on the gather path")
+        return None
+
+    def _resolve_decode_attn(self, kv_dtype, dtype) -> Tuple[str, str]:
+        """Fused-decode attention path as ``(impl, source)``: the model field
+        (``"model"``) > ``decode_attn_backend``, then ``attn_backend``
+        (``"config"``) > the kernel path (``"heuristic"``). A structural bail
+        demotes a kernel pick to einsum with a one-time warning
+        (``"fallback"``)."""
         c = self.config
-        for knob in (self.cfg.decode_attn_impl, c.decode_attn_backend,
-                     c.attn_backend):
-            if knob != "auto":
-                return knob
-        return "pallas"
+        want, source = "pallas", "heuristic"
+        if self.cfg.decode_attn_impl != "auto":
+            want, source = self.cfg.decode_attn_impl, "model"
+        elif c.decode_attn_backend != "auto":
+            want, source = c.decode_attn_backend, "config"
+        elif c.attn_backend != "auto":
+            want, source = c.attn_backend, "config"
+        if want == "pallas":
+            reason = self._decode_structural_bail(kv_dtype, dtype)
+            if reason:
+                _warn_once(
+                    f"decode_attn='pallas' ({source}) but {reason} — fused "
+                    "decode falls back to the gathered-page einsum "
+                    "reference (one-time notice)")
+                return "einsum", "fallback"
+        return want, source
 
     # ------------------------------------------------------------------
     # admission (reference put/query/can_schedule)

@@ -15,6 +15,13 @@ the paged kernels of ``ops/paged_attention.py`` (hand-written Hopper
 kernels on a CUDA device, their plain versions on the CPU), ``"einsum"``
 runs the gathered-page reference path.
 
+KV pool forms: a pool argument is a tensor ``[L, N, Hk, bs, D]`` (compute
+dtype, or a storage dtype such as ``torch.float8_e4m3fn`` that rows are
+cast to and from) or, for int8 storage, a ``(values int8, scales fp32
+[L, N, Hk, bs])`` tuple: rows are quantized on scatter (``quantize_rows``)
+and dequantized on the gather, or by the decode kernel's int8 mode. The
+packed kernel takes compute-dtype pools only, as in the JAX package.
+
 Parameters are the flax tree as nested dicts of tensors
 (``models/convert.py``). Float32 matmuls run in full fp32 (TF32 off) so the
 fp32 path matches the JAX package's.
@@ -25,13 +32,16 @@ from typing import Tuple
 
 import torch
 
+from ... import comm
 from ...models.transformer import (TransformerConfig, _block_out, _dense,
                                    _dense_multi_in, _embed, _lm_logits, _norm,
                                    _rope_tables, apply_rope,
                                    merge_partial_attention)
-from ...ops.paged_attention import (NEG_INF, gathered_paged_attention,
-                                    paged_flash_decode)
+from ...ops.paged_attention import (NEG_INF, attention_over_pages,
+                                    gather_pages, paged_flash_decode,
+                                    pool_layer, pool_values, storage_bits)
 from ...ops.paged_attention import paged_attention as paged_attention_kernel
+from ...ops.quant import quantize_rows
 
 _LEFT_OUT = "(ROADMAP.md, modules left out of the first slice: {})"
 
@@ -54,12 +64,57 @@ def check_supported(cfg: TransformerConfig) -> None:
                 "MoE/ALiBi/window families"))
 
 
+# the JAX module's names for the pool-form helpers
+_pool_values, _kv_layer = pool_values, pool_layer
+
+
+def _log_pool(op: str, nbytes: int) -> None:
+    """Ledger entry for the pool bytes an attention path touches per layer
+    and step: ``paged_pool_gather`` is the einsum path's gathered copy,
+    ``paged_pool_read`` the kernels' in-place page-read upper bound (every
+    block-table page at storage width, scales included)."""
+    comm.log_local(op, int(nbytes))
+
+
 def _kv_write(pool, i, tgt_block, tgt_slot, vals):
     """Scatter new KV rows ``vals`` [T', Hk, D] into layer ``i``'s pages
     (in place; advanced indices around the head slice put the token axis
-    first, as in the JAX ``.at[i, block, :, slot]``)."""
-    pool[i][tgt_block, :, tgt_slot] = vals.to(pool.dtype)
+    first, as in the JAX ``.at[i, block, :, slot]``). Quantized pools get
+    the rows' int8 values and scales (``quantize_rows``); one-byte float
+    pools are written through their uint8 view."""
+    if isinstance(pool, tuple):
+        q, s = pool
+        qv, sv = quantize_rows(vals)
+        q[i][tgt_block, :, tgt_slot] = qv
+        s[i][tgt_block, :, tgt_slot] = sv
+        return pool
+    storage_bits(pool[i])[tgt_block, :, tgt_slot] = storage_bits(vals.to(pool.dtype))
     return pool
+
+
+def _gather_pages(pool, block_table, dtype):
+    """Gather a layer's pages ``[S, B, Hk, bs, D]`` in ``dtype``: quantized
+    pools dequantize on the gather, storage-cast pools are cast back. Logs
+    the gathered copy's bytes (the JAX package's count: storage width for
+    plain pools, ``dtype`` for dequantized ones)."""
+    out = gather_pages(pool, block_table, dtype)
+    width = (out.element_size() if isinstance(pool, tuple)
+             else pool.element_size())
+    _log_pool("paged_pool_gather", out.numel() * width)
+    return out
+
+
+def _pool_read_bytes(pool, block_table) -> int:
+    """Per-step upper bound on the bytes a paged kernel can read from one
+    pool: every block-table page at storage width (and the fp32 scale rows
+    of int8 pools) — never a materialized copy."""
+    vals = _pool_values(pool)
+    hk, bs, d = vals.shape[-3:]
+    pages = block_table.numel()
+    n = pages * hk * bs * d * vals.element_size()
+    if isinstance(pool, tuple):
+        n += pages * hk * bs * 4
+    return n
 
 
 def _rope(x, cos, sin, positions, interleaved=False):
@@ -95,13 +150,15 @@ def paged_attention(qg, k_pool, v_pool, block_table, positions_g, q_valid,
     """Grouped paged attention over gathered pages — the ``"einsum"`` path.
 
     qg: [S, Q, Hq, D] grouped queries; k/v_pool: [N, Hk, bs, D] this layer's
-    pages; block_table: [S, B]; positions_g: [S, Q] absolute positions;
+    pages, or its ``(int8 values, scales)`` tuple (dequantized on the
+    gather); block_table: [S, B]; positions_g: [S, Q] absolute positions;
     q_valid: [S, Q] bool; kv_len: [S]. Returns [S, Q, Hq, D] (and the
     softmax ``(m, l)`` per row with ``return_stats``). ``scale`` overrides
     1/sqrt(d)."""
-    return gathered_paged_attention(qg, k_pool, v_pool, block_table,
-                                    positions_g, q_valid, kv_len,
-                                    sm_scale=scale, return_stats=return_stats)
+    kg = _gather_pages(k_pool, block_table, qg.dtype)
+    vg = _gather_pages(v_pool, block_table, qg.dtype)
+    return attention_over_pages(qg, kg, vg, positions_g, q_valid, kv_len,
+                                sm_scale=scale, return_stats=return_stats)
 
 
 def _ragged_hidden(params, cfg: TransformerConfig, kv_k, kv_v, tokens,
@@ -112,7 +169,7 @@ def _ragged_hidden(params, cfg: TransformerConfig, kv_k, kv_v, tokens,
     into the pools in place. ``attn_impl``: "einsum" or "pallas"."""
     check_supported(cfg)
     T = tokens.shape[0]
-    bs = kv_k.shape[3]
+    bs = _pool_values(kv_k).shape[3]
     tokens, positions = tokens.long(), positions.long()
     gidx = gather_idx.long()
     x = _embed(cfg, params, tokens, positions)                      # [T, H]
@@ -141,12 +198,21 @@ def _ragged_hidden(params, cfg: TransformerConfig, kv_k, kv_v, tokens,
         _kv_write(kv_k, i, tgt_block, tgt_slot, kg.reshape(-1, hk, d))
         _kv_write(kv_v, i, tgt_block, tgt_slot, vg.reshape(-1, hk, d))
         if attn_impl == "pallas":
+            if isinstance(kv_k, tuple):
+                raise ValueError(
+                    "the packed-step pallas kernel takes compute-dtype "
+                    "pools; quantized pools run the einsum gather here "
+                    "(the fused-dequant kernel serves decode_loop)")
+            _log_pool("paged_pool_read",
+                      _pool_read_bytes(kv_k, block_table)
+                      + _pool_read_bytes(kv_v, block_table))
             out = paged_attention_kernel(qg, kv_k[i], kv_v[i], block_table,
                                          start_pos, chunk_len, kv_len,
                                          sm_scale=cfg.attn_scale)
         else:
-            out = paged_attention(qg, kv_k[i], kv_v[i], block_table, pos_g,
-                                  q_valid, kv_len, scale=cfg.attn_scale)
+            out = paged_attention(qg, _kv_layer(kv_k, i), _kv_layer(kv_v, i),
+                                  block_table, pos_g, q_valid, kv_len,
+                                  scale=cfg.attn_scale)
         # ungroup back to the flat token buffer ([T+1] with pad row dropped)
         flat = torch.zeros((T + 1, h, d), dtype=out.dtype, device=out.device)
         flat[flat_idx] = out.reshape(-1, h, d)
@@ -236,15 +302,19 @@ def decode_step(params, cfg: TransformerConfig, kv_k, kv_v, wk, wv, toks, pos,
         wv[i, t] = vt.to(wv.dtype)
         if attn_impl == "pallas":
             # resident-pool flash decode: the kernel resolves (layer, page)
-            # through the block table — no layer slice or gathered copy
+            # through the block table — no layer slice or gathered copy;
+            # int8 pools ride as (values, scales), dequantized in the kernel
+            _log_pool("paged_pool_read",
+                      _pool_read_bytes(kv_k, block_table)
+                      + _pool_read_bytes(kv_v, block_table))
             o1, m1, l1 = paged_flash_decode(
                 qt, kv_k, kv_v, block_table, pos.to(torch.int32), pool_len,
                 layer=i, sm_scale=sm, return_stats=True)            # [S, Hq, *]
         else:
             o1, m1, l1 = paged_attention(
-                qt[:, None], kv_k[i], kv_v[i], block_table, pos[:, None],
-                active[:, None], pool_len, return_stats=True,
-                scale=cfg.attn_scale)
+                qt[:, None], _kv_layer(kv_k, i), _kv_layer(kv_v, i),
+                block_table, pos[:, None], active[:, None], pool_len,
+                return_stats=True, scale=cfg.attn_scale)
             o1, m1, l1 = o1[:, 0], m1[:, 0], l1[:, 0]
         # dense attention over the in-window tokens (incl. this one)
         qr = qt.reshape(S, Hk, G, D)
@@ -282,10 +352,12 @@ def decode_loop(params, cfg: TransformerConfig, kv_k, kv_v, tokens0, pos0,
     tokens0: [S] last sampled token per sequence; pos0: [S] its absolute
     position (== tokens cached so far); block_table [S, B] must already cover
     ``pos0 + n_steps``; active: [S] bool (inactive slots write to the trash
-    block). Returns (tokens [S, n_steps] int32, kv_k, kv_v)."""
+    block). The window buffer stays in the compute dtype; the final scatter
+    quantizes or casts into the pool's storage. Returns (tokens
+    [S, n_steps] int32, kv_k, kv_v)."""
     exact_fp32()
     S = tokens0.shape[0]
-    bs = kv_k.shape[3]
+    bs = _pool_values(kv_k).shape[3]
     L, Hk, D = cfg.num_layers, cfg.kv_heads, cfg.head_dim
     W = n_steps
     dev = tokens0.device

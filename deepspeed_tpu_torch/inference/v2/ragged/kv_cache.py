@@ -6,6 +6,17 @@ head's page is a contiguous ``[block_size, D]`` tile the paged kernels read
 row by row), living on the engine's device across steps; block reservation is
 host-side via :class:`BlockedAllocator`.
 
+``dtype=torch.int8`` selects quantized storage: the pools hold int8 rows and
+per-row fp32 scales ``[L, num_blocks, Hk, block_size]`` ride beside them
+(one absmax scale per (page, slot, head) row, the ``ops/quant.py``
+``quantize_rows`` convention). Writers quantize on scatter; readers
+dequantize on the gathered (einsum) path or hand the ``(values, scales)``
+pair to the paged flash-decode kernel, which dequantizes each page row as it
+reads it. Any float dtype (``torch.float8_e4m3fn``) is plain storage: rows
+are cast on write and cast back on read. One-byte float pools are indexed
+through a ``torch.uint8`` view (bit-exact), since advanced indexing of
+float8 tensors is not implemented on every device.
+
 Residency contract: where the JAX engine donates the pools through every
 jitted step and installs the returned arrays, the port updates the pool
 tensors IN PLACE (``index_put_`` in the model's scatters). :meth:`update` is
@@ -25,9 +36,7 @@ the moment a reservation actually needs the capacity. Shared pages are
 read-only by construction: only token-aligned FULL blocks are ever
 registered/mapped, appends land in fresh pages past them, and the one
 write that could touch a shared page (re-running the final prompt token of
-a fully-cached prompt) goes through :meth:`cow_fork` first.
-
-Quantized (int8) storage is not part of this slice (see ROADMAP.md)."""
+a fully-cached prompt) goes through :meth:`cow_fork` first."""
 
 from typing import Dict, List, Optional
 
@@ -36,6 +45,14 @@ import torch
 from ....accelerator import resolve_device
 from .blocked_allocator import BlockedAllocator
 from .prefix_index import PrefixIndex
+
+
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    """Zero bits are 0.0 in every storage dtype: one-byte dtypes are made as
+    uint8 and viewed (a float8 fill is not implemented on every device)."""
+    if torch.empty((), dtype=dtype).element_size() == 1:
+        return torch.zeros(shape, dtype=torch.uint8, device=device).view(dtype)
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 class BlockedKVCache:
@@ -54,16 +71,33 @@ class BlockedKVCache:
         self.cow_forks = 0
         shape = (num_layers, num_blocks, kv_heads, block_size, head_dim)
         dev = resolve_device(device)
-        self.k = torch.zeros(shape, dtype=dtype, device=dev)
-        self.v = torch.zeros(shape, dtype=dtype, device=dev)
+        self.k = _zeros(shape, dtype, dev)
+        self.v = _zeros(shape, dtype, dev)
+        # int8 storage: per-row scales live beside the pool (scale 1.0 for
+        # never-written slots keeps dequant of the zero payload exactly zero)
+        self.k_scale = self.v_scale = None
+        if self.quantized:
+            self.k_scale = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
+            self.v_scale = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
 
     def pool_args(self):
-        """The (kv_k, kv_v) pools the model functions read and write."""
+        """The (kv_k, kv_v) pools the model functions read and write: the
+        tensors, or ``(values, scales)`` tuples when the pool stores
+        quantized rows (the model keys its dequant paths on the tuple)."""
+        if self.quantized:
+            return (self.k, self.k_scale), (self.v, self.v_scale)
         return self.k, self.v
 
     def pool_nbytes(self) -> int:
-        """Total device bytes both pools hold."""
-        return 2 * self.k.numel() * self.k.element_size()
+        """Total device bytes both pools (and the int8 scales) hold."""
+        n = 2 * self.k.numel() * self.k.element_size()
+        if self.quantized:
+            n += 2 * self.k_scale.numel() * self.k_scale.element_size()
+        return n
 
     @property
     def free_blocks(self) -> int:
@@ -123,13 +157,14 @@ class BlockedKVCache:
 
     def cow_fork(self, page: int) -> int:
         """Copy-on-write fork: allocate a private page and copy ``page``'s
-        payload (all layers) so the caller can write into its copy without
-        corrupting the shared original. The caller still owns its reference
-        on ``page`` and must :meth:`release` it after swapping the fork into
-        the block table."""
+        payload (all layers, and the int8 scales when quantized) so the
+        caller can write into its copy without corrupting the shared
+        original. The caller still owns its reference on ``page`` and must
+        :meth:`release` it after swapping the fork into the block table."""
         (new,) = self._allocate(1)
-        self.k[:, new] = self.k[:, page]
-        self.v[:, new] = self.v[:, page]
+        for t in (self.k, self.v, self.k_scale, self.v_scale):
+            if t is not None:
+                t[:, new] = t[:, page]
         self.cow_forks += 1
         return new
 
@@ -166,7 +201,11 @@ class BlockedKVCache:
     def update(self, k, v) -> None:
         """No-op: the model functions wrote the pools in place. Kept so the
         engine reads like the JAX engine, which installs donated pools
-        here; it checks that the tensors handed back are the pools."""
-        if k is not self.k or v is not self.v:
+        here; it checks that what is handed back (tensors, or ``(values,
+        scales)`` tuples) is what :meth:`pool_args` handed out."""
+        same = lambda a, b: (all(x is y for x, y in zip(a, b))
+                             if isinstance(a, tuple) else a is b)
+        want_k, want_v = self.pool_args()
+        if not (same(k, want_k) and same(v, want_v)):
             raise ValueError("the port updates the KV pools in place; "
                              "update() takes the pools it handed out")

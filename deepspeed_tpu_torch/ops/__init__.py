@@ -8,16 +8,18 @@ its two backward kernels of the training path (``csrc/flash_attention.cu``);
 ``fused_loss`` — the LM head fused into the cross entropy, forward and
 backward (``csrc/fused_loss.cu``); ``quant`` — block int8 quantize
 (nearest and stochastic rounding) and dequantize of the compressed
-gradient all-reduce (``csrc/quant.cu``). All are CUDA C++ built by
-``_build``.
+gradient all-reduce (``csrc/quant.cu``); ``sparse_attention`` — the
+block-sparse attention forward over a static layout's compacted columns
+(``csrc/sparse_attention.cu``). All are CUDA C++ built by ``_build``.
 """
 
 from .fused_loss import fused_loss_ready, fused_vocab_nll
 from .quant import (BLOCK, dequantize_int8, dequantize_rows, pack_signs,
                     quantize_int8, quantize_rows, quantized_all_gather,
                     quantized_reduce_scatter, shard_layout, unpack_signs)
+from .sparse_attention import sparse_attention
 
 __all__ = ["fused_vocab_nll", "fused_loss_ready", "BLOCK", "dequantize_int8",
            "dequantize_rows", "pack_signs", "quantize_int8", "quantize_rows",
            "quantized_all_gather", "quantized_reduce_scatter", "shard_layout",
-           "unpack_signs"]
+           "sparse_attention", "unpack_signs"]

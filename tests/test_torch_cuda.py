@@ -18,6 +18,9 @@ from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_adam as adam
 from deepspeed_tpu_torch.ops import paged_attention as port
 from deepspeed_tpu_torch.ops import quant
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    bigbird_layout, fixed_layout, launch_counts as sparse_launches,
+    masked_dense_attention, sparse_attention)
 
 from .torch_dist_worker import run_world
 
@@ -87,7 +90,8 @@ def test_wrappers_count_launches_and_reject_bad_inputs():
                    kv_lens=[4, 20], chunk_lens=[4, 2])
     port.reset_launch_counts()
     port.paged_attention(*args)
-    assert port.launch_counts == {"paged_attention": 1, "paged_flash_decode": 0}
+    assert port.launch_counts == {"paged_attention": 1, "paged_flash_decode": 0,
+                                  "paged_flash_decode_int8": 0}
     q, k, v, *rest = args
     with pytest.raises(ValueError, match="dtype"):
         port.paged_attention(q, k.float(), v.float(), *rest)
@@ -97,6 +101,157 @@ def test_wrappers_count_launches_and_reject_bad_inputs():
     with pytest.raises(ValueError, match="int32"):
         port.paged_attention(q, k, v, rest[0].long(), *rest[1:])
     assert port.launch_counts["paged_attention"] == 1
+
+
+def _int8_pools(k, v):
+    """``(values, scales)`` pools quantized from fp pools (``quantize_rows``)."""
+    return quant.quantize_rows(k), quant.quantize_rows(v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_int8_mode_matches_plain_version_on_card(dtype, D):
+    """The decode kernel's int8 mode against its plain version (dequantize
+    the layer with ``dequant_rows_tile``, then the plain decode): GQA 32/8
+    and MHA, layer 1 of 2, ragged lengths incl. 0 and a partial page."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for Hq, Hk in ((32, 8), (8, 8)):
+        q, k, v, bt, _, _, kvl = _packed(
+            rng, dtype, S=4, Q=1, Hq=Hq, Hk=Hk, D=D, bs=32, B=8,
+            kv_lens=[16, 45, 200, 0], chunk_lens=[1, 1, 1, 0])
+        kp, vp = _int8_pools(torch.stack([k.flip(0), k]), torch.stack([v.flip(0), v]))
+        qd = q[:, 0].contiguous()
+        port.reset_launch_counts()
+        for stats in (False, True):
+            got = port.paged_flash_decode(qd, kp, vp, bt, kvl, kvl, layer=1,
+                                          return_stats=stats)
+            want = port.paged_flash_decode_ref(qd, kp, vp, bt, kvl, kvl, layer=1,
+                                               return_stats=stats)
+            for g, w in zip(got if stats else [got], want if stats else [want]):
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+        assert port.launch_counts["paged_flash_decode_int8"] == 2
+        assert port.launch_counts["paged_flash_decode"] == 0
+
+
+def test_decode_int8_wrapper_rejects_bad_pools_on_card():
+    _need_card()
+    rng = np.random.default_rng(10)
+    q, k, v, bt, _, _, kvl = _packed(rng, torch.bfloat16, S=2, Q=1, Hq=8, Hk=8,
+                                     D=64, bs=16, B=4, kv_lens=[4, 20],
+                                     chunk_lens=[1, 1])
+    (kq, ks), (vq, vs) = _int8_pools(k, v)
+    qd = q[:, 0].contiguous()
+    with pytest.raises(ValueError, match="float32"):
+        port.paged_flash_decode(qd, (kq, ks.double()), (vq, vs), bt, kvl, kvl)
+    with pytest.raises(ValueError, match="float32"):
+        port.paged_flash_decode(qd, (kq, ks[..., :-1].contiguous()), (vq, vs),
+                                bt, kvl, kvl)
+    with pytest.raises(ValueError, match="int8"):
+        port.paged_flash_decode(qd, (kq.float(), ks), (vq.float(), vs), bt, kvl, kvl)
+    with pytest.raises(ValueError, match="head_dim"):
+        port.paged_flash_decode(qd[..., :32].contiguous(),
+                                (kq[..., :32].contiguous(), ks),
+                                (vq[..., :32].contiguous(), vs), bt, kvl, kvl)
+
+
+@pytest.mark.parametrize("kv", ["int8", "float8_e4m3fn"])
+def test_engine_on_quantized_pools_on_card(kv):
+    """An int8 engine's fused decode launches the int8 mode (its prompt
+    chunks take the gathered path); a float8 engine serves on the gathered
+    path. Greedy float32 tokens equal those of the same engine with its
+    decode on the gathered path."""
+    _need_card()
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=97, hidden_size=256,
+                            intermediate_size=192, num_layers=2, num_heads=4,
+                            num_kv_heads=2, max_seq_len=256,
+                            dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 97, n).astype(np.int32) for n in (7, 19, 40)]
+    outs = []
+    for decode in ("auto", "einsum"):
+        eng = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            token_budget=32, max_ragged_sequence_count=4, max_chunk_size=16,
+            num_kv_blocks=64, kv_block_size=8, max_blocks_per_seq=16,
+            kv_cache_dtype=kv, decode_attn_backend=decode), device="cuda")
+        assert eng.attn_impl == "einsum"
+        kernel = kv == "int8" and decode == "auto"
+        assert eng.decode_attn_impl == ("pallas" if kernel else "einsum")
+        port.reset_launch_counts()
+        outs.append(eng.generate(prompts, max_new_tokens=12))
+        assert (port.launch_counts["paged_flash_decode_int8"] > 0) == kernel
+        assert port.launch_counts["paged_attention"] == 0
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_float8_cast_beyond_its_range_on_card():
+    """On the card torch's float8_e4m3fn cast gives NaN once a value rounds
+    above 448, as the JAX ``astype`` does (the CPU build of torch that the
+    CPU tests run saturates instead; tests/test_torch_kv_quant.py)."""
+    _need_card()
+    x = torch.tensor([448.0, 464.0, 470.0, -1000.0, 3.0], device="cuda")
+    y = x.to(torch.float8_e4m3fn).float().tolist()
+    assert y[:2] == [448.0, 448.0] and y[4] == 3.0
+    assert all(np.isnan(y[2:4]))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,block", [(64, 64), (128, 64), (128, 128)])
+def test_sparse_kernel_matches_plain_version_on_card(D, block, dtype, causal):
+    """The sparse forward kernel against the masked-dense plain version on a
+    bigbird layout (random blocks above the diagonal) and a layout with
+    empty q-blocks; the backward through the entry point equals autograd
+    through the plain version."""
+    _need_card()
+    B, S, H = 2, 1024, 4
+    nb = S // block
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    r = lambda: torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    q, k, v = r(), r(), r()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    empty = np.zeros((H, nb, nb), bool)
+    empty[:, 2:, 1] = True                          # q-blocks 0, 1 have nothing
+    for layout in (bigbird_layout(H, nb, seed=1), empty):
+        sparse_launches["sparse_attention_fwd"] = 0
+        got = sparse_attention(q, k, v, layout, causal=causal, block=block)
+        assert sparse_launches["sparse_attention_fwd"] == 1
+        lo = layout if not causal else layout & np.tril(np.ones((nb, nb), bool))
+        want = masked_dense_attention(*(x.transpose(1, 2) for x in (q, k, v)), lo,
+                                      causal=causal, sm_scale=D ** -0.5,
+                                      block_q=block, block_k=block).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not got[:, :2 * block].float().any()
+    qg, kg, vg = (x.float().requires_grad_(True) for x in (q, k, v))
+    layout = fixed_layout(H, nb, num_local_blocks=2)
+    (sparse_attention(qg, kg, vg, layout, causal=causal, block=block) ** 2).sum().backward()
+    ref = [x.detach().clone().requires_grad_(True) for x in (qg, kg, vg)]
+    lo = layout if not causal else layout & np.tril(np.ones((nb, nb), bool))
+    (masked_dense_attention(*(x.transpose(1, 2) for x in ref), lo, causal=causal,
+                            sm_scale=D ** -0.5, block_q=block, block_k=block)
+     ** 2).sum().backward()
+    for a, b in zip((qg, kg, vg), ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_sparse_kernel_rejects_what_it_was_not_built_for_on_card():
+    _need_card()
+    x = torch.randn(1, 256, 2, 32, device="cuda", dtype=torch.bfloat16)
+    lo = np.ones((2, 4, 4), bool)
+    with pytest.raises(ValueError, match="head_dim"):
+        sparse_attention(x, x, x, lo, block=64)
+    y = torch.randn(1, 256, 2, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="block"):
+        sparse_attention(y, y, y, np.ones((2, 8, 8), bool), block=32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sparse_attention(y.half(), y.half(), y.half(), lo, block=64)
 
 
 def test_engine_kernel_path_matches_einsum_path_on_card():

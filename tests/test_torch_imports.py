@@ -46,12 +46,17 @@ def _imported_modules(path: Path):
 def test_port_sources_exist():
     names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
     assert "chip_smoke.py" in names
-    for op in ("paged_attention", "flash_attention", "fused_adam", "fused_loss", "quant"):
+    for shared in ("attention_tiles.cuh", "paged_attention.cuh", "paged_attention_int8.cu"):
+        assert (REPO / "deepspeed_tpu_torch/ops/csrc" / shared).exists()
+    for op in ("paged_attention", "flash_attention", "fused_adam", "fused_loss", "quant",
+               "sparse_attention"):
         assert f"deepspeed_tpu_torch/ops/{op}.py" in names
         assert (REPO / f"deepspeed_tpu_torch/ops/csrc/{op}.cu").exists()
     for mod in ("runtime/engine.py", "runtime/config.py", "ops/optimizers.py",
                 "comm/comm.py", "comm/compressed.py", "parallel/topology.py",
-                "utils/comms_logging.py", "utils/groups.py"):
+                "utils/comms_logging.py", "utils/groups.py",
+                "inference/v2/model.py", "inference/v2/engine_v2.py",
+                "inference/v2/ragged/kv_cache.py"):
         assert f"deepspeed_tpu_torch/{mod}" in names
 
 

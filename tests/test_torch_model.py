@@ -45,9 +45,9 @@ def _np_tree(tree):
 
 def tiny_pair(family="llama", seed=0, **overrides):
     """(JAX config, port config, numpy params) for one tiny model."""
-    base = dict(vocab_size=97, hidden_size=64, intermediate_size=96,
-                num_layers=2, num_heads=4, max_seq_len=128,
-                **FAMILIES[family], **overrides)
+    base = {**dict(vocab_size=97, hidden_size=64, intermediate_size=96,
+                   num_layers=2, num_heads=4, max_seq_len=128),
+            **FAMILIES[family], **overrides}
     jcfg = jtf.TransformerConfig(**base, dtype=jnp.float32)
     tcfg = ttf.TransformerConfig(**base, dtype=torch.float32)
     params = jtf.TransformerLM(jcfg).init(
