@@ -30,9 +30,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tensors; the fused LM loss (forward, dl, dh, dK) at TinyLlama's head
    (T 8192, E 2048, V 32000, bf16) and a ragged shape (T 3007, E 1000,
    V 50257, z_loss, half the rows at zero cotangent, untied and tied heads,
-   bf16 and fp32), timed beside its plain version and the library
-   composite (bf16 matmul + F.cross_entropy), and its peak extra memory
-   against the composite's;
+   bf16 and fp32), each case reporting the route its backward took
+   (``wgmma`` or ``mma_sync``; the main shape must take ``wgmma``), timed
+   beside its plain version and the library composite (bf16 matmul +
+   F.cross_entropy), the backward's dl, dh and dK kernels on both routes at
+   the main shape, and its peak extra memory against the composite's;
 4. serving slice — Llama-2-7B at full width (bf16, seeded random weights
    made on the card) served by ``LLMServer`` over ``InferenceEngineV2``: 16
    requests with seeded prompt lengths in [128, 1024], 128 new tokens each.
@@ -867,16 +869,20 @@ def fused_loss_phase(fl):
         g_lse, g_tgt = loss_cotangents(lse_r, shape["T"], z, masked, seed=300 + i)
         if no_tgt:
             g_tgt = torch.zeros_like(g_tgt)
+        kvt, base = fl._layout(k)
+        route = fl.backward_route(h, base)
+        vc = fl.chunk_width(shape["T"], shape["V"], h.element_size())
+        n_chunks = -(-shape["V"] // vc)
+        fl.reset_launch_counts()
         dh, dk = fl.fused_nll_backward(h, k, t, lse_r, g_lse, g_tgt)
+        routed = dict(fl.route_counts)
         dh_r, dk_r = fl.fused_nll_bwd_ref(h, k, t, lse_r, g_lse, g_tgt)
         # one workspace chunk of the dl kernel (the last, ragged where V is)
         # against the plain dl over the same columns
-        kvt, base = fl._layout(k)
-        vc = fl.chunk_width(shape["T"], shape["V"], h.element_size())
         v0 = (shape["V"] - 1) // vc * vc
         width = shape["V"] - v0
         ws = torch.empty((shape["T"], vc), dtype=h.dtype, device="cuda")
-        fl.launch_dlogits(h, base, t, lse_r, g_lse, g_tgt, ws, v0, width, kvt)
+        fl.launch_dlogits(h, base, t, lse_r, g_lse, g_tgt, ws, v0, width, kvt, route)
         dl_r = fl.fused_dlogits_ref(h, k, t, lse_r, g_lse, g_tgt, v0, width)
         torch.cuda.synchronize()
         e = {"lse": scaled_err(lse, lse_r), "tgt": scaled_err(tgt, tgt_r),
@@ -885,11 +891,15 @@ def fused_loss_phase(fl):
         good = all(rel <= (1e-4 if key in ("lse", "tgt") else tol[dtype])
                    for key, (_, rel) in e.items())
         good &= dh.dtype == h.dtype and dk.dtype == k.dtype and dk.shape == k.shape
+        # every backward launch took the route the wrapper chose
+        good &= routed[route] == 3 * n_chunks and sum(routed.values()) == 3 * n_chunks
         ok &= good
         log(f"parity fused_loss {name} {str(dtype)[6:]} T{shape['T']} E{shape['E']} "
-            f"V{shape['V']} (dl chunk {v0}+{width}): "
+            f"V{shape['V']} (route {route}, {routed}; dl chunk {v0}+{width}): "
             + ", ".join(f"{key} max|err|={a:.3e} (rel {r:.2e})" for key, (a, r) in e.items())
             + f" (tol rel lse/tgt 1e-4, dl/dh/dK {tol[dtype]:g}) {'ok' if good else 'FAIL'}")
+        if shape is main and route != "wgmma":
+            raise SystemExit(f"fused loss: the main shape took the {route} route, not wgmma")
         if shape is main:
             for kname, key in (("fused_loss_fwd", "lse"), ("fused_loss_fwd", "tgt"),
                                ("fused_loss_dlogits", "dl"), ("fused_loss_dh", "dh"),
@@ -911,14 +921,24 @@ def fused_loss_phase(fl):
     dh, dk = torch.empty_like(h), torch.empty_like(k)
     dh_acc = torch.empty((T, E), dtype=torch.float32, device="cuda")
     n = len(chunks)
-    passes = {
-        "fused_loss_fwd": lambda: fl.fused_nll_forward(h, k, t),
-        "fused_loss_dlogits": lambda: [fl.launch_dlogits(h, k, t, lse, g_lse, g_tgt, ws, v0,
-                                                         w, 0) for v0, w in chunks],
-        "fused_loss_dh": lambda: [fl.launch_dh(ws, k, dh_acc, dh, v0, w, c == 0, c == n - 1, 0)
-                                  for c, (v0, w) in enumerate(chunks)],
-        "fused_loss_dk": lambda: [fl.launch_dk(h, ws, dk, v0, w, 0) for v0, w in chunks],
-    }
+
+    def backward_passes(route):
+        return {
+            "fused_loss_dlogits": lambda: [fl.launch_dlogits(h, k, t, lse, g_lse, g_tgt, ws,
+                                                             v0, w, 0, route)
+                                           for v0, w in chunks],
+            "fused_loss_dh": lambda: [fl.launch_dh(ws, k, dh_acc, dh, v0, w, c == 0,
+                                                   c == n - 1, 0, route)
+                                      for c, (v0, w) in enumerate(chunks)],
+            "fused_loss_dk": lambda: [fl.launch_dk(h, ws, dk, v0, w, 0, route)
+                                      for v0, w in chunks],
+        }
+
+    passes = {"fused_loss_fwd": lambda: fl.fused_nll_forward(h, k, t),
+              **backward_passes("wgmma")}
+    # the backward's other route at the same shape, in the same run
+    mma_sync_ms = {name: cuda_ms(fn, iters=10)
+                   for name, fn in backward_passes("mma_sync").items()}
     plain_fwd = cuda_ms(lambda: fl.fused_nll_fwd_ref(h, k, t), iters=3)
     plain_bwd = cuda_ms(lambda: fl.fused_nll_bwd_ref(h, k, t, lse, g_lse, g_tgt), iters=3)
     # the library composite: no single PyTorch call computes this function
@@ -944,10 +964,19 @@ def fused_loss_phase(fl):
                           library_ms=lib_fwd if fwd else lib_bwd, bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=errs[name])
         r = rows[name]
+        route = "" if fwd else " on the wgmma route"
         log(f"timing {name} (bf16, T{T} E{E} V{V}{'' if fwd else f', {n} chunks of {vc}'}): "
-            f"kernel {r['ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({io[name]} B, "
-            f"{gemm} flop), plain {r['plain_ms']:.4f} ms, library composite "
-            f"{r['library_ms']:.4f} ms")
+            f"kernel{route} {r['ms']:.4f} ms ({gemm / r['ms'] / 1e9:.1f} TFLOP/s), bound "
+            f"{b_ms:.4f} ms by {b_by} ({io[name]} B, {gemm} flop), plain "
+            f"{r['plain_ms']:.4f} ms, library composite {r['library_ms']:.4f} ms")
+        if not fwd:
+            ms = mma_sync_ms[name]
+            log(f"timing {name} on the mma_sync route: {ms:.4f} ms "
+                f"({gemm / ms / 1e9:.1f} TFLOP/s); wgmma / mma_sync {r['ms'] / ms:.3f}")
+    wg_sum = sum(rows[name]["ms"] for name in mma_sync_ms)
+    ms_sum = sum(mma_sync_ms.values())
+    log(f"timing fused-loss backward (dl + dh + dK): wgmma {wg_sum:.4f} ms, mma_sync "
+        f"{ms_sum:.4f} ms, ratio {wg_sum / ms_sum:.3f}")
     log("timing note: the library composite is torch.matmul (bf16) + F.cross_entropy "
         "(forward) and its autograd backward (dh and dK together); the plain backward "
         "also computes dh and dK together: compare them with dlogits + dh + dK")
@@ -1394,7 +1423,7 @@ def train_phase(kernels, card, profile=False):
         t0 = time.perf_counter()
         with trace:
             float(engine.train_batch(batch))
-        device_time_breakdown(trace, time.perf_counter() - t0, top=25)
+        device_time_breakdown(trace, time.perf_counter() - t0, top=30)
     del engine, model, params, batch
     torch.cuda.empty_cache()
     return launches
@@ -1698,7 +1727,7 @@ def quant_phase(qk):
         del d
         sr_gen = torch.Generator().manual_seed(n + block)
         seed = qk.draw_seed(torch.Generator().manual_seed(n + block))
-        q_sr, s_sr, _ = qk.quantize_int8(x, block, stochastic=True, generator=sr_gen)
+        q_sr, s_sr, _ = qk.quantize_int8(x, block, stochastic=True, key=sr_gen)
         q_sr_ref, _ = qk.quantize_ref(x, n, nb, block, seed)
         sr_bitwise = torch.equal(q_sr, q_sr_ref)
         sr_err = (q_sr.int() - q_sr_ref.int()).abs().max().item()
@@ -1737,7 +1766,7 @@ def quant_phase(qk):
                 lambda: qk.quantize_int8(x, block),
                 lambda: qk.quantize_ref(x, n, nb, block), composite, 6),
             "quantize_int8_sr": (
-                lambda: qk.quantize_int8(x, block, stochastic=True, generator=sr_seed),
+                lambda: qk.quantize_int8(x, block, stochastic=True, key=sr_seed),
                 lambda: qk.quantize_ref(x, n, nb, block, seed), composite_sr, 30),
             "dequantize_int8": (
                 lambda: qk.dequantize_int8(q, s, shape),
@@ -2126,9 +2155,9 @@ def main() -> int:
         "flash_attention_bwd_dq": ("flash_attention.cu", "flash_attention.py:199"),
         "fused_adam": ("fused_adam.cu", "fused_adam.py:27"),
         "fused_loss_fwd": ("fused_loss.cu", "fused_loss.py:73"),
-        "fused_loss_dlogits": ("fused_loss.cu", "fused_loss.py:152"),
-        "fused_loss_dh": ("fused_loss.cu", "fused_loss.py:164"),
-        "fused_loss_dk": ("fused_loss.cu", "fused_loss.py:185"),
+        "fused_loss_dlogits": ("fused_loss_sm90.cu", "fused_loss.py:152"),
+        "fused_loss_dh": ("fused_loss_sm90.cu", "fused_loss.py:164"),
+        "fused_loss_dk": ("fused_loss_sm90.cu", "fused_loss.py:185"),
         "quantize_int8": ("quant.cu", "quant.py:32"),
         "quantize_int8_sr": ("quant.cu", "quant.py:41"),
         "dequantize_int8": ("quant.cu", "quant.py:55"),

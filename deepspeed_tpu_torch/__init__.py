@@ -29,12 +29,25 @@ from .comm import init_distributed
 from .runtime import activation_checkpointing as checkpointing
 from .runtime.config import DeepSpeedTPUConfig, load_config
 from .runtime.engine import DeepSpeedTPUEngine, TrainState, initialize
+from .version import __version__
 
 # reference name for the engine class (deepspeed/__init__.py:24)
 DeepSpeedEngine = DeepSpeedTPUEngine
 
-__version__ = "0.1.0"
+
+def add_config_arguments(parser):
+    """Attach the DeepSpeed command-line group (reference
+    ``deepspeed/__init__.py:268``): the ``--deepspeed`` flag and
+    ``--deepspeed_config <json>``, so reference training scripts parse
+    unchanged."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag for user code)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="DeepSpeed json configuration file.")
+    return parser
+
 
 __all__ = ["DeepSpeedEngine", "DeepSpeedTPUConfig", "DeepSpeedTPUEngine",
-           "TrainState", "checkpointing", "comm", "init_distributed", "initialize",
-           "load_config"]
+           "TrainState", "add_config_arguments", "checkpointing", "comm",
+           "init_distributed", "initialize", "load_config", "version"]

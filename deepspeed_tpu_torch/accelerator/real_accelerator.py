@@ -24,6 +24,22 @@ def get_accelerator() -> DeepSpeedAccelerator:
     return _accelerator
 
 
+def set_accelerator(accel: DeepSpeedAccelerator) -> None:
+    """Install ``accel`` process-wide."""
+    global _accelerator
+    _accelerator = accel
+
+
+def set_accelerator_by_name(name: str) -> DeepSpeedAccelerator:
+    """Build the named accelerator (the port has one: ``"cuda"``) and
+    install it process-wide."""
+    if name.lower() != "cuda":
+        raise ValueError(f"unknown accelerator {name!r}: the port has 'cuda' only (the CPU "
+                         "runs the plain versions when an entry point gets device='cpu')")
+    set_accelerator(CUDA_Accelerator())
+    return get_accelerator()
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises when it names CUDA and no
     card is present. Only an explicit ``"cpu"`` runs on the host."""

@@ -4,8 +4,9 @@ package's ``state_dict_factory`` (Megatron split and merge over tp) comes
 with the parallelism side paths, ROADMAP.md Queue A item 8."""
 
 from .deepspeed_checkpoint import DeepSpeedCheckpoint
-from .engine import (get_fp32_state_dict_from_zero_checkpoint, load_checkpoint,
+from .engine import (CheckpointEngine, TorchCheckpointEngine,
+                     get_fp32_state_dict_from_zero_checkpoint, load_checkpoint,
                      save_checkpoint, zero_to_fp32)
 
-__all__ = ["DeepSpeedCheckpoint", "save_checkpoint", "load_checkpoint", "zero_to_fp32",
+__all__ = ["CheckpointEngine", "TorchCheckpointEngine", "DeepSpeedCheckpoint", "save_checkpoint", "load_checkpoint", "zero_to_fp32",
            "get_fp32_state_dict_from_zero_checkpoint"]

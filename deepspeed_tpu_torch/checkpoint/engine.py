@@ -2,8 +2,7 @@
 
 Reference: engine ``save_checkpoint``/``load_checkpoint``
 (``runtime/engine.py:3140,2794``). The JAX package's pluggable
-``CheckpointEngine`` base has one backend here, ``TorchCheckpointEngine``,
-so the port has no base class until a second backend exists.
+``CheckpointEngine`` base has one backend here, ``TorchCheckpointEngine``.
 
 The layout is the JAX package's, with ``torch.save`` in place of orbax:
 
@@ -48,7 +47,21 @@ def _to_host(tree):
         lambda x: x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else x, tree)
 
 
-class TorchCheckpointEngine:
+class CheckpointEngine:
+    """Pluggable storage backend (reference ``CheckpointEngine`` ABC; the
+    JAX package's base class)."""
+
+    def save(self, tree: Any, path: str):
+        raise NotImplementedError
+
+    def load(self, path: str, template: Any = None, shardings: Any = None) -> Any:
+        raise NotImplementedError
+
+    def wait(self):
+        pass
+
+
+class TorchCheckpointEngine(CheckpointEngine):
     """Default engine (reference ``TorchCheckpointEngine``): ``torch.save``
     of the state tree. The tree is copied to the host before ``save``
     returns; with ``use_async`` the file is written by a background thread,
@@ -83,7 +96,13 @@ class TorchCheckpointEngine:
             write()
             self.wait()
 
-    def load(self, path: str) -> Any:
+    def load(self, path: str, template: Any = None, shardings: Any = None) -> Any:
+        """The saved tree (``torch.load`` keeps its structure, so
+        ``template`` is not needed); ``shardings`` (a sharded restore) is the
+        parallelism side paths' work."""
+        if shardings is not None:
+            raise NotImplementedError("a sharded restore (shardings=...) is not ported yet: "
+                                      "ROADMAP.md Queue A item 8 (parallelism side paths)")
         target = os.path.join(path, STATE_FILE)
         if not os.path.exists(target):
             what = ("an orbax directory (a JAX package checkpoint), which the port "

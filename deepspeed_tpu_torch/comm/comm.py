@@ -25,11 +25,13 @@ when a card is present and gloo otherwise. Gloo also carries CUDA tensors
 """
 
 import datetime
+import math
 import os
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+from torch.utils import _pytree
 
 from ..utils.comms_logging import CommsLogger, timed_op
 from ..utils.logging import logger
@@ -92,18 +94,23 @@ def default_backend() -> str:
     return acc.communication_backend_name() if acc.is_available() else "gloo"
 
 
-def init_distributed(dist_backend: Optional[str] = None, init_method: Optional[str] = None,
-                     rank: int = -1, world_size: int = -1, timeout=None) -> None:
+def init_distributed(dist_backend: Optional[str] = None, auto_mpi_discovery: bool = True,
+                     timeout=None, init_method: Optional[str] = None, rank: int = -1,
+                     world_size: int = -1) -> None:
     """Join the process group (reference ``init_distributed``,
-    ``comm.py:619``). A no-op when it is up already, and at world size 1
-    without an ``init_method`` (no rendezvous, as the JAX package). Else
-    ``rank`` and ``world_size`` come from the arguments or the launcher's
-    ``RANK`` / ``WORLD_SIZE``, and the rendezvous from ``init_method`` or
-    ``MASTER_ADDR`` / ``MASTER_PORT`` (``env://``). ``timeout`` is seconds or
-    a ``timedelta``."""
+    ``comm.py:619``; the JAX package's parameter order). A no-op when it is
+    up already, and at world size 1 without an ``init_method`` (no
+    rendezvous, as the JAX package). Else ``rank`` and ``world_size`` come
+    from the arguments, the launcher's ``RANK`` / ``WORLD_SIZE`` or, with
+    ``auto_mpi_discovery``, an OpenMPI launch (:func:`mpi_discovery`), and
+    the rendezvous from ``init_method`` or ``MASTER_ADDR`` / ``MASTER_PORT``
+    (``env://``). ``timeout`` is seconds or a ``timedelta``."""
     if dist.is_initialized():
         return
     world = world_size if world_size > 0 else int(os.environ.get("WORLD_SIZE", "1"))
+    if auto_mpi_discovery and world == 1 and "OMPI_COMM_WORLD_SIZE" in os.environ:
+        mpi_rank, world = mpi_discovery()
+        rank = rank if rank >= 0 else mpi_rank
     if world == 1 and init_method is None:
         return
     rank = rank if rank >= 0 else int(os.environ.get("RANK", "0"))
@@ -117,6 +124,34 @@ def init_distributed(dist_backend: Optional[str] = None, init_method: Optional[s
     dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
                             world_size=world, **kw)
     logger.info(f"torch.distributed initialized: rank {rank} of {world}, backend {backend}")
+
+
+def mpi_discovery() -> Tuple[int, int]:
+    """OpenMPI environment discovery (reference ``comm.py:688``):
+    ``(rank, world_size)``, (0, 1) outside an ``mpirun`` launch."""
+    return (int(os.environ.get("OMPI_COMM_WORLD_RANK", "0")),
+            int(os.environ.get("OMPI_COMM_WORLD_SIZE", "1")))
+
+
+def initialize_mesh_device(mesh_shape: Sequence[int], mesh_dim_names: Sequence[str]):
+    """Reference ``initialize_mesh_device``: a ``DeviceMesh`` of
+    ``mesh_shape`` over the world's ranks, with ``mesh_dim_names``
+    (``cuda`` over NCCL, else ``cpu``). A ``DeviceMesh`` needs the process
+    group, even for one rank: call ``init_distributed`` first (with an
+    ``init_method`` at world size 1)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not is_initialized():
+        raise RuntimeError("initialize_mesh_device needs the process group: call "
+                           "init_distributed first (at world size 1 with an init_method)")
+    shape = tuple(int(d) for d in mesh_shape)
+    world = get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} holds {math.prod(shape)} ranks, the world "
+                         f"has {world}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(world).reshape(shape),
+                      mesh_dim_names=tuple(mesh_dim_names))
 
 
 def is_available() -> bool:
@@ -364,6 +399,168 @@ def broadcast(x: torch.Tensor, axis: Axis = None, src: int = 0) -> torch.Tensor:
     return x
 
 
+def reduce(x: torch.Tensor, axis: Axis = None, dst: int = 0, op: str = "sum") -> torch.Tensor:
+    """Reduce to index ``dst`` of ``axis``, IN PLACE on ``x`` (returned);
+    every other rank gets zeros (the JAX package's explicit form of "output
+    only valid on dst")."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"unsupported reduce op {op}")
+    size, group = get_world_size(axis), _group(axis)
+    with timed_op(_COMMS_LOGGER, "reduce", _nbytes(x)):
+        if size > 1:
+            dist.reduce(x, dst=get_global_rank(group, dst),
+                        op=getattr(dist.ReduceOp, _REDUCE_OPS[op]), group=group)
+    if axis_index(axis) != dst:
+        return x.zero_()
+    return x.div_(size) if op == "mean" else x
+
+
+def gather(x: torch.Tensor, axis: Axis = None, dst: int = 0,
+           gather_dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``gather_dim`` on index ``dst``
+    of ``axis``; zeros of that shape on every other rank."""
+    size = get_world_size(axis)
+    with timed_op(_COMMS_LOGGER, "gather", _nbytes(x)):
+        stacked = gather_stack(x, axis)
+    full = torch.cat(list(stacked.unbind(0)), dim=gather_dim) if size > 1 else x.clone()
+    return full if axis_index(axis) == dst else full.zero_()
+
+
+def scatter(x: torch.Tensor, axis: Axis = None, src: int = 0,
+            scatter_dim: int = 0) -> torch.Tensor:
+    """This rank's ``scatter_dim`` tile of index ``src``'s ``x`` (reference
+    ``dist.scatter`` with a stacked input); ``x`` is unchanged."""
+    size = get_world_size(axis)
+    if x.shape[scatter_dim] % size:
+        raise ValueError(f"scatter dim {scatter_dim} of {tuple(x.shape)} not divisible "
+                         f"by axis size {size}")
+    with timed_op(_COMMS_LOGGER, "scatter", _nbytes(x)):
+        src_val = x.clone()
+        if size > 1:
+            group = _group(axis)
+            dist.broadcast(src_val, src=get_global_rank(group, src), group=group)
+    width = x.shape[scatter_dim] // size
+    return src_val.narrow(scatter_dim, axis_index(axis) * width, width).contiguous()
+
+
+def all_reduce_coalesced(xs, axis: Axis = None, op: str = "sum"):
+    """:func:`all_reduce` of every tensor of the tree ``xs`` (lists, tuples,
+    dicts), IN PLACE, in one collective per dtype and device over their
+    concatenation; the ledger gets one entry per tensor, as in the JAX
+    package. Returns ``xs``."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"unsupported reduce op {op}")
+    leaves, _ = _pytree.tree_flatten(xs)
+    buckets = {}
+    for t in leaves:
+        _COMMS_LOGGER.append("all_reduce", _nbytes(t))
+        buckets.setdefault((t.dtype, t.device), []).append(t)
+    if get_world_size(axis) > 1:
+        for ts in buckets.values():
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            dist.all_reduce(flat, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]),
+                            group=_group(axis))
+            if op == "mean":
+                flat.div_(get_world_size(axis))
+            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                t.copy_(part.view(t.shape))
+    return xs
+
+
+def all_gather_coalesced(xs, axis: Axis = None, *, tiled: bool = True, gather_dim: int = 0):
+    """:func:`all_gather` of every tensor of the tree ``xs``; a tree of the
+    same structure."""
+    leaves, spec = _pytree.tree_flatten(xs)
+    return _pytree.tree_unflatten(
+        [all_gather(t, axis, tiled=tiled, gather_dim=gather_dim) for t in leaves], spec)
+
+
+class MeshGroup:
+    """A rank subset of an axis (the JAX package's ``MeshGroup``; the
+    reference's ``new_group(ranks)`` as data): indices ``ranks`` along
+    ``axis``, whose size is ``axis_size``. :func:`group_all_reduce` reduces
+    over the members with one collective over the whole axis."""
+
+    def __init__(self, axis: Axis, ranks: Sequence[int], axis_size: int):
+        self.axis = axis
+        self.ranks = tuple(int(r) for r in ranks)
+        if len(set(self.ranks)) != len(self.ranks):
+            raise ValueError(f"duplicate ranks in group: {ranks}")
+        if self.ranks and (min(self.ranks) < 0 or max(self.ranks) >= axis_size):
+            raise ValueError(f"ranks {ranks} outside axis of size {axis_size}")
+
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def group_all_reduce(x: torch.Tensor, axis: Axis = None, op: str = "sum",
+                     group: Optional[MeshGroup] = None) -> torch.Tensor:
+    """:func:`all_reduce` over the members of ``group`` along ``axis``:
+    members get the reduction over the members (IN PLACE on ``x``), other
+    ranks keep ``x``. One collective over the whole axis, the non-members
+    contributing the op's neutral element (the JAX package's masked
+    form)."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"unsupported reduce op {op}")
+    if group is None:
+        return all_reduce(x, axis, op)
+    member = axis_index(axis) in group.ranks
+    if op in ("sum", "mean"):
+        contrib = x.clone() if member else torch.zeros_like(x)
+    else:
+        lo, hi = ((-float("inf"), float("inf")) if x.is_floating_point()
+                  else (torch.iinfo(x.dtype).min, torch.iinfo(x.dtype).max))
+        contrib = x.clone() if member else torch.full_like(x, lo if op == "max" else hi)
+    all_reduce(contrib, axis, "sum" if op == "mean" else op)
+    if op == "mean":
+        contrib = contrib / group.size()
+    return x.copy_(contrib) if member else x
+
+
+def monitored_barrier(group=None, timeout=None, wait_all_ranks: bool = False,
+                      name: str = "monitored_barrier") -> None:
+    """Reference ``monitored_barrier`` with the ``timeout`` enforced on any
+    backend: the barrier over ``group`` (an axis as in :func:`barrier`;
+    ``None`` the world) runs on a helper thread, and one that does not
+    finish within ``timeout`` (seconds or a ``timedelta``) raises
+    :class:`TimeoutError` naming it. After a timeout the caller must exit:
+    the helper thread is left inside the barrier. ``None`` is a plain
+    blocking barrier. ``wait_all_ranks`` is accepted for the signature and
+    unused, as in the JAX package."""
+    if timeout is None:
+        barrier(name, group)
+        return
+    import threading
+
+    secs = (timeout.total_seconds() if hasattr(timeout, "total_seconds")
+            else float(timeout))
+    done = threading.Event()
+    err: list = []
+
+    def _run():
+        try:
+            barrier(name, group)
+        except BaseException as e:  # surfaced on the caller's thread
+            err.append(e)
+        finally:
+            done.set()
+
+    threading.Thread(target=_run, daemon=True, name=f"monitored-barrier-{name}").start()
+    if not done.wait(max(0.0, secs)):
+        raise TimeoutError(f"monitored_barrier {name!r} did not complete within {secs:g}s: "
+                           f"a rank is missing or a collective is wedged (rank "
+                           f"{get_rank()} of {get_world_size()})")
+    if err:
+        raise err[0]
+
+
+def log_chunked(op: str, nbytes: int, wire_bytes: Optional[int] = None,
+                axes: Optional[Sequence[str]] = None) -> None:
+    """Ledger entry of a ring-chunked collective: one entry for the chunk
+    hops of one ring pass, so totals match a fused collective's."""
+    _COMMS_LOGGER.append(op, int(nbytes), wire_bytes=wire_bytes)
+
+
 def ppermute(x, axis, perm):
     raise _not_ported("ppermute (pipeline point-to-point)")
 
@@ -390,15 +587,16 @@ def has_reduce_scatter_tensor() -> bool:
 
 
 def has_all_reduce_coalesced() -> bool:
-    return False  # the coalesced collectives are not ported
+    return True
 
 
 def has_coalescing_manager() -> bool:
-    return False
+    return False  # no coalescing context manager: all_reduce_coalesced takes the bucket
 
 
 # reference-compat aliases
 allreduce_fn = all_reduce
+inference_all_reduce = all_reduce
 allgather_fn = all_gather
 reduce_scatter_fn = reduce_scatter
 all_gather_into_tensor = all_gather

@@ -41,7 +41,8 @@ __all__ = [
     "quantized_all_reduce", "hierarchical_quantized_all_reduce", "quantized_all_to_all",
     "quantized_all_gather", "quantized_reduce_scatter", "configure_compression",
     "compression_mode", "compression_block", "compression_hierarchical",
-    "allreduce_feedback_init", "run_collective_program",
+    "allreduce_feedback_init", "run_collective_program", "feedback_state",
+    "store_feedback", "clear_feedback",
 ]
 
 _SITES = ("dp_gradients", "zero_weights", "zero_gradients", "moe", "ulysses")
@@ -123,6 +124,44 @@ def allreduce_feedback_init(shape, world: int, device="cpu"):
     shard = -(-n // world)
     return ErrorFeedbackState(worker_error=torch.zeros(shape, device=device),
                               server_error=torch.zeros(shard, device=device))
+
+
+# The residual registry (JAX ``comm/compressed.py:783-811``): host-side
+# callers that cannot thread the error-feedback state through their own
+# signatures register it under a stable key. The first fetch creates the
+# zeros, every later fetch returns the last stored state, and
+# store_feedback() commits the post-reduction residual.
+
+_FEEDBACK_REGISTRY: dict = {}
+
+
+def feedback_state(name: str, shape=None, world: Optional[int] = None, init=None):
+    """The registered residual for ``name``, created on first use from
+    ``init()`` (or :func:`allreduce_feedback_init` ``(shape, world)``)."""
+    if name not in _FEEDBACK_REGISTRY:
+        if init is not None:
+            _FEEDBACK_REGISTRY[name] = init()
+        else:
+            if shape is None or world is None:
+                raise ValueError(f"feedback_state({name!r}): first use needs shape+world "
+                                 "(or an init callable) to build the zero state")
+            _FEEDBACK_REGISTRY[name] = allreduce_feedback_init(shape, world)
+    return _FEEDBACK_REGISTRY[name]
+
+
+def store_feedback(name: str, state) -> None:
+    """Commit the post-reduction residual for ``name``; the next
+    :func:`feedback_state` fetch returns it."""
+    _FEEDBACK_REGISTRY[name] = state
+
+
+def clear_feedback(name: Optional[str] = None) -> None:
+    """Drop one registered residual (or all of them), so that a rollback
+    does not re-inject a residual from an abandoned trajectory."""
+    if name is None:
+        _FEEDBACK_REGISTRY.clear()
+    else:
+        _FEEDBACK_REGISTRY.pop(name, None)
 
 
 def quantized_all_reduce(x: torch.Tensor, axis=None, *, block: Optional[int] = None,

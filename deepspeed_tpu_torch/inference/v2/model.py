@@ -35,7 +35,7 @@ import torch
 from ... import comm
 from ...models.transformer import (TransformerConfig, _block_out, _dense,
                                    _dense_multi_in, _embed, _lm_logits, _norm,
-                                   _rope_tables, apply_rope,
+                                   _rope_tables, apply_rope, check_parallel_fields,
                                    merge_partial_attention)
 from ...ops.paged_attention import (NEG_INF, attention_over_pages,
                                     gather_pages, paged_flash_decode,
@@ -43,7 +43,7 @@ from ...ops.paged_attention import (NEG_INF, attention_over_pages,
 from ...ops.paged_attention import paged_attention as paged_attention_kernel
 from ...ops.quant import quantize_rows
 
-_LEFT_OUT = "(ROADMAP.md, modules left out of the first slice: {})"
+_LEFT_OUT = "is not ported yet: ROADMAP.md Queue A item {}"
 
 
 def exact_fp32() -> None:
@@ -57,11 +57,15 @@ def check_supported(cfg: TransformerConfig) -> None:
     """Raise for the model families this slice does not serve."""
     if cfg.num_experts:
         raise NotImplementedError(
-            "MoE layers (_moe_mlp) " + _LEFT_OUT.format("MoE/ALiBi/window families"))
+            "MoE layers (_moe_mlp) " + _LEFT_OUT.format("3 (MoE/ALiBi/window families)"))
     if cfg.position == "alibi" or cfg.layer_windows is not None:
         raise NotImplementedError(
             "ALiBi and windowed attention " + _LEFT_OUT.format(
-                "MoE/ALiBi/window families"))
+                "3 (MoE/ALiBi/window families)"))
+    if cfg.no_lm_head:
+        raise NotImplementedError("serving a model without an LM head (no_lm_head) "
+                                  + _LEFT_OUT.format("3 (model families)"))
+    check_parallel_fields(cfg)
 
 
 # the JAX module's names for the pool-form helpers
@@ -76,19 +80,42 @@ def _log_pool(op: str, nbytes: int) -> None:
     comm.log_local(op, int(nbytes))
 
 
+def _storage_cast(vals, dtype):
+    """``vals.to(dtype)`` as the JAX ``astype`` gives it on every device.
+    A value that rounds past a one-byte float format's largest finite value
+    becomes inf where the format has one (``float8_e5m2``) and NaN where it
+    has none (the "fn" formats, e.g. ``float8_e4m3fn``: |x| > 464, since
+    464 rounds to even, 448), with the value's sign; NaN stays NaN. torch's own cast agrees on the
+    card but saturates ``float8_e4m3fn`` to +-448 on the CPU. Wider formats
+    cast as IEEE on every device, unchanged."""
+    if not (dtype.is_floating_point and dtype.itemsize == 1):
+        return vals.to(dtype)
+    top = torch.tensor(torch.finfo(dtype).max, dtype=dtype)
+    below = (top.view(torch.uint8) - 1).view(dtype)          # the next value down
+    ulp = float(top.float() - below.float())
+    edge = float(top.float()) + ulp / 2                       # the rounding midpoint
+    ties_up = round(float(top.float()) / ulp) % 2 == 1        # ties go to the even neighbour
+    a = vals.float().abs()
+    over = (a > edge) | (a == edge) if ties_up else a > edge
+    finite_only = str(dtype).endswith(("fn", "fnuz"))
+    fill = torch.full_like(vals, float("nan") if finite_only else float("inf"))
+    return torch.where(over, torch.copysign(fill, vals), vals).to(dtype)
+
+
 def _kv_write(pool, i, tgt_block, tgt_slot, vals):
     """Scatter new KV rows ``vals`` [T', Hk, D] into layer ``i``'s pages
     (in place; advanced indices around the head slice put the token axis
     first, as in the JAX ``.at[i, block, :, slot]``). Quantized pools get
-    the rows' int8 values and scales (``quantize_rows``); one-byte float
-    pools are written through their uint8 view."""
+    the rows' int8 values and scales (``quantize_rows``); float pools the
+    JAX ``astype`` (:func:`_storage_cast`), one-byte ones written through
+    their uint8 view."""
     if isinstance(pool, tuple):
         q, s = pool
         qv, sv = quantize_rows(vals)
         q[i][tgt_block, :, tgt_slot] = qv
         s[i][tgt_block, :, tgt_slot] = sv
         return pool
-    storage_bits(pool[i])[tgt_block, :, tgt_slot] = storage_bits(vals.to(pool.dtype))
+    storage_bits(pool[i])[tgt_block, :, tgt_slot] = storage_bits(_storage_cast(vals, pool.dtype))
     return pool
 
 
@@ -271,7 +298,7 @@ def ragged_step(params, cfg: TransformerConfig, kv_k, kv_v, tokens, positions,
 def verify_step(*args, **kwargs):
     """Speculative-decode verification (JAX ``verify_step``)."""
     raise NotImplementedError(
-        "verify_step " + _LEFT_OUT.format("spec decode / verify_step"))
+        "verify_step " + _LEFT_OUT.format("1 (speculative decoding)"))
 
 
 @torch.inference_mode()
@@ -394,7 +421,7 @@ def decode_loop(params, cfg: TransformerConfig, kv_k, kv_v, tokens0, pos0,
 
 def _tp_not_ported(*args, **kwargs):
     raise NotImplementedError(
-        "tensor-parallel decode " + _LEFT_OUT.format("TP decode"))
+        "tensor-parallel decode " + _LEFT_OUT.format("4 (TP decode)"))
 
 
 resolve_decode_tp_impl = tp_decode_matmul = tp_decode_out_proj = \

@@ -42,6 +42,7 @@ class TransformerConfig:
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    dropout: float = 0.0                        # > 0 not ported (TransformerLM raises)
     # architecture flags (None = follow the norm-type heuristic)
     attn_qkv_bias: Optional[bool] = None
     attn_out_bias: Optional[bool] = None
@@ -54,19 +55,39 @@ class TransformerConfig:
     embed_norm: bool = False                    # bloom word_embeddings_layernorm
     alibi_post_scale: bool = False
     lm_head_bias: bool = False                  # gpt-j / phi biased lm_head
+    no_lm_head: bool = False                    # clip text encoder (not ported: raises)
+    vocab_parallel_loss: bool = False           # tp-sharded CE (not ported: raises)
     attn_scale: Optional[float] = None          # gpt-neo trains UNSCALED (1.0)
     layer_windows: Optional[Any] = None         # gpt-neo local attention
-    num_experts: int = 0                        # MoE (mixtral / qwen2_moe)
-    dropout: float = 0.0                        # > 0 not ported (TransformerLM raises)
+    # MoE (mixtral / qwen2_moe), the JAX package's fields; num_experts > 0
+    # is not ported (TransformerLM and the serving model raise)
+    num_experts: int = 0
+    moe_top_k: int = 2
+    moe_every: int = 1
+    moe_offset: int = 0
+    moe_intermediate_size: Optional[int] = None
+    moe_shared_expert_size: int = 0
+    moe_norm_topk: bool = True
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_weight: float = 0.01
+    moe_noisy_gate_policy: Optional[str] = None
+    moe_drop_tokens: bool = True
+    moe_use_rts: bool = True
+    moe_use_residual: bool = False
+    moe_dropless: bool = False
     # execution
     dtype: Any = torch.bfloat16
     remat: bool = False                         # recompute each layer in the backward
     remat_policy: Optional[str] = None          # runtime/activation_checkpointing.POLICIES
+    sequence_parallel: bool = False             # SP over 'sp' (not ported: raises)
+    sp_impl: str = "ulysses"                    # ulysses | ring
     attn_impl: str = "auto"                     # auto | xla | flash (the CUDA kernels)
     # serving fused-decode attention pin: auto | einsum | pallas (the name
     # of the kernel path, as in the JAX package)
     decode_attn_impl: str = "auto"
     loss_impl: str = "auto"                     # auto | xla | fused (the CUDA kernels)
+    embed_overlap: str = "auto"                 # auto | xla (the dense path) | ring (raises)
+    overlap_collective_matmul: bool = False     # tp/sp rings (not ported: raises)
 
     @property
     def head_dim(self):
@@ -370,6 +391,25 @@ def _attention(cfg, ap, y, rope_cs, alibi, window):
     return _dense_multi_in(ap["o_proj"], out)
 
 
+_PARALLEL = "not ported yet: ROADMAP.md Queue A item 8 (parallelism side paths: {})"
+
+
+def check_parallel_fields(cfg: TransformerConfig) -> None:
+    """Raise for the config fields whose paths are the parallelism side
+    paths (tp, sp, the ring-overlapped collectives)."""
+    if cfg.vocab_parallel_loss:
+        raise NotImplementedError("vocab_parallel_loss is " + _PARALLEL.format("tp"))
+    if cfg.sequence_parallel:
+        raise NotImplementedError(f"sequence_parallel ({cfg.sp_impl}) is "
+                                  + _PARALLEL.format("sp"))
+    if cfg.embed_overlap not in ("auto", "xla"):
+        raise NotImplementedError(f"embed_overlap={cfg.embed_overlap!r} is "
+                                  + _PARALLEL.format("ops/collective_matmul.py"))
+    if cfg.overlap_collective_matmul:
+        raise NotImplementedError("overlap_collective_matmul is "
+                                  + _PARALLEL.format("ops/collective_matmul.py"))
+
+
 def _check_trainable(cfg: TransformerConfig) -> None:
     if cfg.dropout > 0:
         raise NotImplementedError(
@@ -378,6 +418,10 @@ def _check_trainable(cfg: TransformerConfig) -> None:
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE layers are " + _NOT_PORTED.format("model: mixtral / moe/*"))
+    if cfg.no_lm_head:
+        raise NotImplementedError(
+            "no_lm_head (a CLIP-style encoder) is " + _NOT_PORTED.format("model"))
+    check_parallel_fields(cfg)
 
 
 def _layer(cfg, lp, x, rope_cs, alibi, window):

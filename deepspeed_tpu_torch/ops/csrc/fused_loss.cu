@@ -7,6 +7,11 @@
 //                                       kernels recompute)
 //   loss_dh_kernel     <- _dh_kernel   (dh = dl K^T)
 //   loss_dk_kernel     <- _dk_kernel   (dK = h^T dl)
+// The backward kernels here are the "mma_sync" route: fp32 operands, and
+// bf16 operands whose rows TMA cannot describe (a row stride that is not a
+// multiple of 16 bytes, e.g. an untied head of vocab 50257). bf16 operands
+// that TMA can describe take the "wgmma" route of fused_loss_sm90.cu; the
+// wrapper (ops/fused_loss.py, backward_route) chooses.
 //
 // What they compute, for hidden states h [T, E], the head K [E, V] and
 // target ids [T] (an id outside [0, V), e.g. -1, matches no column):
@@ -49,7 +54,9 @@
 //   * ragged T, E and V are masked in the loads (zero fill) and the stores;
 //     rows whose leading dimension is not a multiple of 16 bytes (a vocab
 //     of 50257) are loaded element by element instead of by cp.async.
-// Left for later: wgmma with TMA loads, a persistent schedule.
+// mma.sync cannot reach Hopper's tensor-core rate: the forward is next for
+// the design of fused_loss_sm90.cu (wgmma on TMA-filled shared memory, a
+// persistent warp-specialised block).
 //
 // C interface (loaded with ctypes): pointers as void*, the stream as the
 // caller's cudaStream_t; each entry returns cudaGetLastError() after launch.

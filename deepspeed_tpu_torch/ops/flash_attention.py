@@ -33,6 +33,9 @@ from typing import Dict, Optional
 import torch
 
 NEG_INF = -1e30
+#: the JAX function's default tiles (the kernels here tile themselves)
+DEFAULT_BLOCK_Q = 512
+DEFAULT_BLOCK_K = 512
 
 #: kernel launches per wrapper (reset by callers that want a window's count)
 launch_counts: Dict[str, int] = {"flash_attention_fwd": 0,
@@ -282,13 +285,37 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    sm_scale: Optional[float] = None):
+def check_block(name: str, length: int, block: int, default: int) -> None:
+    """Refuse a block size the JAX function refuses. JAX fits the block to
+    the length (the largest halving, down to 128, that divides it) and
+    raises unless the fitted block divides the length. The kernels here
+    choose their own tiles and mask a ragged length, so the default, which
+    leaves the tiling to them, takes any length; any other value is checked
+    as the JAX function checks it."""
+    if isinstance(block, bool) or not isinstance(block, int) or block <= 0:
+        raise ValueError(f"{name} must be a positive int, got {block!r}")
+    if block == default:
+        return
+    fitted = min(block, length)
+    while fitted > 128 and length % fitted:
+        fitted //= 2
+    if length % fitted:
+        raise ValueError(f"{name}={block} does not tile the length {length} (fitted to "
+                         f"{fitted}), as the JAX function requires")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sm_scale: Optional[float] = None,
+                    block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
+                    interpret: Optional[bool] = None):
     """Flash attention over ``[B, S, H, D]`` tensors (JAX
     ``flash_attention``), differentiable. GQA: k/v stay ``[B, S, Hk, D]``;
     no repeated K/V is ever made. ``sm_scale`` defaults to ``1/sqrt(D)``.
-    The JAX function's ``block_q``/``block_k``/``interpret`` are TPU
-    tiling and interpreter knobs with no counterpart here."""
+    ``block_q`` / ``block_k`` are the JAX function's TPU tiles: checked as
+    it checks them (:func:`check_block`), then unused, since the kernels
+    tile themselves; the result does not depend on them. ``interpret`` (the
+    Pallas interpreter switch) is accepted and ignored."""
     _check_shapes(q, k, v)
+    check_block("block_q", q.shape[1], block_q, DEFAULT_BLOCK_Q)
+    check_block("block_k", k.shape[1], block_k, DEFAULT_BLOCK_K)
     return _FlashAttention.apply(q, k, v, bool(causal),
                                  _scale(sm_scale, q.shape[-1]))

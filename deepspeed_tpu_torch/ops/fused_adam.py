@@ -178,9 +178,10 @@ def multi_tensor_adam(grads: List[torch.Tensor], exp_avgs: List[torch.Tensor],
 
 
 def adam_update(g, m, v, p, lr, b1, b2, eps, weight_decay, adam_w_mode,
-                bias_correction, step):
+                bias_correction, step, interpret=None):
     """One fused Adam update on a single tensor (JAX ``adam_update``). All
-    math fp32. Returns ``(update, new_m, new_v)`` shaped like the input."""
+    math fp32. Returns ``(update, new_m, new_v)`` shaped like the input.
+    ``interpret`` (the Pallas interpreter switch) is accepted and ignored."""
     if g.device.type == "cpu":
         return adam_update_ref(g, m, v, p, lr, b1, b2, eps, weight_decay,
                                adam_w_mode, bias_correction, step)

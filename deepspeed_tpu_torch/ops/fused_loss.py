@@ -16,6 +16,15 @@ a ``[T, Vc]`` workspace of at most :data:`WORKSPACE_BYTES`, one adds
 ``dK``. ``launch_counts`` counts launches: the forward once per call, the
 three backward kernels once per chunk.
 
+The backward has two routes, chosen in the open by :func:`backward_route`
+and counted per launch in ``route_counts``: ``"wgmma"``
+(``csrc/fused_loss_sm90.cu``: TMA loads and ``wgmma`` in a persistent,
+warp-specialised block) for bf16 operands that TMA can describe (16-byte
+aligned bases and row strides), and ``"mma_sync"`` (``csrc/fused_loss.cu``,
+the forward's tile: ``mma.sync`` in bf16, the CUDA cores in fp32) for the
+rest, e.g. an untied head whose vocab of 50257 gives rows of 100514 bytes.
+A launch that fails raises; nothing falls back to the other route.
+
 Each kernel has a plain PyTorch version beside it with the same roundings:
 :func:`fused_nll_fwd_ref`, :func:`fused_dlogits_ref` and
 :func:`fused_nll_bwd_ref`. A wrapper takes the plain version only for
@@ -34,16 +43,23 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["fused_vocab_nll", "fused_loss_ready"]
+__all__ = ["fused_vocab_nll", "fused_loss_ready", "DEFAULT_BLOCK_T", "DEFAULT_BLOCK_V"]
 
 #: kernel launches per wrapper (reset by callers that want a window's count)
 launch_counts: Dict[str, int] = {"fused_loss_fwd": 0, "fused_loss_dlogits": 0,
                                  "fused_loss_dh": 0, "fused_loss_dk": 0}
 
+#: backward kernel launches per route (see :func:`backward_route`)
+route_counts: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
+
+#: the JAX function's default tiles (the kernels here tile themselves)
+DEFAULT_BLOCK_T = 256
+DEFAULT_BLOCK_V = 512
+
 #: bound on the backward's dl workspace ``[T, Vc]``, in bytes
 WORKSPACE_BYTES = 64 << 20
 _BN = 128                  # vocab columns per block tile (csrc/fused_loss.cu)
-_SOURCE = "fused_loss.cu"
+_SOURCES = {"mma_sync": "fused_loss.cu", "wgmma": "fused_loss_sm90.cu"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,12 +69,16 @@ _SIGNATURES = {
     "fused_loss_dl": [_P] * 7 + [_I] * 8 + [_P],
     "fused_loss_dh": [_P] * 4 + [_I] * 10 + [_P],
     "fused_loss_dk": [_P] * 3 + [_I] * 8 + [_P],
+    "fused_loss_dl_sm90": [_P] * 7 + [_I] * 7 + [_P],
+    "fused_loss_dh_sm90": [_P] * 4 + [_I] * 9 + [_P],
+    "fused_loss_dk_sm90": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, route_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def fused_loss_ready(vocab_shard: int) -> bool:
@@ -75,10 +95,10 @@ def kernel_takes(device, dtype) -> bool:
             and dtype in _DTYPES)
 
 
-def _kernel(name: str):
+def _kernel(name: str, route: str = "mma_sync"):
     from . import _build
 
-    fn = getattr(_build.load(_SOURCE), name)
+    fn = getattr(_build.load(_SOURCES[route]), name)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -86,6 +106,8 @@ def _kernel(name: str):
 
 
 def _check_launch(name: str, err: int) -> None:
+    if err >= 10000:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {err - 10000}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
@@ -218,44 +240,75 @@ def fused_nll_forward(h, k, targets):
     return lse, tgt
 
 
-def launch_dlogits(h, base, targets, lse, g_lse, g_tgt, ws, v0: int, width: int, kvt: int):
-    """One launch of the dl kernel: the chunk ``[v0, v0 + width)`` of
-    ``dl`` into the workspace ``ws [T, Vc]`` (CUDA tensors that
+def backward_route(h, base) -> str:
+    """The backward's route for hidden states ``h [T, E]`` and the head
+    ``base`` in its stored layout (``[E, V]``, or ``[V, E]`` tied):
+    ``"wgmma"`` when TMA can describe every operand, that is bf16 with
+    16-byte-aligned bases and row strides (the workspace's rows, a multiple
+    of 128 columns, always are); else ``"mma_sync"``. The same rule on any
+    device, so the CPU tests can ask it."""
+    tma = (h.dtype == base.dtype == torch.bfloat16 and h.numel() > 0 and base.numel() > 0
+           and all(t.data_ptr() % 16 == 0 and t.stride(0) * t.element_size() % 16 == 0
+                   for t in (h, base)))
+    return "wgmma" if tma else "mma_sync"
+
+
+def _entry(kind: str, route: str, h, base):
+    if route not in _SOURCES:
+        raise ValueError(f"route must be one of {sorted(_SOURCES)}, got {route!r}")
+    if route == "wgmma" and backward_route(h, base) != "wgmma":
+        raise ValueError("the wgmma route takes bf16 operands with 16-byte-aligned bases "
+                         "and row strides (see backward_route)")
+    return _kernel(f"fused_loss_{kind}" + ("_sm90" if route == "wgmma" else ""), route)
+
+
+def _counted(name: str, route: str, err: int) -> None:
+    launch_counts[name] += 1
+    route_counts[route] += 1
+    _check_launch(f"{name} ({route})", err)
+
+
+def launch_dlogits(h, base, targets, lse, g_lse, g_tgt, ws, v0: int, width: int, kvt: int,
+                   route: str):
+    """One launch of the dl kernel on ``route``: the chunk ``[v0, v0 +
+    width)`` of ``dl`` into the workspace ``ws [T, Vc]`` (CUDA tensors that
     :func:`fused_nll_backward` has checked; ``base`` is the head in its
     stored layout, ``kvt`` says which)."""
     T, E = h.shape
     V = base.shape[0] if kvt else base.shape[1]
-    err = _kernel("fused_loss_dl")(
+    flags = (kvt,) if route == "wgmma" else (kvt, _DTYPES[h.dtype])
+    err = _entry("dl", route, h, base)(
         h.data_ptr(), base.data_ptr(), targets.data_ptr(), lse.data_ptr(), g_lse.data_ptr(),
-        g_tgt.data_ptr(), ws.data_ptr(), T, E, V, v0, ws.shape[1], width, kvt,
-        _DTYPES[h.dtype], _stream(h))
-    launch_counts["fused_loss_dlogits"] += 1
-    _check_launch("fused_loss_dl", err)
+        g_tgt.data_ptr(), ws.data_ptr(), T, E, V, v0, ws.shape[1], width, *flags,
+        _stream(h))
+    _counted("fused_loss_dlogits", route, err)
 
 
-def launch_dh(ws, base, dh_acc, dh, v0: int, width: int, first: bool, last: bool, kvt: int):
-    """One launch of the dh kernel: ``dh (+)= dl_chunk K_chunk^T``, in fp32
-    into ``dh_acc`` until the ``last`` chunk writes ``dh``."""
+def launch_dh(ws, base, dh_acc, dh, v0: int, width: int, first: bool, last: bool, kvt: int,
+              route: str):
+    """One launch of the dh kernel on ``route``: ``dh (+)= dl_chunk
+    K_chunk^T``, in fp32 into ``dh_acc`` until the ``last`` chunk writes
+    ``dh``."""
     T, E = dh.shape
     V = base.shape[0] if kvt else base.shape[1]
-    err = _kernel("fused_loss_dh")(
+    flags = (kvt,) if route == "wgmma" else (kvt, _DTYPES[dh.dtype])
+    err = _entry("dh", route, ws, base)(
         ws.data_ptr(), base.data_ptr(), 0 if dh_acc is None else dh_acc.data_ptr(),
-        dh.data_ptr(), T, E, V, v0, ws.shape[1], width, int(first), int(last), kvt,
-        _DTYPES[dh.dtype], _stream(dh))
-    launch_counts["fused_loss_dh"] += 1
-    _check_launch("fused_loss_dh", err)
+        dh.data_ptr(), T, E, V, v0, ws.shape[1], width, int(first), int(last), *flags,
+        _stream(dh))
+    _counted("fused_loss_dh", route, err)
 
 
-def launch_dk(h, ws, dk_base, v0: int, width: int, kvt: int):
-    """One launch of the dK kernel: the chunk's columns of ``dK = h^T dl``
-    into ``dk_base`` (the head's stored layout)."""
+def launch_dk(h, ws, dk_base, v0: int, width: int, kvt: int, route: str):
+    """One launch of the dK kernel on ``route``: the chunk's columns of
+    ``dK = h^T dl`` into ``dk_base`` (the head's stored layout)."""
     T, E = h.shape
     V = dk_base.shape[0] if kvt else dk_base.shape[1]
-    err = _kernel("fused_loss_dk")(
+    flags = (kvt,) if route == "wgmma" else (kvt, _DTYPES[h.dtype])
+    err = _entry("dk", route, h, dk_base)(
         h.data_ptr(), ws.data_ptr(), dk_base.data_ptr(), T, E, V, v0, ws.shape[1], width,
-        kvt, _DTYPES[h.dtype], _stream(h))
-    launch_counts["fused_loss_dk"] += 1
-    _check_launch("fused_loss_dk", err)
+        *flags, _stream(h))
+    _counted("fused_loss_dk", route, err)
 
 
 def fused_nll_backward(h, k, targets, lse, g_lse, g_tgt):
@@ -280,12 +333,13 @@ def fused_nll_backward(h, k, targets, lse, g_lse, g_tgt):
     ws = torch.empty((T, vc), dtype=h.dtype, device=h.device)
     dh_acc = (torch.empty((T, E), dtype=torch.float32, device=h.device)
               if n_chunks > 1 else None)
+    route = backward_route(h, base)
     for c in range(n_chunks):
         v0 = c * vc
         width = min(vc, V - v0)
-        launch_dlogits(h, base, targets, lse, g_lse, g_tgt, ws, v0, width, kvt)
-        launch_dh(ws, base, dh_acc, dh, v0, width, c == 0, c == n_chunks - 1, kvt)
-        launch_dk(h, ws, dk_base, v0, width, kvt)
+        launch_dlogits(h, base, targets, lse, g_lse, g_tgt, ws, v0, width, kvt, route)
+        launch_dh(ws, base, dh_acc, dh, v0, width, c == 0, c == n_chunks - 1, kvt, route)
+        launch_dk(h, ws, dk_base, v0, width, kvt, route)
     return dh, dk
 
 
@@ -308,8 +362,28 @@ class _FusedNLL(torch.autograd.Function):
         return dh, dk, None
 
 
+def _check_blocks(block_t: int, block_v: int, vloc: int) -> None:
+    """Refuse the tiles the JAX function cannot run: a block that is not a
+    positive int (it raises), and a ``block_v`` other than the default
+    whose fitted size (the largest halving, down to 128, that divides the
+    vocab) does not divide a vocab of 128-column tiles (the JAX kernel then
+    skips the vocab's last columns and returns a wrong loss). The kernels
+    here tile themselves, so every accepted value gives the same result."""
+    for name, b in (("block_t", block_t), ("block_v", block_v)):
+        if isinstance(b, bool) or not isinstance(b, int) or b <= 0:
+            raise ValueError(f"{name} must be a positive int, got {b!r}")
+    if block_v != DEFAULT_BLOCK_V and vloc % 128 == 0:
+        fitted = min(block_v, vloc)
+        while fitted > 128 and vloc % fitted:
+            fitted //= 2
+        if vloc % fitted:
+            raise ValueError(f"block_v={block_v} does not tile the vocab shard {vloc} "
+                             f"(fitted to {fitted})")
+
+
 def fused_vocab_nll(hidden, kernel, targets, *, axis_name: Optional[str] = None,
-                    z_loss: float = 0.0):
+                    z_loss: float = 0.0, block_t: int = DEFAULT_BLOCK_T,
+                    block_v: int = DEFAULT_BLOCK_V, interpret: Optional[bool] = None):
     """Per-token NLL of ``hidden @ kernel`` logits, logits never
     materialized (JAX ``fused_vocab_nll``). ``hidden [..., E]``, ``kernel
     [E, V]`` (a contiguous tensor, or the transpose of a contiguous
@@ -320,9 +394,11 @@ def fused_vocab_nll(hidden, kernel, targets, *, axis_name: Optional[str] = None,
     On the CPU the plain version follows the JAX contract: the vocab must
     satisfy :func:`fused_loss_ready`. The CUDA kernels mask ragged token
     and vocab edges, so any sizes take them. ``axis_name`` (a vocab-sharded
-    head) needs the comm substrate. The JAX function's ``block_t``,
-    ``block_v`` and ``interpret`` are TPU tiling and interpreter knobs with
-    no counterpart here."""
+    head) needs the comm substrate. ``block_t`` / ``block_v`` are the JAX
+    function's TPU tiles, checked (:func:`_check_blocks`) and otherwise
+    unused; ``interpret`` (the Pallas interpreter switch) is accepted and
+    ignored."""
+    _check_blocks(block_t, block_v, kernel.shape[-1])
     if axis_name is not None:
         raise NotImplementedError(
             "fused_vocab_nll(axis_name=...) (a vocab-sharded head) is not ported "

@@ -295,8 +295,9 @@ def _shape_checks(Hq, Hk):
 
 def paged_attention(q, k_pool, v_pool, block_table, start_pos, chunk_len,
                     kv_len, *, sm_scale: Optional[float] = None,
-                    return_stats: bool = False):
-    """Paged attention over one layer's KV pool.
+                    interpret: Optional[bool] = None, return_stats: bool = False):
+    """Paged attention over one layer's KV pool. ``interpret`` (the Pallas
+    interpreter switch of the JAX function) is accepted and ignored.
 
     Args:
       q: ``[S, Q, Hq, D]`` grouped queries (SplitFuse chunk per sequence;
@@ -344,8 +345,10 @@ def paged_attention(q, k_pool, v_pool, block_table, start_pos, chunk_len,
 
 def paged_flash_decode(q, k_pool, v_pool, block_table, pos, kv_len, *,
                        layer: int = 0, sm_scale: Optional[float] = None,
-                       return_stats: bool = False):
-    """Paged flash decode over a resident multi-layer KV pool.
+                       interpret: Optional[bool] = None, return_stats: bool = False):
+    """Paged flash decode over a resident multi-layer KV pool. ``interpret``
+    (the Pallas interpreter switch of the JAX function) is accepted and
+    ignored.
 
     Args:
       q: ``[S, Hq, D]`` — one decode query per sequence.

@@ -248,31 +248,34 @@ def _dequantize(q: torch.Tensor, s: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
-def quantize_int8(x: torch.Tensor, block: int = BLOCK, *, stochastic: bool = False,
-                  generator: Optional[torch.Generator] = None
+def quantize_int8(x: torch.Tensor, block: int = BLOCK, interpret=None, *,
+                  stochastic: bool = False, key: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
     """-> (int8 values ``[nb, block]``, fp32 scales ``[nb]``, original
     shape). ``stochastic=True`` rounds with uniform dither drawn from
-    ``generator`` (required): each element rounds to a neighbouring int8
-    level with probability equal to its fractional part, so the compression
-    is unbiased."""
+    ``key`` (required; a ``torch.Generator``, the port's counterpart of the
+    JAX PRNG key): each element rounds to a neighbouring int8 level with
+    probability equal to its fractional part, so the compression is
+    unbiased. ``interpret`` (the Pallas interpreter switch) is accepted and
+    ignored."""
     shape = tuple(x.shape)
     n = x.numel()
     nb = -(-n // block)
     seed = None
     if stochastic:
-        if generator is None:
-            raise ValueError("stochastic rounding needs a torch.Generator")
-        seed = draw_seed(generator)
+        if key is None:
+            raise ValueError("stochastic rounding needs a torch.Generator as key")
+        seed = draw_seed(key)
     flat = x.reshape(-1).to(torch.float32).contiguous()
     q, s = _quantize(flat, n, nb, block, seed)
     return q, s, shape
 
 
 def dequantize_int8(q: torch.Tensor, s: torch.Tensor, shape,
-                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    dtype: torch.dtype = torch.float32, interpret=None) -> torch.Tensor:
     """Inverse of :func:`quantize_int8`: ``q`` ``[nb, block]``, scales
-    ``[nb]`` or ``[nb, 1]`` -> ``shape`` in ``dtype``."""
+    ``[nb]`` or ``[nb, 1]`` -> ``shape`` in ``dtype``. ``interpret`` is
+    accepted and ignored."""
     shape = tuple(shape)
     n = 1
     for d in shape:
@@ -322,7 +325,7 @@ def quantized_all_gather(x: torch.Tensor, axis=None, block: int = BLOCK, *,
     wire, dequantized on arrival. Returns ``[world, *x.shape]`` fp32."""
     from .. import comm
 
-    q, s, shape = quantize_int8(x, block, stochastic=stochastic, generator=generator)
+    q, s, shape = quantize_int8(x, block, stochastic=stochastic, key=generator)
     nb = q.shape[0]
     qg = comm.gather_stack(q, axis)                   # [world, nb, block]
     sg = comm.gather_stack(s, axis)                   # [world, nb]

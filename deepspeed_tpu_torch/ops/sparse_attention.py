@@ -310,13 +310,15 @@ class _SparseAttention(torch.autograd.Function):
 
 
 def sparse_attention(q, k, v, layout: np.ndarray, *, causal: bool = True,
-                     sm_scale: Optional[float] = None, block: int = 64):
+                     sm_scale: Optional[float] = None, block: int = 64,
+                     interpret: Optional[bool] = None):
     """Block-sparse attention over ``[B, S, H, D]`` tensors.
 
     ``layout``: static numpy bool ``[H, S/block, S/block]`` (see the
     builders above). Only the layout's nonzero blocks are computed in the
     forward; the backward recomputes through the masked-dense plain
-    function."""
+    function. ``interpret`` (the Pallas interpreter switch) is accepted and
+    ignored."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, sq, h, d = q.shape

@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Mapping, Optional, Union
 
 import torch
 
-from .config_utils import ConfigError, ConfigModel, register_config
+from .config_utils import AUTO, ConfigError, ConfigModel, register_config
 
 # ---------------------------------------------------------------------------
 # Precision

@@ -35,3 +35,18 @@ def fsync_write_text(path: str, data: str) -> None:
 
 def fsync_write_json(path: str, obj: Any, **json_kw) -> None:
     fsync_write_text(path, json.dumps(obj, **json_kw))
+
+
+def fsync_dir(path: str) -> None:
+    """fsync a directory so that a just-renamed entry survives a crash (best
+    effort: some filesystems refuse read-only directory descriptors)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)

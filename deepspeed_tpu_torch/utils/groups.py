@@ -20,6 +20,20 @@ def _not_ported(what: str) -> NotImplementedError:
                                "item 8 (expert, tensor and sequence parallelism)")
 
 
+def initialize(ep_size: int = 1, mpu=None) -> None:
+    """Reference ``groups.initialize``: with ``ep_size`` 1 the topology
+    stays as it is; an expert-parallel axis is the parallelism side paths'
+    work. ``mpu`` is ignored with a warning, as in the JAX package: the
+    topology's axes supersede an external model-parallel unit."""
+    if mpu is not None:
+        from .logging import logger
+
+        logger.warning("groups.initialize: ignoring mpu=%r; the topology's mesh axes "
+                       "define the groups (parallel/topology.py)", mpu)
+    if ep_size != 1:
+        raise _not_ported(f"expert-parallel (ep_size={ep_size})")
+
+
 def _get_data_parallel_group() -> Axis:
     return get_topology().dp_axes
 

@@ -435,6 +435,76 @@ def test_fused_loss_kernels_match_plain_versions_on_card(dtype, tied):
         _close(g, w, tol)
     assert fl.launch_counts == {"fused_loss_fwd": 1, "fused_loss_dlogits": 4,
                                 "fused_loss_dh": 4, "fused_loss_dk": 4}
+    # rows of 400 bytes (h, the tied [V, E] head) take TMA; an untied row of
+    # V = 1931 bf16 (3862 bytes) does not, and fp32 never does
+    route = "wgmma" if dtype == torch.bfloat16 and tied else "mma_sync"
+    assert fl.route_counts == {"wgmma": 0, "mma_sync": 0, route: 12}
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("T, E, V, vc", [(517, 200, 1928, 512), (4103, 520, 4104, 1536)])
+def test_fused_loss_wgmma_route_matches_plain_versions_on_card(T, E, V, vc, tied):
+    """The wgmma route (TMA + wgmma, csrc/fused_loss_sm90.cu) against the
+    plain versions at token counts and hidden sizes that are no multiple of
+    its 128 x 256 x 64 tile, a vocab that is no multiple of 128, several
+    chunks (the last one ragged), untied and tied heads and targets incl.
+    -1; the larger shape gives each block several output tiles. dl, dh and
+    dK on that route, and one dl chunk against the plain dl."""
+    _need_card()
+    from deepspeed_tpu_torch.ops import fused_loss as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    h = torch.randn(T, E, generator=gen, device="cuda").to(torch.bfloat16)
+    k = 0.05 * torch.randn(*((V, E) if tied else (E, V)), generator=gen, device="cuda")
+    k = k.to(torch.bfloat16).T if tied else k.to(torch.bfloat16)
+    t = torch.randint(-1, V, (T,), generator=gen, device="cuda", dtype=torch.int32)
+    kvt, base = fl._layout(k)
+    assert fl.backward_route(h, base) == "wgmma"
+    lse, _ = fl.fused_nll_fwd_ref(h, k, t)
+    g_lse = torch.rand(T, generator=gen, device="cuda") / T
+    g_tgt = -(torch.rand(T, generator=gen, device="cuda") > 0.5).float() / T
+    old = fl.WORKSPACE_BYTES
+    fl.WORKSPACE_BYTES = T * vc * h.element_size()
+    fl.reset_launch_counts()
+    try:
+        dh, dk = fl.fused_nll_backward(h, k, t, lse, g_lse, g_tgt)
+    finally:
+        fl.WORKSPACE_BYTES = old
+    n_chunks = -(-V // vc)
+    assert fl.route_counts == {"wgmma": 3 * n_chunks, "mma_sync": 0}
+    want = fl.fused_nll_bwd_ref(h, k, t, lse, g_lse, g_tgt)
+    for g, w in zip((dh, dk), want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        _close(g, w, 2e-2)
+    # the last (ragged) chunk's dl, and the workspace columns past it hold 0
+    v0 = (n_chunks - 1) * vc
+    width = V - v0
+    ws = torch.full((T, vc), float("nan"), device="cuda").to(torch.bfloat16)
+    fl.launch_dlogits(h, base, t, lse, g_lse, g_tgt, ws, v0, width, kvt, "wgmma")
+    _close(ws[:, :width], fl.fused_dlogits_ref(h, k, t, lse, g_lse, g_tgt, v0, width), 2e-2)
+    tile_end = min(vc, -(-width // 256) * 256)
+    assert torch.all(ws[:, width:tile_end] == 0)
+
+
+def test_fused_loss_routes_refuse_what_they_were_not_built_for_on_card():
+    """Forcing the wgmma route on operands TMA cannot describe raises before
+    any launch; an unknown route raises too."""
+    _need_card()
+    from deepspeed_tpu_torch.ops import fused_loss as fl
+
+    T, E, V = 64, 128, 1931
+    h = torch.zeros(T, E, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(E, V, device="cuda", dtype=torch.bfloat16)
+    t = torch.zeros(T, device="cuda", dtype=torch.int32)
+    f = torch.zeros(T, device="cuda")
+    ws = torch.empty(T, 2048, device="cuda", dtype=torch.bfloat16)
+    assert fl.backward_route(h, k) == "mma_sync"
+    fl.reset_launch_counts()
+    with pytest.raises(ValueError, match="wgmma route"):
+        fl.launch_dlogits(h, k, t, f, f, f, ws, 0, V, 0, "wgmma")
+    with pytest.raises(ValueError, match="route must be"):
+        fl.launch_dk(h, ws, k, 0, V, 0, "tiles")
+    assert sum(fl.route_counts.values()) == 0
 
 
 def test_auto_loss_takes_fused_kernels_for_gpt2_vocab_on_card():
@@ -546,7 +616,7 @@ def test_quant_kernels_match_plain_versions_on_card(n, block):
     assert torch.equal(quant.dequantize_int8(q, s, shape), quant.dequantize_ref(q, s, n))
     seed = quant.draw_seed(torch.Generator().manual_seed(3))
     q_sr, s_sr, _ = quant.quantize_int8(x, block, stochastic=True,
-                                        generator=torch.Generator().manual_seed(3))
+                                        key=torch.Generator().manual_seed(3))
     assert torch.equal(q_sr, quant.quantize_ref(x, n, nb, block, seed)[0])
     assert torch.equal(s_sr, s) and bool((q_sr.view(-1)[n:] == 0).all())
     assert quant.launch_counts == {"quantize_int8": 1, "quantize_int8_sr": 1,

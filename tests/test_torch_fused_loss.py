@@ -15,6 +15,9 @@
   ``xla`` on the CPU and ``fused`` for fp32/bf16 tensors on the card), and
   the fallback rule (the 128 gate on the CPU only, fp16 and a head bias
   keep the dense loss) picks and warns as stated.
+* ``backward_route``, the choice between the backward's ``wgmma`` and
+  ``mma_sync`` kernels, on CPU tensors of the dtypes and strides that
+  decide it (the same function runs on the card).
 """
 
 import dataclasses
@@ -144,6 +147,32 @@ def test_plain_dlogits_chunks_and_softmax_term_match_jax():
                         argnums=(0, 1))(jnp.asarray(h), jnp.asarray(k))
     _close(dh, jdh, GRAD_RTOL, GRAD_ATOL)
     _close(dk, jdk, GRAD_RTOL, GRAD_ATOL)
+
+
+@pytest.mark.parametrize("dtype, tied, V, E, route", [
+    (torch.bfloat16, False, 32000, 64, "wgmma"),      # TinyLlama's head: rows of 64000 B
+    (torch.bfloat16, True, 50257, 64, "wgmma"),       # tied [V, E]: rows of E, 128 B
+    (torch.bfloat16, False, 50257, 64, "mma_sync"),   # rows of 100514 B: no TMA
+    (torch.bfloat16, False, 32000, 60, "mma_sync"),   # h rows of 120 B
+    (torch.float32, False, 32000, 64, "mma_sync"),    # fp32 never takes wgmma
+    (torch.float32, True, 50257, 64, "mma_sync"),
+])
+def test_backward_route_choice(dtype, tied, V, E, route):
+    h = torch.zeros(8, E, dtype=dtype)
+    k = torch.zeros(V, E, dtype=dtype).T if tied else torch.zeros(E, V, dtype=dtype)
+    kvt, base = tfl._layout(k)
+    assert kvt == int(tied)
+    assert tfl.backward_route(h, base) == route
+
+
+def test_backward_route_needs_aligned_bases():
+    """Rows of 64016 B (a multiple of 16) whose base lies 2 B past a
+    16-byte boundary cannot be described by TMA either."""
+    h = torch.zeros(8, 64, dtype=torch.bfloat16)
+    padded = torch.zeros(64, 32008, dtype=torch.bfloat16)
+    assert tfl.backward_route(h, padded[:, :32000]) == "wgmma"
+    assert tfl.backward_route(h, padded[:, 1:32001]) == "mma_sync"
+    assert tfl.backward_route(h[:, 1:], padded[:, :32000]) == "mma_sync"
 
 
 def test_fused_loss_ready_gate_and_unported_axis():

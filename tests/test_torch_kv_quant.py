@@ -123,6 +123,44 @@ def test_float8_cast_beyond_its_range():
         np.asarray(jnp.asarray(small).astype(jnp.float8_e4m3fn).astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("storage", ["float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+                                     "float8_e5m2fnuz"])
+def test_float8_kv_write_matches_jax(storage, compute):
+    """The port's ``_kv_write`` into a one-byte float pool against the JAX
+    ``_kv_write`` (``vals.astype(pool.dtype)``) on the same rows, values
+    past each format's range included: float8_e4m3fn stores NaN from 466
+    up (464 rounds to even, 448), float8_e5m2 +-inf past 61440, and the
+    result is bitwise equal wherever the row holds a number (NaN == NaN:
+    the two frameworks carry NaN payloads through their casts differently)."""
+    L, blocks, hk, bs, d = 2, 3, 2, 4, 8
+    special = np.array([448, 464, 466, 470, 1000, -1000, np.inf, -np.inf, np.nan, -464,
+                        -465, 240, 248, 57344, 61440, 61441, -1e6, 0.0, -0.0, 1e-9],
+                       np.float32)
+    rng = np.random.default_rng(11)
+    vals = rng.standard_normal((3, hk, d)).astype(np.float32) * 300
+    vals.reshape(-1)[:special.size] = special
+    blk, slot = np.array([2, 0, 2], np.int32), np.array([1, 3, 0], np.int32)
+    jpool = jnp.zeros((L, blocks, hk, bs, d), getattr(jnp, storage))
+    jpool = jmodel._kv_write(jpool, 1, jnp.asarray(blk), jnp.asarray(slot),
+                             jnp.asarray(vals).astype(getattr(jnp, compute)))
+    tpool = torch.zeros((L, blocks, hk, bs, d), dtype=torch.uint8).view(
+        getattr(torch, storage))
+    tmodel._kv_write(tpool, 1, torch.from_numpy(blk).long(), torch.from_numpy(slot).long(),
+                     torch.from_numpy(vals).to(getattr(torch, compute)))
+    want = np.asarray(jpool).view(np.uint8)
+    got = tpool.view(torch.uint8).numpy()
+    as_f32 = lambda a: np.asarray(jnp.asarray(a.view(getattr(jnp, storage)))
+                                  .astype(jnp.float32))
+    np.testing.assert_array_equal(as_f32(got), as_f32(want))     # NaN == NaN
+    numbers = np.ones_like(want, bool)                             # all but the NaN inputs
+    numbers[1, blk, :, slot] = ~np.isnan(vals)
+    np.testing.assert_array_equal(got[numbers], want[numbers])    # bit for bit
+    if storage == "float8_e4m3fn":                                 # the CPU cast saturates
+        row = as_f32(got)[1, blk, :, slot].reshape(-1)[:special.size]
+        assert row[1] == 448 and np.isnan(row[2:8]).all() and row[9] == -448
+
+
 # ---------------------------------------------------------------------------
 # the decode kernel's int8 mode and the gathered path
 # ---------------------------------------------------------------------------

@@ -76,7 +76,7 @@ def test_stochastic_rounding_is_unbiased_and_bounded(block):
     x = torch.from_numpy(_x((n,), seed=block))
     q, s, _ = tq.quantize_int8(x, block)
     gen = torch.Generator().manual_seed(11)
-    qs, ss, _ = tq.quantize_int8(x, block, stochastic=True, generator=gen)
+    qs, ss, _ = tq.quantize_int8(x, block, stochastic=True, key=gen)
     torch.testing.assert_close(ss, s, rtol=0, atol=0)
     nb = qs.shape[0]
     flat = torch.zeros(nb * block)
@@ -91,10 +91,10 @@ def test_stochastic_rounding_is_unbiased_and_bounded(block):
     assert err < 3 / np.sqrt(n), err
     # the same generator state rounds the same way; another state does not
     again, _, _ = tq.quantize_int8(x, block, stochastic=True,
-                                   generator=torch.Generator().manual_seed(11))
+                                   key=torch.Generator().manual_seed(11))
     assert torch.equal(again, qs)
     other, _, _ = tq.quantize_int8(x, block, stochastic=True,
-                                   generator=torch.Generator().manual_seed(12))
+                                   key=torch.Generator().manual_seed(12))
     assert not torch.equal(other, qs)
     with pytest.raises(ValueError, match="Generator"):
         tq.quantize_int8(x, block, stochastic=True)

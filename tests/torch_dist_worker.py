@@ -119,6 +119,40 @@ def scenario_comm(rank, world, inputs, workdir):
     return out
 
 
+def scenario_comm_rooted(rank, world, inputs, workdir):
+    """The rooted, coalesced and subset collectives and the barrier with a
+    timeout on this rank's slice of seeded inputs; the test holds them
+    against the JAX package's under ``shard_map``."""
+    from deepspeed_tpu_torch import comm
+
+    x = torch.from_numpy(inputs["x"][rank])            # [2 world, 3]
+    n = torch.from_numpy(inputs["n"][rank])            # int32 [world]
+    ledger = comm.get_comms_logger()
+    ledger.configure(enabled=True, prof_all=True)
+    ledger.reset()
+    out = {"reduce_sum": _np(comm.reduce(x.clone(), dst=world - 1)),
+           "reduce_max": _np(comm.reduce(x.clone(), dst=0, op="max")),
+           "reduce_mean": _np(comm.reduce(x.clone(), dst=1, op="mean")),
+           "gather_0": _np(comm.gather(x, dst=1)),
+           "gather_1": _np(comm.gather(x, dst=0, gather_dim=1)),
+           "scatter_0": _np(comm.scatter(x, src=world - 1)),
+           "scatter_1": _np(comm.scatter(x.t().contiguous(), src=0, scatter_dim=1))}
+    bucket = {"a": x.clone(), "b": [2 * x.clone(), n.clone()]}
+    red = comm.all_reduce_coalesced(bucket)
+    out["coalesced_reduce"] = [_np(red["a"]), _np(red["b"][0]), _np(red["b"][1])]
+    gat = comm.all_gather_coalesced({"a": x, "b": [n]}, gather_dim=0)
+    out["coalesced_gather"] = [_np(gat["a"]), _np(gat["b"][0])]
+    group = comm.MeshGroup(None, [0, world - 1], world)
+    for op in ("sum", "mean", "max", "min"):
+        out[f"group_{op}"] = _np(comm.group_all_reduce(x.clone(), op=op, group=group))
+    out["group_int_max"] = _np(comm.group_all_reduce(n.clone(), op="max", group=group))
+    out["inference_all_reduce"] = _np(comm.inference_all_reduce(x.clone()))
+    comm.monitored_barrier(timeout=60)
+    out["ledger"] = ledger.totals()
+    ledger.configure(enabled=False)
+    return out
+
+
 def scenario_compressed(rank, world, inputs, workdir):
     """The compressed collectives on this rank's inputs."""
     from deepspeed_tpu_torch import comm
@@ -290,7 +324,8 @@ def scenario_cuda_step(rank, world, inputs, workdir):
             "mode": eng._dp_grad_mode}
 
 
-SCENARIOS = {"comm": scenario_comm, "compressed": scenario_compressed,
+SCENARIOS = {"comm": scenario_comm, "comm_rooted": scenario_comm_rooted,
+             "compressed": scenario_compressed,
              "train": scenario_train, "cuda_step": scenario_cuda_step}
 
 
