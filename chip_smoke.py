@@ -25,16 +25,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    flash forward (library: SDPA with the layout as a dense mask); the flash-attention forward and its two
    backward kernels at TinyLlama's shape (B 4, S 2048, 32/4 heads, D 64,
    causal, bf16), a Llama-2-7B head shape (32/32, D 128), a non-causal
-   case and an fp32 case; fused Adam over odd tensor sizes in AdamW and L2
+   case and an fp32 case, each reporting the route its dK/dV launch took
+   (``wgmma`` or ``mma_sync``; every bf16 case must take ``wgmma``), dK/dV
+   timed on both routes at the main shape and two of its ``wgmma`` launches
+   bitwise equal; fused Adam over odd tensor sizes in AdamW and L2
    modes, bias correction on and off, and timed over TinyLlama's 201
    tensors; the fused LM loss (forward, dl, dh, dK) at TinyLlama's head
    (T 8192, E 2048, V 32000, bf16) and a ragged shape (T 3007, E 1000,
    V 50257, z_loss, half the rows at zero cotangent, untied and tied heads,
-   bf16 and fp32), each case reporting the route its backward took
-   (``wgmma`` or ``mma_sync``; the main shape must take ``wgmma``), timed
-   beside its plain version and the library composite (bf16 matmul +
-   F.cross_entropy), the backward's dl, dh and dK kernels on both routes at
-   the main shape, and its peak extra memory against the composite's;
+   bf16 and fp32), each case reporting the route its forward and backward
+   took (``wgmma`` or ``mma_sync``; the main shape must take ``wgmma``),
+   timed beside its plain version and the library composite (bf16 matmul +
+   F.cross_entropy), the forward and the backward's dl, dh and dK kernels
+   on both routes at the main shape, and its peak extra memory against the
+   composite's;
 4. serving slice — Llama-2-7B at full width (bf16, seeded random weights
    made on the card) served by ``LLMServer`` over ``InferenceEngineV2``: 16
    requests with seeded prompt lengths in [128, 1024], 128 new tokens each.
@@ -52,8 +56,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    repeated seeded batch: 2 warm-up and 8 timed steps; step time,
    tokens/s, MFU and peak memory; the losses must be finite and fall, and
    every kernel must launch exactly as often as the path runs it (flash
-   22 x gas x steps, fused loss forward gas x steps and each backward
-   kernel once per vocab chunk, Adam once per step);
+   22 x gas x steps, fused loss forward and its combine gas x steps, each
+   backward kernel once per vocab chunk, Adam once per step), the flash
+   dK/dV and every fused-loss launch on the ``wgmma`` route;
 7. training path parity — TinyLlama widths at 2 layers: two ``train_batch``
    steps through the kernel path (flash kernels, Adam kernel, bf16), the
    plain path (plain attention, dense loss and Adam, bf16) and the plain
@@ -531,7 +536,10 @@ def flash_phase(fa):
         q, k, v, do = flash_case(dtype, seed=100 + i, **shape)
         o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
         o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+        route = fa.dkdv_route(q, k, v, do)
+        fa.reset_launch_counts()
         dq, dk, dv = fa.flash_attention_backward(q, k, v, o_ref, lse_ref, do, causal=causal)
+        routed = dict(fa.route_counts)
         dq_r, dk_r, dv_r = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
                                                       causal=causal)
         torch.cuda.synchronize()
@@ -540,10 +548,14 @@ def flash_phase(fa):
              "dv": scaled_err(dv, dv_r)}
         good = all(rel <= tol[dtype] for key, (_, rel) in e.items() if key != "lse")
         good &= e["lse"][0] <= 1e-3
+        # the dK/dV launch took the route dkdv_route chose
+        good &= routed[route] == 1 and sum(routed.values()) == 1
         ok &= good
-        log(f"parity flash {name} {str(dtype)[6:]}: " + ", ".join(
+        log(f"parity flash {name} {str(dtype)[6:]} (dK/dV route {route}): " + ", ".join(
             f"{key} max|err|={a:.3e} (rel {r:.2e})" for key, (a, r) in e.items())
             + f" (tol rel {tol[dtype]:g}, L abs 1e-3) {'ok' if good else 'FAIL'}")
+        if dtype == torch.bfloat16 and route != "wgmma":
+            raise SystemExit(f"flash: the {name} case took the {route} dK/dV route, not wgmma")
         if shape is main:
             errs = {"flash_attention_fwd": e["fwd"][0],
                     "flash_attention_bwd_dkdv": max(e["dk"][0], e["dv"][0]),
@@ -562,9 +574,21 @@ def flash_phase(fa):
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     sm = 1.0 / math.sqrt(q.shape[-1])
-    dkdv = lambda: fa.launch_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, causal=True,
-                                      sm_scale=sm)
+    dkdv = lambda route="wgmma": fa.launch_bwd_dkdv(q, k, v, do, lse, delta, dk, dv,
+                                                    causal=True, sm_scale=sm, route=route)
     dqk = lambda: fa.launch_bwd_dq(q, k, v, do, lse, delta, dq, causal=True, sm_scale=sm)
+    # the wgmma dK/dV repeats bitwise: one block sums each unit in a fixed order
+    dkdv()
+    first = (dk.clone(), dv.clone())
+    dkdv()
+    torch.cuda.synchronize()
+    bitwise = torch.equal(first[0], dk) and torch.equal(first[1], dv)
+    log(f"flash dK/dV (wgmma) two launches at the main shape: bitwise equal {bitwise}")
+    if not bitwise:
+        raise SystemExit("flash: two launches of the wgmma dK/dV differ")
+    del first
+    # the other route of dK/dV at the same shape, in the same run
+    mma_sync_ms = cuda_ms(lambda: dkdv("mma_sync"))
     rows = {}
     for name, fn, passes, plain, lib in (
             ("flash_attention_fwd", lambda: fa.flash_attention_forward(q, k, v), "fwd",
@@ -575,9 +599,15 @@ def flash_phase(fa):
         b_ms, b_by = bound(nbytes, flops, q.dtype)
         rows[name] = dict(ms=cuda_ms(fn), plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=errs[name], bytes=nbytes, flops=flops)
-        log(f"timing {name} (bf16, B4 S2048 32/4 D64 causal): kernel "
-            f"{rows[name]['ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes} B, "
-            f"{flops} flop), plain {plain:.4f} ms, library {lib:.4f} ms")
+        log(f"timing {name} (bf16, B4 S2048 32/4 D64 causal): kernel"
+            f"{' on the wgmma route' if passes == 'dkdv' else ''} "
+            f"{rows[name]['ms']:.4f} ms ({flops / rows[name]['ms'] / 1e9:.1f} TFLOP/s), bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop), plain {plain:.4f} ms, "
+            f"library {lib:.4f} ms")
+        if passes == "dkdv":
+            log(f"timing {name} on the mma_sync route: {mma_sync_ms:.4f} ms "
+                f"({flops / mma_sync_ms / 1e9:.1f} TFLOP/s); wgmma / mma_sync "
+                f"{rows[name]['ms'] / mma_sync_ms:.3f}")
     log("timing note: plain and library backward times compute dQ, dK and dV "
         "together; compare them with dK/dV + dQ")
     return rows
@@ -864,16 +894,17 @@ def fused_loss_phase(fl):
     ok, errs, timed = True, {}, None
     for i, (name, dtype, shape, tied, z, masked, no_tgt) in enumerate(cases):
         h, k, t = loss_case(dtype, seed=200 + i, tied=tied, **shape)
+        kvt, base = fl._layout(k)
+        route = fl.loss_route(h, base)       # the forward's and the backward's
+        fl.reset_launch_counts()
         lse, tgt = fl.fused_nll_forward(h, k, t)
+        fwd_routed = dict(fl.fwd_route_counts)
         lse_r, tgt_r = fl.fused_nll_fwd_ref(h, k, t)
         g_lse, g_tgt = loss_cotangents(lse_r, shape["T"], z, masked, seed=300 + i)
         if no_tgt:
             g_tgt = torch.zeros_like(g_tgt)
-        kvt, base = fl._layout(k)
-        route = fl.backward_route(h, base)
         vc = fl.chunk_width(shape["T"], shape["V"], h.element_size())
         n_chunks = -(-shape["V"] // vc)
-        fl.reset_launch_counts()
         dh, dk = fl.fused_nll_backward(h, k, t, lse_r, g_lse, g_tgt)
         routed = dict(fl.route_counts)
         dh_r, dk_r = fl.fused_nll_bwd_ref(h, k, t, lse_r, g_lse, g_tgt)
@@ -891,11 +922,13 @@ def fused_loss_phase(fl):
         good = all(rel <= (1e-4 if key in ("lse", "tgt") else tol[dtype])
                    for key, (_, rel) in e.items())
         good &= dh.dtype == h.dtype and dk.dtype == k.dtype and dk.shape == k.shape
-        # every backward launch took the route the wrapper chose
+        # every launch took the route the wrapper chose
         good &= routed[route] == 3 * n_chunks and sum(routed.values()) == 3 * n_chunks
+        good &= fwd_routed[route] == 1 and sum(fwd_routed.values()) == 1
         ok &= good
         log(f"parity fused_loss {name} {str(dtype)[6:]} T{shape['T']} E{shape['E']} "
-            f"V{shape['V']} (route {route}, {routed}; dl chunk {v0}+{width}): "
+            f"V{shape['V']} (route {route}: forward {fwd_routed}, backward {routed}; "
+            f"dl chunk {v0}+{width}): "
             + ", ".join(f"{key} max|err|={a:.3e} (rel {r:.2e})" for key, (a, r) in e.items())
             + f" (tol rel lse/tgt 1e-4, dl/dh/dK {tol[dtype]:g}) {'ok' if good else 'FAIL'}")
         if shape is main and route != "wgmma":
@@ -934,11 +967,12 @@ def fused_loss_phase(fl):
                                       for v0, w in chunks],
         }
 
-    passes = {"fused_loss_fwd": lambda: fl.fused_nll_forward(h, k, t),
-              **backward_passes("wgmma")}
-    # the backward's other route at the same shape, in the same run
+    forward = lambda route: (lambda: fl.fused_nll_forward(h, k, t, route=route))
+    passes = {"fused_loss_fwd": forward("wgmma"), **backward_passes("wgmma")}
+    # the other route of every kernel at the same shape, in the same run
     mma_sync_ms = {name: cuda_ms(fn, iters=10)
-                   for name, fn in backward_passes("mma_sync").items()}
+                   for name, fn in {"fused_loss_fwd": forward("mma_sync"),
+                                    **backward_passes("mma_sync")}.items()}
     plain_fwd = cuda_ms(lambda: fl.fused_nll_fwd_ref(h, k, t), iters=3)
     plain_bwd = cuda_ms(lambda: fl.fused_nll_bwd_ref(h, k, t, lse, g_lse, g_tgt), iters=3)
     # the library composite: no single PyTorch call computes this function
@@ -964,17 +998,16 @@ def fused_loss_phase(fl):
                           library_ms=lib_fwd if fwd else lib_bwd, bound_ms=b_ms,
                           bound_by=b_by, max_abs_err=errs[name])
         r = rows[name]
-        route = "" if fwd else " on the wgmma route"
         log(f"timing {name} (bf16, T{T} E{E} V{V}{'' if fwd else f', {n} chunks of {vc}'}): "
-            f"kernel{route} {r['ms']:.4f} ms ({gemm / r['ms'] / 1e9:.1f} TFLOP/s), bound "
-            f"{b_ms:.4f} ms by {b_by} ({io[name]} B, {gemm} flop), plain "
+            f"kernel on the wgmma route {r['ms']:.4f} ms ({gemm / r['ms'] / 1e9:.1f} "
+            f"TFLOP/s), bound {b_ms:.4f} ms by {b_by} ({io[name]} B, {gemm} flop), plain "
             f"{r['plain_ms']:.4f} ms, library composite {r['library_ms']:.4f} ms")
-        if not fwd:
-            ms = mma_sync_ms[name]
-            log(f"timing {name} on the mma_sync route: {ms:.4f} ms "
-                f"({gemm / ms / 1e9:.1f} TFLOP/s); wgmma / mma_sync {r['ms'] / ms:.3f}")
-    wg_sum = sum(rows[name]["ms"] for name in mma_sync_ms)
-    ms_sum = sum(mma_sync_ms.values())
+        ms = mma_sync_ms[name]
+        log(f"timing {name} on the mma_sync route: {ms:.4f} ms "
+            f"({gemm / ms / 1e9:.1f} TFLOP/s); wgmma / mma_sync {r['ms'] / ms:.3f}")
+    bwd_names = [name for name in mma_sync_ms if name != "fused_loss_fwd"]
+    wg_sum = sum(rows[name]["ms"] for name in bwd_names)
+    ms_sum = sum(mma_sync_ms[name] for name in bwd_names)
     log(f"timing fused-loss backward (dl + dh + dK): wgmma {wg_sum:.4f} ms, mma_sync "
         f"{ms_sum:.4f} ms, ratio {wg_sum / ms_sum:.3f}")
     log("timing note: the library composite is torch.matmul (bf16) + F.cross_entropy "
@@ -1405,14 +1438,27 @@ def train_phase(kernels, card, profile=False):
     want = {n: cfg.num_layers * gas * steps for n in
             ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")}
     want["fused_adam"] = steps
-    want["fused_loss_fwd"] = gas * steps
+    want["fused_loss_fwd"] = want["fused_loss_fwd_combine"] = gas * steps
     for n in ("fused_loss_dlogits", "fused_loss_dh", "fused_loss_dk"):
         want[n] = gas * steps * loss_chunks
     bad = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
     if bad:
         raise SystemExit(f"train: launch counts off (got, want): {bad}; flash: {cfg.num_layers} "
-                         f"layers x gas {gas} x {steps} steps; fused loss: gas x steps "
+                         f"layers x gas {gas} x {steps} steps; fused loss (and its "
+                         f"forward's combine): gas x steps "
                          f"(x {loss_chunks} vocab chunks in the backward); Adam: one per step")
+    # every launch of the redesigned kernels took the wgmma route
+    from deepspeed_tpu_torch.ops import flash_attention, fused_loss
+
+    routes = {"flash dK/dV": (dict(flash_attention.route_counts),
+                              want["flash_attention_bwd_dkdv"]),
+              "fused-loss forward": (dict(fused_loss.fwd_route_counts), want["fused_loss_fwd"]),
+              "fused-loss backward": (dict(fused_loss.route_counts),
+                                      3 * want["fused_loss_dlogits"])}
+    log(f"train: routes {routes}")
+    bad = {n: r for n, (r, w) in routes.items() if r != {"wgmma": w, "mma_sync": 0}}
+    if bad:
+        raise SystemExit(f"train: launches off the wgmma route: {bad}")
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit("train: a loss is not finite")
     if not losses[-1] < losses[WARMUP_STEPS]:
@@ -2151,10 +2197,10 @@ def main() -> int:
         "paged_flash_decode_int8": ("paged_attention_int8.cu", "paged_attention.py:224"),
         "sparse_attention_fwd": ("sparse_attention.cu", "sparse_attention.py:151"),
         "flash_attention_fwd": ("flash_attention.cu", "flash_attention.py:52"),
-        "flash_attention_bwd_dkdv": ("flash_attention.cu", "flash_attention.py:149"),
+        "flash_attention_bwd_dkdv": ("flash_attention_sm90.cu", "flash_attention.py:149"),
         "flash_attention_bwd_dq": ("flash_attention.cu", "flash_attention.py:199"),
         "fused_adam": ("fused_adam.cu", "fused_adam.py:27"),
-        "fused_loss_fwd": ("fused_loss.cu", "fused_loss.py:73"),
+        "fused_loss_fwd": ("fused_loss_sm90.cu", "fused_loss.py:73"),
         "fused_loss_dlogits": ("fused_loss_sm90.cu", "fused_loss.py:152"),
         "fused_loss_dh": ("fused_loss_sm90.cu", "fused_loss.py:164"),
         "fused_loss_dk": ("fused_loss_sm90.cu", "fused_loss.py:185"),

@@ -112,12 +112,16 @@ def _dequantize_parts(q: torch.Tensor, s: torch.Tensor, world: int) -> torch.Ten
     return _dequantize(q, s, q.numel()).view(world, -1)
 
 
-def allreduce_feedback_init(shape, world: int, device="cpu"):
+def allreduce_feedback_init(shape, world: int, device="cuda"):
     """Zero ``ErrorFeedbackState`` for :func:`quantized_all_reduce` over a
     tensor of ``shape`` on a ``world``-rank axis: ``worker_error`` like the
-    input, ``server_error`` this rank's stage-2 shard."""
+    input, ``server_error`` this rank's stage-2 shard. Built on the card
+    unless ``device="cpu"`` asks for the host (``resolve_device`` raises
+    for the card where there is none)."""
+    from ..accelerator.real_accelerator import resolve_device
     from ..compression.onebit import ErrorFeedbackState
 
+    device = resolve_device(device)
     n = 1
     for d in shape:
         n *= d
@@ -137,7 +141,8 @@ _FEEDBACK_REGISTRY: dict = {}
 
 def feedback_state(name: str, shape=None, world: Optional[int] = None, init=None):
     """The registered residual for ``name``, created on first use from
-    ``init()`` (or :func:`allreduce_feedback_init` ``(shape, world)``)."""
+    ``init()`` (or :func:`allreduce_feedback_init` ``(shape, world)``, on
+    the card: a caller on the host passes ``init``)."""
     if name not in _FEEDBACK_REGISTRY:
         if init is not None:
             _FEEDBACK_REGISTRY[name] = init()

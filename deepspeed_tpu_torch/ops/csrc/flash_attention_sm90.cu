@@ -1,0 +1,603 @@
+// The flash-attention dK/dV backward on Hopper's tensor-core path (sm_90a):
+// wgmma from shared memory that TMA fills, in a persistent, warp-specialised
+// block. The other route of dK/dV (mma.sync in bf16, the CUDA cores in fp32)
+// and the forward and dQ kernels stay in flash_attention.cu.
+//
+// Replaces deepspeed_tpu/ops/pallas/flash_attention.py:_bwd_dkdv_kernel.
+// What it computes, on the public [B, S, H, D] layout (K/V [B, S, Hk, D],
+// GQA: query head h reads kv head h / (H / Hk)), bf16 in and out, D 64 or
+// 128:
+//   s = (q . k) * sm_scale in fp32, causal mask (key j visible to query i
+//   iff j <= i); p = exp(s - L); dV += P^T dO with P rounded to bf16;
+//   dS = p * (dO V^T - delta) * sm_scale rounded to bf16; dK += dS^T Q. The
+//   query heads of a kv head's group are summed in fp32 in registers, so
+//   dK and dV are written once, in bf16. delta = rowsum(fp32(dO) fp32(O)) and
+//   L come from the wrapper as fp32 [B, H, S].
+//
+// What bounds it on an H100: four products of 2 D flops per visible (query,
+// key) pair and head (S^T, dP^T, dV, dK): 137 GFLOP at TinyLlama's shape
+// (B 4, S 2048, 32 / 4 heads, D 64, causal) over ~30 MB of operands, so the
+// tensor cores' 989 TFLOP/s bound it (0.139 ms). Only wgmma reaches that
+// rate.
+//
+// Design (the FlashAttention-3 backward without its dQ):
+//   * Block: 384 threads. Warpgroups 0-1 consume, each owning 64 keys of the
+//     block's 128-key tile; warp 8 produces; setmaxnreg moves registers from
+//     the producer (40) to the consumers (232).
+//   * KV-stationary: per work unit (batch, kv head, 128-key tile) the
+//     producer TMA-loads K and V once, then streams the (Q, dO) tiles of 64
+//     queries of every (query head of the group, query tile at or below the
+//     diagonal) through a ring of stages guarded by full / empty mbarriers;
+//     its 32 lanes copy the tile's L and delta into the stage beside them
+//     with cp.async, which arrives on the stage's full barrier when done, so
+//     the producer never waits for a load.
+//   * Per item each consumer warpgroup runs S^T = K Q^T and dP^T = V dO^T on
+//     wgmma m64n64k16 from shared memory (both operands K-major), computes
+//     p and dS in registers, re-packs P^T and dS^T as bf16 A fragments, and
+//     runs dV += P^T dO and dK += dS^T Q on wgmma with A from registers and
+//     the SAME Q and dO tiles read as MN-major B. dK and dV stay in
+//     registers across the unit; a tile wholly above the diagonal is
+//     skipped. Each warpgroup waits for its products before and after the
+//     exp; the two warpgroups overlap each other. (Splitting the products
+//     into commit groups, so that p is computed under dP^T and dS under dV,
+//     measured slower on an H100: PERF.md, Findings.)
+//   * Schedule: the host orders the units longest first and deals them to
+//     one persistent block per SM, each unit to the least-loaded block
+//     (ops/flash_attention.py, dkdv_schedule), so no SM carries much more
+//     than the mean: at TinyLlama's shape the unit of key tile 0 is 8 heads
+//     x 32 query tiles, the mean 17 tiles per head. A unit is computed by one
+//     block from start to end, so the result does not depend on the
+//     schedule and repeats bitwise: no float atomics.
+//   * TMA maps over [B, S, heads, D] rows as 4-D tensors (d, head, s, b), so
+//     a box past S zero-fills inside its batch; keys past S are masked in s
+//     (a zero-filled key gives logit 0, not -inf), rows past S never
+//     written. 128-byte swizzle; D 128 is two 64-wide boxes.
+// TMA needs 16-byte-aligned bases and row strides: the wrapper
+// (ops/flash_attention.py, dkdv_route) sends bf16 tensors that satisfy that
+// here and everything else to flash_attention.cu.
+//
+// C interface (loaded with ctypes): pointers as void*, the stream as the
+// caller's cudaStream_t. The entry returns 0, a cudaError_t from the launch,
+// or 10000 + the CUresult of a tensor map that could not be encoded.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BK = 128;          // keys per block tile: 64 per consumer warpgroup
+constexpr int BQ = 64;           // queries per work item
+constexpr int kThreads = 384;    // 2 consumer warpgroups + 1 producer
+constexpr int kConsumerWarps = 8;
+constexpr int kRowBytes = 128;   // one 64-wide bf16 box row (the 128-byte swizzle)
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D> struct Cfg {
+  static constexpr int kBoxes = D / 64;               // 64-wide boxes along D
+  static constexpr int kKVBox = BK * kRowBytes;       // 16 KB
+  static constexpr int kQBox = BQ * kRowBytes;        // 8 KB
+  static constexpr int kKVBytes = kBoxes * kKVBox;    // one of K, V
+  static constexpr int kQBytes = kBoxes * kQBox;      // one of Q, dO
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kStageBytes = 2 * kQBytes;
+  static constexpr int kVecFloats = 2 * BQ;           // L and delta of a stage
+  static constexpr int kSmemBytes =
+      1024 + 2 * kKVBytes + kStages * (kStageBytes + kVecFloats * 4) + 8 * (2 * kStages + 2);
+};
+
+struct Params {
+  const float* lse;    // [B, H, S]
+  const float* delta;  // [B, H, S]
+  bf16* dk;            // [B, S, Hk, D]
+  bf16* dv;
+  const int* sched;    // [gridDim.x + 1] offsets into the unit ids that follow
+  int B, S, H, Hk, G, nq;
+  float scale;
+  int causal;
+};
+
+// a work unit: (batch, kv head, key tile) and its items (query head of the
+// group, query tile), the query tiles from the first one that reaches the
+// key tile
+struct Unit {
+  int b, hk, k0, iq0, per_head, items;
+};
+
+__device__ __forceinline__ Unit unit(const Params& p, int u) {
+  Unit w;
+  const int bh = u % (p.B * p.Hk);
+  w.b = bh / p.Hk;
+  w.hk = bh % p.Hk;
+  w.k0 = u / (p.B * p.Hk) * BK;
+  w.iq0 = p.causal ? w.k0 / BQ : 0;
+  w.per_head = p.nq - w.iq0;
+  w.items = p.G * w.per_head;
+  return w;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes from src into shared memory (0 when !in), and an arrival on bar
+// once this thread's copies are done (counted among the barrier's arrivals)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// box {c0 (d), c1 (head), c2 (s), c3 (b)} of a 4-D tensor map into shared
+// memory, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle. K-major tiles: rows of
+// 128 bytes (64 bf16 of K), 8-row groups 1024 bytes apart (SBO); LBO unused.
+// MN-major tiles: K rows of 128 bytes (64 MN elements), 8-row groups 1024
+// bytes apart (SBO), 64-wide boxes kQBox apart along MN (LBO).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+#define ACC8(i)                                                                          \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A (64 x 16) B (16 x 64), both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A (64 x 16, bf16 fragments in registers) B (16 x 64), B MN-major
+// in shared memory
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A (64 x 16, bf16 fragments in registers) B (16 x 128), B MN-major
+// in shared memory
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ACC8
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Accumulator layout of m64nNk16 (per warpgroup): warp w of the group owns
+// rows 16 w .. 16 w + 15; d[4 j + e] sits at row lane / 4 + 8 (e >> 1), column
+// 8 j + 2 (lane % 4) + (e & 1). Columns 16 kk .. 16 kk + 15 of such a tile are
+// the A fragment of k-slice kk of the next product (the mma.sync layout):
+// rows lane / 4 and + 8, columns 2 (lane % 4) and + 8.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&c)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkdv_sm90(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do, const Params p) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: tiles start on that boundary
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t k_s = base, v_s = base + C::kKVBytes;
+  const uint32_t stages = v_s + C::kKVBytes;
+  float* const vecs = reinterpret_cast<float*>(base_ptr + 2 * C::kKVBytes +
+                                               C::kStages * C::kStageBytes);
+  const uint32_t bars = stages + C::kStages * (C::kStageBytes + C::kVecFloats * 4);
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (C::kStages + s); };
+  const uint32_t kv_full = bars + 16u * C::kStages, kv_empty = kv_full + 8u;
+  auto q_tile = [&](int s) { return stages + static_cast<uint32_t>(s) * C::kStageBytes; };
+  auto do_tile = [&](int s) { return q_tile(s) + C::kQBytes; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full(s), 33);  // the producer lanes' copies, and lane 0 with the tx count
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, kConsumerWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, lane = threadIdx.x & 31;
+  const int u_begin = p.sched[blockIdx.x], u_end = p.sched[blockIdx.x + 1];
+  const int* const ids = p.sched + gridDim.x + 1;
+  if (wg == 2) {
+    // producer: warp 8 (its lane 0 issues the TMA loads); warps 9-11 leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x >= 288) return;
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_q))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_k))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_v))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_do))
+                   : "memory");
+    }
+    int s = 0;
+    uint32_t phase = 0, kv_phase = 0;
+    for (int i = u_begin; i < u_end; ++i) {
+      const Unit w = unit(p, ids[i]);
+      mbar_wait(kv_empty, kv_phase ^ 1u);
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * C::kKVBytes);
+#pragma unroll
+        for (int j = 0; j < C::kBoxes; ++j) {
+          tma_load(k_s + j * C::kKVBox, &map_k, 64 * j, w.hk, w.k0, w.b, kv_full);
+          tma_load(v_s + j * C::kKVBox, &map_v, 64 * j, w.hk, w.k0, w.b, kv_full);
+        }
+      }
+      kv_phase ^= 1u;
+      for (int it = 0; it < w.items; ++it) {
+        const int h = w.hk * p.G + it / w.per_head;
+        const int q0 = (w.iq0 + it % w.per_head) * BQ;
+        mbar_wait(empty(s), phase ^ 1u);
+        // L and delta of the tile's queries beside it (0 past S)
+        const uint32_t vec = smem_u32(vecs + s * C::kVecFloats);
+        const long long row = (static_cast<long long>(w.b) * p.H + h) * p.S + q0;
+#pragma unroll
+        for (int r = lane; r < BQ; r += 32) {
+          const bool in = q0 + r < p.S;
+          cp_async4(vec + 4 * r, p.lse + (in ? row + r : 0), in);
+          cp_async4(vec + 4 * (BQ + r), p.delta + (in ? row + r : 0), in);
+        }
+        cp_async_arrive(full(s));
+        if (lane == 0) {
+          mbar_expect_tx(full(s), C::kStageBytes);
+#pragma unroll
+          for (int j = 0; j < C::kBoxes; ++j) {
+            tma_load(q_tile(s) + j * C::kQBox, &map_q, 64 * j, h, q0, w.b, full(s));
+            tma_load(do_tile(s) + j * C::kQBox, &map_do, 64 * j, h, q0, w.b, full(s));
+          }
+        }
+        if (++s == C::kStages) {
+          s = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 of each unit
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const bool signals = lane == 0;
+  const float c = p.scale * kLog2e;
+  int s = 0;
+  uint32_t phase = 0, kv_phase = 0;
+  for (int i = u_begin; i < u_end; ++i) {
+    const Unit w = unit(p, ids[i]);
+    const int kw0 = w.k0 + 64 * wg;
+    const uint32_t ka = k_s + wg * 64 * kRowBytes, va = v_s + wg * 64 * kRowBytes;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+    mbar_wait(kv_full, kv_phase);
+    kv_phase ^= 1u;
+    for (int it = 0; it < w.items; ++it) {
+      const int q0 = (w.iq0 + it % w.per_head) * BQ;
+      mbar_wait(full(s), phase);
+      // a tile whose queries all precede this warpgroup's keys adds nothing
+      if (!(p.causal && kw0 > q0 + BQ - 1)) {
+        const uint32_t qa = q_tile(s), oa = do_tile(s);
+        float st[32], dpt[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, over D
+        wgmma_fence();
+        fence_regs(st);
+        fence_regs(dpt);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t ko = (kk / 4) * C::kKVBox + (kk % 4) * 32;
+          const uint32_t qo = (kk / 4) * C::kQBox + (kk % 4) * 32;
+          wgmma_ss64(st, desc(ka + ko, 16), desc(qa + qo, 16), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t ko = (kk / 4) * C::kKVBox + (kk % 4) * 32;
+          const uint32_t qo = (kk / 4) * C::kQBox + (kk % 4) * 32;
+          wgmma_ss64(dpt, desc(va + ko, 16), desc(oa + qo, 16), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        const float* vec = vecs + s * C::kVecFloats;
+        if ((p.causal && kw0 + 63 > q0) || q0 + BQ > p.S || kw0 + 64 > p.S) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = kw0 + 16 * warp + g + 8 * (e >> 1);
+              const int query = q0 + 8 * j + 2 * t + (e & 1);
+              if (key >= p.S || query >= p.S || (p.causal && key > query)) st[4 * j + e] = kNegInf;
+            }
+          }
+        }
+        // p = exp(s * scale - L); dS = p * (dP - delta) * scale (the dK form)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = 8 * j + 2 * t + (e & 1);
+            const float pv = ex2(fmaf(st[4 * j + e], c, -vec[qc] * kLog2e));
+            dpt[4 * j + e] = pv * (dpt[4 * j + e] - vec[BQ + qc]) * p.scale;
+            st[4 * j + e] = pv;
+          }
+        }
+        // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 in the A
+        // fragments, dO and Q read MN-major from the same tiles
+        uint32_t pa[4][4], sa[4][4];
+        to_a(pa, st);
+        to_a(sa, dpt);
+        wgmma_fence();
+        fence_regs(dv);
+        fence_regs(dk);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          if constexpr (D == 64) {
+            wgmma_rs64(dv, pa[kk], desc(oa + kk * 16 * kRowBytes, C::kQBox));
+          } else {
+            wgmma_rs128(dv, pa[kk], desc(oa + kk * 16 * kRowBytes, C::kQBox));
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          if constexpr (D == 64) {
+            wgmma_rs64(dk, sa[kk], desc(qa + kk * 16 * kRowBytes, C::kQBox));
+          } else {
+            wgmma_rs128(dk, sa[kk], desc(qa + kk * 16 * kRowBytes, C::kQBox));
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);
+        fence_regs(sa);
+      }
+      if (signals) mbar_arrive(empty(s));
+      if (++s == C::kStages) {
+        s = 0;
+        phase ^= 1u;
+      }
+    }
+    if (signals) mbar_arrive(kv_empty);  // K and V of this unit are read
+    const long long ks = static_cast<long long>(p.Hk) * D;
+    bf16* const dkg = p.dk + (static_cast<long long>(w.b) * p.S * p.Hk + w.hk) * D;
+    bf16* const dvg = p.dv + (static_cast<long long>(w.b) * p.S * p.Hk + w.hk) * D;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = kw0 + 16 * warp + g + 8 * hh;
+      if (key >= p.S) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const long long at = key * ks + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(dkg + at) = pack_bf16(dk[4 * j + 2 * hh], dk[4 * j + 2 * hh + 1]);
+        *reinterpret_cast<uint32_t*>(dvg + at) = pack_bf16(dv[4 * j + 2 * hh], dv[4 * j + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encoder(int* err) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess || sym == nullptr) {
+      *err = e != cudaSuccess ? static_cast<int>(e) : static_cast<int>(cudaErrorNotSupported);
+      return nullptr;
+    }
+    fn = reinterpret_cast<EncodeTiled>(sym);
+  }
+  return fn;
+}
+
+// a bf16 [B, S, heads, D] tensor as the 4-D map (d, head, s, b), read in
+// boxes of 64 d x 1 head x rows x 1 batch (64 bf16 = the 128-byte swizzle);
+// boxes past S (or B) zero-fill
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
+  int err = 0;
+  EncodeTiled encode = encoder(&err);
+  if (encode == nullptr) return err;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row, row * S};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout, Params p, int grid,
+           cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mdo;
+  int err = make_map(&mq, q, p.B, p.S, p.H, D, BQ);
+  if (err == 0) err = make_map(&mk, k, p.B, p.S, p.Hk, D, BK);
+  if (err == 0) err = make_map(&mv, v, p.B, p.S, p.Hk, D, BK);
+  if (err == 0) err = make_map(&mdo, dout, p.B, p.S, p.H, D, BQ);
+  if (err != 0) return err;
+  auto kern = flash_dkdv_sm90<D>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       Cfg<D>::kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<grid, kThreads, Cfg<D>::kSmemBytes, st>>>(mq, mk, mv, mdo, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dK, dV for bf16 q, dO [B, S, H, D] and k, v [B, S, Hk, D] (D 64 or 128);
+// sched: grid + 1 offsets, then the unit ids (ops/flash_attention.py,
+// dkdv_schedule), one block per offset pair
+extern "C" int flash_attention_bwd_dkdv_sm90(const void* q, const void* k, const void* v,
+                                             const void* dout, const float* lse,
+                                             const float* delta, void* dk, void* dv,
+                                             const int* sched, int grid, int B, int S, int H,
+                                             int Hk, int D, float scale, int causal,
+                                             void* stream) {
+  if (Hk <= 0 || H % Hk != 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.lse = lse;
+  p.delta = delta;
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  p.sched = sched;
+  p.B = B;
+  p.S = S;
+  p.H = H;
+  p.Hk = Hk;
+  p.G = H / Hk;
+  p.nq = (S + BQ - 1) / BQ;
+  p.scale = scale;
+  p.causal = causal;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch<64>(q, k, v, dout, p, grid, st);
+  if (D == 128) return launch<128>(q, k, v, dout, p, grid, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,15 +1,26 @@
-// The fused LM loss's backward kernels on Hopper's tensor-core path (sm_90a):
-// wgmma from shared memory that TMA fills, in a persistent, warp-specialised
-// block. The forward and the other route of the backward stay in
-// fused_loss.cu.
+// The fused LM loss's kernels on Hopper's tensor-core path (sm_90a): wgmma
+// from shared memory that TMA fills, in a persistent, warp-specialised
+// block. The other route of the forward and the backward (fp32, and rows
+// TMA cannot describe) stays in fused_loss.cu.
 //
 // Replaces, from deepspeed_tpu/ops/pallas/fused_loss.py:
+//   loss_fwd  <- _fwd_kernel (per-token logsumexp and target logit)
 //   loss_dl   <- _dlogits   (the gradient tile both backward kernels
 //                            recompute, computed here once per vocab chunk)
 //   loss_dh   <- _dh_kernel (dh = dl K^T)
 //   loss_dk   <- _dk_kernel (dK = h^T dl)
 // for hidden states h [T, E], the head K [E, V] (or the tied head stored
-// [V, E]) and target ids [T]. Per vocab chunk [v0, v0 + width):
+// [V, E]) and target ids [T]. The forward, over the whole vocab at once:
+//   loss_fwd: per (row, 256-column tile) the tile's max m, sum l of
+//        exp(s - m) and target logit (a column compare: an id outside
+//        [0, V) matches nothing), fp32 into part [3][tiles][T];
+//   loss_fwd_combine, a second launch: per row the partials merged in tile
+//        order, m = max m_i, l = sum l_i exp(m_i - m), tgt = sum tgt_i,
+//        lse = m + log(l) (l == 0 divides by 1), so the result does not
+//        depend on which block finished when. (A merge in the GEMM's last
+//        block of each row block needs a fence and an atomic ticket per
+//        tile, which stalls both consumer warpgroups in every epilogue.)
+// The backward, per vocab chunk [v0, v0 + width):
 //   dl = g_lse * exp(s - lse) + g_tgt * onehot(target - v0), s = h K_chunk in
 //        fp32 from bf16 operands, rounded to bf16 into the workspace ws [T, vc]
 //        (columns in [width, vc) of a tile store 0);
@@ -44,11 +55,14 @@
 //     of h in use stay in the 50 MB L2. The producer runs ahead across tile
 //     boundaries, so the next tile's loads overlap this tile's epilogue.
 //   * Epilogues read the accumulators in registers and store straight to
-//     device memory (no fp32 tile in shared memory): dl applies exp, the
-//     cotangents and the one-hot compare; dh adds into or writes dh_acc and
-//     writes dh on the last chunk; dK stores bf16. Stores are masked at the
-//     ragged T, E and V edges; the mainloop takes those edges from TMA's
-//     zero fill.
+//     device memory (no fp32 tile in shared memory): the forward reduces
+//     each row over the thread's 64 columns and the 4 lanes that share the
+//     row (shuffles) and stores one partial triple per row and tile; dl
+//     applies exp, the cotangents and the one-hot compare; dh adds into or
+//     writes dh_acc and writes dh on the last chunk; dK stores bf16. Stores
+//     are masked at the ragged T, E and V edges; the mainloop takes those
+//     edges from TMA's zero fill, so the forward leaves the zero-filled
+//     columns past V (logit 0, not -inf) out of its max and sums.
 // TMA needs 16-byte-aligned bases and row strides: the wrapper
 // (ops/fused_loss.py, backward_route) sends bf16 operands that satisfy that
 // here and everything else to fused_loss.cu.
@@ -75,7 +89,9 @@ constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kAtomBytes = 64 * BK * 2;       // one 64-wide MN-major box: 8 KB
 constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8;
 
-enum Epi { kDl = 0, kDh = 1, kDk = 2 };
+constexpr float kNegInf = -1e30f;
+
+enum Epi { kDl = 0, kDh = 1, kDk = 2, kFwd = 3 };
 
 struct Params {
   int M, N, K;                // C[M][N] = A[M][K] B[K][N]
@@ -90,6 +106,7 @@ struct Params {
   int v0;
   float* dh_acc;              // dh
   int first, last;
+  float* part;                // forward: the partial (m, l, tgt) [3][num_n][T]
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -229,7 +246,56 @@ __device__ __forceinline__ void epilogue(const Params& p, float (&d)[128], int m
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
   const int col0 = n0 + 2 * (lane & 3);
-  if constexpr (EPI == kDl) {
+  if constexpr (EPI == kFwd) {
+    const long long M = p.M, plane = static_cast<long long>(p.num_n) * M;
+    float mx[2], sum[2], hit[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const int tg = row < p.M ? p.targets[row] : -1;
+      mx[h] = kNegInf;
+      hit[h] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = col0 + 8 * j + e;
+          if (c < p.N) {
+            const float v = d[4 * j + 2 * h + e];
+            mx[h] = fmaxf(mx[h], v);
+            if (c == tg) hit[h] += v;
+          }
+        }
+      }
+      // the 4 lanes of a row hold its 256 columns
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      sum[h] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (col0 + 8 * j + e < p.N) sum[h] += __expf(d[4 * j + 2 * h + e] - mx[h]);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], o);
+        hit[h] += __shfl_xor_sync(0xffffffffu, hit[h], o);
+      }
+    }
+    const long long nt = n0 / BN;
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= p.M) continue;
+        p.part[nt * M + row] = mx[h];
+        p.part[plane + nt * M + row] = sum[h];
+        p.part[2 * plane + nt * M + row] = hit[h];
+      }
+    }
+  } else if constexpr (EPI == kDl) {
     float lse[2], gl[2], gt[2];
     int tg[2];
 #pragma unroll
@@ -413,6 +479,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// the forward's combine: thread per row, the row's partials in tile order
+// (reads coalesced across the rows of a block)
+__global__ void __launch_bounds__(64) loss_fwd_combine(const float* part, int n_tiles, int T,
+                                                      float* lse, float* tgt) {
+  const int row = blockIdx.x * 64 + threadIdx.x;
+  if (row >= T) return;
+  const long long M = T, plane = static_cast<long long>(n_tiles) * M;
+  float m = kNegInf;
+#pragma unroll 4
+  for (int i = 0; i < n_tiles; ++i) m = fmaxf(m, part[i * M + row]);
+  float l = 0.f, t = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < n_tiles; ++i) {
+    l += part[plane + i * M + row] * __expf(part[i * M + row] - m);
+    t += part[2 * plane + i * M + row];
+  }
+  lse[row] = m + logf(l == 0.f ? 1.f : l);
+  tgt[row] = t;
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
@@ -485,6 +571,36 @@ int launch(const CUtensorMap& ma, const CUtensorMap& mb, Params p, cudaStream_t 
 }
 
 }  // namespace
+
+// the forward's partials over the whole vocab: M = T, N = V, K = E; part
+// holds [3][n_tiles][T] floats (n_tiles = ceil(V / 256))
+extern "C" int fused_loss_fwd_sm90(const void* h, const void* k, const int* targets, float* part,
+                                   int T, int E, int V, int n_tiles, int kvt, void* stream) {
+  if (n_tiles != (V + BN - 1) / BN) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ma, mb;
+  int err = map_operand(&ma, h, E, T, E, false, true);
+  if (err == 0) {
+    err = kvt ? map_operand(&mb, k, E, V, E, false, false)
+              : map_operand(&mb, k, V, E, V, true, false);
+  }
+  if (err != 0) return err;
+  Params p{};
+  p.M = T;
+  p.N = V;
+  p.K = E;
+  p.targets = targets;
+  p.part = part;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return kvt ? launch<kFwd, false, false>(ma, mb, p, st) : launch<kFwd, false, true>(ma, mb, p, st);
+}
+
+// lse, tgt [T] from the forward's partials
+extern "C" int fused_loss_fwd_combine_sm90(const float* part, float* lse, float* tgt, int T,
+                                           int n_tiles, void* stream) {
+  loss_fwd_combine<<<(T + 63) / 64, 64, 0, static_cast<cudaStream_t>(stream)>>>(part, n_tiles, T,
+                                                                                 lse, tgt);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // dl of the chunk [v0, v0 + width) into ws [T, vc]: M = T, N = width, K = E
 extern "C" int fused_loss_dl_sm90(const void* h, const void* k, const int* targets,

@@ -8,6 +8,15 @@ keys/values ``[B, S, Hk, D]`` (query head ``h`` reads kv head
 saves ``(q, k, v, o, L)``, and whose backward launches the dK/dV kernel and
 the dQ kernel (``csrc/flash_attention.cu``).
 
+The dK/dV kernel has two routes, chosen in the open by :func:`dkdv_route`
+and counted per launch in ``route_counts``: ``"wgmma"``
+(``csrc/flash_attention_sm90.cu``: TMA loads and ``wgmma`` in a persistent,
+warp-specialised, KV-stationary block, its units dealt longest first by
+:func:`dkdv_schedule`) for bf16 at D 64 or 128 on tensors TMA can describe,
+and ``"mma_sync"`` (``csrc/flash_attention.cu``: ``mma.sync`` in bf16, the
+CUDA cores in fp32) for the rest. A forced ``"wgmma"`` launch on tensors it
+was not built for raises; nothing falls back to the other route.
+
 Each kernel has a plain PyTorch version beside it that computes the same
 function with the same roundings: :func:`flash_attention_ref` (forward, with
 ``L``) and :func:`flash_attention_bwd_ref`. A wrapper takes the plain version
@@ -27,6 +36,7 @@ kernel; the port sums them in fp32 inside it.
 """
 
 import ctypes
+import heapq
 import math
 from typing import Dict, Optional
 
@@ -42,7 +52,12 @@ launch_counts: Dict[str, int] = {"flash_attention_fwd": 0,
                                  "flash_attention_bwd_dkdv": 0,
                                  "flash_attention_bwd_dq": 0}
 
-_SOURCE = "flash_attention.cu"
+_SOURCES = {"mma_sync": "flash_attention.cu", "wgmma": "flash_attention_sm90.cu"}
+#: dK/dV launches per route (see :func:`dkdv_route`)
+route_counts: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
+#: the wgmma dK/dV kernel's tiles (csrc/flash_attention_sm90.cu): keys per
+#: work unit, queries per item
+DKDV_BK, DKDV_BQ = 128, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)     # instantiated in csrc/flash_attention.cu
 _P = ctypes.c_void_p
@@ -52,18 +67,21 @@ _SIGNATURES = {
     "flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
     "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
     "flash_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    "flash_attention_bwd_dkdv_sm90": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
 }
+_SCHEDULES: Dict[tuple, tuple] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, route_counts):
+        for name in counts:
+            counts[name] = 0
 
 
-def _kernel(name: str):
+def _kernel(name: str, route: str = "mma_sync"):
     from . import _build
 
-    fn = getattr(_build.load(_SOURCE), name)
+    fn = getattr(_build.load(_SOURCES[route]), name)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -71,6 +89,8 @@ def _kernel(name: str):
 
 
 def _check_launch(name: str, err: int) -> None:
+    if err >= 10000:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {err - 10000}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
@@ -221,17 +241,94 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
     return o, lse
 
 
-def launch_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, *, causal: bool, sm_scale: float):
-    """One launch of the dK/dV kernel into ``dk``/``dv`` (CUDA tensors that
-    ``flash_attention_backward`` has checked; ``do`` in q's dtype, ``delta``
+def dkdv_route(q, k, v, do) -> str:
+    """The dK/dV kernel's route for these tensors: ``"wgmma"`` for bf16 at
+    head dim 64 or 128 when TMA can describe every tensor (contiguous, so
+    rows of ``heads * D`` elements, with 16-byte-aligned bases); else
+    ``"mma_sync"``. The same rule on any device, so the CPU tests can ask
+    it."""
+    tma = (q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS
+           and all(t.dtype == q.dtype and t.is_contiguous() and t.data_ptr() % 16 == 0
+                   for t in (q, k, v, do)))
+    return "wgmma" if tma else "mma_sync"
+
+
+def dkdv_units(B: int, S: int, Hk: int, G: int, causal: bool):
+    """The wgmma dK/dV kernel's work units, ``(b, kv head, key tile)`` by
+    index ``u`` (key tile ``u // (B Hk)``, batch and kv head from ``u % (B
+    Hk)``, as the kernel decodes it), and the number of (query head, query
+    tile) items of each: the group's ``G`` heads times the query tiles at or
+    below the key tile's diagonal (all of them when not causal)."""
+    nkt, nq = -(-S // DKDV_BK), -(-S // DKDV_BQ)
+    return [G * (nq - (u // (B * Hk) * DKDV_BK // DKDV_BQ if causal else 0))
+            for u in range(nkt * B * Hk)]
+
+
+def dkdv_schedule(B: int, S: int, Hk: int, G: int, causal: bool, blocks: int):
+    """The persistent blocks' work for the wgmma dK/dV kernel: units sorted
+    longest first (ties by index), each dealt to the block with the fewest
+    items so far (ties to the lowest block). Returns ``(offsets, ids)``:
+    block ``i`` computes units ``ids[offsets[i]:offsets[i + 1]]``, each from
+    start to end, so every unit's sums run in a fixed order whatever the
+    schedule."""
+    items = dkdv_units(B, S, Hk, G, causal)
+    blocks = max(1, min(blocks, len(items)))
+    heap = [(0, i) for i in range(blocks)]
+    per = [[] for _ in range(blocks)]
+    for u in sorted(range(len(items)), key=lambda u: (-items[u], u)):
+        load, i = heapq.heappop(heap)
+        per[i].append(u)
+        heapq.heappush(heap, (load + items[u], i))
+    offsets, ids = [0], []
+    for units in per:
+        ids += units
+        offsets.append(len(ids))
+    return offsets, ids
+
+
+def _schedule_tensor(q, Hk: int, causal: bool):
+    """``(schedule, blocks)``: :func:`dkdv_schedule` for one block per SM of
+    ``q``'s card as an int32 tensor there (offsets, then ids) and its
+    number of blocks, made once per shape."""
+    B, S, H, _ = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    key = (B, S, Hk, H // Hk, causal, sms, q.device)
+    if key not in _SCHEDULES:
+        offsets, ids = dkdv_schedule(B, S, Hk, H // Hk, causal, sms)
+        _SCHEDULES[key] = (torch.tensor(offsets + ids, dtype=torch.int32, device=q.device),
+                           len(offsets) - 1)
+    return _SCHEDULES[key]
+
+
+def launch_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, *, causal: bool, sm_scale: float,
+                    route: Optional[str] = None):
+    """One launch of the dK/dV kernel into ``dk``/``dv`` on ``route``
+    (default :func:`dkdv_route`'s choice) for CUDA tensors that
+    ``flash_attention_backward`` has checked (``do`` in q's dtype, ``delta``
     fp32 ``[B, H, S]``)."""
     B, S, H, D = q.shape
-    err = _kernel("flash_attention_bwd_dkdv")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], D,
-        sm_scale, int(causal), _DTYPES[q.dtype], _stream(q))
+    Hk = k.shape[2]
+    chosen = dkdv_route(q, k, v, do)
+    route = route or chosen
+    if route not in _SOURCES:
+        raise ValueError(f"route must be one of {sorted(_SOURCES)}, got {route!r}")
+    if route == "wgmma":
+        if chosen != "wgmma":
+            raise ValueError("the wgmma route takes contiguous bf16 tensors with 16-byte "
+                             "aligned bases and head dim 64 or 128 (see dkdv_route)")
+        sched, grid = _schedule_tensor(q, Hk, causal)
+        err = _kernel("flash_attention_bwd_dkdv_sm90", route)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), sched.data_ptr(), grid, B, S, H,
+            Hk, D, sm_scale, int(causal), _stream(q))
+    else:
+        err = _kernel("flash_attention_bwd_dkdv")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, Hk, D,
+            sm_scale, int(causal), _DTYPES[q.dtype], _stream(q))
     launch_counts["flash_attention_bwd_dkdv"] += 1
-    _check_launch("flash_attention_bwd_dkdv", err)
+    route_counts[route] += 1
+    _check_launch(f"flash_attention_bwd_dkdv ({route})", err)
 
 
 def launch_bwd_dq(q, k, v, do, lse, delta, dq, *, causal: bool, sm_scale: float):

@@ -13,22 +13,27 @@ the TPU keeps its ``dh``/``dK`` accumulators in VMEM, which no block here
 can hold): per chunk one kernel computes the gradient tile ``dl`` once into
 a ``[T, Vc]`` workspace of at most :data:`WORKSPACE_BYTES`, one adds
 ``dl K^T`` into ``dh`` (fp32 across chunks) and one writes that chunk of
-``dK``. ``launch_counts`` counts launches: the forward once per call, the
-three backward kernels once per chunk.
+``dK``. ``launch_counts`` counts launches: the forward once per call (on
+the ``wgmma`` route also its combine, ``fused_loss_fwd_combine``, which
+merges the per-tile partials), the three backward kernels once per chunk.
 
-The backward has two routes, chosen in the open by :func:`backward_route`
-and counted per launch in ``route_counts``: ``"wgmma"``
+The forward and the backward each have two routes, chosen in the open by
+one function, :func:`loss_route` (``backward_route`` is the same
+function), and counted per launch in ``fwd_route_counts`` (the forward)
+and ``route_counts`` (the backward): ``"wgmma"``
 (``csrc/fused_loss_sm90.cu``: TMA loads and ``wgmma`` in a persistent,
 warp-specialised block) for bf16 operands that TMA can describe (16-byte
-aligned bases and row strides), and ``"mma_sync"`` (``csrc/fused_loss.cu``,
-the forward's tile: ``mma.sync`` in bf16, the CUDA cores in fp32) for the
-rest, e.g. an untied head whose vocab of 50257 gives rows of 100514 bytes.
-A launch that fails raises; nothing falls back to the other route.
+aligned bases and row strides), and ``"mma_sync"`` (``csrc/fused_loss.cu``:
+``mma.sync`` in bf16, the CUDA cores in fp32) for the rest, e.g. an untied
+head whose vocab of 50257 gives rows of 100514 bytes. A launch that fails
+raises; nothing falls back to the other route.
 
 Each kernel has a plain PyTorch version beside it with the same roundings:
 :func:`fused_nll_fwd_ref`, :func:`fused_dlogits_ref` and
-:func:`fused_nll_bwd_ref`. A wrapper takes the plain version only for
-tensors on the CPU; for CUDA tensors it launches the kernels or raises.
+:func:`fused_nll_bwd_ref`; :func:`fused_nll_fwd_tiled_ref` spells out the
+``wgmma`` forward's partial-and-combine order. A wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches the
+kernels or raises.
 
 Numerics (the JAX kernels'): logits are fp32 products of the storage-dtype
 operands; ``lse = m + log(l)`` with ``l == 0`` dividing by 1; the target
@@ -46,11 +51,15 @@ import torch
 __all__ = ["fused_vocab_nll", "fused_loss_ready", "DEFAULT_BLOCK_T", "DEFAULT_BLOCK_V"]
 
 #: kernel launches per wrapper (reset by callers that want a window's count)
-launch_counts: Dict[str, int] = {"fused_loss_fwd": 0, "fused_loss_dlogits": 0,
-                                 "fused_loss_dh": 0, "fused_loss_dk": 0}
+launch_counts: Dict[str, int] = {"fused_loss_fwd": 0, "fused_loss_fwd_combine": 0,
+                                 "fused_loss_dlogits": 0, "fused_loss_dh": 0,
+                                 "fused_loss_dk": 0}
 
-#: backward kernel launches per route (see :func:`backward_route`)
+#: backward kernel launches per route (see :func:`loss_route`)
 route_counts: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
+
+#: forward kernel launches per route
+fwd_route_counts: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
 
 #: the JAX function's default tiles (the kernels here tile themselves)
 DEFAULT_BLOCK_T = 256
@@ -59,6 +68,7 @@ DEFAULT_BLOCK_V = 512
 #: bound on the backward's dl workspace ``[T, Vc]``, in bytes
 WORKSPACE_BYTES = 64 << 20
 _BN = 128                  # vocab columns per block tile (csrc/fused_loss.cu)
+FWD_TILE = 256             # vocab columns per partial of the wgmma forward
 _SOURCES = {"mma_sync": "fused_loss.cu", "wgmma": "fused_loss_sm90.cu"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -69,6 +79,8 @@ _SIGNATURES = {
     "fused_loss_dl": [_P] * 7 + [_I] * 8 + [_P],
     "fused_loss_dh": [_P] * 4 + [_I] * 10 + [_P],
     "fused_loss_dk": [_P] * 3 + [_I] * 8 + [_P],
+    "fused_loss_fwd_sm90": [_P] * 4 + [_I] * 5 + [_P],
+    "fused_loss_fwd_combine_sm90": [_P] * 3 + [_I] * 2 + [_P],
     "fused_loss_dl_sm90": [_P] * 7 + [_I] * 7 + [_P],
     "fused_loss_dh_sm90": [_P] * 4 + [_I] * 9 + [_P],
     "fused_loss_dk_sm90": [_P] * 3 + [_I] * 7 + [_P],
@@ -76,7 +88,7 @@ _SIGNATURES = {
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, route_counts):
+    for counts in (launch_counts, route_counts, fwd_route_counts):
         for name in counts:
             counts[name] = 0
 
@@ -138,6 +150,34 @@ def fused_nll_fwd_ref(h, k, targets):
     tgt = torch.where(cols[None, :] == targets[:, None].long(), s,
                       torch.zeros_like(s)).sum(dim=-1)
     return lse, tgt
+
+
+def fused_nll_fwd_tiled_ref(h, k, targets, tile: int = FWD_TILE):
+    """The ``wgmma`` forward's order of operations, in plain PyTorch: per
+    row and ``tile``-column tile of the vocab the partial ``(m, l, tgt)``
+    (the tile's max, its sum of ``exp(s - m)``, its target logit), merged in
+    tile order (``m = max m_i``, ``l = sum l_i exp(m_i - m)``, ``tgt = sum
+    tgt_i``, ``lse = m + log l`` with ``l == 0`` dividing by 1). The same
+    function as :func:`fused_nll_fwd_ref` up to the order of the sums."""
+    T, V = h.shape[0], k.shape[1]
+    n = -(-V // tile)
+    part = torch.empty((3, n, T), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        v0 = i * tile
+        s = _logits(h, k[:, v0:v0 + tile])
+        m = s.amax(dim=-1)
+        part[0, i] = m
+        part[1, i] = torch.exp(s - m[:, None]).sum(dim=-1)
+        cols = torch.arange(v0, v0 + s.shape[1], device=s.device)
+        part[2, i] = torch.where(cols[None, :] == targets[:, None].long(), s,
+                                 torch.zeros_like(s)).sum(dim=-1)
+    m = part[0].amax(dim=0)
+    l = torch.zeros(T, dtype=torch.float32, device=h.device)
+    tgt = torch.zeros_like(l)
+    for i in range(n):
+        l = l + part[1, i] * torch.exp(part[0, i] - m)
+        tgt = tgt + part[2, i]
+    return m + torch.log(torch.where(l == 0, torch.ones_like(l), l)), tgt
 
 
 def fused_dlogits_ref(h, k, targets, lse, g_lse, g_tgt, v0: int = 0,
@@ -213,52 +253,82 @@ def chunk_width(T: int, V: int, itemsize: int) -> int:
     return max(_BN, min(vc, -(-V // _BN) * _BN))
 
 
-def fused_nll_forward(h, k, targets):
-    """The forward kernel: ``(lse, tgt)`` fp32 ``[T]``. CPU tensors take
-    :func:`fused_nll_fwd_ref`."""
-    _check_shapes(h, k, targets)
-    if h.device.type == "cpu":
-        return fused_nll_fwd_ref(h, k, targets)
-    kvt, base = _layout(k)
-    _validate_cuda({"h": h, "k": base, "targets": targets}, h.dtype)
-    T, E = h.shape
-    V = k.shape[1]
-    lse = torch.empty(T, dtype=torch.float32, device=h.device)
-    tgt = torch.empty_like(lse)
-    if T == 0:
-        return lse, tgt
-    is_bf16 = _DTYPES[h.dtype]
-    nsplit = _kernel("fused_loss_fwd_splits")(T, V, kvt, is_bf16)
-    _check_launch("fused_loss_fwd_splits", -min(nsplit, 0))
-    part = torch.empty((3, nsplit, T), dtype=torch.float32, device=h.device)
-    ticket = torch.zeros(-(-T // 64), dtype=torch.int32, device=h.device)
-    err = _kernel("fused_loss_fwd")(
-        h.data_ptr(), base.data_ptr(), targets.data_ptr(), lse.data_ptr(), tgt.data_ptr(),
-        part.data_ptr(), ticket.data_ptr(), T, E, V, nsplit, kvt, is_bf16, _stream(h))
-    launch_counts["fused_loss_fwd"] += 1
-    _check_launch("fused_loss_fwd", err)
-    return lse, tgt
-
-
-def backward_route(h, base) -> str:
-    """The backward's route for hidden states ``h [T, E]`` and the head
-    ``base`` in its stored layout (``[E, V]``, or ``[V, E]`` tied):
-    ``"wgmma"`` when TMA can describe every operand, that is bf16 with
-    16-byte-aligned bases and row strides (the workspace's rows, a multiple
-    of 128 columns, always are); else ``"mma_sync"``. The same rule on any
-    device, so the CPU tests can ask it."""
+def loss_route(h, base) -> str:
+    """The route of the forward and of the backward for hidden states ``h
+    [T, E]`` and the head ``base`` in its stored layout (``[E, V]``, or
+    ``[V, E]`` tied): ``"wgmma"`` when TMA can describe every operand, that
+    is bf16 with 16-byte-aligned bases and row strides (the workspace's
+    rows, a multiple of 128 columns, always are); else ``"mma_sync"``. The
+    same rule on any device, so the CPU tests can ask it."""
     tma = (h.dtype == base.dtype == torch.bfloat16 and h.numel() > 0 and base.numel() > 0
            and all(t.data_ptr() % 16 == 0 and t.stride(0) * t.element_size() % 16 == 0
                    for t in (h, base)))
     return "wgmma" if tma else "mma_sync"
 
 
+#: the backward's name for :func:`loss_route` (one rule for both passes)
+backward_route = loss_route
+
+
+def launch_forward(h, base, targets, kvt: int, route: str):
+    """One launch of the forward kernel on ``route``: ``(lse, tgt)`` fp32
+    ``[T]`` (CUDA tensors that :func:`fused_nll_forward` has checked;
+    ``base`` is the head in its stored layout, ``kvt`` says which)."""
+    T, E = h.shape
+    V = base.shape[0] if kvt else base.shape[1]
+    fn = _entry("fwd", route, h, base)
+    lse = torch.empty(T, dtype=torch.float32, device=h.device)
+    tgt = torch.empty_like(lse)
+    if route == "wgmma":
+        # per-256-column partials, then their combine in tile order
+        n = -(-V // FWD_TILE)
+        part = torch.empty((3, n, T), dtype=torch.float32, device=h.device)
+        err = fn(h.data_ptr(), base.data_ptr(), targets.data_ptr(), part.data_ptr(),
+                 T, E, V, n, kvt, _stream(h))
+        launch_counts["fused_loss_fwd"] += 1
+        fwd_route_counts[route] += 1
+        _check_launch(f"fused_loss_fwd ({route})", err)
+        err = _kernel("fused_loss_fwd_combine_sm90", route)(
+            part.data_ptr(), lse.data_ptr(), tgt.data_ptr(), T, n, _stream(h))
+        launch_counts["fused_loss_fwd_combine"] += 1
+        _check_launch("fused_loss_fwd_combine", err)
+        return lse, tgt
+    is_bf16 = _DTYPES[h.dtype]
+    n = _kernel("fused_loss_fwd_splits")(T, V, kvt, is_bf16)
+    _check_launch("fused_loss_fwd_splits", -min(n, 0))
+    part = torch.empty((3, n, T), dtype=torch.float32, device=h.device)
+    ticket = torch.zeros(-(-T // 64), dtype=torch.int32, device=h.device)
+    err = fn(h.data_ptr(), base.data_ptr(), targets.data_ptr(), lse.data_ptr(),
+             tgt.data_ptr(), part.data_ptr(), ticket.data_ptr(), T, E, V, n, kvt, is_bf16,
+             _stream(h))
+    launch_counts["fused_loss_fwd"] += 1
+    fwd_route_counts[route] += 1
+    _check_launch(f"fused_loss_fwd ({route})", err)
+    return lse, tgt
+
+
+def fused_nll_forward(h, k, targets, route: Optional[str] = None):
+    """The forward kernel: ``(lse, tgt)`` fp32 ``[T]``, on ``route``
+    (default :func:`loss_route`'s choice; a forced ``"wgmma"`` on operands
+    TMA cannot describe raises). CPU tensors take
+    :func:`fused_nll_fwd_ref`."""
+    _check_shapes(h, k, targets)
+    if h.device.type == "cpu":
+        return fused_nll_fwd_ref(h, k, targets)
+    kvt, base = _layout(k)
+    _validate_cuda({"h": h, "k": base, "targets": targets}, h.dtype)
+    if h.shape[0] == 0:
+        return (torch.empty(0, dtype=torch.float32, device=h.device),
+                torch.empty(0, dtype=torch.float32, device=h.device))
+    return launch_forward(h, base, targets, kvt, route or loss_route(h, base))
+
+
 def _entry(kind: str, route: str, h, base):
     if route not in _SOURCES:
         raise ValueError(f"route must be one of {sorted(_SOURCES)}, got {route!r}")
-    if route == "wgmma" and backward_route(h, base) != "wgmma":
+    if route == "wgmma" and loss_route(h, base) != "wgmma":
         raise ValueError("the wgmma route takes bf16 operands with 16-byte-aligned bases "
-                         "and row strides (see backward_route)")
+                         "and row strides (see loss_route)")
     return _kernel(f"fused_loss_{kind}" + ("_sm90" if route == "wgmma" else ""), route)
 
 
@@ -333,7 +403,7 @@ def fused_nll_backward(h, k, targets, lse, g_lse, g_tgt):
     ws = torch.empty((T, vc), dtype=h.dtype, device=h.device)
     dh_acc = (torch.empty((T, E), dtype=torch.float32, device=h.device)
               if n_chunks > 1 else None)
-    route = backward_route(h, base)
+    route = loss_route(h, base)
     for c in range(n_chunks):
         v0 = c * vc
         width = min(vc, V - v0)

@@ -99,8 +99,15 @@ def test_feedback_registry(monkeypatch):
     compressed.clear_feedback()
     with pytest.raises(ValueError, match="shape"):
         compressed.feedback_state("g")
-    fb = compressed.feedback_state("g", shape=(5,), world=2)
+    if not torch.cuda.is_available():
+        # (shape, world) builds the zero state on the card, as every entry
+        # point does: on the host the caller passes ``init``
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            compressed.feedback_state("g", shape=(5,), world=2)
+    fb = compressed.feedback_state(
+        "g", init=lambda: compressed.allreduce_feedback_init((5,), 2, device="cpu"))
     assert fb.worker_error.shape == (5,) and fb.server_error.shape == (3,)
+    assert fb.worker_error.device.type == "cpu"
     assert compressed.feedback_state("g") is fb
     compressed.store_feedback("g", "next")
     assert compressed.feedback_state("g") == "next"

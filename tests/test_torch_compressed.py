@@ -181,3 +181,25 @@ def test_stochastic_all_reduce_is_unbiased(world):
     assert avg_bias < single / 2
     assert avg_bias < 2 * np.abs(sr).max() / 127 / np.sqrt(SR_DRAWS) * 6
     assert not np.array_equal(draws[0], draws[1])
+
+
+@pytest.mark.parametrize("shape, world", [((5000,), 2), ((33, 7), 4), ((4096,), 4)])
+def test_feedback_init_is_on_the_card_unless_asked_for_the_host(shape, world, monkeypatch):
+    """Like every entry point of the port, ``allreduce_feedback_init``
+    builds on the card by default: without one it raises (naming
+    ``device='cpu'``) instead of putting the residual on the host, where a
+    CUDA gradient would meet it. ``device="cpu"`` builds the JAX shapes."""
+    import torch
+
+    from deepspeed_tpu_torch.comm import compressed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compressed.allreduce_feedback_init(shape, world)
+    fb = compressed.allreduce_feedback_init(shape, world, device="cpu")
+    ref = jcc.allreduce_feedback_init(shape, world)
+    for got, want in ((fb.worker_error, ref.worker_error),
+                      (fb.server_error, ref.server_error)):
+        assert tuple(got.shape) == tuple(want.shape)
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        assert not got.any()

@@ -332,6 +332,118 @@ def test_flash_wrapper_counts_launches_and_rejects_bad_inputs():
     assert fa.launch_counts["flash_attention_fwd"] == 1
 
 
+def _dkdv_inputs(B, S, H, Hk, D, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    return r(B, S, H, D), r(B, S, Hk, D), r(B, S, Hk, D), r(B, S, H, D)
+
+
+def _dkdv(q, k, v, do, causal, route=None):
+    """dK, dV from one launch of the dK/dV kernel on ``route``, with O and L
+    from the plain forward and delta taken as the backward wrapper takes it."""
+    o, lse = fa.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fa.launch_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, causal=causal,
+                       sm_scale=q.shape[-1] ** -0.5, route=route)
+    return dk, dv, o, lse
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_dkdv_matches_plain_version_on_card(D, G, causal):
+    """The wgmma dK/dV kernel (csrc/flash_attention_sm90.cu) against the
+    plain backward: GQA groups of 1, 4 and 8, S 1000 (no multiple of its
+    128-key or 64-query tiles, so TMA zero-fills past S inside a batch),
+    two batches; rel 2e-2 of the reference's largest magnitude (P and dS
+    round to bf16, and dK/dV sum such terms over S and the group)."""
+    _need_card()
+    B, S, Hk = 2, 1000, 2
+    q, k, v, do = _dkdv_inputs(B, S, G * Hk, Hk, D, seed=40 + D + G)
+    assert fa.dkdv_route(q, k, v, do) == "wgmma"
+    fa.reset_launch_counts()
+    dk, dv, o, lse = _dkdv(q, k, v, do, causal)
+    assert fa.route_counts == {"wgmma": 1, "mma_sync": 0}
+    _, dk_r, dv_r = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    _close(dk, dk_r, 2e-2)
+    _close(dv, dv_r, 2e-2)
+
+
+def test_flash_wgmma_dkdv_is_bitwise_repeatable_on_card():
+    """Each unit of the persistent schedule is summed by one block in a fixed
+    order, with no float atomics: two launches give the same bits."""
+    _need_card()
+    q, k, v, do = _dkdv_inputs(2, 1024, 16, 2, 64, seed=5)
+    first = _dkdv(q, k, v, do, True, route="wgmma")[:2]
+    second = _dkdv(q, k, v, do, True, route="wgmma")[:2]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("case", ["tinyllama cut to T 2048", "ragged tied"])
+def test_fused_loss_wgmma_forward_matches_plain_version_on_card(case):
+    """The wgmma forward (csrc/fused_loss_sm90.cu) against the plain
+    forward: TinyLlama's head cut to 2048 tokens, and T 3007 / E 1000 / a
+    tied vocab of 50257 (no multiple of its 256-column tile: the columns
+    TMA zero-fills past V must stay out of the max and the sums), targets
+    incl. -1, and the loss with z_loss 1e-2 through ``fused_vocab_nll``.
+    The ragged case also runs the mma_sync forward on the same inputs."""
+    _need_card()
+    from deepspeed_tpu_torch.ops import fused_loss as fl
+
+    T, E, V, tied = (2048, 2048, 32000, False) if case.startswith("tiny") else \
+        (3007, 1000, 50257, True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    h = torch.randn(T, E, generator=gen, device="cuda").to(torch.bfloat16)
+    k = 0.02 * torch.randn(*((V, E) if tied else (E, V)), generator=gen, device="cuda")
+    k = k.to(torch.bfloat16).T if tied else k.to(torch.bfloat16)
+    t = torch.randint(-1, V, (T,), generator=gen, device="cuda", dtype=torch.int32)
+    assert fl.loss_route(h, fl._layout(k)[1]) == "wgmma"
+    fl.reset_launch_counts()
+    lse, tgt = fl.fused_nll_forward(h, k, t)
+    assert fl.fwd_route_counts == {"wgmma": 1, "mma_sync": 0}
+    assert fl.launch_counts["fused_loss_fwd"] == fl.launch_counts["fused_loss_fwd_combine"] == 1
+    lse_r, tgt_r = fl.fused_nll_fwd_ref(h, k, t)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(tgt, tgt_r, rtol=1e-5, atol=1e-4)
+    assert torch.all(tgt[t < 0] == 0)
+    nll = fl.fused_vocab_nll(h, k, t, z_loss=1e-2)
+    torch.testing.assert_close(nll, lse_r - tgt_r + 1e-2 * lse_r ** 2, rtol=1e-5, atol=1e-4)
+    if tied:
+        lse_m, tgt_m = fl.fused_nll_forward(h, k, t, route="mma_sync")
+        torch.testing.assert_close(lse, lse_m, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(tgt, tgt_m, rtol=1e-5, atol=1e-4)
+
+
+def test_wgmma_forward_and_dkdv_refuse_what_they_were_not_built_for_on_card():
+    """A forced wgmma launch on tensors TMA cannot serve raises before any
+    launch: the fused-loss forward on an untied head of rows of 3862 bytes,
+    dK/dV in fp32; an unknown route raises too."""
+    _need_card()
+    from deepspeed_tpu_torch.ops import fused_loss as fl
+
+    h = torch.zeros(64, 128, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(128, 1931, device="cuda", dtype=torch.bfloat16)
+    t = torch.zeros(64, device="cuda", dtype=torch.int32)
+    fl.reset_launch_counts()
+    with pytest.raises(ValueError, match="wgmma route"):
+        fl.fused_nll_forward(h, k, t, route="wgmma")
+    with pytest.raises(ValueError, match="route must be"):
+        fl.fused_nll_forward(h, k, t, route="tiles")
+    assert sum(fl.fwd_route_counts.values()) == 0
+    q = torch.zeros(1, 128, 4, 64, device="cuda")
+    kv = torch.zeros(1, 128, 2, 64, device="cuda")
+    lse = torch.zeros(1, 4, 128, device="cuda")
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="wgmma route"):
+        fa.launch_bwd_dkdv(q, kv, kv, q, lse, lse, kv.clone(), kv.clone(), causal=True,
+                           sm_scale=0.125, route="wgmma")
+    with pytest.raises(ValueError, match="route must be"):
+        fa.launch_bwd_dkdv(q, kv, kv, q, lse, lse, kv.clone(), kv.clone(), causal=True,
+                           sm_scale=0.125, route="tiles")
+    assert sum(fa.route_counts.values()) == 0 == fa.launch_counts["flash_attention_bwd_dkdv"]
+
+
 @pytest.mark.parametrize("bias_correction", [True, False])
 @pytest.mark.parametrize("adam_w_mode", [True, False])
 def test_fused_adam_kernel_matches_plain_version_on_card(adam_w_mode, bias_correction):
@@ -433,12 +545,15 @@ def test_fused_loss_kernels_match_plain_versions_on_card(dtype, tied):
     for g, w in zip((dh, dk), want):
         assert g.dtype == w.dtype == dtype and g.shape == w.shape
         _close(g, w, tol)
-    assert fl.launch_counts == {"fused_loss_fwd": 1, "fused_loss_dlogits": 4,
-                                "fused_loss_dh": 4, "fused_loss_dk": 4}
     # rows of 400 bytes (h, the tied [V, E] head) take TMA; an untied row of
-    # V = 1931 bf16 (3862 bytes) does not, and fp32 never does
+    # V = 1931 bf16 (3862 bytes) does not, and fp32 never does. The wgmma
+    # forward merges its partials in a second launch
     route = "wgmma" if dtype == torch.bfloat16 and tied else "mma_sync"
+    assert fl.launch_counts == {"fused_loss_fwd": 1,
+                                "fused_loss_fwd_combine": int(route == "wgmma"),
+                                "fused_loss_dlogits": 4, "fused_loss_dh": 4, "fused_loss_dk": 4}
     assert fl.route_counts == {"wgmma": 0, "mma_sync": 0, route: 12}
+    assert fl.fwd_route_counts == {"wgmma": 0, "mma_sync": 0, route: 1}
 
 
 @pytest.mark.parametrize("tied", [False, True])

@@ -9,6 +9,13 @@ JAX ``attention_core(impl="xla")``: outputs, the logsumexp residual ``L``
 and the gradients of q, k and v must agree within 2e-4 in float32, the
 tolerance ``tests/unit/test_flash_attention.py`` uses (the packages sum in
 different orders).
+
+The host-side logic of the dK/dV kernel's ``wgmma`` route runs here too:
+``dkdv_route`` on CPU tensors of the dtypes, head dims, layouts and bases
+that decide it, and ``dkdv_schedule``, the persistent blocks' work, which
+must deal every (batch, kv head, key tile) unit to exactly one block (so
+each unit's group sum runs in one block, in a fixed order), the same way on
+every call, and within one unit of the mean per block.
 """
 
 import importlib
@@ -115,3 +122,59 @@ def test_shape_checks():
     with pytest.raises(ValueError, match="do not match"):
         tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k[:, :64]),
                             torch.from_numpy(v[:, :64]))
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case, route", [
+    ("bf16 D64", "wgmma"), ("bf16 D128", "wgmma"), ("fp32 D64", "mma_sync"),
+    ("fp16 D64", "mma_sync"), ("bf16 D32", "mma_sync"), ("bf16 D64 strided", "mma_sync"),
+    ("bf16 D64 base 2 B off", "mma_sync")])
+def test_dkdv_route_choice(case, route):
+    D = int(case.split("D")[1].split()[0])
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}[case[:4].strip()]
+    q = torch.zeros(2, 96, 8, D, dtype=dtype)
+    k = torch.zeros(2, 96, 2, D, dtype=dtype)
+    if "strided" in case:
+        q = torch.zeros(2, 8, 96, D, dtype=dtype).transpose(1, 2)
+    if "off" in case:
+        k = torch.zeros(2 * 96 * 2 * D + 1, dtype=dtype)[1:].view(2, 96, 2, D)
+    assert tfa.dkdv_route(q, k, k, q) == route
+
+
+@pytest.mark.parametrize("B, S, Hk, G, causal, blocks", [
+    (4, 2048, 4, 8, True, 132),      # TinyLlama's training shape
+    (1, 2048, 32, 1, True, 132),     # Llama-2-7B heads
+    (2, 1000, 2, 4, False, 132),     # ragged S, not causal
+    (3, 700, 2, 2, True, 5),         # more units than blocks, ragged S
+    (1, 100, 1, 1, True, 132)])      # fewer units than blocks
+def test_dkdv_schedule_covers_each_unit_once(B, S, Hk, G, causal, blocks):
+    items = tfa.dkdv_units(B, S, Hk, G, causal)
+    nkt, nq = -(-S // tfa.DKDV_BK), -(-S // tfa.DKDV_BQ)
+    assert len(items) == nkt * B * Hk
+    # items per unit: the group's heads x the query tiles whose last query
+    # reaches the key tile's first key (all of them when not causal)
+    for u, n in enumerate(items):
+        k0 = u // (B * Hk) * tfa.DKDV_BK
+        reach = sum(1 for iq in range(nq)
+                    if not causal or iq * tfa.DKDV_BQ + tfa.DKDV_BQ - 1 >= k0)
+        assert n == G * reach
+    offsets, ids = tfa.dkdv_schedule(B, S, Hk, G, causal, blocks)
+    assert (offsets, ids) == tfa.dkdv_schedule(B, S, Hk, G, causal, blocks)
+    assert len(offsets) == min(blocks, len(items)) + 1 and offsets[0] == 0
+    assert offsets == sorted(offsets) and offsets[-1] == len(ids)
+    assert sorted(ids) == list(range(len(items)))      # every unit exactly once
+    loads = [sum(items[u] for u in ids[a:b]) for a, b in zip(offsets, offsets[1:])]
+    for a, b in zip(offsets, offsets[1:]):
+        mine = [items[u] for u in ids[a:b]]
+        assert mine == sorted(mine, reverse=True)      # longest first
+    # greedy on units sorted longest first: no block exceeds the mean by
+    # more than the longest unit
+    assert max(loads) <= sum(items) / len(loads) + max(items)
+    if (B, S, Hk, G) == (4, 2048, 4, 8):
+        # 272 items on the busiest block against a mean of 263.8, where one
+        # block per 64-key tile gave the key-tile-0 blocks 256 of 64 x 64
+        # against a mean of 132
+        assert max(loads) == 272 and sum(items) == 34816

@@ -15,9 +15,14 @@
   ``xla`` on the CPU and ``fused`` for fp32/bf16 tensors on the card), and
   the fallback rule (the 128 gate on the CPU only, fp16 and a head bias
   keep the dense loss) picks and warns as stated.
-* ``backward_route``, the choice between the backward's ``wgmma`` and
-  ``mma_sync`` kernels, on CPU tensors of the dtypes and strides that
-  decide it (the same function runs on the card).
+* ``loss_route`` (``backward_route`` is the same function), the choice
+  between the ``wgmma`` and ``mma_sync`` kernels of the forward and the
+  backward, on CPU tensors of the dtypes and strides that decide it (the
+  same function runs on the card); and the ``wgmma`` forward's order of
+  operations (``fused_nll_fwd_tiled_ref``: per-256-column partials merged in
+  tile order) against the plain forward and the JAX ``fused_vocab_nll``
+  (interpret mode) on vocabs that end in a partial tile, targets incl. -1,
+  in float32 within rtol 1e-5 (only the order of the fp32 sums differs).
 """
 
 import dataclasses
@@ -149,20 +154,59 @@ def test_plain_dlogits_chunks_and_softmax_term_match_jax():
     _close(dk, jdk, GRAD_RTOL, GRAD_ATOL)
 
 
-@pytest.mark.parametrize("dtype, tied, V, E, route", [
+ROUTE_CASES = [
     (torch.bfloat16, False, 32000, 64, "wgmma"),      # TinyLlama's head: rows of 64000 B
     (torch.bfloat16, True, 50257, 64, "wgmma"),       # tied [V, E]: rows of E, 128 B
     (torch.bfloat16, False, 50257, 64, "mma_sync"),   # rows of 100514 B: no TMA
     (torch.bfloat16, False, 32000, 60, "mma_sync"),   # h rows of 120 B
     (torch.float32, False, 32000, 64, "mma_sync"),    # fp32 never takes wgmma
     (torch.float32, True, 50257, 64, "mma_sync"),
-])
+]
+
+
+@pytest.mark.parametrize("dtype, tied, V, E, route", ROUTE_CASES)
 def test_backward_route_choice(dtype, tied, V, E, route):
     h = torch.zeros(8, E, dtype=dtype)
     k = torch.zeros(V, E, dtype=dtype).T if tied else torch.zeros(E, V, dtype=dtype)
     kvt, base = tfl._layout(k)
     assert kvt == int(tied)
     assert tfl.backward_route(h, base) == route
+
+
+@pytest.mark.parametrize("dtype, tied, V, E, route", ROUTE_CASES)
+def test_forward_route_choice(dtype, tied, V, E, route):
+    """The forward takes the backward's route: one function decides both."""
+    h = torch.zeros(8, E, dtype=dtype)
+    k = torch.zeros(V, E, dtype=dtype).T if tied else torch.zeros(E, V, dtype=dtype)
+    _, base = tfl._layout(k)
+    assert tfl.backward_route is tfl.loss_route
+    assert tfl.loss_route(h, base) == route
+
+
+@pytest.mark.parametrize("V, tile", [(640, 256), (384, 256), (1000, 256), (640, 100)])
+@pytest.mark.parametrize("z_loss", [0.0, 1e-2])
+def test_tiled_forward_matches_plain_forward_and_jax(V, tile, z_loss):
+    """The wgmma forward's partial-and-combine order on a vocab whose last
+    tile is partial (640 and 384 columns leave a 128-wide last tile of 256,
+    1000 a 232-wide one), targets incl. -1 (which match no column, so tgt
+    is 0), against the plain forward and, where the JAX gate takes the
+    vocab (a multiple of 128), against JAX ``fused_vocab_nll`` in interpret
+    mode; float32, rtol 1e-5."""
+    t_count, e = 24, 32
+    h, k = _rand((t_count, e), 20), _rand((e, V), 21, 0.5)
+    tgt = np.random.default_rng(22).integers(-1, V, (t_count,)).astype(np.int32)
+    tgt[:3] = -1
+    th, tk, tt = torch.from_numpy(h), torch.from_numpy(k), torch.from_numpy(tgt)
+    lse, tl = tfl.fused_nll_fwd_tiled_ref(th, tk, tt, tile)
+    lse_r, tl_r = tfl.fused_nll_fwd_ref(th, tk, tt)
+    _close(lse, lse_r, 1e-5, 0)
+    _close(tl, tl_r, 1e-5, 1e-6)
+    assert torch.all(tl[tt < 0] == 0)
+    nll = lse - tl + z_loss * lse ** 2
+    if V % 128 == 0:
+        jnll = jfl.fused_vocab_nll(jnp.asarray(h), jnp.asarray(k), jnp.asarray(tgt),
+                                   z_loss=z_loss, interpret=True)
+        _close(nll, jnll, 1e-5, 1e-6)
 
 
 def test_backward_route_needs_aligned_bases():

@@ -182,7 +182,7 @@ def scenario_compressed(rank, world, inputs, workdir):
             o, nfb = quantized_all_reduce(x, block=block, feedback=fb)
             steps.append((_np(o), _np(nfb.worker_error), _np(nfb.server_error)))
         out[f"{name}/feedback_steps"] = steps
-        fb = allreduce_feedback_init(tuple(x.shape), world)
+        fb = allreduce_feedback_init(tuple(x.shape), world, device="cpu")
         chain = []
         for _ in range(inputs["feedback_chain"]):
             o, fb = quantized_all_reduce(x, block=block, feedback=fb)
