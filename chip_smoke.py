@@ -25,11 +25,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    flash forward (library: SDPA with the layout as a dense mask); the flash-attention forward and its two
    backward kernels at TinyLlama's shape (B 4, S 2048, 32/4 heads, D 64,
    causal, bf16), a Llama-2-7B head shape (32/32, D 128), a non-causal
-   case and an fp32 case, each reporting the route its dK/dV launch took
-   (``wgmma`` or ``mma_sync``; every bf16 case must take ``wgmma``), dK/dV
-   timed on both routes at the main shape and two of its ``wgmma`` launches
-   bitwise equal; fused Adam over odd tensor sizes in AdamW and L2
-   modes, bias correction on and off, and timed over TinyLlama's 201
+   case and an fp32 case, each reporting the route its three kernels took
+   (``wgmma`` or ``mma_sync``; every bf16 case must take ``wgmma`` for all
+   three), each kernel timed on both routes at the main shape (the forward
+   also in both of its ``wgmma`` schedules) and two of each kernel's
+   ``wgmma`` launches bitwise equal; fused Adam over odd tensor sizes in
+   AdamW and L2 modes, bias correction on and off, and timed over TinyLlama's 201
    tensors; the fused LM loss (forward, dl, dh, dK) at TinyLlama's head
    (T 8192, E 2048, V 32000, bf16) and a ragged shape (T 3007, E 1000,
    V 50257, z_loss, half the rows at zero cotangent, untied and tied heads,
@@ -57,8 +58,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tokens/s, MFU and peak memory; the losses must be finite and fall, and
    every kernel must launch exactly as often as the path runs it (flash
    22 x gas x steps, fused loss forward and its combine gas x steps, each
-   backward kernel once per vocab chunk, Adam once per step), the flash
-   dK/dV and every fused-loss launch on the ``wgmma`` route;
+   backward kernel once per vocab chunk, Adam once per step), every flash
+   and fused-loss launch on the ``wgmma`` route;
 7. training path parity — TinyLlama widths at 2 layers: two ``train_batch``
    steps through the kernel path (flash kernels, Adam kernel, bf16), the
    plain path (plain attention, dense loss and Adam, bf16) and the plain
@@ -531,15 +532,16 @@ def flash_phase(fa):
               dict(B=2, S=1000, H=8, Hk=2, D=128), False),
              ("fp32 gqa 16/4 D64 causal", torch.float32,
               dict(B=2, S=1024, H=16, Hk=4, D=64), True)]
+    names = ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
     ok, errs, timed = True, {}, None
     for i, (name, dtype, shape, causal) in enumerate(cases):
         q, k, v, do = flash_case(dtype, seed=100 + i, **shape)
+        route = fa.flash_route(q, k, v, do)
+        fa.reset_launch_counts()
         o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
         o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
-        route = fa.dkdv_route(q, k, v, do)
-        fa.reset_launch_counts()
         dq, dk, dv = fa.flash_attention_backward(q, k, v, o_ref, lse_ref, do, causal=causal)
-        routed = dict(fa.route_counts)
+        routed = {n: dict(fa.route_counts[n]) for n in names}
         dq_r, dk_r, dv_r = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
                                                       causal=causal)
         torch.cuda.synchronize()
@@ -548,16 +550,17 @@ def flash_phase(fa):
              "dv": scaled_err(dv, dv_r)}
         good = all(rel <= tol[dtype] for key, (_, rel) in e.items() if key != "lse")
         good &= e["lse"][0] <= 1e-3
-        # the dK/dV launch took the route dkdv_route chose
-        good &= routed[route] == 1 and sum(routed.values()) == 1
+        # each kernel launched once, on the route flash_route chose
+        good &= all(r[route] == 1 and sum(r.values()) == 1 for r in routed.values())
         ok &= good
-        log(f"parity flash {name} {str(dtype)[6:]} (dK/dV route {route}): " + ", ".join(
-            f"{key} max|err|={a:.3e} (rel {r:.2e})" for key, (a, r) in e.items())
+        log(f"parity flash {name} {str(dtype)[6:]} (route {route} for the forward, dK/dV "
+            f"and dQ): " + ", ".join(
+                f"{key} max|err|={a:.3e} (rel {r:.2e})" for key, (a, r) in e.items())
             + f" (tol rel {tol[dtype]:g}, L abs 1e-3) {'ok' if good else 'FAIL'}")
         if dtype == torch.bfloat16 and route != "wgmma":
-            raise SystemExit(f"flash: the {name} case took the {route} dK/dV route, not wgmma")
+            raise SystemExit(f"flash: the {name} case took the {route} route, not wgmma")
         if shape is main:
-            errs = {"flash_attention_fwd": e["fwd"][0],
+            errs = {"flash_attention_fwd": max(e["fwd"][0], e["lse"][0]),
                     "flash_attention_bwd_dkdv": max(e["dk"][0], e["dv"][0]),
                     "flash_attention_bwd_dq": e["dq"][0]}
             timed = (q, k, v, do, o_ref, lse_ref)
@@ -570,44 +573,59 @@ def flash_phase(fa):
     lib_fwd, lib_bwd = sdpa_fwd_bwd(q, k, v, do, True)
     plain_fwd = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, return_lse=True), iters=3)
     plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), iters=3)
-    # the backward wrapper launches dK/dV then dQ; each is timed on its own
+    # each kernel is timed on its own through its launch helper, on both routes
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    o_k, lse_k = torch.empty_like(q), torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     sm = 1.0 / math.sqrt(q.shape[-1])
-    dkdv = lambda route="wgmma": fa.launch_bwd_dkdv(q, k, v, do, lse, delta, dk, dv,
-                                                    causal=True, sm_scale=sm, route=route)
-    dqk = lambda: fa.launch_bwd_dq(q, k, v, do, lse, delta, dq, causal=True, sm_scale=sm)
-    # the wgmma dK/dV repeats bitwise: one block sums each unit in a fixed order
-    dkdv()
-    first = (dk.clone(), dv.clone())
-    dkdv()
-    torch.cuda.synchronize()
-    bitwise = torch.equal(first[0], dk) and torch.equal(first[1], dv)
-    log(f"flash dK/dV (wgmma) two launches at the main shape: bitwise equal {bitwise}")
-    if not bitwise:
-        raise SystemExit("flash: two launches of the wgmma dK/dV differ")
+    launch = {
+        "flash_attention_fwd": lambda route="wgmma": fa.launch_fwd(
+            q, k, v, o_k, lse_k, causal=True, sm_scale=sm, route=route),
+        "flash_attention_bwd_dkdv": lambda route="wgmma": fa.launch_bwd_dkdv(
+            q, k, v, do, lse, delta, dk, dv, causal=True, sm_scale=sm, route=route),
+        "flash_attention_bwd_dq": lambda route="wgmma": fa.launch_bwd_dq(
+            q, k, v, do, lse, delta, dq, causal=True, sm_scale=sm, route=route)}
+    # the wgmma kernels repeat bitwise: one block sums each unit in a fixed order
+    outputs = {"flash_attention_fwd": (o_k, lse_k), "flash_attention_bwd_dkdv": (dk, dv),
+               "flash_attention_bwd_dq": (dq,)}
+    for n in names:
+        launch[n]()
+        first = [t.clone() for t in outputs[n]]
+        launch[n]()
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(first, outputs[n]))
+        log(f"flash {n} (wgmma) two launches at the main shape: bitwise equal {bitwise}")
+        if not bitwise:
+            raise SystemExit(f"flash: two launches of the wgmma {n} differ")
     del first
-    # the other route of dK/dV at the same shape, in the same run
-    mma_sync_ms = cuda_ms(lambda: dkdv("mma_sync"))
+    # the other route at the same shape, in the same run
+    other = {}
+    for n in names:
+        other[n] = cuda_ms(lambda: launch[n]("mma_sync"))
     rows = {}
-    for name, fn, passes, plain, lib in (
-            ("flash_attention_fwd", lambda: fa.flash_attention_forward(q, k, v), "fwd",
-             plain_fwd, lib_fwd),
-            ("flash_attention_bwd_dkdv", dkdv, "dkdv", plain_bwd, lib_bwd),
-            ("flash_attention_bwd_dq", dqk, "dq", plain_bwd, lib_bwd)):
+    for name, passes, plain, lib in (
+            ("flash_attention_fwd", "fwd", plain_fwd, lib_fwd),
+            ("flash_attention_bwd_dkdv", "dkdv", plain_bwd, lib_bwd),
+            ("flash_attention_bwd_dq", "dq", plain_bwd, lib_bwd)):
         nbytes, flops = flash_work(q, k, True, passes)
         b_ms, b_by = bound(nbytes, flops, q.dtype)
-        rows[name] = dict(ms=cuda_ms(fn), plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                          bound_by=b_by, max_abs_err=errs[name], bytes=nbytes, flops=flops)
-        log(f"timing {name} (bf16, B4 S2048 32/4 D64 causal): kernel"
-            f"{' on the wgmma route' if passes == 'dkdv' else ''} "
-            f"{rows[name]['ms']:.4f} ms ({flops / rows[name]['ms'] / 1e9:.1f} TFLOP/s), bound "
+        rows[name] = dict(ms=cuda_ms(launch[name]), plain_ms=plain, library_ms=lib,
+                          bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[name],
+                          bytes=nbytes, flops=flops)
+        ms = rows[name]["ms"]
+        log(f"timing {name} (bf16, B4 S2048 32/4 D64 causal): kernel on the wgmma route "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
             f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop), plain {plain:.4f} ms, "
             f"library {lib:.4f} ms")
-        if passes == "dkdv":
-            log(f"timing {name} on the mma_sync route: {mma_sync_ms:.4f} ms "
-                f"({flops / mma_sync_ms / 1e9:.1f} TFLOP/s); wgmma / mma_sync "
-                f"{rows[name]['ms'] / mma_sync_ms:.3f}")
+        log(f"timing {name} on the mma_sync route: {other[name]:.4f} ms "
+            f"({flops / other[name] / 1e9:.1f} TFLOP/s); wgmma / mma_sync "
+            f"{ms / other[name]:.3f}")
+    fwd = rows["flash_attention_fwd"]
+    log(f"timing flash_attention_fwd on the wgmma route / SDPA's forward "
+        f"{fwd['ms'] / lib_fwd:.3f}")
+    bwd = rows["flash_attention_bwd_dkdv"]["ms"] + rows["flash_attention_bwd_dq"]["ms"]
+    log(f"timing flash backward dK/dV + dQ on the wgmma route {bwd:.4f} ms, SDPA's "
+        f"backward {lib_bwd:.4f} ms, ratio {bwd / lib_bwd:.3f}")
     log("timing note: plain and library backward times compute dQ, dK and dV "
         "together; compare them with dK/dV + dQ")
     return rows
@@ -1450,8 +1468,12 @@ def train_phase(kernels, card, profile=False):
     # every launch of the redesigned kernels took the wgmma route
     from deepspeed_tpu_torch.ops import flash_attention, fused_loss
 
-    routes = {"flash dK/dV": (dict(flash_attention.route_counts),
+    routes = {"flash forward": (dict(flash_attention.route_counts["flash_attention_fwd"]),
+                                want["flash_attention_fwd"]),
+              "flash dK/dV": (dict(flash_attention.route_counts["flash_attention_bwd_dkdv"]),
                               want["flash_attention_bwd_dkdv"]),
+              "flash dQ": (dict(flash_attention.route_counts["flash_attention_bwd_dq"]),
+                           want["flash_attention_bwd_dq"]),
               "fused-loss forward": (dict(fused_loss.fwd_route_counts), want["fused_loss_fwd"]),
               "fused-loss backward": (dict(fused_loss.route_counts),
                                       3 * want["fused_loss_dlogits"])}
@@ -2196,9 +2218,9 @@ def main() -> int:
         "paged_flash_decode": ("paged_attention.cu", "paged_attention.py:224"),
         "paged_flash_decode_int8": ("paged_attention_int8.cu", "paged_attention.py:224"),
         "sparse_attention_fwd": ("sparse_attention.cu", "sparse_attention.py:151"),
-        "flash_attention_fwd": ("flash_attention.cu", "flash_attention.py:52"),
+        "flash_attention_fwd": ("flash_attention_sm90.cu", "flash_attention.py:52"),
         "flash_attention_bwd_dkdv": ("flash_attention_sm90.cu", "flash_attention.py:149"),
-        "flash_attention_bwd_dq": ("flash_attention.cu", "flash_attention.py:199"),
+        "flash_attention_bwd_dq": ("flash_attention_sm90.cu", "flash_attention.py:199"),
         "fused_adam": ("fused_adam.cu", "fused_adam.py:27"),
         "fused_loss_fwd": ("fused_loss_sm90.cu", "fused_loss.py:73"),
         "fused_loss_dlogits": ("fused_loss_sm90.cu", "fused_loss.py:152"),

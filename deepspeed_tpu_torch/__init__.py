@@ -9,7 +9,8 @@ its layout and public names module by module. Three paths are ported:
 * training on one card — ``initialize(model=make_loss_fn(model),
   model_parameters=params, config=...)`` -> ``engine.train_batch(batch)``,
   with the flash-attention forward and backward kernels
-  (``ops/csrc/flash_attention.cu``) and the fused Adam kernel
+  (``ops/csrc/flash_attention_sm90.cu`` in bf16, ``ops/csrc/flash_attention.cu``
+  in fp32) and the fused Adam kernel
   (``ops/csrc/fused_adam.cu``); the LM loss takes the fused loss kernels
   (``ops/csrc/fused_loss.cu``) on the card, layers may be recomputed in the
   backward (``checkpointing``, ``remat``), and the engine saves and resumes

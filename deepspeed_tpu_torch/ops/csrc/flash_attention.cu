@@ -1,4 +1,9 @@
-// Flash attention forward and backward, hand-written for Hopper (sm_90a).
+// Flash attention forward and backward, hand-written for Hopper (sm_90a):
+// the mma_sync route of the three kernels. The wrappers take contiguous,
+// 16-byte-aligned tensors only, so bf16 takes the wgmma route in
+// flash_attention_sm90.cu (ops/flash_attention.py, flash_route) and this
+// file serves fp32 (the CUDA cores); its bf16 kernels run when a caller
+// forces the route, as chip_smoke.py phase 3 does to time both.
 //
 // Replaces the three TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
 //   flash_fwd_kernel      <- _fwd_kernel       (O and the logsumexp L)
@@ -49,7 +54,7 @@
 //   * ragged S (not a tile multiple) is masked: rows past S load as zero,
 //     keys past S are masked, rows past S are never written.
 // The next tile is fetched with cp.async into a second buffer while the
-// block computes on the current one. Left for later: TMA and wgmma.
+// block computes on the current one. TMA and wgmma: flash_attention_sm90.cu.
 //
 // fp32 (the parity path; the model trains in bf16): the same block
 // decomposition on the CUDA cores, with fp32 tiles of S, P and the

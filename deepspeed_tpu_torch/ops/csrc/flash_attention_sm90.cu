@@ -1,64 +1,89 @@
-// The flash-attention dK/dV backward on Hopper's tensor-core path (sm_90a):
-// wgmma from shared memory that TMA fills, in a persistent, warp-specialised
-// block. The other route of dK/dV (mma.sync in bf16, the CUDA cores in fp32)
-// and the forward and dQ kernels stay in flash_attention.cu.
+// The flash-attention kernels on Hopper's tensor-core path (sm_90a): wgmma
+// from shared memory that TMA fills, in persistent, warp-specialised blocks.
+// Three kernels share the machinery below: the forward and dQ, which hold a
+// query tile and stream the key tiles (Q-stationary), and dK/dV, which holds
+// a key tile and streams the query tiles (KV-stationary). The other route of
+// each (mma.sync in bf16, the CUDA cores in fp32) is in flash_attention.cu.
 //
-// Replaces deepspeed_tpu/ops/pallas/flash_attention.py:_bwd_dkdv_kernel.
-// What it computes, on the public [B, S, H, D] layout (K/V [B, S, Hk, D],
+// Replaces deepspeed_tpu/ops/pallas/flash_attention.py: _fwd_kernel (O and
+// the logsumexp L), _bwd_dkdv_kernel (dK, dV) and _bwd_dq_kernel (dQ).
+// What they compute, on the public [B, S, H, D] layout (K/V [B, S, Hk, D],
 // GQA: query head h reads kv head h / (H / Hk)), bf16 in and out, D 64 or
-// 128:
-//   s = (q . k) * sm_scale in fp32, causal mask (key j visible to query i
-//   iff j <= i); p = exp(s - L); dV += P^T dO with P rounded to bf16;
-//   dS = p * (dO V^T - delta) * sm_scale rounded to bf16; dK += dS^T Q. The
-//   query heads of a kv head's group are summed in fp32 in registers, so
-//   dK and dV are written once, in bf16. delta = rowsum(fp32(dO) fp32(O)) and
-//   L come from the wrapper as fp32 [B, H, S].
+// 128, s = (q . k) * sm_scale in fp32, causal mask (key j visible to query
+// i iff j <= i), softmax in base 2:
+//   forward   online softmax over the key tiles; P rounded to bf16 before
+//             O += P V; O = acc / l (l == 0 divides by 1) and L = m ln 2 +
+//             ln l as fp32 [B, H, S].
+//   dK, dV    p = exp(s - L); dV += P^T dO with P rounded to bf16;
+//             dS = p * (dO V^T - delta) * sm_scale rounded to bf16;
+//             dK += dS^T Q. The query heads of a kv head's group are summed
+//             in fp32 in registers, so dK and dV are written once, in bf16.
+//   dQ        dS = p * (dO V^T - delta) rounded to bf16; dQ += dS K;
+//             dQ * sm_scale at the end.
+// delta = rowsum(fp32(dO) fp32(O)) and L come from the wrapper as fp32
+// [B, H, S].
 //
-// What bounds it on an H100: four products of 2 D flops per visible (query,
-// key) pair and head (S^T, dP^T, dV, dK): 137 GFLOP at TinyLlama's shape
-// (B 4, S 2048, 32 / 4 heads, D 64, causal) over ~30 MB of operands, so the
-// tensor cores' 989 TFLOP/s bound it (0.139 ms). Only wgmma reaches that
-// rate.
+// What bounds them on an H100: 2 D flops per visible (query, key) pair and
+// head for each product, two in the forward (S, PV), four in dK/dV (S^T,
+// dP^T, dV, dK), three in dQ (S, dP, dQ): at TinyLlama's shape (B 4, S
+// 2048, 32 / 4 heads, D 64, causal) 69, 137 and 103 GFLOP over ~20-30 MB
+// of operands, so the tensor cores' 989 TFLOP/s bound them (0.070, 0.139
+// and 0.104 ms). Only wgmma reaches that rate.
 //
-// Design (the FlashAttention-3 backward without its dQ):
-//   * Block: 384 threads. Warpgroups 0-1 consume, each owning 64 keys of the
-//     block's 128-key tile; warp 8 produces; setmaxnreg moves registers from
-//     the producer (40) to the consumers (232).
-//   * KV-stationary: per work unit (batch, kv head, 128-key tile) the
-//     producer TMA-loads K and V once, then streams the (Q, dO) tiles of 64
-//     queries of every (query head of the group, query tile at or below the
-//     diagonal) through a ring of stages guarded by full / empty mbarriers;
-//     its 32 lanes copy the tile's L and delta into the stage beside them
-//     with cp.async, which arrives on the stage's full barrier when done, so
-//     the producer never waits for a load.
-//   * Per item each consumer warpgroup runs S^T = K Q^T and dP^T = V dO^T on
-//     wgmma m64n64k16 from shared memory (both operands K-major), computes
-//     p and dS in registers, re-packs P^T and dS^T as bf16 A fragments, and
-//     runs dV += P^T dO and dK += dS^T Q on wgmma with A from registers and
-//     the SAME Q and dO tiles read as MN-major B. dK and dV stay in
-//     registers across the unit; a tile wholly above the diagonal is
-//     skipped. Each warpgroup waits for its products before and after the
-//     exp; the two warpgroups overlap each other. (Splitting the products
-//     into commit groups, so that p is computed under dP^T and dS under dV,
-//     measured slower on an H100: PERF.md, Findings.)
-//   * Schedule: the host orders the units longest first and deals them to
-//     one persistent block per SM, each unit to the least-loaded block
-//     (ops/flash_attention.py, dkdv_schedule), so no SM carries much more
-//     than the mean: at TinyLlama's shape the unit of key tile 0 is 8 heads
-//     x 32 query tiles, the mean 17 tiles per head. A unit is computed by one
-//     block from start to end, so the result does not depend on the
-//     schedule and repeats bitwise: no float atomics.
+// Design (FlashAttention-3's layout; dQ its own kernel, not atomics):
+//   * Block: 384 threads. Warpgroups 0-1 consume, each owning 64 rows of
+//     the block's 128-row stationary tile; one producer thread (warp 8)
+//     issues the TMA loads; setmaxnreg moves registers from the producer
+//     warpgroup (40) to the consumers (232).
+//   * The producer loads a unit's stationary tile once, then streams its
+//     items through a ring of stages guarded by full / empty mbarriers.
+//   * Schedule: the host orders each kernel's units longest first and deals
+//     them to one persistent block per SM, each unit to the least-loaded
+//     block (ops/flash_attention.py, schedule), so no SM carries much more
+//     than the mean. A unit is computed by one block from start to end, so
+//     the result does not depend on the schedule and repeats bitwise: no
+//     float atomics. The host passes the count of units it dealt and of
+//     their items; a launch whose counts differ from the kernel's own
+//     decode of the units is refused (check_units).
 //   * TMA maps over [B, S, heads, D] rows as 4-D tensors (d, head, s, b), so
 //     a box past S zero-fills inside its batch; keys past S are masked in s
 //     (a zero-filled key gives logit 0, not -inf), rows past S never
-//     written. 128-byte swizzle; D 128 is two 64-wide boxes.
+//     written. 128-byte swizzle; D 128 is two 64-wide boxes. The same tile
+//     is read K-major as one product's operand and MN-major as another's.
+//   * Forward and dQ (Q-stationary): a unit is (batch, query head, 128-query
+//     tile); the producer loads Q (and dO for dQ) into one of two buffers,
+//     so the next unit's tile lands while this one is computed, and streams
+//     K and V of every key tile at or below the diagonal. The forward runs S
+//     = Q K^T on wgmma m64n128k16 (both operands K-major), the online
+//     softmax in registers, re-packs P as bf16 A fragments and runs O += P V
+//     with V read MN-major, in FlashAttention-3's intra-warpgroup overlap: S
+//     of the next key tile is issued with P V of this one, and the softmax
+//     runs under P V (PERF.md, Findings, has its time against the schedule
+//     that waits for each product). dQ runs S
+//     = Q K^T and dP = dO V^T, dS in registers, dQ += dS K with K read
+//     MN-major; at D 128 its key tiles are 64 wide, so S, dP and a 64 x 128
+//     dQ fit the registers. L and delta of the warpgroup's rows are read
+//     into registers while the unit's Q lands. A key tile wholly above a
+//     warpgroup's diagonal is skipped.
+//   * dK/dV (KV-stationary): a unit is (batch, kv head, 128-key tile); the
+//     producer streams the (Q, dO) tiles of 64 queries of every (query head
+//     of the group, query tile at or below the diagonal); its 32 lanes copy
+//     the tile's L and delta into the stage beside them with cp.async, which
+//     arrives on the stage's full barrier when done. Per item each consumer
+//     warpgroup runs S^T = K Q^T and dP^T = V dO^T on wgmma m64n64k16 from
+//     shared memory, computes p and dS in registers, re-packs P^T and dS^T
+//     as bf16 A fragments, and runs dV += P^T dO and dK += dS^T Q with the
+//     SAME Q and dO tiles read as MN-major B. dK and dV stay in registers
+//     across the unit. (Splitting the products into commit groups, so that
+//     p is computed under dP^T and dS under dV, measured slower on an H100:
+//     PERF.md, Findings.)
 // TMA needs 16-byte-aligned bases and row strides: the wrapper
-// (ops/flash_attention.py, dkdv_route) sends bf16 tensors that satisfy that
+// (ops/flash_attention.py, flash_route) sends bf16 tensors that satisfy that
 // here and everything else to flash_attention.cu.
 //
 // C interface (loaded with ctypes): pointers as void*, the stream as the
-// caller's cudaStream_t. The entry returns 0, a cudaError_t from the launch,
-// or 10000 + the CUresult of a tensor map that could not be encoded.
+// caller's cudaStream_t. Each entry returns 0, a cudaError_t from the
+// launch, or 10000 + the CUresult of a tensor map that could not be encoded.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -76,6 +101,7 @@ constexpr int kConsumerWarps = 8;
 constexpr int kRowBytes = 128;   // one 64-wide bf16 box row (the 128-byte swizzle)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D> struct Cfg {
   static constexpr int kBoxes = D / 64;               // 64-wide boxes along D
@@ -108,7 +134,7 @@ struct Unit {
   int b, hk, k0, iq0, per_head, items;
 };
 
-__device__ __forceinline__ Unit unit(const Params& p, int u) {
+__host__ __device__ __forceinline__ Unit unit(const Params& p, int u) {
   Unit w;
   const int bh = u % (p.B * p.Hk);
   w.b = bh / p.Hk;
@@ -208,9 +234,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < K; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
   }
@@ -220,9 +247,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
   "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (+)= A (64 x 16) B (16 x 64), both K-major in shared memory
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
-                                           int accumulate) {
+// d (+)= A (64 x 16) B (16 x N), both K-major in shared memory; N is 64 or
+// 128 (the accumulator's 32 or 64 floats per thread)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -230,11 +258,20 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t
       : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
       : "l"(da), "l"(db), "r"(accumulate));
 }
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-// d += A (64 x 16, bf16 fragments in registers) B (16 x 64), B MN-major
-// in shared memory
-__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4],
-                                          uint64_t db) {
+// d += A (64 x 16, bf16 fragments in registers) B (16 x N), B MN-major in
+// shared memory; N is 64 or 128
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -242,11 +279,8 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4
       : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-
-// d += A (64 x 16, bf16 fragments in registers) B (16 x 128), B MN-major
-// in shared memory
-__device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t (&a)[4],
-                                          uint64_t db) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -268,21 +302,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// the max and the sum over the 4 lanes that hold one accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // Accumulator layout of m64nNk16 (per warpgroup): warp w of the group owns
 // rows 16 w .. 16 w + 15; d[4 j + e] sits at row lane / 4 + 8 (e >> 1), column
 // 8 j + 2 (lane % 4) + (e & 1). Columns 16 kk .. 16 kk + 15 of such a tile are
 // the A fragment of k-slice kk of the next product (the mma.sync layout):
 // rows lane / 4 and + 8, columns 2 (lane % 4) and + 8.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&c)[32]) {
+template <int K>
+__device__ __forceinline__ void to_a(uint32_t (&a)[K][4], const float (&c)[8 * K]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < K; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// the kernel
+// dK/dV: the KV-stationary kernel
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -413,13 +458,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t ko = (kk / 4) * C::kKVBox + (kk % 4) * 32;
           const uint32_t qo = (kk / 4) * C::kQBox + (kk % 4) * 32;
-          wgmma_ss64(st, desc(ka + ko, 16), desc(qa + qo, 16), kk > 0);
+          wgmma_ss(st, desc(ka + ko, 16), desc(qa + qo, 16), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t ko = (kk / 4) * C::kKVBox + (kk % 4) * 32;
           const uint32_t qo = (kk / 4) * C::kQBox + (kk % 4) * 32;
-          wgmma_ss64(dpt, desc(va + ko, 16), desc(oa + qo, 16), kk > 0);
+          wgmma_ss(dpt, desc(va + ko, 16), desc(oa + qo, 16), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -457,21 +502,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs(dv);
         fence_regs(dk);
 #pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          if constexpr (D == 64) {
-            wgmma_rs64(dv, pa[kk], desc(oa + kk * 16 * kRowBytes, C::kQBox));
-          } else {
-            wgmma_rs128(dv, pa[kk], desc(oa + kk * 16 * kRowBytes, C::kQBox));
-          }
-        }
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs(dv, pa[kk], desc(oa + kk * 16 * kRowBytes, C::kQBox));
 #pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          if constexpr (D == 64) {
-            wgmma_rs64(dk, sa[kk], desc(qa + kk * 16 * kRowBytes, C::kQBox));
-          } else {
-            wgmma_rs128(dk, sa[kk], desc(qa + kk * 16 * kRowBytes, C::kQBox));
-          }
-        }
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs(dk, sa[kk], desc(qa + kk * 16 * kRowBytes, C::kQBox));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv);
@@ -500,6 +535,417 @@ __global__ void __launch_bounds__(kThreads, 1)
         *reinterpret_cast<uint32_t*>(dvg + at) = pack_bf16(dv[4 * j + 2 * hh], dv[4 * j + 2 * hh + 1]);
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward and dQ: the Q-stationary kernel
+// ---------------------------------------------------------------------------
+
+constexpr int QT = 128;  // queries per unit: 64 per consumer warpgroup
+
+template <int D, bool kDq> struct QCfg {
+  // keys per item; dQ at D 128 holds S, dP and a 64 x 128 dQ per warpgroup,
+  // so its key tiles are 64 wide
+  static constexpr int kKeys = kDq && D == 128 ? 64 : 128;
+  static constexpr int kBoxes = D / 64;                 // 64-wide boxes along D
+  static constexpr int kQBox = QT * kRowBytes;          // 16 KB
+  static constexpr int kQBytes = kBoxes * kQBox;        // one of Q, dO
+  static constexpr int kQBuf = (kDq ? 2 : 1) * kQBytes; // a unit's resident tiles
+  static constexpr int kKVBox = kKeys * kRowBytes;
+  static constexpr int kKVBytes = kBoxes * kKVBox;      // one of K, V
+  static constexpr int kStageBytes = 2 * kKVBytes;      // K, then V
+  static constexpr int kStages = D == 64 ? 4 : (kDq ? 3 : 2);
+  static constexpr int kSmemBytes =
+      1024 + 2 * kQBuf + kStages * kStageBytes + 8 * (2 * kStages + 4);
+};
+
+struct QParams {
+  float* lse;          // [B, H, S]: written by the forward, read by dQ
+  const float* delta;  // [B, H, S] (dQ)
+  bf16* out;           // O or dQ, [B, S, H, D]
+  const int* sched;    // [gridDim.x + 1] offsets into the unit ids that follow
+  int B, S, H, G, nk;  // nk: key tiles over S
+  float scale;
+  int causal;
+};
+
+// a work unit: (batch, query head, query tile) and its items, the key tiles
+// at or below the diagonal (all of them when not causal)
+struct QUnit {
+  int b, h, q0, n;
+};
+
+template <int kKeys>
+__host__ __device__ __forceinline__ QUnit q_unit(const QParams& p, int u) {
+  QUnit w;
+  const int bh = u % (p.B * p.H);
+  w.b = bh / p.H;
+  w.h = bh % p.H;
+  w.q0 = u / (p.B * p.H) * QT;
+  const int last = (w.q0 + QT - 1) / kKeys + 1;  // key tiles up to the diagonal
+  w.n = p.causal && last < p.nk ? last : p.nk;
+  return w;
+}
+
+// shared memory: two buffers of a unit's Q (and dO), the ring of K / V
+// stages, the barriers
+template <int D, bool kDq> struct QSmem {
+  using C = QCfg<D, kDq>;
+  uint32_t base, bars;
+  __device__ explicit QSmem(uint32_t b)
+      : base(b), bars(b + 2 * C::kQBuf + C::kStages * C::kStageBytes) {}
+  __device__ uint32_t q(int qb) const { return base + qb * C::kQBuf; }  // dO at + kQBytes
+  __device__ uint32_t k(int s) const { return base + 2 * C::kQBuf + s * C::kStageBytes; }
+  __device__ uint32_t v(int s) const { return k(s) + C::kKVBytes; }
+  __device__ uint32_t full(int s) const { return bars + 8u * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8u * (C::kStages + s); }
+  __device__ uint32_t q_full(int qb) const { return bars + 8u * (2 * C::kStages + qb); }
+  __device__ uint32_t q_empty(int qb) const { return bars + 8u * (2 * C::kStages + 2 + qb); }
+};
+
+// d (+)= A B^T over D for a warpgroup's 64 rows of A (a K-major tile of QT
+// rows at a) and the kKeys rows of B (a K-major tile at b): S = Q K^T, dP =
+// dO V^T
+template <int D, int kKeys>
+__device__ __forceinline__ void qs_product(float (&d)[kKeys / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t at = (kk / 4) * (QT * kRowBytes) + (kk % 4) * 32;
+    const uint32_t bt = (kk / 4) * (kKeys * kRowBytes) + (kk % 4) * 32;
+    wgmma_ss(d, desc(a + at, 16), desc(b + bt, 16), kk > 0);
+  }
+}
+
+// d += A B over the kKeys keys, A the bf16 fragments of P or dS, B a tile of
+// kKeys rows of D at b read MN-major: O += P V, dQ += dS K
+template <int D, int kKeys>
+__device__ __forceinline__ void pv_product(float (&d)[D / 2], const uint32_t (&a)[kKeys / 16][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+    wgmma_rs(d, a[kk], desc(b + kk * 16 * kRowBytes, kKeys * kRowBytes));
+}
+
+// keys past S, and with causal keys past the row, to -1e30 (their p is 0)
+template <int N>
+__device__ __forceinline__ void mask_keys(float (&st)[N], const int (&row)[2], int k0,
+                                          const QParams& p) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * t + (e & 1);
+      if (key >= p.S || (p.causal && key > row[e >> 1])) st[4 * j + e] = kNegInf;
+    }
+  }
+}
+
+// the online softmax of one key tile, in base 2: the running max m of s c,
+// alpha = 2^(m_old - m_new) for rescaling the sums, st = 2^(s c - m), and
+// this thread's share of the row sums l
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&st)[N], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], float c) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(st[4 * j], st[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(st[4 * j + 2], st[4 * j + 3]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], quad_max(mx[i]) * c);
+    alpha[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pv = ex2(fmaf(st[4 * j + e], c, -m[e >> 1]));
+      l[e >> 1] += pv;
+      st[4 * j + e] = pv;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) o[j] *= alpha[(j >> 1) & 1];
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) d[j] = 0.f;
+}
+
+// a warpgroup's 64 x D accumulator, row r times f[r], into the rows of
+// [B, S, H, D] bf16 at dst (row stride H D); rows past S not written
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 2],
+                                           const int (&row)[2], const float (&f)[2],
+                                           const QParams& p) {
+  const int t = threadIdx.x & 3;
+  const long long rs = static_cast<long long>(p.H) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= p.S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dst + row[i] * rs + 8 * j + 2 * t) =
+          pack_bf16(acc[4 * j + 2 * i] * f[i], acc[4 * j + 2 * i + 1] * f[i]);
+    }
+  }
+}
+
+// the forward's consumer warpgroup: O and L of its 64 rows of each unit.
+// S of key tile kt is issued with P V of key tile kt - 1; its softmax runs
+// while P V is in flight, and O is rescaled after P V lands. The steady
+// state is straight-line code, so ptxas can match each wait to its commit
+// group.
+template <int D>
+__device__ __forceinline__ void fwd_consumer(const QSmem<D, false>& sm, const QParams& p,
+                                             int u_begin, int u_end, const int* ids) {
+  using C = QCfg<D, false>;
+  constexpr int K = C::kKeys;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const bool signals = lane == 0;
+  const float c = p.scale * kLog2e;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int i = u_begin; i < u_end; ++i) {
+    const QUnit w = q_unit<K>(p, ids[i]);
+    const int n = i - u_begin, qb = n & 1;
+    const int qw0 = w.q0 + 64 * wg;
+    const int row[2] = {qw0 + 16 * warp + (lane >> 2), qw0 + 16 * warp + (lane >> 2) + 8};
+    const uint32_t qa = sm.q(qb) + wg * 64 * kRowBytes;
+    float o[D / 2], st[K / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t pa[K / 16][4];
+    zero(o);
+    mbar_wait(sm.q_full(qb), (n >> 1) & 1);
+    mbar_wait(sm.full(s), phase);
+    zero(st);
+    wgmma_fence();
+    fence_regs(st);
+    qs_product<D, K>(st, qa, sm.k(s));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    if ((p.causal && K - 1 > qw0) || K > p.S) mask_keys(st, row, 0, p);
+    online_softmax(st, m, l, alpha, c);
+    to_a(pa, st);
+    int sp = s;
+    if (++s == C::kStages) {
+      s = 0;
+      phase ^= 1u;
+    }
+    for (int kt = 1; kt < w.n; ++kt) {
+      const int k0 = kt * K;
+      mbar_wait(sm.full(s), phase);
+      zero(st);
+      wgmma_fence();
+      fence_regs(st);
+      fence_regs(o);
+      qs_product<D, K>(st, qa, sm.k(s));
+      wgmma_commit();
+      pv_product<D, K>(o, pa, sm.v(sp));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(st);
+      if ((p.causal && k0 + K - 1 > qw0) || k0 + K > p.S) mask_keys(st, row, k0, p);
+      online_softmax(st, m, l, alpha, c);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      if (signals) mbar_arrive(sm.empty(sp));
+      rescale(o, alpha);
+      to_a(pa, st);
+      sp = s;
+      if (++s == C::kStages) {
+        s = 0;
+        phase ^= 1u;
+      }
+    }
+    wgmma_fence();
+    fence_regs(o);
+    pv_product<D, K>(o, pa, sm.v(sp));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    if (signals) mbar_arrive(sm.empty(sp));
+    if (signals) mbar_arrive(sm.q_empty(qb));  // Q of this unit is read
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float sum = quad_sum(l[r]);
+      const float safe = sum == 0.f ? 1.f : sum;
+      inv[r] = 1.f / safe;
+      if ((lane & 3) == 0 && row[r] < p.S)
+        p.lse[(static_cast<long long>(w.b) * p.H + w.h) * p.S + row[r]] = m[r] * kLn2 + logf(safe);
+    }
+    store_rows<D>(p.out + (static_cast<long long>(w.b) * p.S * p.H + w.h) * D, o, row, inv, p);
+  }
+}
+
+// the dQ consumer warpgroup: dQ of its 64 rows of each unit
+template <int D>
+__device__ __forceinline__ void dq_consumer(const QSmem<D, true>& sm, const QParams& p,
+                                            int u_begin, int u_end, const int* ids) {
+  using C = QCfg<D, true>;
+  constexpr int K = C::kKeys;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const bool signals = lane == 0;
+  const float c = p.scale * kLog2e;
+  const float scale[2] = {p.scale, p.scale};
+  int s = 0;
+  uint32_t phase = 0;
+  for (int i = u_begin; i < u_end; ++i) {
+    const QUnit w = q_unit<K>(p, ids[i]);
+    const int n = i - u_begin, qb = n & 1;
+    const int qw0 = w.q0 + 64 * wg;
+    const int row[2] = {qw0 + 16 * warp + (lane >> 2), qw0 + 16 * warp + (lane >> 2) + 8};
+    // L (in base 2) and delta of this thread's rows, read while Q lands
+    const long long vec = (static_cast<long long>(w.b) * p.H + w.h) * p.S;
+    float L2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = row[r] < p.S;
+      L2[r] = in ? p.lse[vec + row[r]] * kLog2e : 0.f;
+      dl[r] = in ? p.delta[vec + row[r]] : 0.f;
+    }
+    const uint32_t qa = sm.q(qb) + wg * 64 * kRowBytes, oa = qa + C::kQBytes;
+    float dq[D / 2];
+    zero(dq);
+    mbar_wait(sm.q_full(qb), (n >> 1) & 1);
+    for (int kt = 0; kt < w.n; ++kt) {
+      const int k0 = kt * K;
+      mbar_wait(sm.full(s), phase);
+      // a key tile past every query of this warpgroup adds nothing
+      if (!(p.causal && k0 > qw0 + 63)) {
+        float st[K / 2], dp[K / 2];
+        zero(st);
+        zero(dp);
+        wgmma_fence();
+        fence_regs(st);
+        fence_regs(dp);
+        qs_product<D, K>(st, qa, sm.k(s));
+        qs_product<D, K>(dp, oa, sm.v(s));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dp);
+        if ((p.causal && k0 + K - 1 > qw0) || k0 + K > p.S) mask_keys(st, row, k0, p);
+        // dS = p (dP - delta), rounded to bf16 in the A fragments
+#pragma unroll
+        for (int j = 0; j < K / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pv = ex2(fmaf(st[4 * j + e], c, -L2[e >> 1]));
+            dp[4 * j + e] = pv * (dp[4 * j + e] - dl[e >> 1]);
+          }
+        }
+        uint32_t sa[K / 16][4];
+        to_a(sa, dp);
+        wgmma_fence();
+        fence_regs(dq);
+        pv_product<D, K>(dq, sa, sm.k(s));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(sa);
+      }
+      if (signals) mbar_arrive(sm.empty(s));
+      if (++s == C::kStages) {
+        s = 0;
+        phase ^= 1u;
+      }
+    }
+    if (signals) mbar_arrive(sm.q_empty(qb));  // Q and dO of this unit are read
+    store_rows<D>(p.out + (static_cast<long long>(w.b) * p.S * p.H + w.h) * D, dq, row, scale, p);
+  }
+}
+
+template <int D, bool kDq>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_q_sm90(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_do, const QParams p) {
+  using C = QCfg<D, kDq>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: tiles start on that boundary
+  const QSmem<D, kDq> sm((smem_u32(smem_raw) + 1023u) & ~1023u);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), kConsumerWarps);
+    }
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(sm.q_full(qb), 1);
+      mbar_init(sm.q_empty(qb), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int u_begin = p.sched[blockIdx.x], u_end = p.sched[blockIdx.x + 1];
+  const int* const ids = p.sched + gridDim.x + 1;
+  if (threadIdx.x >= 256) {
+    // producer: thread 256 issues the TMA loads; the rest of its warpgroup leaves
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 256) return;
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_q))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_k))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_v))
+                 : "memory");
+    if constexpr (kDq)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_do))
+                   : "memory");
+    int s = 0;
+    uint32_t phase = 0;
+    for (int i = u_begin; i < u_end; ++i) {
+      const QUnit w = q_unit<C::kKeys>(p, ids[i]);
+      const int n = i - u_begin, qb = n & 1, hk = w.h / p.G;
+      mbar_wait(sm.q_empty(qb), ((n >> 1) & 1) ^ 1u);
+      mbar_expect_tx(sm.q_full(qb), C::kQBuf);
+#pragma unroll
+      for (int j = 0; j < C::kBoxes; ++j) {
+        tma_load(sm.q(qb) + j * C::kQBox, &map_q, 64 * j, w.h, w.q0, w.b, sm.q_full(qb));
+        if constexpr (kDq)
+          tma_load(sm.q(qb) + C::kQBytes + j * C::kQBox, &map_do, 64 * j, w.h, w.q0, w.b,
+                   sm.q_full(qb));
+      }
+      for (int kt = 0; kt < w.n; ++kt) {
+        mbar_wait(sm.empty(s), phase ^ 1u);
+        mbar_expect_tx(sm.full(s), C::kStageBytes);
+#pragma unroll
+        for (int j = 0; j < C::kBoxes; ++j) {
+          tma_load(sm.k(s) + j * C::kKVBox, &map_k, 64 * j, hk, kt * C::kKeys, w.b, sm.full(s));
+          tma_load(sm.v(s) + j * C::kKVBox, &map_v, 64 * j, hk, kt * C::kKeys, w.b, sm.full(s));
+        }
+        if (++s == C::kStages) {
+          s = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns queries q0 + 64 wg .. + 63 of each unit
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  if constexpr (kDq) {
+    dq_consumer<D>(sm, p, u_begin, u_end, ids);
+  } else {
+    fwd_consumer<D>(sm, p, u_begin, u_end, ids);
   }
 }
 
@@ -553,11 +999,27 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, 
   return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
 }
 
+// The host deals the units that it counts from its own copy of the tiles
+// (ops/flash_attention.py, SM90_TILES and unit_lengths); the kernel decodes
+// them with the tiles here. A schedule of another number of units, or of
+// items in all, is refused, so tiles that drift apart raise on the host
+// instead of leaving rows unwritten. items_of(u): the items of unit u.
+template <class ItemsOf>
+int check_units(long long want_units, int units, int items, ItemsOf items_of) {
+  if (units != want_units) return static_cast<int>(cudaErrorInvalidValue);
+  long long sum = 0;
+  for (int u = 0; u < units; ++u) sum += items_of(u);
+  return sum == items ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, Params p, int grid,
-           cudaStream_t st) {
+           int units, int items, cudaStream_t st) {
+  int err = check_units(static_cast<long long>((p.S + BK - 1) / BK) * p.B * p.Hk, units, items,
+                        [&](int u) { return unit(p, u).items; });
+  if (err != 0) return err;
   CUtensorMap mq, mk, mv, mdo;
-  int err = make_map(&mq, q, p.B, p.S, p.H, D, BQ);
+  err = make_map(&mq, q, p.B, p.S, p.H, D, BQ);
   if (err == 0) err = make_map(&mk, k, p.B, p.S, p.Hk, D, BK);
   if (err == 0) err = make_map(&mv, v, p.B, p.S, p.Hk, D, BK);
   if (err == 0) err = make_map(&mdo, dout, p.B, p.S, p.H, D, BQ);
@@ -570,17 +1032,94 @@ int launch(const void* q, const void* k, const void* v, const void* dout, Params
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, bool kDq>
+int launch_q(const void* q, const void* k, const void* v, const void* dout, int Hk, QParams p,
+             int grid, int units, int items, cudaStream_t st) {
+  using C = QCfg<D, kDq>;
+  p.nk = (p.S + C::kKeys - 1) / C::kKeys;
+  int err = check_units(static_cast<long long>((p.S + QT - 1) / QT) * p.B * p.H, units, items,
+                        [&](int u) { return q_unit<C::kKeys>(p, u).n; });
+  if (err != 0) return err;
+  CUtensorMap mq, mk, mv, mdo;
+  err = make_map(&mq, q, p.B, p.S, p.H, D, QT);
+  if (err == 0) err = make_map(&mk, k, p.B, p.S, Hk, D, C::kKeys);
+  if (err == 0) err = make_map(&mv, v, p.B, p.S, Hk, D, C::kKeys);
+  if (err == 0) err = kDq ? make_map(&mdo, dout, p.B, p.S, p.H, D, QT) : 0;
+  if (err != 0) return err;
+  if (!kDq) mdo = mq;  // unread
+  auto kern = flash_q_sm90<D, kDq>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       C::kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<grid, kThreads, C::kSmemBytes, st>>>(mq, mk, mv, mdo, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the forward (dq 0) or dQ (dq 1) at head dim D
+int run_q(const void* q, const void* k, const void* v, const void* dout, int Hk, int D, int dq,
+          QParams p, int grid, int units, int items, cudaStream_t st) {
+  if (p.B <= 0 || Hk <= 0 || p.H % Hk != 0 || grid <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.G = p.H / Hk;
+  if (D == 64 && dq) return launch_q<64, true>(q, k, v, dout, Hk, p, grid, units, items, st);
+  if (D == 128 && dq) return launch_q<128, true>(q, k, v, dout, Hk, p, grid, units, items, st);
+  if (D == 64) return launch_q<64, false>(q, k, v, dout, Hk, p, grid, units, items, st);
+  if (D == 128) return launch_q<128, false>(q, k, v, dout, Hk, p, grid, units, items, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
+
+// O [B, S, H, D] bf16 and L fp32 [B, H, S] for bf16 q [B, S, H, D] and k, v
+// [B, S, Hk, D] (D 64 or 128); sched, units and items as for dK/dV over the
+// forward's units (ops/flash_attention.py, unit_lengths)
+extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                                        float* lse, const int* sched, int grid, int units,
+                                        int items, int B, int S, int H, int Hk, int D,
+                                        float scale, int causal, void* stream) {
+  QParams p{};
+  p.lse = lse;
+  p.out = static_cast<bf16*>(o);
+  p.sched = sched;
+  p.B = B;
+  p.S = S;
+  p.H = H;
+  p.scale = scale;
+  p.causal = causal;
+  return run_q(q, k, v, nullptr, Hk, D, 0, p, grid, units, items,
+               static_cast<cudaStream_t>(stream));
+}
+
+// dQ [B, S, H, D] bf16 from bf16 q, dO and k, v, fp32 L and delta [B, H, S]
+extern "C" int flash_attention_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                                           const void* dout, const float* lse,
+                                           const float* delta, void* dq, const int* sched,
+                                           int grid, int units, int items, int B, int S, int H,
+                                           int Hk, int D, float scale, int causal, void* stream) {
+  QParams p{};
+  p.lse = const_cast<float*>(lse);
+  p.delta = delta;
+  p.out = static_cast<bf16*>(dq);
+  p.sched = sched;
+  p.B = B;
+  p.S = S;
+  p.H = H;
+  p.scale = scale;
+  p.causal = causal;
+  return run_q(q, k, v, dout, Hk, D, 1, p, grid, units, items,
+               static_cast<cudaStream_t>(stream));
+}
 
 // dK, dV for bf16 q, dO [B, S, H, D] and k, v [B, S, Hk, D] (D 64 or 128);
 // sched: grid + 1 offsets, then the unit ids (ops/flash_attention.py,
-// dkdv_schedule), one block per offset pair
+// schedule), one block per offset pair; units and items: how many units the
+// host dealt and their items in all (check_units)
 extern "C" int flash_attention_bwd_dkdv_sm90(const void* q, const void* k, const void* v,
                                              const void* dout, const float* lse,
                                              const float* delta, void* dk, void* dv,
-                                             const int* sched, int grid, int B, int S, int H,
-                                             int Hk, int D, float scale, int causal,
-                                             void* stream) {
+                                             const int* sched, int grid, int units, int items,
+                                             int B, int S, int H, int Hk, int D, float scale,
+                                             int causal, void* stream) {
   if (Hk <= 0 || H % Hk != 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.lse = lse;
@@ -597,7 +1136,7 @@ extern "C" int flash_attention_bwd_dkdv_sm90(const void* q, const void* k, const
   p.scale = scale;
   p.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(q, k, v, dout, p, grid, st);
-  if (D == 128) return launch<128>(q, k, v, dout, p, grid, st);
+  if (D == 64) return launch<64>(q, k, v, dout, p, grid, units, items, st);
+  if (D == 128) return launch<128>(q, k, v, dout, p, grid, units, items, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

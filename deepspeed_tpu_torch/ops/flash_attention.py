@@ -6,16 +6,17 @@ keys/values ``[B, S, Hk, D]`` (query head ``h`` reads kv head
 ``h // (H // Hk)``), as the JAX function does, and is differentiable: a
 ``torch.autograd.Function`` whose forward launches the forward kernel and
 saves ``(q, k, v, o, L)``, and whose backward launches the dK/dV kernel and
-the dQ kernel (``csrc/flash_attention.cu``).
+the dQ kernel.
 
-The dK/dV kernel has two routes, chosen in the open by :func:`dkdv_route`
-and counted per launch in ``route_counts``: ``"wgmma"``
-(``csrc/flash_attention_sm90.cu``: TMA loads and ``wgmma`` in a persistent,
-warp-specialised, KV-stationary block, its units dealt longest first by
-:func:`dkdv_schedule`) for bf16 at D 64 or 128 on tensors TMA can describe,
-and ``"mma_sync"`` (``csrc/flash_attention.cu``: ``mma.sync`` in bf16, the
-CUDA cores in fp32) for the rest. A forced ``"wgmma"`` launch on tensors it
-was not built for raises; nothing falls back to the other route.
+Each of the three kernels has two routes, chosen in the open by one rule,
+:func:`flash_route`, and counted per kernel and route in ``route_counts``:
+``"wgmma"`` (``csrc/flash_attention_sm90.cu``: TMA loads and ``wgmma`` in
+persistent, warp-specialised blocks, Q-stationary for the forward and dQ,
+KV-stationary for dK/dV, their units dealt longest first by
+:func:`schedule`) for bf16 at D 64 or 128 on tensors TMA can describe, and
+``"mma_sync"`` (``csrc/flash_attention.cu``: ``mma.sync`` in bf16, the CUDA
+cores in fp32) for the rest. A forced ``"wgmma"`` launch on tensors it was
+not built for raises; nothing falls back to the other route.
 
 Each kernel has a plain PyTorch version beside it that computes the same
 function with the same roundings: :func:`flash_attention_ref` (forward, with
@@ -53,11 +54,17 @@ launch_counts: Dict[str, int] = {"flash_attention_fwd": 0,
                                  "flash_attention_bwd_dq": 0}
 
 _SOURCES = {"mma_sync": "flash_attention.cu", "wgmma": "flash_attention_sm90.cu"}
-#: dK/dV launches per route (see :func:`dkdv_route`)
-route_counts: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
-#: the wgmma dK/dV kernel's tiles (csrc/flash_attention_sm90.cu): keys per
-#: work unit, queries per item
-DKDV_BK, DKDV_BQ = 128, 64
+#: launches per kernel and route (see :func:`flash_route`)
+route_counts: Dict[str, Dict[str, int]] = {name: {"wgmma": 0, "mma_sync": 0}
+                                           for name in launch_counts}
+#: the wgmma kernels' tiles (csrc/flash_attention_sm90.cu) by kernel and head
+#: dim: rows of a unit's stationary tile (queries for the forward and dQ,
+#: keys for dK/dV), rows of each item streamed past it. Each launch passes
+#: the count of units and items dealt from these; the kernel refuses a count
+#: that its own tiles decode otherwise.
+SM90_TILES = {"flash_attention_fwd": {64: (128, 128), 128: (128, 128)},
+              "flash_attention_bwd_dkdv": {64: (128, 64), 128: (128, 64)},
+              "flash_attention_bwd_dq": {64: (128, 128), 128: (128, 64)}}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)     # instantiated in csrc/flash_attention.cu
 _P = ctypes.c_void_p
@@ -67,13 +74,15 @@ _SIGNATURES = {
     "flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
     "flash_attention_bwd_dkdv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
     "flash_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
-    "flash_attention_bwd_dkdv_sm90": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+    "flash_attention_fwd_sm90": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    "flash_attention_bwd_dkdv_sm90": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+    "flash_attention_bwd_dq_sm90": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
 }
 _SCHEDULES: Dict[tuple, tuple] = {}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, route_counts):
+    for counts in (launch_counts, *route_counts.values()):
         for name in counts:
             counts[name] = 0
 
@@ -218,6 +227,116 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 
+def flash_route(q, k, v, do=None) -> str:
+    """The route of every flash kernel for these tensors (``do`` for the
+    backward kernels): ``"wgmma"`` for bf16 at head dim 64 or 128 when TMA
+    can describe every tensor (contiguous, so rows of ``heads * D``
+    elements, with 16-byte-aligned bases); else ``"mma_sync"``. The same
+    rule on any device, so the CPU tests can ask it."""
+    tensors = (q, k, v) if do is None else (q, k, v, do)
+    tma = (q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS
+           and all(t.dtype == q.dtype and t.is_contiguous() and t.data_ptr() % 16 == 0
+                   for t in tensors))
+    return "wgmma" if tma else "mma_sync"
+
+
+def unit_lengths(kernel: str, B: int, S: int, H: int, Hk: int, D: int, causal: bool):
+    """The wgmma ``kernel``'s work units by index ``u``, as the kernel
+    decodes them, and the number of items of each.
+
+    Forward and dQ: ``(b, query head, query tile)``, query tile ``u // (B
+    H)``, batch and head from ``u % (B H)``; its items are the key tiles at
+    or below the query tile's diagonal (all of them when not causal). dK/dV:
+    ``(b, kv head, key tile)``, key tile ``u // (B Hk)``; its items are the
+    group's ``H // Hk`` heads times the query tiles at or below the key
+    tile's diagonal."""
+    tile, step = SM90_TILES[kernel][D]
+    n_tiles, n_steps = -(-S // tile), -(-S // step)
+    if kernel == "flash_attention_bwd_dkdv":
+        return [H // Hk * (n_steps - (u // (B * Hk) * tile // step if causal else 0))
+                for u in range(n_tiles * B * Hk)]
+    return [min(n_steps, (u // (B * H) * tile + tile - 1) // step + 1) if causal else n_steps
+            for u in range(n_tiles * B * H)]
+
+
+def schedule(lengths, blocks: int):
+    """The persistent blocks' work for units of these ``lengths`` (items
+    each): units sorted longest first (ties by index), each dealt to the
+    block with the fewest items so far (ties to the lowest block). Returns
+    ``(offsets, ids)``: block ``i`` computes units ``ids[offsets[i]:offsets[i
+    + 1]]``, each from start to end, so every unit's sums run in a fixed
+    order whatever the schedule."""
+    blocks = max(1, min(blocks, len(lengths)))
+    heap = [(0, i) for i in range(blocks)]
+    per = [[] for _ in range(blocks)]
+    for u in sorted(range(len(lengths)), key=lambda u: (-lengths[u], u)):
+        load, i = heapq.heappop(heap)
+        per[i].append(u)
+        heapq.heappush(heap, (load + lengths[u], i))
+    offsets, ids = [0], []
+    for units in per:
+        ids += units
+        offsets.append(len(ids))
+    return offsets, ids
+
+
+def _schedule_tensor(kernel: str, q, Hk: int, causal: bool):
+    """``(schedule, blocks, units, items)``: :func:`schedule` of ``kernel``'s
+    units for one block per SM of ``q``'s card as an int32 tensor there
+    (offsets, then ids), its number of blocks, and the number of units and
+    of their items in all, which the kernel holds against its own decode;
+    made once per kernel and shape."""
+    B, S, H, D = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    key = (kernel, B, S, H, Hk, D, causal, sms, q.device)
+    if key not in _SCHEDULES:
+        lengths = unit_lengths(kernel, B, S, H, Hk, D, causal)
+        offsets, ids = schedule(lengths, sms)
+        _SCHEDULES[key] = (torch.tensor(offsets + ids, dtype=torch.int32, device=q.device),
+                           len(offsets) - 1, len(lengths), sum(lengths))
+    return _SCHEDULES[key]
+
+
+def _route(tensors, route: Optional[str]) -> str:
+    """``route``, or :func:`flash_route`'s choice for ``tensors``; a forced
+    ``"wgmma"`` on tensors it was not built for raises."""
+    chosen = flash_route(*tensors)
+    route = route or chosen
+    if route not in _SOURCES:
+        raise ValueError(f"route must be one of {sorted(_SOURCES)}, got {route!r}")
+    if route == "wgmma" and chosen != "wgmma":
+        raise ValueError("the wgmma route takes contiguous bf16 tensors with 16-byte "
+                         "aligned bases and head dim 64 or 128 (see flash_route)")
+    return route
+
+
+def _counted(kernel: str, route: str, err: int) -> None:
+    launch_counts[kernel] += 1
+    route_counts[kernel][route] += 1
+    _check_launch(f"{kernel} ({route})", err)
+
+
+def launch_fwd(q, k, v, o, lse, *, causal: bool, sm_scale: float,
+               route: Optional[str] = None):
+    """One launch of the forward kernel into ``o`` and ``lse`` on ``route``
+    (default :func:`flash_route`'s choice) for CUDA tensors that
+    ``flash_attention_forward`` has checked."""
+    B, S, H, D = q.shape
+    Hk = k.shape[2]
+    route = _route((q, k, v), route)
+    if route == "wgmma":
+        sched, grid, units, items = _schedule_tensor("flash_attention_fwd", q, Hk, causal)
+        err = _kernel("flash_attention_fwd_sm90", route)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            sched.data_ptr(), grid, units, items, B, S, H, Hk, D, sm_scale, int(causal),
+            _stream(q))
+    else:
+        err = _kernel("flash_attention_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            B, S, H, Hk, D, sm_scale, int(causal), _DTYPES[q.dtype], _stream(q))
+    _counted("flash_attention_fwd", route, err)
+
+
 def flash_attention_forward(q, k, v, *, causal: bool = True,
                             sm_scale: Optional[float] = None):
     """The forward kernel: ``(o, L)`` for ``[B, S, H, D]`` q and
@@ -232,114 +351,51 @@ def flash_attention_forward(q, k, v, *, causal: bool = True,
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if q.numel():
-        err = _kernel("flash_attention_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, S, H, k.shape[2], D, scale, int(causal),
-            _DTYPES[q.dtype], _stream(q))
-        launch_counts["flash_attention_fwd"] += 1
-        _check_launch("flash_attention_fwd", err)
+        launch_fwd(q, k, v, o, lse, causal=causal, sm_scale=scale)
     return o, lse
-
-
-def dkdv_route(q, k, v, do) -> str:
-    """The dK/dV kernel's route for these tensors: ``"wgmma"`` for bf16 at
-    head dim 64 or 128 when TMA can describe every tensor (contiguous, so
-    rows of ``heads * D`` elements, with 16-byte-aligned bases); else
-    ``"mma_sync"``. The same rule on any device, so the CPU tests can ask
-    it."""
-    tma = (q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS
-           and all(t.dtype == q.dtype and t.is_contiguous() and t.data_ptr() % 16 == 0
-                   for t in (q, k, v, do)))
-    return "wgmma" if tma else "mma_sync"
-
-
-def dkdv_units(B: int, S: int, Hk: int, G: int, causal: bool):
-    """The wgmma dK/dV kernel's work units, ``(b, kv head, key tile)`` by
-    index ``u`` (key tile ``u // (B Hk)``, batch and kv head from ``u % (B
-    Hk)``, as the kernel decodes it), and the number of (query head, query
-    tile) items of each: the group's ``G`` heads times the query tiles at or
-    below the key tile's diagonal (all of them when not causal)."""
-    nkt, nq = -(-S // DKDV_BK), -(-S // DKDV_BQ)
-    return [G * (nq - (u // (B * Hk) * DKDV_BK // DKDV_BQ if causal else 0))
-            for u in range(nkt * B * Hk)]
-
-
-def dkdv_schedule(B: int, S: int, Hk: int, G: int, causal: bool, blocks: int):
-    """The persistent blocks' work for the wgmma dK/dV kernel: units sorted
-    longest first (ties by index), each dealt to the block with the fewest
-    items so far (ties to the lowest block). Returns ``(offsets, ids)``:
-    block ``i`` computes units ``ids[offsets[i]:offsets[i + 1]]``, each from
-    start to end, so every unit's sums run in a fixed order whatever the
-    schedule."""
-    items = dkdv_units(B, S, Hk, G, causal)
-    blocks = max(1, min(blocks, len(items)))
-    heap = [(0, i) for i in range(blocks)]
-    per = [[] for _ in range(blocks)]
-    for u in sorted(range(len(items)), key=lambda u: (-items[u], u)):
-        load, i = heapq.heappop(heap)
-        per[i].append(u)
-        heapq.heappush(heap, (load + items[u], i))
-    offsets, ids = [0], []
-    for units in per:
-        ids += units
-        offsets.append(len(ids))
-    return offsets, ids
-
-
-def _schedule_tensor(q, Hk: int, causal: bool):
-    """``(schedule, blocks)``: :func:`dkdv_schedule` for one block per SM of
-    ``q``'s card as an int32 tensor there (offsets, then ids) and its
-    number of blocks, made once per shape."""
-    B, S, H, _ = q.shape
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    key = (B, S, Hk, H // Hk, causal, sms, q.device)
-    if key not in _SCHEDULES:
-        offsets, ids = dkdv_schedule(B, S, Hk, H // Hk, causal, sms)
-        _SCHEDULES[key] = (torch.tensor(offsets + ids, dtype=torch.int32, device=q.device),
-                           len(offsets) - 1)
-    return _SCHEDULES[key]
 
 
 def launch_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, *, causal: bool, sm_scale: float,
                     route: Optional[str] = None):
     """One launch of the dK/dV kernel into ``dk``/``dv`` on ``route``
-    (default :func:`dkdv_route`'s choice) for CUDA tensors that
+    (default :func:`flash_route`'s choice) for CUDA tensors that
     ``flash_attention_backward`` has checked (``do`` in q's dtype, ``delta``
     fp32 ``[B, H, S]``)."""
     B, S, H, D = q.shape
     Hk = k.shape[2]
-    chosen = dkdv_route(q, k, v, do)
-    route = route or chosen
-    if route not in _SOURCES:
-        raise ValueError(f"route must be one of {sorted(_SOURCES)}, got {route!r}")
+    route = _route((q, k, v, do), route)
     if route == "wgmma":
-        if chosen != "wgmma":
-            raise ValueError("the wgmma route takes contiguous bf16 tensors with 16-byte "
-                             "aligned bases and head dim 64 or 128 (see dkdv_route)")
-        sched, grid = _schedule_tensor(q, Hk, causal)
+        sched, grid, units, items = _schedule_tensor("flash_attention_bwd_dkdv", q, Hk, causal)
         err = _kernel("flash_attention_bwd_dkdv_sm90", route)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), sched.data_ptr(), grid, B, S, H,
-            Hk, D, sm_scale, int(causal), _stream(q))
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), sched.data_ptr(), grid, units,
+            items, B, S, H, Hk, D, sm_scale, int(causal), _stream(q))
     else:
         err = _kernel("flash_attention_bwd_dkdv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, Hk, D,
             sm_scale, int(causal), _DTYPES[q.dtype], _stream(q))
-    launch_counts["flash_attention_bwd_dkdv"] += 1
-    route_counts[route] += 1
-    _check_launch(f"flash_attention_bwd_dkdv ({route})", err)
+    _counted("flash_attention_bwd_dkdv", route, err)
 
 
-def launch_bwd_dq(q, k, v, do, lse, delta, dq, *, causal: bool, sm_scale: float):
+def launch_bwd_dq(q, k, v, do, lse, delta, dq, *, causal: bool, sm_scale: float,
+                  route: Optional[str] = None):
     """One launch of the dQ kernel into ``dq`` (see :func:`launch_bwd_dkdv`)."""
     B, S, H, D = q.shape
-    err = _kernel("flash_attention_bwd_dq")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), B, S, H, k.shape[2], D, sm_scale,
-        int(causal), _DTYPES[q.dtype], _stream(q))
-    launch_counts["flash_attention_bwd_dq"] += 1
-    _check_launch("flash_attention_bwd_dq", err)
+    Hk = k.shape[2]
+    route = _route((q, k, v, do), route)
+    if route == "wgmma":
+        sched, grid, units, items = _schedule_tensor("flash_attention_bwd_dq", q, Hk, causal)
+        err = _kernel("flash_attention_bwd_dq_sm90", route)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), sched.data_ptr(), grid, units, items, B, S, H,
+            Hk, D, sm_scale, int(causal), _stream(q))
+    else:
+        err = _kernel("flash_attention_bwd_dq")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), B, S, H, Hk, D, sm_scale,
+            int(causal), _DTYPES[q.dtype], _stream(q))
+    _counted("flash_attention_bwd_dq", route, err)
 
 
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
@@ -410,9 +466,10 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale: Optional[float] =
     ``block_q`` / ``block_k`` are the JAX function's TPU tiles: checked as
     it checks them (:func:`check_block`), then unused, since the kernels
     tile themselves; the result does not depend on them. ``interpret`` (the
-    Pallas interpreter switch) is accepted and ignored."""
+    Pallas interpreter switch) is accepted and ignored. Any strides are
+    taken: the kernels read contiguous copies of views that are not."""
     _check_shapes(q, k, v)
     check_block("block_q", q.shape[1], block_q, DEFAULT_BLOCK_Q)
     check_block("block_k", k.shape[1], block_k, DEFAULT_BLOCK_K)
-    return _FlashAttention.apply(q, k, v, bool(causal),
-                                 _scale(sm_scale, q.shape[-1]))
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 bool(causal), _scale(sm_scale, q.shape[-1]))

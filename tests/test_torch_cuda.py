@@ -361,10 +361,10 @@ def test_flash_wgmma_dkdv_matches_plain_version_on_card(D, G, causal):
     _need_card()
     B, S, Hk = 2, 1000, 2
     q, k, v, do = _dkdv_inputs(B, S, G * Hk, Hk, D, seed=40 + D + G)
-    assert fa.dkdv_route(q, k, v, do) == "wgmma"
+    assert fa.flash_route(q, k, v, do) == "wgmma"
     fa.reset_launch_counts()
     dk, dv, o, lse = _dkdv(q, k, v, do, causal)
-    assert fa.route_counts == {"wgmma": 1, "mma_sync": 0}
+    assert fa.route_counts["flash_attention_bwd_dkdv"] == {"wgmma": 1, "mma_sync": 0}
     _, dk_r, dv_r = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
     _close(dk, dk_r, 2e-2)
     _close(dv, dv_r, 2e-2)
@@ -441,7 +441,120 @@ def test_wgmma_forward_and_dkdv_refuse_what_they_were_not_built_for_on_card():
     with pytest.raises(ValueError, match="route must be"):
         fa.launch_bwd_dkdv(q, kv, kv, q, lse, lse, kv.clone(), kv.clone(), causal=True,
                            sm_scale=0.125, route="tiles")
-    assert sum(fa.route_counts.values()) == 0 == fa.launch_counts["flash_attention_bwd_dkdv"]
+    assert sum(fa.route_counts["flash_attention_bwd_dkdv"].values()) == 0
+    assert fa.launch_counts["flash_attention_bwd_dkdv"] == 0
+
+
+def _fwd_dq(q, k, v, do, causal, route=None):
+    """O, L from one launch of the forward kernel and dQ from one of the dQ
+    kernel on ``route``, the dQ launch on the plain forward's O and L and
+    delta taken as the backward wrapper takes it."""
+    sm = q.shape[-1] ** -0.5
+    o, lse = torch.empty_like(q), torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                                              device="cuda")
+    fa.launch_fwd(q, k, v, o, lse, causal=causal, sm_scale=sm, route=route)
+    o_r, lse_r = fa.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    delta = (do.float() * o_r.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty_like(q)
+    fa.launch_bwd_dq(q, k, v, do, lse_r, delta, dq, causal=causal, sm_scale=sm, route=route)
+    return o, lse, dq, o_r, lse_r
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_forward_and_dq_match_plain_versions_on_card(D, G, causal):
+    """The Q-stationary wgmma forward and dQ (csrc/flash_attention_sm90.cu)
+    against the plain versions: GQA groups of 1 and 8, S 1000 (no multiple
+    of the 128-query or 64 / 128-key tiles, so TMA zero-fills past S inside
+    a batch and the last tile's rows are not written), two batches; O and
+    dQ within rel 2e-2 of the reference's largest magnitude (P and dS round
+    to bf16), L within 1e-3."""
+    _need_card()
+    B, S, Hk = 2, 1000, 2
+    q, k, v, do = _dkdv_inputs(B, S, G * Hk, Hk, D, seed=60 + D + G)
+    assert fa.flash_route(q, k, v) == fa.flash_route(q, k, v, do) == "wgmma"
+    fa.reset_launch_counts()
+    o, lse, dq, o_r, lse_r = _fwd_dq(q, k, v, do, causal)
+    assert fa.route_counts["flash_attention_fwd"] == {"wgmma": 1, "mma_sync": 0}
+    assert fa.route_counts["flash_attention_bwd_dq"] == {"wgmma": 1, "mma_sync": 0}
+    _close(o, o_r, 2e-2)
+    torch.testing.assert_close(lse, lse_r, rtol=0, atol=1e-3)
+    dq_r = fa.flash_attention_bwd_ref(q, k, v, o_r, lse_r, do, causal=causal)[0]
+    _close(dq, dq_r, 2e-2)
+
+
+def test_flash_wgmma_forward_and_dq_are_bitwise_repeatable_on_card():
+    """One block computes each query tile over its key tiles in a fixed
+    order, with no float atomics: two launches give the same bits."""
+    _need_card()
+    q, k, v, do = _dkdv_inputs(2, 1024, 16, 2, 64, seed=7)
+    first = _fwd_dq(q, k, v, do, True, route="wgmma")[:3]
+    second = _fwd_dq(q, k, v, do, True, route="wgmma")[:3]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_wgmma_forward_and_dq_refuse_fp32_on_card():
+    """A forced wgmma launch of the forward or dQ on fp32 tensors raises
+    before any launch."""
+    _need_card()
+    q = torch.zeros(1, 128, 4, 64, device="cuda")
+    kv = torch.zeros(1, 128, 2, 64, device="cuda")
+    lse = torch.zeros(1, 4, 128, device="cuda")
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="wgmma route"):
+        fa.launch_fwd(q, kv, kv, q.clone(), lse, causal=True, sm_scale=0.125, route="wgmma")
+    with pytest.raises(ValueError, match="wgmma route"):
+        fa.launch_bwd_dq(q, kv, kv, q, lse, lse, q.clone(), causal=True, sm_scale=0.125,
+                         route="wgmma")
+    assert sum(launches for launches in fa.launch_counts.values()) == 0
+    assert all(sum(r.values()) == 0 for r in fa.route_counts.values())
+
+
+@pytest.mark.parametrize("tiles", ["stationary", "streamed"])
+@pytest.mark.parametrize("kernel", sorted(fa.launch_counts))
+def test_flash_wgmma_kernels_refuse_tiles_they_do_not_use_on_card(monkeypatch, kernel, tiles):
+    """Each wgmma kernel holds the count of units and items that the host
+    dealt from ``SM90_TILES`` against its own decode of the units: with the
+    host's stationary tile halved (more units) or its streamed tile halved
+    (more items), the launch raises instead of leaving rows unwritten."""
+    _need_card()
+    tile, step = fa.SM90_TILES[kernel][64]
+    monkeypatch.setitem(fa.SM90_TILES[kernel], 64,
+                        (tile // 2, step) if tiles == "stationary" else (tile, step // 2))
+    monkeypatch.setattr(fa, "_SCHEDULES", {})
+    q, k, v, do = _dkdv_inputs(1, 512, 4, 2, 64, seed=11)
+    lse = torch.zeros(1, 4, 512, device="cuda")
+    sm = dict(causal=True, sm_scale=0.125, route="wgmma")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if kernel == "flash_attention_fwd":
+            fa.launch_fwd(q, k, v, torch.empty_like(q), lse.clone(), **sm)
+        elif kernel == "flash_attention_bwd_dkdv":
+            fa.launch_bwd_dkdv(q, k, v, do, lse, lse, torch.empty_like(k),
+                               torch.empty_like(v), **sm)
+        else:
+            fa.launch_bwd_dq(q, k, v, do, lse, lse, torch.empty_like(q), **sm)
+
+
+def test_flash_attention_takes_transposed_views_on_card():
+    """The public function on ``[B, H, S, D]`` tensors transposed to ``[B,
+    S, H, D]`` gives the output and gradients of their contiguous copies
+    (the kernels read contiguous copies of such views)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    views = [r(2, 8, 256, 64).transpose(1, 2), r(2, 2, 256, 64).transpose(1, 2),
+             r(2, 2, 256, 64).transpose(1, 2)]
+    w = r(2, 256, 8, 64)
+    outs = []
+    for make in (lambda t: t, lambda t: t.contiguous()):
+        leaves = [make(t).detach().requires_grad_(True) for t in views]
+        out = fa.flash_attention(*leaves)
+        (out.float() * w.float()).sum().backward()
+        outs.append([out.detach()] + [t.grad for t in leaves])
+    assert not views[0].is_contiguous()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("bias_correction", [True, False])

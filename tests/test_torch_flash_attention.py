@@ -10,12 +10,14 @@ and the gradients of q, k and v must agree within 2e-4 in float32, the
 tolerance ``tests/unit/test_flash_attention.py`` uses (the packages sum in
 different orders).
 
-The host-side logic of the dK/dV kernel's ``wgmma`` route runs here too:
-``dkdv_route`` on CPU tensors of the dtypes, head dims, layouts and bases
-that decide it, and ``dkdv_schedule``, the persistent blocks' work, which
-must deal every (batch, kv head, key tile) unit to exactly one block (so
-each unit's group sum runs in one block, in a fixed order), the same way on
-every call, and within one unit of the mean per block.
+The host-side logic of the kernels' ``wgmma`` route runs here too:
+``flash_route``, the one rule for all three kernels, on CPU tensors of the
+dtypes, head dims, layouts and bases that decide it, and ``schedule``, the
+persistent blocks' work, which must deal every unit of each kernel (dK/dV:
+batch, kv head, key tile; forward and dQ: batch, query head, query tile)
+to exactly one block (so each unit's sums run in one block, in a fixed
+order), the same way on every call, and within one unit of the mean per
+block.
 """
 
 import importlib
@@ -128,11 +130,33 @@ def _bf16(*shape):
     return torch.zeros(shape, dtype=torch.bfloat16)
 
 
+def test_public_function_ignores_input_strides():
+    """A ``[B, H, S, D]`` tensor transposed to ``[B, S, H, D]`` gives the
+    public function the same output and gradients as its contiguous copy."""
+    q, k, v, w = _inputs(2, 64, 4, 2, 32, seed=13)
+    views = [torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))).transpose(1, 2)
+             for x in (q, k, v)]
+    assert not any(t.is_contiguous() for t in views)
+    got, got_g = _torch_grads(tfa.flash_attention, *(t.contiguous().numpy() for t in views), w)
+    leaves = [t.detach().requires_grad_(True) for t in views]
+    out = tfa.flash_attention(*leaves)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert torch.equal(out.detach(), torch.from_numpy(got))
+    for leaf, g in zip(leaves, got_g):
+        assert torch.equal(leaf.grad, torch.from_numpy(g))
+
+
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("case, route", [
     ("bf16 D64", "wgmma"), ("bf16 D128", "wgmma"), ("fp32 D64", "mma_sync"),
     ("fp16 D64", "mma_sync"), ("bf16 D32", "mma_sync"), ("bf16 D64 strided", "mma_sync"),
     ("bf16 D64 base 2 B off", "mma_sync")])
-def test_dkdv_route_choice(case, route):
+def test_dkdv_route_choice(case, route, kernel):
+    """The one rule picks each kernel's route from the tensors it reads: q,
+    k, v for the forward, and dO too for the backward kernels."""
     D = int(case.split("D")[1].split()[0])
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}[case[:4].strip()]
     q = torch.zeros(2, 96, 8, D, dtype=dtype)
@@ -141,28 +165,46 @@ def test_dkdv_route_choice(case, route):
         q = torch.zeros(2, 8, 96, D, dtype=dtype).transpose(1, 2)
     if "off" in case:
         k = torch.zeros(2 * 96 * 2 * D + 1, dtype=dtype)[1:].view(2, 96, 2, D)
-    assert tfa.dkdv_route(q, k, k, q) == route
+    tensors = (q, k, k) if kernel == "flash_attention_fwd" else (q, k, k, q)
+    assert tfa.flash_route(*tensors) == route
 
 
+def _want_lengths(kernel, B, S, H, Hk, D, causal):
+    """Items per unit, counted tile by tile: dK/dV's key tile meets the
+    group's query tiles whose last query reaches its first key; a query
+    tile of the forward or dQ meets the key tiles whose first key its last
+    query reaches (all of them when not causal)."""
+    tile, step = tfa.SM90_TILES[kernel][D]
+    n_tiles, n_steps = -(-S // tile), -(-S // step)
+    if kernel == "flash_attention_bwd_dkdv":
+        return [H // Hk * sum(1 for iq in range(n_steps)
+                              if not causal or iq * step + step - 1 >= u // (B * Hk) * tile)
+                for u in range(n_tiles * B * Hk)]
+    return [sum(1 for kt in range(n_steps)
+                if not causal or kt * step <= u // (B * H) * tile + tile - 1)
+            for u in range(n_tiles * B * H)]
+
+
+@pytest.mark.parametrize("kernel, D", [("flash_attention_bwd_dkdv", 64),
+                                       ("flash_attention_fwd", 64),
+                                       ("flash_attention_bwd_dq", 64),
+                                       ("flash_attention_bwd_dq", 128)])
 @pytest.mark.parametrize("B, S, Hk, G, causal, blocks", [
     (4, 2048, 4, 8, True, 132),      # TinyLlama's training shape
     (1, 2048, 32, 1, True, 132),     # Llama-2-7B heads
     (2, 1000, 2, 4, False, 132),     # ragged S, not causal
     (3, 700, 2, 2, True, 5),         # more units than blocks, ragged S
-    (1, 100, 1, 1, True, 132)])      # fewer units than blocks
-def test_dkdv_schedule_covers_each_unit_once(B, S, Hk, G, causal, blocks):
-    items = tfa.dkdv_units(B, S, Hk, G, causal)
-    nkt, nq = -(-S // tfa.DKDV_BK), -(-S // tfa.DKDV_BQ)
-    assert len(items) == nkt * B * Hk
-    # items per unit: the group's heads x the query tiles whose last query
-    # reaches the key tile's first key (all of them when not causal)
-    for u, n in enumerate(items):
-        k0 = u // (B * Hk) * tfa.DKDV_BK
-        reach = sum(1 for iq in range(nq)
-                    if not causal or iq * tfa.DKDV_BQ + tfa.DKDV_BQ - 1 >= k0)
-        assert n == G * reach
-    offsets, ids = tfa.dkdv_schedule(B, S, Hk, G, causal, blocks)
-    assert (offsets, ids) == tfa.dkdv_schedule(B, S, Hk, G, causal, blocks)
+    (1, 100, 1, 1, True, 132),       # fewer units than blocks
+    (2, 300, 1, 2, False, 1)])       # one block
+def test_dkdv_schedule_covers_each_unit_once(B, S, Hk, G, causal, blocks, kernel, D):
+    H = G * Hk
+    items = tfa.unit_lengths(kernel, B, S, H, Hk, D, causal)
+    assert items == _want_lengths(kernel, B, S, H, Hk, D, causal)
+    tile = tfa.SM90_TILES[kernel][D][0]
+    per_tile = B * (Hk if kernel == "flash_attention_bwd_dkdv" else H)
+    assert len(items) == -(-S // tile) * per_tile
+    offsets, ids = tfa.schedule(items, blocks)
+    assert (offsets, ids) == tfa.schedule(items, blocks)
     assert len(offsets) == min(blocks, len(items)) + 1 and offsets[0] == 0
     assert offsets == sorted(offsets) and offsets[-1] == len(ids)
     assert sorted(ids) == list(range(len(items)))      # every unit exactly once
@@ -173,8 +215,12 @@ def test_dkdv_schedule_covers_each_unit_once(B, S, Hk, G, causal, blocks):
     # greedy on units sorted longest first: no block exceeds the mean by
     # more than the longest unit
     assert max(loads) <= sum(items) / len(loads) + max(items)
-    if (B, S, Hk, G) == (4, 2048, 4, 8):
+    if (B, S, Hk, G) == (4, 2048, 4, 8) and kernel == "flash_attention_bwd_dkdv":
         # 272 items on the busiest block against a mean of 263.8, where one
         # block per 64-key tile gave the key-tile-0 blocks 256 of 64 x 64
         # against a mean of 132
         assert max(loads) == 272 and sum(items) == 34816
+    if (B, S, Hk, G) == (4, 2048, 4, 8) and kernel == "flash_attention_fwd":
+        # 2048 units of 1-16 key tiles of 128: 17408 tiles, 132 on the
+        # busiest block against a mean of 131.9
+        assert max(loads) == 132 and sum(items) == 17408
