@@ -14,11 +14,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    version on the card, and timed with CUDA events beside its bound, its
    plain version and one library call computing the same function:
    the two paged-attention kernels at the serving slice's shapes (Llama-2-7B
-   heads, a GQA shape, ragged kv lengths incl. 0 and a partial page, stats
-   on and off, bf16 and fp32), and the decode kernel's int8 mode on the main
-   decode case's pools quantized by ``quantize_rows`` (layer 2, stats, bf16
-   and fp32 compute; library composite: gather + ``dequantize_rows`` +
-   SDPA); the block-sparse forward at Llama-2-7B's attention widths (B 1,
+   heads, a GQA shape, ragged kv lengths incl. 0 and a partial page, decode
+   rows over all 64 table pages (split across blocks by the decode kernel),
+   stats on and off, bf16 and fp32), and the decode kernel's int8 mode on
+   each decode case's pools quantized by ``quantize_rows`` (layer 2, stats,
+   bf16 and fp32 compute;
+   library composite: gather + ``dequantize_rows`` + SDPA), each case
+   reporting its route (bf16 and the int8 mode must take ``sm90``, fp32
+   ``cuda_core``), two launches of each kernel bitwise equal, each kernel
+   timed on both routes at the main shape, the split rule's KV splits
+   against runs of 4 and 8 tiles there and against the other side of its
+   choice at the GQA full-table shape, where it splits the decode kernel
+   and not the packed one (back to back and replayed from a CUDA graph),
+   and the main packed step's 14 decode rows and two prompt chunks timed
+   alone on both routes; the
+   block-sparse forward at Llama-2-7B's attention widths (B 1,
    S 4096, H 32, D 128, block 64) over the bigbird (seed 0), fixed,
    bslongformer, variable and local-window layouts, causal and not, at D 64,
    block 128 and fp32, and an all-ones causal layout against the port's
@@ -43,7 +53,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. serving slice — Llama-2-7B at full width (bf16, seeded random weights
    made on the card) served by ``LLMServer`` over ``InferenceEngineV2``: 16
    requests with seeded prompt lengths in [128, 1024], 128 new tokens each.
-   Kernel launch counts are reset just before and read just after;
+   Kernel launch counts are reset just before and read just after; every
+   packed and decode launch on the ``sm90`` route, a whole number per layer;
 5. serving path parity — a full-width 4-layer model runs one packed step
    and one fused decode step/chunk through the kernel path and the einsum
    path in bf16, and the einsum path in float32, on identical pools; the
@@ -95,7 +106,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    not a scaling number;
 12. int8 KV serving — phase 4's run with ``kv_cache_dtype="int8"``: every
    request finishes, KV conservation, the decode kernel's int8 mode launches
-   (``paged_flash_decode_int8``) and no bf16-pool kernel does, the engine
+   (``paged_flash_decode_int8``), every launch on the ``sm90`` route, and no
+   bf16-pool kernel does, the engine
    resolves ``attn_impl`` einsum and ``decode_attn_impl`` pallas (the JAX
    resolution), ``pool_nbytes`` equals 8 GiB of int8 + 256 MiB of scales,
    the peak memory is below phase 4's; tok/s, TTFT and how many first
@@ -174,6 +186,27 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed: what the card takes without the host's cost of
+    each launch, which sets ``cuda_ms`` for kernels shorter than it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -332,9 +365,16 @@ def sdpa_decode_int8(q, kp, vp, bt, pos, kv_len, layer, sm_scale):
                          kv_len, sm_scale)
 
 
+def routed(pa, name):
+    """The route a paged wrapper's last launches took, as a count per route."""
+    return {r: n for r, n in pa.route_counts[name].items() if n}
+
+
 def kernel_phase(pa):
     """Parity of both kernels with their plain versions over the slice's
-    cases; returns the timing rows at the main path's shapes."""
+    cases, each case reporting its route (bf16 and the int8 mode on sm90,
+    fp32 on the CUDA-core tile); two launches bitwise equal; returns the
+    timing rows at the main path's shapes, with both routes timed."""
     rng = np.random.default_rng(2024)
     ok = True
     errs = {"paged_attention": 0.0, "paged_flash_decode": 0.0,
@@ -354,6 +394,12 @@ def kernel_phase(pa):
               kv_len=[128, 300, 45, 0], chunk=[128, 77, 1, 0])),
         ("gqa 32/8", dict(S=4, Q=Q, Hq=32, Hk=8, D=D, bs=bs, B=B,
                           kv_len=[128, 301, 17, 0], chunk=[128, 128, 17, 0])),
+        # decode rows over all 64 table pages beside a prompt chunk over a
+        # full table (the rule splits none of a launch with prompt chunks;
+        # the decode case of this shape splits)
+        ("full 64-page table, decode rows and a prompt chunk",
+         dict(S=4, Q=Q, Hq=32, Hk=8, D=D, bs=bs, B=B,
+              kv_len=[2048, 2048, 1900, 33], chunk=[1, 128, 1, 1])),
     ]
     kv_main = rng.integers(128, 1153, S)
     kv_main[3], kv_main[7] = 0, 33       # an empty slot, a partial page
@@ -364,67 +410,89 @@ def kernel_phase(pa):
         ("gqa 32/8, pos inside the context",
          dict(S=4, Hq=32, Hk=8, D=D, bs=bs, B=B, L=4,
               kv_len=[0, 31, 400, 1000], pos=[0, 20, 402, 500])),
+        ("gqa 32/8, all 64 table pages, split across blocks",
+         dict(S=4, Hq=32, Hk=8, D=D, bs=bs, B=B, L=4,
+              kv_len=[2048, 2048, 1999, 64], pos=[2047, 2048, 1999, 64])),
     ]
+
+    def check(label, name, route_want, got, want, dtype, stats):
+        nonlocal ok
+        if stats:
+            err, m_err, l_err, good = compare(got, want, dtype)
+        else:
+            err = (got.float() - want[0].float()).abs().max().item()
+            m_err = l_err = 0.0
+            good = err <= OUT_TOL[dtype]
+        route = routed(pa, name)
+        good &= route == {route_want: 1}
+        ok &= good
+        log(f"parity {name} {label} {str(dtype)[6:]} stats={stats} (route {route}): "
+            f"max|o|err={err:.3e} m={m_err:.2e} l={l_err:.2e} (tol {OUT_TOL[dtype]:g}) "
+            f"{'ok' if good else 'FAIL'}")
+        return err
+
+    def bitwise(name, fn):
+        """Two launches of the chosen route, (o, m, l) bitwise equal."""
+        nonlocal ok
+        a, b = fn(), fn()
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        ok &= same
+        log(f"bitwise {name}: two launches {'equal' if same else 'DIFFER'}")
+
     timed = {}
     for dtype in (torch.bfloat16, torch.float32):
+        want_route = "sm90" if dtype == torch.bfloat16 else "cuda_core"
         for name, spec in packed_cases:
             args = packed_case(rng, dtype, **spec)
             for stats in (True, False):
+                pa.reset_launch_counts()
                 got = pa.paged_attention(*args, return_stats=stats)
                 want = pa.paged_attention_ref(*args, return_stats=True)
-                if stats:
-                    err, m_err, l_err, good = compare(got, want, dtype)
-                else:
-                    err = (got.float() - want[0].float()).abs().max().item()
-                    m_err = l_err = 0.0
-                    good = err <= OUT_TOL[dtype]
-                ok &= good
-                log(f"parity paged_attention   {name} {str(dtype)[6:]} "
-                    f"stats={stats}: max|o|err={err:.3e} m={m_err:.2e} "
-                    f"l={l_err:.2e} (tol {OUT_TOL[dtype]:g}) "
-                    f"{'ok' if good else 'FAIL'}")
+                err = check(name, "paged_attention", want_route, got, want, dtype, stats)
             if spec is main_packed and dtype == torch.bfloat16:
                 errs["paged_attention"] = err
                 timed["paged_attention"] = ("packed", args)
+                bitwise("paged_attention (7b mixed step)",
+                        lambda: pa.paged_attention(*args, return_stats=True))
         for name, spec in decode_cases:
             q, k, v, bt, pos, kvl = decode_case(rng, dtype, **spec)
             for stats in (True, False):
+                pa.reset_launch_counts()
                 got = pa.paged_flash_decode(q, k, v, bt, pos, kvl, layer=2,
                                             return_stats=stats)
                 want = pa.paged_flash_decode_ref(q, k, v, bt, pos, kvl,
                                                  layer=2, return_stats=True)
-                if stats:
-                    err, m_err, l_err, good = compare(got, want, dtype)
-                else:
-                    err = (got.float() - want[0].float()).abs().max().item()
-                    m_err = l_err = 0.0
-                    good = err <= OUT_TOL[dtype]
-                ok &= good
-                log(f"parity paged_flash_decode {name} {str(dtype)[6:]} "
-                    f"stats={stats}: max|o|err={err:.3e} m={m_err:.2e} "
-                    f"l={l_err:.2e} (tol {OUT_TOL[dtype]:g}) "
-                    f"{'ok' if good else 'FAIL'}")
+                err = check(name, "paged_flash_decode", want_route, got, want, dtype, stats)
             if spec is main_decode and dtype == torch.bfloat16:
                 errs["paged_flash_decode"] = err
                 timed["paged_flash_decode"] = ("decode", (q, k, v, bt, pos, kvl))
-            if spec is main_decode:
-                # the int8 mode on this case's pools, quantized by quantize_rows
-                kp, vp = int8_pools(k, v)
-                got = pa.paged_flash_decode(q, kp, vp, bt, pos, kvl, layer=2,
-                                            return_stats=True)
-                want = pa.paged_flash_decode_ref(q, kp, vp, bt, pos, kvl,
-                                                 layer=2, return_stats=True)
-                err, m_err, l_err, good = compare(got, want, dtype)
-                ok &= good
-                log(f"parity paged_flash_decode_int8 {name} {str(dtype)[6:]} "
-                    f"stats=True: max|o|err={err:.3e} m={m_err:.2e} "
-                    f"l={l_err:.2e} (tol {OUT_TOL[dtype]:g}) "
-                    f"{'ok' if good else 'FAIL'}")
-                if dtype == torch.bfloat16:
-                    errs["paged_flash_decode_int8"] = err
-                    timed["paged_flash_decode_int8"] = (q, kp, vp, bt, pos, kvl)
+                bitwise("paged_flash_decode (7b decode)",
+                        lambda: pa.paged_flash_decode(q, k, v, bt, pos, kvl, layer=2,
+                                                      return_stats=True))
+            # the int8 mode on this case's pools, quantized by quantize_rows
+            kp, vp = int8_pools(k, v)
+            pa.reset_launch_counts()
+            got = pa.paged_flash_decode(q, kp, vp, bt, pos, kvl, layer=2,
+                                        return_stats=True)
+            want = pa.paged_flash_decode_ref(q, kp, vp, bt, pos, kvl,
+                                             layer=2, return_stats=True)
+            err = check(name, "paged_flash_decode_int8", want_route, got, want, dtype, True)
+            if spec is main_decode and dtype == torch.bfloat16:
+                errs["paged_flash_decode_int8"] = err
+                timed["paged_flash_decode_int8"] = (q, kp, vp, bt, pos, kvl)
+                bitwise("paged_flash_decode_int8 (7b decode)",
+                        lambda: pa.paged_flash_decode(q, kp, vp, bt, pos, kvl, layer=2,
+                                                      return_stats=True))
     if not ok:
         raise SystemExit("kernel parity FAILED (see lines above)")
+
+    # each kernel timed through its launch helper on both routes at the main
+    # shape, in turns (cuda_core, sm90, sm90, cuda_core)
+    def both_routes(launch):
+        t = {"sm90": [], "cuda_core": []}
+        for route in ("cuda_core", "sm90", "sm90", "cuda_core"):
+            t[route].append(cuda_ms(lambda: launch(route), iters=50))
+        return {r: min(v) for r, v in t.items()}
 
     rows = {}
     sm = 1.0 / math.sqrt(D)
@@ -432,19 +500,40 @@ def kernel_phase(pa):
     q, k, v, bt, start, chunk, kvl = args
     nbytes, flops = packed_work(q, k, bt, start, chunk, kvl, stats=False)
     b_ms, b_by = bound(nbytes, flops, q.dtype)
+    packed = lambda a: (lambda route, split_tiles=None: pa.launch_paged_attention(
+        *a, torch.empty_like(a[0]), None, None, sm_scale=sm, route=route,
+        split_tiles=split_tiles))
+    routes = both_routes(packed(args))
     rows["paged_attention"] = dict(
-        ms=cuda_ms(lambda: pa.paged_attention(*args)),
+        ms=routes["sm90"], cuda_core_ms=routes["cuda_core"],
         plain_ms=cuda_ms(lambda: pa.paged_attention_ref(*args), iters=5),
         library_ms=cuda_ms(lambda: sdpa_packed(*args, sm), iters=5),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=errs["paged_attention"],
         bytes=nbytes, flops=flops)
+    # the main step's halves: its 14 decode rows alone, its two prompt chunks
+    for half, part in (("14 decode rows", slice(0, 14)), ("2 prompt chunks", slice(14, 16))):
+        sub = tuple(t[part].contiguous() if i not in (1, 2) else t
+                    for i, t in enumerate(args))
+        hb, hf = packed_work(sub[0], sub[1], sub[3], sub[4], sub[5], sub[6], stats=False)
+        hr = both_routes(packed(sub))
+        log(f"timing paged_attention, the main step's {half} alone: sm90 {hr['sm90']:.4f} ms, "
+            f"cuda_core {hr['cuda_core']:.4f} ms, bound {bound(hb, hf, q.dtype)[0]:.4f} ms")
     _, (q, k, v, bt, pos, kvl) = timed["paged_flash_decode"]
     nbytes, flops = decode_work(q, k, bt, pos, kvl, stats=True)
     b_ms, b_by = bound(nbytes, flops, q.dtype)
+
+    def decode(q, kk, vv, bt, pos, kvl):
+        """A launch of the decode kernel on these inputs (layer 2, stats on)."""
+        o, mo, lo = torch.empty_like(q), *(torch.empty(q.shape[:2], device=q.device)
+                                           for _ in range(2))
+        return lambda route, split_tiles=None: pa.launch_paged_flash_decode(
+            q, kk, vv, bt, pos, kvl, o, mo, lo, layer=2, sm_scale=sm, route=route,
+            split_tiles=split_tiles)
+
     dargs = (q, k, v, bt, pos, kvl)
+    routes = both_routes(decode(*dargs))
     rows["paged_flash_decode"] = dict(
-        ms=cuda_ms(lambda: pa.paged_flash_decode(*dargs, layer=2,
-                                                 return_stats=True)),
+        ms=routes["sm90"], cuda_core_ms=routes["cuda_core"],
         plain_ms=cuda_ms(lambda: pa.paged_flash_decode_ref(
             *dargs, layer=2, return_stats=True), iters=5),
         library_ms=cuda_ms(lambda: sdpa_decode(*dargs, 2, sm), iters=5),
@@ -453,21 +542,70 @@ def kernel_phase(pa):
     q, kp, vp, bt, pos, kvl = iargs = timed["paged_flash_decode_int8"]
     nbytes, flops = decode_int8_work(q, kp[0], bt, pos, kvl)
     b_ms, b_by = bound(nbytes, flops, q.dtype)
+    routes = both_routes(decode(*iargs))
     rows["paged_flash_decode_int8"] = dict(
-        ms=cuda_ms(lambda: pa.paged_flash_decode(*iargs, layer=2,
-                                                 return_stats=True)),
+        ms=routes["sm90"], cuda_core_ms=routes["cuda_core"],
         plain_ms=cuda_ms(lambda: pa.paged_flash_decode_ref(
             *iargs, layer=2, return_stats=True), iters=5),
         library_ms=cuda_ms(lambda: sdpa_decode_int8(*iargs, 2, sm), iters=5),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=errs["paged_flash_decode_int8"],
         bytes=nbytes, flops=flops)
+    launches = {"paged_attention": packed(args),
+                "paged_flash_decode": decode(*dargs),
+                "paged_flash_decode_int8": decode(*iargs)}
+
+    def in_turns(choices, launch_of):
+        """Each kernel's time under each choice, back to back (``cuda_ms``)
+        and replayed from a CUDA graph (``graph_ms``), the choices in turns
+        (a b .. b a), the least of the two timings of each."""
+        t = {n: {} for n in launch_of}
+        for c in tuple(choices) + tuple(reversed(choices)):
+            for name, launch in launch_of.items():
+                ms = (cuda_ms(lambda: launch(c), iters=50), graph_ms(lambda: launch(c)))
+                t[name][c] = tuple(map(min, zip(ms, t[name].get(c, ms))))
+        return t
+
+    def times(t):
+        return f"{t[0]:.4f} ms (graph {t[1]:.4f})"
+
+    # the split rule's choice against runs of 4 and 8 tiles (256 and 512
+    # slots) at the main shapes, where the rule takes no split
+    for name, c in in_turns((None, 4, 8), {n: (lambda f: lambda st: f("sm90", st))(f)
+                                           for n, f in launches.items()}).items():
+        log(f"timing {name} by KV split: the rule's (split_tiles_for) {times(c[None])}, "
+            f"4 tiles {times(c[4])}, 8 tiles {times(c[8])}")
+    # ... and at the GQA 32/8 full-table shapes, where the rule splits the
+    # decode kernel's contexts (4 sequences: 32 (sequence, kv head) pairs) and
+    # not the packed kernel's (a 128-token prompt chunk beside the decode
+    # rows): the rule's choice against the other side, one split or the
+    # decode kernel's splits
+    sargs = decode_case(rng, torch.bfloat16, **decode_cases[2][1])
+    fargs = packed_case(rng, torch.bfloat16, **packed_cases[3][1])
+    q, k, v, bt = sargs[:4]
+    (S, Hq), (Hk, B) = q.shape[:2], (k.shape[2], bt.shape[1])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    whole = -(-B * bs // pa.SM90_TILE_SLOTS)
+    for name, Qn, launch in (
+            ("paged_attention", fargs[0].shape[1], packed(fargs)),
+            ("paged_flash_decode", 1, decode(*sargs)),
+            ("paged_flash_decode_int8", 1, decode(q, *int8_pools(k, v), *sargs[3:]))):
+        rule = pa.split_tiles_for(S, Qn, Hk, B, bs, sms)
+        other = whole if rule < whole else pa.split_tiles_for(S, 1, Hk, B, bs, sms)
+        c = in_turns((rule, other), {name: lambda st: launch("sm90", st)})[name]
+        n = {st: pa.sm90_grid(S, Qn, Hq // Hk, Hk, B, bs, st)[2] for st in (rule, other)}
+        log(f"timing {name} by KV split where the rule splits the decode kernel (gqa 32/8, "
+            f"all 64 table pages, {S * Hk} pairs): the rule's {rule} tiles x {n[rule]} "
+            f"splits {times(c[rule])}, against {other} tiles x {n[other]} splits "
+            f"{times(c[other])} (rule / other {c[rule][0] / c[other][0]:.3f}, graph "
+            f"{c[rule][1] / c[other][1]:.3f})")
     for name, r in rows.items():
-        log(f"timing {name} (bf16, main-path shape): kernel {r['ms']:.4f} ms, "
+        log(f"timing {name} (bf16, main-path shape): kernel on the sm90 route {r['ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"({r['bytes']} B, {r['flops']} flop), plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms")
+        log(f"timing {name} on the cuda_core route: {r['cuda_core_ms']:.4f} ms "
+            f"(sm90 / cuda_core {r['ms'] / r['cuda_core_ms']:.3f})")
     return rows
-
 
 
 def flash_work(q, k, causal, passes):
@@ -1134,6 +1272,7 @@ def slice_phase(pa, card, profile=False, kv=None, num_layers=None,
         acc.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(pa.launch_counts)
+    routes = {n: dict(r) for n, r in pa.route_counts.items()}
     drained = server.drain(timeout=60)
     if server.error is not None:
         raise server.error
@@ -1155,7 +1294,7 @@ def slice_phase(pa, card, profile=False, kv=None, num_layers=None,
     log(f"{tag}: prompt tokens {int(lens.sum())}, generated {tokens}, engine "
         f"steps {engine.steps}, kernel launches {launches} "
         f"(packed steps x {cfg.num_layers} layers; fused chunks x 16 steps x "
-        f"{cfg.num_layers} layers)")
+        f"{cfg.num_layers} layers), routes {routes}")
     log(f"{tag} [{card}]: {tokens / wall:.1f} generated tok/s over {wall:.2f} s, "
         f"TTFT p50 {snap['ttft']['p50_ms']:.1f} ms p99 "
         f"{snap['ttft']['p99_ms']:.1f} ms (mean {np.mean(ttft) * 1e3:.1f} ms), "
@@ -1164,7 +1303,7 @@ def slice_phase(pa, card, profile=False, kv=None, num_layers=None,
         device_time_breakdown(trace, wall)
     if not (all(finished) and drained and in_vocab and conserved):
         raise SystemExit(f"{tag} FAILED")
-    out = dict(launches=launches, peak=peak, first=[r.tokens[0] for r in resps],
+    out = dict(launches=launches, routes=routes, peak=peak, first=[r.tokens[0] for r in resps],
                pool_nbytes=engine.kv.pool_nbytes(), pool_dtype=engine.kv.k.dtype,
                resolution=(engine.attn_impl, engine.decode_attn_impl,
                            engine.decode_attn_source), cfg=cfg)
@@ -1183,8 +1322,12 @@ def kv_quant_phase(pa, card, bf16_run, profile=False):
     want_bytes = 2 * rows * cfg.head_dim + 2 * rows * 4    # int8 values + fp32 scales
     launches = run["launches"]
     same_first = sum(a == b for a, b in zip(run["first"], bf16_run["first"]))
+    int8_routes = run["routes"]["paged_flash_decode_int8"]
     checks = {
         "int8 decode kernel launched": launches["paged_flash_decode_int8"] > 0,
+        "every int8 decode launch on sm90, a whole number per layer":
+            (int8_routes == {"sm90": launches["paged_flash_decode_int8"], "cuda_core": 0}
+             and launches["paged_flash_decode_int8"] % cfg.num_layers == 0),
         "no bf16-pool kernel launched": (launches["paged_attention"] == 0
                                          and launches["paged_flash_decode"] == 0),
         "attn_impl einsum, decode_attn_impl pallas": run["resolution"][:2]
@@ -2194,6 +2337,11 @@ def main() -> int:
     for kernel, n in launches.items():
         if n <= 0:
             raise SystemExit(f"slice did not launch the {kernel} kernel")
+        # every bf16 paged launch on the sm90 route, a whole number per layer
+        if (bf16_run["routes"][kernel] != {"sm90": n, "cuda_core": 0}
+                or n % bf16_run["cfg"].num_layers):
+            raise SystemExit(f"slice: {kernel} launches {n} routed "
+                             f"{bf16_run['routes'][kernel]}, not all on sm90 per layer")
     timed("5 serving parity", path_phase)
     # phase 12, 13: int8 and float8 KV serving, int8 path parity
     launches.update(timed("12 int8/fp8 KV serving", kv_quant_phase, pa, card, bf16_run,
@@ -2214,9 +2362,9 @@ def main() -> int:
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"
     origin = {
-        "paged_attention": ("paged_attention.cu", "paged_attention.py:53"),
-        "paged_flash_decode": ("paged_attention.cu", "paged_attention.py:224"),
-        "paged_flash_decode_int8": ("paged_attention_int8.cu", "paged_attention.py:224"),
+        "paged_attention": ("paged_attention_sm90.cu", "paged_attention.py:53"),
+        "paged_flash_decode": ("paged_attention_sm90.cu", "paged_attention.py:224"),
+        "paged_flash_decode_int8": ("paged_attention_sm90_int8.cu", "paged_attention.py:224"),
         "sparse_attention_fwd": ("sparse_attention.cu", "sparse_attention.py:151"),
         "flash_attention_fwd": ("flash_attention_sm90.cu", "flash_attention.py:52"),
         "flash_attention_bwd_dkdv": ("flash_attention_sm90.cu", "flash_attention.py:149"),

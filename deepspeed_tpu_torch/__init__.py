@@ -5,7 +5,8 @@ its layout and public names module by module. Three paths are ported:
 
 * serving — ``serving.LLMServer`` -> ``inference.v2.InferenceEngineV2`` ->
   the ragged model forward, with the two paged-attention kernels
-  hand-written for Hopper (``ops/csrc/paged_attention.cu``);
+  hand-written for Hopper (``ops/csrc/paged_attention_sm90.cu`` in bf16,
+  ``ops/csrc/paged_attention.cu`` in fp32);
 * training on one card — ``initialize(model=make_loss_fn(model),
   model_parameters=params, config=...)`` -> ``engine.train_batch(batch)``,
   with the flash-attention forward and backward kernels

@@ -2,7 +2,8 @@
 as a kernel hand-written for Hopper, beside its plain PyTorch version.
 
 ``paged_attention`` — the two paged-attention kernels of the serving path
-(``csrc/paged_attention.cu``); ``flash_attention`` — the flash forward and
+(``csrc/paged_attention_sm90.cu`` on ``wgmma`` and TMA for bf16,
+``csrc/paged_attention.cu`` for the rest); ``flash_attention`` — the flash forward and
 its two backward kernels of the training path (``csrc/flash_attention_sm90.cu``
 on ``wgmma`` and TMA for bf16, ``csrc/flash_attention.cu`` for the rest);
 ``fused_adam`` — the multi-tensor Adam update (``csrc/fused_adam.cu``);

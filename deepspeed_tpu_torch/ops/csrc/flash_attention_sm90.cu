@@ -85,10 +85,7 @@
 // caller's cudaStream_t. Each entry returns 0, a cudaError_t from the
 // launch, or 10000 + the CUresult of a tensor map that could not be encoded.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_tiles.cuh"
 
 namespace {
 
@@ -98,10 +95,6 @@ constexpr int BK = 128;          // keys per block tile: 64 per consumer warpgro
 constexpr int BQ = 64;           // queries per work item
 constexpr int kThreads = 384;    // 2 consumer warpgroups + 1 producer
 constexpr int kConsumerWarps = 8;
-constexpr int kRowBytes = 128;   // one 64-wide bf16 box row (the 128-byte swizzle)
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D> struct Cfg {
   static constexpr int kBoxes = D / 64;               // 64-wide boxes along D
@@ -144,186 +137,6 @@ __host__ __device__ __forceinline__ Unit unit(const Params& p, int u) {
   w.per_head = p.nq - w.iq0;
   w.items = p.G * w.per_head;
   return w;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// ---------------------------------------------------------------------------
-// mbarriers and TMA
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// 4 bytes from src into shared memory (0 when !in), and an arrival on bar
-// once this thread's copies are done (counted among the barrier's arrivals)
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(in ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-// box {c0 (d), c1 (head), c2 (s), c3 (b)} of a 4-D tensor map into shared
-// memory, completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// wgmma
-// ---------------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle. K-major tiles: rows of
-// 128 bytes (64 bf16 of K), 8-row groups 1024 bytes apart (SBO); LBO unused.
-// MN-major tiles: K rows of 128 bytes (64 MN elements), 8-row groups 1024
-// bytes apart (SBO), 64-wide boxes kQBox apart along MN (LBO).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int K>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-  }
-}
-
-#define ACC8(i)                                                                          \
-  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (+)= A (64 x 16) B (16 x N), both K-major in shared memory; N is 64 or
-// 128 (the accumulator's 32 or 64 floats per thread)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A (64 x 16, bf16 fragments in registers) B (16 x N), B MN-major in
-// shared memory; N is 64 or 128
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef ACC8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// the max and the sum over the 4 lanes that hold one accumulator row
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Accumulator layout of m64nNk16 (per warpgroup): warp w of the group owns
-// rows 16 w .. 16 w + 15; d[4 j + e] sits at row lane / 4 + 8 (e >> 1), column
-// 8 j + 2 (lane % 4) + (e & 1). Columns 16 kk .. 16 kk + 15 of such a tile are
-// the A fragment of k-slice kk of the next product (the mma.sync layout):
-// rows lane / 4 and + 8, columns 2 (lane % 4) and + 8.
-template <int K>
-__device__ __forceinline__ void to_a(uint32_t (&a)[K][4], const float (&c)[8 * K]) {
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -642,48 +455,6 @@ __device__ __forceinline__ void mask_keys(float (&st)[N], const int (&row)[2], i
   }
 }
 
-// the online softmax of one key tile, in base 2: the running max m of s c,
-// alpha = 2^(m_old - m_new) for rescaling the sums, st = 2^(s c - m), and
-// this thread's share of the row sums l
-template <int N>
-__device__ __forceinline__ void online_softmax(float (&st)[N], float (&m)[2], float (&l)[2],
-                                               float (&alpha)[2], float c) {
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int j = 0; j < N / 4; ++j) {
-    mx[0] = fmaxf(mx[0], fmaxf(st[4 * j], st[4 * j + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(st[4 * j + 2], st[4 * j + 3]));
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float m_new = fmaxf(m[i], quad_max(mx[i]) * c);
-    alpha[i] = ex2(m[i] - m_new);
-    m[i] = m_new;
-    l[i] *= alpha[i];
-  }
-#pragma unroll
-  for (int j = 0; j < N / 4; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float pv = ex2(fmaf(st[4 * j + e], c, -m[e >> 1]));
-      l[e >> 1] += pv;
-      st[4 * j + e] = pv;
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) o[j] *= alpha[(j >> 1) & 1];
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) d[j] = 0.f;
-}
-
 // a warpgroup's 64 x D accumulator, row r times f[r], into the rows of
 // [B, S, H, D] bf16 at dst (row stride H D); rows past S not written
 template <int D>
@@ -952,32 +723,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-EncodeTiled encoder(int* err) {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess || sym == nullptr) {
-      *err = e != cudaSuccess ? static_cast<int>(e) : static_cast<int>(cudaErrorNotSupported);
-      return nullptr;
-    }
-    fn = reinterpret_cast<EncodeTiled>(sym);
-  }
-  return fn;
-}
 
 // a bf16 [B, S, heads, D] tensor as the 4-D map (d, head, s, b), read in
 // boxes of 64 d x 1 head x rows x 1 batch (64 bf16 = the 128-byte swizzle);

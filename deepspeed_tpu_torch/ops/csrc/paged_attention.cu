@@ -1,4 +1,9 @@
-// Paged attention over the blocked KV pool, hand-written for Hopper (sm_90a).
+// Paged attention over the blocked KV pool on the CUDA cores: the fp32
+// route of both paged kernels, and the route of shapes the sm90 design does
+// not take (page sizes other than 16, 32 or 64 slots, head dims other than
+// 64 and 128, tensors TMA cannot describe). bf16 on Hopper takes the sm90
+// design in paged_attention_sm90.cu; ops/paged_attention.py::paged_route
+// chooses.
 //
 // Replaces the two TPU kernels of deepspeed_tpu/ops/pallas/paged_attention.py:
 //   paged_attention_kernel     <- _kernel        (SplitFuse packed chunks, one
@@ -36,8 +41,7 @@
 // instruction), and bf16 rounds two products per packed convert, bit for
 // bit what a convert per element gives. Each warp walks its pages one after
 // another, and the dequant lengthens that serial chain, so the mode is not
-// faster than the bf16 mode on half its bytes (PERF.md; split-KV across
-// blocks is the later fix, as for the bf16 mode).
+// faster than the bf16 mode on half its bytes (PERF.md).
 //
 // What bounds them on an H100: decode reads every live K/V page once and does
 // 4*D flops per (query row, slot), about one flop per byte in bf16 — far
@@ -46,11 +50,11 @@
 // prompt chunk does up to 128 flops per page byte: against the card's peaks
 // that is still below the ridge (memory-bound), but this design does its
 // arithmetic in fp32 FMAs on the CUDA cores (67 TFLOP/s, not the tensor
-// cores' 989), so prefill chunks run operation-bound in practice; moving QK
-// and PV onto wgmma is the later step.
+// cores' 989), so prefill chunks run operation-bound in practice (the sm90
+// design runs QK and PV on wgmma).
 //
-// Design (simple first, per the port's plan; wgmma, TMA and split-KV across
-// blocks are later work):
+// Design (one CUDA-core tile; the sm90 design adds TMA staging, wgmma and
+// split-KV across blocks):
 //   * one thread block (4 warps) per (sequence, kv head, tile of query rows);
 //     the block reads its own block-table row, so pages are resolved in-kernel;
 //   * the block's warps take the sequence's live pages round-robin and stop at

@@ -1,8 +1,9 @@
-// The paged-attention tile and its launchers, shared by paged_attention.cu
-// (the packed kernel and the decode kernel over bf16/fp32 pools) and
-// paged_attention_int8.cu (the decode kernel's int8 mode): two sources, so
-// nvcc builds the two sets of instantiations in parallel. Design notes are
-// at the top of paged_attention.cu.
+// The CUDA-core paged-attention tile and its launchers (the cuda_core route:
+// fp32, and shapes the sm90 design does not take), shared by
+// paged_attention.cu (the packed kernel and the decode kernel over bf16/fp32
+// pools) and paged_attention_int8.cu (the decode kernel's int8 mode): two
+// sources, so nvcc builds the two sets of instantiations in parallel. Design
+// notes are at the top of paged_attention.cu.
 
 #pragma once
 
@@ -11,6 +12,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "int8_rows.cuh"
 
 namespace {
 
@@ -81,17 +84,6 @@ __device__ __forceinline__ void dequant(float* x, float s) {
       x[e + 1] = b;
     }
   }
-}
-
-// the 4 signed bytes of w as floats, exactly and without a conversion
-// instruction: each byte, biased to unsigned, becomes the low mantissa byte
-// of 2^23 (one byte permute), and 2^23 + 128 is subtracted
-__device__ __forceinline__ void s8x4_to_floats(unsigned int w, float* out) {
-  const unsigned int x = w ^ 0x80808080u;
-  out[0] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7650)) - 8388736.f;
-  out[1] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7651)) - 8388736.f;
-  out[2] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7652)) - 8388736.f;
-  out[3] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7653)) - 8388736.f;
 }
 
 // N consecutive int8 values as floats, in one load of 2, 4 or 16 bytes

@@ -1,9 +1,11 @@
-// The int8 mode of the paged flash-decode kernel, hand-written for Hopper
-// (sm_90a): replaces the quantized=True mode of _decode_kernel in
-// deepspeed_tpu/ops/pallas/paged_attention.py. Its design and arithmetic are
-// described at the top of paged_attention.cu; the tile it instantiates
-// (attend_tile<T, int8_t, D, ROWS>) is in paged_attention.cuh. A source of
-// its own so that its 16 instantiations build in parallel with the others.
+// The int8 mode of the paged flash-decode kernel on the CUDA cores: the
+// cuda_core route of the quantized=True mode of _decode_kernel in
+// deepspeed_tpu/ops/pallas/paged_attention.py (fp32 queries, and shapes the
+// sm90 design in paged_attention_sm90_int8.cu does not take). Its design and
+// arithmetic are described at the top of paged_attention.cu; the tile it
+// instantiates (attend_tile<T, int8_t, D, ROWS>) is in paged_attention.cuh.
+// A source of its own so that its 16 instantiations build in parallel with
+// the others.
 //
 // C interface (loaded with ctypes): pointers as void*, the stream as the
 // caller's cudaStream_t; the entry returns cudaGetLastError() after launch.

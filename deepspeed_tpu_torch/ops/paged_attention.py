@@ -12,10 +12,23 @@ Two public functions with the JAX package's shapes and layouts:
 Each has a plain PyTorch version beside it (``*_ref``: gathered pages, fp32
 einsums) that computes the same function. The wrapper dispatches on where
 the query lies: a CPU tensor takes the plain version; a CUDA tensor launches
-the hand-written Hopper kernel (``csrc/paged_attention.cu``, the decode
-kernel's int8 mode ``csrc/paged_attention_int8.cu``) or raises —
-there is no fallback. ``launch_counts`` counts kernel launches, one per
-launch and nowhere else, so a run can show that it went through the kernels.
+a hand-written Hopper kernel or raises — there is no fallback.
+``launch_counts`` counts kernel launches, one per launch and nowhere else.
+
+Each kernel has two routes, chosen in the open by one rule,
+:func:`paged_route`, and counted per kernel and route in ``route_counts``:
+``"sm90"`` (``csrc/paged_attention_sm90.cu``, the int8 mode
+``csrc/paged_attention_sm90_int8.cu``: pages staged by TMA through the block
+table, QK^T and PV on ``wgmma``, decode rows' contexts split across blocks
+and merged in split order) for bf16 queries at D 64 or 128 over pages of
+16, 32 or 64 slots; ``"cuda_core"`` (``csrc/paged_attention.cu``, the int8
+mode ``csrc/paged_attention_int8.cu``: one CUDA-core tile) for fp32 and the
+rest. The launch helpers (:func:`launch_paged_attention`,
+:func:`launch_paged_flash_decode`) take ``route=``; a forced ``"sm90"`` on
+tensors it was not built for raises. They also take ``split_tiles=``, the
+sm90 design's measured choice of KV splits (:func:`split_tiles_for`), so
+that a script can time both sides of it. A launch that splits is followed
+by a merge launch, counted as ``paged_combine``.
 
 Quantized pools: the decode kernel also takes int8 pools with fp32 per-row
 scales, as ``(values, scales)`` tuples (values ``[L, N, Hk, bs, D]`` int8,
@@ -46,37 +59,58 @@ from .quant import dequant_rows_tile
 NEG_INF = -1e30
 
 #: kernel launches per wrapper (reset by callers that want a window's count);
-#: the decode kernel's int8 mode counts under its own name
+#: the decode kernel's int8 mode counts under its own name, and so does the
+#: second launch that merges the sm90 kernels' KV splits
 launch_counts: Dict[str, int] = {"paged_attention": 0,
                                  "paged_flash_decode": 0,
-                                 "paged_flash_decode_int8": 0}
+                                 "paged_flash_decode_int8": 0,
+                                 "paged_combine": 0}
 
-# the int8 mode's instantiations build from a source of their own, in
+ROUTES = ("sm90", "cuda_core")
+#: launches per kernel and route (see :func:`paged_route`)
+route_counts: Dict[str, Dict[str, int]] = {name: {route: 0 for route in ROUTES}
+                                           for name in launch_counts}
+
+# the int8 mode's instantiations build from sources of their own, in
 # parallel with the others
 _SOURCES = {"paged_attention_fwd": "paged_attention.cu",
             "paged_flash_decode_fwd": "paged_attention.cu",
-            "paged_flash_decode_int8_fwd": "paged_attention_int8.cu"}
+            "paged_flash_decode_int8_fwd": "paged_attention_int8.cu",
+            "paged_attention_sm90_fwd": "paged_attention_sm90.cu",
+            "paged_flash_decode_int8_sm90_fwd": "paged_attention_sm90_int8.cu"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)     # instantiated in csrc/paged_attention.cu
+_HEAD_DIMS = (64, 128)     # instantiated in csrc/paged_attention*.cu
+#: page sizes the sm90 kernels stage (64 / bs pages per 64-slot tile)
+SM90_PAGE_SIZES = (16, 32, 64)
+#: the sm90 kernels' work items: query rows per item (one warpgroup's wgmma
+#: rows) and slots per tile (one ring stage). Each launch passes them with
+#: its block count (:func:`sm90_grid`); the kernel refuses tiles that its
+#: own decode does not use.
+SM90_ROWS = 64
+SM90_TILE_SLOTS = 64
+_SMS: Dict[torch.device, int] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
-                            ctypes.c_float, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _LL, _F, _I, _P],
     "paged_flash_decode_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
-                               ctypes.c_longlong, ctypes.c_float, _I, _P],
+                               _I, _I, _I, _I, _I, _I, _LL, _LL, _F, _I, _P],
     "paged_flash_decode_int8_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
-                                    ctypes.c_longlong, ctypes.c_longlong,
-                                    ctypes.c_longlong, ctypes.c_float, _I, _P],
+                                    _I, _I, _I, _I, _I, _I, _LL, _LL, _LL,
+                                    _LL, _F, _I, _P],
+    "paged_attention_sm90_fwd": [_P] * 11 + [_I] * 7 + [_LL, _LL] + [_I] * 5 + [_F, _P],
+    "paged_flash_decode_int8_sm90_fwd": [_P] * 12 + [_I] * 6 + [_LL, _LL] + [_I] * 5
+                                        + [_F, _P],
 }
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, *route_counts.values()):
+        for name in counts:
+            counts[name] = 0
 
 
 def _kernel(name: str):
@@ -90,6 +124,8 @@ def _kernel(name: str):
 
 
 def _check_launch(name: str, err: int) -> None:
+    if err >= 10000:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {err - 10000}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
@@ -293,6 +329,170 @@ def _shape_checks(Hq, Hk):
         raise ValueError(f"query heads {Hq} not a multiple of kv heads {Hk}")
 
 
+def paged_route(q, k_pool, v_pool) -> str:
+    """The route of the paged kernels for these tensors: ``"sm90"`` for
+    bf16 queries over bf16 pools, or int8 ``(values, scales)`` pools, at
+    head dim 64 or 128, pages of :data:`SM90_PAGE_SIZES` slots and GQA groups
+    of at most :data:`SM90_ROWS` heads, every tensor contiguous with a
+    16-byte-aligned base (what TMA and the bulk copies take); else
+    ``"cuda_core"``. The same rule on any device, so the CPU tests can ask
+    it."""
+    quantized = isinstance(k_pool, tuple)
+    kv = (pool_values(k_pool), pool_values(v_pool))
+    tensors = (q, *kv) + ((k_pool[1], v_pool[1]) if quantized else ())
+    Hk, bs, D = kv[0].shape[-3:]
+    Hq = q.shape[-2]
+    want = torch.int8 if quantized else torch.bfloat16
+    sm90 = (q.dtype == torch.bfloat16 and D in _HEAD_DIMS and q.shape[-1] == D
+            and bs in SM90_PAGE_SIZES and Hq % Hk == 0 and Hq // Hk <= SM90_ROWS
+            and all(t.dtype == want for t in kv)
+            and all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors))
+    return "sm90" if sm90 else "cuda_core"
+
+
+def split_tiles_for(S: int, Q: int, Hk: int, B: int, bs: int, sms: int) -> int:
+    """Tiles per KV split of a decode row, from host-known shapes only. A
+    launch of one query per sequence (``Q`` 1) takes as many splits as give
+    the (sequence, kv head) pairs one wave of two blocks per SM (two fit an
+    SM at D 128), and none when the pairs alone fill it, as at the serving
+    shape (512 pairs). A launch that may hold prompt chunks (``Q`` > 1)
+    takes none: their items set its time, and the merge launch would only
+    add to it. Both measured on the H100 (PERF.md, Findings, PR 9)."""
+    n_tiles = -(-B * bs // SM90_TILE_SLOTS)
+    if Q > 1:
+        return n_tiles
+    splits = -(-2 * sms // (S * Hk))
+    return -(-n_tiles // splits)
+
+
+def sm90_grid(S: int, Q: int, G: int, Hk: int, B: int, bs: int, split_tiles: int):
+    """The sm90 kernels' launch for these shapes: ``(blocks, row_tiles,
+    n_splits)``. A (sequence, kv head) has ``row_tiles`` items of
+    :data:`SM90_ROWS` query rows; a decode row (a sequence with chunk 1)
+    splits its context into runs of ``split_tiles`` tiles of
+    :data:`SM90_TILE_SLOTS` slots, ``n_splits`` of them over the table's
+    width (1: no split)."""
+    row_tiles = -(-Q * G // SM90_ROWS)
+    n_splits = -(-(-(-B * bs // SM90_TILE_SLOTS)) // split_tiles)
+    return S * Hk * (row_tiles + n_splits - 1), row_tiles, n_splits
+
+
+def _route(chosen: str, route: Optional[str]) -> str:
+    """``route``, or :func:`paged_route`'s ``chosen`` one; a forced
+    ``"sm90"`` on tensors it was not built for raises."""
+    route = route or chosen
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "sm90" and chosen != "sm90":
+        raise ValueError("the sm90 route takes bf16 queries over bf16 or int8 pools, head "
+                         f"dim 64 or 128, pages of {SM90_PAGE_SIZES} slots, contiguous "
+                         "16-byte-aligned tensors (see paged_route)")
+    return route
+
+
+def _counted(kernel: str, route: str, err: int, combined: bool = False) -> None:
+    """One launch of ``kernel`` on ``route``, and one of ``paged_combine``
+    after it when the launch split its decode rows' contexts."""
+    for name in (kernel, "paged_combine") if combined else (kernel,):
+        launch_counts[name] += 1
+        route_counts[name][route] += 1
+    _check_launch(f"{kernel} ({route})", err)
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _sm90_launch(q, S: int, Q: int, Hq: int, Hk: int, D: int, B: int, bs: int,
+                 split_tiles: Optional[int]):
+    """The sm90 launch's split workspace (None without splits) and trailing
+    integers; ``split_tiles`` None takes :func:`split_tiles_for`."""
+    if split_tiles is None:
+        if q.device not in _SMS:
+            _SMS[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
+        split_tiles = split_tiles_for(S, Q, Hk, B, bs, _SMS[q.device])
+    blocks, _, n_splits = sm90_grid(S, Q, Hq // Hk, Hk, B, bs, split_tiles)
+    ws = None
+    if n_splits > 1:
+        ws = torch.empty(n_splits * S * Hq * (D + 2), dtype=torch.float32, device=q.device)
+    return ws, (split_tiles, n_splits, SM90_ROWS, SM90_TILE_SLOTS, blocks)
+
+
+def launch_paged_attention(q, k_pool, v_pool, block_table, start_pos, chunk_len,
+                           kv_len, out, m, l, *, sm_scale: float,
+                           route: Optional[str] = None,
+                           split_tiles: Optional[int] = None) -> None:
+    """One launch of the packed kernel into ``out`` (and ``m``, ``l`` when
+    given) on ``route`` (default :func:`paged_route`'s choice) for CUDA
+    tensors that :func:`paged_attention` has checked; ``split_tiles`` (sm90
+    only) overrides :func:`split_tiles_for`, so that a script can time both
+    sides of the choice."""
+    S, Q, Hq, D = q.shape
+    N, Hk, bs, _ = k_pool.shape
+    B = block_table.shape[1]
+    route = _route(paged_route(q, k_pool, v_pool), route)
+    tables = (block_table.data_ptr(), start_pos.data_ptr(), chunk_len.data_ptr(),
+              kv_len.data_ptr())
+    combined = False
+    if route == "sm90":
+        ws, tail = _sm90_launch(q, S, Q, Hq, Hk, D, B, bs, split_tiles)
+        combined = ws is not None
+        err = _kernel("paged_attention_sm90_fwd")(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(), _ptr(m),
+            _ptr(l), *tables, _ptr(ws), S, Q, Hq, Hk, D, bs, B, N * Hk * bs, 0, *tail,
+            sm_scale, _stream(q))
+    else:
+        err = _kernel("paged_attention_fwd")(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(), _ptr(m),
+            _ptr(l), *tables, S, Q, Hq, Hk, D, bs, B, k_pool.stride(0), sm_scale,
+            _DTYPES[q.dtype], _stream(q))
+    _counted("paged_attention", route, err, combined)
+
+
+def launch_paged_flash_decode(q, k_pool, v_pool, block_table, pos, kv_len, out, m, l, *,
+                              layer: int, sm_scale: float, route: Optional[str] = None,
+                              split_tiles: Optional[int] = None) -> None:
+    """One launch of the decode kernel (its int8 mode for ``(values,
+    scales)`` pools) over the resident ``[L, N, Hk, bs, D]`` pools' ``layer``
+    into ``out`` (and ``m``, ``l`` when given) on ``route`` (default
+    :func:`paged_route`'s choice) for CUDA tensors that
+    :func:`paged_flash_decode` has checked; ``split_tiles`` as for
+    :func:`launch_paged_attention`."""
+    quantized = isinstance(k_pool, tuple)
+    name = "paged_flash_decode_int8" if quantized else "paged_flash_decode"
+    kq, vq = pool_values(k_pool), pool_values(v_pool)
+    L, N, Hk, bs, D = kq.shape
+    S, Hq, _ = q.shape
+    B = block_table.shape[1]
+    route = _route(paged_route(q, k_pool, v_pool), route)
+    head = (q.data_ptr(), kq.data_ptr(), vq.data_ptr())
+    if quantized:
+        head += (k_pool[1].data_ptr(), v_pool[1].data_ptr())
+    outs = (out.data_ptr(), _ptr(m), _ptr(l), block_table.data_ptr(), pos.data_ptr(),
+            kv_len.data_ptr())
+    combined = False
+    if route == "sm90":
+        ws, tail = _sm90_launch(q, S, 1, Hq, Hk, D, B, bs, split_tiles)
+        combined = ws is not None
+        rows = N * Hk * bs
+        if quantized:
+            err = _kernel("paged_flash_decode_int8_sm90_fwd")(
+                *head, *outs, _ptr(ws), S, Hq, Hk, D, bs, B, L * rows, layer * rows, *tail,
+                sm_scale, _stream(q))
+        else:
+            err = _kernel("paged_attention_sm90_fwd")(
+                *head, *outs[:5], None, outs[5], _ptr(ws), S, 1, Hq, Hk, D, bs, B,
+                L * rows, layer * rows, *tail, sm_scale, _stream(q))
+    else:
+        tail = (S, Hq, Hk, D, bs, B, layer * kq.stride(0), kq.stride(1))
+        if quantized:
+            scales = k_pool[1]
+            tail += (layer * scales.stride(0), scales.stride(1))
+        err = _kernel(name + "_fwd")(*head, *outs, *tail, sm_scale, _DTYPES[q.dtype],
+                                     _stream(q))
+    _counted(name, route, err, combined)
+
+
 def paged_attention(q, k_pool, v_pool, block_table, start_pos, chunk_len,
                     kv_len, *, sm_scale: Optional[float] = None,
                     interpret: Optional[bool] = None, return_stats: bool = False):
@@ -331,15 +531,8 @@ def paged_attention(q, k_pool, v_pool, block_table, start_pos, chunk_len,
         m = torch.empty((S, Q, Hq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
     if S and Q:
-        fn = _kernel("paged_attention_fwd")
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 out.data_ptr(), _ptr(m), _ptr(l), block_table.data_ptr(),
-                 start_pos.data_ptr(), chunk_len.data_ptr(), kv_len.data_ptr(),
-                 S, Q, Hq, Hk, D, bs, block_table.shape[1],
-                 k_pool.stride(0), _scale(sm_scale, D), _DTYPES[q.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
-        launch_counts["paged_attention"] += 1
-        _check_launch("paged_attention", err)
+        launch_paged_attention(q, k_pool, v_pool, block_table, start_pos, chunk_len,
+                               kv_len, out, m, l, sm_scale=_scale(sm_scale, D))
     return (out, m, l) if return_stats else out
 
 
@@ -389,18 +582,6 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos, kv_len, *,
         m = torch.empty((S, Hq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
     if S:
-        name = "paged_flash_decode_int8" if quantized else "paged_flash_decode"
-        head = (q.data_ptr(), kq.data_ptr(), vq.data_ptr())
-        if quantized:
-            head += (scales[0].data_ptr(), scales[1].data_ptr())
-        tail = (out.data_ptr(), _ptr(m), _ptr(l), block_table.data_ptr(),
-                pos.data_ptr(), kv_len.data_ptr(), S, Hq, Hk, D, bs,
-                block_table.shape[1], layer * kq.stride(0), kq.stride(1))
-        if quantized:
-            tail += (layer * scales[0].stride(0), scales[0].stride(1))
-        err = _kernel(name + "_fwd")(
-            *head, *tail, _scale(sm_scale, D), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-        launch_counts[name] += 1
-        _check_launch(name, err)
+        launch_paged_flash_decode(q, k_pool, v_pool, block_table, pos, kv_len, out, m, l,
+                                  layer=layer, sm_scale=_scale(sm_scale, D))
     return (out, m, l) if return_stats else out

@@ -91,7 +91,7 @@ def test_wrappers_count_launches_and_reject_bad_inputs():
     port.reset_launch_counts()
     port.paged_attention(*args)
     assert port.launch_counts == {"paged_attention": 1, "paged_flash_decode": 0,
-                                  "paged_flash_decode_int8": 0}
+                                  "paged_flash_decode_int8": 0, "paged_combine": 0}
     q, k, v, *rest = args
     with pytest.raises(ValueError, match="dtype"):
         port.paged_attention(q, k.float(), v.float(), *rest)
@@ -189,6 +189,152 @@ def test_engine_on_quantized_pools_on_card(kv):
         assert port.launch_counts["paged_attention"] == 0
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+_SM90_PACKED = {
+    "mixed": dict(S=5, Q=16, kv_lens=[300, 45, 700, 0, 33], chunk_lens=[1, 13, 16, 0, 1]),
+    "all prompt": dict(S=3, Q=48, kv_lens=[48, 100, 77], chunk_lens=[48, 48, 40]),
+    "all decode": dict(S=4, Q=1, kv_lens=[1, 64, 1000, 2047], chunk_lens=[1, 1, 1, 1]),
+    "full table": dict(S=2, Q=8, kv_lens=[2048, 2048], chunk_lens=[1, 8]),
+}
+
+
+@pytest.mark.parametrize("bs", [16, 32, 64])
+@pytest.mark.parametrize("case", sorted(_SM90_PACKED))
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_sm90_packed_kernel_matches_plain_version_on_card(D, G, case, bs):
+    """The packed kernel on the sm90 route against its plain version: bf16,
+    D 64 / 128, GQA groups 1 / 4 / 8, mixed, all-prompt and all-decode
+    chunks, a full table, every page size the route takes; at one query per
+    sequence (all decode) the few (sequence, kv head) pairs split the
+    contexts across blocks; stats on."""
+    _need_card()
+    rng = np.random.default_rng(21)
+    spec = _SM90_PACKED[case]
+    args = _packed(rng, torch.bfloat16, S=spec["S"], Q=spec["Q"], Hq=4 * G, Hk=4, D=D,
+                   bs=bs, B=2048 // bs, kv_lens=spec["kv_lens"], chunk_lens=spec["chunk_lens"])
+    q = args[0]
+    out, m = torch.empty_like(q), torch.empty(q.shape[:3], device="cuda")
+    l = torch.empty_like(m)
+    port.reset_launch_counts()
+    port.launch_paged_attention(*args, out, m, l, sm_scale=D ** -0.5, route="sm90")
+    want = port.paged_attention_ref(*args, return_stats=True)
+    torch.testing.assert_close(out.float(), want[0].float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(m, want[1], rtol=0, atol=1e-3)
+    torch.testing.assert_close(l, want[2], rtol=1e-3, atol=1e-3)
+    assert port.route_counts["paged_attention"] == {"sm90": 1, "cuda_core": 0}
+
+
+@pytest.mark.parametrize("bs", [16, 32, 64])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_sm90_decode_kernel_matches_plain_version_on_card(D, G, int8, bs):
+    """The decode kernel (and its int8 mode) on the sm90 route against its
+    plain version: layer 1 of 2, contexts of 0 to all the table's pages (64
+    of 16 slots, 32 of 32, 16 of 64) split across blocks, positions at and
+    inside the context; G 16 takes the instantiation with the 64-row
+    consumer."""
+    _need_card()
+    rng = np.random.default_rng(22)
+    kv = [0, 17, 1024, 1000, 1024]    # 1024 slots: the whole table
+    q, k, v, bt, _, _, kvl = _packed(rng, torch.bfloat16, S=5, Q=1, Hq=4 * G, Hk=4, D=D,
+                                     bs=bs, B=1024 // bs, kv_lens=kv, chunk_lens=[1] * 5)
+    pos = torch.tensor([0, 17, 1024, 500, 1000], dtype=torch.int32, device="cuda")
+    kr, vr = torch.stack([k.flip(0), k]), torch.stack([v.flip(0), v])
+    if int8:
+        kr, vr = _int8_pools(kr, vr)
+    qd = q[:, 0].contiguous()
+    assert port.paged_route(qd, kr, vr) == "sm90"
+    port.reset_launch_counts()
+    got = port.paged_flash_decode(qd, kr, vr, bt, pos, kvl, layer=1, return_stats=True)
+    want = port.paged_flash_decode_ref(qd, kr, vr, bt, pos, kvl, layer=1, return_stats=True)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-3)
+    name = "paged_flash_decode_int8" if int8 else "paged_flash_decode"
+    assert port.route_counts[name] == {"sm90": 1, "cuda_core": 0}
+
+
+def test_sm90_paged_kernels_are_bitwise_repeatable_on_card():
+    """Two launches of each sm90 kernel give bitwise equal o, m and l: the
+    split partials merge in split order, with no float atomics."""
+    _need_card()
+    rng = np.random.default_rng(23)
+    args = _packed(rng, torch.bfloat16, S=4, Q=32, Hq=32, Hk=32, D=128, bs=32, B=64,
+                   kv_lens=[2048, 900, 32, 1500], chunk_lens=[1, 32, 1, 1])
+    runs = [port.paged_attention(*args, return_stats=True) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    q, k, v, bt, _, _, kvl = args
+    qd = q[:, 0].contiguous()
+    for kk, vv in ((k, v), _int8_pools(k, v)):
+        runs = [port.paged_flash_decode(qd, kk, vv, bt, kvl, kvl, return_stats=True)
+                for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("kernel", ["packed, mixed", "decode", "decode, int8"])
+@pytest.mark.parametrize("split_tiles", [1, 2, 8])
+def test_sm90_kernels_match_plain_versions_at_every_split_on_card(split_tiles, kernel):
+    """The kernels held to the work-item decomposition that the CPU tests
+    check in Python: runs of 1, 2 and 8 tiles per KV split through the
+    launch helpers, over contexts of 0 to 2048 slots (0 to 32 tiles), a
+    partial page and a prompt chunk beside the decode rows; the merge is
+    counted as ``paged_combine`` exactly when the launch splits."""
+    _need_card()
+    rng = np.random.default_rng(25)
+    kv, ch = [2048, 0, 33, 700, 1500], [1, 0, 1, 40, 1]
+    args = _packed(rng, torch.bfloat16, S=5, Q=40, Hq=16, Hk=4, D=128, bs=32, B=64,
+                   kv_lens=kv, chunk_lens=ch)
+    q, k, v, bt, start, chunk, kvl = args
+    n_splits = port.sm90_grid(5, 1, 4, 4, 64, 32, split_tiles)[2]
+    out = torch.empty_like(q) if kernel == "packed, mixed" else torch.empty_like(q[:, 0])
+    m = torch.empty(out.shape[:-1], device="cuda")
+    l = torch.empty_like(m)
+    port.reset_launch_counts()
+    if kernel == "packed, mixed":
+        port.launch_paged_attention(*args, out, m, l, sm_scale=128 ** -0.5,
+                                    split_tiles=split_tiles)
+        want = port.paged_attention_ref(*args, return_stats=True)
+    else:
+        qd = q[:, 0].contiguous()
+        kr, vr = k[None], v[None]
+        if kernel == "decode, int8":
+            kr, vr = _int8_pools(kr, vr)
+        port.launch_paged_flash_decode(qd, kr, vr, bt, kvl, kvl, out, m, l, layer=0,
+                                       sm_scale=128 ** -0.5, split_tiles=split_tiles)
+        want = port.paged_flash_decode_ref(qd, kr, vr, bt, kvl, kvl, return_stats=True)
+    torch.testing.assert_close(out.float(), want[0].float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(m, want[1], rtol=0, atol=1e-3)
+    torch.testing.assert_close(l, want[2], rtol=1e-3, atol=1e-3)
+    assert n_splits == -(-32 // split_tiles)
+    assert port.launch_counts["paged_combine"] == 1
+
+
+def test_sm90_route_refuses_what_it_was_not_built_for_on_card(monkeypatch):
+    """A forced sm90 launch on fp32 tensors raises (fp32 takes the CUDA-core
+    tile); a launch whose host copy of the work items differs from the
+    kernel's (rows per item, slots per tile) is refused."""
+    _need_card()
+    rng = np.random.default_rng(24)
+    args = _packed(rng, torch.float32, S=2, Q=4, Hq=8, Hk=8, D=64, bs=16, B=4,
+                   kv_lens=[4, 20], chunk_lens=[4, 2])
+    out = torch.empty_like(args[0])
+    with pytest.raises(ValueError, match="sm90"):
+        port.launch_paged_attention(*args, out, None, None, sm_scale=0.125, route="sm90")
+    qd, kd, vd = args[0][:, 0].contiguous(), args[1][None], args[2][None]
+    with pytest.raises(ValueError, match="sm90"):
+        port.launch_paged_flash_decode(qd, kd, vd, args[3], args[6], args[6],
+                                       torch.empty_like(qd), None, None, layer=0,
+                                       sm_scale=0.125, route="sm90")
+    bf = tuple(t.to(torch.bfloat16) if t.is_floating_point() else t for t in args)
+    for name, value in (("SM90_ROWS", 32), ("SM90_TILE_SLOTS", 128)):
+        with monkeypatch.context() as mp:
+            mp.setattr(port, name, value)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                port.paged_attention(*bf)
+    port.paged_attention(*bf)   # the real tiles launch
 
 
 def test_float8_cast_beyond_its_range_on_card():

@@ -183,3 +183,266 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     out = port.paged_attention(*args)
     assert torch.equal(out, port.paged_attention_ref(*args))
     assert port.launch_counts == before
+
+
+# ---------------------------------------------------------------------------
+# the sm90 route: its rule, its work items and its split-KV merge
+# ---------------------------------------------------------------------------
+
+
+def _route_tensors(dtype=torch.bfloat16, D=128, bs=32, Hq=8, Hk=8, int8=False):
+    q = torch.zeros((2, 4, Hq, D), dtype=dtype)
+    shape = (6, Hk, bs, D)
+    if int8:
+        pool = lambda: (torch.zeros(shape, dtype=torch.int8),
+                        torch.zeros(shape[:-1], dtype=torch.float32))
+    else:
+        pool = lambda: torch.zeros(shape, dtype=dtype)
+    return q, pool(), pool()
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous view whose base is 2 bytes past a
+    16-byte boundary."""
+    flat = torch.zeros(t.numel() + 8, dtype=t.dtype)
+    view = flat[1:1 + t.numel()].view(t.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16 D128 bs32", "sm90"),
+    ("bf16 D64 bs16", "sm90"),
+    ("bf16 D128 bs64 gqa 32/4", "sm90"),
+    ("int8 pools, bf16 queries", "sm90"),
+    ("decode queries [S, Hq, D]", "sm90"),
+    ("fp32", "cuda_core"),
+    ("int8 pools, fp32 queries", "cuda_core"),
+    ("D 32", "cuda_core"),
+    ("D 96", "cuda_core"),
+    ("bs 8", "cuda_core"),
+    ("bs 48", "cuda_core"),
+    ("pools of another dtype", "cuda_core"),
+    ("strided query", "cuda_core"),
+    ("misaligned pool", "cuda_core"),
+    ("misaligned scales", "cuda_core"),
+])
+def test_paged_route_chooses_sm90_for_what_tma_and_wgmma_take(case, want):
+    q, k, v = {
+        "bf16 D128 bs32": lambda: _route_tensors(),
+        "bf16 D64 bs16": lambda: _route_tensors(D=64, bs=16),
+        "bf16 D128 bs64 gqa 32/4": lambda: _route_tensors(bs=64, Hq=32, Hk=4),
+        "int8 pools, bf16 queries": lambda: _route_tensors(int8=True),
+        "decode queries [S, Hq, D]": lambda: (_route_tensors()[0][:, 0].contiguous(),
+                                              *_route_tensors()[1:]),
+        "fp32": lambda: _route_tensors(dtype=torch.float32),
+        "int8 pools, fp32 queries": lambda: _route_tensors(dtype=torch.float32, int8=True),
+        "D 32": lambda: _route_tensors(D=32),
+        "D 96": lambda: _route_tensors(D=96),
+        "bs 8": lambda: _route_tensors(bs=8),
+        "bs 48": lambda: _route_tensors(bs=48),
+        "pools of another dtype": lambda: (_route_tensors()[0],
+                                           *_route_tensors(dtype=torch.float16)[1:]),
+        "strided query": lambda: (torch.zeros((2, 4, 16, 128), dtype=torch.bfloat16)[:, :, ::2],
+                                  *_route_tensors()[1:]),
+        "misaligned pool": lambda: (_route_tensors()[0], _misaligned(_route_tensors()[1]),
+                                    _route_tensors()[2]),
+        "misaligned scales": lambda: (_route_tensors(int8=True)[0],
+                                      (_route_tensors(int8=True)[1][0],
+                                       _misaligned(_route_tensors(int8=True)[1][1])),
+                                      _route_tensors(int8=True)[2]),
+    }[case]()
+    assert port.paged_route(q, k, v) == want
+
+
+def _sm90_item(block, S, Q, G, Hk, B, bs, start, chunk, kv_len, split_tiles):
+    """What block ``block`` of an sm90 launch computes, as the kernel decodes
+    it (``item_of`` and ``live_end`` in ``csrc/paged_attention_sm90.cuh``): its
+    (sequence ``s``, kv head ``h``, row tile ``t``, split ``k``), its valid
+    rows ``nrows`` and rows ``rows_here`` inside ``Q G``, the live pages its
+    tiles read, whether it writes split partials, and whether it exits at
+    once. ``start``, ``chunk`` (None: every query valid) and ``kv_len`` are
+    per-sequence integers. The card tests hold the kernel to the same
+    decomposition (``split_tiles`` swept through the launch helpers)."""
+    _, row_tiles, n_splits = port.sm90_grid(S, Q, G, Hk, B, bs, split_tiles)
+    heads = S * Hk
+    first = heads * row_tiles
+    if block < first:
+        k, t, sh = 0, block // heads, block % heads
+    else:
+        k, t, sh = 1 + (block - first) // heads, 0, (block - first) % heads
+    s, h = divmod(sh, Hk)
+    r0 = t * port.SM90_ROWS
+    c = Q if chunk is None else int(chunk[s])
+    nrows = max(0, min(port.SM90_ROWS, c * G - r0))
+    live = (max(0, min(int(kv_len[s]), int(start[s]) + (r0 + nrows - 1) // G + 1, B * bs))
+            if nrows > 0 else 0)
+    n_tiles = -(-live // port.SM90_TILE_SLOTS)
+    partial = n_splits > 1 and c == 1
+    if partial:
+        t_begin = min(n_tiles, k * split_tiles)
+        t_end = min(n_tiles, t_begin + split_tiles)
+    else:
+        t_begin, t_end = 0, n_tiles
+    skip = k > 0 and (not partial or t_begin >= t_end)
+    per_tile = port.SM90_TILE_SLOTS // bs
+    pages = [] if skip else list(range(t_begin * per_tile,
+                                       min(t_end * per_tile, -(-live // bs))))
+    return dict(s=s, h=h, t=t, k=k, nrows=nrows, rows_here=min(port.SM90_ROWS, Q * G - r0),
+                partial=partial, pages=pages, skip=skip)
+
+
+def _item_case(name):
+    """(S, Q, G, Hk, B, bs, start, chunk or None, kv_len) of a mirror case."""
+    if name == "decode":
+        kv = [0, 33, 1024, 1023, 64, 2]
+        return 6, 1, 4, 2, 32, 32, kv, None, kv
+    if name == "mixed, empty slot, partial pages":
+        kv, ch = [200, 64, 17, 0, 1], [1, 8, 3, 0, 1]
+        return 5, 8, 2, 2, 16, 16, [a - b for a, b in zip(kv, ch)], ch, kv
+    if name == "three row tiles, bs 64":
+        kv, ch = [300, 1000, 17, 64], [40, 1, 17, 0]
+        return 4, 40, 4, 1, 16, 64, [a - b for a, b in zip(kv, ch)], ch, kv
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("split_tiles", [1, 2, 8])
+@pytest.mark.parametrize("name", ["decode", "mixed, empty slot, partial pages",
+                                  "three row tiles, bs 64"])
+def test_sm90_items_read_each_live_page_once_and_write_each_row_once(name, split_tiles):
+    """The mirror of the kernel's work-item decode (``_sm90_item``): over a
+    launch's blocks, each (sequence, kv head, row tile with a valid row) reads
+    each of its live pages exactly once and nothing else; each row inside
+    ``Q G`` is written once (a split row by the merge of the splits that
+    read its pages); blocks with nothing to do exit."""
+    S, Q, G, Hk, B, bs, start, chunk, kv = _item_case(name)
+    blocks, row_tiles, n_splits = port.sm90_grid(S, Q, G, Hk, B, bs, split_tiles)
+    reads, direct, partial = {}, {}, {}
+    for block in range(blocks):
+        it = _sm90_item(block, S, Q, G, Hk, B, bs, start, chunk, kv, split_tiles)
+        if it["skip"]:
+            assert not it["pages"]
+            continue
+        for page in it["pages"]:
+            key = (it["s"], it["h"], it["t"], page)
+            reads[key] = reads.get(key, 0) + 1
+        for r in range(it["rows_here"]):
+            row = (it["s"], it["h"], it["t"] * port.SM90_ROWS + r)
+            if r < it["nrows"] and it["partial"]:
+                partial.setdefault(row, []).append(it["k"])
+            elif r < it["nrows"] or it["k"] == 0:
+                direct[row] = direct.get(row, 0) + 1
+    want_reads = {}
+    for s in range(S):
+        c = Q if chunk is None else chunk[s]
+        for h in range(Hk):
+            for t in range(row_tiles):
+                nrows = max(0, min(port.SM90_ROWS, c * G - t * port.SM90_ROWS))
+                if nrows == 0:
+                    continue
+                last = (t * port.SM90_ROWS + nrows - 1) // G
+                live = max(0, min(kv[s], start[s] + last + 1, B * bs))
+                for page in range(-(-live // bs)):
+                    want_reads[(s, h, t, page)] = 1
+            for row in range(Q * G):
+                split = (s, h, row) in partial
+                assert direct.get((s, h, row), 0) == (0 if split else 1), (s, h, row)
+                if split:
+                    # the merge reads the splits with live tiles (at least split 0)
+                    live = max(0, min(kv[s], start[s] + 1, B * bs))
+                    n_used = -(-(-(-live // port.SM90_TILE_SLOTS)) // split_tiles)
+                    assert partial[(s, h, row)] == list(range(max(1, n_used)))
+                    assert n_splits > 1 and c == 1 and row < G
+    assert reads == want_reads
+
+
+def _merged_over_splits(q, k_pool, v_pool, bt, start, chunk, kv_len, split_tiles):
+    """Each sequence's attention over the pages of each of its sm90 items
+    (split k of a decode row; every page for the rest), merged in split
+    order with ``merge_partial_attention``: ``(o, m, l)`` as the kernels
+    return them."""
+    from deepspeed_tpu_torch.models.transformer import merge_partial_attention
+
+    S, Q, Hq, D = q.shape
+    _, Hk, bs, _ = k_pool.shape
+    B = bt.shape[1]
+    G = Hq // Hk
+    blocks, _, _ = port.sm90_grid(S, Q, G, Hk, B, bs, split_tiles)
+    args = (S, Q, G, Hk, B, bs, start.tolist(), chunk.tolist(), kv_len.tolist(), split_tiles)
+    items = [_sm90_item(b, *args) for b in range(blocks)]
+    outs = []
+    for s in range(S):
+        # the kv head 0, row tile 0 items of sequence s, in split order
+        own = sorted((it for it in items if it["s"] == s and it["h"] == 0 and it["t"] == 0
+                      and not it["skip"]), key=lambda it: it["k"])
+        qi = torch.arange(Q)
+        q_valid = (qi < chunk[s])[None]
+        pos = (start[s] + qi)[None]
+        o = m = l = None
+        for it in own:
+            pages = it["pages"] or [0]
+            slot0 = pages[0] * bs
+            sub = bt[s:s + 1, pages[0]:pages[-1] + 1]
+            lim = kv_len[s:s + 1] - slot0 if it["pages"] else torch.zeros_like(kv_len[:1])
+            part = port.attention_over_pages(
+                q[s:s + 1], port.gather_pages(k_pool, sub, q.dtype),
+                port.gather_pages(v_pool, sub, q.dtype), pos - slot0, q_valid,
+                lim.clamp(min=0), return_stats=True)
+            if o is None:
+                o, m, l = part[0].float(), part[1], part[2]
+                continue
+            o2, m2, l2 = part
+            mx = torch.maximum(m, m2)
+            new_l = l * torch.exp(m - mx) + l2 * torch.exp(m2 - mx)
+            o = merge_partial_attention(o, m, l, o2, m2, l2)
+            m, l = mx, new_l
+        outs.append((o.to(q.dtype), torch.where(l == 0, torch.full_like(m, -1e30), m), l))
+    return tuple(torch.cat([x[i] for x in outs]) for i in range(3))
+
+
+@pytest.mark.parametrize("split_tiles", [1, 3])
+def test_packed_splits_merged_in_order_match_plain_version(split_tiles):
+    """The packed kernel's sm90 decomposition in float32: decode rows over
+    contexts of one to many tiles split into runs of ``split_tiles`` tiles,
+    a prompt chunk and an empty slot unsplit; merged in split order it
+    equals ``paged_attention_ref`` within the float32 tolerance."""
+    rng = np.random.default_rng(11)
+    case = _packed_case(rng, S=5, Q=8, Hq=4, Hk=2, D=16, bs=16, B=16,
+                        kv_lens=[250, 64, 30, 0, 129], chunk_lens=[1, 1, 8, 0, 1])
+    q, k, v, bt, start, chunk, kvl = (torch.from_numpy(a) for a in case)
+    got = _merged_over_splits(q, k, v, bt, start, chunk, kvl, split_tiles)
+    want = port.paged_attention_ref(q, k, v, bt, start, chunk, kvl, return_stats=True)
+    for g, w in zip(got, want):
+        _close(g, w.numpy(), "float32")
+
+
+@pytest.mark.parametrize("split_tiles", [1, 2])
+def test_decode_splits_merged_in_order_match_plain_version(split_tiles):
+    """The decode kernel's sm90 decomposition (every sequence a decode row),
+    merged in split order, equals ``paged_flash_decode_ref`` in float32,
+    positions both at and inside the context."""
+    rng = np.random.default_rng(12)
+    q, k, v, bt, pos, kvl = _decode_case(rng, L=1, S=4, Hq=8, Hk=2, D=16, bs=32, B=8,
+                                         kv_lens=[256, 0, 100, 65], pos=[256, 0, 50, 65])
+    q, k, v, bt, pos, kvl = (torch.from_numpy(a) for a in (q, k, v, bt, pos, kvl))
+    got = _merged_over_splits(q[:, None], k[0], v[0], bt, pos, torch.ones_like(kvl), kvl,
+                              split_tiles)
+    want = port.paged_flash_decode_ref(q, k, v, bt, pos, kvl, return_stats=True)
+    for g, w in zip(got, want):
+        _close(g[:, 0], w.numpy(), "float32")
+
+
+def test_sm90_split_rule_fills_the_card_from_host_shapes():
+    """Splits give the (sequence, kv head) pairs of a one-query launch one
+    wave of two blocks per SM; none where the pairs alone fill it (the
+    serving shape), nor for a launch that may hold prompt chunks; no device
+    value is read."""
+    assert port.split_tiles_for(16, 1, 32, 64, 32, 132) == 32       # 512 pairs
+    assert port.sm90_grid(16, 1, 1, 32, 64, 32, 32) == (512, 1, 1)
+    assert port.split_tiles_for(4, 1, 8, 64, 32, 132) == 4          # 32 pairs: 8 splits
+    assert port.sm90_grid(4, 1, 4, 8, 64, 32, 4) == (32 * 8, 1, 8)
+    assert port.split_tiles_for(1, 1, 1, 64, 32, 132) == 1
+    assert port.split_tiles_for(4, 128, 8, 64, 32, 132) == 32       # prompt chunks: none
+    assert port.sm90_grid(4, 128, 4, 8, 64, 32, 32) == (4 * 8 * 8, 8, 1)
+    blocks, row_tiles, n_splits = port.sm90_grid(16, 128, 1, 32, 64, 32, 8)
+    assert (row_tiles, n_splits) == (2, 4) and blocks == 16 * 32 * 5
