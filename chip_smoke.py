@@ -31,15 +31,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    block-sparse forward at Llama-2-7B's attention widths (B 1,
    S 4096, H 32, D 128, block 64) over the bigbird (seed 0), fixed,
    bslongformer, variable and local-window layouts, causal and not, at D 64,
-   block 128 and fp32, and an all-ones causal layout against the port's
-   flash forward (library: SDPA with the layout as a dense mask); the flash-attention forward and its two
+   block 128, D 64 at block 128 and fp32, and an all-ones causal layout
+   against the port's flash forward, each case reporting its route (bf16
+   must take ``wgmma``, fp32 ``mma_sync``), two ``wgmma`` launches bitwise
+   equal, and timed on both routes through the launch helper, back to back
+   and from a CUDA graph, and through the public op (library: SDPA with
+   the layout as a dense mask); the flash-attention forward and its two
    backward kernels at TinyLlama's shape (B 4, S 2048, 32/4 heads, D 64,
    causal, bf16), a Llama-2-7B head shape (32/32, D 128), a non-causal
    case and an fp32 case, each reporting the route its three kernels took
    (``wgmma`` or ``mma_sync``; every bf16 case must take ``wgmma`` for all
-   three), each kernel timed on both routes at the main shape (the forward
-   also in both of its ``wgmma`` schedules) and two of each kernel's
-   ``wgmma`` launches bitwise equal; fused Adam over odd tensor sizes in
+   three), each kernel timed on both routes at the main shape and two of
+   each kernel's ``wgmma`` launches bitwise equal; fused Adam over odd
+   tensor sizes in
    AdamW and L2 modes, bias correction on and off, and timed over TinyLlama's 201
    tensors; the fused LM loss (forward, dl, dh, dK) at TinyLlama's head
    (T 8192, E 2048, V 32000, bf16) and a ragged shape (T 3007, E 1000,
@@ -120,7 +124,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    logits within twice the einsum path's distance from float32;
 14. sparse attention path — forward and backward of
    ``deepspeed_tpu_torch.ops.sparse_attention`` at phase 3's bigbird shape:
-   one kernel launch, the gradients finite and equal to autograd through
+   one kernel launch, on the ``wgmma`` route, the gradients finite and equal
+   to autograd through
    ``masked_dense_attention`` within 1e-3 of their largest value.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -800,7 +805,7 @@ def sparse_phase(sa, fa):
     """The sparse forward kernel against its plain version (the masked-dense
     attention) at Llama-2-7B's attention widths (B 1, S 4096, H 32, D 128,
     block 64) over every layout builder, causal and not; D 64; block 128;
-    fp32; an all-ones causal layout against the port's flash forward.
+    D 64 at block 128; fp32; an all-ones causal layout against the port's flash forward.
     Timed at bigbird (seed 0), causal, bf16."""
     tol = OUT_TOL   # summation order (fp32), one bf16 ulp (bf16)
     B, S, H = SPARSE_MAIN["B"], SPARSE_MAIN["S"], SPARSE_MAIN["H"]
@@ -815,12 +820,25 @@ def sparse_phase(sa, fa):
              for n in builders for c in (True, False)]
     cases += [("bigbird D64", "bigbird", True, 64, 64, torch.bfloat16),
               ("bigbird block128", "bigbird", True, 128, 128, torch.bfloat16),
+              ("bigbird D64 block128", "bigbird", True, 64, 128, torch.bfloat16),
               ("bigbird fp32", "bigbird", True, 128, 64, torch.float32)]
     ok, timed = True, None
+
+    def run(q, k, v, layout, causal, block):
+        """The public op, launched once on the route sparse_route picks."""
+        nonlocal ok
+        sa.reset_launch_counts()
+        got = sa.sparse_attention(q, k, v, layout, causal=causal, block=block)
+        route = {r: n for r, n in sa.route_counts["sparse_attention_fwd"].items() if n}
+        want = "wgmma" if q.dtype == torch.bfloat16 else "mma_sync"
+        routed = route == {want: 1} and sa.launch_counts["sparse_attention_fwd"] == 1
+        ok &= routed
+        return got, f"route {route}{'' if routed else ' (want ' + want + ': FAIL)'}"
+
     for i, (name, lname, causal, D, block, dtype) in enumerate(cases):
         layout = builders[lname](S // block)
         q, k, v = sparse_case(dtype, B, S, H, D, seed=300 + i)
-        got = sa.sparse_attention(q, k, v, layout, causal=causal, block=block)
+        got, route = run(q, k, v, layout, causal, block)
         sl = sa._compact_layout(layout, causal, q.device)
         want = sa.masked_dense_attention(
             *(x.transpose(1, 2) for x in (q, k, v)), sl.layout, causal=causal,
@@ -830,7 +848,7 @@ def sparse_phase(sa, fa):
         ok &= good
         empty = int((sl.cnt == 0).sum())
         log(f"parity sparse_attention_fwd {name} D{D} block{block} "
-            f"{str(dtype)[6:]}: live pairs {int(sl.cnt.sum())} of "
+            f"{str(dtype)[6:]} ({route}): live pairs {int(sl.cnt.sum())} of "
             f"{H * (S // block) ** 2}, empty q-blocks {empty}, max|o|err={err:.3e} "
             f"(tol {tol[dtype]:g}) {'ok' if good else 'FAIL'}")
         if i == 0:
@@ -839,17 +857,41 @@ def sparse_phase(sa, fa):
     # an all-ones causal layout is causal attention: the port's flash forward
     q, k, v = sparse_case(torch.bfloat16, B, S, H, 128, seed=399)
     ones = np.ones((H, S // 64, S // 64), bool)
-    err = (sa.sparse_attention(q, k, v, ones, causal=True, block=64).float()
+    got, route = run(q, k, v, ones, True, 64)
+    err = (got.float()
            - fa.flash_attention_forward(q, k, v, causal=True)[0].float()).abs().max().item()
     good = err <= tol[torch.bfloat16]
     ok &= good
-    log(f"parity sparse_attention_fwd all-ones causal vs flash forward bf16: "
+    log(f"parity sparse_attention_fwd all-ones causal vs flash forward bf16 ({route}): "
         f"max|o|err={err:.3e} (tol {tol[torch.bfloat16]:g}) {'ok' if good else 'FAIL'}")
     if not ok:
         raise SystemExit("sparse kernel parity FAILED (see lines above)")
 
     q, k, v, layout, sl, err = timed
     D, block = SPARSE_MAIN["D"], SPARSE_MAIN["block"]
+    sm = D ** -0.5
+    out = torch.empty_like(q)
+    launch = {r: (lambda route: lambda: sa.launch_sparse_fwd(
+        q, k, v, out, sl, causal=True, sm_scale=sm, block=block, route=route))(r)
+        for r in ("wgmma", "mma_sync")}
+    # the wgmma kernel repeats bitwise
+    firsts = []
+    for _ in range(2):
+        launch["wgmma"]()
+        torch.cuda.synchronize()
+        firsts.append(out.clone())
+    bitwise = torch.equal(*firsts)
+    log(f"sparse_attention_fwd (wgmma) two launches at the main shape: bitwise equal "
+        f"{bitwise}")
+    if not bitwise:
+        raise SystemExit("sparse: launches of the wgmma kernel differ")
+    del firsts
+    # both routes in turns (a b b a), back to back (cuda_ms) and replayed
+    # from a CUDA graph (graph_ms), the least of each route's two timings
+    t = {}
+    for c in tuple(launch) + tuple(reversed(tuple(launch))):
+        ms = (cuda_ms(launch[c], iters=50), graph_ms(launch[c]))
+        t[c] = tuple(map(min, zip(ms, t.get(c, ms))))
     lo = torch.as_tensor(sl.layout, device="cuda")
     mask = lo.repeat_interleave(block, 1).repeat_interleave(block, 2)
     mask &= torch.ones(S, S, dtype=torch.bool, device="cuda").tril()[None]
@@ -858,17 +900,26 @@ def sparse_phase(sa, fa):
     b_ms, b_by = bound(nbytes, flops, q.dtype)
     plain = lambda: sa.masked_dense_attention(
         *(x.transpose(1, 2) for x in (q, k, v)), sl.layout, causal=True,
-        sm_scale=D ** -0.5, block_q=block, block_k=block)
-    row = dict(ms=cuda_ms(lambda: sa.sparse_attention(q, k, v, layout, causal=True,
-                                                      block=block)),
-               plain_ms=cuda_ms(plain, iters=3),
-               library_ms=cuda_ms(lambda: sdpa_sparse(q, k, v, mask, D ** -0.5), iters=5),
+        sm_scale=sm, block_q=block, block_k=block)
+    # what a user of the public op pays per call: the layout's bytes hashed
+    # for the compaction cache, the autograd function and the launch
+    public = lambda: sa.sparse_attention(q, k, v, layout, causal=True, block=block)
+    chosen, m = t["wgmma"], t["mma_sync"]
+    row = dict(ms=chosen[0], graph_ms=chosen[1], mma_sync_ms=m[0],
+               public_ms=cuda_ms(public, iters=50), plain_ms=cuda_ms(plain, iters=3),
+               library_ms=cuda_ms(lambda: sdpa_sparse(q, k, v, mask, sm), iters=5),
                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes, flops=flops)
     log(f"timing sparse_attention_fwd (bf16, B1 S4096 H32 D128 block64 bigbird "
-        f"causal, {int(sl.cnt.sum())} live pairs): kernel {row['ms']:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop), plain "
-        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms")
-    del mask
+        f"causal, {int(sl.cnt.sum())} live pairs): kernel on the wgmma route through "
+        f"the launch helper {row['ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes} B, {flops} flop), plain {row['plain_ms']:.4f} ms, library "
+        f"{row['library_ms']:.4f} ms, public op (host work included) "
+        f"{row['public_ms']:.4f} ms")
+    log(f"timing sparse_attention_fwd by route: wgmma {chosen[0]:.4f} ms (graph "
+        f"{chosen[1]:.4f}), mma_sync {m[0]:.4f} ms (graph {m[1]:.4f})")
+    log(f"timing sparse_attention_fwd wgmma / mma_sync {chosen[0] / m[0]:.3f} (graph "
+        f"{chosen[1] / m[1]:.3f}); wgmma share of its bound {b_ms / chosen[0]:.3f}")
+    del mask, out
     torch.cuda.empty_cache()
     return {"sparse_attention_fwd": row}
 
@@ -889,6 +940,7 @@ def sparse_path_phase(sa, sparse_op):
     (out.float() * w).sum().backward()
     torch.cuda.synchronize()
     launches = dict(sa.launch_counts)
+    routes = dict(sa.route_counts["sparse_attention_fwd"])
     ref = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
     sl = sa._compact_layout(layout, True, q.device)
     o_ref = sa.masked_dense_attention(*(x.transpose(1, 2) for x in ref), sl.layout,
@@ -900,9 +952,11 @@ def sparse_path_phase(sa, sparse_op):
     finite = all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
     o_err = (out.float() - o_ref.float()).abs().max().item()
     good = (finite and max(errs) <= 1e-3 and o_err <= OUT_TOL[torch.bfloat16]
-            and launches["sparse_attention_fwd"] == 1)
+            and launches["sparse_attention_fwd"] == 1
+            and routes == {"wgmma": 1, "mma_sync": 0})
     log(f"sparse path (B1 S4096 H32 D128 block64 bigbird causal, bf16): forward "
-        f"launches {launches['sparse_attention_fwd']}, max|o|err {o_err:.3e}, grads "
+        f"launches {launches['sparse_attention_fwd']} (routes {routes}), "
+        f"max|o|err {o_err:.3e}, grads "
         f"finite {finite}, rel err dq/dk/dv {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
         f"(tol 1e-3) {'ok' if good else 'FAIL'}")
     if not good:
@@ -2365,7 +2419,7 @@ def main() -> int:
         "paged_attention": ("paged_attention_sm90.cu", "paged_attention.py:53"),
         "paged_flash_decode": ("paged_attention_sm90.cu", "paged_attention.py:224"),
         "paged_flash_decode_int8": ("paged_attention_sm90_int8.cu", "paged_attention.py:224"),
-        "sparse_attention_fwd": ("sparse_attention.cu", "sparse_attention.py:151"),
+        "sparse_attention_fwd": ("sparse_attention_sm90.cu", "sparse_attention.py:151"),
         "flash_attention_fwd": ("flash_attention_sm90.cu", "flash_attention.py:52"),
         "flash_attention_bwd_dkdv": ("flash_attention_sm90.cu", "flash_attention.py:149"),
         "flash_attention_bwd_dq": ("flash_attention_sm90.cu", "flash_attention.py:199"),

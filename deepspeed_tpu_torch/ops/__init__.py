@@ -12,7 +12,8 @@ backward (``csrc/fused_loss.cu``); ``quant`` — block int8 quantize
 (nearest and stochastic rounding) and dequantize of the compressed
 gradient all-reduce (``csrc/quant.cu``); ``sparse_attention`` — the
 block-sparse attention forward over a static layout's compacted columns
-(``csrc/sparse_attention.cu``). All are CUDA C++ built by ``_build``.
+(``csrc/sparse_attention_sm90.cu`` in bf16, ``csrc/sparse_attention.cu``
+otherwise). All are CUDA C++ built by ``_build``.
 """
 
 from .fused_loss import fused_loss_ready, fused_vocab_nll

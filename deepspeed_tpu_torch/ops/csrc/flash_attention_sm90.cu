@@ -724,26 +724,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-// a bf16 [B, S, heads, D] tensor as the 4-D map (d, head, s, b), read in
-// boxes of 64 d x 1 head x rows x 1 batch (64 bf16 = the 128-byte swizzle);
-// boxes past S (or B) zero-fill
-int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
-  int err = 0;
-  EncodeTiled encode = encoder(&err);
-  if (encode == nullptr) return err;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row, row * S};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
-}
-
 // The host deals the units that it counts from its own copy of the tiles
 // (ops/flash_attention.py, SM90_TILES and unit_lengths); the kernel decodes
 // them with the tiles here. A schedule of another number of units, or of
@@ -764,10 +744,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout, Params
                         [&](int u) { return unit(p, u).items; });
   if (err != 0) return err;
   CUtensorMap mq, mk, mv, mdo;
-  err = make_map(&mq, q, p.B, p.S, p.H, D, BQ);
-  if (err == 0) err = make_map(&mk, k, p.B, p.S, p.Hk, D, BK);
-  if (err == 0) err = make_map(&mv, v, p.B, p.S, p.Hk, D, BK);
-  if (err == 0) err = make_map(&mdo, dout, p.B, p.S, p.H, D, BQ);
+  err = bshd_map(&mq, q, p.B, p.S, p.H, D, BQ);
+  if (err == 0) err = bshd_map(&mk, k, p.B, p.S, p.Hk, D, BK);
+  if (err == 0) err = bshd_map(&mv, v, p.B, p.S, p.Hk, D, BK);
+  if (err == 0) err = bshd_map(&mdo, dout, p.B, p.S, p.H, D, BQ);
   if (err != 0) return err;
   auto kern = flash_dkdv_sm90<D>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -786,10 +766,10 @@ int launch_q(const void* q, const void* k, const void* v, const void* dout, int 
                         [&](int u) { return q_unit<C::kKeys>(p, u).n; });
   if (err != 0) return err;
   CUtensorMap mq, mk, mv, mdo;
-  err = make_map(&mq, q, p.B, p.S, p.H, D, QT);
-  if (err == 0) err = make_map(&mk, k, p.B, p.S, Hk, D, C::kKeys);
-  if (err == 0) err = make_map(&mv, v, p.B, p.S, Hk, D, C::kKeys);
-  if (err == 0) err = kDq ? make_map(&mdo, dout, p.B, p.S, p.H, D, QT) : 0;
+  err = bshd_map(&mq, q, p.B, p.S, p.H, D, QT);
+  if (err == 0) err = bshd_map(&mk, k, p.B, p.S, Hk, D, C::kKeys);
+  if (err == 0) err = bshd_map(&mv, v, p.B, p.S, Hk, D, C::kKeys);
+  if (err == 0) err = kDq ? bshd_map(&mdo, dout, p.B, p.S, p.H, D, QT) : 0;
   if (err != 0) return err;
   if (!kDq) mdo = mq;  // unread
   auto kern = flash_q_sm90<D, kDq>;

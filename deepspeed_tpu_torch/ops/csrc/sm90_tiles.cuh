@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma
 // from shared memory that TMA fills: flash_attention_sm90.cu (the flash
-// forward, dK/dV and dQ) and paged_attention_sm90.cuh (the packed and decode
-// paged-attention kernels). mbarriers, TMA and bulk copies, wgmma from
-// shared memory (SS) and with A in registers (RS), the accumulator-to-A
-// re-pack, the base-2 online softmax of one key tile, and the host's
-// tensor-map encoder. Everything here is inlined into each kernel that uses
-// it, so moving a helper here changes no kernel's code.
+// forward, dK/dV and dQ), paged_attention_sm90.cuh (the packed and decode
+// paged-attention kernels) and sparse_attention_sm90.cu (the block-sparse
+// forward). mbarriers, TMA and bulk copies, wgmma from shared memory (SS)
+// and with A in registers (RS), the accumulator-to-A re-pack, the base-2
+// online softmax of one key tile, and the host's tensor-map encoder with
+// its 4-D map over [B, S, heads, D] rows. Everything here is inlined into
+// each kernel that uses it, so moving a helper here changes no kernel's
+// code.
 
 #pragma once
 
@@ -308,6 +310,26 @@ EncodeTiled encoder(int* err) {
     fn = reinterpret_cast<EncodeTiled>(sym);
   }
   return fn;
+}
+
+// a bf16 [B, S, heads, D] tensor as the 4-D map (d, head, s, b), read in
+// boxes of 64 d x 1 head x rows x 1 batch (64 bf16 = the 128-byte swizzle);
+// boxes past S (or B) zero-fill
+int bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, int rows) {
+  int err = 0;
+  EncodeTiled encode = encoder(&err);
+  if (encode == nullptr) return err;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row, row * S};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(r);
 }
 
 }  // namespace

@@ -21,7 +21,9 @@
 // a few live columns per row that is ~100-300 flops per byte, near the
 // card's ridge (~295 bf16 flops per byte), so neither bound dominates at the
 // ideal; this design re-reads K and V once per live pair and computes on
-// mma.sync, and is far from both (later work: wgmma and TMA).
+// mma.sync, and is far from both. bf16 tensors that TMA can describe take
+// the wgmma route instead (sparse_attention_sm90.cu, chosen by
+// ops/sparse_attention.py::sparse_route); this one keeps fp32 and the rest.
 //
 // Design: the tile of the port's flash forward (flash_fwd_mma), with its
 // causal loop over key tiles replaced by the layout's column list.

@@ -8,16 +8,25 @@ LocalSlidingWindow; Dense is an all-ones layout). :func:`sparse_attention`
 compacts it to per-(head, q-block) ascending column lists (memoised on the
 layout's bytes, ``causal`` and the device) and runs:
 
-* the forward: the hand-written Hopper kernel ``csrc/sparse_attention.cu``
-  (a flash forward over the compacted columns) on CUDA tensors, its plain
-  version :func:`masked_dense_attention` on CPU tensors. A CUDA call the
-  kernel was not built for (head dim, block or dtype) raises;
+* the forward: a hand-written Hopper kernel (a flash forward over the
+  compacted columns) on CUDA tensors, its plain version
+  :func:`masked_dense_attention` on CPU tensors. The kernel has two routes,
+  chosen in the open by :func:`sparse_route`: ``"wgmma"``
+  (``csrc/sparse_attention_sm90.cu``: TMA loads and ``wgmma`` in
+  warp-specialised blocks, one 64-row query tile per work item, the items
+  dealt by :func:`sm90_plan`) for bf16 at head dim 64 or 128 on tensors TMA
+  can describe, and ``"mma_sync"`` (``csrc/sparse_attention.cu``:
+  ``mma.sync`` in bf16, the CUDA cores in fp32) for the rest. A CUDA call
+  that neither route was built for (head dim, block or dtype) raises, and
+  so does a forced ``"wgmma"`` launch on tensors it was not built for;
+  nothing falls back to the other route;
 * the backward: recomputed through the masked-dense plain function under
   autograd, as the JAX ``custom_vjp`` does (exact, O(S^2) compute; the JAX
   package computes it outside any Pallas kernel).
 
 ``launch_counts["sparse_attention_fwd"]`` counts kernel launches, one per
-launch and nowhere else.
+launch and nowhere else; ``route_counts["sparse_attention_fwd"]`` counts
+them per route.
 """
 
 import ctypes
@@ -31,20 +40,33 @@ NEG_INF = -1e30
 
 #: kernel launches (reset by callers that want a window's count)
 launch_counts: Dict[str, int] = {"sparse_attention_fwd": 0}
+#: launches per route (see :func:`sparse_route`)
+route_counts: Dict[str, Dict[str, int]] = {"sparse_attention_fwd": {"wgmma": 0, "mma_sync": 0}}
 
-_SOURCE = "sparse_attention.cu"
+_SOURCES = {"mma_sync": "sparse_attention.cu", "wgmma": "sparse_attention_sm90.cu"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)   # instantiated in csrc/sparse_attention.cu
-_BLOCKS = (64, 128)      # layout blocks the kernel's 64-row tiles divide
+_HEAD_DIMS = (64, 128)   # instantiated in both sources
+_BLOCKS = (64, 128)      # layout blocks the kernels' 64-row tiles divide
+#: the wgmma kernel's tiles (csrc/sparse_attention_sm90.cu): query rows per
+#: work item and keys per streamed tile. Each launch passes the number of
+#: items dealt from SM90_ROWS; the kernel refuses a count its own tiles
+#: decode otherwise.
+SM90_ROWS = 64
+SM90_KEYS = 64
+#: its blocks resident on an SM by head dim (the kernel's launch bounds)
+SM90_BLOCKS_PER_SM = {64: 3, 128: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-              ctypes.c_float, _I, _I, _P]
+_SIGNATURES = {
+    "sparse_attention_fwd": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
+    "sparse_attention_fwd_sm90": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _I, _P],
+}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, *route_counts.values()):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +188,8 @@ class CompactLayout:
 
     def __init__(self, cols: torch.Tensor, cnt: torch.Tensor, layout: np.ndarray):
         self.cols, self.cnt, self.layout = cols, cnt, layout
+        #: the wgmma kernel's schedules on the device, by launch shape
+        self.schedules: Dict[tuple, tuple] = {}
 
 
 _LAYOUT_CACHE: Dict[tuple, CompactLayout] = {}
@@ -228,18 +252,18 @@ def masked_dense_attention(q, k, v, layout, *, causal: bool, sm_scale: float,
 # ---------------------------------------------------------------------------
 
 
-def _kernel():
+def _kernel(name: str, route: str):
     from . import _build
 
-    fn = _build.load(_SOURCE).sparse_attention_fwd
+    fn = getattr(_build.load(_SOURCES[route]), name)
     if fn.argtypes is None:
-        fn.argtypes = _SIGNATURE
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _validate_cuda(q, k, v, sl: CompactLayout, block: int) -> None:
-    """What the kernel takes: contiguous CUDA q/k/v of one dtype (fp32 or
+    """What the kernels take: contiguous CUDA q/k/v of one dtype (fp32 or
     bf16) and shape, a supported head dim and block, 16-byte aligned."""
     for name, t in (("k", k), ("v", v), ("cols", sl.cols), ("cnt", sl.cnt)):
         if t.device != q.device:
@@ -260,6 +284,99 @@ def _validate_cuda(q, k, v, sl: CompactLayout, block: int) -> None:
         raise ValueError(f"block {block} not in {_BLOCKS}")
 
 
+def sparse_route(q, k, v) -> str:
+    """The forward kernel's route for these tensors: ``"wgmma"`` for bf16 at
+    head dim 64 or 128 when TMA can describe every tensor (contiguous, so
+    rows of ``H * D`` elements, with 16-byte-aligned bases); else
+    ``"mma_sync"``. Both routes take blocks 64 and 128 only. The same rule
+    on any device, so the CPU tests can ask it."""
+    tma = (q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS
+           and all(t.dtype == q.dtype and t.is_contiguous() and t.data_ptr() % 16 == 0
+                   for t in (q, k, v)))
+    return "wgmma" if tma else "mma_sync"
+
+
+def item_lengths(layout: np.ndarray, B: int, block: int, causal: bool) -> np.ndarray:
+    """The live key tiles of each of the wgmma kernel's work items, by item
+    index ``u = (b H + h) T + t`` (``T = S / SM90_ROWS`` query tiles), as its
+    producer counts them from the compacted columns: ``block / SM90_KEYS``
+    tiles per live column of the item's q-block, less, under causal, the
+    tiles wholly above the item's last row (only the diagonal column's,
+    since the ``layout`` given is the causal-intersected one)."""
+    H, nq, _ = layout.shape
+    rows, keys = SM90_ROWS, SM90_KEYS
+    per = block // keys
+    q0 = np.arange(nq * block // rows) * rows
+    iq = q0 // block
+    n = layout.sum(axis=2)[:, iq] * per                       # [H, T]
+    if causal:
+        above = (iq[:, None] * block + np.arange(per)[None] * keys
+                 > (q0 + rows - 1)[:, None]).sum(axis=1)      # [T]
+        n = n - layout[:, iq, iq] * above[None]
+    return np.tile(n.reshape(-1), B)
+
+
+def sm90_plan(lengths, blocks: int):
+    """``(offsets + ids, grid)`` for the wgmma kernel's items of these
+    ``lengths``: dealt over ``blocks`` persistent blocks, longest first
+    (:func:`schedule`)."""
+    from .flash_attention import schedule
+
+    offsets, ids = schedule([int(x) for x in lengths], blocks)
+    return offsets + ids, len(offsets) - 1
+
+
+def _sm90_schedule(sl: CompactLayout, q, block: int, causal: bool):
+    """``(schedule, grid, items)``: :func:`sm90_plan` for ``q``'s card as an
+    int32 tensor there, its number of blocks and the number of items,
+    which the kernel holds against its own decode; made once per layout and
+    launch shape."""
+    B, S, H, D = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    key = (B, block, sms, SM90_ROWS, SM90_BLOCKS_PER_SM[D])
+    if key not in sl.schedules:
+        lengths = item_lengths(sl.layout, B, block, causal)
+        plan, grid = sm90_plan(lengths, sms * SM90_BLOCKS_PER_SM[D])
+        sl.schedules[key] = (torch.tensor(plan, dtype=torch.int32, device=q.device),
+                             grid, len(lengths))
+    return sl.schedules[key]
+
+
+def launch_sparse_fwd(q, k, v, out, sl: CompactLayout, *, causal: bool, sm_scale: float,
+                      block: int, route: Optional[str] = None) -> None:
+    """One launch of the forward kernel into ``out`` on ``route`` (default
+    :func:`sparse_route`'s choice) for CUDA tensors that ``_validate_cuda``
+    has checked. A forced ``"wgmma"`` on tensors it was not built for
+    raises before any launch."""
+    chosen = sparse_route(q, k, v)
+    route = route or chosen
+    if route not in _SOURCES:
+        raise ValueError(f"route must be one of {sorted(_SOURCES)}, got {route!r}")
+    if route == "wgmma" and chosen != "wgmma":
+        raise ValueError("the wgmma route takes contiguous bf16 tensors with 16-byte "
+                         "aligned bases and head dim 64 or 128 (see sparse_route)")
+    B, S, H, D = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "wgmma":
+        sched, grid, items = _sm90_schedule(sl, q, block, causal)
+        err = _kernel("sparse_attention_fwd_sm90", route)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), sl.cols.data_ptr(),
+            sl.cnt.data_ptr(), sched.data_ptr(), grid, items, B, S, H, D, block,
+            sl.cols.shape[1], sl.cols.shape[2], sm_scale, int(causal), stream)
+    else:
+        err = _kernel("sparse_attention_fwd", route)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), sl.cols.data_ptr(),
+            sl.cnt.data_ptr(), B, S, H, D, block, sl.cols.shape[1], sl.cols.shape[2],
+            sm_scale, int(causal), _DTYPES[q.dtype], stream)
+    launch_counts["sparse_attention_fwd"] += 1
+    route_counts["sparse_attention_fwd"][route] += 1
+    if err >= 10000:
+        raise RuntimeError(f"sparse_attention_fwd ({route}): cuTensorMapEncodeTiled "
+                           f"failed: CUresult {err - 10000}")
+    if err != 0:
+        raise RuntimeError(f"sparse_attention_fwd ({route}) launch failed: cudaError_t {err}")
+
+
 def _sparse_forward(q, k, v, sl: CompactLayout, causal: bool, sm_scale: float,
                     block: int) -> torch.Tensor:
     """The forward over ``[B, S, H, D]`` tensors: the kernel on CUDA
@@ -272,15 +389,9 @@ def _sparse_forward(q, k, v, sl: CompactLayout, causal: bool, sm_scale: float,
     if q.device.type != "cuda":
         raise ValueError(f"sparse_attention: unsupported device {q.device}")
     _validate_cuda(q, k, v, sl, block)
-    B, S, H, D = q.shape
     out = torch.empty_like(q)
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    sl.cols.data_ptr(), sl.cnt.data_ptr(), B, S, H, D, block,
-                    sl.cols.shape[1], sl.cols.shape[2], sm_scale, int(causal),
-                    _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    launch_counts["sparse_attention_fwd"] += 1
-    if err != 0:
-        raise RuntimeError(f"sparse_attention_fwd launch failed: cudaError_t {err}")
+    if q.numel():
+        launch_sparse_fwd(q, k, v, out, sl, causal=causal, sm_scale=sm_scale, block=block)
     return out
 
 
@@ -318,7 +429,9 @@ def sparse_attention(q, k, v, layout: np.ndarray, *, causal: bool = True,
     builders above). Only the layout's nonzero blocks are computed in the
     forward; the backward recomputes through the masked-dense plain
     function. ``interpret`` (the Pallas interpreter switch) is accepted and
-    ignored."""
+    ignored. Any strides are taken: the kernels read contiguous copies of
+    views that are not (a transposed ``[B, H, S, D]`` tensor, a slice of a
+    fused QKV tensor)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, sq, h, d = q.shape
@@ -329,4 +442,5 @@ def sparse_attention(q, k, v, layout: np.ndarray, *, causal: bool = True,
         raise ValueError(f"layout shape {layout.shape} != {(h, nq, nq)}")
     layout = np.ascontiguousarray(layout.astype(bool))
     sl = _compact_layout(layout, causal, q.device)
-    return _SparseAttention.apply(q, k, v, sl, causal, float(sm_scale), block)
+    return _SparseAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), sl,
+                                  causal, float(sm_scale), block)

@@ -10,6 +10,8 @@ This file imports only torch, numpy, the port and the gloo-world launcher
 ``tests/torch_dist_worker.py`` (torch only).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,9 @@ from deepspeed_tpu_torch.ops.sparse_attention import (
     masked_dense_attention, sparse_attention)
 
 from .torch_dist_worker import run_world
+
+# the module (the package exports the op under the module's name)
+sa = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -348,14 +353,19 @@ def test_float8_cast_beyond_its_range_on_card():
     assert all(np.isnan(y[2:4]))
 
 
+@pytest.mark.parametrize("route", ["mma_sync", "wgmma"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,block", [(64, 64), (128, 64), (128, 128)])
-def test_sparse_kernel_matches_plain_version_on_card(D, block, dtype, causal):
+@pytest.mark.parametrize("D,block", [(64, 64), (64, 128), (128, 64), (128, 128)])
+def test_sparse_kernel_matches_plain_version_on_card(D, block, dtype, causal, route):
     """The sparse forward kernel against the masked-dense plain version on a
     bigbird layout (random blocks above the diagonal) and a layout with
-    empty q-blocks; the backward through the entry point equals autograd
-    through the plain version."""
+    empty q-blocks: through the entry point (one launch, on the route
+    ``sparse_route`` picks: wgmma for bf16, mma_sync for fp32) and forced
+    onto ``route`` through the launch helper (a forced wgmma on fp32
+    raises before any launch); the
+    backward through the entry point equals autograd through the plain
+    version."""
     _need_card()
     B, S, H = 2, 1024, 4
     nb = S // block
@@ -363,17 +373,28 @@ def test_sparse_kernel_matches_plain_version_on_card(D, block, dtype, causal):
     r = lambda: torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
     q, k, v = r(), r(), r()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
+    chosen = "wgmma" if dtype == torch.bfloat16 else "mma_sync"
     empty = np.zeros((H, nb, nb), bool)
     empty[:, 2:, 1] = True                          # q-blocks 0, 1 have nothing
     for layout in (bigbird_layout(H, nb, seed=1), empty):
-        sparse_launches["sparse_attention_fwd"] = 0
+        sa.reset_launch_counts()
         got = sparse_attention(q, k, v, layout, causal=causal, block=block)
         assert sparse_launches["sparse_attention_fwd"] == 1
+        assert sa.route_counts["sparse_attention_fwd"][chosen] == 1
         lo = layout if not causal else layout & np.tril(np.ones((nb, nb), bool))
         want = masked_dense_attention(*(x.transpose(1, 2) for x in (q, k, v)), lo,
                                       causal=causal, sm_scale=D ** -0.5,
                                       block_q=block, block_k=block).transpose(1, 2)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        sl = sa._compact_layout(layout, causal, q.device)
+        forced = dict(causal=causal, sm_scale=D ** -0.5, block=block, route=route)
+        if route == "wgmma" and dtype == torch.float32:
+            with pytest.raises(ValueError, match="wgmma route"):
+                sa.launch_sparse_fwd(q, k, v, torch.empty_like(q), sl, **forced)
+            continue
+        out = torch.full_like(q, float("nan"))
+        sa.launch_sparse_fwd(q, k, v, out, sl, **forced)
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     assert not got[:, :2 * block].float().any()
     qg, kg, vg = (x.float().requires_grad_(True) for x in (q, k, v))
     layout = fixed_layout(H, nb, num_local_blocks=2)
@@ -385,6 +406,68 @@ def test_sparse_kernel_matches_plain_version_on_card(D, block, dtype, causal):
      ** 2).sum().backward()
     for a, b in zip((qg, kg, vg), ref):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("D,block", [(64, 64), (128, 128)])
+def test_sparse_wgmma_is_bitwise_repeatable_on_card(D, block):
+    """One block computes each item over its key tiles in a fixed order,
+    with no float atomics, whichever persistent block it is dealt to: two
+    launches give the same bits."""
+    _need_card()
+    B, S, H = 2, 4096, 8
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    sl = sa._compact_layout(bigbird_layout(H, S // block, seed=2), True, q.device)
+    outs = []
+    for _ in range(2):
+        out = torch.empty_like(q)
+        sa.launch_sparse_fwd(q, k, v, out, sl, causal=True, sm_scale=D ** -0.5, block=block,
+                             route="wgmma")
+        outs.append(out)
+    assert torch.equal(*outs)
+
+
+def test_sparse_wgmma_refuses_a_wrong_item_count_on_card(monkeypatch):
+    """The wgmma kernel holds the number of items the host dealt (from its
+    ``SM90_ROWS``) against its own decode: with the host's item rows halved
+    the launch raises instead of leaving rows unwritten."""
+    _need_card()
+    monkeypatch.setattr(sa, "SM90_ROWS", sa.SM90_ROWS // 2)
+    q = torch.randn(1, 512, 2, 64, device="cuda").to(torch.bfloat16)
+    sl = sa._compact_layout(bigbird_layout(2, 8, seed=3), True, q.device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sa.launch_sparse_fwd(q, q, q, torch.empty_like(q), sl, causal=True, sm_scale=0.125,
+                             block=64, route="wgmma")
+
+
+def test_sparse_attention_takes_strided_views_on_card():
+    """The public function on ``[B, H, S, D]`` tensors transposed to ``[B,
+    S, H, D]`` and on a slice of a fused QKV tensor gives the output and
+    gradients of their contiguous copies (the kernels read contiguous
+    copies of such views); the launch helper itself refuses the views."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    qkv = r(2, 512, 4, 3 * 64)
+    views = [r(2, 4, 512, 64).transpose(1, 2), r(2, 4, 512, 64).transpose(1, 2),
+             qkv[..., 2 * 64:]]
+    w = r(2, 512, 4, 64)
+    layout = bigbird_layout(4, 8, seed=5)
+    outs = []
+    for make in (lambda t: t, lambda t: t.contiguous()):
+        leaves = [make(t).detach().requires_grad_(True) for t in views]
+        sa.reset_launch_counts()
+        out = sparse_attention(*leaves, layout, causal=True, block=64)
+        assert sa.route_counts["sparse_attention_fwd"] == {"wgmma": 1, "mma_sync": 0}
+        (out.float() * w.float()).sum().backward()
+        outs.append([out.detach()] + [t.grad for t in leaves])
+    assert not any(t.is_contiguous() for t in views)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    sl = sa._compact_layout(layout, True, views[0].device)
+    with pytest.raises(ValueError, match="contiguous"):
+        sa._validate_cuda(*views, sl, 64)
 
 
 def test_sparse_kernel_rejects_what_it_was_not_built_for_on_card():

@@ -26,9 +26,10 @@ import torch
 from deepspeed_tpu.models.transformer import attention_core
 from deepspeed_tpu_torch import ops
 from deepspeed_tpu_torch.ops.sparse_attention import (
-    _LAYOUT_CACHE, _compact_layout, bigbird_layout, bslongformer_layout,
-    causal_layout, fixed_layout, launch_counts, local_sliding_window_layout,
-    masked_dense_attention, sparse_attention, variable_layout)
+    _LAYOUT_CACHE, SM90_KEYS, SM90_ROWS, _compact_layout, bigbird_layout,
+    bslongformer_layout, causal_layout, fixed_layout, item_lengths, launch_counts,
+    local_sliding_window_layout, masked_dense_attention, sm90_plan, sparse_attention,
+    sparse_route, variable_layout)
 
 # the module (the package exports its function under the module's name)
 jsa = importlib.import_module("deepspeed_tpu.ops.pallas.sparse_attention")
@@ -174,3 +175,111 @@ def test_compaction_is_memoised_and_matches_jax():
     b = masked_dense_attention(q, k, v, layout, causal=True, sm_scale=0.2,
                                block_q=BLOCK, block_k=BLOCK)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_public_function_ignores_input_strides():
+    """``[B, H, S, D]`` tensors transposed to ``[B, S, H, D]`` (and a slice
+    of a fused QKV tensor) give the public function the same output and
+    gradients as their contiguous copies, bitwise."""
+    layout = bigbird_layout(H, NB, num_random_blocks=1)
+    q, k, v = _qkv((15, 16, 17))
+    w = torch.from_numpy(_qkv((18,))[0])
+    views = [torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))).transpose(1, 2)
+             for x in (q, k)]
+    views.append(torch.from_numpy(np.concatenate([v, q], axis=-1))[..., :D])
+    assert not any(t.is_contiguous() for t in views)
+    outs = []
+    for make in (lambda t: t, lambda t: t.contiguous()):
+        leaves = [make(t).detach().requires_grad_(True) for t in views]
+        out = sparse_attention(*leaves, layout, causal=True, block=BLOCK)
+        (out * w).sum().backward()
+        outs.append([out.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case, route", [
+    ("bf16 D64", "wgmma"), ("bf16 D128", "wgmma"), ("fp32 D128", "mma_sync"),
+    ("fp16 D64", "mma_sync"), ("bf16 D32", "mma_sync"), ("bf16 D64 strided", "mma_sync"),
+    ("bf16 D128 base 2 B off", "mma_sync"), ("bf16 D64 k fp32", "mma_sync")])
+def test_sparse_route_choice(case, route):
+    """The one rule picks the forward's route from q, k and v: wgmma for
+    bf16 at D 64 or 128 on tensors TMA can describe, mma_sync otherwise."""
+    D_ = int(case.split("D")[1].split()[0])
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16}[case[:4].strip()]
+    q = k = torch.zeros(2, 128, 4, D_, dtype=dtype)
+    if "strided" in case:
+        k = torch.zeros(2, 4, 128, D_, dtype=dtype).transpose(1, 2)
+    if "off" in case:
+        k = torch.zeros(2 * 128 * 4 * D_ + 1, dtype=dtype)[1:].view(2, 128, 4, D_)
+    v = k.float() if "k fp32" in case else k
+    assert sparse_route(q, k, v) == route
+
+
+def _walked_lengths(layout, B, block, causal):
+    """Live key tiles per item, counted as the kernel's producer walks the
+    compacted columns: every tile of each listed column, dropping from the
+    end of the list the tiles whose first key lies past the item's last
+    row (under causal)."""
+    sl = _compact_layout(layout, causal, torch.device("cpu"))
+    cols, cnt = sl.cols.numpy(), sl.cnt.numpy()
+    H_, nq = cnt.shape
+    per = block // SM90_KEYS
+    out = []
+    for _b in range(B):
+        for h in range(H_):
+            for t in range(nq * block // SM90_ROWS):
+                q0 = t * SM90_ROWS
+                iq = q0 // block
+                tiles = [cols[h, iq, j // per] * block + (j % per) * SM90_KEYS
+                         for j in range(cnt[h, iq] * per)]
+                while causal and tiles and tiles[-1] > q0 + SM90_ROWS - 1:
+                    tiles.pop()
+                out.append(len(tiles))
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("name", ["bigbird", "fixed", "variable_random", "empty rows"])
+def test_item_lengths_match_the_kernels_tile_walk(name, block, causal):
+    """The host's per-item tile counts (which order the wgmma kernel's
+    schedule) equal the producer's walk of the column lists, item by item
+    in the kernel's order ``(b H + h) T + t``; under causal no listed tile
+    lies wholly above its item, and the diagonal column of a 128-block
+    leaves its first item one tile fewer."""
+    nb = 512 // block
+    if name == "empty rows":
+        layout = np.zeros((H, nb, nb), bool)
+        layout[:, 2:, 1] = True
+        layout[:, -1, -1] = True
+    else:
+        fn, kw = BUILDERS[name]
+        layout = fn(H, nb, **kw)
+    lo = causal_layout(layout) if causal else layout
+    got = item_lengths(lo, 2, block, causal)
+    assert got.shape == (2 * H * 512 // SM90_ROWS,)
+    assert got.tolist() == _walked_lengths(layout, 2, block, causal)
+    if name == "empty rows":
+        assert got[0] == 0
+
+
+@pytest.mark.parametrize("blocks", [10, 10_000])
+def test_sm90_plan_deals_every_item_once(blocks):
+    """Every item goes to exactly one block. With fewer blocks than items
+    the blocks carry loads within one item's length of each other; with
+    more (a small shape on a card with many SMs) the grid shrinks to one
+    block per item, the longest items first."""
+    lo = causal_layout(bigbird_layout(H, 16, num_random_blocks=2, seed=4))
+    lengths = item_lengths(lo, 2, 64, True)
+    plan, grid = sm90_plan(lengths, blocks)
+    offsets, ids = plan[:grid + 1], plan[grid + 1:]
+    assert offsets[0] == 0 and offsets[-1] == len(ids) == len(lengths)
+    assert sorted(ids) == list(range(len(lengths)))
+    loads = [sum(lengths[u] for u in ids[a:b]) for a, b in zip(offsets, offsets[1:])]
+    if blocks < len(lengths):
+        assert grid == blocks
+        assert max(loads) - min(loads) <= max(lengths)
+    else:
+        assert grid == len(lengths) and offsets == list(range(grid + 1))
+        assert ids == sorted(range(len(lengths)), key=lambda u: (-lengths[u], u))
