@@ -39,10 +39,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the layout as a dense mask); the flash-attention forward and its two
    backward kernels at TinyLlama's shape (B 4, S 2048, 32/4 heads, D 64,
    causal, bf16), a Llama-2-7B head shape (32/32, D 128), a non-causal
-   case and an fp32 case, each reporting the route its three kernels took
+   case and an fp32 case, and at B 4, S 2048, causal, the attention widths
+   of Pythia-1B (8/8, D 256), Pythia-2.8B (32/32, D 80) and phi-3-mini
+   (32/32, D 96), a non-causal GQA case at D 256 and an fp32 case at D 80,
+   each reporting the route its three kernels took
    (``wgmma`` or ``mma_sync``; every bf16 case must take ``wgmma`` for all
-   three), each kernel timed on both routes at the main shape and two of
-   each kernel's ``wgmma`` launches bitwise equal; fused Adam over odd
+   three), each kernel timed on both routes at TinyLlama's shape and at
+   the three new head dims' shapes beside SDPA's forward and backward, and
+   two of each kernel's ``wgmma`` launches bitwise equal there; fused Adam over odd
    tensor sizes in
    AdamW and L2 modes, bias correction on and off, and timed over TinyLlama's 201
    tensors; the fused LM loss (forward, dl, dh, dK) at TinyLlama's head
@@ -75,7 +79,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    22 x gas x steps, fused loss forward and its combine gas x steps, each
    backward kernel once per vocab chunk, Adam once per step), every flash
    and fused-loss launch on the ``wgmma`` route;
-7. training path parity — TinyLlama widths at 2 layers: two ``train_batch``
+7. training path parity — at 2 layers, at the widths of TinyLlama,
+   Pythia-1B (D 256), Pythia-2.8B (D 80) and phi-3-mini (D 96): two ``train_batch``
    steps through the kernel path (flash kernels, Adam kernel, bf16), the
    plain path (plain attention, dense loss and Adam, bf16) and the plain
    path in float32; loss, gradient norm and weight updates of the kernel
@@ -126,7 +131,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``deepspeed_tpu_torch.ops.sparse_attention`` at phase 3's bigbird shape:
    one kernel launch, on the ``wgmma`` route, the gradients finite and equal
    to autograd through
-   ``masked_dense_attention`` within 1e-3 of their largest value.
+   ``masked_dense_attention`` within 1e-3 of their largest value;
+15. Pythia-1B training — phase 6's run at Pythia-1B's published size
+   (EleutherAI/pythia-1b: hidden 2048, 16 layers, 8 heads of D 256, ffn
+   8192, vocab 50304, a quarter of each head rotated, parallel residual,
+   biased LayerNorm, gelu, untied head), the same gates: losses finite and
+   falling, every kernel's launches exact (flash 16 x gas x steps, all on
+   ``wgmma`` at D 256; the fused loss and Adam as in phase 6).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -660,59 +671,22 @@ def sdpa_fwd_bwd(q, k, v, do, causal):
     return fwd, bwd
 
 
-def flash_phase(fa):
-    """Flash forward and both backward kernels against their plain versions,
-    then timed at TinyLlama's training shape (bf16)."""
-    # the kernels' fp32 products differ from the plain version's only in
-    # summation order; in bf16 O, P and dS round to bf16, so a value may
-    # land one ulp (2^-8 relative) apart, and dQ/dK/dV sum such terms over S
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    main = dict(B=4, S=2048, H=32, Hk=4, D=64)
-    cases = [("tinyllama 32/4 D64 causal", torch.bfloat16, main, True),
-             ("llama-2-7b heads 32/32 D128 causal", torch.bfloat16,
-              dict(B=1, S=2048, H=32, Hk=32, D=128), True),
-             ("gqa 8/2 D128 non-causal, ragged S", torch.bfloat16,
-              dict(B=2, S=1000, H=8, Hk=2, D=128), False),
-             ("fp32 gqa 16/4 D64 causal", torch.float32,
-              dict(B=2, S=1024, H=16, Hk=4, D=64), True)]
-    names = ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
-    ok, errs, timed = True, {}, None
-    for i, (name, dtype, shape, causal) in enumerate(cases):
-        q, k, v, do = flash_case(dtype, seed=100 + i, **shape)
-        route = fa.flash_route(q, k, v, do)
-        fa.reset_launch_counts()
-        o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
-        o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
-        dq, dk, dv = fa.flash_attention_backward(q, k, v, o_ref, lse_ref, do, causal=causal)
-        routed = {n: dict(fa.route_counts[n]) for n in names}
-        dq_r, dk_r, dv_r = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
-                                                      causal=causal)
-        torch.cuda.synchronize()
-        e = {"fwd": scaled_err(o, o_ref), "lse": scaled_err(lse, lse_ref),
-             "dq": scaled_err(dq, dq_r), "dk": scaled_err(dk, dk_r),
-             "dv": scaled_err(dv, dv_r)}
-        good = all(rel <= tol[dtype] for key, (_, rel) in e.items() if key != "lse")
-        good &= e["lse"][0] <= 1e-3
-        # each kernel launched once, on the route flash_route chose
-        good &= all(r[route] == 1 and sum(r.values()) == 1 for r in routed.values())
-        ok &= good
-        log(f"parity flash {name} {str(dtype)[6:]} (route {route} for the forward, dK/dV "
-            f"and dQ): " + ", ".join(
-                f"{key} max|err|={a:.3e} (rel {r:.2e})" for key, (a, r) in e.items())
-            + f" (tol rel {tol[dtype]:g}, L abs 1e-3) {'ok' if good else 'FAIL'}")
-        if dtype == torch.bfloat16 and route != "wgmma":
-            raise SystemExit(f"flash: the {name} case took the {route} route, not wgmma")
-        if shape is main:
-            errs = {"flash_attention_fwd": max(e["fwd"][0], e["lse"][0]),
-                    "flash_attention_bwd_dkdv": max(e["dk"][0], e["dv"][0]),
-                    "flash_attention_bwd_dq": e["dq"][0]}
-            timed = (q, k, v, do, o_ref, lse_ref)
-        del q, k, v, do, o, lse, o_ref, lse_ref, dq, dk, dv, dq_r, dk_r, dv_r
-        torch.cuda.empty_cache()
-    if not ok:
-        raise SystemExit("flash kernel parity FAILED (see lines above)")
+# phase 3's flash shapes: TinyLlama's training shape (the main one, in the
+# kernels line) and, at B 4 and S 2048, the attention widths of the head dims
+# 256, 80 and 96: Pythia-1B (D 256, the training path of phase 15),
+# Pythia-2.8B (D 80) and phi-3-mini (D 96)
+FLASH_MAIN = dict(B=4, S=2048, H=32, Hk=4, D=64)
+FLASH_WIDE = {"pythia-1b 8/8 D256": dict(B=4, S=2048, H=8, Hk=8, D=256),
+              "pythia-2.8b 32/32 D80": dict(B=4, S=2048, H=32, Hk=32, D=80),
+              "phi-3-mini 32/32 D96": dict(B=4, S=2048, H=32, Hk=32, D=96)}
+FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 
-    q, k, v, do, o, lse = timed
+
+def flash_timings(fa, label, q, k, v, do, o, lse, errs):
+    """Each flash kernel at one causal shape: two ``wgmma`` launches bitwise
+    equal, its time on both routes through its launch helper, beside its
+    bound, its plain version and SDPA's forward or backward at the same
+    shape. Returns a row per kernel."""
     lib_fwd, lib_bwd = sdpa_fwd_bwd(q, k, v, do, True)
     plain_fwd = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, return_lse=True), iters=3)
     plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do), iters=3)
@@ -731,20 +705,18 @@ def flash_phase(fa):
     # the wgmma kernels repeat bitwise: one block sums each unit in a fixed order
     outputs = {"flash_attention_fwd": (o_k, lse_k), "flash_attention_bwd_dkdv": (dk, dv),
                "flash_attention_bwd_dq": (dq,)}
-    for n in names:
+    for n in FLASH_NAMES:
         launch[n]()
         first = [t.clone() for t in outputs[n]]
         launch[n]()
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(first, outputs[n]))
-        log(f"flash {n} (wgmma) two launches at the main shape: bitwise equal {bitwise}")
+        log(f"flash {n} (wgmma) two launches at {label}: bitwise equal {bitwise}")
         if not bitwise:
-            raise SystemExit(f"flash: two launches of the wgmma {n} differ")
+            raise SystemExit(f"flash: two launches of the wgmma {n} differ at {label}")
     del first
     # the other route at the same shape, in the same run
-    other = {}
-    for n in names:
-        other[n] = cuda_ms(lambda: launch[n]("mma_sync"))
+    other = {n: cuda_ms(lambda: launch[n]("mma_sync")) for n in FLASH_NAMES}
     rows = {}
     for name, passes, plain, lib in (
             ("flash_attention_fwd", "fwd", plain_fwd, lib_fwd),
@@ -754,21 +726,93 @@ def flash_phase(fa):
         b_ms, b_by = bound(nbytes, flops, q.dtype)
         rows[name] = dict(ms=cuda_ms(launch[name]), plain_ms=plain, library_ms=lib,
                           bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[name],
-                          bytes=nbytes, flops=flops)
+                          bytes=nbytes, flops=flops, mma_sync_ms=other[name])
         ms = rows[name]["ms"]
-        log(f"timing {name} (bf16, B4 S2048 32/4 D64 causal): kernel on the wgmma route "
+        log(f"timing {name} (bf16, {label} causal): kernel on the wgmma route "
             f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
             f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop), plain {plain:.4f} ms, "
             f"library {lib:.4f} ms")
-        log(f"timing {name} on the mma_sync route: {other[name]:.4f} ms "
+        log(f"timing {name} on the mma_sync route at {label}: {other[name]:.4f} ms "
             f"({flops / other[name] / 1e9:.1f} TFLOP/s); wgmma / mma_sync "
             f"{ms / other[name]:.3f}")
     fwd = rows["flash_attention_fwd"]
-    log(f"timing flash_attention_fwd on the wgmma route / SDPA's forward "
+    log(f"timing flash_attention_fwd on the wgmma route / SDPA's forward at {label} "
         f"{fwd['ms'] / lib_fwd:.3f}")
     bwd = rows["flash_attention_bwd_dkdv"]["ms"] + rows["flash_attention_bwd_dq"]["ms"]
-    log(f"timing flash backward dK/dV + dQ on the wgmma route {bwd:.4f} ms, SDPA's "
-        f"backward {lib_bwd:.4f} ms, ratio {bwd / lib_bwd:.3f}")
+    log(f"timing flash backward dK/dV + dQ on the wgmma route at {label} {bwd:.4f} ms, "
+        f"SDPA's backward {lib_bwd:.4f} ms, ratio {bwd / lib_bwd:.3f}")
+    return rows
+
+
+def flash_phase(fa):
+    """Flash forward and both backward kernels against their plain versions
+    at every head dim the kernels build, then timed at TinyLlama's training
+    shape (the kernels line) and at the attention widths of D 256, 80 and 96
+    (bf16)."""
+    # the kernels' fp32 products differ from the plain version's only in
+    # summation order; in bf16 O, P and dS round to bf16, so a value may
+    # land one ulp (2^-8 relative) apart, and dQ/dK/dV sum such terms over S
+    tol = OUT_TOL
+    cases = [("tinyllama 32/4 D64 causal", torch.bfloat16, FLASH_MAIN, True),
+             ("llama-2-7b heads 32/32 D128 causal", torch.bfloat16,
+              dict(B=1, S=2048, H=32, Hk=32, D=128), True),
+             ("gqa 8/2 D128 non-causal, ragged S", torch.bfloat16,
+              dict(B=2, S=1000, H=8, Hk=2, D=128), False),
+             ("fp32 gqa 16/4 D64 causal", torch.float32,
+              dict(B=2, S=1024, H=16, Hk=4, D=64), True)]
+    cases += [(f"{name} causal", torch.bfloat16, shape, True)
+              for name, shape in FLASH_WIDE.items()]
+    cases += [("gqa 8/2 D256 non-causal, ragged S", torch.bfloat16,
+               dict(B=2, S=1000, H=8, Hk=2, D=256), False),
+              ("fp32 gqa 8/2 D80 causal", torch.float32,
+               dict(B=1, S=1024, H=8, Hk=2, D=80), True)]
+    ok, timed = True, {}
+    for i, (name, dtype, shape, causal) in enumerate(cases):
+        q, k, v, do = flash_case(dtype, seed=100 + i, **shape)
+        route = fa.flash_route(q, k, v, do)
+        fa.reset_launch_counts()
+        o, lse = fa.flash_attention_forward(q, k, v, causal=causal)
+        o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+        dq, dk, dv = fa.flash_attention_backward(q, k, v, o_ref, lse_ref, do, causal=causal)
+        routed = {n: dict(fa.route_counts[n]) for n in FLASH_NAMES}
+        dq_r, dk_r, dv_r = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do,
+                                                      causal=causal)
+        torch.cuda.synchronize()
+        e = {"fwd": scaled_err(o, o_ref), "lse": scaled_err(lse, lse_ref),
+             "dq": scaled_err(dq, dq_r), "dk": scaled_err(dk, dk_r),
+             "dv": scaled_err(dv, dv_r)}
+        good = all(rel <= tol[dtype] for key, (_, rel) in e.items() if key != "lse")
+        good &= e["lse"][0] <= 1e-3
+        # each kernel launched once, on the route flash_route chose
+        good &= all(r[route] == 1 and sum(r.values()) == 1 for r in routed.values())
+        ok &= good
+        log(f"parity flash {name} {str(dtype)[6:]} (route {route} for the forward, dK/dV "
+            f"and dQ): " + ", ".join(
+                f"{key} max|err|={a:.3e} (rel {r:.2e})" for key, (a, r) in e.items())
+            + f" (tol rel {tol[dtype]:g}, L abs 1e-3) {'ok' if good else 'FAIL'}")
+        if dtype == torch.bfloat16 and route != "wgmma":
+            raise SystemExit(f"flash: the {name} case took the {route} route, not wgmma")
+        if shape is FLASH_MAIN or any(shape is w for w in FLASH_WIDE.values()):
+            errs = {"flash_attention_fwd": max(e["fwd"][0], e["lse"][0]),
+                    "flash_attention_bwd_dkdv": max(e["dk"][0], e["dv"][0]),
+                    "flash_attention_bwd_dq": e["dq"][0]}
+            timed[name] = (shape, errs, 100 + i)
+        del q, k, v, do, o, lse, o_ref, lse_ref, dq, dk, dv, dq_r, dk_r, dv_r
+        torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("flash kernel parity FAILED (see lines above)")
+
+    rows = None
+    for name, (shape, errs, seed) in timed.items():
+        q, k, v, do = flash_case(torch.bfloat16, seed=seed, **shape)
+        o, lse = fa.flash_attention_ref(q, k, v, return_lse=True)
+        label = (f"B{shape['B']} S{shape['S']} {shape['H']}/{shape['Hk']} "
+                 f"D{shape['D']}")
+        got = flash_timings(fa, label, q, k, v, do, o, lse, errs)
+        if shape is FLASH_MAIN:
+            rows = got
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
     log("timing note: plain and library backward times compute dQ, dK and dV "
         "together; compare them with dK/dV + dQ")
     return rows
@@ -1582,6 +1626,40 @@ TRAIN_CONFIG = {
 }
 TRAIN_SEQ, WARMUP_STEPS, TIMED_STEPS = 2048, 2, 8
 
+# EleutherAI/pythia-1b config.json, mapped field by field as the JAX
+# package's inference/hf.py maps gpt_neox: hidden_size 2048,
+# num_hidden_layers 16, num_attention_heads 8 (head dim 256),
+# intermediate_size 8192, vocab_size 50304, rotary_pct 0.25,
+# rotary_emb_base 10000, use_parallel_residual, layer_norm_eps 1e-5,
+# hidden_act gelu, untied embed_out; LayerNorm and projections with biases
+PYTHIA_1B = dict(vocab_size=50304, hidden_size=2048, intermediate_size=8192, num_layers=16,
+                 num_heads=8, max_seq_len=2048, norm="layernorm", activation="gelu",
+                 position="rope", rope_theta=10000.0, rotary_pct=0.25, norm_eps=1e-5,
+                 parallel_residual=True, tie_embeddings=False)
+# EleutherAI/pythia-2.8b: the same family at hidden 2560, 32 layers, 32
+# heads (head dim 80), intermediate 10240
+PYTHIA_2P8B = dict(PYTHIA_1B, hidden_size=2560, intermediate_size=10240, num_layers=32,
+                   num_heads=32)
+# microsoft/Phi-3-mini-4k-instruct config.json: hidden 3072, 32 layers, 32 /
+# 32 heads (head dim 96), intermediate 8192 (silu-gated), vocab 32064,
+# rms_norm_eps 1e-5, rope theta 10000, untied lm_head, no biases
+PHI3_MINI = dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192, num_layers=32,
+                 num_heads=32, num_kv_heads=32, max_seq_len=4096, norm="rmsnorm",
+                 activation="swiglu", position="rope", rope_theta=10000.0, norm_eps=1e-5,
+                 tie_embeddings=False)
+
+
+def train_models():
+    """The models the training phases drive, by name: TinyLlama-1.1B (phase
+    6) and Pythia-1B (phase 15) at full size, and the widths of phase 7's
+    parity runs."""
+    from deepspeed_tpu_torch.models import TransformerConfig, llama_config
+
+    return {"TinyLlama-1.1B": llama_config("1b", dtype=torch.bfloat16),
+            "Pythia-1B": TransformerConfig(**PYTHIA_1B, dtype=torch.bfloat16),
+            "Pythia-2.8B": TransformerConfig(**PYTHIA_2P8B, dtype=torch.bfloat16),
+            "phi-3-mini": TransformerConfig(**PHI3_MINI, dtype=torch.bfloat16)}
+
 
 def train_flops(cfg, n_matmul, tokens, seq):
     """Model flops of one step: 6 * N_matmul * tokens (the LM head counted
@@ -1594,15 +1672,15 @@ def train_flops(cfg, n_matmul, tokens, seq):
     return 6 * n_matmul * tokens + attn * (tokens // seq)
 
 
-def train_phase(kernels, card, profile=False):
-    """TinyLlama-1.1B through initialize + train_batch, the optimizer and
-    schedule from the config (AdamW takes the fused Adam kernel on the
-    card), ``loss_impl: auto`` (the fused loss kernels on the card)."""
+def train_phase(kernels, card, name, cfg, profile=False):
+    """A model (``name``, ``cfg``: TinyLlama-1.1B in phase 6, Pythia-1B in
+    phase 15) through initialize + train_batch, the optimizer and schedule
+    from the config (AdamW takes the fused Adam kernel on the card),
+    ``loss_impl: auto`` (the fused loss kernels on the card)."""
     import deepspeed_tpu_torch as dst
-    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
-                                            make_loss_fn)
+    from deepspeed_tpu_torch.models import TransformerLM, init_params, make_loss_fn
 
-    cfg = llama_config("1b", dtype=torch.bfloat16)
+    tag = f"train {name}"
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
     model = TransformerLM(cfg, params)
@@ -1616,7 +1694,7 @@ def train_phase(kernels, card, profile=False):
     batch = torch.randint(0, cfg.vocab_size, (gas, micro, TRAIN_SEQ), generator=gen,
                           device="cuda")
     torch.cuda.synchronize()
-    log(f"train: TinyLlama-1.1B (hidden {cfg.hidden_size}, {cfg.num_layers} layers, "
+    log(f"{tag}: {name} (hidden {cfg.hidden_size}, {cfg.num_layers} layers, "
         f"{cfg.num_heads}/{cfg.kv_heads} heads, D {cfg.head_dim}, ffn "
         f"{cfg.intermediate_size}, vocab {cfg.vocab_size}), {n_params} parameters, bf16 "
         f"over fp32 masters, micro {micro} x {TRAIN_SEQ} tokens, gas {gas}; set-up "
@@ -1639,13 +1717,13 @@ def train_phase(kernels, card, profile=False):
     step_s = float(np.mean(times[WARMUP_STEPS:]))
     flops = train_flops(cfg, n_matmul, tokens, TRAIN_SEQ)
     mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
-    log(f"train: losses {[round(x, 4) for x in losses]}")
-    log(f"train: step times (s) {[round(x, 4) for x in times]}")
-    log(f"train [{card}]: {step_s * 1e3:.1f} ms/step over {TIMED_STEPS} timed steps, "
+    log(f"{tag}: losses {[round(x, 4) for x in losses]}")
+    log(f"{tag}: step times (s) {[round(x, 4) for x in times]}")
+    log(f"{tag} [{card}]: {step_s * 1e3:.1f} ms/step over {TIMED_STEPS} timed steps, "
         f"{tokens / step_s:.0f} tokens/s, MFU {mfu:.4f} ({flops:.4e} model flop/step: "
         f"6 x {n_matmul} matmul params x {tokens} tokens + causal attention; over "
         f"989 TFLOP/s bf16), max_memory_allocated {peak / 2**30:.2f} GiB")
-    log(f"train: kernel launches {launches}")
+    log(f"{tag}: kernel launches {launches}")
     from deepspeed_tpu_torch.ops.fused_loss import chunk_width
 
     loss_chunks = -(-cfg.vocab_size // chunk_width(micro * TRAIN_SEQ, cfg.vocab_size, 2))
@@ -1658,7 +1736,7 @@ def train_phase(kernels, card, profile=False):
         want[n] = gas * steps * loss_chunks
     bad = {n: (launches[n], w) for n, w in want.items() if launches[n] != w}
     if bad:
-        raise SystemExit(f"train: launch counts off (got, want): {bad}; flash: {cfg.num_layers} "
+        raise SystemExit(f"{tag}: launch counts off (got, want): {bad}; flash: {cfg.num_layers} "
                          f"layers x gas {gas} x {steps} steps; fused loss (and its "
                          f"forward's combine): gas x steps "
                          f"(x {loss_chunks} vocab chunks in the backward); Adam: one per step")
@@ -1674,14 +1752,14 @@ def train_phase(kernels, card, profile=False):
               "fused-loss forward": (dict(fused_loss.fwd_route_counts), want["fused_loss_fwd"]),
               "fused-loss backward": (dict(fused_loss.route_counts),
                                       3 * want["fused_loss_dlogits"])}
-    log(f"train: routes {routes}")
+    log(f"{tag}: routes {routes}")
     bad = {n: r for n, (r, w) in routes.items() if r != {"wgmma": w, "mma_sync": 0}}
     if bad:
-        raise SystemExit(f"train: launches off the wgmma route: {bad}")
+        raise SystemExit(f"{tag}: launches off the wgmma route: {bad}")
     if not all(math.isfinite(x) for x in losses):
-        raise SystemExit("train: a loss is not finite")
+        raise SystemExit(f"{tag}: a loss is not finite")
     if not losses[-1] < losses[WARMUP_STEPS]:
-        raise SystemExit("train: the loss did not fall over the timed steps")
+        raise SystemExit(f"{tag}: the loss did not fall over the timed steps")
     if profile:
         trace = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
@@ -1721,21 +1799,24 @@ def plain_adamw(lr, weight_decay):
     return GradientTransformation(fused_adam().init, update)
 
 
-def train_parity_phase():
-    """Two train_batch steps on TinyLlama widths at 2 layers through the
+def train_parity_phase(name, full):
+    """Two train_batch steps on ``name``'s widths (``full``, cut to 2
+    layers) through the
     kernel path (flash, fused loss and Adam kernels, bf16), the plain path
     (plain attention, dense loss and Adam, bf16) and the plain path in
     float32 (TF32 off), from
     the same weights and batch. The kernel path's loss, gradient norm and
     weight updates must sit within NOISE_FACTOR x the plain path's own
-    distance from float32 (updates by their L2 norm over all weights)."""
+    distance from float32 (updates by their L2 norm over all weights), and
+    its flash launches must be counted exactly (2 layers x gas 2 x 2 steps
+    of each kernel), all on ``wgmma``."""
     import deepspeed_tpu_torch as dst
-    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
-                                            make_loss_fn)
+    from deepspeed_tpu_torch.models import TransformerLM, init_params, make_loss_fn
     from deepspeed_tpu_torch.models.convert import _flatten
+    from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops.optimizers import fused_adam
 
-    base = llama_config("1b", num_layers=2, dtype=torch.bfloat16)
+    base = dataclasses.replace(full, num_layers=2)
     init = init_params(base, seed=3, device="cuda", dtype=torch.float32)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
@@ -1749,7 +1830,7 @@ def train_parity_phase():
             "fp32": ("xla", False, torch.float32)}
     out = {}
     p0 = _flatten(init)
-    for name, (attn, use_kernel, dtype) in runs.items():
+    for run, (attn, use_kernel, dtype) in runs.items():
         cfg = dataclasses.replace(base, attn_impl=attn, dtype=dtype,
                                   loss_impl="fused" if use_kernel else "xla")
         params = _cast(init, torch.float32, copy=True)   # each run trains its own
@@ -1759,18 +1840,26 @@ def train_parity_phase():
                        else plain_adamw(3e-4, 0.1)),
             config=dict(config, bf16={"enabled": dtype == torch.bfloat16}))
         losses, norms = [], []
+        fa.reset_launch_counts()
         for b in batches:
             losses.append(float(engine.train_batch(b)))
             norms.append(engine.get_global_grad_norm())
+        if use_kernel:
+            want = base.num_layers * config["gradient_accumulation_steps"] * len(batches)
+            routes = {n: dict(fa.route_counts[n]) for n in fa.launch_counts}
+            log(f"train path parity ({name} widths): flash launches {dict(fa.launch_counts)}, "
+                f"routes {routes}; want {want} of each, all on wgmma")
+            if any(r != {"wgmma": want, "mma_sync": 0} for r in routes.values()):
+                raise SystemExit(f"train path parity ({name} widths): flash launches off")
         delta = torch.cat([(v - p0[k]).flatten() for k, v in
                            _flatten(engine.state.params).items()])
-        out[name] = (np.array(losses), np.array(norms), delta)
+        out[run] = (np.array(losses), np.array(norms), delta)
         del engine, params
         torch.cuda.empty_cache()
     dl = lambda a, b: np.abs(out[a][0] - out[b][0]).max()
     dn = lambda a, b: np.abs(out[a][1] - out[b][1]).max()
     du = lambda a, b: (out[a][2] - out[b][2]).norm().item()
-    log(f"train path parity (TinyLlama widths, 2 layers, 2 steps): "
+    log(f"train path parity ({name} widths, D {base.head_dim}, 2 layers, 2 steps): "
         f"losses kernel {out['kernel'][0]}, plain {out['plain'][0]}, fp32 {out['fp32'][0]}; "
         f"|dloss| kernel-plain={dl('kernel', 'plain'):.3e} plain-fp32={dl('plain', 'fp32'):.3e}; "
         f"|dgrad_norm| kernel-plain={dn('kernel', 'plain'):.3e} "
@@ -1780,7 +1869,7 @@ def train_parity_phase():
         f"{NOISE_FACTOR:g} x plain-fp32 on each")
     for d in (dl, dn, du):
         if d("kernel", "plain") > NOISE_FACTOR * d("plain", "fp32"):
-            raise SystemExit("train path parity FAILED")
+            raise SystemExit(f"train path parity FAILED ({name} widths)")
 
 
 # ---------------------------------------------------------------------------
@@ -2404,9 +2493,14 @@ def main() -> int:
     # phase 14: sparse attention through its entry point
     launches.update(timed("14 sparse path", sparse_path_phase, sa, sparse_op))
     # phase 6, 7: the training path
-    launches.update(timed("6 training", train_phase, (fa, adam, fl), card,
-                          profile=args.profile))
-    timed("7 training parity", train_parity_phase)
+    models = train_models()
+    launches.update(timed("6 training", train_phase, (fa, adam, fl), card, "TinyLlama-1.1B",
+                          models["TinyLlama-1.1B"], profile=args.profile))
+    # phase 15: Pythia-1B, its head dim 256 through the flash kernels
+    timed("15 training (Pythia-1B)", train_phase, (fa, adam, fl), card, "Pythia-1B",
+          models["Pythia-1B"], profile=args.profile)
+    for name, cfg in models.items():
+        timed(f"7 training parity ({name} widths)", train_parity_phase, name, cfg)
     # phase 8, 9: activation checkpointing, checkpoint save and resume
     timed("8 remat", remat_phase, fa)
     timed("9 checkpoint", checkpoint_phase)

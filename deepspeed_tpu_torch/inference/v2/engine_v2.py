@@ -30,6 +30,7 @@ import torch
 
 from ...accelerator import resolve_device
 from ...models.transformer import TransformerConfig
+from ...ops.paged_attention import _HEAD_DIMS as _PAGED_HEAD_DIMS
 from ...utils.logging import logger
 from .model import check_supported, decode_loop, ragged_step
 from .ragged.kv_cache import BlockedKVCache
@@ -93,6 +94,16 @@ class ReuseStats:
 _WARNED = set()
 
 
+def _head_dim_bail(head_dim: int) -> Optional[str]:
+    """Why the paged kernels cannot serve this head dim, or None: they are
+    built for ``ops/paged_attention.py``'s ``_HEAD_DIMS`` only (the JAX
+    engine's packed Pallas kernel takes any D; its decode bails to einsum at
+    an off-tile D)."""
+    if head_dim in _PAGED_HEAD_DIMS:
+        return None
+    return f"head_dim {head_dim} is not one the paged kernels build {_PAGED_HEAD_DIMS}"
+
+
 def _warn_once(msg: str) -> None:
     if msg not in _WARNED:
         _WARNED.add(msg)
@@ -145,9 +156,14 @@ class InferenceEngineV2:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(c.seed))
         # packed (prompt-chunk) path: the packed kernel takes compute-dtype
-        # pools; quantized and storage-cast pools dequantize on the gather
+        # pools; quantized and storage-cast pools dequantize on the gather,
+        # and a head dim the paged kernels do not build takes the einsum
         if c.attn_backend == "auto":
-            self.attn_impl = "pallas" if kv_dtype == dtype else "einsum"
+            reason = _head_dim_bail(cfg.head_dim)
+            if reason:
+                _warn_once(f"attn_backend='auto' but {reason} — packed prompt "
+                           "steps run the gathered-page einsum (one-time notice)")
+            self.attn_impl = "pallas" if kv_dtype == dtype and not reason else "einsum"
         elif c.attn_backend == "pallas" and kv_dtype != dtype:
             _warn_once(
                 f"attn_backend='pallas' with kv_cache_dtype={c.kv_cache_dtype}: "
@@ -181,7 +197,9 @@ class InferenceEngineV2:
         (``"model"``) > ``decode_attn_backend``, then ``attn_backend``
         (``"config"``) > the kernel path (``"heuristic"``). A structural bail
         demotes a kernel pick to einsum with a one-time warning
-        (``"fallback"``)."""
+        (``"fallback"``); a head dim the paged kernels do not build demotes
+        only the heuristic pick, so an explicit ``"pallas"`` reaches the
+        kernel (which raises on the card)."""
         c = self.config
         want, source = "pallas", "heuristic"
         if self.cfg.decode_attn_impl != "auto":
@@ -192,6 +210,8 @@ class InferenceEngineV2:
             want, source = c.attn_backend, "config"
         if want == "pallas":
             reason = self._decode_structural_bail(kv_dtype, dtype)
+            if reason is None and source == "heuristic":
+                reason = _head_dim_bail(self.cfg.head_dim)
             if reason:
                 _warn_once(
                     f"decode_attn='pallas' ({source}) but {reason} — fused "

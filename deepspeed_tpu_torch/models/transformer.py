@@ -325,8 +325,8 @@ def attention_core(q, k, v, *, causal: bool = True, impl: str = "auto",
     their plain versions for CPU tensors); ``xla`` is the plain grouped
     einsum of the JAX package's XLA path (fp32 logits, softmax, probs in q's
     dtype); ``auto`` picks ``flash`` when the kernels are built for q (a
-    tensor on the card, fp32 or bf16, head dim 64 or 128) and there is no
-    ALiBi bias or window. The JAX rule also asks for a sequence that is a
+    tensor on the card, fp32 or bf16, head dim 64, 80, 96, 128 or 256) and
+    there is no ALiBi bias or window. The JAX rule also asks for a sequence that is a
     multiple of 128, the TPU kernel's block; the CUDA kernels mask a ragged
     last tile, so any length takes them here. ``alibi``: per-head slopes
     [H]; ``scale``: logits multiplier (default 1/sqrt(d)); ``window``: key j

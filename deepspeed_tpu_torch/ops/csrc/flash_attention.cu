@@ -25,8 +25,8 @@
 //   dQ        dS = p * (dO V^T - delta) rounded to k's dtype; dQ += dS K;
 //             dQ * sm_scale at the end.
 //
-// What bounds them on an H100: at the training shapes (S = 2048, D = 64 or
-// 128) attention does 4*D flops per (query, key) pair in the forward and
+// What bounds them on an H100: at the training shapes (S = 2048, D = 64 to
+// 256) attention does 4*D flops per (query, key) pair in the forward and
 // 14*D in the backward (with the recomputed QK^T and dO V^T) against O(S*D)
 // bytes per row: hundreds of flops per byte, above the card's ridge (~295
 // bf16 flops/byte), so the bound is the tensor cores' 989 TFLOP/s.
@@ -70,6 +70,7 @@
 #include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "flash_head_dims.cuh"
 
 namespace {
 
@@ -362,6 +363,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Problem P) {
 template <int D> struct MmaTiles {
   static constexpr int LD = D + 8, BQ = 64, BK = 64;
   static constexpr int BQ_DKDV = D == 64 ? 64 : 32;  // register budget of dK/dV
+  // Past D 128 the fragments of Q (and dO) are read from shared memory for
+  // each product instead of held in registers beside a 16 x D accumulator,
+  // and a dK/dV block keeps half of D's columns (recomputing S^T and dP^T
+  // for each half), so that dK and dV fit the registers.
+  static constexpr bool kQRegs = D <= 128;
+  static constexpr int DKV = D > 128 ? D / 2 : D;    // dK / dV columns per block
   static constexpr int TILE = 64 * LD;               // elements of a 64-row tile
   static constexpr int fwd = 5 * TILE * 2;           // Q + double-buffered K, V
   static constexpr int dq = 6 * TILE * 2;            // Q, dO + double-buffered K, V
@@ -393,7 +400,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Problem P) {
   load_rows<D, BK>(kv_s, kg, ks, 0, S);
   load_rows<D, BK>(kv_s + TL::TILE, vg, ks, 0, S);
   cp_commit();
-  uint32_t qf[KD][4];
+  constexpr int QF = TL::kQRegs ? KD : 1;
+  uint32_t qf[QF][4];
   float o[NO][4];
 #pragma unroll
   for (int d = 0; d < NO; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
@@ -410,9 +418,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Problem P) {
     }
     cp_wait_prefetch(prefetch);
     __syncthreads();
-    if (kt == 0) {
+    if (TL::kQRegs && kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) a_frag(qf[kk], q_s, LD, warp * 16, kk * 16);
+      for (int kk = 0; kk < KD; ++kk) a_frag(qf[kk % QF], q_s, LD, warp * 16, kk * 16);
     }
     const bf16* k_s = kv_s + 2 * (kt & 1) * TL::TILE;
     const bf16* v_s = k_s + TL::TILE;
@@ -421,12 +429,15 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Problem P) {
     for (int j = 0; j < NS; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qs_f[4];
+      if (!TL::kQRegs) a_frag(qs_f, q_s, LD, warp * 16, kk * 16);
+      const uint32_t(&qk)[4] = TL::kQRegs ? qf[kk % QF] : qs_f;
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t r[4];
         b_rows(r, k_s, LD, np * 16, kk * 16);
-        mma16816(sc[2 * np], qf[kk], r[0], r[1]);
-        mma16816(sc[2 * np + 1], qf[kk], r[2], r[3]);
+        mma16816(sc[2 * np], qk, r[0], r[1]);
+        mma16816(sc[2 * np + 1], qk, r[2], r[3]);
       }
     }
     if ((P.causal && k0 + BK - 1 > q0) || k0 + BK > S) {  // a diagonal or ragged tile
@@ -506,7 +517,7 @@ template <int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_mma(Problem P) {
   using TL = MmaTiles<D>;
   constexpr int BK = TL::BK, BQ = TL::BQ_DKDV, LD = TL::LD, KD = D / 16, NS = BQ / 8,
-                NO = D / 8;
+                NO = TL::DKV / 8, SPLIT = D / TL::DKV;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);
   bf16* v_s = k_s + BK * LD;
@@ -514,7 +525,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_mma(Problem P) {
   float* vec_s = reinterpret_cast<float*>(qd_s + 4 * BQ * LD);  // buffer i: L, delta
 
   const int S = P.S, H = P.H, Hk = P.Hk, G = H / Hk;
-  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BK;
+  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x / SPLIT * BK;
+  const int col0 = blockIdx.x % SPLIT * TL::DKV;  // this block's first dK / dV column
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long qs = static_cast<long long>(H) * D, ks = static_cast<long long>(Hk) * D;
   const long long kv_off = (static_cast<long long>(b) * S * Hk + hk) * D;
@@ -609,12 +621,12 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_mma(Problem P) {
       c_to_a(pa, st, kk);
       c_to_a(da, dpt, kk);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < TL::DKV / 16; ++dp) {
         uint32_t r[4];
-        b_cols(r, do_s, LD, kk * 16, dp * 16);
+        b_cols(r, do_s, LD, kk * 16, col0 + dp * 16);
         mma16816(dv[2 * dp], pa, r[0], r[1]);
         mma16816(dv[2 * dp + 1], pa, r[2], r[3]);
-        b_cols(r, q_s, LD, kk * 16, dp * 16);
+        b_cols(r, q_s, LD, kk * 16, col0 + dp * 16);
         mma16816(dk[2 * dp], da, r[0], r[1]);
         mma16816(dk[2 * dp + 1], da, r[2], r[3]);
       }
@@ -629,7 +641,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkdv_mma(Problem P) {
     if (key[i] >= S) continue;
 #pragma unroll
     for (int d = 0; d < NO; ++d) {
-      const long long at = key[i] * ks + d * 8 + 2 * t;
+      const long long at = key[i] * ks + col0 + d * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dkg + at) = pack_bf16(dk[d][2 * i], dk[d][2 * i + 1]);
       *reinterpret_cast<uint32_t*>(dvg + at) = pack_bf16(dv[d][2 * i], dv[d][2 * i + 1]);
     }
@@ -671,7 +683,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Problem P) {
   load_rows<D, BK>(kv_s, kg, ks, 0, S);
   load_rows<D, BK>(kv_s + TL::TILE, vg, ks, 0, S);
   cp_commit();
-  uint32_t qf[KD][4], df[KD][4];
+  constexpr int QF = TL::kQRegs ? KD : 1;
+  uint32_t qf[QF][4], df[QF][4];
   float dq[NO][4];
 #pragma unroll
   for (int d = 0; d < NO; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
@@ -687,11 +700,11 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Problem P) {
     }
     cp_wait_prefetch(prefetch);
     __syncthreads();
-    if (kt == 0) {
+    if (TL::kQRegs && kt == 0) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
-        a_frag(qf[kk], q_s, LD, warp * 16, kk * 16);
-        a_frag(df[kk], do_s, LD, warp * 16, kk * 16);
+        a_frag(qf[kk % QF], q_s, LD, warp * 16, kk * 16);
+        a_frag(df[kk % QF], do_s, LD, warp * 16, kk * 16);
       }
     }
     const bf16* k_s = kv_s + 2 * (kt & 1) * TL::TILE;
@@ -704,15 +717,22 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Problem P) {
     }
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qs_f[4], ds_f[4];
+      if (!TL::kQRegs) {
+        a_frag(qs_f, q_s, LD, warp * 16, kk * 16);
+        a_frag(ds_f, do_s, LD, warp * 16, kk * 16);
+      }
+      const uint32_t(&qk)[4] = TL::kQRegs ? qf[kk % QF] : qs_f;
+      const uint32_t(&dof)[4] = TL::kQRegs ? df[kk % QF] : ds_f;
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t r[4];
         b_rows(r, k_s, LD, np * 16, kk * 16);
-        mma16816(sc[2 * np], qf[kk], r[0], r[1]);
-        mma16816(sc[2 * np + 1], qf[kk], r[2], r[3]);
+        mma16816(sc[2 * np], qk, r[0], r[1]);
+        mma16816(sc[2 * np + 1], qk, r[2], r[3]);
         b_rows(r, v_s, LD, np * 16, kk * 16);
-        mma16816(dp[2 * np], df[kk], r[0], r[1]);
-        mma16816(dp[2 * np + 1], df[kk], r[2], r[3]);
+        mma16816(dp[2 * np], dof, r[0], r[1]);
+        mma16816(dp[2 * np + 1], dof, r[2], r[3]);
       }
     }
     if ((P.causal && k0 + BK - 1 > q0) || k0 + BK > S) {
@@ -778,7 +798,7 @@ int launch_bf16(const Problem& P, int B, Pass pass, cudaStream_t st) {
   const dim3 q_grid((P.S + TL::BQ - 1) / TL::BQ, P.H, B);
   if (pass == kFwd) return start<flash_fwd_mma<D>>(P, q_grid, kMmaThreads, TL::fwd, st);
   if (pass == kDq) return start<flash_bwd_dq_mma<D>>(P, q_grid, kMmaThreads, TL::dq, st);
-  const dim3 k_grid((P.S + TL::BK - 1) / TL::BK, P.Hk, B);
+  const dim3 k_grid((P.S + TL::BK - 1) / TL::BK * (D / TL::DKV), P.Hk, B);
   return start<flash_bwd_dkdv_mma<D>>(P, k_grid, kMmaThreads, TL::dkdv, st);
 }
 
@@ -792,16 +812,14 @@ int launch_fp32(const Problem& P, int B, Pass pass, cudaStream_t st) {
   return start<flash_bwd_dkdv_kernel<float, D>>(P, k_grid, kThreads, SM::dkdv, st);
 }
 
-// the head dims that run: 64 (TinyLlama) and 128 (Llama-2 shapes)
+// the head dims of flash_head_dims.cuh
 int run(const Problem& P, int B, int D, int is_bf16, Pass pass, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 64) return launch_bf16<64>(P, B, pass, st);
-    if (D == 128) return launch_bf16<128>(P, B, pass, st);
-  } else {
-    if (D == 64) return launch_fp32<64>(P, B, pass, st);
-    if (D == 128) return launch_fp32<128>(P, B, pass, st);
-  }
+#define FLASH_MMA(DIM) \
+  if (D == DIM)        \
+    return is_bf16 ? launch_bf16<DIM>(P, B, pass, st) : launch_fp32<DIM>(P, B, pass, st);
+  FLASH_HEAD_DIMS(FLASH_MMA)
+#undef FLASH_MMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,8 +8,8 @@
 // Replaces deepspeed_tpu/ops/pallas/flash_attention.py: _fwd_kernel (O and
 // the logsumexp L), _bwd_dkdv_kernel (dK, dV) and _bwd_dq_kernel (dQ).
 // What they compute, on the public [B, S, H, D] layout (K/V [B, S, Hk, D],
-// GQA: query head h reads kv head h / (H / Hk)), bf16 in and out, D 64 or
-// 128, s = (q . k) * sm_scale in fp32, causal mask (key j visible to query
+// GQA: query head h reads kv head h / (H / Hk)), bf16 in and out, D 64, 80,
+// 96, 128 or 256, s = (q . k) * sm_scale in fp32, causal mask (key j visible to query
 // i iff j <= i), softmax in base 2:
 //   forward   online softmax over the key tiles; P rounded to bf16 before
 //             O += P V; O = acc / l (l == 0 divides by 1) and L = m ln 2 +
@@ -48,8 +48,15 @@
 //   * TMA maps over [B, S, heads, D] rows as 4-D tensors (d, head, s, b), so
 //     a box past S zero-fills inside its batch; keys past S are masked in s
 //     (a zero-filled key gives logit 0, not -inf), rows past S never
-//     written. 128-byte swizzle; D 128 is two 64-wide boxes. The same tile
-//     is read K-major as one product's operand and MN-major as another's.
+//     written. 128-byte swizzle; D 128 is two 64-wide boxes, D 256 four.
+//     D 80 and 96 take two boxes, the second one padded: TMA zero-fills
+//     its columns past D without reading them, the products over D stop
+//     at D's last 16-wide slice, and the products whose N is D (P V, dS K,
+//     P^T dO, dS^T Q) run m64n80k16 / m64n96k16, which read the second box
+//     in part: no tensor work past D, one tile layout and one descriptor
+//     form for every D, at the price of shared memory for 128 columns.
+//     The same tile is read K-major as one product's operand and MN-major
+//     as another's.
 //   * Forward and dQ (Q-stationary): a unit is (batch, query head, 128-query
 //     tile); the producer loads Q (and dO for dQ) into one of two buffers,
 //     so the next unit's tile lands while this one is computed, and streams
@@ -61,10 +68,13 @@
 //     runs under P V (PERF.md, Findings, has its time against the schedule
 //     that waits for each product). dQ runs S
 //     = Q K^T and dP = dO V^T, dS in registers, dQ += dS K with K read
-//     MN-major; at D 128 its key tiles are 64 wide, so S, dP and a 64 x 128
-//     dQ fit the registers. L and delta of the warpgroup's rows are read
-//     into registers while the unit's Q lands. A key tile wholly above a
-//     warpgroup's diagonal is skipped.
+//     MN-major; past D 64 its key tiles are 64 wide, so S, dP and a 64 x 128
+//     dQ fit the registers. At D 256 (a 64 x 256 O or dQ is 128 registers
+//     a thread) the forward streams 64-key tiles and dQ 32-key ones, and a
+//     unit's Q (and dO: 128 KB) has one buffer, not two, so that two (dQ:
+//     three) K / V stages fit beside it. L and delta of the warpgroup's
+//     rows are read into registers while the unit's Q lands. A key tile
+//     wholly above a warpgroup's diagonal is skipped.
 //   * dK/dV (KV-stationary): a unit is (batch, kv head, 128-key tile); the
 //     producer streams the (Q, dO) tiles of 64 queries of every (query head
 //     of the group, query tile at or below the diagonal); its 32 lanes copy
@@ -74,9 +84,12 @@
 //     shared memory, computes p and dS in registers, re-packs P^T and dS^T
 //     as bf16 A fragments, and runs dV += P^T dO and dK += dS^T Q with the
 //     SAME Q and dO tiles read as MN-major B. dK and dV stay in registers
-//     across the unit. (Splitting the products into commit groups, so that
-//     p is computed under dP^T and dS under dV, measured slower on an H100:
-//     PERF.md, Findings.)
+//     across the unit. At D 256 the two 64 x 256 accumulators would not fit
+//     a warpgroup's registers: a unit is 64 keys, both warpgroups compute
+//     its S^T and dP^T in full, and each keeps dK and dV of half of D's
+//     columns, at 1.5x the products' work. (Splitting the products into
+//     commit groups, so that p is computed under dP^T and dS under dV,
+//     measured slower on an H100: PERF.md, Findings.)
 // TMA needs 16-byte-aligned bases and row strides: the wrapper
 // (ops/flash_attention.py, flash_route) sends bf16 tensors that satisfy that
 // here and everything else to flash_attention.cu.
@@ -85,24 +98,39 @@
 // caller's cudaStream_t. Each entry returns 0, a cudaError_t from the
 // launch, or 10000 + the CUresult of a tensor map that could not be encoded.
 
+#include "flash_head_dims.cuh"
 #include "sm90_tiles.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BK = 128;          // keys per block tile: 64 per consumer warpgroup
 constexpr int BQ = 64;           // queries per work item
 constexpr int kThreads = 384;    // 2 consumer warpgroups + 1 producer
 constexpr int kConsumerWarps = 8;
 
+// the tiles' width along D: whole 64-wide boxes. D 80 and 96 pad their last
+// box, which TMA fills with zeros past D (and reads nothing for); the
+// products over D stop at D's last 16-wide slice, and the products whose N
+// is D run m64n80 / m64n96, reading the last box in part, so no product
+// does work past D.
+__host__ __device__ constexpr int pad64(int D) { return (D + 63) / 64 * 64; }
+
 template <int D> struct Cfg {
-  static constexpr int kBoxes = D / 64;               // 64-wide boxes along D
-  static constexpr int kKVBox = BK * kRowBytes;       // 16 KB
+  static constexpr int kDP = pad64(D);
+  // up to D 128 each consumer warpgroup owns 64 of a unit's 128 keys and dK,
+  // dV over all of D; at D 256 (two 64 x 256 fp32 accumulators would not fit
+  // a warpgroup's registers) both share the unit's 64 keys, each computing
+  // S^T and dP^T in full and holding dK, dV for its half of D's columns
+  static constexpr bool kSplitD = D > 128;
+  static constexpr int kKeys = kSplitD ? 64 : 128;    // keys per unit
+  static constexpr int kCols = kSplitD ? D / 2 : D;  // dK, dV columns per warpgroup
+  static constexpr int kBoxes = kDP / 64;             // 64-wide boxes along D
+  static constexpr int kKVBox = kKeys * kRowBytes;    // 16 KB (8 KB at D 256)
   static constexpr int kQBox = BQ * kRowBytes;        // 8 KB
   static constexpr int kKVBytes = kBoxes * kKVBox;    // one of K, V
   static constexpr int kQBytes = kBoxes * kQBox;      // one of Q, dO
-  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kStages = D == 64 ? 4 : (kSplitD ? 2 : 3);
   static constexpr int kStageBytes = 2 * kQBytes;
   static constexpr int kVecFloats = 2 * BQ;           // L and delta of a stage
   static constexpr int kSmemBytes =
@@ -127,12 +155,13 @@ struct Unit {
   int b, hk, k0, iq0, per_head, items;
 };
 
+template <int kKeys>
 __host__ __device__ __forceinline__ Unit unit(const Params& p, int u) {
   Unit w;
   const int bh = u % (p.B * p.Hk);
   w.b = bh / p.Hk;
   w.hk = bh % p.Hk;
-  w.k0 = u / (p.B * p.Hk) * BK;
+  w.k0 = u / (p.B * p.Hk) * kKeys;
   w.iq0 = p.causal ? w.k0 / BQ : 0;
   w.per_head = p.nq - w.iq0;
   w.items = p.G * w.per_head;
@@ -196,7 +225,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     int s = 0;
     uint32_t phase = 0, kv_phase = 0;
     for (int i = u_begin; i < u_end; ++i) {
-      const Unit w = unit(p, ids[i]);
+      const Unit w = unit<C::kKeys>(p, ids[i]);
       mbar_wait(kv_empty, kv_phase ^ 1u);
       if (lane == 0) {
         mbar_expect_tx(kv_full, 2 * C::kKVBytes);
@@ -238,20 +267,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 of each unit
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 of each unit (at D
+  // 256: all 64 keys, dK and dV columns 128 wg .. + 127)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
   const bool signals = lane == 0;
   const float c = p.scale * kLog2e;
+  const int kw = C::kSplitD ? 0 : 64 * wg;           // this warpgroup's keys in the unit
+  const int col0 = C::kSplitD ? C::kCols * wg : 0;   // and its first dK / dV column
+  const uint32_t ka = k_s + kw * kRowBytes, va = v_s + kw * kRowBytes;
+  const uint32_t cols = (col0 / 64) * C::kQBox;      // that column's box in Q and dO
   int s = 0;
   uint32_t phase = 0, kv_phase = 0;
   for (int i = u_begin; i < u_end; ++i) {
-    const Unit w = unit(p, ids[i]);
-    const int kw0 = w.k0 + 64 * wg;
-    const uint32_t ka = k_s + wg * 64 * kRowBytes, va = v_s + wg * 64 * kRowBytes;
-    float dk[D / 2], dv[D / 2];
+    const Unit w = unit<C::kKeys>(p, ids[i]);
+    const int kw0 = w.k0 + kw;
+    float dk[C::kCols / 2], dv[C::kCols / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+    for (int j = 0; j < C::kCols / 2; ++j) dk[j] = dv[j] = 0.f;
     mbar_wait(kv_full, kv_phase);
     kv_phase ^= 1u;
     for (int it = 0; it < w.items; ++it) {
@@ -306,8 +339,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             st[4 * j + e] = pv;
           }
         }
-        // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 in the A
-        // fragments, dO and Q read MN-major from the same tiles
+        // dV += P^T dO and dK += dS^T Q over this warpgroup's columns, P^T
+        // and dS^T rounded to bf16 in the A fragments, dO and Q read MN-major
+        // from the same tiles
         uint32_t pa[4][4], sa[4][4];
         to_a(pa, st);
         to_a(sa, dpt);
@@ -316,10 +350,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs(dk);
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          wgmma_rs(dv, pa[kk], desc(oa + kk * 16 * kRowBytes, C::kQBox));
+          wgmma_rs(dv, pa[kk], desc(oa + cols + kk * 16 * kRowBytes, C::kQBox));
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          wgmma_rs(dk, sa[kk], desc(qa + kk * 16 * kRowBytes, C::kQBox));
+          wgmma_rs(dk, sa[kk], desc(qa + cols + kk * 16 * kRowBytes, C::kQBox));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv);
@@ -342,8 +376,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int key = kw0 + 16 * warp + g + 8 * hh;
       if (key >= p.S) continue;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const long long at = key * ks + 8 * j + 2 * t;
+      for (int j = 0; j < C::kCols / 8; ++j) {
+        const long long at = key * ks + col0 + 8 * j + 2 * t;
         *reinterpret_cast<uint32_t*>(dkg + at) = pack_bf16(dk[4 * j + 2 * hh], dk[4 * j + 2 * hh + 1]);
         *reinterpret_cast<uint32_t*>(dvg + at) = pack_bf16(dv[4 * j + 2 * hh], dv[4 * j + 2 * hh + 1]);
       }
@@ -358,10 +392,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 constexpr int QT = 128;  // queries per unit: 64 per consumer warpgroup
 
 template <int D, bool kDq> struct QCfg {
-  // keys per item; dQ at D 128 holds S, dP and a 64 x 128 dQ per warpgroup,
-  // so its key tiles are 64 wide
-  static constexpr int kKeys = kDq && D == 128 ? 64 : 128;
-  static constexpr int kBoxes = D / 64;                 // 64-wide boxes along D
+  static constexpr int kDP = pad64(D);
+  // keys per item. dQ holds S, dP and a 64 x D dQ per warpgroup, so its key
+  // tiles are 64 wide past D 64; at D 256 32 wide, so that Q and dO (128 KB)
+  // and three stages fit in shared memory. The forward's O takes 128
+  // registers at D 256, so S there covers 64 keys.
+  static constexpr int kKeys = kDq ? (D == 64 ? 128 : D > 128 ? 32 : 64) : (D > 128 ? 64 : 128);
+  static constexpr int kQBufs = D > 128 ? 1 : 2;        // buffers of a unit's Q (and dO)
+  static constexpr int kBoxes = kDP / 64;               // 64-wide boxes along D
   static constexpr int kQBox = QT * kRowBytes;          // 16 KB
   static constexpr int kQBytes = kBoxes * kQBox;        // one of Q, dO
   static constexpr int kQBuf = (kDq ? 2 : 1) * kQBytes; // a unit's resident tiles
@@ -370,7 +408,7 @@ template <int D, bool kDq> struct QCfg {
   static constexpr int kStageBytes = 2 * kKVBytes;      // K, then V
   static constexpr int kStages = D == 64 ? 4 : (kDq ? 3 : 2);
   static constexpr int kSmemBytes =
-      1024 + 2 * kQBuf + kStages * kStageBytes + 8 * (2 * kStages + 4);
+      1024 + kQBufs * kQBuf + kStages * kStageBytes + 8 * (2 * kStages + 4);
 };
 
 struct QParams {
@@ -401,15 +439,18 @@ __host__ __device__ __forceinline__ QUnit q_unit(const QParams& p, int u) {
   return w;
 }
 
-// shared memory: two buffers of a unit's Q (and dO), the ring of K / V
-// stages, the barriers
+// shared memory: the buffers of a unit's Q (and dO), the ring of K / V
+// stages, the barriers. Unit n of a block takes buffer n % kQBufs, with
+// phase (n / kQBufs) & 1.
 template <int D, bool kDq> struct QSmem {
   using C = QCfg<D, kDq>;
   uint32_t base, bars;
   __device__ explicit QSmem(uint32_t b)
-      : base(b), bars(b + 2 * C::kQBuf + C::kStages * C::kStageBytes) {}
+      : base(b), bars(b + C::kQBufs * C::kQBuf + C::kStages * C::kStageBytes) {}
   __device__ uint32_t q(int qb) const { return base + qb * C::kQBuf; }  // dO at + kQBytes
-  __device__ uint32_t k(int s) const { return base + 2 * C::kQBuf + s * C::kStageBytes; }
+  __device__ uint32_t k(int s) const {
+    return base + C::kQBufs * C::kQBuf + s * C::kStageBytes;
+  }
   __device__ uint32_t v(int s) const { return k(s) + C::kKVBytes; }
   __device__ uint32_t full(int s) const { return bars + 8u * s; }
   __device__ uint32_t empty(int s) const { return bars + 8u * (C::kStages + s); }
@@ -419,7 +460,7 @@ template <int D, bool kDq> struct QSmem {
 
 // d (+)= A B^T over D for a warpgroup's 64 rows of A (a K-major tile of QT
 // rows at a) and the kKeys rows of B (a K-major tile at b): S = Q K^T, dP =
-// dO V^T
+// dO V^T. The last slice is D's: a padded box's zero columns are skipped.
 template <int D, int kKeys>
 __device__ __forceinline__ void qs_product(float (&d)[kKeys / 2], uint32_t a, uint32_t b) {
 #pragma unroll
@@ -491,14 +532,14 @@ __device__ __forceinline__ void fwd_consumer(const QSmem<D, false>& sm, const QP
   uint32_t phase = 0;
   for (int i = u_begin; i < u_end; ++i) {
     const QUnit w = q_unit<K>(p, ids[i]);
-    const int n = i - u_begin, qb = n & 1;
+    const int n = i - u_begin, qb = n % C::kQBufs;
     const int qw0 = w.q0 + 64 * wg;
     const int row[2] = {qw0 + 16 * warp + (lane >> 2), qw0 + 16 * warp + (lane >> 2) + 8};
     const uint32_t qa = sm.q(qb) + wg * 64 * kRowBytes;
     float o[D / 2], st[K / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
     uint32_t pa[K / 16][4];
     zero(o);
-    mbar_wait(sm.q_full(qb), (n >> 1) & 1);
+    mbar_wait(sm.q_full(qb), (n / C::kQBufs) & 1);
     mbar_wait(sm.full(s), phase);
     zero(st);
     wgmma_fence();
@@ -578,7 +619,7 @@ __device__ __forceinline__ void dq_consumer(const QSmem<D, true>& sm, const QPar
   uint32_t phase = 0;
   for (int i = u_begin; i < u_end; ++i) {
     const QUnit w = q_unit<K>(p, ids[i]);
-    const int n = i - u_begin, qb = n & 1;
+    const int n = i - u_begin, qb = n % C::kQBufs;
     const int qw0 = w.q0 + 64 * wg;
     const int row[2] = {qw0 + 16 * warp + (lane >> 2), qw0 + 16 * warp + (lane >> 2) + 8};
     // L (in base 2) and delta of this thread's rows, read while Q lands
@@ -593,7 +634,7 @@ __device__ __forceinline__ void dq_consumer(const QSmem<D, true>& sm, const QPar
     const uint32_t qa = sm.q(qb) + wg * 64 * kRowBytes, oa = qa + C::kQBytes;
     float dq[D / 2];
     zero(dq);
-    mbar_wait(sm.q_full(qb), (n >> 1) & 1);
+    mbar_wait(sm.q_full(qb), (n / C::kQBufs) & 1);
     for (int kt = 0; kt < w.n; ++kt) {
       const int k0 = kt * K;
       mbar_wait(sm.full(s), phase);
@@ -684,8 +725,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t phase = 0;
     for (int i = u_begin; i < u_end; ++i) {
       const QUnit w = q_unit<C::kKeys>(p, ids[i]);
-      const int n = i - u_begin, qb = n & 1, hk = w.h / p.G;
-      mbar_wait(sm.q_empty(qb), ((n >> 1) & 1) ^ 1u);
+      const int n = i - u_begin, qb = n % C::kQBufs, hk = w.h / p.G;
+      mbar_wait(sm.q_empty(qb), ((n / C::kQBufs) & 1) ^ 1u);
       mbar_expect_tx(sm.q_full(qb), C::kQBuf);
 #pragma unroll
       for (int j = 0; j < C::kBoxes; ++j) {
@@ -740,13 +781,14 @@ int check_units(long long want_units, int units, int items, ItemsOf items_of) {
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, Params p, int grid,
            int units, int items, cudaStream_t st) {
-  int err = check_units(static_cast<long long>((p.S + BK - 1) / BK) * p.B * p.Hk, units, items,
-                        [&](int u) { return unit(p, u).items; });
+  constexpr int kKeys = Cfg<D>::kKeys;
+  int err = check_units(static_cast<long long>((p.S + kKeys - 1) / kKeys) * p.B * p.Hk, units,
+                        items, [&](int u) { return unit<kKeys>(p, u).items; });
   if (err != 0) return err;
   CUtensorMap mq, mk, mv, mdo;
   err = bshd_map(&mq, q, p.B, p.S, p.H, D, BQ);
-  if (err == 0) err = bshd_map(&mk, k, p.B, p.S, p.Hk, D, BK);
-  if (err == 0) err = bshd_map(&mv, v, p.B, p.S, p.Hk, D, BK);
+  if (err == 0) err = bshd_map(&mk, k, p.B, p.S, p.Hk, D, kKeys);
+  if (err == 0) err = bshd_map(&mv, v, p.B, p.S, p.Hk, D, kKeys);
   if (err == 0) err = bshd_map(&mdo, dout, p.B, p.S, p.H, D, BQ);
   if (err != 0) return err;
   auto kern = flash_dkdv_sm90<D>;
@@ -786,17 +828,19 @@ int run_q(const void* q, const void* k, const void* v, const void* dout, int Hk,
   if (p.B <= 0 || Hk <= 0 || p.H % Hk != 0 || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   p.G = p.H / Hk;
-  if (D == 64 && dq) return launch_q<64, true>(q, k, v, dout, Hk, p, grid, units, items, st);
-  if (D == 128 && dq) return launch_q<128, true>(q, k, v, dout, Hk, p, grid, units, items, st);
-  if (D == 64) return launch_q<64, false>(q, k, v, dout, Hk, p, grid, units, items, st);
-  if (D == 128) return launch_q<128, false>(q, k, v, dout, Hk, p, grid, units, items, st);
+#define FLASH_Q(DIM)                                                                \
+  if (D == DIM)                                                                     \
+    return dq ? launch_q<DIM, true>(q, k, v, dout, Hk, p, grid, units, items, st)   \
+              : launch_q<DIM, false>(q, k, v, dout, Hk, p, grid, units, items, st);
+  FLASH_HEAD_DIMS(FLASH_Q)
+#undef FLASH_Q
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // O [B, S, H, D] bf16 and L fp32 [B, H, S] for bf16 q [B, S, H, D] and k, v
-// [B, S, Hk, D] (D 64 or 128); sched, units and items as for dK/dV over the
+// [B, S, Hk, D] (D 64, 80, 96, 128 or 256); sched, units and items as for dK/dV over the
 // forward's units (ops/flash_attention.py, unit_lengths)
 extern "C" int flash_attention_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                         float* lse, const int* sched, int grid, int units,
@@ -835,7 +879,7 @@ extern "C" int flash_attention_bwd_dq_sm90(const void* q, const void* k, const v
                static_cast<cudaStream_t>(stream));
 }
 
-// dK, dV for bf16 q, dO [B, S, H, D] and k, v [B, S, Hk, D] (D 64 or 128);
+// dK, dV for bf16 q, dO [B, S, H, D] and k, v [B, S, Hk, D] (D as above);
 // sched: grid + 1 offsets, then the unit ids (ops/flash_attention.py,
 // schedule), one block per offset pair; units and items: how many units the
 // host dealt and their items in all (check_units)
@@ -861,7 +905,9 @@ extern "C" int flash_attention_bwd_dkdv_sm90(const void* q, const void* k, const
   p.scale = scale;
   p.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(q, k, v, dout, p, grid, units, items, st);
-  if (D == 128) return launch<128>(q, k, v, dout, p, grid, units, items, st);
+#define FLASH_DKDV(DIM) \
+  if (D == DIM) return launch<DIM>(q, k, v, dout, p, grid, units, items, st);
+  FLASH_HEAD_DIMS(FLASH_DKDV)
+#undef FLASH_DKDV
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,8 +13,9 @@ Each of the three kernels has two routes, chosen in the open by one rule,
 ``"wgmma"`` (``csrc/flash_attention_sm90.cu``: TMA loads and ``wgmma`` in
 persistent, warp-specialised blocks, Q-stationary for the forward and dQ,
 KV-stationary for dK/dV, their units dealt longest first by
-:func:`schedule`) for bf16 at D 64 or 128 on tensors TMA can describe, and
-``"mma_sync"`` (``csrc/flash_attention.cu``: ``mma.sync`` in bf16, the CUDA
+:func:`schedule`) for bf16 at every head dim built (64, 80, 96, 128,
+256) on tensors TMA can describe, and ``"mma_sync"``
+(``csrc/flash_attention.cu``: ``mma.sync`` in bf16, the CUDA
 cores in fp32) for the rest. A forced ``"wgmma"`` launch on tensors it was
 not built for raises; nothing falls back to the other route.
 
@@ -62,11 +63,16 @@ route_counts: Dict[str, Dict[str, int]] = {name: {"wgmma": 0, "mma_sync": 0}
 #: keys for dK/dV), rows of each item streamed past it. Each launch passes
 #: the count of units and items dealt from these; the kernel refuses a count
 #: that its own tiles decode otherwise.
-SM90_TILES = {"flash_attention_fwd": {64: (128, 128), 128: (128, 128)},
-              "flash_attention_bwd_dkdv": {64: (128, 64), 128: (128, 64)},
-              "flash_attention_bwd_dq": {64: (128, 128), 128: (128, 64)}}
+SM90_TILES = {"flash_attention_fwd": {64: (128, 128), 80: (128, 128), 96: (128, 128),
+                                     128: (128, 128), 256: (128, 64)},
+              "flash_attention_bwd_dkdv": {64: (128, 64), 80: (128, 64), 96: (128, 64),
+                                           128: (128, 64), 256: (64, 64)},
+              "flash_attention_bwd_dq": {64: (128, 128), 80: (128, 64), 96: (128, 64),
+                                         128: (128, 64), 256: (128, 32)}}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)     # instantiated in csrc/flash_attention.cu
+#: the head dims both csrc/flash_attention*.cu sources build
+#: (csrc/flash_head_dims.cuh)
+_HEAD_DIMS = tuple(SM90_TILES["flash_attention_fwd"])
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -229,10 +235,11 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
 
 def flash_route(q, k, v, do=None) -> str:
     """The route of every flash kernel for these tensors (``do`` for the
-    backward kernels): ``"wgmma"`` for bf16 at head dim 64 or 128 when TMA
-    can describe every tensor (contiguous, so rows of ``heads * D``
-    elements, with 16-byte-aligned bases); else ``"mma_sync"``. The same
-    rule on any device, so the CPU tests can ask it."""
+    backward kernels): ``"wgmma"`` for bf16 at a head dim that is built
+    (``_HEAD_DIMS``) when TMA can describe every tensor (contiguous, so
+    rows of ``heads * D`` elements, with 16-byte-aligned bases); else
+    ``"mma_sync"``. The same rule on any device, so the CPU tests can ask
+    it."""
     tensors = (q, k, v) if do is None else (q, k, v, do)
     tma = (q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS
            and all(t.dtype == q.dtype and t.is_contiguous() and t.data_ptr() % 16 == 0
@@ -306,7 +313,7 @@ def _route(tensors, route: Optional[str]) -> str:
         raise ValueError(f"route must be one of {sorted(_SOURCES)}, got {route!r}")
     if route == "wgmma" and chosen != "wgmma":
         raise ValueError("the wgmma route takes contiguous bf16 tensors with 16-byte "
-                         "aligned bases and head dim 64 or 128 (see flash_route)")
+                         f"aligned bases and a head dim in {_HEAD_DIMS} (see flash_route)")
     return route
 
 

@@ -481,6 +481,11 @@ def fused_vocab_nll(hidden, kernel, targets, *, axis_name: Optional[str] = None,
     h2 = hidden.reshape(-1, hidden.shape[-1]).contiguous()
     tg = targets.reshape(-1).to(torch.int32).contiguous()
     k2 = kernel.to(h2.dtype)
+    if not (k2.is_contiguous() or k2.T.is_contiguous()):
+        # a head _layout cannot read in place, e.g. kernel[:, :V] of a head
+        # padded past the vocab: a contiguous copy (autograd returns dK to
+        # the view); a tied [V, E] head is still read in place
+        k2 = k2.contiguous()
     lse, tgt = _FusedNLL.apply(h2, k2, tg)
     nll = lse - tgt
     if z_loss > 0.0:

@@ -162,8 +162,6 @@ def _validate_cuda(q, k_pool, v_pool, tables, D: int, scales=None) -> None:
         if t.dtype != torch.float32 or t.shape != k_pool.shape[:-1]:
             raise ValueError(f"{name} must be float32 {tuple(k_pool.shape[:-1])}, "
                              f"got {t.dtype} {tuple(t.shape)}")
-    if not q.is_contiguous():
-        raise ValueError("q must be contiguous")
     if D not in _HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
@@ -390,6 +388,14 @@ def _route(chosen: str, route: Optional[str]) -> str:
     return route
 
 
+def _check_q(q) -> None:
+    """The launch helpers read q's rows in place on either route: a strided
+    q is refused here (the public functions pass a contiguous copy)."""
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous (paged_attention and "
+                         "paged_flash_decode make a strided q so)")
+
+
 def _counted(kernel: str, route: str, err: int, combined: bool = False) -> None:
     """One launch of ``kernel`` on ``route``, and one of ``paged_combine``
     after it when the launch split its decode rows' contexts."""
@@ -430,6 +436,7 @@ def launch_paged_attention(q, k_pool, v_pool, block_table, start_pos, chunk_len,
     S, Q, Hq, D = q.shape
     N, Hk, bs, _ = k_pool.shape
     B = block_table.shape[1]
+    _check_q(q)
     route = _route(paged_route(q, k_pool, v_pool), route)
     tables = (block_table.data_ptr(), start_pos.data_ptr(), chunk_len.data_ptr(),
               kv_len.data_ptr())
@@ -464,6 +471,7 @@ def launch_paged_flash_decode(q, k_pool, v_pool, block_table, pos, kv_len, out, 
     L, N, Hk, bs, D = kq.shape
     S, Hq, _ = q.shape
     B = block_table.shape[1]
+    _check_q(q)
     route = _route(paged_route(q, k_pool, v_pool), route)
     head = (q.data_ptr(), kq.data_ptr(), vq.data_ptr())
     if quantized:
@@ -522,6 +530,7 @@ def paged_attention(q, k_pool, v_pool, block_table, start_pos, chunk_len,
                                    return_stats=return_stats)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
+    q = q.contiguous()   # e.g. sliced from a fused QKV projection
     tables = {"block_table": block_table, "start_pos": start_pos,
               "chunk_len": chunk_len, "kv_len": kv_len}
     _validate_cuda(q, k_pool, v_pool, tables, D)
@@ -573,6 +582,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, pos, kv_len, *,
                                       return_stats=return_stats)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
+    q = q.contiguous()   # e.g. sliced from a fused QKV projection
     tables = {"block_table": block_table, "pos": pos, "kv_len": kv_len}
     scales = (k_pool[1], v_pool[1]) if quantized else None
     _validate_cuda(q, kq, vq, tables, D, scales)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.models.transformer import attention_core
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_adam as adam
 from deepspeed_tpu_torch.ops import paged_attention as port
@@ -518,7 +519,7 @@ def _close(got, want, tol):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 256])
 def test_flash_kernels_match_plain_versions_on_card(D, dtype, causal):
     """Forward (O, L) and both backward kernels against the plain versions:
     GQA 8/2 and a sequence that is not a multiple of the tile."""
@@ -555,6 +556,13 @@ def test_flash_wrapper_counts_launches_and_rejects_bad_inputs():
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_forward(q[..., :32].contiguous(), k[..., :32].contiguous(),
                                    k[..., :32].contiguous())
+    # a head dim no source builds: attn_impl flash raises, auto takes the
+    # plain attention, nothing launches
+    q48, k48 = q[..., :48].contiguous(), k[..., :48].contiguous()
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_core(q48, k48, k48, impl="flash")
+    assert not fa.kernel_takes(q48)
+    attention_core(q48, k48, k48, impl="auto")
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_forward(q.transpose(1, 2).contiguous().transpose(1, 2),
                                    k, k)
@@ -580,7 +588,7 @@ def _dkdv(q, k, v, do, causal, route=None):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("G", [1, 4, 8])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 256])
 def test_flash_wgmma_dkdv_matches_plain_version_on_card(D, G, causal):
     """The wgmma dK/dV kernel (csrc/flash_attention_sm90.cu) against the
     plain backward: GQA groups of 1, 4 and 8, S 1000 (no multiple of its
@@ -599,11 +607,12 @@ def test_flash_wgmma_dkdv_matches_plain_version_on_card(D, G, causal):
     _close(dv, dv_r, 2e-2)
 
 
-def test_flash_wgmma_dkdv_is_bitwise_repeatable_on_card():
+@pytest.mark.parametrize("D", [64, 80, 96, 256])
+def test_flash_wgmma_dkdv_is_bitwise_repeatable_on_card(D):
     """Each unit of the persistent schedule is summed by one block in a fixed
     order, with no float atomics: two launches give the same bits."""
     _need_card()
-    q, k, v, do = _dkdv_inputs(2, 1024, 16, 2, 64, seed=5)
+    q, k, v, do = _dkdv_inputs(2, 1024, 16, 2, D, seed=5)
     first = _dkdv(q, k, v, do, True, route="wgmma")[:2]
     second = _dkdv(q, k, v, do, True, route="wgmma")[:2]
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -691,7 +700,7 @@ def _fwd_dq(q, k, v, do, causal, route=None):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("G", [1, 8])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 256])
 def test_flash_wgmma_forward_and_dq_match_plain_versions_on_card(D, G, causal):
     """The Q-stationary wgmma forward and dQ (csrc/flash_attention_sm90.cu)
     against the plain versions: GQA groups of 1 and 8, S 1000 (no multiple
@@ -713,11 +722,12 @@ def test_flash_wgmma_forward_and_dq_match_plain_versions_on_card(D, G, causal):
     _close(dq, dq_r, 2e-2)
 
 
-def test_flash_wgmma_forward_and_dq_are_bitwise_repeatable_on_card():
+@pytest.mark.parametrize("D", [64, 80, 96, 256])
+def test_flash_wgmma_forward_and_dq_are_bitwise_repeatable_on_card(D):
     """One block computes each query tile over its key tiles in a fixed
     order, with no float atomics: two launches give the same bits."""
     _need_card()
-    q, k, v, do = _dkdv_inputs(2, 1024, 16, 2, 64, seed=7)
+    q, k, v, do = _dkdv_inputs(2, 1024, 16, 2, D, seed=7)
     first = _fwd_dq(q, k, v, do, True, route="wgmma")[:3]
     second = _fwd_dq(q, k, v, do, True, route="wgmma")[:3]
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -740,19 +750,21 @@ def test_flash_wgmma_forward_and_dq_refuse_fp32_on_card():
     assert all(sum(r.values()) == 0 for r in fa.route_counts.values())
 
 
+@pytest.mark.parametrize("D", [64, 80, 96, 256])
 @pytest.mark.parametrize("tiles", ["stationary", "streamed"])
 @pytest.mark.parametrize("kernel", sorted(fa.launch_counts))
-def test_flash_wgmma_kernels_refuse_tiles_they_do_not_use_on_card(monkeypatch, kernel, tiles):
+def test_flash_wgmma_kernels_refuse_tiles_they_do_not_use_on_card(monkeypatch, kernel, tiles,
+                                                                   D):
     """Each wgmma kernel holds the count of units and items that the host
     dealt from ``SM90_TILES`` against its own decode of the units: with the
     host's stationary tile halved (more units) or its streamed tile halved
     (more items), the launch raises instead of leaving rows unwritten."""
     _need_card()
-    tile, step = fa.SM90_TILES[kernel][64]
-    monkeypatch.setitem(fa.SM90_TILES[kernel], 64,
+    tile, step = fa.SM90_TILES[kernel][D]
+    monkeypatch.setitem(fa.SM90_TILES[kernel], D,
                         (tile // 2, step) if tiles == "stationary" else (tile, step // 2))
     monkeypatch.setattr(fa, "_SCHEDULES", {})
-    q, k, v, do = _dkdv_inputs(1, 512, 4, 2, 64, seed=11)
+    q, k, v, do = _dkdv_inputs(1, 512, 4, 2, D, seed=11)
     lse = torch.zeros(1, 4, 512, device="cuda")
     sm = dict(causal=True, sm_scale=0.125, route="wgmma")
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -1106,3 +1118,139 @@ def test_two_rank_gloo_step_on_card(tmp_path):
     assert r0["launches"] == r1["launches"] == want
     for a, b in zip(r0["masters"], r1["masters"]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_auto_attention_takes_flash_kernels_at_the_new_head_dims_on_card():
+    """``attn_impl: auto`` picks the kernels at D 80, 96 and 256 on the card,
+    bf16 on ``wgmma``: one launch of each kernel per forward and backward."""
+    _need_card()
+    for D in (80, 96, 256):
+        q, k, v, do = _dkdv_inputs(1, 300, 4, 2, D, seed=D)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        fa.reset_launch_counts()
+        attention_core(*leaves, impl="auto").backward(do)
+        for name in fa.launch_counts:
+            assert fa.route_counts[name] == {"wgmma": 1, "mma_sync": 0}, (D, name)
+
+
+def test_engine_serves_phi3_widths_through_einsum_on_card():
+    """A 2-layer model at phi-3-mini widths (hidden 3072, 32 / 32 heads, D
+    96: no paged kernel is built for it) serves to completion on the card:
+    ``auto`` resolves both attention paths to the einsum and no paged kernel
+    launches. Its tokens equal those of the same weights served on the CPU
+    through the paged kernels' plain versions (``attn_backend="pallas"``,
+    which take any D; float32 and exact tokens, as
+    ``test_engine_kernel_path_matches_einsum_path_on_card``). An explicit
+    ``"pallas"`` on the card raises at the kernel, on the packed path and on
+    the decode path alone."""
+    _need_card()
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+                            num_layers=2, num_heads=32, num_kv_heads=32, max_seq_len=256,
+                            norm_eps=1e-5, dtype=torch.float32)
+    assert cfg.head_dim == 96
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 32064, n).astype(np.int32) for n in (7, 19, 40)]
+    engine = lambda device, **backends: InferenceEngineV2(
+        cfg, params, RaggedInferenceEngineConfig(
+            token_budget=32, max_ragged_sequence_count=4, max_chunk_size=16,
+            num_kv_blocks=64, kv_block_size=8, max_blocks_per_seq=16, dtype="float32",
+            **backends), device=device)
+    port.reset_launch_counts()
+    auto = engine("cuda")
+    assert (auto.attn_impl, auto.decode_attn_impl) == ("einsum", "einsum")
+    got = auto.generate(prompts, max_new_tokens=12)
+    assert sum(port.launch_counts.values()) == 0
+    plain = engine("cpu", attn_backend="pallas")
+    assert (plain.attn_impl, plain.decode_attn_impl) == ("pallas", "pallas")
+    for a, b in zip(got, plain.generate(prompts, max_new_tokens=12)):
+        assert len(a) == 12
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        engine("cuda", attn_backend="pallas").generate(prompts[:1], max_new_tokens=2)
+    decode_only = engine("cuda", attn_backend="einsum", decode_attn_backend="pallas")
+    assert (decode_only.attn_impl, decode_only.decode_attn_impl) == ("einsum", "pallas")
+    with pytest.raises(ValueError, match="head_dim 96"):
+        decode_only.generate(prompts[:1], max_new_tokens=2)
+
+
+@pytest.mark.parametrize("kernel", ["packed", "decode"])
+def test_paged_functions_take_q_sliced_from_fused_qkv_on_card(kernel):
+    """q sliced from a fused QKV tensor goes through the public paged
+    functions on the card and gives the bits of its contiguous copy; the
+    launch helpers refuse it before any launch."""
+    _need_card()
+    rng = np.random.default_rng(31)
+    Hq, Hk, D = 8, 2, 128
+    dev = torch.device("cuda")
+    if kernel == "packed":
+        q, k, v, bt, start, chunk, kvl = _packed(rng, torch.bfloat16, 3, 16, Hq, Hk, D, 32,
+                                                 8, [40, 77, 130], [16, 9, 1])
+        qkv = torch.randn(3, 16, Hq + 2 * Hk, D, device=dev).to(torch.bfloat16)
+        ints = (bt, start, chunk, kvl)
+        call = lambda qq: port.paged_attention(qq, k, v, *ints)
+        launch = lambda qq: port.launch_paged_attention(
+            qq, k, v, *ints, torch.empty(qq.shape, device=dev, dtype=qq.dtype), None, None,
+            sm_scale=1.0)
+    else:
+        bt, used = _tables(3, 8, 32, [40, 77, 130])
+        f = lambda *shape: torch.randn(shape, device=dev).to(torch.bfloat16)
+        k, v = f(2, used + 1, Hk, 32, D), f(2, used + 1, Hk, 32, D)
+        i = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+        ints = (i(bt), i([39, 76, 129]), i([40, 77, 130]))
+        qkv = f(3, Hq + 2 * Hk, D)
+        call = lambda qq: port.paged_flash_decode(qq, k, v, *ints, layer=1)
+        launch = lambda qq: port.launch_paged_flash_decode(
+            qq, k, v, *ints, torch.empty(qq.shape, device=dev, dtype=qq.dtype), None, None,
+            layer=1, sm_scale=1.0)
+    q_view = qkv[..., :Hq, :]
+    assert not q_view.is_contiguous()
+    port.reset_launch_counts()
+    got, want = call(q_view), call(q_view.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    launched = dict(port.launch_counts)
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(q_view)
+    assert port.launch_counts == launched
+
+
+def test_fused_vocab_nll_takes_a_sliced_head_on_card(monkeypatch):
+    """``kernel[:, :V]`` of a bf16 head padded past the vocab (E 1024, V
+    32000 of 32128): the public function takes it, its value matches the
+    plain version's and dK reaches the padded head's first V columns only,
+    matching the plain backward; a tied ``[V, E]`` head is still read in
+    place (no copy of the head is made)."""
+    _need_card()
+    from deepspeed_tpu_torch.ops import fused_loss as fl
+
+    T, E, V, Vp = 1024, 1024, 32000, 32128
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    h = torch.randn(T, E, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_(True)
+    padded = (0.02 * torch.randn(E, Vp, generator=gen, device="cuda")).to(torch.bfloat16)
+    padded.requires_grad_(True)
+    t = torch.randint(0, V, (T,), generator=gen, device="cuda", dtype=torch.int32)
+    view = padded[:, :V]
+    assert not (view.is_contiguous() or view.T.is_contiguous())
+    nll = fl.fused_vocab_nll(h, view, t)
+    nll.sum().backward()
+    kv = view.detach().contiguous()
+    lse_r, tgt_r = fl.fused_nll_fwd_ref(h.detach(), kv, t)
+    torch.testing.assert_close(nll.detach(), lse_r - tgt_r, rtol=1e-5, atol=1e-4)
+    ones = torch.ones(T, device="cuda")
+    dh_r, dk_r = fl.fused_nll_bwd_ref(h.detach(), kv, t, lse_r, ones, -ones)
+    _close(h.grad, dh_r, 2e-2)
+    _close(padded.grad[:, :V], dk_r, 2e-2)
+    assert torch.all(padded.grad[:, V:] == 0)
+    emb = (0.02 * torch.randn(V, E, generator=gen, device="cuda")).to(torch.bfloat16)
+    heads, apply = [], fl._FusedNLL.apply
+    monkeypatch.setattr(fl._FusedNLL, "apply",
+                        lambda hh, kk, tt: heads.append(kk) or apply(hh, kk, tt))
+    tied = fl.fused_vocab_nll(h.detach(), emb.T, t)
+    assert heads[0].data_ptr() == emb.data_ptr() and fl._layout(heads[0])[0] == 1
+    lse_r, tgt_r = fl.fused_nll_fwd_ref(h.detach(), emb.T, t)
+    torch.testing.assert_close(tied, lse_r - tgt_r, rtol=1e-5, atol=1e-4)

@@ -21,6 +21,9 @@ block.
 """
 
 import importlib
+import pathlib
+import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -57,11 +60,18 @@ def _jax_grads(fn, q, k, v, w):
     return np.asarray(out), [np.asarray(g) for g in grads]
 
 
-# causal and full, MHA and GQA 8/2, S 128 and 256: each appears twice
-@pytest.mark.parametrize("causal,H,Hk,S", [(True, 4, 4, 128), (True, 8, 2, 256),
-                                           (False, 4, 4, 256), (False, 8, 2, 128)])
-def test_flash_forward_and_grads_match_jax(causal, H, Hk, S):
-    q, k, v, w = _inputs(1, S, H, Hk, 32, seed=S + H + int(causal))
+# causal and full, MHA and GQA 8/2, S 128 and 256: each appears twice; and
+# the head dims of phi-2 / Pythia-2.8B (80), phi-3-mini (96) and Pythia-1B
+# (256) at S 128
+_CASES = [(True, 4, 4, 128, 32), (True, 8, 2, 256, 32), (False, 4, 4, 256, 32),
+          (False, 8, 2, 128, 32), (True, 2, 1, 128, 80), (False, 2, 2, 128, 96),
+          (True, 2, 1, 128, 256)]
+
+
+@pytest.mark.parametrize("causal,H,Hk,S,D", _CASES, ids=[
+    "-".join(map(str, c[:4])) + ("" if c[4] == 32 else f"-D{c[4]}") for c in _CASES])
+def test_flash_forward_and_grads_match_jax(causal, H, Hk, S, D):
+    q, k, v, w = _inputs(1, S, H, Hk, D, seed=S + H + int(causal) + (D if D != 32 else 0))
     got, got_g = _torch_grads(
         lambda a, b, c: tfa.flash_attention(a, b, c, causal=causal), q, k, v, w)
     pallas, pallas_g = _jax_grads(
@@ -146,12 +156,48 @@ def test_public_function_ignores_input_strides():
         assert torch.equal(leaf.grad, torch.from_numpy(g))
 
 
+@pytest.mark.parametrize("D, built", [(64, True), (80, True), (96, True), (128, True),
+                                      (256, True), (32, False), (112, False),
+                                      (160, False), (512, False)])
+def test_kernels_take_the_head_dims_they_build(D, built):
+    """``kernel_takes`` (the ``auto`` rule of ``attention_core``) and
+    ``flash_route`` take every head dim that both kernel sources build, and
+    no other: a CUDA bf16 or fp32 q at D 80, 96 and 256 takes the kernels,
+    bf16 on ``wgmma``; fp16 or a CPU tensor never does. (A stand-in with
+    ``is_cuda`` set carries the card's side of the rule here.)"""
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        on_card = types.SimpleNamespace(is_cuda=True, dtype=dtype, shape=(2, 128, 4, D))
+        assert tfa.kernel_takes(on_card) == (built and dtype != torch.float16)
+    assert not tfa.kernel_takes(torch.zeros(1, 8, 2, D, dtype=torch.bfloat16))
+    q = torch.zeros(1, 64, 4, D, dtype=torch.bfloat16)
+    k = torch.zeros(1, 64, 2, D, dtype=torch.bfloat16)
+    assert tfa.flash_route(q, k, k, q) == ("wgmma" if built else "mma_sync")
+    assert all((D in tfa.SM90_TILES[n]) == built for n in tfa.SM90_TILES)
+
+
+def test_both_sources_build_the_listed_head_dims():
+    """One C++ list of head dims (``csrc/flash_head_dims.cuh``), included by
+    both kernel sources, names the dims of ``SM90_TILES`` and
+    ``_HEAD_DIMS``, in order."""
+    csrc = pathlib.Path(tfa.__file__).parent / "csrc"
+    macro = re.search(r"#define FLASH_HEAD_DIMS\(X\)(.*)",
+                      (csrc / "flash_head_dims.cuh").read_text()).group(1)
+    assert tuple(int(d) for d in re.findall(r"X\((\d+)\)", macro)) == tfa._HEAD_DIMS
+    assert all(tuple(t) == tfa._HEAD_DIMS for t in tfa.SM90_TILES.values())
+    for source in tfa._SOURCES.values():
+        text = (csrc / source).read_text()
+        assert '#include "flash_head_dims.cuh"' in text
+        assert "#define FLASH_HEAD_DIMS" not in text
+
+
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("case, route", [
-    ("bf16 D64", "wgmma"), ("bf16 D128", "wgmma"), ("fp32 D64", "mma_sync"),
+    ("bf16 D64", "wgmma"), ("bf16 D128", "wgmma"), ("bf16 D80", "wgmma"),
+    ("bf16 D96", "wgmma"), ("bf16 D256", "wgmma"), ("fp32 D64", "mma_sync"),
+    ("fp32 D256", "mma_sync"),
     ("fp16 D64", "mma_sync"), ("bf16 D32", "mma_sync"), ("bf16 D64 strided", "mma_sync"),
     ("bf16 D64 base 2 B off", "mma_sync")])
 def test_dkdv_route_choice(case, route, kernel):
@@ -188,7 +234,11 @@ def _want_lengths(kernel, B, S, H, Hk, D, causal):
 @pytest.mark.parametrize("kernel, D", [("flash_attention_bwd_dkdv", 64),
                                        ("flash_attention_fwd", 64),
                                        ("flash_attention_bwd_dq", 64),
-                                       ("flash_attention_bwd_dq", 128)])
+                                       ("flash_attention_bwd_dq", 128),
+                                       ("flash_attention_bwd_dq", 80),
+                                       ("flash_attention_bwd_dkdv", 256),
+                                       ("flash_attention_fwd", 256),
+                                       ("flash_attention_bwd_dq", 256)])
 @pytest.mark.parametrize("B, S, Hk, G, causal, blocks", [
     (4, 2048, 4, 8, True, 132),      # TinyLlama's training shape
     (1, 2048, 32, 1, True, 132),     # Llama-2-7B heads
@@ -215,12 +265,12 @@ def test_dkdv_schedule_covers_each_unit_once(B, S, Hk, G, causal, blocks, kernel
     # greedy on units sorted longest first: no block exceeds the mean by
     # more than the longest unit
     assert max(loads) <= sum(items) / len(loads) + max(items)
-    if (B, S, Hk, G) == (4, 2048, 4, 8) and kernel == "flash_attention_bwd_dkdv":
+    if (B, S, Hk, G, D) == (4, 2048, 4, 8, 64) and kernel == "flash_attention_bwd_dkdv":
         # 272 items on the busiest block against a mean of 263.8, where one
         # block per 64-key tile gave the key-tile-0 blocks 256 of 64 x 64
         # against a mean of 132
         assert max(loads) == 272 and sum(items) == 34816
-    if (B, S, Hk, G) == (4, 2048, 4, 8) and kernel == "flash_attention_fwd":
+    if (B, S, Hk, G, D) == (4, 2048, 4, 8, 64) and kernel == "flash_attention_fwd":
         # 2048 units of 1-16 key tiles of 128: 17408 tiles, 132 on the
         # busiest block against a mean of 131.9
         assert max(loads) == 132 and sum(items) == 17408

@@ -106,6 +106,28 @@ def test_fused_nll_token_padding_and_masked_rows_match_jax():
     assert torch.all(th.grad[w == 0] == 0)
 
 
+def test_fused_nll_sliced_head_matches_jax():
+    """``kernel[:, :V]`` of a head padded past the vocab is neither a
+    contiguous ``[E, V]`` tensor nor the transpose of one: the public
+    function takes it (a contiguous copy), its value and gradients match
+    JAX's on the slice, and dK reaches the padded head's first V columns
+    only."""
+    e, v, vp = 24, 256, 384
+    h, padded = _rand((2, 10, e), 6), _rand((e, vp), 7, 0.1)
+    (jh, jk), (th, tk_full) = _both(h, padded[:, :v])[0], _both(h, padded)[1]
+    view = tk_full[:, :v]
+    assert not (view.is_contiguous() or view.T.is_contiguous())
+    tgt = np.random.default_rng(8).integers(0, v, (2, 10)).astype(np.int32)
+    jval, jg = jax.value_and_grad(lambda h_, k_: jnp.mean(jfl.fused_vocab_nll(
+        h_, k_, jnp.asarray(tgt))), argnums=(0, 1))(jh, jk)
+    tval = tfl.fused_vocab_nll(th, view, torch.from_numpy(tgt)).mean()
+    tval.backward()
+    _close(tval.detach(), jval, VAL_TOL, VAL_TOL)
+    _close(th.grad, jg[0], GRAD_RTOL, GRAD_ATOL, "grad of h")
+    _close(tk_full.grad[:, :v], jg[1], GRAD_RTOL, GRAD_ATOL, "grad of the head")
+    assert torch.all(tk_full.grad[:, v:] == 0)
+
+
 def test_fused_nll_bf16_matches_jax():
     """bf16 operands: both take fp32 logits of the bf16 values and round dl
     to bf16 before each backward product, so they agree to fp32 summation

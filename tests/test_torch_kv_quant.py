@@ -338,6 +338,10 @@ ENGINE = dict(token_budget=16, max_ragged_sequence_count=4, max_chunk_size=8,
               num_kv_blocks=32, kv_block_size=8, max_blocks_per_seq=8)
 
 
+#: head dim 64, one the paged kernels build (``ops/paged_attention.py``)
+D64 = dict(hidden_size=128, num_heads=2)
+
+
 def _engines(pair, **kw):
     jcfg, tcfg, params_np = pair
     cfg = dict(ENGINE, **kw)
@@ -358,9 +362,13 @@ def _step_all(eng, prompts, n):
 @pytest.mark.parametrize("kv", ["int8", "float8_e4m3fn"])
 def test_engine_steps_on_quantized_pools_match_jax(kv, compute):
     """The JAX ``test_int8_kv_cache_parity`` / fp8 scenarios (packed steps
-    to the end): the same tokens in both packages."""
-    jeng, teng = _engines(tiny_pair("llama"), dtype=compute, kv_cache_dtype=kv)
+    to the end): the same tokens in both packages. Head dim 64, one the
+    paged kernels build: int8 pools keep the decode kernel."""
+    jeng, teng = _engines(tiny_pair("llama", **D64), dtype=compute, kv_cache_dtype=kv)
     assert str(teng.kv.k.dtype) == f"torch.{kv}"
+    assert teng.attn_impl == "einsum"
+    assert (teng.decode_attn_impl, teng.decode_attn_source) == (
+        ("pallas", "heuristic") if kv == "int8" else ("einsum", "fallback"))
     want = _step_all(jeng, PROMPTS, 8)
     got = _step_all(teng, PROMPTS, 8)
     for g, w in zip(got, want):
@@ -373,9 +381,10 @@ def test_engine_steps_on_quantized_pools_match_jax(kv, compute):
 def test_engine_generate_on_quantized_pools_matches_jax(backend, kv):
     """The JAX ``test_int8_kv_pallas_backend_fused_decode`` scenario:
     prompt chunks on the gathered path, fused decode on the kernel path
-    (int8) or the gathered path (float8, a warned fallback)."""
-    jeng, teng = _engines(tiny_pair("llama"), dtype="float32",
-                          kv_cache_dtype=kv, attn_backend=backend)
+    (int8) or the gathered path (float8, a warned fallback). Head dim 64,
+    one the paged kernels build."""
+    jeng, teng = _engines(tiny_pair("llama", **D64), dtype="float32", kv_cache_dtype=kv,
+                          attn_backend=backend)
     assert teng.attn_impl == jeng.attn_impl == "einsum"
     assert (teng.decode_attn_impl, teng.decode_attn_source) == \
         (jeng.decode_attn_impl, jeng.decode_attn_source)

@@ -446,3 +446,40 @@ def test_sm90_split_rule_fills_the_card_from_host_shapes():
     assert port.sm90_grid(4, 128, 4, 8, 64, 32, 32) == (4 * 8 * 8, 8, 1)
     blocks, row_tiles, n_splits = port.sm90_grid(16, 128, 1, 32, 64, 32, 8)
     assert (row_tiles, n_splits) == (2, 4) and blocks == 16 * 32 * 5
+
+
+@pytest.mark.parametrize("kernel", ["packed", "decode"])
+def test_public_functions_take_q_sliced_from_fused_qkv(kernel):
+    """q sliced from a fused QKV projection (heads [0, Hq) of Hq + 2 Hk) is
+    a strided view: the public functions give the JAX result on it (they
+    make it contiguous), and the launch helpers, which read q in place,
+    refuse it before any launch."""
+    rng = np.random.default_rng(21)
+    Hq, Hk, D = 4, 2, 32
+    if kernel == "packed":
+        case = _packed_case(rng, S=3, Q=4, Hq=Hq, Hk=Hk, D=D, bs=4, B=8,
+                            kv_lens=[9, 4, 14], chunk_lens=[4, 4, 1])
+        qkv = rng.standard_normal((3, 4, Hq + 2 * Hk, D)).astype(np.float32)
+    else:
+        case = _decode_case(rng, L=2, S=3, Hq=Hq, Hk=Hk, D=D, bs=4, B=8,
+                            kv_lens=[9, 4, 14], pos=[8, 3, 13])
+        qkv = rng.standard_normal((3, Hq + 2 * Hk, D)).astype(np.float32)
+    q_view = torch.from_numpy(qkv)[..., :Hq, :]
+    assert not q_view.is_contiguous()
+    case = (np.ascontiguousarray(qkv[..., :Hq, :]),) + case[1:]
+    run = _run_packed if kernel == "packed" else (
+        lambda c, dt, sm, st: _run_decode(c, dt, 1, sm, st))
+    want = run(case, "float32", None, False)[1]
+    _, k, v, *ints = (torch.from_numpy(np.asarray(a)) for a in case)
+    if kernel == "packed":
+        got = port.paged_attention(q_view, k, v, *ints)
+        launch = lambda: port.launch_paged_attention(
+            q_view, k, v, *ints, torch.empty(q_view.shape), None, None, sm_scale=1.0)
+    else:
+        got = port.paged_flash_decode(q_view, k, v, *ints, layer=1)
+        launch = lambda: port.launch_paged_flash_decode(
+            q_view, k, v, *ints, torch.empty(q_view.shape), None, None, layer=1,
+            sm_scale=1.0)
+    _close(got, want, "float32")
+    with pytest.raises(ValueError, match="contiguous"):
+        launch()

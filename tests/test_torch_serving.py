@@ -7,6 +7,9 @@ off and on (a second ``generate`` over prompts sharing a prefix maps cached
 pages). The port's ``LLMServer`` must answer with the engine's tokens, free
 a cancelled request's KV pages, and keep the pool-conservation invariant;
 its admission scheduler must preempt-and-requeue exactly as the JAX one.
+A head dim the paged kernels do not build (phi-3-mini's 96) resolves both
+attention paths to the einsum with a one-time warning, on every device,
+and serves the JAX engine's tokens.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ from deepspeed_tpu.serving import scheduler as jsched
 from deepspeed_tpu.serving.request import Request as JRequest
 from deepspeed_tpu.serving.request import ServedResponse as JResp
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2 as TEngine
+from deepspeed_tpu_torch.inference.v2 import engine_v2 as tengine_v2
 from deepspeed_tpu_torch.inference.v2 import RaggedInferenceEngineConfig as TEC
 from deepspeed_tpu_torch.models import params_from_jax
 from deepspeed_tpu_torch.serving import (FINISH_CANCELLED, FINISH_LENGTH,
@@ -32,12 +36,26 @@ ENGINE = dict(token_budget=32, max_ragged_sequence_count=4, max_chunk_size=16,
               dtype="float32")
 
 
-def _engines(prefix_cache=False, **over):
-    jcfg, tcfg, params_np = tiny_pair("llama")
+#: head dim 64, one the paged kernels build: ``auto`` engines run them
+D64 = dict(hidden_size=128, num_heads=2)
+
+
+def _engines(prefix_cache=False, model=D64, **over):
+    jcfg, tcfg, params_np = tiny_pair("llama", **model)
     kw = dict(ENGINE, enable_prefix_cache=prefix_cache, **over)
     jeng = JEngine(TransformerLM(jcfg), params_np, JEC(**kw))
     teng = TEngine(tcfg, params_from_jax(params_np, tcfg, device="cpu"),
                    TEC(**kw), device="cpu")
+    return jeng, teng
+
+
+def _kernel_engines(prefix_cache=False, **over):
+    """``_engines`` at D 64 whose port engine runs the paged kernels (their
+    plain versions on the CPU) on both the packed and the decode path."""
+    jeng, teng = _engines(prefix_cache, **over)
+    assert teng.cfg.head_dim == 64
+    assert (teng.attn_impl, teng.decode_attn_impl, teng.decode_attn_source) == \
+        ("pallas", "pallas", "heuristic")
     return jeng, teng
 
 
@@ -54,7 +72,7 @@ def _live_blocks(eng):
 
 @pytest.mark.parametrize("prefix_cache", [False, True])
 def test_generate_matches_jax_engine(prefix_cache):
-    jeng, teng = _engines(prefix_cache)
+    jeng, teng = _kernel_engines(prefix_cache)
     prompts = _prompts(shared=12)
     for _ in range(2):                    # the second call hits the cache
         want = jeng.generate(prompts, max_new_tokens=10)
@@ -70,7 +88,7 @@ def test_generate_matches_jax_engine(prefix_cache):
 
 
 def test_generate_with_eos_and_decode_batch_matches_jax():
-    jeng, teng = _engines()
+    jeng, teng = _kernel_engines()
     prompts = _prompts(seed=1, lens=(4, 9))
     plain = teng.generate(prompts, max_new_tokens=12)
     eos = int(plain[0][5])
@@ -82,7 +100,7 @@ def test_generate_with_eos_and_decode_batch_matches_jax():
 
 
 def test_server_answers_with_engine_tokens_and_conserves_kv():
-    jeng, teng = _engines()
+    jeng, teng = _kernel_engines()
     prompts = _prompts(seed=2, lens=(3, 8, 15, 22, 5, 11))
     want = [np.asarray(w) for w in jeng.generate(prompts, max_new_tokens=9)]
     srv = LLMServer(teng, fused_decode_chunk=4)
@@ -101,7 +119,7 @@ def test_server_answers_with_engine_tokens_and_conserves_kv():
 
 
 def test_server_cancel_frees_kv():
-    _, teng = _engines()
+    _, teng = _kernel_engines()
     srv = LLMServer(teng)
     resp = srv.submit(Request(_prompts(seed=3, lens=(20,))[0],
                               max_new_tokens=60))
@@ -135,9 +153,40 @@ def _preempt_scenario(sched_mod, resp_cls, req_cls, eng):
 
 
 def test_priority_preemption_matches_jax_scheduler():
-    jeng, teng = _engines(num_kv_blocks=21)
+    jeng, teng = _kernel_engines(num_kv_blocks=21)
     got = _preempt_scenario(tsched, TResp, Request, teng)
     want = _preempt_scenario(jsched, JResp, JRequest, jeng)
     assert got == want
     assert got[4] == 1                     # the prefill was thrown back
     teng.kv.assert_conservation(_live_blocks(teng))
+
+
+@pytest.mark.parametrize("head_dim", [64, 96])
+def test_head_dims_the_paged_kernels_lack_take_the_einsum(head_dim):
+    """The packed rule and the decode heuristic read the paged kernels' head
+    dims (``ops/paged_attention.py``'s ``_HEAD_DIMS``): D 96 resolves both
+    paths to ``einsum`` with one warning each (decode as a fallback, as the
+    JAX engine bails at an off-tile D), D 64 keeps the kernels. An explicit
+    ``attn_backend="pallas"`` keeps both kernels at either D (at D 96 they
+    raise on the card; here their plain versions run). All serve the JAX
+    engine's greedy tokens."""
+    model = dict(hidden_size=2 * head_dim, num_heads=2)
+    tengine_v2._WARNED.clear()
+    jeng, teng = _engines(model=model)
+    assert teng.cfg.head_dim == head_dim
+    lacks = head_dim not in tengine_v2._PAGED_HEAD_DIMS
+    assert teng.attn_impl == ("einsum" if lacks else "pallas")
+    assert (teng.decode_attn_impl, teng.decode_attn_source) == (
+        ("einsum", "fallback") if lacks else ("pallas", "heuristic"))
+    warned = lambda: [m for m in tengine_v2._WARNED if f"head_dim {head_dim}" in m]
+    assert len(warned()) == (2 if lacks else 0)     # packed and decode, once each
+    _engines(model=model)                           # no second warning
+    assert len(warned()) == (2 if lacks else 0)
+    pinned = _engines(model=model, attn_backend="pallas")[1]
+    assert (pinned.attn_impl, pinned.decode_attn_impl, pinned.decode_attn_source) == \
+        ("pallas", "pallas", "config")
+    prompts = _prompts(seed=4, lens=(5, 11))
+    want = jeng.generate(prompts, max_new_tokens=6)
+    for eng in (teng, pinned):
+        for g, w in zip(eng.generate(prompts, max_new_tokens=6), want):
+            np.testing.assert_array_equal(g, np.asarray(w))

@@ -3,8 +3,9 @@
 * ``TransformerLM`` logits and the ``make_loss_fn`` loss and gradients
   against the flax model on one parameter tree (``params_from_jax``), in
   float32 within 1e-5 (the packages sum in different orders): a tiny Llama
-  with GQA 4/2, a tiny GPT-2-family model, and bloom-like (ALiBi) and
-  gpt-neo-like (local window) models.
+  with GQA 4/2, a tiny GPT-2-family model, bloom-like (ALiBi) and
+  gpt-neo-like (local window) models, and a gpt-neox-like one (parallel
+  residual, partial rotary, untied head).
 * ``initialize`` + four ``train_batch`` calls (gas 2, AdamW with weight
   decay, WarmupLR, clipping at 1.0) against the JAX engine pinned to one
   device: the loss curve and the final fp32 master weights within 1e-5 in
@@ -54,6 +55,10 @@ FAMILIES = {
                   embed_norm=True, tie_embeddings=True),
     "window": dict(norm="layernorm", activation="gelu", position="learned",
                    layer_windows=(None, 8), attn_scale=1.0),
+    # gpt-neox / Pythia: parallel residual with two norms, a quarter of each
+    # head rotated, biased LayerNorm and projections, untied head
+    "neox": dict(norm="layernorm", activation="gelu", position="rope",
+                 parallel_residual=True, rotary_pct=0.25, tie_embeddings=False),
 }
 TRAIN_CONFIG = {
     "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
