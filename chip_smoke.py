@@ -27,7 +27,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    choice at the GQA full-table shape, where it splits the decode kernel
    and not the packed one (back to back and replayed from a CUDA graph),
    and the main packed step's 14 decode rows and two prompt chunks timed
-   alone on both routes; the
+   alone on both routes; the same parity (routes, tolerances, bitwise
+   repeats; packed, decode, the int8 mode, bf16 and fp32) at the attention
+   widths of phi-3-mini (32/32, D 96), Pythia-1B (8/8, D 256) and
+   Pythia-2.8B (32/32, D 80), a GQA 16/4 case at D 256 and pages of 16
+   slots at D 80, each kernel timed on both routes at each width's serving
+   shapes beside its bound, its plain version and the library composite;
+   the
    block-sparse forward at Llama-2-7B's attention widths (B 1,
    S 4096, H 32, D 128, block 64) over the bigbird (seed 0), fixed,
    bslongformer, variable and local-window layouts, causal and not, at D 64,
@@ -137,7 +143,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    8192, vocab 50304, a quarter of each head rotated, parallel residual,
    biased LayerNorm, gelu, untied head), the same gates: losses finite and
    falling, every kernel's launches exact (flash 16 x gas x steps, all on
-   ``wgmma`` at D 256; the fused loss and Adam as in phase 6).
+   ``wgmma`` at D 256; the fused loss and Adam as in phase 6);
+16. serving at the new head dims — phase 4's run with phi-3-mini-4k
+   (hidden 3072, 32 layers, 32/32 heads of D 96, ffn 8192 swiglu, vocab
+   32064) and Pythia-1B (phase 15's config, D 256) at their published
+   sizes, nothing cut (KV pools of 1024 blocks of 32 slots: 12 GiB and 4
+   GiB): phase 4's gates, every packed and decode launch on ``sm90``, a
+   whole number per layer, and the engine resolving ``pallas`` for both
+   paths by its heuristic;
+17. serving path parity at the new head dims — phases 5 and 13 at 2
+   layers of the widths of phi-3-mini, Pythia-1B and Pythia-2.8B (D 80):
+   the kernel path's packed-step and decode-step logits (and the int8
+   decode step's) within twice the einsum path's distance from float32,
+   each paged launch of the kernel path on ``sm90``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -386,50 +404,78 @@ def routed(pa, name):
     return {r: n for r, n in pa.route_counts[name].items() if n}
 
 
-def kernel_phase(pa):
-    """Parity of both kernels with their plain versions over the slice's
-    cases, each case reporting its route (bf16 and the int8 mode on sm90,
-    fp32 on the CUDA-core tile); two launches bitwise equal; returns the
-    timing rows at the main path's shapes, with both routes timed."""
-    rng = np.random.default_rng(2024)
+def both_routes(launch):
+    """A launch's time on each route, in turns (cuda_core, sm90, sm90,
+    cuda_core), the least of the two timings of each."""
+    t = {"sm90": [], "cuda_core": []}
+    for route in ("cuda_core", "sm90", "sm90", "cuda_core"):
+        t[route].append(cuda_ms(lambda: launch(route), iters=50))
+    return {r: min(v) for r, v in t.items()}
+
+
+def packed_launch(pa, args, sm):
+    """A launch of the packed kernel on ``args`` (stats off) by route and
+    split, through its launch helper."""
+    return lambda route, split_tiles=None: pa.launch_paged_attention(
+        *args, torch.empty_like(args[0]), None, None, sm_scale=sm, route=route,
+        split_tiles=split_tiles)
+
+
+def decode_launch(pa, args, sm):
+    """A launch of the decode kernel (its int8 mode on ``(values, scales)``
+    pools) on ``args`` (layer 2, stats on) by route and split."""
+    q = args[0]
+    o, mo, lo = torch.empty_like(q), *(torch.empty(q.shape[:2], device=q.device)
+                                       for _ in range(2))
+    return lambda route, split_tiles=None: pa.launch_paged_flash_decode(
+        *args, o, mo, lo, layer=2, sm_scale=sm, route=route, split_tiles=split_tiles)
+
+
+def paged_rows(pa, pargs, dargs, iargs, errs):
+    """The three paged kernels timed at one shape through their launch
+    helpers on both routes (the sm90 time is the row's ``ms``), beside the
+    bound, the plain version and the library composite (gathered pages +
+    SDPA; int8: + ``dequantize_rows``): the packed kernel on ``pargs``
+    (stats off), the decode kernel on ``dargs`` and its int8 mode on
+    ``iargs`` (layer 2, stats on)."""
+    D = pargs[0].shape[-1]
+    sm = 1.0 / math.sqrt(D)
+    q, k, v, bt, start, chunk, kvl = pargs
+    nbytes, flops = packed_work(q, k, bt, start, chunk, kvl, stats=False)
+    cases = [("paged_attention", packed_launch(pa, pargs, sm), (nbytes, flops),
+              lambda: pa.paged_attention_ref(*pargs),
+              lambda: sdpa_packed(*pargs, sm))]
+    q, k, v, bt, pos, kvl = dargs
+    cases.append(("paged_flash_decode", decode_launch(pa, dargs, sm),
+                  decode_work(q, k, bt, pos, kvl, stats=True),
+                  lambda: pa.paged_flash_decode_ref(*dargs, layer=2, return_stats=True),
+                  lambda: sdpa_decode(*dargs, 2, sm)))
+    q, kp, vp, bt, pos, kvl = iargs
+    cases.append(("paged_flash_decode_int8", decode_launch(pa, iargs, sm),
+                  decode_int8_work(q, kp[0], bt, pos, kvl),
+                  lambda: pa.paged_flash_decode_ref(*iargs, layer=2, return_stats=True),
+                  lambda: sdpa_decode_int8(*iargs, 2, sm)))
+    rows = {}
+    for name, launch, (nbytes, flops), plain, library in cases:
+        routes = both_routes(launch)
+        b_ms, b_by = bound(nbytes, flops, q.dtype)
+        rows[name] = dict(ms=routes["sm90"], cuda_core_ms=routes["cuda_core"],
+                          plain_ms=cuda_ms(plain, iters=5), library_ms=cuda_ms(library, iters=5),
+                          bound_ms=b_ms, bound_by=b_by, max_abs_err=errs[name],
+                          bytes=nbytes, flops=flops)
+    return rows
+
+
+def paged_parity(pa, rng, packed_cases, decode_cases, main_packed, main_decode, tag):
+    """Both kernels and the int8 mode against their plain versions over
+    ``packed_cases`` and ``decode_cases`` (``(label, spec)``), bf16 and
+    fp32, each case reporting its route (bf16 and the int8 mode with bf16
+    queries on ``sm90``, fp32 on ``cuda_core``); at the main cases two
+    bf16 launches bitwise equal. Raises on a failure; returns each kernel's
+    error at the main case and its inputs there (bf16)."""
     ok = True
     errs = {"paged_attention": 0.0, "paged_flash_decode": 0.0,
             "paged_flash_decode_int8": 0.0}
-    S, Q, D, bs, B = 16, 128, 128, 32, 64
-    # a steady-state SplitFuse step of the slice: 14 decode rows over
-    # contexts of 130..1150 tokens, two 121-token prompt chunks (one at the
-    # start of its prompt, one continuing it), T = 256
-    kv_dec = rng.integers(130, 1151, 14)
-    main_packed = dict(S=S, Q=Q, Hq=32, Hk=32, D=D, bs=bs, B=B,
-                       kv_len=list(kv_dec) + [121, 800],
-                       chunk=[1] * 14 + [121, 121])
-    packed_cases = [
-        ("7b mixed step", main_packed),
-        ("7b prefill chunks + empty slot + partial page",
-         dict(S=4, Q=Q, Hq=32, Hk=32, D=D, bs=bs, B=B,
-              kv_len=[128, 300, 45, 0], chunk=[128, 77, 1, 0])),
-        ("gqa 32/8", dict(S=4, Q=Q, Hq=32, Hk=8, D=D, bs=bs, B=B,
-                          kv_len=[128, 301, 17, 0], chunk=[128, 128, 17, 0])),
-        # decode rows over all 64 table pages beside a prompt chunk over a
-        # full table (the rule splits none of a launch with prompt chunks;
-        # the decode case of this shape splits)
-        ("full 64-page table, decode rows and a prompt chunk",
-         dict(S=4, Q=Q, Hq=32, Hk=8, D=D, bs=bs, B=B,
-              kv_len=[2048, 2048, 1900, 33], chunk=[1, 128, 1, 1])),
-    ]
-    kv_main = rng.integers(128, 1153, S)
-    kv_main[3], kv_main[7] = 0, 33       # an empty slot, a partial page
-    main_decode = dict(S=S, Hq=32, Hk=32, D=D, bs=bs, B=B, L=4,
-                       kv_len=list(kv_main), pos=list(kv_main))
-    decode_cases = [
-        ("7b decode, frozen pool (pos = kv_len)", main_decode),
-        ("gqa 32/8, pos inside the context",
-         dict(S=4, Hq=32, Hk=8, D=D, bs=bs, B=B, L=4,
-              kv_len=[0, 31, 400, 1000], pos=[0, 20, 402, 500])),
-        ("gqa 32/8, all 64 table pages, split across blocks",
-         dict(S=4, Hq=32, Hk=8, D=D, bs=bs, B=B, L=4,
-              kv_len=[2048, 2048, 1999, 64], pos=[2047, 2048, 1999, 64])),
-    ]
 
     def check(label, name, route_want, got, want, dtype, stats):
         nonlocal ok
@@ -468,7 +514,7 @@ def kernel_phase(pa):
             if spec is main_packed and dtype == torch.bfloat16:
                 errs["paged_attention"] = err
                 timed["paged_attention"] = ("packed", args)
-                bitwise("paged_attention (7b mixed step)",
+                bitwise(f"paged_attention ({tag} mixed step)",
                         lambda: pa.paged_attention(*args, return_stats=True))
         for name, spec in decode_cases:
             q, k, v, bt, pos, kvl = decode_case(rng, dtype, **spec)
@@ -482,7 +528,7 @@ def kernel_phase(pa):
             if spec is main_decode and dtype == torch.bfloat16:
                 errs["paged_flash_decode"] = err
                 timed["paged_flash_decode"] = ("decode", (q, k, v, bt, pos, kvl))
-                bitwise("paged_flash_decode (7b decode)",
+                bitwise(f"paged_flash_decode ({tag} decode)",
                         lambda: pa.paged_flash_decode(q, k, v, bt, pos, kvl, layer=2,
                                                       return_stats=True))
             # the int8 mode on this case's pools, quantized by quantize_rows
@@ -496,36 +542,66 @@ def kernel_phase(pa):
             if spec is main_decode and dtype == torch.bfloat16:
                 errs["paged_flash_decode_int8"] = err
                 timed["paged_flash_decode_int8"] = (q, kp, vp, bt, pos, kvl)
-                bitwise("paged_flash_decode_int8 (7b decode)",
+                bitwise(f"paged_flash_decode_int8 ({tag} decode)",
                         lambda: pa.paged_flash_decode(q, kp, vp, bt, pos, kvl, layer=2,
                                                       return_stats=True))
     if not ok:
-        raise SystemExit("kernel parity FAILED (see lines above)")
+        raise SystemExit(f"kernel parity FAILED at {tag} (see lines above)")
+    return errs, timed
 
-    # each kernel timed through its launch helper on both routes at the main
-    # shape, in turns (cuda_core, sm90, sm90, cuda_core)
-    def both_routes(launch):
-        t = {"sm90": [], "cuda_core": []}
-        for route in ("cuda_core", "sm90", "sm90", "cuda_core"):
-            t[route].append(cuda_ms(lambda: launch(route), iters=50))
-        return {r: min(v) for r, v in t.items()}
 
-    rows = {}
+def kernel_phase(pa):
+    """Parity of both kernels with their plain versions over the slice's
+    cases, each case reporting its route (bf16 and the int8 mode on sm90,
+    fp32 on the CUDA-core tile); two launches bitwise equal; returns the
+    timing rows at the main path's shapes, with both routes timed."""
+    rng = np.random.default_rng(2024)
+    S, Q, D, bs, B = 16, 128, 128, 32, 64
+    # a steady-state SplitFuse step of the slice: 14 decode rows over
+    # contexts of 130..1150 tokens, two 121-token prompt chunks (one at the
+    # start of its prompt, one continuing it), T = 256
+    kv_dec = rng.integers(130, 1151, 14)
+    main_packed = dict(S=S, Q=Q, Hq=32, Hk=32, D=D, bs=bs, B=B,
+                       kv_len=list(kv_dec) + [121, 800],
+                       chunk=[1] * 14 + [121, 121])
+    packed_cases = [
+        ("7b mixed step", main_packed),
+        ("7b prefill chunks + empty slot + partial page",
+         dict(S=4, Q=Q, Hq=32, Hk=32, D=D, bs=bs, B=B,
+              kv_len=[128, 300, 45, 0], chunk=[128, 77, 1, 0])),
+        ("gqa 32/8", dict(S=4, Q=Q, Hq=32, Hk=8, D=D, bs=bs, B=B,
+                          kv_len=[128, 301, 17, 0], chunk=[128, 128, 17, 0])),
+        # decode rows over all 64 table pages beside a prompt chunk over a
+        # full table (the rule splits none of a launch with prompt chunks;
+        # the decode case of this shape splits)
+        ("full 64-page table, decode rows and a prompt chunk",
+         dict(S=4, Q=Q, Hq=32, Hk=8, D=D, bs=bs, B=B,
+              kv_len=[2048, 2048, 1900, 33], chunk=[1, 128, 1, 1])),
+    ]
+    kv_main = rng.integers(128, 1153, S)
+    kv_main[3], kv_main[7] = 0, 33       # an empty slot, a partial page
+    main_decode = dict(S=S, Hq=32, Hk=32, D=D, bs=bs, B=B, L=4,
+                       kv_len=list(kv_main), pos=list(kv_main))
+    decode_cases = [
+        ("7b decode, frozen pool (pos = kv_len)", main_decode),
+        ("gqa 32/8, pos inside the context",
+         dict(S=4, Hq=32, Hk=8, D=D, bs=bs, B=B, L=4,
+              kv_len=[0, 31, 400, 1000], pos=[0, 20, 402, 500])),
+        ("gqa 32/8, all 64 table pages, split across blocks",
+         dict(S=4, Hq=32, Hk=8, D=D, bs=bs, B=B, L=4,
+              kv_len=[2048, 2048, 1999, 64], pos=[2047, 2048, 1999, 64])),
+    ]
+
+    errs, timed = paged_parity(pa, rng, packed_cases, decode_cases, main_packed, main_decode,
+                               "7b")
+
+    rows = paged_rows(pa, timed["paged_attention"][1], timed["paged_flash_decode"][1],
+                      timed["paged_flash_decode_int8"], errs)
     sm = 1.0 / math.sqrt(D)
-    _, args = timed["paged_attention"]
-    q, k, v, bt, start, chunk, kvl = args
-    nbytes, flops = packed_work(q, k, bt, start, chunk, kvl, stats=False)
-    b_ms, b_by = bound(nbytes, flops, q.dtype)
-    packed = lambda a: (lambda route, split_tiles=None: pa.launch_paged_attention(
-        *a, torch.empty_like(a[0]), None, None, sm_scale=sm, route=route,
-        split_tiles=split_tiles))
-    routes = both_routes(packed(args))
-    rows["paged_attention"] = dict(
-        ms=routes["sm90"], cuda_core_ms=routes["cuda_core"],
-        plain_ms=cuda_ms(lambda: pa.paged_attention_ref(*args), iters=5),
-        library_ms=cuda_ms(lambda: sdpa_packed(*args, sm), iters=5),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=errs["paged_attention"],
-        bytes=nbytes, flops=flops)
+    args = timed["paged_attention"][1]
+    q = args[0]
+    packed = lambda a: packed_launch(pa, a, sm)
+    decode = lambda *a: decode_launch(pa, a, sm)
     # the main step's halves: its 14 decode rows alone, its two prompt chunks
     for half, part in (("14 decode rows", slice(0, 14)), ("2 prompt chunks", slice(14, 16))):
         sub = tuple(t[part].contiguous() if i not in (1, 2) else t
@@ -534,55 +610,11 @@ def kernel_phase(pa):
         hr = both_routes(packed(sub))
         log(f"timing paged_attention, the main step's {half} alone: sm90 {hr['sm90']:.4f} ms, "
             f"cuda_core {hr['cuda_core']:.4f} ms, bound {bound(hb, hf, q.dtype)[0]:.4f} ms")
-    _, (q, k, v, bt, pos, kvl) = timed["paged_flash_decode"]
-    nbytes, flops = decode_work(q, k, bt, pos, kvl, stats=True)
-    b_ms, b_by = bound(nbytes, flops, q.dtype)
-
-    def decode(q, kk, vv, bt, pos, kvl):
-        """A launch of the decode kernel on these inputs (layer 2, stats on)."""
-        o, mo, lo = torch.empty_like(q), *(torch.empty(q.shape[:2], device=q.device)
-                                           for _ in range(2))
-        return lambda route, split_tiles=None: pa.launch_paged_flash_decode(
-            q, kk, vv, bt, pos, kvl, o, mo, lo, layer=2, sm_scale=sm, route=route,
-            split_tiles=split_tiles)
-
-    dargs = (q, k, v, bt, pos, kvl)
-    routes = both_routes(decode(*dargs))
-    rows["paged_flash_decode"] = dict(
-        ms=routes["sm90"], cuda_core_ms=routes["cuda_core"],
-        plain_ms=cuda_ms(lambda: pa.paged_flash_decode_ref(
-            *dargs, layer=2, return_stats=True), iters=5),
-        library_ms=cuda_ms(lambda: sdpa_decode(*dargs, 2, sm), iters=5),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=errs["paged_flash_decode"],
-        bytes=nbytes, flops=flops)
-    q, kp, vp, bt, pos, kvl = iargs = timed["paged_flash_decode_int8"]
-    nbytes, flops = decode_int8_work(q, kp[0], bt, pos, kvl)
-    b_ms, b_by = bound(nbytes, flops, q.dtype)
-    routes = both_routes(decode(*iargs))
-    rows["paged_flash_decode_int8"] = dict(
-        ms=routes["sm90"], cuda_core_ms=routes["cuda_core"],
-        plain_ms=cuda_ms(lambda: pa.paged_flash_decode_ref(
-            *iargs, layer=2, return_stats=True), iters=5),
-        library_ms=cuda_ms(lambda: sdpa_decode_int8(*iargs, 2, sm), iters=5),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=errs["paged_flash_decode_int8"],
-        bytes=nbytes, flops=flops)
+    dargs = timed["paged_flash_decode"][1]
+    iargs = timed["paged_flash_decode_int8"]
     launches = {"paged_attention": packed(args),
                 "paged_flash_decode": decode(*dargs),
                 "paged_flash_decode_int8": decode(*iargs)}
-
-    def in_turns(choices, launch_of):
-        """Each kernel's time under each choice, back to back (``cuda_ms``)
-        and replayed from a CUDA graph (``graph_ms``), the choices in turns
-        (a b .. b a), the least of the two timings of each."""
-        t = {n: {} for n in launch_of}
-        for c in tuple(choices) + tuple(reversed(choices)):
-            for name, launch in launch_of.items():
-                ms = (cuda_ms(lambda: launch(c), iters=50), graph_ms(lambda: launch(c)))
-                t[name][c] = tuple(map(min, zip(ms, t[name].get(c, ms))))
-        return t
-
-    def times(t):
-        return f"{t[0]:.4f} ms (graph {t[1]:.4f})"
 
     # the split rule's choice against runs of 4 and 8 tiles (256 and 512
     # slots) at the main shapes, where the rule takes no split
@@ -594,34 +626,136 @@ def kernel_phase(pa):
     # decode kernel's contexts (4 sequences: 32 (sequence, kv head) pairs) and
     # not the packed kernel's (a 128-token prompt chunk beside the decode
     # rows): the rule's choice against the other side, one split or the
-    # decode kernel's splits
+    # splits one wave of the launch's blocks holds
     sargs = decode_case(rng, torch.bfloat16, **decode_cases[2][1])
     fargs = packed_case(rng, torch.bfloat16, **packed_cases[3][1])
-    q, k, v, bt = sargs[:4]
-    (S, Hq), (Hk, B) = q.shape[:2], (k.shape[2], bt.shape[1])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    whole = -(-B * bs // pa.SM90_TILE_SLOTS)
+    q, k, v = sargs[:3]
     for name, Qn, launch in (
             ("paged_attention", fargs[0].shape[1], packed(fargs)),
             ("paged_flash_decode", 1, decode(*sargs)),
             ("paged_flash_decode_int8", 1, decode(q, *int8_pools(k, v), *sargs[3:]))):
-        rule = pa.split_tiles_for(S, Qn, Hk, B, bs, sms)
-        other = whole if rule < whole else pa.split_tiles_for(S, 1, Hk, B, bs, sms)
-        c = in_turns((rule, other), {name: lambda st: launch("sm90", st)})[name]
-        n = {st: pa.sm90_grid(S, Qn, Hq // Hk, Hk, B, bs, st)[2] for st in (rule, other)}
-        log(f"timing {name} by KV split where the rule splits the decode kernel (gqa 32/8, "
-            f"all 64 table pages, {S * Hk} pairs): the rule's {rule} tiles x {n[rule]} "
-            f"splits {times(c[rule])}, against {other} tiles x {n[other]} splits "
-            f"{times(c[other])} (rule / other {c[rule][0] / c[other][0]:.3f}, graph "
-            f"{c[rule][1] / c[other][1]:.3f})")
+        # the decode kernel against one split and against runs of 3 tiles
+        # (11 splits: a wave of its instantiation's three blocks an SM)
+        split_choices(pa, name, launch, sargs[0], sargs[1], sargs[3], Qn,
+                      "gqa 32/8, all 64 table pages", others=(3,))
+    log_paged_rows(rows, "main-path shape")
+    return rows
+
+
+def in_turns(choices, launch_of):
+    """Each kernel's time under each choice, back to back (``cuda_ms``)
+    and replayed from a CUDA graph (``graph_ms``), the choices in turns
+    (a b .. b a), the least of the two timings of each."""
+    t = {n: {} for n in launch_of}
+    for c in tuple(choices) + tuple(reversed(choices)):
+        for name, launch in launch_of.items():
+            ms = (cuda_ms(lambda: launch(c), iters=50), graph_ms(lambda: launch(c)))
+            t[name][c] = tuple(map(min, zip(ms, t[name].get(c, ms))))
+    return t
+
+
+def times(t):
+    return f"{t[0]:.4f} ms (graph {t[1]:.4f})"
+
+
+def split_choices(pa, name, launch, q, k_pool, block_table, Qn, label, others=()):
+    """One sm90 launch of ``name`` timed by KV split (``in_turns``): the
+    split rule's choice against the other side of it (one split where the
+    rule splits, else the splits of a one-query launch) and against runs of
+    each count of tiles in ``others``."""
+    Hq, (Hk, bs), B = q.shape[-2], k_pool.shape[-3:-1], block_table.shape[1]
+    S, D = q.shape[0], q.shape[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    whole = -(-B * bs // pa.SM90_TILE_SLOTS)
+    per_sm = pa.sm90_blocks_per_sm(D, Hq // Hk, decode=Qn == 1, int8=name.endswith("int8"))
+    rule = pa.split_tiles_for(S, Qn, Hk, B, bs, sms, per_sm)
+    choices = [rule, whole if rule < whole else
+               pa.split_tiles_for(S, 1, Hk, B, bs, sms, per_sm)]
+    choices += list(others)
+    choices = list(dict.fromkeys(choices))
+    if len(choices) == 1:
+        choices.append(-(-whole // 2))     # where the rule and one split agree: two splits
+    c = in_turns(choices, {name: lambda st: launch("sm90", st)})[name]
+    n = {st: pa.sm90_grid(S, Qn, Hq // Hk, Hk, B, bs, st)[2] for st in choices}
+    against = ", ".join(f"{st} tiles x {n[st]} splits {times(c[st])} (rule / this "
+                        f"{c[rule][0] / c[st][0]:.3f}, graph {c[rule][1] / c[st][1]:.3f})"
+                        for st in choices[1:])
+    log(f"timing {name} by KV split ({label}, {S * Hk} pairs, {per_sm} blocks per SM): "
+        f"the rule's {rule} tiles x {n[rule]} splits {times(c[rule])}, against {against}")
+
+
+def log_paged_rows(rows, label):
     for name, r in rows.items():
-        log(f"timing {name} (bf16, main-path shape): kernel on the sm90 route {r['ms']:.4f} ms, "
+        log(f"timing {name} (bf16, {label}): kernel on the sm90 route {r['ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"({r['bytes']} B, {r['flops']} flop), plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms")
-        log(f"timing {name} on the cuda_core route: {r['cuda_core_ms']:.4f} ms "
+            f"library {r['library_ms']:.4f} ms (kernel / library "
+            f"{r['ms'] / r['library_ms']:.3f})")
+        log(f"timing {name} on the cuda_core route at {label}: {r['cuda_core_ms']:.4f} ms "
             f"(sm90 / cuda_core {r['ms'] / r['cuda_core_ms']:.3f})")
-    return rows
+
+
+#: the paged kernels' head dims past 64 and 128 at published attention
+#: widths (phase 3): phi-3-mini and Pythia-1B (phase 16 serves them), and
+#: Pythia-2.8B
+PAGED_WIDE = {"phi-3-mini 32/32 D96": dict(Hq=32, Hk=32, D=96),
+              "pythia-1b 8/8 D256": dict(Hq=8, Hk=8, D=256),
+              "pythia-2.8b 32/32 D80": dict(Hq=32, Hk=32, D=80)}
+
+
+def wide_paged_phase(pa):
+    """Phase 3 at the head dims 96, 256 and 80: at each width a serving
+    step (16 sequences: 14 decode rows, two 121-token prompt chunks) and a
+    decode batch (16 sequences, an empty slot, a partial page), plus a GQA
+    16/4 case at D 256 and pages of 16 slots at D 80, each through
+    ``paged_parity`` (routes, tolerances, bitwise repeats); at each width
+    each kernel timed on both routes at the serving step and decode batch
+    (``paged_rows``). Returns the timing rows by width."""
+    rng = np.random.default_rng(2025)
+    S, Q, bs, B = 16, 128, 32, 64
+    by_width = {}
+    for label, heads in PAGED_WIDE.items():
+        kv_dec = rng.integers(130, 1151, 14)
+        main_packed = dict(S=S, Q=Q, bs=bs, B=B, kv_len=list(kv_dec) + [121, 800],
+                           chunk=[1] * 14 + [121, 121], **heads)
+        kv_main = rng.integers(128, 1153, S)
+        kv_main[3], kv_main[7] = 0, 33       # an empty slot, a partial page
+        main_decode = dict(S=S, bs=bs, B=B, L=4, kv_len=list(kv_main), pos=list(kv_main),
+                           **heads)
+        packed_cases = [(f"{label} mixed step", main_packed)]
+        decode_cases = [(f"{label} decode, frozen pool (pos = kv_len)", main_decode)]
+        if heads["D"] == 256:
+            gqa = dict(Hq=16, Hk=4, D=256)
+            packed_cases.append(("gqa 16/4 D256", dict(
+                S=4, Q=Q, bs=bs, B=B, kv_len=[128, 301, 17, 0], chunk=[128, 128, 17, 0], **gqa)))
+            decode_cases.append(("gqa 16/4 D256, pos inside the context, split across blocks",
+                                 dict(S=4, bs=bs, B=B, L=4, kv_len=[0, 31, 400, 2048],
+                                      pos=[0, 20, 402, 2047], **gqa)))
+        if heads["D"] == 80:
+            packed_cases.append(("pages of 16 slots D80", dict(
+                S=4, Q=Q, bs=16, B=128, kv_len=[128, 300, 45, 0], chunk=[128, 77, 1, 0],
+                **heads)))
+            decode_cases.append(("pages of 16 slots D80, all 128 table pages, split across "
+                                 "blocks", dict(S=4, bs=16, B=128, L=4, kv_len=[2048, 0, 33, 700],
+                                                pos=[2047, 0, 33, 500], **heads)))
+        errs, timed = paged_parity(pa, rng, packed_cases, decode_cases, main_packed,
+                                   main_decode, label)
+        by_width[label] = paged_rows(pa, timed["paged_attention"][1],
+                                     timed["paged_flash_decode"][1],
+                                     timed["paged_flash_decode_int8"], errs)
+        log_paged_rows(by_width[label], f"{label} serving shape")
+        if heads["D"] == 256:
+            # the decode batch's 128 pairs nearly fill a wave of one block
+            # per SM: the rule's single split against two
+            dargs = timed["paged_flash_decode"][1]
+            sm = 1.0 / math.sqrt(heads["D"])
+            for name, args in (("paged_flash_decode", dargs),
+                               ("paged_flash_decode_int8", timed["paged_flash_decode_int8"])):
+                split_choices(pa, name, decode_launch(pa, args, sm), args[0],
+                              pa.pool_values(args[1]), args[3], 1, f"{label} decode batch")
+        del timed
+        torch.cuda.empty_cache()
+    return by_width
 
 
 def flash_work(q, k, causal, passes):
@@ -1321,13 +1455,14 @@ def device_time_breakdown(prof, wall_s: float, top: int = 15) -> None:
 
 
 def slice_phase(pa, card, profile=False, kv=None, num_layers=None,
-                n_requests=16, new_tokens=128):
+                n_requests=16, new_tokens=128, name="Llama-2-7B", cfg=None):
     """Serve ``n_requests`` seeded prompts (lengths 128..1024) for
-    ``new_tokens`` each through ``LLMServer`` at Llama-2-7B widths with the
-    KV storage ``kv`` (``kv_cache_dtype``). Kernel launch counts are reset
-    just before and read just after the run. Gates: every request finishes
-    by length with in-vocabulary tokens, the server drains, KV conservation
-    holds. Returns what the run measured."""
+    ``new_tokens`` each through ``LLMServer`` at the widths of ``name``
+    (``cfg``; default Llama-2-7B) with the KV storage ``kv``
+    (``kv_cache_dtype``). Kernel launch counts are reset just before and
+    read just after the run. Gates: every request finishes by length with
+    in-vocabulary tokens, the server drains, KV conservation holds. Returns
+    what the run measured."""
     from deepspeed_tpu_torch.accelerator import get_accelerator
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceEngineConfig)
@@ -1336,17 +1471,19 @@ def slice_phase(pa, card, profile=False, kv=None, num_layers=None,
 
     acc = get_accelerator()
     over = {} if num_layers is None else {"num_layers": num_layers}
-    cfg = llama_config("7b", dtype=torch.bfloat16, **over)
+    cfg = (llama_config("7b", dtype=torch.bfloat16, **over) if cfg is None
+           else dataclasses.replace(cfg, **over))
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     engine = InferenceEngineV2(
         cfg, params, RaggedInferenceEngineConfig(**SLICE, kv_cache_dtype=kv),
         device="cuda")
     acc.synchronize()
-    tag = f"slice[kv {kv or 'bf16'}]"
-    log(f"{tag}: Llama-2-7B widths (hidden {cfg.hidden_size}, {cfg.num_layers} "
-        f"layers, {cfg.num_heads} heads, ffn {cfg.intermediate_size}, vocab "
-        f"{cfg.vocab_size}), bf16 seeded weights, KV pool {engine.kv.k.dtype} "
+    tag = f"slice[{name}, kv {kv or 'bf16'}]"
+    log(f"{tag}: {name} widths (hidden {cfg.hidden_size}, {cfg.num_layers} "
+        f"layers, {cfg.num_heads}/{cfg.kv_heads} heads of D {cfg.head_dim}, ffn "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}), bf16 seeded weights, "
+        f"KV pool {engine.kv.k.dtype} "
         f"{engine.kv.pool_nbytes() / 2**30:.4f} GiB ({engine.kv.pool_nbytes()} B), "
         f"attn_impl {engine.attn_impl}, decode_attn {engine.decode_attn_impl} "
         f"({engine.decode_attn_source}), set-up {time.perf_counter() - t0:.1f} s")
@@ -1457,20 +1594,53 @@ def kv_quant_phase(pa, card, bf16_run, profile=False):
     return {"paged_flash_decode_int8": launches["paged_flash_decode_int8"]}
 
 
+def wide_serving_phase(pa, card, models, profile=False):
+    """Phase 16: phi-3-mini-4k (head dim 96) and Pythia-1B (256) served at
+    their published sizes through ``slice_phase`` (16 requests, 128 new
+    tokens each, 1024 KV blocks of 32 slots), with phase 4's gates and
+    theirs: both paged kernels launch, every launch on ``sm90``, a whole
+    number per layer, and the engine resolves the kernels on both paths by
+    its heuristic. Returns each model's launches."""
+    out = {}
+    for name in ("phi-3-mini", "Pythia-1B"):
+        run = slice_phase(pa, card, profile=profile, name=name, cfg=models[name])
+        layers = run["cfg"].num_layers
+        checks = {"engine resolves pallas / pallas (heuristic)":
+                  run["resolution"] == ("pallas", "pallas", "heuristic")}
+        for kernel in ("paged_attention", "paged_flash_decode"):
+            n = run["launches"][kernel]
+            checks[f"{kernel} launched {n} times, all on sm90, a whole number per layer"] = (
+                n > 0 and n % layers == 0
+                and run["routes"][kernel] == {"sm90": n, "cuda_core": 0})
+        log(f"serving {name} (D {run['cfg'].head_dim}): " + ", ".join(
+            f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+        if not all(checks.values()):
+            raise SystemExit(f"serving {name} FAILED")
+        out[name] = run["launches"]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 5: kernel path vs einsum path through the model functions
 # ---------------------------------------------------------------------------
 
 
-def path_phase():
+def path_phase(cfg=None, name="Llama-2-7B"):
+    """Phase 5 (Llama-2-7B widths at 4 layers) and 17 (``cfg``): one packed
+    step and one fused decode step / chunk through the kernel path (every
+    paged launch on ``sm90``, once per layer), the einsum path in bf16 and
+    the einsum path in float32 on identical pools; the kernel path's logits
+    within ``NOISE_FACTOR`` x the einsum path's distance from float32."""
     from deepspeed_tpu_torch.inference.v2 import model
     from deepspeed_tpu_torch.inference.v2.ragged import RaggedBatchWrapper
     from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import \
         DSSequenceDescriptor
     from deepspeed_tpu_torch.models import init_params, llama_config
+    from deepspeed_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
-    cfg = llama_config("7b", num_layers=4, dtype=torch.bfloat16)
+    if cfg is None:
+        cfg = llama_config("7b", num_layers=4, dtype=torch.bfloat16)
     params = init_params(cfg, seed=1, device=dev, dtype=torch.bfloat16)
     S, bs, B = 8, 32, 64
     rng = np.random.default_rng(11)
@@ -1503,18 +1673,21 @@ def path_phase():
     params32 = _cast(params, torch.float32)
     runs = {"kernel": ("pallas", cfg, params), "einsum": ("einsum", cfg, params),
             "fp32": ("einsum", cfg32, params32)}
-    pools, packed = {}, {}
-    for name, (impl, c, p) in runs.items():
+    pools, packed, sm90 = {}, {}, {}
+    for run, (impl, c, p) in runs.items():
         kk, vv = k0.to(c.dtype, copy=True), v0.to(c.dtype, copy=True)
-        packed[name], _, _ = model.ragged_forward(
+        pa.reset_launch_counts()
+        packed[run], _, _ = model.ragged_forward(
             p, c, kk, vv, *[t(getattr(batch, f)) for f in fields],
             attn_impl=impl)
-        pools[name] = (kk, vv)
+        sm90[run] = pa.route_counts["paged_attention"]["sm90"]
+        pools[run] = (kk, vv)
     dist = lambda a, b: (packed[a] - packed[b]).abs().max().item()
     d_logits, noise = dist("kernel", "einsum"), dist("einsum", "fp32")
     agree = (packed["kernel"].argmax(-1) == packed["einsum"].argmax(-1)
              ).float().mean().item()
-    log(f"path parity packed step (4 layers, 8 seqs, ctx 100..900): "
+    tag = f"{name} widths, {cfg.num_layers} layers, D {cfg.head_dim}"
+    log(f"path parity packed step ({tag}, 8 seqs, ctx 100..900): "
         f"max|dlogits| kernel-einsum={d_logits:.3e}, einsum-fp32={noise:.3e}, "
         f"kernel-fp32={dist('kernel', 'fp32'):.3e} (need kernel-einsum <= "
         f"{NOISE_FACTOR:g} x einsum-fp32; logits max "
@@ -1527,43 +1700,53 @@ def path_phase():
     active = torch.ones(S, dtype=torch.bool, device=dev)
     W = 16
     step_logits, toks = {}, {}
-    for name, (impl, c, p) in runs.items():
-        kk, vv = pools[name]
+    for run, (impl, c, p) in runs.items():
+        kk, vv = pools[run]
         wk = torch.zeros((c.num_layers, W, S, c.kv_heads, c.head_dim),
                          dtype=c.dtype, device=dev)
         wv = torch.zeros_like(wk)
-        step_logits[name] = model.decode_step(p, c, kk, vv, wk, wv, first,
-                                              pos0, pos0, bt, active, 0, impl)
-        toks[name], _, _ = model.decode_loop(p, c, kk, vv, first, pos0, bt,
-                                             active, None, 1.0, n_steps=W,
-                                             attn_impl=impl)
+        pa.reset_launch_counts()
+        step_logits[run] = model.decode_step(p, c, kk, vv, wk, wv, first,
+                                             pos0, pos0, bt, active, 0, impl)
+        sm90[run] = (sm90[run], pa.route_counts["paged_flash_decode"]["sm90"])
+        toks[run], _, _ = model.decode_loop(p, c, kk, vv, first, pos0, bt,
+                                            active, None, 1.0, n_steps=W,
+                                            attn_impl=impl)
     sdist = lambda a, b: (step_logits[a] - step_logits[b]).abs().max().item()
     d_step, step_noise = sdist("kernel", "einsum"), sdist("einsum", "fp32")
     tok_agree = lambda a, b: (toks[a] == toks[b]).float().mean().item()
-    log(f"path parity decode step: max|dlogits| kernel-einsum={d_step:.3e}, "
+    log(f"path parity decode step ({tag}): max|dlogits| kernel-einsum={d_step:.3e}, "
         f"einsum-fp32={step_noise:.3e}, kernel-fp32={sdist('kernel', 'fp32'):.3e}; "
         f"decode_loop {W} greedy steps, token agreement kernel-einsum "
         f"{tok_agree('kernel', 'einsum'):.3f}, kernel-fp32 "
         f"{tok_agree('kernel', 'fp32'):.3f}, einsum-fp32 "
         f"{tok_agree('einsum', 'fp32'):.3f}")
-    if d_logits > NOISE_FACTOR * noise or d_step > NOISE_FACTOR * step_noise:
-        raise SystemExit("path parity FAILED")
+    # the kernel path ran each kernel once per layer on sm90; the others none
+    launched = sm90 == {"kernel": (cfg.num_layers, cfg.num_layers), "einsum": (0, 0),
+                        "fp32": (0, 0)}
+    log(f"path parity ({tag}): sm90 launches of the packed and decode kernel by run "
+        f"{sm90} {'ok' if launched else 'FAIL'}")
+    if d_logits > NOISE_FACTOR * noise or d_step > NOISE_FACTOR * step_noise or not launched:
+        raise SystemExit(f"path parity FAILED ({tag})")
+    del pools, runs, params
+    torch.cuda.empty_cache()
 
 
-def int8_path_phase():
-    """Phase 13: the int8 pools' decode through the model functions at
-    Llama-2-7B widths (2 layers, seeded weights): ``decode_step`` and a
-    16-step ``decode_loop`` on the kernel path (the decode kernel's int8
-    mode), the einsum path (gather + dequantize) in bf16, and the einsum
-    path in float32, each on its own copy of the same int8 pools. The kernel
-    path's logits must sit within twice the einsum path's distance from
-    float32."""
+def int8_path_phase(cfg=None, name="Llama-2-7B"):
+    """Phase 13 (Llama-2-7B widths) and 17 (``cfg``): the int8 pools'
+    decode through the model functions at 2 layers, seeded weights:
+    ``decode_step`` and a 16-step ``decode_loop`` on the kernel path (the
+    decode kernel's int8 mode, every launch on ``sm90``), the einsum path
+    (gather + dequantize) in bf16, and the einsum path in float32, each on
+    its own copy of the same int8 pools. The kernel path's logits must sit
+    within twice the einsum path's distance from float32."""
     from deepspeed_tpu_torch.inference.v2 import model
     from deepspeed_tpu_torch.models import init_params, llama_config
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
-    cfg = llama_config("7b", num_layers=2, dtype=torch.bfloat16)
+    cfg = (llama_config("7b", num_layers=2, dtype=torch.bfloat16) if cfg is None
+           else dataclasses.replace(cfg, num_layers=2))
     params = init_params(cfg, seed=2, device=dev, dtype=torch.bfloat16)
     S, bs, B, W = 8, 32, 64, 16
     rng = np.random.default_rng(13)
@@ -1582,30 +1765,31 @@ def int8_path_phase():
     copy = lambda p: tuple(t.clone() for t in p)
     step_logits, toks = {}, {}
     pa_counts = {}
-    for name, (impl, c, p) in runs.items():
+    for run, (impl, c, p) in runs.items():
         wk = torch.zeros((c.num_layers, W, S, c.kv_heads, c.head_dim), dtype=c.dtype,
                          device=dev)
-        step_logits[name] = model.decode_step(p, c, copy(kp), copy(vp), wk,
-                                              torch.zeros_like(wk), first, pos0, pos0,
-                                              bt, active, 0, impl)
+        step_logits[run] = model.decode_step(p, c, copy(kp), copy(vp), wk,
+                                             torch.zeros_like(wk), first, pos0, pos0,
+                                             bt, active, 0, impl)
         pa.reset_launch_counts()
-        toks[name], _, _ = model.decode_loop(p, c, copy(kp), copy(vp), first, pos0, bt,
-                                             active, None, 1.0, n_steps=W,
-                                             attn_impl=impl)
-        pa_counts[name] = pa.launch_counts["paged_flash_decode_int8"]
+        toks[run], _, _ = model.decode_loop(p, c, copy(kp), copy(vp), first, pos0, bt,
+                                            active, None, 1.0, n_steps=W,
+                                            attn_impl=impl)
+        pa_counts[run] = pa.route_counts["paged_flash_decode_int8"]["sm90"]
     sdist = lambda a, b: (step_logits[a] - step_logits[b]).abs().max().item()
     d_step, noise = sdist("kernel", "einsum"), sdist("einsum", "fp32")
     agree = lambda a, b: (toks[a] == toks[b]).float().mean().item()
     good = d_step <= NOISE_FACTOR * noise and pa_counts["kernel"] == W * cfg.num_layers
-    log(f"int8 path parity decode step (2 layers, 8 seqs, ctx 100..1900): "
+    log(f"int8 path parity decode step ({name} widths, 2 layers, D {cfg.head_dim}, 8 seqs, "
+        f"ctx 100..1900): "
         f"max|dlogits| kernel-einsum={d_step:.3e}, einsum-fp32={noise:.3e}, "
         f"kernel-fp32={sdist('kernel', 'fp32'):.3e} (need kernel-einsum <= "
         f"{NOISE_FACTOR:g} x einsum-fp32); decode_loop {W} greedy steps: int8 kernel "
-        f"launches {pa_counts['kernel']}, token agreement kernel-einsum "
+        f"launches on sm90 {pa_counts['kernel']}, token agreement kernel-einsum "
         f"{agree('kernel', 'einsum'):.3f}, kernel-fp32 {agree('kernel', 'fp32'):.3f}, "
         f"einsum-fp32 {agree('einsum', 'fp32'):.3f} {'ok' if good else 'FAIL'}")
     if not good:
-        raise SystemExit("int8 path parity FAILED")
+        raise SystemExit(f"int8 path parity FAILED ({name} widths)")
     del kp, vp, params, runs
     torch.cuda.empty_cache()
 
@@ -2450,9 +2634,12 @@ def main() -> int:
     log(f"build: {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in _build.build_logs.items():
+        kernel = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {src} {kernel}: {line.split(':', 1)[-1].strip()}")
 
     if args.cards:
         if args.cards > count:
@@ -2467,6 +2654,7 @@ def main() -> int:
 
     # phase 3
     rows = timed("3 paged", kernel_phase, pa)
+    timed("3 paged (D 96, 256, 80)", wide_paged_phase, pa)
     rows.update(timed("3 flash", flash_phase, fa))
     rows.update(timed("3 sparse", sparse_phase, sa, fa))
     rows.update(timed("3 adam", adam_phase, adam))
@@ -2486,14 +2674,22 @@ def main() -> int:
             raise SystemExit(f"slice: {kernel} launches {n} routed "
                              f"{bf16_run['routes'][kernel]}, not all on sm90 per layer")
     timed("5 serving parity", path_phase)
+    models = train_models()
     # phase 12, 13: int8 and float8 KV serving, int8 path parity
     launches.update(timed("12 int8/fp8 KV serving", kv_quant_phase, pa, card, bf16_run,
                           profile=args.profile))
     timed("13 int8 path parity", int8_path_phase)
     # phase 14: sparse attention through its entry point
     launches.update(timed("14 sparse path", sparse_path_phase, sa, sparse_op))
+    # phase 16, 17: serving phi-3-mini (D 96) and Pythia-1B (D 256) at full
+    # size, and serving path parity at the widths of D 96, 256 and 80
+    timed("16 serving (phi-3-mini, Pythia-1B)", wide_serving_phase, pa, card, models,
+                 profile=args.profile)
+    for name in ("phi-3-mini", "Pythia-1B", "Pythia-2.8B"):
+        cfg = dataclasses.replace(models[name], num_layers=2)
+        timed(f"17 serving parity ({name} widths)", path_phase, cfg, name)
+        timed(f"17 int8 path parity ({name} widths)", int8_path_phase, cfg, name)
     # phase 6, 7: the training path
-    models = train_models()
     launches.update(timed("6 training", train_phase, (fa, adam, fl), card, "TinyLlama-1.1B",
                           models["TinyLlama-1.1B"], profile=args.profile))
     # phase 15: Pythia-1B, its head dim 256 through the flash kernels

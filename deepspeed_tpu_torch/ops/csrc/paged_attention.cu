@@ -1,7 +1,10 @@
 // Paged attention over the blocked KV pool on the CUDA cores: the fp32
 // route of both paged kernels, and the route of shapes the sm90 design does
-// not take (page sizes other than 16, 32 or 64 slots, head dims other than
-// 64 and 128, tensors TMA cannot describe). bf16 on Hopper takes the sm90
+// not take (page sizes other than 16, 32 or 64 slots, GQA groups over 64
+// heads, tensors TMA cannot describe). Both routes build the head dims of
+// paged_head_dims.cuh: 64, 80, 96, 128 and 256; a lane owns D / 32 output
+// columns where D is a multiple of 64, pairs of columns in two chunks at
+// D 80 and 96. bf16 on Hopper takes the sm90
 // design in paged_attention_sm90.cu; ops/paged_attention.py::paged_route
 // chooses.
 //

@@ -14,6 +14,7 @@
 #include <type_traits>
 
 #include "int8_rows.cuh"
+#include "paged_head_dims.cuh"
 
 namespace {
 
@@ -22,11 +23,21 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
 // query rows per block: 16 for the packed kernel (amortizes each page read
-// over more rows); for decode the GQA group rounded up to 1, 2, 4 or 8, so
-// an MHA model's blocks hold one row's state and more of them fit an SM
+// over more rows), 8 past D 128 (the block's q_s and acc_s stay within the
+// 48 KB of static shared memory); for decode the GQA group rounded up to 1,
+// 2, 4 or 8, so an MHA model's blocks hold one row's state and more of them
+// fit an SM
 __host__ __device__ constexpr int packed_rows(int D) { return D <= 128 ? 16 : 8; }
 // V rows loaded ahead of their products in the PV loop
 constexpr int kVRows = 8;
+
+// the largest divisor of n that is at most cap
+__host__ __device__ constexpr int divisor_upto(int n, int cap) {
+  int best = 1;
+  for (int k = 1; k <= cap && k <= n; ++k)
+    if (n % k == 0) best = k;
+  return best;
+}
 
 template <typename T> struct Bits;
 template <> struct Bits<float> { using type = unsigned int; };
@@ -86,11 +97,15 @@ __device__ __forceinline__ void dequant(float* x, float s) {
   }
 }
 
-// N consecutive int8 values as floats, in one load of 2, 4 or 16 bytes
+// N consecutive int8 values as floats, in one load of 2, 4, 8 or 16 bytes
 template <int N>
 __device__ __forceinline__ void load_s8(const int8_t* p, float* out) {
-  static_assert(N == 2 || N == 4 || N == 16, "int8 rows load 2, 4 or 16 bytes");
-  if constexpr (N == 16) {
+  static_assert(N == 2 || N == 4 || N == 8 || N == 16, "int8 rows load 2, 4, 8 or 16 bytes");
+  if constexpr (N == 8) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    s8x4_to_floats(r.x, out);
+    s8x4_to_floats(r.y, out + 4);
+  } else if constexpr (N == 16) {
     const uint4 r = *reinterpret_cast<const uint4*>(p);
     s8x4_to_floats(r.x, out);
     s8x4_to_floats(r.y, out + 4);
@@ -168,18 +183,27 @@ struct Scales {
 template <typename T, typename KV, int D, int ROWS>
 __device__ __forceinline__ void attend_tile(const Problem& P, const Scales& Z) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  constexpr int DL = D / 32;                             // output columns per lane
+  // a lane's output columns: NC chunks of CW consecutive columns, chunk c at
+  // 32 CW c + CW lane. D a multiple of 64 takes one chunk of D / 32; D 80
+  // and 96 take pairs in two chunks, the second one's lanes past D idle
+  constexpr int CW = D % 64 == 0 ? D / 32 : 2;
+  constexpr int NC = (D + 32 * CW - 1) / (32 * CW);
+  constexpr int DL = NC * CW;                            // output columns per lane
+  constexpr bool kRagged = NC * 32 * CW != D;
   constexpr int VEC = static_cast<int>(16 / sizeof(KV)); // elements per K load
-  // loads a lane keeps in flight: decode (few rows of state) issues its whole
-  // K row and kVRows V rows ahead of use; the packed kernel's 16 rows of state
-  // leave no registers for that (on the H100 it ran ~20% slower with them:
-  // 254 registers against 168), so it keeps two K chunks and one V row
-  constexpr int KSTEP = ROWS >= 16 ? 2 : D / VEC;
+  // loads a lane keeps in flight: decode (few rows of state) issues up to 128
+  // values of its K row (all of it up to D 128) and kVRows V rows ahead of
+  // use; the packed kernel's 16 rows of state leave no registers for that (on
+  // the H100 it ran ~20% slower with them: 254 registers against 168), so it
+  // keeps two K chunks and one V row
+  constexpr int KSTEP = ROWS >= 16 ? 2 : divisor_upto(D / VEC, 128 / VEC);
   constexpr int VROWS = ROWS >= 16 ? 1 : kVRows;
   __shared__ float q_s[ROWS][D];
   __shared__ float m_s[kWarps][ROWS];
   __shared__ float l_s[kWarps][ROWS];
   __shared__ float acc_s[kWarps][ROWS][D];
+  static_assert(sizeof(q_s) + sizeof(m_s) + sizeof(l_s) + sizeof(acc_s) <= 48 * 1024,
+                "static shared memory of one block");
 
   const int s = blockIdx.x, h = blockIdx.y;
   const int G = P.Hq / P.Hk;
@@ -295,12 +319,21 @@ __device__ __forceinline__ void attend_tile(const Problem& P, const Scales& Z) {
 #pragma unroll
         for (int u = 0; u < VROWS; ++u) {
           if (j1 + u < n_j) {  // warp-uniform
-            const KV* vrow = vp + static_cast<long long>(j0 + j1 + u) * D + lane * DL;
-            if constexpr (kQuant) {
-              load_s8<DL>(vrow, vf[u]);
-              dequant<T, DL>(vf[u], __shfl_sync(0xffffffffu, v_sc, j1 + u));
-            } else {
-              load_floats<KV, DL>(vrow, vf[u]);
+            const KV* vrow = vp + static_cast<long long>(j0 + j1 + u) * D + lane * CW;
+            float vs = 1.f;
+            if constexpr (kQuant) vs = __shfl_sync(0xffffffffu, v_sc, j1 + u);
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              float* const dst = vf[u] + c * CW;
+              if (kRagged && 32 * CW * c + CW * lane >= D) {
+#pragma unroll
+                for (int e = 0; e < CW; ++e) dst[e] = 0.f;
+              } else if constexpr (kQuant) {
+                load_s8<CW>(vrow + 32 * CW * c, dst);
+                dequant<T, CW>(dst, vs);
+              } else {
+                load_floats<KV, CW>(vrow + 32 * CW * c, dst);
+              }
             }
           }
         }
@@ -332,7 +365,11 @@ __device__ __forceinline__ void attend_tile(const Problem& P, const Scales& Z) {
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
-    for (int e = 0; e < DL; ++e) acc_s[warp][r][lane * DL + e] = acc[r][e];
+    for (int c = 0; c < NC; ++c) {
+      if (kRagged && 32 * CW * c + CW * lane >= D) continue;
+#pragma unroll
+      for (int e = 0; e < CW; ++e) acc_s[warp][r][32 * CW * c + CW * lane + e] = acc[r][c * CW + e];
+    }
   }
   __syncthreads();
 
@@ -414,14 +451,12 @@ void launch(const Problem& P, const Scales& Z, int S, bool decode, cudaStream_t 
 
 template <bool INT8, typename T>
 int dispatch(const Problem& P, const Scales& Z, int S, int D, bool decode, cudaStream_t st) {
-  // only the head dims that run are instantiated (each costs build time):
-  // 128 serves Llama-2, 64 serves TinyLlama
-  switch (D) {
-    case 64: launch<INT8, T, 64>(P, Z, S, decode, st); break;
-    case 128: launch<INT8, T, 128>(P, Z, S, decode, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  // only the head dims of PAGED_HEAD_DIMS are instantiated (each costs
+  // build time); any other D is refused, never served by another D's kernel
+  return with_paged_head_dim(D, [&](auto dim) {
+    launch<INT8, T, decltype(dim)::value>(P, Z, S, decode, st);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // pools in the compute dtype, or (INT8, decode only) int8 with the scales Z;

@@ -4,8 +4,8 @@
 // sm90 design in paged_attention_sm90_int8.cu does not take). Its design and
 // arithmetic are described at the top of paged_attention.cu; the tile it
 // instantiates (attend_tile<T, int8_t, D, ROWS>) is in paged_attention.cuh.
-// A source of its own so that its 16 instantiations build in parallel with
-// the others.
+// A source of its own so that its 40 instantiations (8 per head dim) build
+// in parallel with the others.
 //
 // C interface (loaded with ctypes): pointers as void*, the stream as the
 // caller's cudaStream_t; the entry returns cudaGetLastError() after launch.

@@ -37,9 +37,10 @@
 //     1) blocks, and a block whose item has no live tile exits at once, so
 //     the host never reads kv_len, chunk_len or start_pos.
 //   * Block: one consumer warpgroup and one producer warp (160 threads), two
-//     blocks per SM at D 128 and three at D 64 (the decode kernel at GQA
-//     groups of at most 8 heads: an instantiation without the 64-row
-//     consumer, three and four, with fewer stages). The producer resolves each
+//     blocks per SM at D 80, 96 and 128, three at D 64 and one at D 256 (the
+//     decode kernel at GQA groups of at most 8 heads: an instantiation
+//     without the 64-row consumer, three, four and one, with fewer stages;
+//     PCfg). The producer resolves each
 //     page through the block-table row (32 entries per load, broadcast by
 //     shuffle) and stages a 64-slot tile per ring stage: 64 / bs pages, each
 //     a TMA box of bs rows x 64 d of the pool viewed as rows [L N Hk bs, D]
@@ -48,8 +49,19 @@
 //     Pages past the live ones repeat the last live page (masked), so every
 //     stage is whole. The int8 mode copies each page's int8 K and V rows and
 //     their bs fp32 scales with the bulk-copy engine.
+//   * Head dims (paged_head_dims.cuh): 64, 80, 96, 128 and 256. A tile is
+//     whole 64-wide boxes along D: D 80 and 96 take two, the second padded
+//     (TMA zero-fills it past D; the map's extent is D), and the products
+//     over D stop at D's last 16-wide slice, P V runs m64n80 / m64n96, the
+//     decode items' O^T a second 64-row block of D whose rows past D are
+//     dropped: the flash kernels' answer (flash_attention_sm90.cu). D 256
+//     takes four boxes; its stage of K and V is 64 KB and the 64-row
+//     consumer's O 128 registers a thread, so one block runs per SM and
+//     that consumer reads Q from a shared tile (S = Q K^T with both
+//     operands in shared memory), as the flash forward does at D 256.
 //   * The consumer holds its 64 rows of Q as bf16 A fragments in registers
-//     (rows without a valid query are zero) and per tile runs S = Q K^T on
+//     (D 256: in shared memory; rows without a valid query are zero) and
+//     per tile runs S = Q K^T on
 //     wgmma (K read K-major), the mask (slot <= position, slot < kv_len; only
 //     on tiles that reach a row's limit), the base-2 online softmax in
 //     registers, and O += P V with P re-packed as bf16 A fragments and V read
@@ -102,6 +114,12 @@ extern "C" int paged_attention_sm90_fwd(const void* q, const void* k_pool, const
   const PagedParams p = paged_params(q, o, m, l, block_table, start, chunk, kv_len, ws, S, Q,
                                      Hq, Hk, bs, B, row0, split_tiles, n_splits, sm_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_paged<64, false>(p, k_pool, v_pool, rows, st)
-                 : launch_paged<128, false>(p, k_pool, v_pool, rows, st);
+  return with_paged_head_dim(D, [&](auto dim) {
+    return launch_paged<decltype(dim)::value, false>(p, k_pool, v_pool, rows, st);
+  });
+}
+
+// blocks per SM of the instantiation a launch takes (blocks_per_sm)
+extern "C" int paged_sm90_blocks_per_sm(int D, int G, int decode) {
+  return blocks_per_sm<false>(D, G, decode != 0);
 }

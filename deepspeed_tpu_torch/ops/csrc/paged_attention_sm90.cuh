@@ -12,6 +12,7 @@
 #include <tuple>
 
 #include "int8_rows.cuh"
+#include "paged_head_dims.cuh"
 #include "sm90_tiles.cuh"
 
 namespace {
@@ -23,23 +24,44 @@ constexpr int kRows = 64;       // query rows per work item: one warpgroup's wgm
 constexpr int kThreads = 160;   // one consumer warpgroup, one producer warp
 constexpr int kConsumers = 128;
 
+// the tiles' width along D: whole 64-wide boxes. D 80 and 96 pad their last
+// box, which TMA fills with zeros past D (the pool map's extent is D) and
+// which dequant_tile leaves unwritten past D; the products over D stop at
+// D's last 16-wide slice, P V runs m64n80 / m64n96 and reads the last box
+// in part, and the decode items' O^T products run a second, partly padded
+// 64-row block of D whose rows past D are never stored
+__host__ __device__ constexpr int pad64(int D) { return (D + 63) / 64 * 64; }
+
 // DECODE: the decode kernel's instantiation for GQA groups of at most 8
 // heads, whose items all take decode_rows; without the 64-row consumer's
-// registers it fits more blocks on an SM, each with fewer stages
+// registers it fits more blocks on an SM, each with fewer stages. At D 256
+// a stage of bf16 K and V is 64 KB and the 64-row consumer's O alone 128
+// registers a thread: one block per SM, and that consumer keeps its Q in a
+// shared tile (kQSmem) read by wgmma, not as A fragments in registers.
 template <int D, bool INT8, bool DECODE = false> struct PCfg {
-  static constexpr int kBoxes = D / 64;                // 64-wide boxes along D
+  static constexpr int kBoxes = pad64(D) / 64;         // 64-wide boxes along D
   static constexpr int kBox = kKeys * kRowBytes;       // 8 KB: 64 slots x 128 bytes
   static constexpr int kTile = kBoxes * kBox;          // one bf16 K or V tile
   static constexpr int kInt8Tile = kKeys * D;          // one int8 K or V tile
   // bf16: the K tile, then the V tile; int8: K, V, then 64 K and 64 V scales
   static constexpr int kStageBytes = INT8 ? 2 * kInt8Tile + 2 * kKeys * 4 : 2 * kTile;
-  static constexpr int kStages = DECODE ? (D == 64 ? 3 : 2) : (INT8 || D == 64 ? 4 : 3);
+  static constexpr bool kWide = D > 128;
+  static constexpr int kStages =
+      DECODE ? (D == 64 ? 3 : (kWide && INT8 ? 4 : 2))
+             : (kWide ? (INT8 ? 3 : 2) : (INT8 || D == 64 ? 4 : 3));
   static constexpr int kConvBytes = INT8 ? 2 * kTile : 0;  // the dequantized K and V tiles
-  // decode items: Q [8, D] and P [8, 64] bf16 (swizzled), the warps' row maxima
-  static constexpr int kSmallBytes = 4096;
+  // the 64-row consumer's Q as a K-major [64, D] tile (D 256 only)
+  static constexpr bool kQSmem = !DECODE && kWide;
+  static constexpr int kQBytes = kQSmem ? kBoxes * kRows * kRowBytes : 0;
+  // decode items: Q [8, D] (1 KB per box, at least 2 KB), then P [8, 64]
+  // bf16 (1 KB; both swizzled), then the warps' row maxima
+  static constexpr int kQ8Bytes = 1024 * (kBoxes > 2 ? kBoxes : 2);
+  static constexpr int kSmallBytes = kQ8Bytes + 2048;
   static constexpr int kSmemBytes =
-      1024 + kConvBytes + kSmallBytes + kStages * kStageBytes + 16 * kStages;
-  static constexpr int kBlocksPerSM = DECODE ? (D == 64 ? 4 : 3) : (D == 64 ? 3 : 2);
+      1024 + kConvBytes + kQBytes + kSmallBytes + kStages * kStageBytes + 16 * kStages;
+  static constexpr int kBlocksPerSM =
+      kWide ? 1 : DECODE ? (D == 64 ? 4 : 3) : (D == 64 ? 3 : 2);
+  static_assert(kBlocksPerSM * (kSmemBytes + 1024) <= 233472, "shared memory per SM");
 };
 
 struct PagedParams {
@@ -142,8 +164,10 @@ __device__ __forceinline__ void mask_tile(float (&st)[32], const int (&lim)[2], 
 
 // int8 mode: the int8 K (half 0) or V (half 1) tile of a stage dequantized
 // into the bf16 tile at dst in wgmma's 128-byte-swizzled layout (16-byte
-// chunk x of row r at chunk x ^ (r % 8)), each value the dequant_rows_tile
-// arithmetic: bf16(float(v8) * scale[row]), one fp32 product rounded once
+// chunk x of row r at chunk x ^ (r % 8)), the box layout of the bf16 tiles
+// (columns past D of a padded box left unwritten: no product reads them
+// into a stored value), each value the dequant_rows_tile arithmetic:
+// bf16(float(v8) * scale[row]), one fp32 product rounded once
 template <int D>
 __device__ __forceinline__ void dequant_tile(const unsigned char* stage, int half,
                                             unsigned char* dst) {
@@ -152,9 +176,11 @@ __device__ __forceinline__ void dequant_tile(const unsigned char* stage, int hal
   const unsigned char* const src = stage + half * C::kInt8Tile;
   const float* const scales =
       reinterpret_cast<const float*>(stage + 2 * C::kInt8Tile) + half * kKeys;
+  constexpr int kChunks = kKeys * kPerRow;
 #pragma unroll
-  for (int it = 0; it < kKeys * kPerRow / kConsumers; ++it) {
+  for (int it = 0; it < (kChunks + kConsumers - 1) / kConsumers; ++it) {
     const int c = it * kConsumers + threadIdx.x;
+    if (kChunks % kConsumers != 0 && c >= kChunks) break;
     const int r = c / kPerRow, d0 = (c % kPerRow) * 16;
     const uint4 raw = *reinterpret_cast<const uint4*>(src + c * 16);
     const float sc = scales[r];
@@ -174,17 +200,24 @@ __device__ __forceinline__ void dequant_tile(const unsigned char* stage, int hal
   }
 }
 
-// S = Q K^T over D for the item's 64 rows (Q as A fragments) and the 64
-// slots of the bf16 K tile at kt (read K-major), issued and committed
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&st)[32], const uint32_t (&qa)[D / 16][4],
-                                         uint32_t kt) {
-  zero(st);
+// S = Q K^T over D for the item's 64 rows and the 64 slots of the bf16 K
+// tile at kt (read K-major), issued and committed: Q as the A fragments
+// qa, or (kQSmem: D 256, whose O leaves no registers for them) as the
+// K-major [64, D] tile at qs
+template <int D, bool kQSmem, int NQ>
+__device__ __forceinline__ void issue_qk(float (&st)[32], const uint32_t (&qa)[NQ][4],
+                                         uint32_t qs, uint32_t kt) {
+  if constexpr (!kQSmem) zero(st);
   wgmma_fence();
   fence_regs(st);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_rs<0>(st, qa[kk], desc(kt + (kk / 4) * kKeys * kRowBytes + (kk % 4) * 32, 16));
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t kd = desc(kt + (kk / 4) * kKeys * kRowBytes + (kk % 4) * 32, 16);
+    if constexpr (kQSmem)
+      wgmma_ss(st, desc(qs + (kk / 4) * kRows * kRowBytes + (kk % 4) * 32, 16), kd, kk > 0);
+    else
+      wgmma_rs<0>(st, qa[kk], kd);
+  }
   wgmma_commit();
 }
 
@@ -241,15 +274,17 @@ __device__ __forceinline__ void decode_rows(const Item& w, const PagedParams& p,
                                             unsigned char* base_ptr, uint32_t base,
                                             uint32_t small, uint32_t stages, uint32_t bars) {
   using C = PCfg<D, INT8, DECODE>;
-  constexpr int kBoxes = D / 64;
+  constexpr int kBoxes = C::kBoxes;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint32_t qs = small, ps = small + 2048;
-  float* const red = reinterpret_cast<float*>(base_ptr + (small - base) + 3072);  // [4][8]
+  const uint32_t qs = small, ps = small + C::kQ8Bytes;
+  float* const red =
+      reinterpret_cast<float*>(base_ptr + (ps - base) + 1024);  // [4][8]
   auto stage = [&](int s) { return stages + static_cast<uint32_t>(s) * C::kStageBytes; };
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (C::kStages + s); };
   // Q rows 0..7 (zero past nrows) into the swizzled [8, D] tile: 16-byte
-  // chunk x of row r of box b at qs + 1024 b + 128 r + 16 (x ^ r)
+  // chunk x of row r of box b at qs + 1024 b + 128 r + 16 (x ^ r); a padded
+  // box's chunks past D are not written (the products stop at D)
   for (int c = threadIdx.x; c < 8 * D / 8; c += kConsumers) {
     const int r = c / (D / 8), x = c % (D / 8);
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -398,6 +433,7 @@ __device__ __forceinline__ void decode_rows(const Item& w, const PagedParams& p,
   }
   named_sync(1, kConsumers);
   // O^T: this thread's columns 64 b + 16 warp + g and + 8 of rows 2t, 2t + 1
+  // (those past D, in a padded box's block, are not stored)
   const int col = 16 * warp + g;
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
@@ -410,8 +446,8 @@ __device__ __forceinline__ void decode_rows(const Item& w, const PagedParams& p,
           ((static_cast<long long>(w.k) * p.S + w.s) * p.Hk + w.h) * p.G + r;
 #pragma unroll
       for (int b = 0; b < kBoxes; ++b) {
-        p.ws[at * D + 64 * b + col] = o[b][e];
-        p.ws[at * D + 64 * b + col + 8] = o[b][e + 2];
+        if (64 * b + col < D) p.ws[at * D + 64 * b + col] = o[b][e];
+        if (64 * b + col + 8 < D) p.ws[at * D + 64 * b + col + 8] = o[b][e + 2];
       }
       if (warp == 0 && g == 0) {
         float* ml = p.ws + static_cast<long long>(p.n_splits) * p.S * p.Hk * p.G * D;
@@ -422,8 +458,9 @@ __device__ __forceinline__ void decode_rows(const Item& w, const PagedParams& p,
     const float f = 1.f / (lsum == 0.f ? 1.f : lsum);
 #pragma unroll
     for (int b = 0; b < kBoxes; ++b) {
-      p.o[orow * D + 64 * b + col] = __float2bfloat16(o[b][e] * f);
-      p.o[orow * D + 64 * b + col + 8] = __float2bfloat16(o[b][e + 2] * f);
+      if (64 * b + col < D) p.o[orow * D + 64 * b + col] = __float2bfloat16(o[b][e] * f);
+      if (64 * b + col + 8 < D)
+        p.o[orow * D + 64 * b + col + 8] = __float2bfloat16(o[b][e + 2] * f);
     }
     if (warp == 0 && g == 0 && p.m_out != nullptr) {
       p.m_out[orow] = lsum != 0.f ? m[e] * kLn2 : kNegInf;
@@ -456,7 +493,8 @@ __global__ void __launch_bounds__(kThreads, PCfg<D, INT8, DECODE>::kBlocksPerSM)
   // the swizzle pattern repeats every 1024 bytes: tiles start on that boundary
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t small = base + C::kConvBytes;
+  const uint32_t qsm = base + C::kConvBytes;   // the 64-row consumer's Q (kQSmem)
+  const uint32_t small = qsm + C::kQBytes;
   const uint32_t stages = small + C::kSmallBytes;
   const uint32_t bars = stages + C::kStages * C::kStageBytes;
   auto stage = [&](int s) { return stages + static_cast<uint32_t>(s) * C::kStageBytes; };
@@ -533,22 +571,38 @@ __global__ void __launch_bounds__(kThreads, PCfg<D, INT8, DECODE>::kBlocksPerSM)
     return;
   }
   // consumer warpgroup: the item's 64 rows, Q as bf16 A fragments in
-  // registers (rows without a valid query are zero)
+  // registers, or at D 256 as a swizzled K-major tile in shared memory
+  // (rows without a valid query are zero)
   const int warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int rr[2] = {16 * warp + g, 16 * warp + g + 8};
-  uint32_t qa[D / 16][4];
+  uint32_t qa[C::kQSmem ? 1 : D / 16][4];
   int lim[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool in = rr[i] < w.nrows;
     lim[i] = in ? min(w.kv_len, w.start + (w.r0 + rr[i]) / p.G + 1) : 0;
-    const uint32_t* qp = reinterpret_cast<const uint32_t*>(
-        p.q + (in ? out_row(p, w.s, w.h, w.r0 + rr[i]) : 0) * D);
+    if constexpr (!C::kQSmem) {
+      const uint32_t* qp = reinterpret_cast<const uint32_t*>(
+          p.q + (in ? out_row(p, w.s, w.h, w.r0 + rr[i]) : 0) * D);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qa[kk][i] = in ? __ldg(qp + 8 * kk + t) : 0u;
-      qa[kk][i + 2] = in ? __ldg(qp + 8 * kk + 4 + t) : 0u;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        qa[kk][i] = in ? __ldg(qp + 8 * kk + t) : 0u;
+        qa[kk][i + 2] = in ? __ldg(qp + 8 * kk + 4 + t) : 0u;
+      }
     }
+  }
+  if constexpr (C::kQSmem) {
+    // 16-byte chunk x of row r of box b at qsm + 8 KB b + 128 r + 16 (x ^ (r % 8))
+    for (int c = threadIdx.x; c < kRows * (D / 8); c += kConsumers) {
+      const int r = c / (D / 8), x = c % (D / 8);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < w.nrows)
+        v = __ldg(reinterpret_cast<const uint4*>(p.q + out_row(p, w.s, w.h, w.r0 + r) * D) + x);
+      *reinterpret_cast<uint4*>(base_ptr + (qsm - base) + (x / 8) * (kRows * kRowBytes) +
+                                r * kRowBytes + (((x % 8) ^ (r & 7)) << 4)) = v;
+    }
+    fence_proxy_async();
+    named_sync(1, kConsumers);
   }
   // the first slot that some valid row of the item does not see
   const int mask_from = w.nrows > 0 ? min(w.kv_len, w.start + w.r0 / p.G + 1) : 0;
@@ -568,7 +622,7 @@ __global__ void __launch_bounds__(kThreads, PCfg<D, INT8, DECODE>::kBlocksPerSM)
       mbar_wait(full(s), phase);
       float st[32];
       uint32_t pa[kKeys / 16][4];
-      issue_qk<D>(st, qa, stage(s));
+      issue_qk<D, C::kQSmem>(st, qa, qsm, stage(s));
       wgmma_wait<0>();
       fence_regs(st);
       tile_softmax(st, pa, o, m, l, lim, tile * kKeys, mask_from, p.c);
@@ -595,7 +649,7 @@ __global__ void __launch_bounds__(kThreads, PCfg<D, INT8, DECODE>::kBlocksPerSM)
     for (int tile = w.t_begin; tile < w.t_end; ++tile) {
       float st[32];
       uint32_t pa[kKeys / 16][4];
-      issue_qk<D>(st, qa, kt);
+      issue_qk<D, C::kQSmem>(st, qa, qsm, kt);
       dequant_tile<D>(stage_ptr + s * C::kStageBytes, 1, base_ptr + C::kTile);
       fence_proxy_async();
       __syncwarp();
@@ -660,9 +714,10 @@ __global__ void __launch_bounds__(kThreads, PCfg<D, INT8, DECODE>::kBlocksPerSM)
 }
 
 // The split partials of each decode row merged in split order (a fixed
-// order: two launches are bitwise equal): o = sum_k acc_k 2^(m_k - M) / l,
-// l = sum_k l_k 2^(m_k - M), M = max_k m_k, m = M ln 2; a row with no live
-// slot gets o = 0, m = -1e30, l = 0.
+// order: two launches are bitwise equal), one thread per column of D (at D
+// 80 the last warp is half full; nothing here is warp-wide):
+// o = sum_k acc_k 2^(m_k - M) / l, l = sum_k l_k 2^(m_k - M), M = max_k m_k,
+// m = M ln 2; a row with no live slot gets o = 0, m = -1e30, l = 0.
 template <int D>
 __global__ void __launch_bounds__(D) paged_combine(const PagedParams p) {
   const int s = blockIdx.x / p.Hk, h = blockIdx.x % p.Hk;
@@ -698,7 +753,8 @@ __global__ void __launch_bounds__(D) paged_combine(const PagedParams p) {
 // ---------------------------------------------------------------------------
 
 // A bf16 pool of `rows` rows of D as a 2-D map (d, row) read in boxes of 64 d
-// x bs rows (one page of one kv head, 64 bf16 = the 128-byte swizzle). The
+// x bs rows (one page of one kv head, 64 bf16 = the 128-byte swizzle; at D
+// 80 and 96 the second box reaches past D and TMA zero-fills it). The
 // pools are allocated once, so each map is encoded once and kept by its
 // (pointer, rows, D, bs).
 int pool_map(CUtensorMap* out, const void* ptr, long long rows, int D, int bs) {
@@ -728,8 +784,9 @@ int pool_map(CUtensorMap* out, const void* ptr, long long rows, int D, int bs) {
   return 0;
 }
 
-// what the kernels take: D 64 or 128, pages of 16, 32 or 64 slots, GQA groups
-// of at most 64 heads, pool rows inside TMA's int32 coordinates. The host
+// what the kernels take: a D of PAGED_HEAD_DIMS, pages of 16, 32 or 64
+// slots, GQA groups of at most 64 heads, pool rows inside TMA's int32
+// coordinates. The host
 // sizes its launch from its own copy of the work items
 // (ops/paged_attention.py, SM90_ROWS, SM90_TILE_SLOTS and sm90_grid); a
 // launch whose tiles or block count differ from the decode here is refused,
@@ -737,9 +794,10 @@ int pool_map(CUtensorMap* out, const void* ptr, long long rows, int D, int bs) {
 inline bool paged_shape_ok(int S, int Q, int Hq, int Hk, int D, int bs, int B, long long rows,
                            int split_tiles, int n_splits, int item_rows, int tile_slots,
                            int blocks) {
-  if (!(S > 0 && Q > 0 && Hk > 0 && Hq % Hk == 0 && Hq / Hk <= kRows && (D == 64 || D == 128) &&
-        (bs == 16 || bs == 32 || bs == 64) && B > 0 && rows > 0 && rows < (1ll << 31) &&
-        split_tiles > 0 && n_splits > 0 && item_rows == kRows && tile_slots == kKeys))
+  if (!(S > 0 && Q > 0 && Hk > 0 && Hq % Hk == 0 && Hq / Hk <= kRows &&
+        paged_head_dim_built(D) && (bs == 16 || bs == 32 || bs == 64) && B > 0 && rows > 0 &&
+        rows < (1ll << 31) && split_tiles > 0 && n_splits > 0 && item_rows == kRows &&
+        tile_slots == kKeys))
     return false;
   const long long row_tiles = (static_cast<long long>(Q) * (Hq / Hk) + kRows - 1) / kRows;
   return blocks == static_cast<long long>(S) * Hk * (row_tiles + n_splits - 1);
@@ -759,6 +817,22 @@ int launch_kernel(const PagedParams& p, const CUtensorMap& mk, const CUtensorMap
 
 // the decode kernel (chunk null) at GQA groups of at most 8 heads takes the
 // DECODE instantiation; everything else the one with both consumers
+inline bool decode_instantiation(bool decode, int G) { return decode && G <= 8; }
+
+// blocks per SM of the instantiation that a launch at head dim D and GQA
+// group G takes (decode: a launch of the decode kernel), 0 at an unbuilt D.
+// The host sizes its KV splits by it (ops/paged_attention.py,
+// split_tiles_for), reading it from the library that holds the kernel.
+template <bool INT8>
+int blocks_per_sm(int D, int G, bool decode) {
+  if (!paged_head_dim_built(D)) return 0;
+  return with_paged_head_dim(D, [&](auto dim) {
+    constexpr int d = decltype(dim)::value;
+    return decode_instantiation(decode, G) ? PCfg<d, INT8, true>::kBlocksPerSM
+                                           : PCfg<d, INT8, false>::kBlocksPerSM;
+  });
+}
+
 template <int D, bool INT8>
 int launch_paged(const PagedParams& p, const void* k_pool, const void* v_pool, long long rows,
                  cudaStream_t st) {
@@ -768,8 +842,9 @@ int launch_paged(const PagedParams& p, const void* k_pool, const void* v_pool, l
     if (err == 0) err = pool_map(&mv, v_pool, rows, D, p.bs);
     if (err != 0) return err;
   }
-  const int err = p.chunk == nullptr && p.G <= 8 ? launch_kernel<D, INT8, true>(p, mk, mv, st)
-                                                 : launch_kernel<D, INT8, false>(p, mk, mv, st);
+  const int err = decode_instantiation(p.chunk == nullptr, p.G)
+                      ? launch_kernel<D, INT8, true>(p, mk, mv, st)
+                      : launch_kernel<D, INT8, false>(p, mk, mv, st);
   if (err != 0 || p.n_splits == 1) return err;
   paged_combine<D><<<p.S * p.Hk, D, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -33,6 +33,12 @@ extern "C" int paged_flash_decode_int8_sm90_fwd(
   p.ks = k_scale;
   p.vs = v_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_paged<64, true>(p, k_pool, v_pool, rows, st)
-                 : launch_paged<128, true>(p, k_pool, v_pool, rows, st);
+  return with_paged_head_dim(D, [&](auto dim) {
+    return launch_paged<decltype(dim)::value, true>(p, k_pool, v_pool, rows, st);
+  });
+}
+
+// blocks per SM of the int8 mode's instantiation a launch takes (blocks_per_sm)
+extern "C" int paged_sm90_blocks_per_sm(int D, int G, int decode) {
+  return blocks_per_sm<true>(D, G, decode != 0);
 }

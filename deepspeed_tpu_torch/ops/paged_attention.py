@@ -20,14 +20,16 @@ Each kernel has two routes, chosen in the open by one rule,
 ``"sm90"`` (``csrc/paged_attention_sm90.cu``, the int8 mode
 ``csrc/paged_attention_sm90_int8.cu``: pages staged by TMA through the block
 table, QK^T and PV on ``wgmma``, decode rows' contexts split across blocks
-and merged in split order) for bf16 queries at D 64 or 128 over pages of
-16, 32 or 64 slots; ``"cuda_core"`` (``csrc/paged_attention.cu``, the int8
-mode ``csrc/paged_attention_int8.cu``: one CUDA-core tile) for fp32 and the
-rest. The launch helpers (:func:`launch_paged_attention`,
-:func:`launch_paged_flash_decode`) take ``route=``; a forced ``"sm90"`` on
-tensors it was not built for raises. They also take ``split_tiles=``, the
-sm90 design's measured choice of KV splits (:func:`split_tiles_for`), so
-that a script can time both sides of it. A launch that splits is followed
+and merged in split order) for bf16 queries over pages of 16, 32 or 64
+slots; ``"cuda_core"`` (``csrc/paged_attention.cu``, the int8 mode
+``csrc/paged_attention_int8.cu``: one CUDA-core tile) for fp32 and the
+rest. Both routes build head dims 64, 80, 96, 128 and 256 (``_HEAD_DIMS``,
+``csrc/paged_head_dims.cuh``) and refuse any other. The launch helpers
+(:func:`launch_paged_attention`, :func:`launch_paged_flash_decode`) take
+``route=``; a forced ``"sm90"`` on tensors it was not built for raises.
+They also take ``split_tiles=``, the sm90 design's measured choice of KV
+splits (:func:`split_tiles_for`), so that a script can time both sides of
+it. A launch that splits is followed
 by a merge launch, counted as ``paged_combine``.
 
 Quantized pools: the decode kernel also takes int8 pools with fp32 per-row
@@ -49,6 +51,7 @@ dtype before the fp32-accumulated PV product.
 """
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional
 
@@ -79,7 +82,8 @@ _SOURCES = {"paged_attention_fwd": "paged_attention.cu",
             "paged_attention_sm90_fwd": "paged_attention_sm90.cu",
             "paged_flash_decode_int8_sm90_fwd": "paged_attention_sm90_int8.cu"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)     # instantiated in csrc/paged_attention*.cu
+#: the head dims both routes build: PAGED_HEAD_DIMS of csrc/paged_head_dims.cuh
+_HEAD_DIMS = (64, 80, 96, 128, 256)
 #: page sizes the sm90 kernels stage (64 / bs pages per 64-slot tile)
 SM90_PAGE_SIZES = (16, 32, 64)
 #: the sm90 kernels' work items: query rows per item (one warpgroup's wgmma
@@ -329,12 +333,13 @@ def _shape_checks(Hq, Hk):
 
 def paged_route(q, k_pool, v_pool) -> str:
     """The route of the paged kernels for these tensors: ``"sm90"`` for
-    bf16 queries over bf16 pools, or int8 ``(values, scales)`` pools, at
-    head dim 64 or 128, pages of :data:`SM90_PAGE_SIZES` slots and GQA groups
-    of at most :data:`SM90_ROWS` heads, every tensor contiguous with a
-    16-byte-aligned base (what TMA and the bulk copies take); else
-    ``"cuda_core"``. The same rule on any device, so the CPU tests can ask
-    it."""
+    bf16 queries over bf16 pools, or int8 ``(values, scales)`` pools, at a
+    head dim of ``_HEAD_DIMS`` (64, 80, 96, 128 or 256), pages of
+    :data:`SM90_PAGE_SIZES` slots and GQA groups of at most
+    :data:`SM90_ROWS` heads, every tensor contiguous with a 16-byte-aligned
+    base (what TMA and the bulk copies take); else ``"cuda_core"``, which
+    raises at a head dim it does not build either. The same rule on any
+    device, so the CPU tests can ask it."""
     quantized = isinstance(k_pool, tuple)
     kv = (pool_values(k_pool), pool_values(v_pool))
     tensors = (q, *kv) + ((k_pool[1], v_pool[1]) if quantized else ())
@@ -348,18 +353,45 @@ def paged_route(q, k_pool, v_pool) -> str:
     return "sm90" if sm90 else "cuda_core"
 
 
-def split_tiles_for(S: int, Q: int, Hk: int, B: int, bs: int, sms: int) -> int:
+@functools.lru_cache(maxsize=None)
+def sm90_blocks_per_sm(D: int, G: int, decode: bool, int8: bool = False) -> int:
+    """Blocks per SM of the sm90 instantiation that a launch at head dim
+    ``D`` and GQA group ``G`` takes (``decode``: a launch of the decode
+    kernel; ``int8``: its int8 mode), as the library that holds the kernel
+    states it (``PCfg::kBlocksPerSM`` in csrc/paged_attention_sm90.cuh):
+    the decode kernel's own instantiation at groups of at most 8 heads,
+    else the one with the 64-row consumer. Builds that library on first
+    use, so only on a machine that can build it."""
+    from . import _build
+
+    name = "paged_flash_decode_int8_sm90_fwd" if int8 else "paged_attention_sm90_fwd"
+    fn = _build.load(_SOURCES[name]).paged_sm90_blocks_per_sm
+    fn.argtypes, fn.restype = [_I, _I, _I], ctypes.c_int
+    per_sm = fn(D, G, int(decode))
+    if per_sm < 1:
+        raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
+    return per_sm
+
+
+def split_tiles_for(S: int, Q: int, Hk: int, B: int, bs: int, sms: int,
+                    per_sm: int) -> int:
     """Tiles per KV split of a decode row, from host-known shapes only. A
-    launch of one query per sequence (``Q`` 1) takes as many splits as give
-    the (sequence, kv head) pairs one wave of two blocks per SM (two fit an
-    SM at D 128), and none when the pairs alone fill it, as at the serving
-    shape (512 pairs). A launch that may hold prompt chunks (``Q`` > 1)
-    takes none: their items set its time, and the merge launch would only
-    add to it. Both measured on the H100 (PERF.md, Findings, PR 9)."""
+    launch of one query per sequence (``Q`` 1) splits each (sequence, kv
+    head) pair's context into as many runs as one wave of blocks holds for
+    every pair, ``min(per_sm, 2) * sms // pairs``, where ``per_sm`` is the
+    launch's instantiation's (:func:`sm90_blocks_per_sm`): none when the
+    pairs alone come near filling that wave, as at Llama-2-7B's serving
+    shape (512 pairs) and Pythia-1B's (128 pairs, one block per SM on 132
+    SMs), where a split only turns one wave into two of half the length and
+    adds the merge launch. A wave counts at most two blocks an SM: at D 128
+    the runs of three (11 splits at GQA 32/8) took 1.23x the time of two's
+    (8 splits). A launch that may hold prompt chunks (``Q`` > 1) takes
+    none: their items set its time, and the merge launch would only add to
+    it. Measured on the H100 (PERF.md, Findings)."""
     n_tiles = -(-B * bs // SM90_TILE_SLOTS)
     if Q > 1:
         return n_tiles
-    splits = -(-2 * sms // (S * Hk))
+    splits = max(1, min(per_sm, 2) * sms // (S * Hk))
     return -(-n_tiles // splits)
 
 
@@ -382,8 +414,8 @@ def _route(chosen: str, route: Optional[str]) -> str:
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if route == "sm90" and chosen != "sm90":
-        raise ValueError("the sm90 route takes bf16 queries over bf16 or int8 pools, head "
-                         f"dim 64 or 128, pages of {SM90_PAGE_SIZES} slots, contiguous "
+        raise ValueError("the sm90 route takes bf16 queries over bf16 or int8 pools, a head "
+                         f"dim of {_HEAD_DIMS}, pages of {SM90_PAGE_SIZES} slots, contiguous "
                          "16-byte-aligned tensors (see paged_route)")
     return route
 
@@ -410,13 +442,16 @@ def _stream(t) -> int:
 
 
 def _sm90_launch(q, S: int, Q: int, Hq: int, Hk: int, D: int, B: int, bs: int,
-                 split_tiles: Optional[int]):
+                 split_tiles: Optional[int], decode: bool, int8: bool = False):
     """The sm90 launch's split workspace (None without splits) and trailing
-    integers; ``split_tiles`` None takes :func:`split_tiles_for`."""
+    integers; ``split_tiles`` None takes :func:`split_tiles_for` at the
+    blocks per SM of the instantiation the launch takes (``decode``: a
+    launch of the decode kernel, ``int8``: of its int8 mode)."""
     if split_tiles is None:
         if q.device not in _SMS:
             _SMS[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
-        split_tiles = split_tiles_for(S, Q, Hk, B, bs, _SMS[q.device])
+        split_tiles = split_tiles_for(S, Q, Hk, B, bs, _SMS[q.device],
+                                      sm90_blocks_per_sm(D, Hq // Hk, decode, int8))
     blocks, _, n_splits = sm90_grid(S, Q, Hq // Hk, Hk, B, bs, split_tiles)
     ws = None
     if n_splits > 1:
@@ -442,7 +477,7 @@ def launch_paged_attention(q, k_pool, v_pool, block_table, start_pos, chunk_len,
               kv_len.data_ptr())
     combined = False
     if route == "sm90":
-        ws, tail = _sm90_launch(q, S, Q, Hq, Hk, D, B, bs, split_tiles)
+        ws, tail = _sm90_launch(q, S, Q, Hq, Hk, D, B, bs, split_tiles, decode=False)
         combined = ws is not None
         err = _kernel("paged_attention_sm90_fwd")(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(), _ptr(m),
@@ -480,7 +515,8 @@ def launch_paged_flash_decode(q, k_pool, v_pool, block_table, pos, kv_len, out, 
             kv_len.data_ptr())
     combined = False
     if route == "sm90":
-        ws, tail = _sm90_launch(q, S, 1, Hq, Hk, D, B, bs, split_tiles)
+        ws, tail = _sm90_launch(q, S, 1, Hq, Hk, D, B, bs, split_tiles, decode=True,
+                                int8=quantized)
         combined = ws is not None
         rows = N * Hk * bs
         if quantized:

@@ -61,8 +61,12 @@ def _packed(rng, dtype, S, Q, Hq, Hk, D, bs, B, kv_lens, chunk_lens):
             i(bt), i(kv - ch), i(ch), i(kv))
 
 
+#: the head dims the paged kernels build (both routes)
+PAGED_DIMS = [64, 80, 96, 128, 256]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", PAGED_DIMS)
 def test_kernels_match_plain_versions_on_card(dtype, D):
     """Both kernels against their plain versions: a GQA ratio, ragged
     lengths incl. 0 and a partial page, stats on and off."""
@@ -115,7 +119,7 @@ def _int8_pools(k, v):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", PAGED_DIMS)
 def test_decode_int8_mode_matches_plain_version_on_card(dtype, D):
     """The decode kernel's int8 mode against its plain version (dequantize
     the layer with ``dequant_rows_tile``, then the plain decode): GQA 32/8
@@ -208,10 +212,10 @@ _SM90_PACKED = {
 @pytest.mark.parametrize("bs", [16, 32, 64])
 @pytest.mark.parametrize("case", sorted(_SM90_PACKED))
 @pytest.mark.parametrize("G", [1, 4, 8])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", PAGED_DIMS)
 def test_sm90_packed_kernel_matches_plain_version_on_card(D, G, case, bs):
     """The packed kernel on the sm90 route against its plain version: bf16,
-    D 64 / 128, GQA groups 1 / 4 / 8, mixed, all-prompt and all-decode
+    every built D, GQA groups 1 / 4 / 8, mixed, all-prompt and all-decode
     chunks, a full table, every page size the route takes; at one query per
     sequence (all decode) the few (sequence, kv head) pairs split the
     contexts across blocks; stats on."""
@@ -235,7 +239,7 @@ def test_sm90_packed_kernel_matches_plain_version_on_card(D, G, case, bs):
 @pytest.mark.parametrize("bs", [16, 32, 64])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("G", [1, 4, 8, 16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", PAGED_DIMS)
 def test_sm90_decode_kernel_matches_plain_version_on_card(D, G, int8, bs):
     """The decode kernel (and its int8 mode) on the sm90 route against its
     plain version: layer 1 of 2, contexts of 0 to all the table's pages (64
@@ -263,12 +267,13 @@ def test_sm90_decode_kernel_matches_plain_version_on_card(D, G, int8, bs):
     assert port.route_counts[name] == {"sm90": 1, "cuda_core": 0}
 
 
-def test_sm90_paged_kernels_are_bitwise_repeatable_on_card():
+@pytest.mark.parametrize("D", PAGED_DIMS)
+def test_sm90_paged_kernels_are_bitwise_repeatable_on_card(D):
     """Two launches of each sm90 kernel give bitwise equal o, m and l: the
     split partials merge in split order, with no float atomics."""
     _need_card()
     rng = np.random.default_rng(23)
-    args = _packed(rng, torch.bfloat16, S=4, Q=32, Hq=32, Hk=32, D=128, bs=32, B=64,
+    args = _packed(rng, torch.bfloat16, S=4, Q=32, Hq=32, Hk=32, D=D, bs=32, B=64,
                    kv_lens=[2048, 900, 32, 1500], chunk_lens=[1, 32, 1, 1])
     runs = [port.paged_attention(*args, return_stats=True) for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
@@ -341,6 +346,79 @@ def test_sm90_route_refuses_what_it_was_not_built_for_on_card(monkeypatch):
             with pytest.raises(RuntimeError, match="launch failed"):
                 port.paged_attention(*bf)
     port.paged_attention(*bf)   # the real tiles launch
+
+
+@pytest.mark.parametrize("D", [80, 96, 256])
+def test_paged_routes_at_the_wide_head_dims_on_card(D):
+    """At D 80, 96 and 256 bf16 queries over bf16 and int8 pools take
+    ``sm90``, fp32 takes ``cuda_core``; each launch is counted once on its
+    route."""
+    _need_card()
+    rng = np.random.default_rng(26)
+    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "cuda_core")):
+        args = _packed(rng, dtype, S=3, Q=8, Hq=8, Hk=2, D=D, bs=16, B=16,
+                       kv_lens=[40, 9, 130], chunk_lens=[8, 1, 1])
+        q, k, v, bt, _, _, kvl = args
+        qd = q[:, 0].contiguous()
+        port.reset_launch_counts()
+        port.paged_attention(*args)
+        port.paged_flash_decode(qd, k, v, bt, kvl, kvl)
+        port.paged_flash_decode(qd, *_int8_pools(k, v), bt, kvl, kvl)
+        for name in ("paged_attention", "paged_flash_decode", "paged_flash_decode_int8"):
+            assert port.route_counts[name][route] == 1, (D, dtype, name)
+            assert port.launch_counts[name] == 1
+
+
+def test_unbuilt_head_dims_are_refused_by_both_routes_on_card(monkeypatch):
+    """A head dim neither source builds (112) is refused by each entry with
+    cudaErrorInvalidValue, never served by a neighbour's instantiation: the
+    CUDA-core route through its launch helper, the sm90 route with the host
+    list widened to let the launch through."""
+    _need_card()
+    rng = np.random.default_rng(27)
+    args = _packed(rng, torch.bfloat16, S=2, Q=4, Hq=4, Hk=2, D=112, bs=16, B=4,
+                   kv_lens=[4, 20], chunk_lens=[4, 1])
+    q, k, v, bt, _, _, kvl = args
+    qd = q[:, 0].contiguous()
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        port.launch_paged_attention(*args, out, None, None, sm_scale=0.1, route="cuda_core")
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        port.launch_paged_flash_decode(qd, *_int8_pools(k[None], v[None]), bt, kvl, kvl,
+                                       torch.empty_like(qd), None, None, layer=0,
+                                       sm_scale=0.1, route="cuda_core")
+    monkeypatch.setattr(port, "_HEAD_DIMS", port._HEAD_DIMS + (112,))
+    assert port.paged_route(q, k, v) == "sm90"
+    # the sm90 libraries state no blocks per SM for it, so the split rule
+    # refuses it; with the split given, the entries themselves refuse it
+    for int8 in (False, True):
+        with pytest.raises(ValueError, match="head_dim 112"):
+            port.sm90_blocks_per_sm(112, 2, True, int8)
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        port.launch_paged_attention(*args, out, None, None, sm_scale=0.1, split_tiles=1)
+    with pytest.raises(RuntimeError, match="cudaError_t 1$"):
+        port.launch_paged_flash_decode(qd, *_int8_pools(k[None], v[None]), bt, kvl, kvl,
+                                       torch.empty_like(qd), None, None, layer=0,
+                                       sm_scale=0.1, split_tiles=1)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_sm90_blocks_per_sm_come_from_the_instantiation_on_card(int8):
+    """The blocks per SM that the split rule reads come from the library
+    that holds the kernel, for every built head dim: the decode kernel at
+    GQA groups of at most 8 heads takes its own instantiation, every other
+    launch the 64-row one; D 256 fits one block an SM."""
+    _need_card()
+    per_sm = lambda D, G, decode: port.sm90_blocks_per_sm(D, G, decode, int8)
+    for D in PAGED_DIMS:
+        assert per_sm(D, 4, True) >= per_sm(D, 16, True) == per_sm(D, 4, False) >= 1
+    assert per_sm(128, 4, True) == 3
+    assert per_sm(128, 16, True) == 2
+    assert per_sm(128, 4, False) == 2
+    assert per_sm(64, 1, True) == 4
+    assert per_sm(96, 1, True) == 3
+    assert per_sm(256, 1, True) == 1
+    assert per_sm(256, 1, False) == 1
 
 
 def test_float8_cast_beyond_its_range_on_card():
@@ -1135,46 +1213,70 @@ def test_auto_attention_takes_flash_kernels_at_the_new_head_dims_on_card():
 
 def test_engine_serves_phi3_widths_through_einsum_on_card():
     """A 2-layer model at phi-3-mini widths (hidden 3072, 32 / 32 heads, D
-    96: no paged kernel is built for it) serves to completion on the card:
-    ``auto`` resolves both attention paths to the einsum and no paged kernel
-    launches. Its tokens equal those of the same weights served on the CPU
-    through the paged kernels' plain versions (``attn_backend="pallas"``,
-    which take any D; float32 and exact tokens, as
-    ``test_engine_kernel_path_matches_einsum_path_on_card``). An explicit
-    ``"pallas"`` on the card raises at the kernel, on the packed path and on
-    the decode path alone."""
+    96) serves to completion on the card through the paged kernels:
+    ``auto`` resolves both attention paths to them and they launch (fp32:
+    the CUDA-core route), with the tokens of the same engine on the einsum
+    path (``attn_backend="einsum"``; float32 and exact tokens, as
+    ``test_engine_kernel_path_matches_einsum_path_on_card``). At a head dim
+    the kernels do not build (112) ``auto`` resolves both paths to the
+    einsum, no paged kernel launches, and the tokens equal those of the same
+    weights served on the CPU through the paged kernels' plain versions
+    (``attn_backend="pallas"``, which take any D). An explicit ``"pallas"``
+    there raises at the kernel on the card, on the packed path and on the
+    decode path alone."""
     _need_card()
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceEngineConfig)
     from deepspeed_tpu_torch.models import TransformerConfig, init_params
 
-    cfg = TransformerConfig(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
-                            num_layers=2, num_heads=32, num_kv_heads=32, max_seq_len=256,
-                            norm_eps=1e-5, dtype=torch.float32)
-    assert cfg.head_dim == 96
-    params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
-    rng = np.random.default_rng(8)
-    prompts = [rng.integers(0, 32064, n).astype(np.int32) for n in (7, 19, 40)]
-    engine = lambda device, **backends: InferenceEngineV2(
-        cfg, params, RaggedInferenceEngineConfig(
+    def weights(hidden):
+        cfg = TransformerConfig(vocab_size=32064, hidden_size=hidden, intermediate_size=8192,
+                                num_layers=2, num_heads=32, num_kv_heads=32, max_seq_len=256,
+                                norm_eps=1e-5, dtype=torch.float32)
+        return cfg, init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+
+    def engine(weights, device="cuda", **backends):
+        cfg, params = weights
+        return InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
             token_budget=32, max_ragged_sequence_count=4, max_chunk_size=16,
             num_kv_blocks=64, kv_block_size=8, max_blocks_per_seq=16, dtype="float32",
             **backends), device=device)
+
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 32064, n).astype(np.int32) for n in (7, 19, 40)]
+    phi3 = weights(3072)
     port.reset_launch_counts()
-    auto = engine("cuda")
-    assert (auto.attn_impl, auto.decode_attn_impl) == ("einsum", "einsum")
+    auto = engine(phi3)
+    assert auto.cfg.head_dim == 96
+    assert (auto.attn_impl, auto.decode_attn_impl, auto.decode_attn_source) == \
+        ("pallas", "pallas", "heuristic")
     got = auto.generate(prompts, max_new_tokens=12)
+    assert port.launch_counts["paged_attention"] > 0
+    assert port.launch_counts["paged_flash_decode"] > 0
+    assert port.route_counts["paged_attention"]["sm90"] == 0   # fp32: the CUDA cores
+    einsum = engine(phi3, attn_backend="einsum")
+    assert (einsum.attn_impl, einsum.decode_attn_impl) == ("einsum", "einsum")
+    for a, b in zip(got, einsum.generate(prompts, max_new_tokens=12)):
+        assert len(a) == 12
+        np.testing.assert_array_equal(a, b)
+    del auto, einsum, phi3
+    d112 = weights(32 * 112)
+    unbuilt = engine(d112)
+    assert unbuilt.cfg.head_dim == 112
+    assert (unbuilt.attn_impl, unbuilt.decode_attn_impl) == ("einsum", "einsum")
+    port.reset_launch_counts()
+    got = unbuilt.generate(prompts, max_new_tokens=12)
     assert sum(port.launch_counts.values()) == 0
-    plain = engine("cpu", attn_backend="pallas")
+    plain = engine(d112, "cpu", attn_backend="pallas")
     assert (plain.attn_impl, plain.decode_attn_impl) == ("pallas", "pallas")
     for a, b in zip(got, plain.generate(prompts, max_new_tokens=12)):
         assert len(a) == 12
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(ValueError, match="head_dim 96"):
-        engine("cuda", attn_backend="pallas").generate(prompts[:1], max_new_tokens=2)
-    decode_only = engine("cuda", attn_backend="einsum", decode_attn_backend="pallas")
+    with pytest.raises(ValueError, match="head_dim 112"):
+        engine(d112, attn_backend="pallas").generate(prompts[:1], max_new_tokens=2)
+    decode_only = engine(d112, attn_backend="einsum", decode_attn_backend="pallas")
     assert (decode_only.attn_impl, decode_only.decode_attn_impl) == ("einsum", "pallas")
-    with pytest.raises(ValueError, match="head_dim 96"):
+    with pytest.raises(ValueError, match="head_dim 112"):
         decode_only.generate(prompts[:1], max_new_tokens=2)
 
 

@@ -218,6 +218,30 @@ def test_decode_on_int8_pools_matches_jax(dtype, layer):
         tq, *tpools, *[t for _, t in ints], layer=layer))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [96, 256])
+def test_decode_on_int8_pools_matches_jax_at_wide_head_dims(D, dtype):
+    """The int8 mode at phi-3-mini's and Pythia-1B's head dims: layer 1 of
+    a resident pool, GQA 4/2, an empty slot, a position inside the
+    context; o, m and l against the JAX kernel."""
+    q, ((kq, ks), (vq, vs)), bt, pos, kvl = _int8_decode_case(
+        5 + D, L=2, S=3, Hq=4, Hk=2, D=D, bs=8, B=4, kv_lens=[0, 13, 30],
+        pos=[0, 13, 21])
+    jq = jnp.asarray(q, getattr(jnp, dtype))
+    tq = _t(q).to(getattr(torch, dtype))
+    jpools = [(jnp.asarray(a), jnp.asarray(b)) for a, b in ((kq, ks), (vq, vs))]
+    tpools = [(_t(a), _t(b)) for a, b in ((kq, ks), (vq, vs))]
+    ints = [(jnp.asarray(a), _t(a)) for a in (bt, pos, kvl)]
+    want = jax_paged_flash_decode(jq, *jpools, *[j for j, _ in ints], layer=1,
+                                  interpret=True, return_stats=True)
+    got = port.paged_flash_decode(tq, *tpools, *[t for _, t in ints], layer=1,
+                                  return_stats=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+    assert not got[0][0].float().any()          # kv_len 0 -> exact zero
+
+
 def test_gathered_path_on_int8_pools_matches_jax():
     """The einsum serving path (JAX ``model.paged_attention``) on one
     layer's int8 pool, and the port's ledger rows for its gathered copy."""

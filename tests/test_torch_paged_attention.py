@@ -156,6 +156,41 @@ def test_decode_matches_jax_sm_scale_and_dtype(dtype):
         _close(g, w, dtype)
 
 
+#: the head dims past 64 and 128 that both routes build: phi-2 and
+#: Pythia-2.8B (80), phi-3-mini (96), Pythia-1B and GPT-J (256)
+WIDE_DIMS = (80, 96, 256)
+
+
+@pytest.mark.parametrize("dtype,stats", [("float32", False), ("bfloat16", True)])
+@pytest.mark.parametrize("D", WIDE_DIMS)
+def test_packed_matches_jax_at_wide_head_dims(D, dtype, stats):
+    """The packed function at D 80, 96 and 256: a prompt chunk over a
+    partial last page, a decode row, an empty slot, GQA 4/2."""
+    rng = np.random.default_rng(30 + D)
+    case = _packed_case(rng, S=3, Q=4, Hq=4, Hk=2, D=D, bs=8, B=4,
+                        kv_lens=[13, 20, 0], chunk_lens=[4, 1, 0])
+    got, want = _run_packed(case, dtype, None, stats)
+    for g, w in zip(got, want) if stats else [(got, want)]:
+        _close(g, w, dtype)
+    out = got[0] if stats else got
+    assert not out[2].float().numpy().any()     # the empty slot is exactly zero
+    assert not out[1, 1:].float().numpy().any()  # padded queries are exactly zero
+
+
+@pytest.mark.parametrize("dtype,stats", [("float32", True), ("bfloat16", False)])
+@pytest.mark.parametrize("D", WIDE_DIMS)
+def test_decode_matches_jax_at_wide_head_dims(D, dtype, stats):
+    """The decode function at D 80, 96 and 256 over layer 1 of a resident
+    pool: an empty slot, a position inside the context, GQA 4/2."""
+    rng = np.random.default_rng(40 + D)
+    case = _decode_case(rng, L=2, S=3, Hq=4, Hk=2, D=D, bs=8, B=4,
+                        kv_lens=[0, 11, 30], pos=[0, 11, 20])
+    got, want = _run_decode(case, dtype, 1, None, stats)
+    for g, w in zip(got, want) if stats else [(got, want)]:
+        _close(g, w, dtype)
+    assert not (got[0] if stats else got)[0].float().numpy().any()   # kv_len 0
+
+
 def test_decode_single_layer_view_and_layer_check():
     rng = np.random.default_rng(4)
     q, k, v, bt, pos, kvl = _decode_case(rng, L=1, S=2, Hq=4, Hk=2, D=32,
@@ -219,7 +254,11 @@ def _misaligned(t):
     ("fp32", "cuda_core"),
     ("int8 pools, fp32 queries", "cuda_core"),
     ("D 32", "cuda_core"),
-    ("D 96", "cuda_core"),
+    ("D 96", "sm90"),
+    ("D 80", "sm90"),
+    ("D 256", "sm90"),
+    ("int8 pools D 256", "sm90"),
+    ("D 112", "cuda_core"),
     ("bs 8", "cuda_core"),
     ("bs 48", "cuda_core"),
     ("pools of another dtype", "cuda_core"),
@@ -239,6 +278,10 @@ def test_paged_route_chooses_sm90_for_what_tma_and_wgmma_take(case, want):
         "int8 pools, fp32 queries": lambda: _route_tensors(dtype=torch.float32, int8=True),
         "D 32": lambda: _route_tensors(D=32),
         "D 96": lambda: _route_tensors(D=96),
+        "D 80": lambda: _route_tensors(D=80, bs=16),
+        "D 256": lambda: _route_tensors(D=256, Hq=8, Hk=2),
+        "int8 pools D 256": lambda: _route_tensors(D=256, int8=True),
+        "D 112": lambda: _route_tensors(D=112),
         "bs 8": lambda: _route_tensors(bs=8),
         "bs 48": lambda: _route_tensors(bs=48),
         "pools of another dtype": lambda: (_route_tensors()[0],
@@ -434,18 +477,59 @@ def test_decode_splits_merged_in_order_match_plain_version(split_tiles):
 
 def test_sm90_split_rule_fills_the_card_from_host_shapes():
     """Splits give the (sequence, kv head) pairs of a one-query launch one
-    wave of two blocks per SM; none where the pairs alone fill it (the
-    serving shape), nor for a launch that may hold prompt chunks; no device
-    value is read."""
-    assert port.split_tiles_for(16, 1, 32, 64, 32, 132) == 32       # 512 pairs
+    wave of the launch's instantiation's blocks per SM (at most two); none
+    where the pairs alone fill it (the serving shape), nor for a launch that
+    may hold prompt chunks; no device value is read."""
+    assert port.split_tiles_for(16, 1, 32, 64, 32, 132, 2) == 32    # 512 pairs
     assert port.sm90_grid(16, 1, 1, 32, 64, 32, 32) == (512, 1, 1)
-    assert port.split_tiles_for(4, 1, 8, 64, 32, 132) == 4          # 32 pairs: 8 splits
+    assert port.split_tiles_for(4, 1, 8, 64, 32, 132, 2) == 4       # 32 pairs: 8 splits
     assert port.sm90_grid(4, 1, 4, 8, 64, 32, 4) == (32 * 8, 1, 8)
-    assert port.split_tiles_for(1, 1, 1, 64, 32, 132) == 1
-    assert port.split_tiles_for(4, 128, 8, 64, 32, 132) == 32       # prompt chunks: none
+    assert port.split_tiles_for(1, 1, 1, 64, 32, 132, 2) == 1
+    assert port.split_tiles_for(4, 128, 8, 64, 32, 132, 2) == 32    # prompt chunks: none
     assert port.sm90_grid(4, 128, 4, 8, 64, 32, 32) == (4 * 8 * 8, 8, 1)
     blocks, row_tiles, n_splits = port.sm90_grid(16, 128, 1, 32, 64, 32, 8)
     assert (row_tiles, n_splits) == (2, 4) and blocks == 16 * 32 * 5
+    # the blocks per SM are the instantiation's, at most two counted
+    assert port.split_tiles_for(4, 1, 8, 64, 32, 132, 3) == 4       # a wave counts two an SM
+    assert port.split_tiles_for(16, 1, 8, 64, 32, 132, 1) == 32     # Pythia-1B: none
+
+
+@pytest.mark.parametrize("S,Hk,per_sm,splits", [
+    (16, 8, 1, 1),      # Pythia-1B's decode batch: 128 pairs, 132 blocks a wave
+    (4, 8, 2, 8),       # 32 pairs at two blocks per SM: 264 // 32
+    (4, 8, 3, 8),       # ... at three: a wave counts two an SM
+    (16, 8, 2, 2),      # 128 pairs at two: 264 // 128
+    (16, 32, 3, 1),     # Llama-2-7B's serving shape: 512 pairs
+    (1, 1, 1, 32),      # one pair: a run for each tile
+])
+def test_sm90_split_rule_takes_the_splits_one_wave_holds(S, Hk, per_sm, splits):
+    """A one-query launch splits each (sequence, kv head) pair's context
+    into ``min(per_sm, 2) * sms // pairs`` runs (at most one a tile), so
+    that its items still fit one wave of at most two of the instantiation's
+    blocks an SM: a split never turns one wave into two."""
+    tiles = port.split_tiles_for(S, 1, Hk, 64, 32, 132, per_sm)
+    blocks, _, n_splits = port.sm90_grid(S, 1, 1, Hk, 64, 32, tiles)
+    assert n_splits == splits
+    assert blocks <= max(min(per_sm, 2) * 132, S * Hk)
+
+
+def test_every_source_builds_the_listed_head_dims():
+    """One C++ list of head dims (``csrc/paged_head_dims.cuh``), included by
+    the four paged sources through their headers, names ``_HEAD_DIMS`` in
+    order; each entry dispatches over that list and nothing else."""
+    import pathlib
+    import re
+
+    csrc = pathlib.Path(port.__file__).parent / "csrc"
+    macro = re.search(r"#define PAGED_HEAD_DIMS\(X\)(.*)",
+                      (csrc / "paged_head_dims.cuh").read_text()).group(1)
+    assert tuple(int(d) for d in re.findall(r"X\((\d+)\)", macro)) == port._HEAD_DIMS
+    for header in ("paged_attention.cuh", "paged_attention_sm90.cuh"):
+        assert '#include "paged_head_dims.cuh"' in (csrc / header).read_text()
+    for source in set(port._SOURCES.values()):
+        text = (csrc / source).read_text()
+        assert "#define PAGED_HEAD_DIMS" not in text
+        assert not re.search(r"D == (64|128) \?", text)   # no two-way dispatch
 
 
 @pytest.mark.parametrize("kernel", ["packed", "decode"])

@@ -7,9 +7,11 @@ off and on (a second ``generate`` over prompts sharing a prefix maps cached
 pages). The port's ``LLMServer`` must answer with the engine's tokens, free
 a cancelled request's KV pages, and keep the pool-conservation invariant;
 its admission scheduler must preempt-and-requeue exactly as the JAX one.
-A head dim the paged kernels do not build (phi-3-mini's 96) resolves both
-attention paths to the einsum with a one-time warning, on every device,
-and serves the JAX engine's tokens.
+A head dim the paged kernels do not build (112) resolves both attention
+paths to the einsum with a one-time warning, on every device, and serves
+the JAX engine's tokens. The head dims they build past 64 and 128 (80, 96
+and 256) serve gpt_neox-shaped and phi3-shaped engines through them, with
+the JAX engine's greedy tokens.
 """
 
 import numpy as np
@@ -161,15 +163,15 @@ def test_priority_preemption_matches_jax_scheduler():
     teng.kv.assert_conservation(_live_blocks(teng))
 
 
-@pytest.mark.parametrize("head_dim", [64, 96])
+@pytest.mark.parametrize("head_dim", [64, 96, 112])
 def test_head_dims_the_paged_kernels_lack_take_the_einsum(head_dim):
     """The packed rule and the decode heuristic read the paged kernels' head
-    dims (``ops/paged_attention.py``'s ``_HEAD_DIMS``): D 96 resolves both
-    paths to ``einsum`` with one warning each (decode as a fallback, as the
-    JAX engine bails at an off-tile D), D 64 keeps the kernels. An explicit
-    ``attn_backend="pallas"`` keeps both kernels at either D (at D 96 they
-    raise on the card; here their plain versions run). All serve the JAX
-    engine's greedy tokens."""
+    dims (``ops/paged_attention.py``'s ``_HEAD_DIMS``): D 112, which they do
+    not build, resolves both paths to ``einsum`` with one warning each
+    (decode as a fallback, as the JAX engine bails at an off-tile D); D 64
+    and D 96 keep the kernels. An explicit ``attn_backend="pallas"`` keeps
+    both kernels at any D (at D 112 they raise on the card; here their
+    plain versions run). All serve the JAX engine's greedy tokens."""
     model = dict(hidden_size=2 * head_dim, num_heads=2)
     tengine_v2._WARNED.clear()
     jeng, teng = _engines(model=model)
@@ -190,3 +192,40 @@ def test_head_dims_the_paged_kernels_lack_take_the_einsum(head_dim):
     for eng in (teng, pinned):
         for g, w in zip(eng.generate(prompts, max_new_tokens=6), want):
             np.testing.assert_array_equal(g, np.asarray(w))
+
+
+#: the serving shapes of the wide head dims, as the JAX ``inference/hf.py``
+#: maps them: gpt_neox (Pythia: partial rotary, parallel residual, biased
+#: LayerNorm and projections, untied head) and phi3 (RMSNorm, SwiGLU, MHA)
+WIDE = {"gpt_neox": dict(norm="layernorm", activation="gelu", position="rope",
+                         rotary_pct=0.25, parallel_residual=True,
+                         tie_embeddings=False),
+        "phi3": dict(norm="rmsnorm", activation="swiglu", position="rope",
+                     tie_embeddings=False)}
+
+
+@pytest.mark.parametrize("family,head_dim", [("gpt_neox", 80), ("phi3", 96),
+                                             ("gpt_neox", 256)])
+def test_wide_head_dims_serve_jax_tokens_through_the_paged_kernels(family, head_dim):
+    """Pythia-2.8B's (80), phi-3-mini's (96) and Pythia-1B's (256) head dims
+    in tiny engines of their families: the port resolves ``pallas`` for the
+    packed and the decode path (``heuristic``) with no head-dim warning,
+    and its greedy tokens (prompt chunks, fused decode) equal the JAX
+    engine's."""
+    model = dict(WIDE[family], hidden_size=2 * head_dim, num_heads=2)
+    tengine_v2._WARNED.clear()
+    jeng, teng = _engines(model=model)
+    assert teng.cfg.head_dim == head_dim
+    if family == "gpt_neox":
+        assert teng.cfg.parallel_residual and teng.cfg.rotary_pct == 0.25
+        assert "bias" in teng.params["layer_0"]["attn_norm"]
+        assert "lm_head" in teng.params
+    assert (teng.attn_impl, teng.decode_attn_impl, teng.decode_attn_source) == \
+        ("pallas", "pallas", "heuristic")
+    assert not [m for m in tengine_v2._WARNED if "head_dim" in m]
+    prompts = _prompts(seed=5, lens=(5, 13, 22))
+    want = jeng.generate(prompts, max_new_tokens=8)
+    got = teng.generate(prompts, max_new_tokens=8)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    teng.kv.assert_conservation(_live_blocks(teng))
