@@ -35,14 +35,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shapes beside its bound, its plain version and the library composite;
    the
    block-sparse forward at Llama-2-7B's attention widths (B 1,
-   S 4096, H 32, D 128, block 64) over the bigbird (seed 0), fixed,
-   bslongformer, variable and local-window layouts, causal and not, at D 64,
-   block 128, D 64 at block 128 and fp32, and an all-ones causal layout
-   against the port's flash forward, each case reporting its route (bf16
-   must take ``wgmma``, fp32 ``mma_sync``), two ``wgmma`` launches bitwise
-   equal, and timed on both routes through the launch helper, back to back
-   and from a CUDA graph, and through the public op (library: SDPA with
-   the layout as a dense mask); the flash-attention forward and its two
+   S 4096, H 32, D 128) over the bigbird (seed 0), fixed, bslongformer,
+   variable and local-window layouts, causal and not at blocks 64 and 16
+   (DeepSpeed's SparsityConfig default), causal at blocks 32 and 256, at D
+   64, block 128, D 64 at block 128, fp32 at blocks 64 and 16, empty
+   q-blocks inside live items at block 16, at the widths of phi-3-mini
+   (H 32, D 96), Pythia-1B (H 8, D 256, S 2048) and Pythia-2.8B (H 32,
+   D 80, S 2048) at blocks 16 and 64, and an all-ones causal layout at
+   blocks 64 and 16 against the port's flash forward, each case through the
+   public op reporting its route (bf16 must take ``wgmma``, fp32
+   ``mma_sync``) and forced onto each route it takes, within OUT_TOL or
+   one bf16 ulp of each reference element; two ``wgmma`` launches bitwise
+   equal at each timed shape; timed on both routes through the launch
+   helper, back to back and from a CUDA graph, at the main shape at blocks
+   64, 16, 32 and 256 (with the public op) and at the three other widths at
+   block 16 (library: SDPA with the layout as a dense mask); the
+   flash-attention forward and its two
    backward kernels at TinyLlama's shape (B 4, S 2048, 32/4 heads, D 64,
    causal, bf16), a Llama-2-7B head shape (32/32, D 128), a non-causal
    case and an fp32 case, and at B 4, S 2048, causal, the attention widths
@@ -134,10 +142,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the einsum path (bf16) and the einsum path in float32; the kernel path's
    logits within twice the einsum path's distance from float32;
 14. sparse attention path — forward and backward of
-   ``deepspeed_tpu_torch.ops.sparse_attention`` at phase 3's bigbird shape:
-   one kernel launch, on the ``wgmma`` route, the gradients finite and equal
-   to autograd through
-   ``masked_dense_attention`` within 1e-3 of their largest value;
+   ``deepspeed_tpu_torch.ops.sparse_attention`` (bigbird, seed 0, causal,
+   bf16) at phase 3's main shape at blocks 64, 16, 32 and 256 and at block
+   16 at the widths of phi-3-mini, Pythia-1B and Pythia-2.8B: one kernel
+   launch each,
+   on the ``wgmma`` route, o within OUT_TOL or one bf16 ulp, the gradients
+   finite and equal to autograd through ``masked_dense_attention`` within
+   1e-3 of their largest value;
 15. Pythia-1B training — phase 6's run at Pythia-1B's published size
    (EleutherAI/pythia-1b: hidden 2048, 16 layers, 8 heads of D 256, ffn
    8192, vocab 50304, a quarter of each head rotated, parallel residual,
@@ -953,6 +964,11 @@ def flash_phase(fa):
 
 
 SPARSE_MAIN = dict(B=1, S=4096, H=32, D=128, block=64)   # Llama-2-7B heads
+#: the other attention widths phases 3 and 14 drive, at block 16 (DeepSpeed's
+#: SparsityConfig default) and 64; the main shape's is Llama-2-7B's
+SPARSE_WIDE = {"phi-3-mini H32 D96": dict(B=1, S=4096, H=32, D=96),
+               "Pythia-1B H8 D256": dict(B=1, S=2048, H=8, D=256),
+               "Pythia-2.8B H32 D80": dict(B=1, S=2048, H=32, D=80)}
 
 
 def sparse_case(dtype, B, S, H, D, seed):
@@ -962,12 +978,16 @@ def sparse_case(dtype, B, S, H, D, seed):
     return r(), r(), r()
 
 
-def sparse_work(live, B, S, H, D, block, it):
+def sparse_work(sl, B, S, H, D, block, it, causal):
     """(bytes, flops) of the sparse forward on these inputs: q, k, v read
-    once, o written once, the column lists read; 4*D*block^2 flops per live
-    (q-block, column) pair of the compacted layout (``live`` = its
-    ``cnt.sum()``), per batch."""
-    return 4 * B * S * H * D * it, 4 * D * block * block * live * B
+    once, o written once (the column lists are added by the caller); 4*D
+    flops per (query, key) pair the layout leaves live, per batch: block^2
+    per live (q-block, column) pair of the compacted layout, and under
+    causal block (block + 1) / 2 for a pair on the diagonal."""
+    live = int(sl.cnt.sum())
+    diag = int(np.trace(sl.layout, axis1=1, axis2=2).sum()) if causal else 0
+    pairs = (live - diag) * block * block + diag * block * (block + 1) // 2
+    return 4 * B * S * H * D * it, 4 * D * pairs * B
 
 
 def sdpa_sparse(q, k, v, mask, sm_scale):
@@ -979,28 +999,119 @@ def sdpa_sparse(q, k, v, mask, sm_scale):
                                           scale=sm_scale)
 
 
-def sparse_phase(sa, fa):
-    """The sparse forward kernel against its plain version (the masked-dense
-    attention) at Llama-2-7B's attention widths (B 1, S 4096, H 32, D 128,
-    block 64) over every layout builder, causal and not; D 64; block 128;
-    D 64 at block 128; fp32; an all-ones causal layout against the port's flash forward.
-    Timed at bigbird (seed 0), causal, bf16."""
-    tol = OUT_TOL   # summation order (fp32), one bf16 ulp (bf16)
-    B, S, H = SPARSE_MAIN["B"], SPARSE_MAIN["S"], SPARSE_MAIN["H"]
-    builders = {
+def sparse_err(got, want, dtype):
+    """max |got - want|, |want| where it is largest, and whether every
+    element lies within OUT_TOL or, in bf16, one bf16 ulp of
+    its reference element (OUT_TOL's one-ulp allowance, which its absolute
+    2e-2 covers only below |o| = 4: a row that attends to few keys can have
+    |o| of 4 or more, where one ulp is 2^-5)."""
+    err = (got.float() - want.float()).abs()
+    allowed = torch.full_like(err, OUT_TOL[dtype])
+    if dtype == torch.bfloat16:
+        ulp = torch.ldexp(torch.ones_like(err), torch.frexp(want.float()).exponent - 8)
+        allowed = torch.maximum(allowed, ulp)
+    at = int(err.argmax())
+    return (err.reshape(-1)[at].item(), want.float().reshape(-1)[at].abs().item(),
+            bool((err <= allowed).all()) and bool(torch.isfinite(got).all()))
+
+
+def sparse_builders(sa, H):
+    """Layouts of H heads over nb blocks by name: the five builders, and one
+    whose q-blocks 0 and 1 list nothing and every later one column 1 and
+    itself (below block 64 the first item's live rows sit beside empty
+    ones)."""
+    return {
         "bigbird": lambda nb: sa.bigbird_layout(H, nb, seed=0),
         "fixed": lambda nb: sa.fixed_layout(H, nb),
         "bslongformer": lambda nb: sa.bslongformer_layout(H, nb),
         "variable": lambda nb: sa.variable_layout(H, nb, num_random_blocks=1),
         "local_window": lambda nb: sa.local_sliding_window_layout(H, nb),
+        "empty q-blocks": lambda nb: np.repeat(
+            ((np.eye(nb, dtype=bool) | (np.arange(nb)[None] == 1))
+             & (np.arange(nb)[:, None] >= 2))[None], H, axis=0),
     }
-    cases = [(f"{n} causal={c}", n, c, 128, 64, torch.bfloat16)
+
+
+def sparse_timing(sa, q, k, v, layout, sl, block, label, err, public=False):
+    """The kernel on both routes through the launch helper, in turns (a b b
+    a), back to back (cuda_ms) and replayed from a CUDA graph (graph_ms),
+    the least of each route's two timings; its bound from this layout's
+    live pairs; the plain version; SDPA with the layout as a dense mask;
+    and with ``public`` the public op (what a user pays per call: the
+    layout's bytes hashed for the compaction cache, the autograd function
+    and the launch). Causal."""
+    B, S, H, D = q.shape
+    sm = D ** -0.5
+    out = torch.empty_like(q)
+    launch = {r: (lambda route: lambda: sa.launch_sparse_fwd(
+        q, k, v, out, sl, causal=True, sm_scale=sm, block=block, route=route))(r)
+        for r in ("wgmma", "mma_sync")}
+    t = {}
+    for c in tuple(launch) + tuple(reversed(tuple(launch))):
+        ms = (cuda_ms(launch[c], iters=50), graph_ms(launch[c]))
+        t[c] = tuple(map(min, zip(ms, t.get(c, ms))))
+    lo = torch.as_tensor(sl.layout, device="cuda")
+    mask = lo.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    mask &= torch.ones(S, S, dtype=torch.bool, device="cuda").tril()[None]
+    live = int(sl.cnt.sum())
+    nbytes, flops = sparse_work(sl, B, S, H, D, block, q.element_size(), causal=True)
+    nbytes += sl.cols.numel() * 4 + sl.cnt.numel() * 4
+    b_ms, b_by = bound(nbytes, flops, q.dtype)
+    plain = lambda: sa.masked_dense_attention(
+        *(x.transpose(1, 2) for x in (q, k, v)), sl.layout, causal=True,
+        sm_scale=sm, block_q=block, block_k=block)
+    chosen, m = t["wgmma"], t["mma_sync"]
+    row = dict(ms=chosen[0], graph_ms=chosen[1], mma_sync_ms=m[0], mma_sync_graph_ms=m[1],
+               plain_ms=cuda_ms(plain, iters=3),
+               library_ms=cuda_ms(lambda: sdpa_sparse(q, k, v, mask, sm), iters=5),
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes, flops=flops)
+    if public:
+        row["public_ms"] = cuda_ms(
+            lambda: sa.sparse_attention(q, k, v, layout, causal=True, block=block), iters=50)
+    log(f"timing sparse_attention_fwd ({label}, bf16, B{B} S{S} H{H} D{D} block{block} "
+        f"bigbird causal, {live} live pairs): wgmma {chosen[0]:.4f} ms (graph "
+        f"{chosen[1]:.4f}), mma_sync {m[0]:.4f} ms (graph {m[1]:.4f}), bound {b_ms:.4f} ms "
+        f"by {b_by} ({nbytes} B, {flops} flop), plain {row['plain_ms']:.4f} ms, library "
+        f"{row['library_ms']:.4f} ms"
+        + (f", public op (host work included) {row['public_ms']:.4f} ms" if public else ""))
+    log(f"timing sparse_attention_fwd ({label}) wgmma / mma_sync {chosen[0] / m[0]:.3f} "
+        f"(graph {chosen[1] / m[1]:.3f}); wgmma share of its bound {b_ms / chosen[0]:.3f}; "
+        f"wgmma / library {chosen[0] / row['library_ms']:.3f}")
+    del mask, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def sparse_phase(sa, fa):
+    """The sparse forward kernel against its plain version (the masked-dense
+    attention) at Llama-2-7B's attention widths (B 1, S 4096, H 32, D 128)
+    over every layout builder: at block 64 and 16 causal and not, at blocks
+    32 and 256 causal; D 64; block 128; D 64 at block 128; fp32 at blocks 64
+    and 16; empty q-blocks inside live items at block 16; the widths of
+    phi-3-mini (D 96), Pythia-1B (D 256) and Pythia-2.8B (D 80) at blocks
+    16 and 64; an all-ones causal layout against the port's flash forward.
+    Each case through the public op (one launch, on the route sparse_route
+    picks) and forced onto each route through the launch helper (fp32: a
+    forced wgmma raises). Timed at bigbird (seed 0), causal, bf16: the main
+    shape at blocks 64, 16, 32 and 256, the other widths at block 16."""
+    tol = OUT_TOL   # summation order (fp32), one bf16 ulp (bf16; see sparse_err)
+    main = {k: SPARSE_MAIN[k] for k in ("B", "S", "H", "D")}
+    builders = list(sparse_builders(sa, 1))[:5]
+    cases = [(f"{n} causal={c}", n, c, main, 64, torch.bfloat16)
              for n in builders for c in (True, False)]
-    cases += [("bigbird D64", "bigbird", True, 64, 64, torch.bfloat16),
-              ("bigbird block128", "bigbird", True, 128, 128, torch.bfloat16),
-              ("bigbird D64 block128", "bigbird", True, 64, 128, torch.bfloat16),
-              ("bigbird fp32", "bigbird", True, 128, 64, torch.float32)]
-    ok, timed = True, None
+    cases += [("bigbird D64", "bigbird", True, dict(main, D=64), 64, torch.bfloat16),
+              ("bigbird block128", "bigbird", True, main, 128, torch.bfloat16),
+              ("bigbird D64 block128", "bigbird", True, dict(main, D=64), 128, torch.bfloat16),
+              ("bigbird fp32", "bigbird", True, main, 64, torch.float32)]
+    cases += [(f"{n} causal={c}", n, c, main, 16, torch.bfloat16)
+              for n in builders for c in (True, False)]
+    cases += [(f"{n} causal=True", n, True, main, blk, torch.bfloat16)
+              for blk in (32, 256) for n in builders]
+    cases += [("bigbird fp32", "bigbird", True, main, 16, torch.float32),
+              ("empty q-blocks", "empty q-blocks", True, main, 16, torch.bfloat16)]
+    cases += [(f"{w} bigbird", "bigbird", True, shape, blk, torch.bfloat16)
+              for w, shape in SPARSE_WIDE.items() for blk in (16, 64)]
+    ok, timed = True, {}
 
     def run(q, k, v, layout, causal, block):
         """The public op, launched once on the route sparse_route picks."""
@@ -1013,135 +1124,128 @@ def sparse_phase(sa, fa):
         ok &= routed
         return got, f"route {route}{'' if routed else ' (want ' + want + ': FAIL)'}"
 
-    for i, (name, lname, causal, D, block, dtype) in enumerate(cases):
-        layout = builders[lname](S // block)
+    for i, (name, lname, causal, shape, block, dtype) in enumerate(cases):
+        B, S, H, D = (shape[x] for x in ("B", "S", "H", "D"))
+        layout = sparse_builders(sa, H)[lname](S // block)
         q, k, v = sparse_case(dtype, B, S, H, D, seed=300 + i)
         got, route = run(q, k, v, layout, causal, block)
         sl = sa._compact_layout(layout, causal, q.device)
         want = sa.masked_dense_attention(
             *(x.transpose(1, 2) for x in (q, k, v)), sl.layout, causal=causal,
             sm_scale=D ** -0.5, block_q=block, block_k=block).transpose(1, 2)
-        err = (got.float() - want.float()).abs().max().item()
-        good = err <= tol[dtype] and bool(torch.isfinite(got).all())
+        err, ref, good = sparse_err(got, want, dtype)
+        forced = []
+        # a forced wgmma on fp32 raises (tests/test_torch_cuda.py); not run here
+        for r in ("wgmma", "mma_sync") if dtype == torch.bfloat16 else ("mma_sync",):
+            out = torch.full_like(q, float("nan"))
+            kw = dict(causal=causal, sm_scale=D ** -0.5, block=block, route=r)
+            sa.launch_sparse_fwd(q, k, v, out, sl, **kw)
+            e, _, within = sparse_err(out, want, dtype)
+            good &= within
+            forced.append(f"{r} {e:.3e}")
         ok &= good
         empty = int((sl.cnt == 0).sum())
-        log(f"parity sparse_attention_fwd {name} D{D} block{block} "
+        log(f"parity sparse_attention_fwd {name} H{H} S{S} D{D} block{block} "
             f"{str(dtype)[6:]} ({route}): live pairs {int(sl.cnt.sum())} of "
-            f"{H * (S // block) ** 2}, empty q-blocks {empty}, max|o|err={err:.3e} "
-            f"(tol {tol[dtype]:g}) {'ok' if good else 'FAIL'}")
-        if i == 0:
-            timed = (q, k, v, layout, sl, err)
+            f"{H * (S // block) ** 2}, empty q-blocks {empty}, max|o|err={err:.3e} (at |o| {ref:.3f}), "
+            f"forced {', '.join(forced)} (tol {tol[dtype]:g} or one bf16 ulp) "
+            f"{'ok' if good else 'FAIL'}")
+        key = (block, D, H)
+        if (lname == "bigbird" and causal and dtype == torch.bfloat16 and key not in timed
+                and (block == 16 or shape is main)):
+            timed[key] = (q, k, v, layout, sl, err, shape is main)
         del got, want
     # an all-ones causal layout is causal attention: the port's flash forward
+    B, S, H = main["B"], main["S"], main["H"]
     q, k, v = sparse_case(torch.bfloat16, B, S, H, 128, seed=399)
-    ones = np.ones((H, S // 64, S // 64), bool)
-    got, route = run(q, k, v, ones, True, 64)
-    err = (got.float()
-           - fa.flash_attention_forward(q, k, v, causal=True)[0].float()).abs().max().item()
-    good = err <= tol[torch.bfloat16]
-    ok &= good
-    log(f"parity sparse_attention_fwd all-ones causal vs flash forward bf16 ({route}): "
-        f"max|o|err={err:.3e} (tol {tol[torch.bfloat16]:g}) {'ok' if good else 'FAIL'}")
+    for block in (64, 16):
+        ones = np.ones((H, S // block, S // block), bool)
+        got, route = run(q, k, v, ones, True, block)
+        err, _, good = sparse_err(got, fa.flash_attention_forward(q, k, v, causal=True)[0],
+                                  torch.bfloat16)
+        ok &= good
+        log(f"parity sparse_attention_fwd all-ones causal block{block} vs flash forward "
+            f"bf16 ({route}): max|o|err={err:.3e} (tol {tol[torch.bfloat16]:g} or one bf16 "
+            f"ulp) {'ok' if good else 'FAIL'}")
     if not ok:
         raise SystemExit("sparse kernel parity FAILED (see lines above)")
 
-    q, k, v, layout, sl, err = timed
-    D, block = SPARSE_MAIN["D"], SPARSE_MAIN["block"]
-    sm = D ** -0.5
-    out = torch.empty_like(q)
-    launch = {r: (lambda route: lambda: sa.launch_sparse_fwd(
-        q, k, v, out, sl, causal=True, sm_scale=sm, block=block, route=route))(r)
-        for r in ("wgmma", "mma_sync")}
-    # the wgmma kernel repeats bitwise
-    firsts = []
-    for _ in range(2):
-        launch["wgmma"]()
-        torch.cuda.synchronize()
-        firsts.append(out.clone())
-    bitwise = torch.equal(*firsts)
-    log(f"sparse_attention_fwd (wgmma) two launches at the main shape: bitwise equal "
-        f"{bitwise}")
-    if not bitwise:
-        raise SystemExit("sparse: launches of the wgmma kernel differ")
-    del firsts
-    # both routes in turns (a b b a), back to back (cuda_ms) and replayed
-    # from a CUDA graph (graph_ms), the least of each route's two timings
-    t = {}
-    for c in tuple(launch) + tuple(reversed(tuple(launch))):
-        ms = (cuda_ms(launch[c], iters=50), graph_ms(launch[c]))
-        t[c] = tuple(map(min, zip(ms, t.get(c, ms))))
-    lo = torch.as_tensor(sl.layout, device="cuda")
-    mask = lo.repeat_interleave(block, 1).repeat_interleave(block, 2)
-    mask &= torch.ones(S, S, dtype=torch.bool, device="cuda").tril()[None]
-    nbytes, flops = sparse_work(int(sl.cnt.sum()), B, S, H, D, block, q.element_size())
-    nbytes += sl.cols.numel() * 4 + sl.cnt.numel() * 4
-    b_ms, b_by = bound(nbytes, flops, q.dtype)
-    plain = lambda: sa.masked_dense_attention(
-        *(x.transpose(1, 2) for x in (q, k, v)), sl.layout, causal=True,
-        sm_scale=sm, block_q=block, block_k=block)
-    # what a user of the public op pays per call: the layout's bytes hashed
-    # for the compaction cache, the autograd function and the launch
-    public = lambda: sa.sparse_attention(q, k, v, layout, causal=True, block=block)
-    chosen, m = t["wgmma"], t["mma_sync"]
-    row = dict(ms=chosen[0], graph_ms=chosen[1], mma_sync_ms=m[0],
-               public_ms=cuda_ms(public, iters=50), plain_ms=cuda_ms(plain, iters=3),
-               library_ms=cuda_ms(lambda: sdpa_sparse(q, k, v, mask, sm), iters=5),
-               bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bytes=nbytes, flops=flops)
-    log(f"timing sparse_attention_fwd (bf16, B1 S4096 H32 D128 block64 bigbird "
-        f"causal, {int(sl.cnt.sum())} live pairs): kernel on the wgmma route through "
-        f"the launch helper {row['ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-        f"({nbytes} B, {flops} flop), plain {row['plain_ms']:.4f} ms, library "
-        f"{row['library_ms']:.4f} ms, public op (host work included) "
-        f"{row['public_ms']:.4f} ms")
-    log(f"timing sparse_attention_fwd by route: wgmma {chosen[0]:.4f} ms (graph "
-        f"{chosen[1]:.4f}), mma_sync {m[0]:.4f} ms (graph {m[1]:.4f})")
-    log(f"timing sparse_attention_fwd wgmma / mma_sync {chosen[0] / m[0]:.3f} (graph "
-        f"{chosen[1] / m[1]:.3f}); wgmma share of its bound {b_ms / chosen[0]:.3f}")
-    del mask, out
+    rows = {}
+    for (block, D, H), (q, k, v, layout, sl, err, is_main) in timed.items():
+        label = ("main shape" if is_main else
+                 next(w for w, s in SPARSE_WIDE.items() if (s["D"], s["H"]) == (D, H)))
+        # the wgmma kernel repeats bitwise (over union tiles below block 64)
+        firsts = []
+        for _ in range(2):
+            out = torch.empty_like(q)
+            sa.launch_sparse_fwd(q, k, v, out, sl, causal=True, sm_scale=D ** -0.5,
+                                 block=block, route="wgmma")
+            torch.cuda.synchronize()
+            firsts.append(out)
+        bitwise = torch.equal(*firsts)
+        log(f"sparse_attention_fwd (wgmma) two launches ({label}, block {block}): "
+            f"bitwise equal {bitwise}")
+        if not bitwise:
+            raise SystemExit("sparse: launches of the wgmma kernel differ")
+        del firsts
+        rows[block, D, H] = sparse_timing(sa, q, k, v, layout, sl, block, label, err,
+                                          public=is_main)
+    del timed
     torch.cuda.empty_cache()
-    return {"sparse_attention_fwd": row}
+    main_row = rows[SPARSE_MAIN["block"], SPARSE_MAIN["D"], SPARSE_MAIN["H"]]
+    return {"sparse_attention_fwd": main_row}
 
 
 def sparse_path_phase(sa, sparse_op):
     """Phase 14: forward and backward through the public entry point
-    (``deepspeed_tpu_torch.ops.sparse_attention``) at the full-width bigbird
-    shape. The forward launches the kernel once per call; the backward
-    recomputes through the plain version, so with the same cotangent the
-    gradients equal autograd through ``masked_dense_attention`` to rounding
-    (tolerance: 1e-3 of the largest gradient). Returns the launches."""
-    B, S, H, D, block = (SPARSE_MAIN[k] for k in ("B", "S", "H", "D", "block"))
-    layout = sa.bigbird_layout(H, S // block, seed=0)
-    q, k, v = (x.requires_grad_(True) for x in sparse_case(torch.bfloat16, B, S, H, D, 401))
-    w = sparse_case(torch.float32, B, S, H, D, 402)[0]
-    sa.reset_launch_counts()
-    out = sparse_op(q, k, v, layout, causal=True, block=block)
-    (out.float() * w).sum().backward()
-    torch.cuda.synchronize()
-    launches = dict(sa.launch_counts)
-    routes = dict(sa.route_counts["sparse_attention_fwd"])
-    ref = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-    sl = sa._compact_layout(layout, True, q.device)
-    o_ref = sa.masked_dense_attention(*(x.transpose(1, 2) for x in ref), sl.layout,
-                                      causal=True, sm_scale=D ** -0.5, block_q=block,
-                                      block_k=block).transpose(1, 2)
-    (o_ref.float() * w).sum().backward()
-    errs = [(a.grad.float() - b.grad.float()).abs().max().item()
-            / max(b.grad.float().abs().max().item(), 1e-30) for a, b in zip((q, k, v), ref)]
-    finite = all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
-    o_err = (out.float() - o_ref.float()).abs().max().item()
-    good = (finite and max(errs) <= 1e-3 and o_err <= OUT_TOL[torch.bfloat16]
-            and launches["sparse_attention_fwd"] == 1
-            and routes == {"wgmma": 1, "mma_sync": 0})
-    log(f"sparse path (B1 S4096 H32 D128 block64 bigbird causal, bf16): forward "
-        f"launches {launches['sparse_attention_fwd']} (routes {routes}), "
-        f"max|o|err {o_err:.3e}, grads "
-        f"finite {finite}, rel err dq/dk/dv {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
-        f"(tol 1e-3) {'ok' if good else 'FAIL'}")
-    if not good:
-        raise SystemExit("sparse path FAILED")
-    del q, k, v, w, out, ref, o_ref
-    torch.cuda.empty_cache()
-    return launches
+    (``deepspeed_tpu_torch.ops.sparse_attention``), bigbird (seed 0),
+    causal, bf16: at the main shape at blocks 64, 16, 32 and 256, and at
+    block 16 at the other three widths. The forward launches the kernel
+    once per call, on the wgmma route; the backward recomputes through the
+    plain version, so with the same cotangent the gradients equal autograd
+    through ``masked_dense_attention`` to rounding (tolerance: 1e-3 of the
+    largest gradient). Returns the launches, summed over the runs (each
+    counted from 0)."""
+    main = {k: SPARSE_MAIN[k] for k in ("B", "S", "H", "D")}
+    runs = [("Llama-2-7B H32 D128", main, block) for block in (64, 16, 32, 256)]
+    runs += [(w, shape, 16) for w, shape in SPARSE_WIDE.items()]
+    total = {"sparse_attention_fwd": 0}
+    for label, shape, block in runs:
+        B, S, H, D = (shape[x] for x in ("B", "S", "H", "D"))
+        layout = sa.bigbird_layout(H, S // block, seed=0)
+        q, k, v = (x.requires_grad_(True)
+                   for x in sparse_case(torch.bfloat16, B, S, H, D, 401))
+        w = sparse_case(torch.float32, B, S, H, D, 402)[0]
+        sa.reset_launch_counts()
+        out = sparse_op(q, k, v, layout, causal=True, block=block)
+        (out.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        launches = dict(sa.launch_counts)
+        routes = dict(sa.route_counts["sparse_attention_fwd"])
+        ref = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        sl = sa._compact_layout(layout, True, q.device)
+        o_ref = sa.masked_dense_attention(*(x.transpose(1, 2) for x in ref), sl.layout,
+                                          causal=True, sm_scale=D ** -0.5, block_q=block,
+                                          block_k=block).transpose(1, 2)
+        (o_ref.float() * w).sum().backward()
+        errs = [(a.grad.float() - b.grad.float()).abs().max().item()
+                / max(b.grad.float().abs().max().item(), 1e-30)
+                for a, b in zip((q, k, v), ref)]
+        finite = all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
+        o_err, _, o_ok = sparse_err(out, o_ref, torch.bfloat16)
+        good = (finite and max(errs) <= 1e-3 and o_ok
+                and launches["sparse_attention_fwd"] == 1
+                and routes == {"wgmma": 1, "mma_sync": 0})
+        log(f"sparse path ({label}, B{B} S{S} H{H} D{D} block{block} bigbird causal, bf16): "
+            f"forward launches {launches['sparse_attention_fwd']} (routes {routes}), "
+            f"max|o|err {o_err:.3e}, grads finite {finite}, rel err dq/dk/dv "
+            f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol 1e-3) {'ok' if good else 'FAIL'}")
+        if not good:
+            raise SystemExit("sparse path FAILED")
+        total["sparse_attention_fwd"] += launches["sparse_attention_fwd"]
+        del q, k, v, w, out, ref, o_ref
+        torch.cuda.empty_cache()
+    return total
 
 
 def adam_phase(adam):

@@ -283,11 +283,14 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[K][4], const float (&c)[8 * K
 
 // the online softmax of one key tile, in base 2: the running max m of s c,
 // alpha = 2^(m_old - m_new) for rescaling the sums, st = 2^(s c - m), and
-// this thread's share of the row sums l
-template <int N>
+// this thread's share of the row sums l. kZeroMasked: a row that has met no
+// live key yet (l is 0 and every logit of it in this tile is masked to
+// -1e30, so m is near -1e30 and 2^(s c - m) would be 1) takes st = 2^-inf =
+// 0; any other row's masked logits give 0 as they do without it
+template <bool kZeroMasked = false, int N>
 __device__ __forceinline__ void online_softmax(float (&st)[N], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], float c) {
-  float mx[2] = {kNegInf, kNegInf};
+  float mx[2] = {kNegInf, kNegInf}, neg_m[2];
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
     mx[0] = fmaxf(mx[0], fmaxf(st[4 * j], st[4 * j + 1]));
@@ -295,7 +298,11 @@ __device__ __forceinline__ void online_softmax(float (&st)[N], float (&m)[2], fl
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float m_new = fmaxf(m[i], quad_max(mx[i]) * c);
+    const float row_max = quad_max(mx[i]);
+    const float m_new = fmaxf(m[i], row_max * c);
+    neg_m[i] = kZeroMasked && l[i] == 0.f && row_max <= 0.5f * kNegInf
+                   ? __int_as_float(0xff800000)  // -inf
+                   : -m_new;
     alpha[i] = ex2(m[i] - m_new);
     m[i] = m_new;
     l[i] *= alpha[i];
@@ -304,7 +311,7 @@ __device__ __forceinline__ void online_softmax(float (&st)[N], float (&m)[2], fl
   for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float pv = ex2(fmaf(st[4 * j + e], c, -m[e >> 1]));
+      const float pv = ex2(fmaf(st[4 * j + e], c, neg_m[e >> 1]));
       l[e >> 1] += pv;
       st[4 * j + e] = pv;
     }

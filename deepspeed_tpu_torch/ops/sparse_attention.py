@@ -14,12 +14,16 @@ layout's bytes, ``causal`` and the device) and runs:
   chosen in the open by :func:`sparse_route`: ``"wgmma"``
   (``csrc/sparse_attention_sm90.cu``: TMA loads and ``wgmma`` in
   warp-specialised blocks, one 64-row query tile per work item, the items
-  dealt by :func:`sm90_plan`) for bf16 at head dim 64 or 128 on tensors TMA
-  can describe, and ``"mma_sync"`` (``csrc/sparse_attention.cu``:
-  ``mma.sync`` in bf16, the CUDA cores in fp32) for the rest. A CUDA call
-  that neither route was built for (head dim, block or dtype) raises, and
-  so does a forced ``"wgmma"`` launch on tensors it was not built for;
-  nothing falls back to the other route;
+  dealt by :func:`sm90_plan`) for bf16 on tensors TMA can describe, and
+  ``"mma_sync"`` (``csrc/sparse_attention.cu``: ``mma.sync`` in bf16, the
+  CUDA cores in fp32) for the rest. Both take the blocks of ``_BLOCKS``
+  and the head dims of ``_HEAD_DIMS`` (``csrc/sparse_tiles.cuh``). At a
+  block smaller than a work item's rows the item walks the union of its
+  q-blocks' column lists, each column with a mask of the q-blocks that list
+  it (:func:`union_columns`). A CUDA call that neither route was built for
+  (head dim, block or dtype) raises, and so does a forced ``"wgmma"``
+  launch on tensors it was not built for; nothing falls back to the other
+  route;
 * the backward: recomputed through the masked-dense plain function under
   autograd, as the JAX ``custom_vjp`` does (exact, O(S^2) compute; the JAX
   package computes it outside any Pallas kernel).
@@ -45,21 +49,26 @@ route_counts: Dict[str, Dict[str, int]] = {"sparse_attention_fwd": {"wgmma": 0, 
 
 _SOURCES = {"mma_sync": "sparse_attention.cu", "wgmma": "sparse_attention_sm90.cu"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)   # instantiated in both sources
-_BLOCKS = (64, 128)      # layout blocks the kernels' 64-row tiles divide
+#: what both sources build (csrc/sparse_tiles.cuh: SPARSE_HEAD_DIMS and
+#: SPARSE_BLOCKS list the same)
+_HEAD_DIMS = (64, 80, 96, 128, 256)
+_BLOCKS = (16, 32, 64, 128, 256)
 #: the wgmma kernel's tiles (csrc/sparse_attention_sm90.cu): query rows per
 #: work item and keys per streamed tile. Each launch passes the number of
-#: items dealt from SM90_ROWS; the kernel refuses a count its own tiles
-#: decode otherwise.
+#: items dealt from SM90_ROWS (and, below block 64, the union's rows); the
+#: kernel refuses a count its own tiles decode otherwise.
 SM90_ROWS = 64
 SM90_KEYS = 64
 #: its blocks resident on an SM by head dim (the kernel's launch bounds)
-SM90_BLOCKS_PER_SM = {64: 3, 128: 2}
+SM90_BLOCKS_PER_SM = {64: 3, 80: 2, 96: 2, 128: 2, 256: 1}
+#: query rows per work item of the mma_sync route's tiles by dtype
+#: (csrc/sparse_attention.cu: MmaTiles and F32Tiles)
+MMA_ROWS = {torch.bfloat16: 64, torch.float32: 32}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "sparse_attention_fwd": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _I, _P],
-    "sparse_attention_fwd_sm90": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _I, _P],
+    "sparse_attention_fwd": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _P],
+    "sparse_attention_fwd_sm90": [_P] * 10 + [_I] * 11 + [ctypes.c_float, _I, _P],
 }
 
 
@@ -180,6 +189,42 @@ def causal_layout(layout: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def _ascending(live: np.ndarray, width: int):
+    """The indices of each row's set entries of ``live`` (``[..., NK]``
+    bool), ascending, padded to ``width`` with the row's last one (0 for a
+    row with none), as int32, and their count per row."""
+    cnt = live.sum(axis=-1).astype(np.int32)
+    order = np.argsort(~live, axis=-1, kind="stable")[..., :width]
+    if order.shape[-1] < width:
+        order = np.concatenate(
+            [order, np.zeros((*order.shape[:-1], width - order.shape[-1]), order.dtype)], -1)
+    last = np.take_along_axis(order, np.maximum(cnt - 1, 0)[..., None], axis=-1)
+    cols = np.where(np.arange(width) < cnt[..., None], order, last)
+    return cols.astype(np.int32), cnt
+
+
+def union_columns(layout: np.ndarray, r: int):
+    """The column lists of a work item that spans ``r`` consecutive q-blocks
+    (a block smaller than the kernels' item rows; the last item may run past
+    the layout): ``(cols, masks, cnt)``, ``cols`` int32 ``[H, T, NU]`` the
+    ascending union of the ``r`` q-blocks' columns (``T = ceil(NQ / r)``),
+    padded with the last one, ``masks`` int32 beside them, bit ``i`` set
+    when q-block ``i`` of the item lists the column (0 on padding), and
+    ``cnt`` int32 ``[H, T]`` the union's length. ``NU`` is a multiple of 4,
+    so that every tile of ``keys / block`` columns (1, 2 or 4) lies in the
+    arrays."""
+    h, nq, nk = layout.shape
+    t = -(-nq // r)
+    lo = np.zeros((h, t * r, nk), np.int32)
+    lo[:, :nq] = layout
+    bits = (lo.reshape(h, t, r, nk) << np.arange(r, dtype=np.int32)[:, None]).sum(axis=2)
+    nu = -(-max(int((bits != 0).sum(axis=-1).max()), 1) // 4) * 4
+    cols, cnt = _ascending(bits != 0, nu)
+    masks = np.take_along_axis(bits, cols, axis=-1)
+    masks[np.arange(nu) >= cnt[..., None]] = 0
+    return cols, masks.astype(np.int32), cnt
+
+
 class CompactLayout:
     """A layout's per-(head, q-block) live columns: ``cols`` int32
     ``[H, NQ, NJ]`` (ascending, padded with the last valid column) and
@@ -188,8 +233,18 @@ class CompactLayout:
 
     def __init__(self, cols: torch.Tensor, cnt: torch.Tensor, layout: np.ndarray):
         self.cols, self.cnt, self.layout = cols, cnt, layout
+        #: :func:`union_columns` on the device, by q-blocks per item
+        self.unions: Dict[int, tuple] = {}
         #: the wgmma kernel's schedules on the device, by launch shape
         self.schedules: Dict[tuple, tuple] = {}
+
+    def union(self, r: int):
+        """``(cols, masks, cnt)`` of :func:`union_columns` at ``r`` q-blocks
+        per item, on the device of ``cols``; made once per ``r``."""
+        if r not in self.unions:
+            self.unions[r] = tuple(torch.from_numpy(a).to(self.cols.device)
+                                   for a in union_columns(self.layout, r))
+        return self.unions[r]
 
 
 _LAYOUT_CACHE: Dict[tuple, CompactLayout] = {}
@@ -205,16 +260,8 @@ def _compact_layout(layout: np.ndarray, causal: bool, device) -> CompactLayout:
         return hit
     if causal:
         layout = causal_layout(layout)
-    h, nq, _ = layout.shape
-    cnt = layout.sum(axis=2).astype(np.int32)                   # [H, NQ]
-    nj = max(int(cnt.max()), 1)
-    cols = np.zeros((h, nq, nj), np.int32)
-    for hh in range(h):
-        for i in range(nq):
-            idx = np.nonzero(layout[hh, i])[0]
-            if len(idx):
-                cols[hh, i, :len(idx)] = idx
-                cols[hh, i, len(idx):] = idx[-1]
+    nj = max(int(layout.sum(axis=2).max()), 1)
+    cols, cnt = _ascending(layout, nj)
     sl = CompactLayout(torch.from_numpy(cols).to(device),
                        torch.from_numpy(cnt).to(device), layout)
     if len(_LAYOUT_CACHE) > 64:  # bound host and device memory held by the cache
@@ -286,10 +333,10 @@ def _validate_cuda(q, k, v, sl: CompactLayout, block: int) -> None:
 
 def sparse_route(q, k, v) -> str:
     """The forward kernel's route for these tensors: ``"wgmma"`` for bf16 at
-    head dim 64 or 128 when TMA can describe every tensor (contiguous, so
-    rows of ``H * D`` elements, with 16-byte-aligned bases); else
-    ``"mma_sync"``. Both routes take blocks 64 and 128 only. The same rule
-    on any device, so the CPU tests can ask it."""
+    a head dim of ``_HEAD_DIMS`` when TMA can describe every tensor
+    (contiguous, so rows of ``H * D`` elements, with 16-byte-aligned bases);
+    else ``"mma_sync"``. Both routes take the blocks of ``_BLOCKS``. The
+    same rule on any device, so the CPU tests can ask it."""
     tma = (q.dtype == torch.bfloat16 and q.shape[-1] in _HEAD_DIMS
            and all(t.dtype == q.dtype and t.is_contiguous() and t.data_ptr() % 16 == 0
                    for t in (q, k, v)))
@@ -298,13 +345,20 @@ def sparse_route(q, k, v) -> str:
 
 def item_lengths(layout: np.ndarray, B: int, block: int, causal: bool) -> np.ndarray:
     """The live key tiles of each of the wgmma kernel's work items, by item
-    index ``u = (b H + h) T + t`` (``T = S / SM90_ROWS`` query tiles), as its
-    producer counts them from the compacted columns: ``block / SM90_KEYS``
-    tiles per live column of the item's q-block, less, under causal, the
-    tiles wholly above the item's last row (only the diagonal column's,
-    since the ``layout`` given is the causal-intersected one)."""
+    index ``u = (b H + h) T + t`` (``T = ceil(S / SM90_ROWS)`` query tiles),
+    as its producer counts them. At a block of at least ``SM90_KEYS``, from
+    the compacted columns: ``block / SM90_KEYS`` tiles per live column of
+    the item's q-block, less, under causal, the tiles wholly above the
+    item's last row (only the diagonal column's, since the ``layout`` given
+    is the causal-intersected one). Below it, from the union of the item's
+    q-blocks' columns (:func:`union_columns`): one tile per ``SM90_KEYS /
+    block`` union columns, the last one padded; none lies above the item
+    under causal, as every listed column is at or below its q-block."""
     H, nq, _ = layout.shape
     rows, keys = SM90_ROWS, SM90_KEYS
+    if block < keys:
+        cnt = union_columns(layout, rows // block)[2]
+        return np.tile((-(-cnt // (keys // block))).reshape(-1), B)
     per = block // keys
     q0 = np.arange(nq * block // rows) * rows
     iq = q0 // block
@@ -353,20 +407,25 @@ def launch_sparse_fwd(q, k, v, out, sl: CompactLayout, *, causal: bool, sm_scale
     if route not in _SOURCES:
         raise ValueError(f"route must be one of {sorted(_SOURCES)}, got {route!r}")
     if route == "wgmma" and chosen != "wgmma":
-        raise ValueError("the wgmma route takes contiguous bf16 tensors with 16-byte "
-                         "aligned bases and head dim 64 or 128 (see sparse_route)")
+        raise ValueError(f"the wgmma route takes contiguous bf16 tensors with 16-byte "
+                         f"aligned bases and a head dim of {_HEAD_DIMS} (see sparse_route)")
     B, S, H, D = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    rows = SM90_ROWS if route == "wgmma" else MMA_ROWS.get(q.dtype, 0)
+    union = (0, 0, 0, 0, 0)   # (cols, masks, cnt, items per head, width) below the rows
+    if 0 < block < rows:
+        u = sl.union(rows // block)
+        union = (*(t.data_ptr() for t in u), u[2].shape[1], u[0].shape[2])
+    lists = (sl.cols.data_ptr(), sl.cnt.data_ptr(), *union[:3])
+    shape = (B, S, H, D, block, sl.cols.shape[1], sl.cols.shape[2], *union[3:])
     if route == "wgmma":
         sched, grid, items = _sm90_schedule(sl, q, block, causal)
         err = _kernel("sparse_attention_fwd_sm90", route)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), sl.cols.data_ptr(),
-            sl.cnt.data_ptr(), sched.data_ptr(), grid, items, B, S, H, D, block,
-            sl.cols.shape[1], sl.cols.shape[2], sm_scale, int(causal), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lists,
+            sched.data_ptr(), grid, items, *shape, sm_scale, int(causal), stream)
     else:
         err = _kernel("sparse_attention_fwd", route)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), sl.cols.data_ptr(),
-            sl.cnt.data_ptr(), B, S, H, D, block, sl.cols.shape[1], sl.cols.shape[2],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lists, *shape,
             sm_scale, int(causal), _DTYPES[q.dtype], stream)
     launch_counts["sparse_attention_fwd"] += 1
     route_counts["sparse_attention_fwd"][route] += 1

@@ -435,16 +435,17 @@ def test_float8_cast_beyond_its_range_on_card():
 @pytest.mark.parametrize("route", ["mma_sync", "wgmma"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,block", [(64, 64), (64, 128), (128, 64), (128, 128)])
+@pytest.mark.parametrize("D,block", [
+    (64, 64), (64, 128), (128, 64), (128, 128), (128, 16), (128, 32), (128, 256),
+    (80, 16), (96, 32), (256, 16), (80, 64), (96, 128), (256, 64), (64, 16)])
 def test_sparse_kernel_matches_plain_version_on_card(D, block, dtype, causal, route):
     """The sparse forward kernel against the masked-dense plain version on a
     bigbird layout (random blocks above the diagonal) and a layout with
-    empty q-blocks: through the entry point (one launch, on the route
-    ``sparse_route`` picks: wgmma for bf16, mma_sync for fp32) and forced
-    onto ``route`` through the launch helper (a forced wgmma on fp32
-    raises before any launch); the
-    backward through the entry point equals autograd through the plain
-    version."""
+    empty q-blocks (inside live items below block 64): through the entry
+    point (one launch, on the route ``sparse_route`` picks: wgmma for bf16,
+    mma_sync for fp32) and forced onto ``route`` through the launch helper
+    (a forced wgmma on fp32 raises before any launch); the backward through
+    the entry point equals autograd through the plain version."""
     _need_card()
     B, S, H = 2, 1024, 4
     nb = S // block
@@ -487,7 +488,8 @@ def test_sparse_kernel_matches_plain_version_on_card(D, block, dtype, causal, ro
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("D,block", [(64, 64), (128, 128)])
+@pytest.mark.parametrize("D,block", [(64, 64), (128, 128), (128, 16), (256, 16), (80, 32),
+                                     (96, 256)])
 def test_sparse_wgmma_is_bitwise_repeatable_on_card(D, block):
     """One block computes each item over its key tiles in a fixed order,
     with no float atomics, whichever persistent block it is dealt to: two
@@ -550,16 +552,61 @@ def test_sparse_attention_takes_strided_views_on_card():
 
 
 def test_sparse_kernel_rejects_what_it_was_not_built_for_on_card():
+    """Head dims and blocks outside the lists raise in the wrapper, and the
+    C entries of both routes refuse them when the launch helper is called
+    past the wrapper's check."""
     _need_card()
-    x = torch.randn(1, 256, 2, 32, device="cuda", dtype=torch.bfloat16)
     lo = np.ones((2, 4, 4), bool)
-    with pytest.raises(ValueError, match="head_dim"):
-        sparse_attention(x, x, x, lo, block=64)
     y = torch.randn(1, 256, 2, 64, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="block"):
-        sparse_attention(y, y, y, np.ones((2, 8, 8), bool), block=32)
+    for d in (32, 112):
+        x = torch.randn(1, 256, 2, d, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            sparse_attention(x, x, x, lo, block=64)
+        sl = sa._compact_layout(lo, True, x.device)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            sa.launch_sparse_fwd(x, x, x, torch.empty_like(x), sl, causal=True,
+                                 sm_scale=0.1, block=64, route="mma_sync")
+    for block in (8, 48):
+        y_ = y[:, :240] if block == 48 else y
+        nb = y_.shape[1] // block
+        with pytest.raises(ValueError, match="block"):
+            sparse_attention(y_, y_, y_, np.ones((2, nb, nb), bool), block=block)
+    sl = sa._compact_layout(np.ones((2, 32, 32), bool), True, y.device)
+    for route in ("wgmma", "mma_sync"):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            sa.launch_sparse_fwd(y, y, y, torch.empty_like(y), sl, causal=True, sm_scale=0.1,
+                                 block=8, route=route)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         sparse_attention(y.half(), y.half(), y.half(), lo, block=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,block", [(1040, 16), (1056, 32), (1008, 16)])
+def test_sparse_kernel_takes_a_ragged_last_item_on_card(S, block, dtype):
+    """Below block 64, S need only be a multiple of the block: the last
+    64-row item (32-row on the fp32 tile) runs past S, its rows there are
+    neither read nor written, on both routes."""
+    _need_card()
+    B, H, D = 1, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    nb = S // block
+    layout = bigbird_layout(H, nb, seed=4)
+    want = masked_dense_attention(*(x.transpose(1, 2) for x in (q, k, v)),
+                                  layout & np.tril(np.ones((nb, nb), bool)), causal=True,
+                                  sm_scale=D ** -0.5, block_q=block,
+                                  block_k=block).transpose(1, 2)
+    sl = sa._compact_layout(layout, True, q.device)
+    for route in ("wgmma", "mma_sync") if dtype == torch.bfloat16 else ("mma_sync",):
+        out = torch.empty(B, S + 64, H, D, device="cuda", dtype=dtype)
+        out[:, S:] = 7.0
+        o = out[:, :S]   # a view with rows after it: they must stay untouched
+        sa.launch_sparse_fwd(q, k, v, o, sl, causal=True, sm_scale=D ** -0.5, block=block,
+                             route=route)
+        torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+        assert (out[:, S:] == 7.0).all()
 
 
 def test_engine_kernel_path_matches_einsum_path_on_card():
