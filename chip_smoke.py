@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --cards N    # only: data-parallel training over NCCL on N cards
+                                       # (ZeRO stages 0-3; on 4: Llama-2-7B at stage 3)
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -86,7 +87,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    masters, seeded random weights made on the card) trained through
    ``initialize`` + ``train_batch`` (micro-batch 4 x 2048 tokens, gas 2,
    AdamW from the config through the fused Adam kernel, WarmupLR, ZeRO
-   stage 3, clipping 1.0, ``loss_impl: auto``, i.e. the fused loss) on one
+   stage 3, which at world size 1 is the same math as every other stage,
+   clipping 1.0, ``loss_impl: auto``, i.e. the fused loss) on one
    repeated seeded batch: 2 warm-up and 8 timed steps; step time,
    tokens/s, MFU and peak memory; the losses must be finite and fall, and
    every kernel must launch exactly as often as the path runs it (flash
@@ -117,16 +119,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    torch composite;
 11. data-parallel training — two ranks (this script started with
    ``--dp-child``) share cuda:0 over gloo and train TinyLlama widths at 4
-   layers (micro 2 x 2048 per rank, gas 2, ZeRO stage 0, bf16, fused loss)
-   for 5 steps in each of ``compressed_collectives`` none, int8 and
-   int8_sr from one seed and one global batch: the compressed first loss
+   layers (micro 2 x 2048 per rank, gas 2, bf16, fused loss) for 5 steps
+   in each of ``compressed_collectives`` none, int8 and int8_sr at ZeRO
+   stage 0 and at ZeRO stages 1, 2 and 3 with the exact reduction, from one
+   seed (an init closure) and one global batch: each mode's first loss
    bitwise equal to none's, every loss within 0.02 |ref| + 1e-3 of none's,
-   losses falling, masters bitwise equal across ranks, 2 quantize and 2
-   dequantize launches per rank per step, the ledger's logical and wire
-   bytes equal to the JAX package's formula; the none run against one
-   process on the same global batch; ``init_distributed`` on NCCL at world
-   size 1 with one all-reduce. Its step time is two ranks sharing one card,
-   not a scaling number;
+   losses falling, the full masters (``safe_get_full_fp32_param``) bitwise
+   equal across ranks; int8 modes: 2 quantize and 2 dequantize launches per
+   rank per step, the ledger's logical and wire bytes equal to the JAX
+   package's formula; stages 1-3: one Adam launch per rank per step over
+   ceil(n / 2) elements and no quant launch; each mode's peak memory per
+   rank printed beside ``estimate_zero_model_states_mem_needs``; the none
+   run against one process on the same global batch; ``init_distributed``
+   on NCCL at world size 1 with one all-reduce. Its step time is two ranks
+   sharing one card, not a scaling number;
 12. int8 KV serving — phase 4's run with ``kv_cache_dtype="int8"``: every
    request finishes, KV conservation, the decode kernel's int8 mode launches
    (``paged_flash_decode_int8``), every launch on the ``sm90`` route, and no
@@ -166,7 +172,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    layers of the widths of phi-3-mini, Pythia-1B and Pythia-2.8B (D 80):
    the kernel path's packed-step and decode-step logits (and the int8
    decode step's) within twice the einsum path's distance from float32,
-   each paged launch of the kernel path on ``sm90``.
+   each paged launch of the kernel path on ``sm90``;
+18. full-depth ZeRO-3 — phase 11's world at TinyLlama-1.1B's 22 layers, 3
+   steps at stage 0 and 3 at stage 3 from the same seed and batch:
+   phase 11's gates, every flash, fused-loss and Adam launch exact per
+   rank, and stage 3's peak memory per rank at least half the estimator's
+   predicted saving (18P against 9P bytes) below stage 0's; both peaks,
+   the estimator's figures and the step times (two ranks sharing one card,
+   not a scaling number) are printed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -1324,6 +1337,32 @@ def adam_phase(adam):
         f"{'n/a' if lib is None else f'{lib:.4f}'} ms")
     del g, p, m, v, steps
     torch.cuda.empty_cache()
+
+    # ZeRO stages 1-3 over two ranks: one launch over a rank's ceil(n / 2)
+    # elements, rank 1's shard a view into the flat masters at offset
+    # ceil(n / 2), against the plain version and timed
+    half = -(-n // 2)
+    flat = r(2 * half, 0.02)
+    shard, g_s = flat[half:], r(half, 1e-3)
+    m_s, v_s, u_s = (torch.zeros_like(g_s) for _ in range(3))
+    want = adam.adam_update_ref(g_s, m_s, v_s, shard, 3e-4, 0.9, 0.999, 1e-8, 0.1, True,
+                                True, 1)
+    adam.multi_tensor_adam([g_s], [m_s], [v_s], [shard], updates=[u_s], **kw)
+    shard_rel = max(scaled_err(got, w)[1] for got, w in zip((u_s, m_s, v_s), want))
+    del want, u_s
+    m_s.zero_()
+    v_s.zero_()
+    shard_ms = cuda_ms(lambda: adam.multi_tensor_adam([g_s], [m_s], [v_s], [shard], **kw))
+    s_bound, s_by = bound(28 * half, 15 * half, torch.float32)
+    good = shard_rel <= 1e-6
+    log(f"timing fused_adam on a ZeRO shard (rank 1 of 2: {half} elements at offset {half} "
+        f"of TinyLlama-1.1B's flat masters, one launch): kernel {shard_ms:.4f} ms, bound "
+        f"{s_bound:.4f} ms by {s_by}; max rel err {shard_rel:.3e} (tol 1e-6) "
+        f"{'ok' if good else 'FAIL'}")
+    del flat, shard, g_s, m_s, v_s
+    torch.cuda.empty_cache()
+    if not good:
+        raise SystemExit("fused_adam parity FAILED on a ZeRO shard")
     return {"fused_adam": dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                                bound_by=b_by, max_abs_err=err)}
 
@@ -2441,10 +2480,14 @@ def quant_phase(qk):
 # ---------------------------------------------------------------------------
 
 # phase 11's world: two ranks on cuda:0 over gloo (NCCL refuses two ranks on
-# one device), TinyLlama widths at 4 layers. --cards N runs the same world
-# over NCCL with one rank per card at full depth instead.
-DP_SPEC = {"world": 2, "backend": "gloo", "layers": 4, "micro": 2, "steps": 5,
-           "modes": ["none", "int8", "int8_sr"]}
+# one device), TinyLlama widths at 4 layers, stage 0 with each
+# compressed_collectives mode and ZeRO stages 1-3 with the exact reduction.
+# Phase 18 runs the same world at full depth (stage 0 against stage 3);
+# --cards N runs it over NCCL with one rank per card at full depth.
+ZERO_MODES = ["stage1", "stage2", "stage3"]
+DP_SPEC = {"world": 2, "backend": "gloo", "model": "1b", "layers": 4, "micro": 2,
+           "seq": 2048, "steps": 5, "remat": False,
+           "modes": ["none", "int8", "int8_sr"] + ZERO_MODES}
 DP_CONFIG = {
     "gradient_accumulation_steps": 2,
     "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
@@ -2452,61 +2495,103 @@ DP_CONFIG = {
     "gradient_clipping": 1.0, "training_fastpath": {"loss_impl": "auto"},
     "comms_logger": {"enabled": True}, "steps_per_print": 10**9,
 }
+QUANT_KERNELS = ("quantize_int8", "quantize_int8_sr", "dequantize_int8")
 
 
-def dp_batch(cfg, micro_total):
+def dp_stage(mode: str) -> int:
+    return int(mode[len("stage"):]) if mode in ZERO_MODES else 0
+
+
+def dp_mode_config(mode: str) -> dict:
+    """A mode's config section: ZeRO stage 1-3 with the exact reduction, or
+    stage 0 with a compressed_collectives mode."""
+    if mode in ZERO_MODES:
+        return {"zero_optimization": {"stage": dp_stage(mode)}}
+    return {"compressed_collectives": {"mode": mode, "block": 2048}}
+
+
+def dp_batch(cfg, micro_total, seq=TRAIN_SEQ):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(21)
     return torch.randint(0, cfg.vocab_size, (DP_CONFIG["gradient_accumulation_steps"],
-                                             micro_total, TRAIN_SEQ), generator=gen,
+                                             micro_total, seq), generator=gen,
                          device="cuda")
+
+
+def dp_model(spec):
+    from deepspeed_tpu_torch.models import llama_config
+
+    return llama_config(spec["model"], num_layers=spec["layers"], dtype=torch.bfloat16,
+                        remat=spec["remat"],
+                        remat_policy="nothing_saveable" if spec["remat"] else None)
 
 
 def dp_child(rank: int, workdir: Path) -> int:
     """One rank of a data-parallel world (workdir/spec.json): each mode
-    trains ``steps`` steps from the same seeded weights on the same global
-    batch; writes losses, step times, peak memory, quant-kernel launches,
-    the ledger and whether the masters equal rank 0's bitwise to
-    workdir/out_<rank>.json."""
+    trains ``steps`` steps from the same seeded weights (an init closure
+    made on the card, so at stage 3 the engine keeps only this rank's shard)
+    on the same global batch; writes losses, step times, peak memory beside
+    the ZeRO estimator's model-state bytes, every kernel's launches, the
+    ledger and whether the full masters (``safe_get_full_fp32_param``, leaf
+    by leaf) equal rank 0's bitwise to workdir/out_<rank>.json."""
     import deepspeed_tpu_torch as dst
-    from deepspeed_tpu_torch import comm
-    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
-                                            make_loss_fn)
-    from deepspeed_tpu_torch.ops import quant
+    from deepspeed_tpu_torch import comm, zero
+    from deepspeed_tpu_torch.models import TransformerLM, init_params, make_loss_fn
+    from deepspeed_tpu_torch.models.convert import _nest, param_shapes
+    from deepspeed_tpu_torch.ops import flash_attention, fused_adam, fused_loss, quant
+    from deepspeed_tpu_torch.utils import safe_get_full_fp32_param
 
     spec = json.loads((workdir / "spec.json").read_text())
     comm.init_distributed(dist_backend=spec["backend"], init_method=f"file://{workdir}/store",
-                          rank=rank, world_size=spec["world"], timeout=600)
-    cfg = llama_config("1b", num_layers=spec["layers"], dtype=torch.bfloat16)
-    batch = dp_batch(cfg, spec["micro"] * spec["world"])
+                          rank=rank, world_size=spec["world"], timeout=900)
+    cfg = dp_model(spec)
+    batch = dp_batch(cfg, spec["micro"] * spec["world"], spec["seq"])
+    # the module holds meta tensors: the engine's tree is what it runs on
+    meta = _nest({k: torch.empty(s, device="meta") for k, s in param_shapes(cfg).items()})
+    kernels = (flash_attention, fused_adam, fused_loss, quant)
     out = {}
     for mode in spec["modes"]:
-        params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
         config = dict(DP_CONFIG, train_micro_batch_size_per_gpu=spec["micro"],
-                      compressed_collectives={"mode": mode, "block": 2048})
-        engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
-                                    model_parameters=params, config=config)
+                      **dp_mode_config(mode))
+        init = zero.Init(lambda: init_params(cfg, seed=0, device="cuda", dtype=torch.float32))
+        engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, meta)),
+                                    model_parameters=init, config=config)
         ledger = comm.get_comms_logger()
         ledger.reset()
-        quant.reset_launch_counts()
+        for k in kernels:
+            k.reset_launch_counts()
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()      # the closure's full tree is gone
         torch.cuda.reset_peak_memory_stats()
         losses, times = [], []
         for _ in range(spec["steps"]):
             t0 = time.perf_counter()
             losses.append(float(engine.train_batch(batch)))
             times.append(time.perf_counter() - t0)
-        launches = dict(quant.launch_counts)
+        launches = {}
+        for k in kernels:
+            launches.update(k.launch_counts)
         peak = torch.cuda.max_memory_allocated()
         totals = ledger.totals().get("quantized_all_reduce")
-        flat = torch.cat([p.detach().reshape(-1) for p in engine._masters])
-        theirs = comm.broadcast(flat.clone(), src=0)
-        same = torch.tensor([int(torch.equal(flat, theirs))], device="cuda")
+        paths = ["/".join(str(k.key) for k in kp) for kp, _ in
+                 torch.utils._pytree.tree_flatten_with_path(engine.state.params)[0]]
+        same, n = True, 0
+        for path in paths:
+            full = safe_get_full_fp32_param(engine, path)
+            same &= torch.equal(full, comm.broadcast(full.clone(), src=0))
+            n += full.numel()
+        same = torch.tensor([int(same)], device="cuda")
         comm.all_reduce(same, op="min")
+        stage = engine.zero_stage()
+        estimate = zero.estimate_zero_model_states_mem_needs(n, stage, spec["world"])
         out[mode] = dict(losses=losses, times=times, launches=launches, peak=peak,
-                         ledger=totals, masters_equal=bool(same.item()),
-                         n=flat.numel(), reduce=engine._dp_grad_mode)
-        del engine, params, flat, theirs
+                         ledger=totals, masters_equal=bool(same.item()), n=n,
+                         reduce=engine._dp_grad_mode, stage=stage,
+                         estimate=estimate["total_bytes"],
+                         adam_elems=sum(t.numel() for t in
+                                        torch.utils._pytree.tree_leaves(
+                                            engine.state.opt_state.exp_avg)))
+        del engine, init
         torch.cuda.empty_cache()
     (workdir / f"out_{rank}.json").write_text(json.dumps(out))
     comm.barrier()
@@ -2530,7 +2615,7 @@ def run_dp_world(spec, workdir: Path):
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
     try:
         for p in procs:
-            p.wait(timeout=600)
+            p.wait(timeout=900)
     except subprocess.TimeoutExpired:
         pass
     finally:
@@ -2550,61 +2635,76 @@ def run_dp_world(spec, workdir: Path):
 
 
 def check_dp(spec, ranks, card):
-    """The checks of a data-parallel world: one loss across ranks, masters
-    bitwise equal, losses finite and falling; in each compressed mode the
-    first loss bitwise equal to none's, every loss within 0.02 |ref| + 1e-3
-    of it, 2 + 2 quant launches per rank per step, the ledger equal to the
-    JAX package's formula. Returns (ok, rank 0's results)."""
+    """The checks of a data-parallel world: one loss across ranks, the full
+    masters bitwise equal across ranks, losses finite and falling; in each
+    compressed mode and at each ZeRO stage the first loss bitwise equal to
+    none's (no update has acted yet) and every loss within 0.02 |ref| +
+    1e-3 of it; compressed: 2 + 2 quant launches per rank per step and the
+    ledger equal to the JAX package's formula; ZeRO: one Adam launch per rank
+    per step over ceil(n / world) elements, no quant launch. Returns (ok,
+    rank 0's results)."""
     from deepspeed_tpu_torch.ops.quant import shard_layout
 
     world, steps = spec["world"], spec["steps"]
     r0 = ranks[0]
-    ref = r0["none"]["losses"]
-    n = r0["none"]["n"]
+    ref = r0["none"]["losses"] if "none" in r0 else None
+    n = r0[spec["modes"][0]]["n"]
     shard, shard_p, b1 = shard_layout(n, world, 2048)
     wire = (world * shard_p + 4 * world * (shard_p // b1)) + (shard_p + 4 * (shard_p // b1))
-    tokens = DP_CONFIG["gradient_accumulation_steps"] * spec["micro"] * world * TRAIN_SEQ
+    tokens = (DP_CONFIG["gradient_accumulation_steps"] * spec["micro"] * world
+              * spec["seq"])
     where = (f"{world} ranks on cuda:0 over gloo: a correctness run, not a scaling number"
              if spec["backend"] == "gloo" else f"{world} cards, one rank each, over NCCL")
     ok = True
     for mode in spec["modes"]:
         a = r0[mode]
+        quant = lambda r: {k: r[mode]["launches"][k] for k in QUANT_KERNELS}
         checks = {
             "ranks report one loss": all(r[mode]["losses"] == a["losses"] for r in ranks),
             "masters bitwise equal across ranks": all(r[mode]["masters_equal"]
                                                       for r in ranks),
             "losses finite and falling": (all(math.isfinite(x) for x in a["losses"])
                                           and a["losses"][-1] < a["losses"][0]),
-            "reduction": a["reduce"] == (None if mode == "none" or world == 1 else mode),
+            "reduction": a["reduce"] == (mode if mode in ("int8", "int8_sr") and world > 1
+                                         else None),
+            "stage": a["stage"] == dp_stage(mode),
         }
-        if mode != "none":
-            kq = "quantize_int8" if mode == "int8" else "quantize_int8_sr"
-            want = {"quantize_int8": 0, "quantize_int8_sr": 0, "dequantize_int8": 2 * steps}
-            want[kq] = 2 * steps
+        if mode != "none" and ref is not None:
             checks.update({
                 "first loss bitwise equal to none's": a["losses"][0] == ref[0],
                 "losses within 0.02|ref| + 1e-3 of none": all(
                     abs(x - y) < 0.02 * abs(y) + 1e-3 for x, y in zip(a["losses"], ref)),
-                "quant launches 2 + 2 per rank per step": all(
-                    r[mode]["launches"] == want for r in ranks),
+            })
+        if mode in ("int8", "int8_sr"):
+            kq = "quantize_int8" if mode == "int8" else "quantize_int8_sr"
+            want = {"quantize_int8": 0, "quantize_int8_sr": 0, "dequantize_int8": 2 * steps}
+            want[kq] = 2 * steps
+            checks.update({
+                "quant launches 2 + 2 per rank per step": all(quant(r) == want for r in ranks),
                 "ledger bytes = the JAX formula": a["ledger"] is not None and (
                     a["ledger"]["count"], a["ledger"]["bytes"], a["ledger"]["wire_bytes"]) == (
                     steps, steps * 4 * n, steps * wire),
             })
-        elif any(a["launches"].values()):
-            checks["no quant launches"] = False
+        else:
+            checks["no quant launches"] = not any(any(quant(r).values()) for r in ranks)
+            checks["one Adam launch per rank per step"] = all(
+                r[mode]["launches"]["fused_adam"] == steps for r in ranks)
+        if mode in ZERO_MODES and world > 1:
+            checks["Adam state ceil(n / world) per rank"] = all(
+                r[mode]["adam_elems"] == -(-n // world) for r in ranks)
         good = all(checks.values())
         ok &= good
         step_s = float(np.mean(a["times"][1:]))
         log(f"dp {mode} (world {world}): losses {a['losses']}; {step_s * 1e3:.1f} ms/step "
             f"(steps 2-{steps}; {where}), {tokens / step_s:.0f} tokens/s, peak memory per "
-            f"rank {[round(r[mode]['peak'] / 2**30, 2) for r in ranks]} GiB; launches "
-            f"{a['launches']}; ledger {a['ledger']}; "
+            f"rank {[round(r[mode]['peak'] / 2**30, 2) for r in ranks]} GiB against the "
+            f"estimator's stage-{a['stage']} model state {a['estimate'] / 2**30:.2f} GiB; "
+            f"launches {a['launches']}; ledger {a['ledger']}; "
             f"{'ok' if good else 'FAIL ' + str([k for k, v in checks.items() if not v])}")
-    log(f"dp [{card}]: TinyLlama widths, {spec['layers']} layers ({n} parameters), micro "
-        f"{spec['micro']} x {TRAIN_SEQ} per rank, gas "
+    log(f"dp [{card}]: llama {spec['model']} widths, {spec['layers']} layers ({n} "
+        f"parameters), micro {spec['micro']} x {spec['seq']} per rank, gas "
         f"{DP_CONFIG['gradient_accumulation_steps']}, {steps} steps per mode, {where}; "
-        f"wire bytes per reduction {wire} vs logical {4 * n} ({4 * n / wire:.2f}x)")
+        f"wire bytes per int8 reduction {wire} vs logical {4 * n} ({4 * n / wire:.2f}x)")
     return ok, r0
 
 
@@ -2616,8 +2716,7 @@ def dp_phase(card):
 
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch import comm
-    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
-                                            make_loss_fn)
+    from deepspeed_tpu_torch.models import TransformerLM, init_params, make_loss_fn
 
     spec = DP_SPEC
     workdir = REPO / "build" / "dp_smoke"
@@ -2627,7 +2726,7 @@ def dp_phase(card):
 
     # the none run against one process on the same global batch
     micro_total = spec["micro"] * spec["world"]
-    cfg = llama_config("1b", num_layers=spec["layers"], dtype=torch.bfloat16)
+    cfg = dp_model(spec)
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
     engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
                                 model_parameters=params,
@@ -2663,11 +2762,78 @@ def dp_phase(card):
                                 + r0["int8_sr"]["launches"]["dequantize_int8"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: full-depth ZeRO-3 on one card
+# ---------------------------------------------------------------------------
+
+ZERO3_SPEC = dict(DP_SPEC, layers=22, steps=3, modes=["none", "stage3"])
+
+
+def zero3_phase(card):
+    """Phase 18: TinyLlama-1.1B at all 22 layers, two ranks on cuda:0 over
+    gloo (micro 2 x 2048 each, gas 2, bf16, fused loss), 3 steps at stage 0
+    and 3 at stage 3 from the same seed and batch: check_dp's gates, every
+    flash, fused-loss and Adam launch exact per rank, and stage 3's peak per
+    rank at least half the estimator's predicted saving below stage 0's."""
+    import shutil
+
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.ops.fused_loss import chunk_width
+
+    spec = ZERO3_SPEC
+    workdir = REPO / "build" / "zero3_smoke"
+    t0 = time.perf_counter()
+    ranks = run_dp_world(spec, workdir)
+    ok, r0 = check_dp(spec, ranks, card)
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = dp_model(spec)
+    gas, steps = DP_CONFIG["gradient_accumulation_steps"], spec["steps"]
+    chunks = -(-cfg.vocab_size // chunk_width(spec["micro"] * spec["seq"], cfg.vocab_size, 2))
+    want = {k: cfg.num_layers * gas * steps for k in
+            ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")}
+    want.update(fused_adam=steps, fused_loss_fwd=gas * steps,
+                fused_loss_fwd_combine=gas * steps)
+    for k in ("fused_loss_dlogits", "fused_loss_dh", "fused_loss_dk"):
+        want[k] = gas * steps * chunks
+    for mode in spec["modes"]:
+        bad = {k: [r[mode]["launches"][k] for r in ranks] for k, w in want.items()
+               if any(r[mode]["launches"][k] != w for r in ranks)}
+        log(f"zero3 {mode}: launches per rank {r0[mode]['launches']} (want {want}) "
+            f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+        ok &= not bad
+    n = r0["none"]["n"]
+    est0 = zero.estimate_zero_model_states_mem_needs(n, 0, spec["world"])["total_bytes"]
+    est3 = zero.estimate_zero_model_states_mem_needs(n, 3, spec["world"])["total_bytes"]
+    need = (est0 - est3) / 2
+    peaks0 = [r["none"]["peak"] for r in ranks]
+    peaks3 = [r["stage3"]["peak"] for r in ranks]
+    saved = min(a - b for a, b in zip(peaks0, peaks3))
+    mem_ok = saved >= need
+    ok &= mem_ok
+    ms = {m: float(np.mean(r0[m]["times"][1:])) * 1e3 for m in spec["modes"]}
+    log(f"zero3 [{card}]: TinyLlama-1.1B, 22 layers, {n} parameters, two ranks sharing "
+        f"cuda:0 over gloo (not a scaling number): peak per rank stage 0 "
+        f"{[round(p / 2**30, 2) for p in peaks0]} GiB, stage 3 "
+        f"{[round(p / 2**30, 2) for p in peaks3]} GiB; the estimator's model state "
+        f"{est0 / 2**30:.2f} GiB (18P) against {est3 / 2**30:.2f} GiB (9P); stage 3 "
+        f"saves {saved / 2**30:.2f} GiB per rank, at least half the predicted "
+        f"{(est0 - est3) / 2**30:.2f} GiB ({need / 2**30:.2f}) required: "
+        f"{'ok' if mem_ok else 'FAIL'}; step {ms['none']:.1f} ms at stage 0, "
+        f"{ms['stage3']:.1f} ms at stage 3 (steps 2-{steps}); phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise SystemExit("zero3 phase FAILED")
+
+
 def cards_run(n_cards: int, card: str) -> int:
     """--cards N: data-parallel training over NCCL, one rank per card, at
     TinyLlama-1.1B's full depth (micro 4 x 2048 per rank, gas 2): one card
-    with the exact reduction as the baseline, then N cards in every mode,
-    each held to check_dp. Prints tokens/s and the scaling over one card."""
+    with the exact reduction as the baseline, then N cards in every mode
+    (stage 0 with each compressed_collectives mode, ZeRO stages 1-3), each
+    held to check_dp. Prints tokens/s and the scaling over one card. On
+    four cards also Llama-2-7B at ZeRO stage 3 (32 layers, seq 4096, micro
+    1 per rank, per-layer remat): losses finite and falling, the peak per
+    rank under the card's memory."""
     import shutil
 
     base = dict(DP_SPEC, backend="nccl", layers=22, micro=4, steps=6)
@@ -2676,14 +2842,28 @@ def cards_run(n_cards: int, card: str) -> int:
                         run_dp_world(dict(base, world=1, modes=["none"]), workdir), card)
     spec = dict(base, world=n_cards)
     okn, many = check_dp(spec, run_dp_world(spec, workdir), card)
-    shutil.rmtree(workdir, ignore_errors=True)
     t1 = float(np.mean(one["none"]["times"][1:]))
     for mode in spec["modes"]:
         tn = float(np.mean(many[mode]["times"][1:]))
         log(f"dp cards {mode}: {n_cards} cards {tn * 1e3:.1f} ms/step vs one card "
             f"{t1 * 1e3:.1f} ms/step: {n_cards * t1 / tn:.2f}x the tokens/s of one card "
             f"({t1 / tn:.3f} scaling efficiency)")
-    return 0 if ok1 and okn else 1
+    ok7 = True
+    if n_cards == 4:
+        spec7 = dict(base, world=4, model="7b", layers=32, micro=1, seq=4096, steps=4,
+                     remat=True, modes=["stage3"])
+        ranks = run_dp_world(spec7, workdir)
+        ok7, r0 = check_dp(spec7, ranks, card)
+        total = torch.cuda.get_device_properties(0).total_memory
+        peaks = [r["stage3"]["peak"] for r in ranks]
+        fits = max(peaks) < total
+        ok7 &= fits
+        log(f"dp cards llama-2-7b stage 3 [{card}]: {r0['stage3']['n']} parameters, peak "
+            f"per rank {[round(p / 2**30, 2) for p in peaks]} GiB under the card's "
+            f"{total / 2**30:.2f} GiB: {fits}; stage 0 would need "
+            f"{18 * r0['stage3']['n'] / 1e9:.1f} GB of model state per rank (18P)")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return 0 if ok1 and okn and ok7 else 1
 
 
 def main() -> int:
@@ -2805,7 +2985,10 @@ def main() -> int:
     timed("8 remat", remat_phase, fa)
     timed("9 checkpoint", checkpoint_phase)
     # phase 11: data-parallel training, the compressed gradient all-reduce
+    # and ZeRO stages 1-3
     launches.update(timed("11 data parallel", dp_phase, card))
+    # phase 18: full-depth ZeRO-3, two ranks on one card
+    timed("18 zero3 (TinyLlama-1.1B, 22 layers)", zero3_phase, card)
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"

@@ -17,9 +17,12 @@ its layout and public names module by module. Three paths are ported:
   backward (``checkpointing``, ``remat``), and the engine saves and resumes
   its whole state (``checkpoint``);
 * data-parallel training over ``torch.distributed`` — the same entry points
-  at world size > 1 (``comm.init_distributed``), ZeRO stage 0, the
+  at world size > 1 (``comm.init_distributed``): at ZeRO stage 0 the
   gradients mean-reduced exactly or by the int8 all-reduce of
-  ``comm.compressed`` with the block-quant kernels (``ops/csrc/quant.cu``).
+  ``comm.compressed`` with the block-quant kernels (``ops/csrc/quant.cu``);
+  at stages 1-3 the optimizer state, then the gradients, then the
+  parameters partitioned over the ranks (``zero``), read and written leaf
+  by leaf through ``utils.tensor_fragment``.
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; the
 plain PyTorch versions of the kernels run only when the caller passes
@@ -29,6 +32,7 @@ plain PyTorch versions of the kernels run only when the caller passes
 from . import comm
 from .comm import init_distributed
 from .runtime import activation_checkpointing as checkpointing
+from .runtime import zero
 from .runtime.config import DeepSpeedTPUConfig, load_config
 from .runtime.engine import DeepSpeedTPUEngine, TrainState, initialize
 from .version import __version__
@@ -52,4 +56,4 @@ def add_config_arguments(parser):
 
 __all__ = ["DeepSpeedEngine", "DeepSpeedTPUConfig", "DeepSpeedTPUEngine",
            "TrainState", "add_config_arguments", "checkpointing", "comm",
-           "init_distributed", "initialize", "load_config", "version"]
+           "init_distributed", "initialize", "load_config", "version", "zero"]

@@ -15,14 +15,17 @@ The layout is the JAX package's, with ``torch.save`` in place of orbax:
                                       data sampler; the commit marker
   ``<save_dir>/latest``               the most recent tag
 
-At world size 1 the stored tensors are the whole state, so ZeRO stages 0-3
-save and load alike and ``zero_to_fp32`` is a read. Over several
-data-parallel ranks (ZeRO stage 0) the state is replicated: rank 0 writes
-it, every rank waits at a barrier until it is committed, and every rank
-loads the same files. Loading copies into the
-engine's existing master and moment tensors IN PLACE: the fused Adam kernel
-caches its device table on their pointers. Checkpoints written by the JAX
-package (orbax directories) are not read.
+The stored tensors are always the whole state, laid out as at stage 0, so
+a tag does not depend on the ZeRO stage or the world size it was saved at
+(as the JAX package's orbax tags hold global arrays) and ``zero_to_fp32`` is
+a read. Over several data-parallel ranks rank 0 writes the tag, every rank
+waits at a barrier until it is committed, and every rank loads the same
+files; at ZeRO stages 1-3 every rank first takes part in gathering the
+masters and the optimizer state to full tensors, leaf by leaf, onto rank 0's
+host, and on load every rank keeps its part of each. Loading copies into
+the engine's existing master and moment tensors IN PLACE: the fused Adam
+kernel caches its device table on their pointers. Checkpoints written by
+the JAX package (orbax directories) are not read.
 """
 
 import json
@@ -179,11 +182,19 @@ def read_latest_tag(ckpt_dir: str) -> Optional[str]:
     return newest
 
 
-def _state_to_tree(engine) -> Dict[str, Any]:
+def _state_to_tree(engine, keep) -> Dict[str, Any]:
+    """The state in the stage-0 layout. At ZeRO stages 1-3 over several
+    ranks this gathers (every rank calls it) and passes each gathered tensor
+    through ``keep``."""
     s = engine.state
     ls = s.loss_scale
-    return {"step": int(s.step), "params": s.params,
-            "opt_state": {"leaves": pytree.tree_leaves(s.opt_state)},
+    params, opt_state = s.params, s.opt_state
+    if engine._zero is not None:
+        params = engine._tree([keep(engine._full_param(i))
+                               for i in range(len(engine._zero.shapes))])
+        opt_state = engine._full_opt_state(keep)
+    return {"step": int(s.step), "params": params,
+            "opt_state": {"leaves": pytree.tree_leaves(opt_state)},
             "loss_scale": {"scale": float(ls.scale), "good_steps": int(ls.good_steps),
                            "hysteresis": int(ls.hysteresis)}}
 
@@ -196,12 +207,16 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     tag = tag if tag is not None else f"global_step{engine.global_steps}"
     save_dir = os.path.abspath(save_dir)
     path = os.path.join(save_dir, str(tag))
-    if comm.get_rank() != 0:
+    writer = comm.get_rank() == 0
+    # ZeRO 1-3: the full tensors go to rank 0's host, one leaf at a time
+    keep = (lambda t: t.detach().to("cpu", copy=True)) if writer else (lambda t: None)
+    tree = _state_to_tree(engine, keep)
+    if not writer:
         comm.barrier("save_checkpoint")   # rank 0 has committed the tag
         return path
     ck = _get_ckpt_engine(engine)
     wait_pending_commits(save_dir)
-    ck.save(_state_to_tree(engine), os.path.join(path, "state"))
+    ck.save(tree, os.path.join(path, "state"))
     meta = {
         "tag": str(tag),
         # recorded so the torn-pointer fallback can tell pointer-lineage
@@ -273,22 +288,29 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if saved_spec != engine._spec:
         raise ValueError(f"checkpoint {path}: its parameter tree does not match the "
                          "engine's")
-    for i, (dst, src) in enumerate(zip(engine._masters, saved)):
-        _copy_into(dst, src, f"parameter {i}")
+    if engine._zero is not None:
+        for i, src in enumerate(saved):
+            engine._set_full_param(i, src)
+    else:
+        for i, (dst, src) in enumerate(zip(engine._masters, saved)):
+            _copy_into(dst, src, f"parameter {i}")
     if not (load_module_only or not load_optimizer_states):
-        cur, spec = pytree.tree_flatten(engine.state.opt_state)
         leaves = tree["opt_state"]["leaves"]
-        if len(leaves) != len(cur):
-            raise ValueError(f"checkpoint {path}: optimizer state has {len(leaves)} "
-                             f"leaves, the engine's {len(cur)}")
-        new = []
-        for i, (dst, src) in enumerate(zip(cur, leaves)):
-            if isinstance(dst, torch.Tensor):
-                _copy_into(dst, src, f"optimizer leaf {i}")
-                new.append(dst)
-            else:
-                new.append(src)
-        engine.state.opt_state = pytree.tree_unflatten(new, spec)
+        if engine._zero is not None:
+            engine._load_opt_state(leaves)
+        else:
+            cur, spec = pytree.tree_flatten(engine.state.opt_state)
+            if len(leaves) != len(cur):
+                raise ValueError(f"checkpoint {path}: optimizer state has {len(leaves)} "
+                                 f"leaves, the engine's {len(cur)}")
+            new = []
+            for i, (dst, src) in enumerate(zip(cur, leaves)):
+                if isinstance(dst, torch.Tensor):
+                    _copy_into(dst, src, f"optimizer leaf {i}")
+                    new.append(dst)
+                else:
+                    new.append(src)
+            engine.state.opt_state = pytree.tree_unflatten(new, spec)
         engine.state.step = int(tree["step"])
         from ..runtime.loss_scaler import LossScaleState
 

@@ -85,6 +85,12 @@ class Topology:
         return (DP_OUTER_AXIS, EP_AXIS)
 
     @property
+    def fsdp_axes(self) -> Tuple[str, ...]:
+        """The axes ZeRO shards over: dp and sp, whose ranks replicate
+        data-parallel state (JAX ``Topology.fsdp_axes``)."""
+        return (DP_OUTER_AXIS, EP_AXIS, SP_AXIS)
+
+    @property
     def all_axes(self) -> Tuple[str, ...]:
         return ALL_AXES
 

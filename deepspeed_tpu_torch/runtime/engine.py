@@ -26,27 +26,57 @@ the backward under ``activation_checkpointing.policy``
 (``runtime/activation_checkpointing.py``); ``save_checkpoint`` and
 ``load_checkpoint`` delegate to ``checkpoint/engine.py``.
 
-Data parallelism (world size > 1, ZeRO stage 0; JAX ``engine.py:586-595,
-676-681, 940-1060``): ``train_batch`` takes the GLOBAL batch, ``[gas, micro
-* world, ...]`` or ``[gas * micro * world, ...]``, and each rank computes on
-its contiguous slice of the micro dimension (a ``data_iter`` yields this
-rank's micro-batches already: ``DeepSpeedDataLoader`` with a rank and
-world). Each rank accumulates its fp32 gradients over ``gas`` in ONE flat
-buffer (the masters' ``.grad`` tensors are views into it), divides by
-``loss_scale * gas``, and the step mean-reduces the buffer across ranks:
-``all_reduce(SUM)`` and a divide (gloo has no AVG), or, where the JAX
-package's compressed DP site is eligible (stage 0, pure dp, no fp16) and
-``compressed_collectives`` asks for it, one ``quantized_all_reduce`` (int8
-payloads, ``comm/compressed.py``; ``int8_sr`` seeded per step, rank and
-stage). Norm, clipping and the update then run on identical gradients, so
-the masters stay bitwise equal across ranks; the reported loss is the rank
-mean. The imperative ``forward``/``backward``/``step`` path reduces each
-micro-batch through the same transport; ``no_sync`` defers it.
+Data parallelism (world size > 1; JAX ``engine.py:586-595, 676-681,
+940-1060``): ``train_batch`` takes the GLOBAL batch, ``[gas, micro * world,
+...]`` or ``[gas * micro * world, ...]``, and each rank computes on its
+contiguous slice of the micro dimension (a ``data_iter`` yields this rank's
+micro-batches already: ``DeepSpeedDataLoader`` with a rank and world); the
+reported loss is the rank mean.
 
-At world size 1 ZeRO stages 0-3 are the same math and all are accepted.
-ZeRO stages 1-3 at world size > 1 and the config sections this trainer
-cannot honour yet raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+* ZeRO stage 0: each rank accumulates its fp32 gradients over ``gas`` in ONE
+  flat buffer (the masters' ``.grad`` tensors are views into it), divides by
+  ``loss_scale * gas``, and the step mean-reduces the buffer across ranks:
+  ``all_reduce(SUM)`` and a divide (gloo has no AVG), or, where the JAX
+  package's compressed DP site is eligible (stage 0, pure dp, no fp16) and
+  ``compressed_collectives`` asks for it, one ``quantized_all_reduce`` (int8
+  payloads, ``comm/compressed.py``; ``int8_sr`` seeded per step, rank and
+  stage). Norm, clipping and the update then run on identical gradients, so
+  the masters stay bitwise equal across ranks.
+* ZeRO stages 1-3 (``runtime/zero/partition.py``: the leaves end to end in
+  one flat buffer padded to a multiple of the world, rank r owning the
+  contiguous slice r). Stage 1: full fp32 masters on every rank (views of
+  one flat buffer), gradients accumulated over ``gas`` in the full flat
+  buffer as at stage 0, then one mean ``reduce_scatter`` into this rank's
+  fp32 shard. Stage 2: the full buffer is reduce-scattered into the shard
+  accumulator after every micro-batch (in buckets of ``reduce_bucket_size``
+  elements) and reused by the next. Stage 3: each rank keeps only its fp32
+  master shard; before every micro-batch the shard is cast to the compute
+  dtype and all-gathered (buckets of ``allgather_bucket_size``) into a flat
+  compute buffer whose leaf views the loss runs on; their gradients land in
+  a flat buffer of the compute dtype and are reduce-scattered in fp32 into
+  the shard accumulator, and both buffers are freed after the micro-batch.
+  The cast commutes with the gather, so the forward sees the same compute
+  weights as at stage 0. Then the global norm is the square root of an
+  ``all_reduce`` of the shards' squared sums, the clip scales the shard, and
+  the optimizer updates the shard in one fused Adam launch over ``ceil(n /
+  world)`` elements; stages 1 and 2 all-gather the updated shard back into
+  the full masters, which stay bitwise equal across ranks. fp16 overflow is
+  read from the global norm, so every rank skips the same step. The
+  compressed reduction is stage 0's only: other stages keep the exact one.
+
+The imperative ``forward``/``backward``/``step`` path reduces each
+micro-batch through the same transport (a reduce-scatter into the shard
+accumulator at stages 1-3); ``no_sync`` defers it.
+
+What the state holds over several ranks: ``state.params`` and ``_masters``
+are the full fp32 masters at stages 0-2 (one leaf each) and this rank's
+fragments of them at stage 3 (1-D views into the master shard, empty where
+the rank owns none of a leaf); ``state.opt_state`` holds the optimizer
+state of the whole tree at stage 0 and of this rank's shard (a one-leaf
+list) at stages 1-3. ``utils/tensor_fragment.py`` reads and writes any leaf
+at every stage. At world size 1 ZeRO stages 0-3 are the same math and all
+run stage 0's path. Config sections this trainer cannot honour yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 import contextlib
@@ -66,6 +96,8 @@ from ..utils.logging import log_dist
 from .config import DeepSpeedTPUConfig, load_config
 from .loss_scaler import LossScaleState, make_loss_scale_state, update_loss_scale
 from .lr_schedules import build_lr_schedule
+from .zero.partition import FlatPartition
+from .zero.sharding import ZeroShardingRules
 
 # the control plane's remat escalation ladder: no remat -> keep only matmul
 # outputs -> keep nothing (runtime/activation_checkpointing.POLICIES)
@@ -86,10 +118,6 @@ def _check_supported(config: DeepSpeedTPUConfig, world_size: int) -> None:
                           "degree other than the world's)", 8,
                           "model-parallel axes beside dp")
     zc = config.zero_optimization
-    if world_size > 1 and zc.stage >= 1:
-        raise _not_ported(f"ZeRO stage {zc.stage} at world size {world_size}", 7,
-                          "ZeRO sharding of optimizer state, gradients and parameters "
-                          "over several ranks")
     cc = config.compressed_collectives
     checks = [
         (zc.offload_optimizer.device != "none", "zero_optimization.offload_optimizer",
@@ -98,6 +126,10 @@ def _check_supported(config: DeepSpeedTPUConfig, world_size: int) -> None:
          7, "ZeRO-Offload"),
         (config.activation_checkpointing.cpu_checkpointing,
          "activation_checkpointing.cpu_checkpointing", 7, "ZeRO-Offload"),
+        (zc.zero_quantized_weights or zc.zero_quantized_gradients
+         or zc.zero_hpz_partition_size > 1,
+         "ZeRO++ (zero_quantized_weights, zero_quantized_gradients, "
+         "zero_hpz_partition_size)", 8, "runtime/zero/zeropp.py"),
         ((config.pipeline.stages or 1) > 1, "pipeline.stages > 1", 8,
          "runtime/pipe/pipeline.py"),
         (config.tensor_parallel.enabled and config.tensor_parallel.tp_size > 1,
@@ -142,7 +174,9 @@ def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 class TrainState:
     """Engine state: ``params`` are the fp32 master weights (the compute
     dtype's when ``bf16.master_weights`` is off), nested like the tree the
-    caller gave."""
+    caller gave: whole leaves at ZeRO stages 0-2, this rank's 1-D fragments
+    of them at stage 3 over several ranks. ``opt_state`` covers the whole
+    tree at stage 0 and this rank's flat shard at stages 1-3."""
     step: int
     params: Any
     opt_state: Any
@@ -167,6 +201,10 @@ class DeepSpeedTPUEngine:
         set_topology(self.topo)
         self.dp_world = self.topo.dp_size
         self.dp_rank = comm.axis_index(self.topo.dp_axes)
+        zc = config.zero_optimization
+        # raises for MiCS (mics_shard_size > 0), whose ep axis is item 8's
+        self.rules = ZeroShardingRules(zc.stage, self.topo,
+                                       mics_shard_size=zc.mics_shard_size)
         comm.configure(comms_logger=config.comms_logger)
         self._dp_grad_mode = self._resolve_dp_grad_site()
         tf = config.training_fastpath
@@ -244,45 +282,115 @@ class DeepSpeedTPUEngine:
     # ------------------------------------------------------------------
     def _build_state(self, params):
         store = torch.float32 if self.master_weights else self.compute_dtype
+        if callable(params) and not isinstance(params, torch.Tensor):
+            # zero.Init or a bare zero-arg closure (JAX engine.py:503-518):
+            # its tree is built here and dropped once the masters (at stage
+            # 3 over several ranks: this rank's shard) are taken from it
+            params = params()
         leaves, self._spec = pytree.tree_flatten(params)
         for p in leaves:
             if not p.is_floating_point():
                 raise ValueError(f"model_parameters must be floating tensors, got {p.dtype}")
-        # .to() returns the tensor itself when it already has this device
-        # and dtype: such parameters are trained in place
-        self._masters = [p.detach().to(self.device, store).requires_grad_(True)
-                         for p in leaves]
         self._flat_grad = None
-        if self.dp_world > 1:
-            # one flat buffer, reduced with one collective per step: the
-            # masters' .grad are views into it, which autograd accumulates
-            # into in place
-            self._flat_grad = torch.zeros(sum(p.numel() for p in self._masters),
-                                          dtype=store, device=self.device)
-            offset = 0
-            for p in self._masters:
-                p.grad = self._flat_grad[offset:offset + p.numel()].view_as(p)
-                offset += p.numel()
-        opt_state = self.tx.init(self._tree(self._masters))
+        self._zero: Optional[FlatPartition] = None
+        self._stage3 = False
+        if self.dp_world > 1 and self.config.zero_optimization.stage >= 1:
+            opt_state = self._build_zero(leaves, store)
+        else:
+            # .to() returns the tensor itself when it already has this
+            # device and dtype: such parameters are trained in place
+            self._masters = [p.detach().to(self.device, store).requires_grad_(True)
+                             for p in leaves]
+            if self.dp_world > 1:
+                # one flat buffer, reduced with one collective per step: the
+                # masters' .grad are views into it, which autograd
+                # accumulates into in place
+                self._flat_grad = torch.zeros(sum(p.numel() for p in self._masters),
+                                              dtype=store, device=self.device)
+                offset = 0
+                for p in self._masters:
+                    p.grad = self._flat_grad[offset:offset + p.numel()].view_as(p)
+                    offset += p.numel()
+            opt_state = self.tx.init(self._tree(self._masters))
         ls = make_loss_scale_state(self.config.fp16.initial_scale_power,
                                    self.config.fp16.loss_scale,
                                    self.config.fp16.hysteresis)
         self.state = TrainState(step=0, params=self._tree(self._masters),
                                 opt_state=opt_state, loss_scale=ls)
 
+    def _build_zero(self, leaves, store):
+        """The flat partition of stages 1-3: the masters, this rank's shard
+        of them and of the gradients; returns the optimizer state over the
+        shard."""
+        part = FlatPartition([p.shape for p in leaves], self.dp_world, self.dp_rank,
+                             self.topo.dp_axes)
+        self._zero = part
+        self._stage3 = self.config.zero_optimization.stage >= 3
+        if self._stage3:
+            # only this rank's shard reaches the device
+            self._master_shard = torch.zeros(part.shard, dtype=store, device=self.device)
+            for i, p in enumerate(leaves):
+                a, b = part.span(i)
+                part.fragment(self._master_shard, i).copy_(p.detach().reshape(-1)[a:b])
+            self._masters = [part.fragment(self._master_shard, i)
+                             for i in range(len(leaves))]
+        else:
+            self._flat_master = torch.zeros(part.padded, dtype=store, device=self.device)
+            self._flat_grad = torch.zeros_like(self._flat_master)
+            self._masters = []
+            for i, p in enumerate(leaves):
+                master = part.leaf(self._flat_master, i)
+                master.copy_(p.detach())
+                master = master.detach().requires_grad_(True)
+                master.grad = part.leaf(self._flat_grad, i)
+                self._masters.append(master)
+            self._master_shard = self._flat_master[part.start:part.start + part.shard]
+        self._shard_grad = torch.zeros(part.shard, dtype=store, device=self.device)
+        self._g3: Optional[torch.Tensor] = None
+        return self.tx.init([self._master_shard])
+
     def _tree(self, leaves):
         return pytree.tree_unflatten(list(leaves), self._spec)
 
+    def _gather_compute(self) -> List[torch.Tensor]:
+        """Stage 3: the compute-dtype leaves of one micro-batch, views of
+        the all-gathered flat buffer; with grad enabled their ``.grad`` are
+        views of a zeroed flat buffer (``_g3``), which autograd fills."""
+        part = self._zero
+        zc = self.config.zero_optimization
+        flat = part.all_gather_flat(self._master_shard.to(self.compute_dtype),
+                                    zc.allgather_bucket_size)
+        leaves = [part.leaf(flat, i).detach().requires_grad_(True)
+                  for i in range(len(part.shapes))]
+        if torch.is_grad_enabled():
+            self._g3 = torch.zeros_like(flat)
+            for i, leaf in enumerate(leaves):
+                leaf.grad = part.leaf(self._g3, i)
+        return leaves
+
     def _loss(self, batch) -> torch.Tensor:
         """The loss of one micro-batch on the compute copy of the masters
-        (autograd runs through the cast, so gradients land in fp32)."""
-        compute = [p.to(self.compute_dtype) for p in self._masters]
+        (autograd runs through the cast, so gradients land in fp32; at
+        stage 3 on the gathered compute leaves)."""
+        if self._stage3:
+            compute = self._gather_compute()
+        else:
+            compute = [p.to(self.compute_dtype) for p in self._masters]
         return self._loss_call(self._tree(compute), batch).float()
 
     def _backward_micro(self, batch, scale: float) -> torch.Tensor:
         with torch.enable_grad():
             loss = self._loss(batch)
             (loss * scale).backward()
+        if self._stage3:
+            # this micro-batch's compute-dtype gradients join the pending
+            # local ones (fp32 from the second on, as at stage 0)
+            g, self._g3 = self._g3, None
+            if self._flat_grad is None:
+                self._flat_grad = g
+            else:
+                self._flat_grad = self._flat_grad.to(self._shard_grad.dtype)
+                self._flat_grad.add_(g)
         return loss.detach()
 
     def _grads(self) -> List[torch.Tensor]:
@@ -328,12 +436,16 @@ class DeepSpeedTPUEngine:
         cfg = self.config
         ls = self.state.loss_scale
         scale = ls.scale if self.fp16 else 1.0
-        grads = self._grads()
-        for g in grads:
-            g.div_(scale * self.gas)
-        if self.dp_world > 1 and not reduced:
-            self._reduce_grads(self._sr_generator(self.state.step))
-        norm = global_grad_norm(grads)
+        if self._zero is not None:
+            grads = [self._shard_grad]
+            norm = self._unscale_shard(scale, reduced)
+        else:
+            grads = self._grads()
+            for g in grads:
+                g.div_(scale * self.gas)
+            if self.dp_world > 1 and not reduced:
+                self._reduce_grads(self._sr_generator(self.state.step))
+            norm = global_grad_norm(grads)
         overflow = self.fp16 and not bool(torch.isfinite(norm))
         clip = cfg.gradient_clipping
         if clip and clip > 0:
@@ -343,7 +455,14 @@ class DeepSpeedTPUEngine:
         step = self.state.step
         if not overflow:
             with torch.no_grad():
-                self._update(grads)
+                if self._zero is not None:
+                    self._update(grads, [self._master_shard])
+                    if not self._stage3:
+                        self._zero.all_gather_flat(
+                            self._master_shard, cfg.zero_optimization.allgather_bucket_size,
+                            out=self._flat_master)
+                else:
+                    self._update(self._tree(grads), self._tree(self._masters))
         for g in grads:
             g.zero_()
         self.state.loss_scale = update_loss_scale(
@@ -356,15 +475,103 @@ class DeepSpeedTPUEngine:
         return {"grad_norm": norm, "lr": float(self.lr_schedule(step + 1)),
                 "loss_scale": ls.scale, "overflow": overflow}
 
-    def _update(self, grads):
-        g_tree, p_tree = self._tree(grads), self._tree(self._masters)
+    def _unscale_shard(self, scale: float, reduced: bool) -> torch.Tensor:
+        """Stages 1-3: this rank's shard of the step's gradient, divided by
+        ``scale * gas``, and the global norm. At stage 1 ``train_batch``
+        leaves the gas-sum in the full buffer, which is divided (as at stage
+        0) and reduce-scattered here; otherwise the shard accumulator holds
+        it already. The norm is the square root of the ranks' summed squared
+        shard norms, so every rank reads the same value."""
+        if reduced or self.config.zero_optimization.stage >= 2:
+            self._shard_grad.div_(scale * self.gas)
+        else:
+            self._flat_grad.div_(scale * self.gas)
+            self._zero.reduce_scatter_flat(
+                self._flat_grad, self._shard_grad,
+                self.config.zero_optimization.reduce_bucket_size, accumulate=False)
+            self._flat_grad.zero_()
+        sq = torch.linalg.vector_norm(self._shard_grad).square().reshape(1)
+        comm.all_reduce(sq, self.topo.dp_axes, op="sum")
+        return sq.sqrt()[0]
+
+    def _update(self, grads, params):
+        """One optimizer step of ``params`` (a tree congruent with the
+        optimizer state) in place."""
         apply = getattr(self.tx, "apply", None)
-        if apply is not None and all(p.dtype == torch.float32 for p in self._masters):
-            self.state.opt_state = apply(g_tree, self.state.opt_state, p_tree)
+        leaves = pytree.tree_leaves(params)
+        if apply is not None and all(p.dtype == torch.float32 for p in leaves):
+            self.state.opt_state = apply(grads, self.state.opt_state, params)
             return
-        updates, self.state.opt_state = self.tx.update(g_tree, self.state.opt_state, p_tree)
-        for p, u in zip(self._masters, pytree.tree_leaves(updates)):
+        updates, self.state.opt_state = self.tx.update(grads, self.state.opt_state, params)
+        for p, u in zip(leaves, pytree.tree_leaves(updates)):
             p.copy_((p.float() + u.float()).to(p.dtype))
+
+    # the whole tree at every stage (checkpoints, utils/tensor_fragment) -
+    def _full_param(self, i: int) -> torch.Tensor:
+        """Leaf i of the masters in full: gathered at stage 3 over several
+        ranks (a collective: every rank calls it), else the master itself."""
+        if self._stage3:
+            return self._zero.gather(self._master_shard, i)
+        return self._masters[i].detach()
+
+    def _set_full_param(self, i: int, value: torch.Tensor) -> None:
+        """Write a full value of leaf i into the masters (at stage 3: this
+        rank's fragment of it)."""
+        shape = self._zero.shapes[i] if self._zero is not None else tuple(self._masters[i].shape)
+        if tuple(value.shape) != shape:
+            raise ValueError(f"parameter {i}: shape {tuple(value.shape)} does not match "
+                             f"the engine's {shape}")
+        if self._stage3:
+            self._zero.scatter(self._master_shard, i, value.to(self._master_shard.device))
+        else:
+            with torch.no_grad():
+                self._masters[i].copy_(value)
+
+    def _opt_layout(self):
+        """The leaves and structure of the optimizer state as stage 0 lays
+        it out (``tx.init`` over the whole tree, on the meta device). At
+        stages 1-3 each tensor leaf of the sharded state stands for one run
+        of parameter-congruent tensors of this layout."""
+        meta = self._tree([torch.empty(s, dtype=self._master_shard.dtype, device="meta")
+                           for s in self._zero.shapes])
+        return pytree.tree_flatten(self.tx.init(meta))
+
+    def _full_opt_state(self, keep: Callable):
+        """Stages 1-3: the optimizer state in its stage-0 layout, every
+        shard tensor gathered leaf by leaf (a collective) and passed through
+        ``keep`` (e.g. to the host, or to None where it is not needed)."""
+        layout, spec = self._opt_layout()
+        n = len(self._zero.shapes)
+        out = []
+        for leaf in pytree.tree_leaves(self.state.opt_state):
+            if isinstance(layout[len(out)], torch.Tensor):
+                out.extend(keep(self._zero.gather(leaf, i)) for i in range(n))
+            else:
+                out.append(leaf)
+        return pytree.tree_unflatten(out, spec)
+
+    def _load_opt_state(self, leaves: List[Any]) -> None:
+        """Stages 1-3: the optimizer state from the leaves of its stage-0
+        layout, this rank's part of each tensor written into its shard."""
+        layout, _ = self._opt_layout()
+        if len(leaves) != len(layout):
+            raise ValueError(f"optimizer state has {len(leaves)} leaves, the engine's "
+                             f"stage-0 layout {len(layout)}")
+        cur, spec = pytree.tree_flatten(self.state.opt_state)
+        new, k = [], 0
+        for leaf in cur:
+            if isinstance(layout[k], torch.Tensor):
+                for i, shape in enumerate(self._zero.shapes):
+                    if tuple(leaves[k + i].shape) != shape:
+                        raise ValueError(f"optimizer leaf {k + i}: shape "
+                                         f"{tuple(leaves[k + i].shape)}, the engine's {shape}")
+                    self._zero.scatter(leaf, i, leaves[k + i].to(leaf.device))
+                new.append(leaf)
+                k += len(self._zero.shapes)
+            else:
+                new.append(leaves[k])
+                k += 1
+        self.state.opt_state = pytree.tree_unflatten(new, spec)
 
     # ------------------------------------------------------------------
     def _shape_batch(self, batch):
@@ -417,8 +624,11 @@ class DeepSpeedTPUEngine:
         else:
             batch = self._rank_slice(self._shape_batch(batch), 1)
         scale = self.state.loss_scale.scale if self.fp16 else 1.0
-        losses = [self._backward_micro(pytree.tree_map(lambda x: x[i], batch), scale)
-                  for i in range(self.gas)]
+        losses = []
+        for i in range(self.gas):
+            losses.append(self._backward_micro(pytree.tree_map(lambda x: x[i], batch), scale))
+            if self._zero is not None and self.config.zero_optimization.stage >= 2:
+                self._reduce_pending()
         metrics = self._apply()
         metrics["loss"] = self._rank_mean(torch.stack(losses).mean())
         self._metrics_dev = metrics
@@ -469,8 +679,19 @@ class DeepSpeedTPUEngine:
         return self._compat_loss
 
     def _reduce_pending(self) -> None:
-        """Reduce the micro-batch gradients held in the flat buffer (and any
-        deferred by ``no_sync``) into the imperative path's accumulator."""
+        """Reduce the micro-batch gradients held in the full local buffer
+        (and any deferred by ``no_sync``): at stage 0 into the imperative
+        path's accumulator, at stages 1-3 into the shard accumulator."""
+        if self._zero is not None:
+            self._zero.reduce_scatter_flat(
+                self._flat_grad, self._shard_grad,
+                self.config.zero_optimization.reduce_bucket_size, accumulate=True)
+            if self._stage3:
+                self._flat_grad = None    # freed until the next micro-batch
+            else:
+                self._flat_grad.zero_()
+            self._pending_local = False
+            return
         if self._compat_acc is None:
             self._compat_acc = torch.zeros_like(self._flat_grad)
         self._reduce_grads(self._sr_generator(self.state.step, self._compat_count + 1))
@@ -500,8 +721,9 @@ class DeepSpeedTPUEngine:
         if self.dp_world > 1:
             if self._pending_local:
                 self._reduce_pending()
-            self._flat_grad.copy_(self._compat_acc)
-            self._compat_acc.zero_()
+            if self._zero is None:
+                self._flat_grad.copy_(self._compat_acc)
+                self._compat_acc.zero_()
         self._metrics_dev = self._apply(reduced=self.dp_world > 1)
         self._compat_count = 0
         self._compat_pending = False
@@ -514,6 +736,10 @@ class DeepSpeedTPUEngine:
                 p.grad.zero_()
         if self._compat_acc is not None:
             self._compat_acc.zero_()
+        if self._zero is not None:
+            self._shard_grad.zero_()
+            if self._stage3:
+                self._flat_grad = None
         self._pending_local = False
         self._compat_count = 0
         self._compat_pending = False

@@ -1,7 +1,8 @@
 """The port's public names and signatures against the JAX package's.
 
 For every name that the landed slices were missing (ROADMAP.md Queue C item
-2), the port has it, and its parameters carry the JAX counterpart's names in
+2), and for the ``runtime.zero`` package and the ``utils.tensor_fragment``
+accessors, the port has it, and its parameters carry the JAX counterpart's names in
 the JAX order (``inspect.signature``; defaults may differ where the port's
 types do). A JAX ``mixtral_config`` constructs the port's
 ``TransformerConfig``, and the model (so the trainer) and the server refuse it
@@ -35,6 +36,19 @@ SURFACE = {
     "utils.groups": ["initialize"],
     "accelerator": ["set_accelerator", "set_accelerator_by_name"],
     "runtime.config": ["AUTO"],
+    "runtime.zero": ["Init", "ZeroShardingRules", "shard_param_spec",
+                     "estimate_zero_model_states_mem_needs",
+                     "estimate_zero2_model_states_mem_needs_all_live",
+                     "estimate_zero3_model_states_mem_needs_all_live", "tiled_matmul",
+                     "ZeroPPState", "hierarchical_all_gather", "hpz_remat_policy",
+                     "zeropp_train_step_factory"],
+    "utils.tensor_fragment": ["safe_get_full_fp32_param", "safe_set_full_fp32_param",
+                              "safe_get_full_grad", "safe_set_full_grad",
+                              "safe_get_full_optimizer_state",
+                              "safe_set_full_optimizer_state", "safe_get_local_fp32_param",
+                              "safe_get_local_grad", "safe_get_local_optimizer_state",
+                              "safe_set_local_fp32_param", "safe_set_local_grad",
+                              "safe_set_local_optimizer_state"],
     "": ["add_config_arguments", "version"],
 }
 # kernel wrappers: port module -> (JAX module, names)

@@ -991,6 +991,39 @@ def test_config_adamw_launches_fused_adam_kernel_on_card():
     _close(params["b"]["c"], torch.full((3, 7), 1 + 1e-3 - 1e-4, device="cuda"), 1e-6)
 
 
+@pytest.mark.parametrize("offset", [4 * adam.CHUNK, 2 * adam.CHUNK + 3])
+def test_fused_adam_on_a_shard_view_of_a_flat_buffer_on_card(offset):
+    """ZeRO's update: the config route over a one-leaf list holding a view
+    at a non-zero offset of a flat master buffer (16-byte aligned, and
+    not), one launch, against the plain version; the rest of the buffer is
+    untouched."""
+    _need_card()
+    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n = 3 * adam.CHUNK + 11
+    flat = torch.randn(offset + n + 17, generator=gen, device="cuda")
+    before = flat.clone()
+    shard = flat[offset:offset + n]
+    g = 0.1 * torch.randn(n, generator=gen, device="cuda")
+    tx = build_optimizer("adamw", {"lr": 3e-4, "weight_decay": 0.1})
+    state = tx.init([shard])
+    want_p = before[offset:offset + n]
+    for step in (1, 2):
+        u, m, v = adam.adam_update_ref(g, state.exp_avg[0].clone(), state.exp_avg_sq[0].clone(),
+                                       want_p, 3e-4, 0.9, 0.999, 1e-8, 0.1, True, True, step,
+                                       pow_correction=True)
+        want_p = want_p + u
+        adam.reset_launch_counts()
+        state = tx.apply([g], state, [shard])
+        assert adam.launch_counts["fused_adam"] == 1
+        _close(state.exp_avg[0], m, 1e-6)
+        _close(state.exp_avg_sq[0], v, 1e-6)
+        _close(shard, want_p, 1e-6)
+    assert torch.equal(flat[:offset], before[:offset])
+    assert torch.equal(flat[offset + n:], before[offset + n:])
+
+
 @pytest.mark.parametrize("tied", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_loss_kernels_match_plain_versions_on_card(dtype, tied):

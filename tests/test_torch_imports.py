@@ -58,7 +58,8 @@ def test_port_sources_exist():
                 "comm/comm.py", "comm/compressed.py", "parallel/topology.py",
                 "utils/comms_logging.py", "utils/groups.py",
                 "inference/v2/model.py", "inference/v2/engine_v2.py",
-                "inference/v2/ragged/kv_cache.py"):
+                "inference/v2/ragged/kv_cache.py", "runtime/zero/sharding.py",
+                "runtime/zero/partition.py", "utils/tensor_fragment.py"):
         assert f"deepspeed_tpu_torch/{mod}" in names
 
 

@@ -318,6 +318,15 @@ def test_world_size_above_one_raises(monkeypatch):
     p = convert.params_from_jax(params, tcfg, device="cpu")
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+    # what the engine cannot honour at world size 2 raises before it joins
+    # the world: here a dp degree other than the world's
     with pytest.raises(NotImplementedError, match="world size 2"):
+        tds.initialize(model=ttf.make_loss_fn(ttf.TransformerLM(tcfg, p)),
+                       model_parameters=p, config=dict(TRAIN_CONFIG, data_parallel_size=1),
+                       device="cpu")
+    # ZeRO stage 3 at world size 2 is no such section any more
+    # (tests/test_torch_dp_train.py trains it): the engine goes on to build
+    # the dp mesh, which this faked world cannot give
+    with pytest.raises(ValueError, match="process group"):
         tds.initialize(model=ttf.make_loss_fn(ttf.TransformerLM(tcfg, p)),
                        model_parameters=p, config=TRAIN_CONFIG, device="cpu")

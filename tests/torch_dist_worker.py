@@ -278,9 +278,11 @@ def scenario_train(rank, world, inputs, workdir):
     out["loader/len"] = len(dl)
     reset_fastpath()
 
+    _zero_stages(rank, inputs, workdir, batches, out)
+
     # gates
     gates = {}
-    for name, over in (("stage1", {"zero_optimization": {"stage": 1}}),
+    for name, over in (("mics", {"zero_optimization": {"stage": 3, "mics_shard_size": 2}}),
                        ("hierarchical", {"compressed_collectives": {"mode": "int8",
                                                                     "hierarchical": True}})):
         try:
@@ -309,6 +311,167 @@ def scenario_train(rank, world, inputs, workdir):
     out["ckpt/files"] = sorted(os.listdir(ckpt))
     reset_fastpath()
     return out
+
+
+def _full_masters(eng):
+    from deepspeed_tpu_torch.utils import safe_get_full_fp32_param
+
+    return [_np(safe_get_full_fp32_param(eng, p)) for p in _paths(eng)]
+
+
+def _paths(eng):
+    """Every leaf's path in tree order ("layer_0/attn/q_proj/kernel")."""
+    from torch.utils import _pytree as pytree
+
+    paths, _ = pytree.tree_flatten_with_path(eng.state.params)
+    return ["/".join(str(k.key) for k in kp) for kp, _ in paths]
+
+
+def _full_moments(eng):
+    from deepspeed_tpu_torch.utils import safe_get_full_optimizer_state
+
+    return [_np(safe_get_full_optimizer_state(eng, p, k)) for k in ("exp_avg", "exp_avg_sq")
+            for p in _paths(eng)]
+
+
+def _zero_stages(rank, inputs, workdir, batches, out):
+    """ZeRO stages 1-3 in the same world: training, the full masters read
+    through ``safe_get_full_fp32_param``, the shard sizes, the imperative
+    path and ``no_sync``, an fp16 overflow, the accessors, and a stage-3
+    save resumed at stage 3 and at stage 0."""
+    from deepspeed_tpu_torch.ops.fastpath import reset_fastpath
+    from deepspeed_tpu_torch.utils import tensor_fragment as tf
+
+    gas = inputs["config"]["gradient_accumulation_steps"]
+    zero = lambda stage, **kw: dict({"zero_optimization": {"stage": stage}}, **kw)
+    for stage in (1, 2, 3):
+        name = f"stage{stage}"
+        eng, *_ = _engine(inputs, zero(stage))
+        out[name] = [float(eng.train_batch(b)) for b in batches]
+        out[name + "/full"] = _full_masters(eng)
+        out[name + "/shapes"] = [tuple(p.shape) for p in eng._masters]
+        m = eng.state.opt_state.exp_avg
+        out[name + "/adam"] = [tuple(t.shape) for t in m]
+        out[name + "/n"] = eng._zero.numel
+        out[name + "/grad_norm"] = eng.get_global_grad_norm()
+        reset_fastpath()
+    # the imperative path (each micro-batch reduce-scattered) and no_sync
+    for stage in (2, 3):
+        eng, *_ = _engine(inputs, zero(stage))
+        losses = []
+        for b in batches:
+            for mb in b.reshape(gas, -1, b.shape[-1]):
+                losses.append(eng.forward(mb))
+                eng.backward()
+                eng.step()
+        out[f"imperative_stage{stage}"] = losses
+        out[f"imperative_stage{stage}/full"] = _full_masters(eng)
+        reset_fastpath()
+        eng, *_ = _engine(inputs, zero(stage))
+        b = batches[0].reshape(gas, -1, batches[0].shape[-1])
+        with eng.no_sync():
+            eng.forward(b[0])
+            eng.backward()
+            try:
+                tf.safe_get_full_grad(eng, "lm_head/kernel")
+                out[f"no_sync_stage{stage}/pending"] = "read"
+            except RuntimeError as e:
+                out[f"no_sync_stage{stage}/pending"] = str(e)
+        eng.forward(b[1])
+        eng.backward()
+        eng.step()
+        out[f"no_sync_stage{stage}/full"] = _full_masters(eng)
+        reset_fastpath()
+    # an fp16 overflow (loss scale 2^32 against fp16's 65504): both ranks
+    # skip the step and keep their masters
+    eng, *_ = _engine(inputs, zero(3, fp16={"enabled": True, "initial_scale_power": 32}))
+    before = _full_masters(eng)
+    eng.train_batch(batches[0])
+    out["fp16_stage3"] = {"skipped": eng.skipped_steps,
+                          "kept": all(np.array_equal(a, b)
+                                      for a, b in zip(before, _full_masters(eng))),
+                          "scale": eng.loss_scale}
+    reset_fastpath()
+
+    # the accessors at stage 3 after the three steps, then inside an
+    # imperative window on a fourth global micro-batch
+    eng, *_ = _engine(inputs, zero(3))
+    for b in batches:
+        eng.train_batch(b)
+    paths = inputs["paths"]
+    acc = {"param": [_np(tf.safe_get_full_fp32_param(eng, p)) for p in paths],
+           "local_param": [_np(tf.safe_get_local_fp32_param(eng, p)) for p in paths],
+           "exp_avg": [_np(tf.safe_get_full_optimizer_state(eng, p, "exp_avg"))
+                       for p in paths],
+           "exp_avg_sq": [_np(tf.safe_get_full_optimizer_state(eng, p, "exp_avg_sq"))
+                          for p in paths],
+           "local_exp_avg": [_np(tf.safe_get_local_optimizer_state(eng, p, "exp_avg"))
+                             for p in paths],
+           "spans": [eng._zero.span(_paths(eng).index(p)) for p in paths],
+           "grad_outside": tf.safe_get_full_grad(eng, paths[0])}
+    eng.forward(torch.from_numpy(inputs["micro"]))
+    eng.backward()
+    acc["grad"] = [_np(tf.safe_get_full_grad(eng, p)) for p in paths]
+    acc["local_grad"] = [_np(tf.safe_get_local_grad(eng, p)) for p in paths]
+    # the setters: write, read back (full at every rank, local as fragments)
+    # (full writes to paths[1], each rank's local writes to its fragment of
+    # paths[0], which the ranks split)
+    whole, split = paths[1], paths[0]
+    shape = tuple(acc["param"][1].shape)
+    tf.safe_set_full_fp32_param(eng, whole, torch.full(shape, 0.5))
+    tf.safe_set_full_optimizer_state(eng, whole, torch.full(shape, 0.25), "exp_avg")
+    tf.safe_set_full_grad(eng, whole, torch.full(shape, 2.0))
+    frag = tf.safe_get_local_fp32_param(eng, split)
+    tf.safe_set_local_fp32_param(eng, split, frag + 1.0)
+    tf.safe_set_local_grad(eng, split, torch.zeros_like(frag))
+    tf.safe_set_local_optimizer_state(eng, split, torch.ones_like(frag), "exp_avg_sq")
+    acc["set"] = {"param": _np(tf.safe_get_full_fp32_param(eng, whole)),
+                  "exp_avg": _np(tf.safe_get_full_optimizer_state(eng, whole, "exp_avg")),
+                  "grad": _np(tf.safe_get_full_grad(eng, whole)),
+                  "local_param": _np(tf.safe_get_full_fp32_param(eng, split)),
+                  "local_grad": _np(tf.safe_get_full_grad(eng, split)),
+                  "local_exp_avg_sq": _np(tf.safe_get_full_optimizer_state(
+                      eng, split, "exp_avg_sq"))}
+    out["accessors"] = acc
+    reset_fastpath()
+    # the same window at stage 0, whose gradients sit in the reduced flat
+    # accumulator
+    eng, *_ = _engine(inputs)
+    for b in batches:
+        eng.train_batch(b)
+    eng.forward(torch.from_numpy(inputs["micro"]))
+    eng.backward()
+    out["accessors0"] = {"param": [_np(tf.safe_get_full_fp32_param(eng, p)) for p in paths],
+                         "grad": [_np(tf.safe_get_full_grad(eng, p)) for p in paths],
+                         "local_grad": [_np(tf.safe_get_local_grad(eng, p)) for p in paths]}
+    reset_fastpath()
+
+    # a stage-3 save after two steps, resumed by fresh engines at stage 3
+    # (bitwise against the uninterrupted run) and at stage 0
+    ckpt = os.path.join(workdir, "ckpt3")
+    first, *_ = _engine(inputs, zero(3))
+    for b in batches[:2]:
+        first.train_batch(b)
+    first.save_checkpoint(ckpt, client_state={"stage": 3})
+    saved = _full_masters(first)
+    saved_m = _full_moments(first)
+    for stage in (3, 0):
+        eng, *_ = _engine(inputs, zero(stage))
+        _, client = eng.load_checkpoint(ckpt)
+        out[f"ckpt3_to{stage}"] = {
+            "client": client,
+            "loaded_equal": all(np.array_equal(a, b)
+                                for a, b in zip(_full_masters(eng), saved)),
+            "adam_equal": all(np.array_equal(a, b)
+                              for a, b in zip(_full_moments(eng), saved_m)),
+            "step": eng.state.step,
+            "losses": [float(eng.train_batch(b)) for b in batches[2:]]}
+        reset_fastpath()
+    from deepspeed_tpu_torch.checkpoint.engine import zero_to_fp32
+
+    flat = zero_to_fp32(ckpt)
+    out["ckpt3/zero_to_fp32"] = all(np.array_equal(flat[p], a)
+                                    for p, a in zip(_paths(first), saved))
 
 
 def scenario_cuda_step(rank, world, inputs, workdir):
