@@ -8,9 +8,11 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. environment — device name and count, torch/CUDA versions, the card's
-   name and power limit from ``nvidia-smi``;
+   name and power limit from ``nvidia-smi``, the host's MemAvailable and
+   CPU model (``lscpu``);
 2. build — compiles the port's CUDA sources (``nvcc`` for sm_90a, into
-   ``build/``), one ``nvcc`` per source, all started together;
+   ``build/``), one ``nvcc`` per source, all started together, then the
+   two host libraries of the offload tier (``g++``);
 3. kernel parity — each hand-written kernel against its plain PyTorch
    version on the card, and timed with CUDA events beside its bound, its
    plain version and one library call computing the same function:
@@ -72,7 +74,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    timed beside its plain version and the library composite (bf16 matmul +
    F.cross_entropy), the forward and the backward's dl, dh and dK kernels
    on both routes at the main shape, and its peak extra memory against the
-   composite's;
+   composite's; the host Adam of ZeRO-Offload bitwise its plain version
+   (odd sizes, AdamW and L2, bias correction on and off, bf16 out, a bf16
+   gradient step) and timed over TinyLlama-1.1B's 201 leaves beside
+   ``torch._fused_adamw_`` on CPU tensors and a host-bandwidth bound (a
+   measured torch CPU copy), and over one layer beside its plain version;
+   the aio pool's 256 MiB write and read back beside one thread's
+   ``os.pwrite`` / ``os.preadv``;
 4. serving slice — Llama-2-7B at full width (bf16, seeded random weights
    made on the card) served by ``LLMServer`` over ``InferenceEngineV2``: 16
    requests with seeded prompt lengths in [128, 1024], 128 new tokens each.
@@ -101,15 +109,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain path (plain attention, dense loss and Adam, bf16) and the plain
    path in float32; loss, gradient norm and weight updates of the kernel
    path (flash, fused loss, Adam) must sit within twice the plain path's
-   distance from float32;
+   distance from float32; at 2 layers of TinyLlama widths the host-Adam
+   tier (fp32 and bf16 transport) within twice the device path's distance
+   from float32 of it, the storage tier (a caller's Adam) bitwise it;
 8. remat — TinyLlama widths at 4 layers, one step without remat, with
    per-layer remat ("nothing_saveable", "dots_saveable") and with the
    engine-level wrap: loss and grad norm agree, per-layer remat lowers the
-   peak memory, the flash forward launches twice as often;
+   peak memory, the flash forward launches twice as often; per-layer remat
+   under ``cpu_checkpointing`` (the products in pinned host memory): loss
+   and grad norm bitwise "dots_saveable"'s, at a lower peak;
 9. checkpoint — TinyLlama widths at 2 layers: 3 steps, save, a fresh
    engine, load, 2 steps, against 5 uninterrupted steps: the state is
    bitwise equal after the load, the losses are bitwise equal, and
-   ``zero_to_fp32`` returns the saved masters;
+   ``zero_to_fp32`` returns the saved masters; the same for the host-Adam
+   tier (host masters, moments and compute leaves); ``offload_states`` to
+   host memory and through the aio swapper to files under ``build/`` and
+   back mid-run: the card's memory drops by the state's bytes, the state
+   comes back bitwise and training goes on bitwise;
 10. block-quant kernels — quantize (nearest), quantize with stochastic
    rounding and dequantize against their plain versions at a ragged size
    (blocks 2048, 512, 128) and at TinyLlama-1.1B's flat gradient (n =
@@ -121,7 +137,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``--dp-child``) share cuda:0 over gloo and train TinyLlama widths at 4
    layers (micro 2 x 2048 per rank, gas 2, bf16, fused loss) for 5 steps
    in each of ``compressed_collectives`` none, int8 and int8_sr at ZeRO
-   stage 0 and at ZeRO stages 1, 2 and 3 with the exact reduction, from one
+   stage 0, at ZeRO stages 1, 2 and 3 with the exact reduction and at
+   stage 1 with ``offload_optimizer`` cpu (the storage tier at world size
+   2: losses bitwise stage 1's), from one
    seed (an init closure) and one global batch: each mode's first loss
    bitwise equal to none's, every loss within 0.02 |ref| + 1e-3 of none's,
    losses falling, the full masters (``safe_get_full_fp32_param``) bitwise
@@ -179,7 +197,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rank, and stage 3's peak memory per rank at least half the estimator's
    predicted saving (18P against 9P bytes) below stage 0's; both peaks,
    the estimator's figures and the step times (two ranks sharing one card,
-   not a scaling number) are printed.
+   not a scaling number) are printed;
+19. ZeRO-Offload at full size — Llama-2-7B (or phi-3-mini-4k when the
+   host's MemAvailable is below the 130 GB 7B's host state needs) trained
+   on one card with the optimizer on the host: seq 4096, micro 1, gas 2,
+   per-layer remat, bf16, bf16 gradient transport, clipping 1.0, WarmupLR,
+   1 warm-up and 3 timed steps: losses finite and falling, no fused-Adam
+   launch and one host step a step, flash and fused-loss launches exact
+   and on ``wgmma``, the compute leaves on the card bitwise the bf16 of the
+   host masters, peak device memory below 9P; step time, tokens/s, MFU,
+   the D2H / host Adam / H2D seconds, peak memory and host memory printed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -1353,18 +1380,169 @@ def adam_phase(adam):
     m_s.zero_()
     v_s.zero_()
     shard_ms = cuda_ms(lambda: adam.multi_tensor_adam([g_s], [m_s], [v_s], [shard], **kw))
+    shard_plain = cuda_ms(lambda: adam.adam_update_ref(g_s, m_s, v_s, shard, 3e-4, 0.9, 0.999,
+                                                       1e-8, 0.1, True, True, 1),
+                          iters=2, warmup=1)
+    one = [torch.ones((), device="cuda")]
+    shard_lib = (cuda_ms(lambda: torch._fused_adamw_(
+        [shard], [g_s], [m_s], [v_s], [], one, lr=3e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False))
+        if hasattr(torch, "_fused_adamw_") else None)
     s_bound, s_by = bound(28 * half, 15 * half, torch.float32)
     good = shard_rel <= 1e-6
     log(f"timing fused_adam on a ZeRO shard (rank 1 of 2: {half} elements at offset {half} "
         f"of TinyLlama-1.1B's flat masters, one launch): kernel {shard_ms:.4f} ms, bound "
-        f"{s_bound:.4f} ms by {s_by}; max rel err {shard_rel:.3e} (tol 1e-6) "
-        f"{'ok' if good else 'FAIL'}")
+        f"{s_bound:.4f} ms by {s_by}, plain {shard_plain:.4f} ms, library "
+        f"(torch._fused_adamw_) {'n/a' if shard_lib is None else f'{shard_lib:.4f}'} ms; "
+        f"max rel err {shard_rel:.3e} (tol 1e-6) {'ok' if good else 'FAIL'}")
     del flat, shard, g_s, m_s, v_s
     torch.cuda.empty_cache()
     if not good:
         raise SystemExit("fused_adam parity FAILED on a ZeRO shard")
     return {"fused_adam": dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                                bound_by=b_by, max_abs_err=err)}
+
+
+def host_copy_rate(nbytes: int = 2 << 30) -> float:
+    """Bytes per second of one large torch copy in host memory (each byte
+    read once and written once, both counted): the host-bandwidth yardstick
+    of the host kernels' bounds. Best of three, after a warm-up."""
+    src = torch.ones(nbytes, dtype=torch.uint8)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    best = math.inf
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        best = min(best, time.perf_counter() - t0)
+    return 2 * nbytes / best
+
+
+def host_ms(fn, iters: int = 2, warmup: int = 1) -> float:
+    """Mean host-clock milliseconds of ``fn`` (a host computation)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def host_adam_phase(rate):
+    """The host Adam (ops/csrc/host/cpu_adam.cpp, built with g++ on this
+    machine) against its plain version bitwise: odd sizes (some split
+    across threads), AdamW and L2, bias correction on and off, three steps
+    with the bf16 emission, the second with bf16 gradients. Then timed over
+    TinyLlama-1.1B's 201 leaves (fp32 gradients, bf16 out) beside
+    torch._fused_adamw_ on the same CPU tensors and the host-bandwidth
+    bound (30 bytes an element over ``rate``), and over one decoder
+    layer's 9 leaves beside the plain version too (the plain version's
+    float64 fused multiply-adds are too slow for the whole tree)."""
+    from deepspeed_tpu_torch.models import llama_config, param_shapes
+    from deepspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam, cpu_adam_reference
+
+    gen = torch.Generator().manual_seed(11)
+    sizes = [1, 3, 4097, (1 << 16) + 1, 3 * (1 << 18) + 7]
+    ok = True
+    for adamw in (True, False):
+        for bc in (True, False):
+            ps = [torch.randn(n, generator=gen) for n in sizes]
+            opt = DeepSpeedCPUAdam(ps, lr=3e-4, betas=(0.9, 0.95), weight_decay=0.1,
+                                   adamw_mode=adamw, bias_correction=bc)
+            ref = [(p.clone(), torch.zeros_like(p), torch.zeros_like(p)) for p in ps]
+            for step in (1, 2, 3):
+                gs = [0.1 * torch.randn(n, generator=gen) for n in sizes]
+                if step == 2:
+                    gs = [g.to(torch.bfloat16) for g in gs]
+                out = opt.step(gs, emit_bf16=True)
+                ref = [cpu_adam_reference(*r, g, 3e-4, (0.9, 0.95), 1e-8, 0.1, adamw, bc,
+                                          step) for r, g in zip(ref, gs)]
+            good = all(torch.equal(a, b) for got, want in zip(zip(*opt.leaves()), ref)
+                       for a, b in zip(got, want))
+            good &= all(torch.equal(o, r[0].to(torch.bfloat16)) for o, r in zip(out, ref))
+            ok &= good
+            log(f"parity cpu_adam adamw_mode={adamw} bias_correction={bc} sizes {sizes}, "
+                f"3 steps (bf16 gradients in the second), bf16 out: masters, moments and "
+                f"bf16 bitwise the plain version: {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise SystemExit("cpu_adam parity FAILED")
+
+    def timed(shapes, label, plain):
+        n = sum(math.prod(s) for s in shapes)
+        flat = torch.full((n,), 0.02)
+        leaves = list(torch.split(flat, [math.prod(s) for s in shapes]))
+        opt = DeepSpeedCPUAdam(leaves, lr=3e-4, weight_decay=0.1)
+        del flat, leaves
+        grads = list(torch.split(torch.full((n,), 1e-3), [math.prod(s) for s in shapes]))
+        outs = list(torch.split(torch.empty(n, dtype=torch.bfloat16),
+                                [math.prod(s) for s in shapes]))
+        ms = host_ms(lambda: opt.step(grads, emit_bf16=True, out=outs))
+        p, m, v = opt.leaves()
+        steps = [torch.tensor(1.0) for _ in p]
+        lib = host_ms(lambda: torch._fused_adamw_(
+            p, grads, m, v, [], steps, lr=3e-4, beta1=0.9, beta2=0.999, weight_decay=0.1,
+            eps=1e-8, amsgrad=False, maximize=False))
+        plain_ms = (host_ms(lambda: [cpu_adam_reference(*a, 3e-4, weight_decay=0.1)
+                                     for a in zip(p, m, v, grads)], iters=1, warmup=0)
+                    if plain else None)
+        nbytes = 30 * n       # read p, m, v, g (fp32); write p, m, v (fp32), out (bf16)
+        b_ms = nbytes / rate * 1e3
+        log(f"timing cpu_adam ({label}: {len(shapes)} leaves, {n} elements, fp32 gradients, "
+            f"bf16 out, {os.cpu_count()} host threads): kernel {ms:.2f} ms, bound "
+            f"{b_ms:.2f} ms by bytes ({nbytes} B at the measured {rate / 1e9:.1f} GB/s), "
+            f"library (torch._fused_adamw_, CPU) {lib:.2f} ms"
+            + (f", plain {plain_ms:.2f} ms" if plain else ""))
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                    bound_by="bytes", max_abs_err=0.0)
+
+    shapes = param_shapes(llama_config("1b"))
+    timed(list(shapes.values()), "TinyLlama-1.1B", plain=False)
+    layer = [s for k, s in shapes.items() if k.startswith("layer_0/")]
+    return {"cpu_adam": timed(layer, "one TinyLlama-1.1B layer", plain=True)}
+
+
+def aio_phase(rate):
+    """The aio thread pool (ops/csrc/host/aio.cpp): 256 MiB written and read
+    back through AsyncIOHandle (8 threads, 1 MiB blocks) into build/, bitwise,
+    beside the plain version (one thread of os.pwrite / os.preadv) and the
+    bound of two host copies' bytes over ``rate`` (the page cache takes the
+    write and gives the read: warm, not the drive's rate)."""
+    import shutil
+
+    from deepspeed_tpu_torch.ops import aio
+
+    workdir = REPO / "build" / "aio_smoke"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    nbytes = 256 << 20
+    src = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(12))
+    dst = torch.empty_like(src)
+    h = aio.AsyncIOHandle(num_threads=8, block_size=1 << 20)
+    path = str(workdir / "x.bin")
+
+    def through_aio():
+        assert h.pwrite(src, path) == nbytes and h.pread(dst, path) == nbytes
+
+    def plain():
+        assert aio.plain_pwrite(src, path) == nbytes and aio.plain_pread(dst, path) == nbytes
+
+    ms = host_ms(through_aio)
+    good = torch.equal(dst, src)
+    dst.zero_()
+    plain_ms = host_ms(plain)
+    good &= torch.equal(dst, src)
+    h.close()
+    shutil.rmtree(workdir, ignore_errors=True)
+    b_ms = 2 * nbytes / rate * 1e3
+    log(f"timing aio (256 MiB written then read back, 8 threads, 1 MiB blocks, page cache "
+        f"warm): kernel {ms:.2f} ms, plain (one thread) {plain_ms:.2f} ms, bound {b_ms:.2f} "
+        f"ms by bytes (512 MiB at {rate / 1e9:.1f} GB/s); read back bitwise: "
+        f"{'ok' if good else 'FAIL'}")
+    if not good:
+        raise SystemExit("aio round trip FAILED")
+    return {"aio": dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                        bound_by="bytes", max_abs_err=0.0)}
 
 
 def loss_case(dtype, T, E, V, seed, tied=False):
@@ -2199,6 +2377,102 @@ def train_parity_phase(name, full):
             raise SystemExit(f"train path parity FAILED ({name} widths)")
 
 
+def offload_parity_phase():
+    """2 layers of TinyLlama widths (micro 2 x 2048, gas 2, clipping 1.0,
+    AdamW lr 3e-4 and weight decay 0.1 from the config, the fused loss), 3
+    steps from one seed and batch: the device path (the fused Adam kernel)
+    in bf16 and in float32 (TF32 off), the host-Adam tier (offload_optimizer
+    cpu) with fp32 and with bf16 transport, and the storage tier (a
+    caller's fused_adam with offload_optimizer cpu). Each host run's
+    losses, gradient norms and master updates must sit within NOISE_FACTOR
+    x the device path's own distance from float32, and launch the host
+    Adam once a leaf a step and fused Adam never; the storage tier must be
+    bitwise the device path, with one fused-Adam launch a step and its
+    state in pinned host memory."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
+                                            make_loss_fn)
+    from deepspeed_tpu_torch.ops import adam as host_adam
+    from deepspeed_tpu_torch.ops import fused_adam as adam
+    from deepspeed_tpu_torch.ops.optimizers import fused_adam
+
+    base = llama_config("1b", num_layers=2, dtype=torch.bfloat16)
+    init = init_params(base, seed=13, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    batches = [torch.randint(0, base.vocab_size, (2, 2, TRAIN_SEQ), generator=gen,
+                             device="cuda") for _ in range(3)]
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+              "gradient_clipping": 1.0, "steps_per_print": 10**9,
+              "optimizer": {"type": "adamw", "params": {"lr": 3e-4, "weight_decay": 0.1}},
+              "bf16": {"enabled": True}, "training_fastpath": {"loss_impl": "auto"}}
+    cpu = {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}
+    runs = {"device": (config, False),
+            "fp32": (dict(config, bf16={"enabled": False}), False),
+            "host": (dict(config, **cpu), False),
+            "host bf16 transport": (dict(config, zero_optimization={"offload_optimizer": {
+                "device": "cpu", "grad_dtype": "bfloat16"}}), False),
+            "storage": (dict(config, **cpu), True)}
+    out = {}
+    for name, (cfg_dict, caller) in runs.items():
+        dtype = torch.bfloat16 if cfg_dict["bf16"]["enabled"] else torch.float32
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params = _cast(init, torch.float32, copy=True)
+        engine, *_ = dst.initialize(
+            model=make_loss_fn(TransformerLM(cfg, params)), model_parameters=params,
+            config=cfg_dict,
+            optimizer=fused_adam(lr=3e-4, weight_decay=0.1) if caller else None)
+        adam.reset_launch_counts()
+        host_adam.reset_launch_counts()
+        losses, norms = [], []
+        for b in batches:
+            losses.append(float(engine.train_batch(b)))
+            norms.append(engine.get_global_grad_norm())
+        masters = (engine._host_adam.leaves()[0] if engine._host_adam is not None
+                   else engine._masters)
+        delta = torch.cat([(m.to("cuda") - p0).flatten() for m, p0 in
+                           zip(masters, torch.utils._pytree.tree_leaves(init))])
+        state_home = {str(t.device) + (" pinned" if t.is_pinned() else "") for t in
+                      torch.utils._pytree.tree_leaves(engine.state.opt_state)
+                      if isinstance(t, torch.Tensor)}
+        out[name] = dict(losses=np.array(losses), norms=np.array(norms), delta=delta,
+                         fused=adam.launch_counts["fused_adam"],
+                         host=host_adam.launch_counts["cpu_adam"],
+                         leaves=len(masters), state=state_home)
+        log(f"offload parity {name}: losses {losses}, grad norms {norms}, fused Adam "
+            f"launches {out[name]['fused']}, host Adam launches {out[name]['host']}, "
+            f"optimizer state on {sorted(state_home)}")
+        del engine, params, masters
+        torch.cuda.empty_cache()
+    dl = lambda a, b: np.abs(out[a]["losses"] - out[b]["losses"]).max()
+    dn = lambda a, b: np.abs(out[a]["norms"] - out[b]["norms"]).max()
+    du = lambda a, b: (out[a]["delta"] - out[b]["delta"]).norm().item()
+    ok = True
+    for name in ("host", "host bf16 transport"):
+        r = out[name]
+        good = (all(d(name, "device") <= NOISE_FACTOR * d("device", "fp32")
+                    for d in (dl, dn, du))
+                and r["fused"] == 0 and r["host"] == len(batches) * r["leaves"])
+        ok &= good
+        log(f"offload parity {name} vs device (TinyLlama widths, 2 layers, 3 steps): "
+            f"|dloss| {dl(name, 'device'):.3e}, |dgrad_norm| {dn(name, 'device'):.3e}, "
+            f"||dupdate|| {du(name, 'device'):.3e}; device-fp32 {dl('device', 'fp32'):.3e}, "
+            f"{dn('device', 'fp32'):.3e}, {du('device', 'fp32'):.3e}; need <= "
+            f"{NOISE_FACTOR:g}x on each, no fused-Adam launch, {r['leaves']} host launches "
+            f"a step: {'ok' if good else 'FAIL'}")
+    st, dv = out["storage"], out["device"]
+    good = (np.array_equal(st["losses"], dv["losses"]) and np.array_equal(st["norms"],
+                                                                          dv["norms"])
+            and torch.equal(st["delta"], dv["delta"]) and st["fused"] == len(batches)
+            and st["host"] == 0 and st["state"] == {"cpu pinned"})
+    ok &= good
+    log(f"offload parity storage tier (a caller's fused_adam, offload cpu) bitwise the "
+        f"device path, one fused-Adam launch a step, state in pinned host memory: "
+        f"{'ok' if good else 'FAIL'}")
+    if not ok:
+        raise SystemExit("offload parity FAILED")
+
+
 # ---------------------------------------------------------------------------
 # phase 8: activation checkpointing
 # ---------------------------------------------------------------------------
@@ -2214,7 +2488,10 @@ def remat_phase(fa):
     inputs, so loss and grad norm must agree within REMAT_RTOL (relative);
     per-layer remat must lower the step's peak memory; the flash forward
     must launch twice as often (its kernel is no dot under either policy,
-    as a pallas_call is none in JAX)."""
+    as a pallas_call is none in JAX). Per-layer remat with no policy under
+    ``checkpointing.configure(checkpoint_in_cpu=True)`` keeps what
+    "dots_saveable" keeps in pinned host memory: its loss and grad norm
+    must equal "dots_saveable"'s bitwise and its peak must be lower."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
                                             make_loss_fn)
@@ -2228,20 +2505,26 @@ def remat_phase(fa):
             "remat nothing_saveable": (dict(remat=True, remat_policy="nothing_saveable"), {}),
             "remat dots_saveable": (dict(remat=True, remat_policy="dots_saveable"), {}),
             "engine_wrap nothing_saveable": ({}, {"activation_checkpointing": {
-                "engine_wrap": True, "policy": "nothing_saveable"}})}
+                "engine_wrap": True, "policy": "nothing_saveable"}}),
+            "remat cpu_checkpointing": (dict(remat=True), {"activation_checkpointing": {
+                "cpu_checkpointing": True}})}
     out = {}
     for name, (model_over, config_over) in runs.items():
         cfg = dataclasses.replace(base, **model_over)
         params = _cast(init, torch.float32, copy=True)
+        config = dict(TRAIN_CONFIG, **config_over)
         engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
-                                    model_parameters=params,
-                                    config=dict(TRAIN_CONFIG, **config_over))
+                                    model_parameters=params, config=config)
+        saved = dst.checkpointing.get_config()
+        # the reference idiom: the checkpointing module reads the config
+        dst.checkpointing.configure(deepspeed_config=config)
         torch.cuda.synchronize()
         base_mem = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
         loss = float(engine.train_batch(batch))
         peak = torch.cuda.max_memory_allocated() - base_mem
+        dst.checkpointing._config.update(saved)
         out[name] = (loss, engine.get_global_grad_norm(), peak,
                      fa.launch_counts["flash_attention_fwd"])
         log(f"remat {name}: loss {loss:.6f}, grad norm {out[name][1]:.6f}, step peak "
@@ -2262,6 +2545,13 @@ def remat_phase(fa):
             f"{ref_fwd} {'FAIL' if bad else 'ok'}")
         if bad:
             raise SystemExit(f"remat {name} FAILED")
+    cpu, dots = out["remat cpu_checkpointing"], out["remat dots_saveable"]
+    good = cpu[0] == dots[0] and cpu[1] == dots[1] and cpu[2] < dots[2]
+    log(f"remat cpu_checkpointing vs dots_saveable: loss {cpu[0]!r} / {dots[0]!r}, grad "
+        f"norm {cpu[1]!r} / {dots[1]!r} (bitwise), step peak {cpu[2] / 2**30:.2f} vs "
+        f"{dots[2] / 2**30:.2f} GiB above the resident state: {'ok' if good else 'FAIL'}")
+    if not good:
+        raise SystemExit("remat cpu_checkpointing FAILED")
 
 
 # ---------------------------------------------------------------------------
@@ -2342,6 +2632,160 @@ def checkpoint_phase():
     torch.cuda.empty_cache()
     if not (state_equal and fp32_equal and got == want):
         raise SystemExit("checkpoint resume FAILED")
+
+
+def offload_checkpoint_phase():
+    """The host-Adam tier's checkpoint (TinyLlama widths at 2 layers, phase
+    9's schedule and batches, offload_optimizer cpu with bf16 transport):
+    3 steps, save into build/, a fresh engine, load, 2 steps, against 5
+    uninterrupted steps. After the load the host masters, both moments, the
+    host step count and the compute leaves on the card must equal the
+    saved engine's bitwise, and the resumed losses the uninterrupted ones;
+    zero_to_fp32 must return the host masters."""
+    import shutil
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint import zero_to_fp32
+    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
+                                            make_loss_fn)
+    from deepspeed_tpu_torch.models.convert import _flatten
+
+    cfg = llama_config("1b", num_layers=2, dtype=torch.bfloat16)
+    init = init_params(cfg, seed=7, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    batches = [torch.randint(0, cfg.vocab_size, (2, 2, TRAIN_SEQ), generator=gen,
+                             device="cuda") for _ in range(5)]
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=2, zero_optimization={
+        "stage": 0, "offload_optimizer": {"device": "cpu", "grad_dtype": "bfloat16"}})
+    ckpt_dir = REPO / "build" / "offload_checkpoint_smoke"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def engine():
+        params = _cast(init, torch.float32, copy=True)
+        return dst.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                              model_parameters=params, config=config)[0]
+
+    def state(e):
+        p, m, v = e._host_adam.leaves()
+        return ([x.clone() for x in p + m + v] + [x.detach().cpu() for x in e._masters]
+                + [e._host_adam.step_count, e.state.step, e.global_steps])
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+            for x, y in zip(a, b))
+
+    whole = engine()
+    want = [float(whole.train_batch(b)) for b in batches]
+    del whole
+    first = engine()
+    got = [float(first.train_batch(b)) for b in batches[:3]]
+    t0 = time.perf_counter()
+    first.save_checkpoint(str(ckpt_dir))
+    save_s = time.perf_counter() - t0
+    saved = state(first)
+    masters = {k: v.numpy() for k, v in _flatten(first._host_adam.master).items()}
+    del first
+    torch.cuda.empty_cache()
+    resumed = engine()
+    t0 = time.perf_counter()
+    resumed.load_checkpoint(str(ckpt_dir))
+    load_s = time.perf_counter() - t0
+    state_equal = same(state(resumed), saved)
+    got += [float(resumed.train_batch(b)) for b in batches[3:]]
+    flat = zero_to_fp32(str(ckpt_dir))
+    fp32_equal = set(flat) == set(masters) and all(
+        np.array_equal(flat[k], masters[k]) for k in masters)
+    n_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    log(f"offload checkpoint (TinyLlama widths, 2 layers, host Adam, bf16 transport): save "
+        f"{save_s:.2f} s, load {load_s:.2f} s, {n_bytes / 2**30:.2f} GiB on disk; host "
+        f"state and compute leaves bitwise equal after load: {state_equal}; zero_to_fp32 = "
+        f"host masters: {fp32_equal}; losses resumed {got}, uninterrupted {want}, bitwise "
+        f"equal: {got == want}")
+    del resumed
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if not (state_equal and fp32_equal and got == want):
+        raise SystemExit("offload checkpoint resume FAILED")
+
+
+def offload_states_phase():
+    """offload_states / reload_states mid-run (TinyLlama widths at 2 layers,
+    the device path with fused Adam): 2 steps, the optimizer state to host
+    memory and back, 1 step, to files under build/ through the aio swapper
+    and back, 2 steps, against 5 uninterrupted steps: while offloaded the
+    card's allocated memory must drop by at least the state's bytes; after
+    each reload the state must equal the state before bitwise and the
+    losses the uninterrupted ones. Returns the aio requests of the run."""
+    import shutil
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
+                                            make_loss_fn)
+    from deepspeed_tpu_torch.ops import aio
+
+    cfg = llama_config("1b", num_layers=2, dtype=torch.bfloat16)
+    init = init_params(cfg, seed=7, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    batches = [torch.randint(0, cfg.vocab_size, (2, 2, TRAIN_SEQ), generator=gen,
+                             device="cuda") for _ in range(5)]
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=2)
+    nvme = REPO / "build" / "offload_states_smoke"
+    shutil.rmtree(nvme, ignore_errors=True)
+
+    def engine():
+        params = _cast(init, torch.float32, copy=True)
+        return dst.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                              model_parameters=params, config=config)[0]
+
+    whole = engine()
+    want = [float(whole.train_batch(b)) for b in batches]
+    del whole
+    torch.cuda.empty_cache()
+    eng = engine()
+    got = [float(eng.train_batch(b)) for b in batches[:2]]
+    ok = True
+    aio.reset_launch_counts()
+    for where, steps in (("cpu", batches[2:3]), ("nvme", batches[3:])):
+        leaves = torch.utils._pytree.tree_leaves(eng.state.opt_state)
+        before = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
+        nbytes = sum(x.numel() * x.element_size() for x in leaves
+                     if isinstance(x, torch.Tensor))
+        del leaves
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng.offload_states(device=where, nvme_path=str(nvme))
+        out_s = time.perf_counter() - t0
+        drop = mem0 - torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng.reload_states()
+        in_s = time.perf_counter() - t0
+        after = torch.utils._pytree.tree_leaves(eng.state.opt_state)
+        same = len(after) == len(before) and all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(after, before))
+        del before, after
+        got += [float(eng.train_batch(b)) for b in steps]
+        good = same and drop >= nbytes
+        ok &= good
+        log(f"offload_states {where}: {nbytes / 2**30:.2f} GiB of optimizer state out in "
+            f"{out_s:.2f} s, back in {in_s:.2f} s; the card's allocated memory dropped "
+            f"{drop / 2**30:.2f} GiB while offloaded; state bitwise after reload: {same}: "
+            f"{'ok' if good else 'FAIL'}")
+    requests = aio.launch_counts["aio"]
+    good = got == want and requests > 0
+    ok &= good
+    log(f"offload_states: losses {got}, uninterrupted {want}, bitwise equal: {got == want}; "
+        f"aio requests {requests}")
+    del eng
+    shutil.rmtree(nvme, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("offload_states FAILED")
+    return {"aio": requests}
 
 
 # ---------------------------------------------------------------------------
@@ -2485,9 +2929,12 @@ def quant_phase(qk):
 # Phase 18 runs the same world at full depth (stage 0 against stage 3);
 # --cards N runs it over NCCL with one rank per card at full depth.
 ZERO_MODES = ["stage1", "stage2", "stage3"]
+# stage 1 with offload_optimizer cpu: over several ranks the JAX rule takes
+# the pinned-host storage tier (the stage-1 update on host-resident state)
+OFFLOAD_MODE = "stage1_offload"
 DP_SPEC = {"world": 2, "backend": "gloo", "model": "1b", "layers": 4, "micro": 2,
            "seq": 2048, "steps": 5, "remat": False,
-           "modes": ["none", "int8", "int8_sr"] + ZERO_MODES}
+           "modes": ["none", "int8", "int8_sr"] + ZERO_MODES + [OFFLOAD_MODE]}
 DP_CONFIG = {
     "gradient_accumulation_steps": 2,
     "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
@@ -2499,12 +2946,15 @@ QUANT_KERNELS = ("quantize_int8", "quantize_int8_sr", "dequantize_int8")
 
 
 def dp_stage(mode: str) -> int:
-    return int(mode[len("stage"):]) if mode in ZERO_MODES else 0
+    return 1 if mode == OFFLOAD_MODE else int(mode[len("stage"):]) if mode in ZERO_MODES else 0
 
 
 def dp_mode_config(mode: str) -> dict:
-    """A mode's config section: ZeRO stage 1-3 with the exact reduction, or
-    stage 0 with a compressed_collectives mode."""
+    """A mode's config section: ZeRO stage 1-3 with the exact reduction
+    (stage 1 also with offload_optimizer cpu), or stage 0 with a
+    compressed_collectives mode."""
+    if mode == OFFLOAD_MODE:
+        return {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}}
     if mode in ZERO_MODES:
         return {"zero_optimization": {"stage": dp_stage(mode)}}
     return {"compressed_collectives": {"mode": mode, "block": 2048}}
@@ -2584,9 +3034,13 @@ def dp_child(rank: int, workdir: Path) -> int:
         comm.all_reduce(same, op="min")
         stage = engine.zero_stage()
         estimate = zero.estimate_zero_model_states_mem_needs(n, stage, spec["world"])
+        tier = ["host Adam" if engine._host_adam is not None else
+                "storage" if engine._offload_optimizer else "none",
+                ",".join(sorted({t.device.type for t in torch.utils._pytree.tree_leaves(
+                    engine.state.opt_state) if isinstance(t, torch.Tensor)}))]
         out[mode] = dict(losses=losses, times=times, launches=launches, peak=peak,
                          ledger=totals, masters_equal=bool(same.item()), n=n,
-                         reduce=engine._dp_grad_mode, stage=stage,
+                         reduce=engine._dp_grad_mode, stage=stage, tier=tier,
                          estimate=estimate["total_bytes"],
                          adam_elems=sum(t.numel() for t in
                                         torch.utils._pytree.tree_leaves(
@@ -2689,9 +3143,14 @@ def check_dp(spec, ranks, card):
             checks["no quant launches"] = not any(any(quant(r).values()) for r in ranks)
             checks["one Adam launch per rank per step"] = all(
                 r[mode]["launches"]["fused_adam"] == steps for r in ranks)
-        if mode in ZERO_MODES and world > 1:
+        if (mode in ZERO_MODES or mode == OFFLOAD_MODE) and world > 1:
             checks["Adam state ceil(n / world) per rank"] = all(
                 r[mode]["adam_elems"] == -(-n // world) for r in ranks)
+        if mode == OFFLOAD_MODE and "stage1" in r0:
+            checks["losses bitwise equal to stage 1's"] = all(
+                r[mode]["losses"] == r["stage1"]["losses"] for r in ranks)
+            checks["storage tier: host-resident state, no host Adam"] = all(
+                r[mode]["tier"] == ["storage", "cpu"] for r in ranks)
         good = all(checks.values())
         ok &= good
         step_s = float(np.mean(a["times"][1:]))
@@ -2825,6 +3284,188 @@ def zero3_phase(card):
         raise SystemExit("zero3 phase FAILED")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: ZeRO-Offload at full size on one card
+# ---------------------------------------------------------------------------
+
+# phase 19's run: meta-llama/Llama-2-7b-hf's widths (llama_config("7b"), as
+# --cards 4 runs them) when the host can hold 12P of masters and moments and
+# 4P of pinned staging, else microsoft/Phi-3-mini-4k-instruct's (PHI3_MINI)
+OFFLOAD_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_min_lr": 0,
+                                                 "warmup_max_lr": 3e-4,
+                                                 "warmup_num_steps": 4}},
+    "zero_optimization": {"stage": 0, "offload_optimizer": {"device": "cpu",
+                                                            "grad_dtype": "bfloat16"}},
+    "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+    "training_fastpath": {"loss_impl": "auto"}, "steps_per_print": 10**9,
+}
+OFFLOAD_SEQ, OFFLOAD_WARMUP, OFFLOAD_STEPS = 4096, 1, 3
+LLAMA7B_HOST_BYTES = 130e9        # 12P + 4P of Llama-2-7B, with room for the rest
+
+
+def host_memory():
+    """(MemAvailable bytes from /proc/meminfo, the CPU model and its core
+    count from lscpu)."""
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    info = {}
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        for line in out.splitlines():
+            key, _, val = line.partition(":")
+            info[key.strip()] = val.strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    model = info.get("Model name", "?")
+    if model in ("?", "-", "unknown"):
+        # a virtual machine's lscpu may not name the model: /proc/cpuinfo's
+        # vendor, family and model numbers then stand for it
+        with open("/proc/cpuinfo") as f:
+            cpu = dict(line.split(":", 1) for line in f.read().split("\n\n")[0].splitlines()
+                       if ":" in line)
+        cpu = {k.strip(): v.strip() for k, v in cpu.items()}
+        model = (f"{cpu.get('model name', model)} ({info.get('Vendor ID', cpu.get('vendor_id'))}"
+                 f", family {cpu.get('cpu family', '?')}, model {cpu.get('model', '?')}, "
+                 f"{info.get('Hypervisor vendor', 'no')} hypervisor)")
+    return avail, model, info.get("CPU(s)", str(os.cpu_count()))
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def offload_phase(card, mem_available, cpu_model):
+    """A model at its published size trained on one card with the optimizer
+    on the host (the host-Adam tier): Llama-2-7B if MemAvailable reaches
+    LLAMA7B_HOST_BYTES, else phi-3-mini-4k; seeded random weights made on
+    the card (an init closure: the engine takes the host masters and the
+    bf16 leaves and drops the fp32 tree), seq 4096, micro 1, gas 2,
+    per-layer remat, bf16, bf16 gradient transport, clipping 1.0, WarmupLR;
+    1 warm-up and 3 timed steps. Gates: losses finite and the last below
+    the first; no fused-Adam launch and one host step a step (a host Adam
+    launch a leaf); flash (forward twice under remat) and fused-loss
+    launches exact, all on wgmma; after the last step every compute leaf
+    on the card bitwise the bf16 rounding of its host master; peak device
+    memory from after initialize below 9P (no fp32 master or moment on the
+    card). Returns the host Adam's launches."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.models import (TransformerConfig, TransformerLM, init_params,
+                                            llama_config, make_loss_fn)
+    from deepspeed_tpu_torch.models.convert import _nest, param_shapes
+    from deepspeed_tpu_torch.ops import adam as host_adam
+    from deepspeed_tpu_torch.ops import flash_attention, fused_adam, fused_loss
+    from deepspeed_tpu_torch.ops.fused_loss import chunk_width
+
+    remat = dict(remat=True, remat_policy="nothing_saveable", dtype=torch.bfloat16)
+    if mem_available >= LLAMA7B_HOST_BYTES:
+        name, cfg = "Llama-2-7B", llama_config("7b", **remat)
+    else:
+        name = "phi-3-mini-4k"
+        cfg = TransformerConfig(**PHI3_MINI, **remat)
+        log(f"offload: MemAvailable {mem_available / 1e9:.1f} GB is below the "
+            f"{LLAMA7B_HOST_BYTES / 1e9:.0f} GB Llama-2-7B's host state needs: "
+            f"{name} at its published size instead")
+    t0 = time.perf_counter()
+    meta = _nest({k: torch.empty(s, device="meta") for k, s in param_shapes(cfg).items()})
+    init = zero.Init(lambda: init_params(cfg, seed=0, device="cuda", dtype=torch.float32))
+    engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, meta)),
+                                model_parameters=init, config=OFFLOAD_CONFIG)
+    del init
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n = sum(p.numel() for p in engine._masters)
+    n_matmul = n - cfg.vocab_size * cfg.hidden_size
+    gas, micro = engine.gas, engine.micro_batch_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    batch = torch.randint(0, cfg.vocab_size, (gas, micro, OFFLOAD_SEQ), generator=gen,
+                          device="cuda")
+    log(f"offload {name} (hidden {cfg.hidden_size}, {cfg.num_layers} layers, "
+        f"{cfg.num_heads}/{cfg.kv_heads} heads, D {cfg.head_dim}, ffn "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}): {n} parameters, set-up "
+        f"{time.perf_counter() - t0:.1f} s; host: MemAvailable {mem_available / 1e9:.1f} GB "
+        f"at start, {cpu_model}; resident {rss_bytes() / 1e9:.1f} GB after initialize "
+        f"(12P = {12 * n / 1e9:.1f} GB of masters and moments, 4P = {4 * n / 1e9:.1f} GB "
+        f"pinned staging)")
+    torch.cuda.reset_peak_memory_stats()
+    for k in (flash_attention, fused_adam, fused_loss, host_adam):
+        k.reset_launch_counts()
+    losses, times, phases = [], [], []
+    for _ in range(OFFLOAD_WARMUP + OFFLOAD_STEPS):
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        phases.append(engine.offload_timings())
+    peak = torch.cuda.max_memory_allocated()
+    launches = {}
+    for k in (flash_attention, fused_adam, fused_loss, host_adam):
+        launches.update(k.launch_counts)
+    steps = OFFLOAD_WARMUP + OFFLOAD_STEPS
+    tokens = gas * micro * OFFLOAD_SEQ
+    step_s = float(np.mean(times[OFFLOAD_WARMUP:]))
+    flops = train_flops(cfg, n_matmul, tokens, OFFLOAD_SEQ)
+    mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    mean = {k: float(np.mean([p[k] for p in phases[OFFLOAD_WARMUP:]]))
+            for k in ("d2h", "host_adam", "h2d")}
+    log(f"offload {name}: losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(x, 3) for x in times]}; D2H / host Adam / H2D (s) "
+        f"{[tuple(round(p[k], 3) for k in ('d2h', 'host_adam', 'h2d')) for p in phases]}")
+    log(f"offload {name} [{card}; host {cpu_model}]: {step_s * 1e3:.1f} ms/step over "
+        f"{OFFLOAD_STEPS} timed steps, {tokens / step_s:.0f} tokens/s, MFU {mfu:.4f} "
+        f"({flops:.4e} model flop/step over 989 TFLOP/s bf16); per step D2H "
+        f"{mean['d2h']:.3f} s, host Adam {mean['host_adam']:.3f} s, H2D {mean['h2d']:.3f} s; "
+        f"peak device memory {peak / 2**30:.2f} GiB from after initialize (6P = "
+        f"{6 * n / 2**30:.2f} GiB, gate 9P = {9 * n / 2**30:.2f} GiB); host resident "
+        f"{rss_bytes() / 1e9:.1f} GB")
+    chunks = -(-cfg.vocab_size // chunk_width(micro * OFFLOAD_SEQ, cfg.vocab_size, 2))
+    want = {"flash_attention_fwd": 2 * cfg.num_layers * gas * steps,
+            "flash_attention_bwd_dkdv": cfg.num_layers * gas * steps,
+            "flash_attention_bwd_dq": cfg.num_layers * gas * steps,
+            "fused_loss_fwd": gas * steps, "fused_loss_fwd_combine": gas * steps,
+            "fused_adam": 0, "cpu_adam": steps * len(engine._masters)}
+    for k in ("fused_loss_dlogits", "fused_loss_dh", "fused_loss_dk"):
+        want[k] = gas * steps * chunks
+    bad = {k: (launches[k], w) for k, w in want.items() if launches[k] != w}
+    routes = {k: dict(flash_attention.route_counts[k]) for k in
+              ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")}
+    routes["fused_loss_fwd"] = dict(fused_loss.fwd_route_counts)
+    routes["fused_loss_bwd"] = dict(fused_loss.route_counts)
+    off_route = {k: r for k, r in routes.items() if r.get("mma_sync", 0)}
+    match = all(torch.equal(leaf.detach().cpu(), master.to(torch.bfloat16))
+                for leaf, master in zip(engine._masters, engine._host_adam.leaves()[0]))
+    checks = {
+        "losses finite, the last below the first": (
+            all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]),
+        "launches exact (no fused Adam, a host launch a leaf a step)": not bad,
+        "one host step a step": engine._host_adam.step_count == steps,
+        "flash and fused loss all on wgmma": not off_route,
+        "compute leaves bitwise the bf16 of the host masters": match,
+        "peak below 9P": peak < 9 * n,
+        "no optimizer state on the card": engine.state.opt_state == (),
+    }
+    log(f"offload {name}: launches {launches} (want {want}); routes {routes}; "
+        + "; ".join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    host_launches = launches["cpu_adam"]
+    del engine, batch
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit(f"offload phase FAILED: {[k for k, v in checks.items() if not v]}"
+                         f"{'; launches (got, want) ' + str(bad) if bad else ''}")
+    return {"cpu_adam": host_launches}
+
+
 def cards_run(n_cards: int, card: str) -> int:
     """--cards N: data-parallel training over NCCL, one rank per card, at
     TinyLlama-1.1B's full depth (micro 4 x 2048 per rank, gas 2): one card
@@ -2909,6 +3550,9 @@ def main() -> int:
     log(f"device: {device_name} (count {count}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
+    mem_available, cpu_model, cpu_count = host_memory()
+    cpu_model = f"{cpu_model}, {cpu_count} CPUs"
+    log(f"host: MemAvailable {mem_available / 1e9:.1f} GB, {cpu_model}")
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 parity: no TF32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2916,6 +3560,10 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build(sorted(p.name for p in _build.CSRC.glob("*.cu")))
     log(f"build: {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    host_libs = [_build.build_host(p.name) for p in sorted(_build.HOST_CSRC.glob("*.cpp"))]
+    log(f"build (g++, host): {', '.join(p.name for p in host_libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in _build.build_logs.items():
         kernel = "?"
@@ -2942,6 +3590,11 @@ def main() -> int:
     rows.update(timed("3 flash", flash_phase, fa))
     rows.update(timed("3 sparse", sparse_phase, sa, fa))
     rows.update(timed("3 adam", adam_phase, adam))
+    rate = host_copy_rate()
+    log(f"host copy rate: {rate / 1e9:.1f} GB/s (2 GiB torch CPU copy, read and write "
+        f"counted; {cpu_model})")
+    rows.update(timed("3 host adam", host_adam_phase, rate))
+    rows.update(timed("3 aio", aio_phase, rate))
     rows.update(timed("3 fused loss", fused_loss_phase, fl))
     # phase 10: the block-quant kernels
     rows.update(timed("10 quant", quant_phase, qk))
@@ -2981,14 +3634,20 @@ def main() -> int:
           models["Pythia-1B"], profile=args.profile)
     for name, cfg in models.items():
         timed(f"7 training parity ({name} widths)", train_parity_phase, name, cfg)
-    # phase 8, 9: activation checkpointing, checkpoint save and resume
+    timed("7 offload parity (TinyLlama widths)", offload_parity_phase)
+    # phase 8, 9: activation checkpointing, checkpoint save and resume,
+    # offload_states
     timed("8 remat", remat_phase, fa)
     timed("9 checkpoint", checkpoint_phase)
+    timed("9 offload checkpoint", offload_checkpoint_phase)
+    launches.update(timed("9 offload_states", offload_states_phase))
     # phase 11: data-parallel training, the compressed gradient all-reduce
     # and ZeRO stages 1-3
     launches.update(timed("11 data parallel", dp_phase, card))
     # phase 18: full-depth ZeRO-3, two ranks on one card
     timed("18 zero3 (TinyLlama-1.1B, 22 layers)", zero3_phase, card)
+    # phase 19: ZeRO-Offload at full size on one card
+    launches.update(timed("19 offload", offload_phase, card, mem_available, cpu_model))
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"
@@ -3008,12 +3667,18 @@ def main() -> int:
         "quantize_int8": ("quant.cu", "quant.py:32"),
         "quantize_int8_sr": ("quant.cu", "quant.py:41"),
         "dequantize_int8": ("quant.cu", "quant.py:55"),
+        # the host kernels replace the JAX package's own C++ (no Pallas kernel)
+        "cpu_adam": ("host/cpu_adam.cpp", "csrc/adam/cpu_adam.cpp:55"),
+        "aio": ("host/aio.cpp", "csrc/aio/aio.cpp:229"),
     }
     kernels = [dict(name=n, route="cuda", source=csrc + origin[n][0],
-                    replaces=pallas + origin[n][1], launches=launches[n],
+                    replaces=(origin[n][1] if origin[n][1].startswith("csrc/")
+                              else pallas + origin[n][1]),
+                    launches=launches[n],
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r["library_ms"])
+                    library_ms=r["library_ms"],
+                    **({"runs_on": "host"} if origin[n][0].startswith("host/") else {}))
                for n, r in rows.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,11 @@ The layout is the JAX package's, with ``torch.save`` in place of orbax:
                                       (Adam m and v and its step), the step
                                       (which is the LR schedule's position)
                                       and the loss-scale state, on the host
+  ``<save_dir>/<tag>/host_optimizer.pt``  under ZeRO-Offload's host-Adam
+                                      tier: the host optimizer's step, fp32
+                                      masters and moments (the JAX package's
+                                      ``host_optimizer.npz``); the state tree
+                                      then holds the compute-dtype params
   ``<save_dir>/<tag>/metadata.json``  config snapshot, topology, client_state,
                                       data sampler; the commit marker
   ``<save_dir>/latest``               the most recent tag
@@ -41,6 +46,7 @@ from ..utils.fs import fsync_write_json, fsync_write_text
 from ..utils.logging import log_dist, logger
 
 STATE_FILE = "state.pt"
+HOST_OPTIMIZER_FILE = "host_optimizer.pt"
 
 
 def _to_host(tree):
@@ -217,6 +223,15 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     ck = _get_ckpt_engine(engine)
     wait_pending_commits(save_dir)
     ck.save(tree, os.path.join(path, "state"))
+    if engine._host_adam is not None:
+        # the host optimizer's state lives outside the state tree; it is
+        # written before save returns, since the next step changes it in place
+        target = os.path.join(path, HOST_OPTIMIZER_FILE)
+        with open(target + ".tmp", "wb") as f:
+            torch.save(engine._host_adam.state_dict(), f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(target + ".tmp", target)
     meta = {
         "tag": str(tag),
         # recorded so the torn-pointer fallback can tell pointer-lineage
@@ -315,6 +330,18 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         from ..runtime.loss_scaler import LossScaleState
 
         engine.state.loss_scale = LossScaleState(**tree["loss_scale"])
+    if engine._host_adam is not None:
+        host_file = os.path.join(path, HOST_OPTIMIZER_FILE)
+        if not (load_module_only or not load_optimizer_states) and os.path.exists(host_file):
+            engine._host_adam.load_state_dict(torch.load(host_file, map_location="cpu",
+                                                         weights_only=True))
+        else:
+            # no host state here (a params-only load, or saved without
+            # offload): the masters follow the loaded params, or the next
+            # step would overwrite them with stale ones
+            logger.warning("host optimizer state not restored — re-seeding fp32 masters "
+                           "from the loaded params")
+            engine._host_adam.reseed_masters(tree["params"])
     engine.zero_grad()   # gradients accumulated before the load are stale
 
     meta_path = os.path.join(path, "metadata.json")
@@ -373,7 +400,12 @@ def zero_to_fp32(checkpoint_dir: str, output_file: Optional[str] = None,
         if tag is None:
             raise FileNotFoundError(f"no 'latest' file in {checkpoint_dir}")
     tree = TorchCheckpointEngine().load(os.path.join(checkpoint_dir, str(tag), "state"))
-    flat = {k: v.float().numpy() for k, v in _flat_paths(tree["params"]).items()}
+    params = tree["params"]
+    host_file = os.path.join(checkpoint_dir, str(tag), HOST_OPTIMIZER_FILE)
+    if os.path.exists(host_file):
+        # ZeRO-Offload: the fp32 masters live with the host optimizer
+        params = torch.load(host_file, map_location="cpu", weights_only=True)["master"]
+    flat = {k: v.float().numpy() for k, v in _flat_paths(params).items()}
     if output_file:
         np.savez(output_file, **flat)
         logger.info(f"wrote {len(flat)} fp32 tensors to {output_file}")

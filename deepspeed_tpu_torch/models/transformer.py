@@ -437,7 +437,10 @@ def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = Fal
     ``return_hidden`` it returns the final-norm hidden states ``[B, S, E]``
     in ``cfg.dtype`` instead (the fused loss consumes them). With
     ``cfg.remat`` each layer is recomputed in the backward under
-    ``cfg.remat_policy`` (JAX: ``nn.remat(Block, policy=...)``)."""
+    ``cfg.remat_policy`` (JAX: ``nn.remat(Block, policy=...)``); with no
+    policy, under what ``checkpointing.checkpoint`` would do, so a
+    configured ``cpu_checkpointing`` keeps each layer's matrix products in
+    pinned host memory."""
     _check_trainable(cfg)
     tokens = tokens.long()
     dev = tokens.device
@@ -447,9 +450,9 @@ def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = Fal
              if cfg.position == "alibi" else None)
     layer = _layer
     if cfg.remat:
-        from ..runtime.activation_checkpointing import checkpoint_wrapper
+        from ..runtime.activation_checkpointing import layer_wrapper
 
-        layer = checkpoint_wrapper(_layer, cfg.remat_policy)
+        layer = layer_wrapper(_layer, cfg.remat_policy)
     for i in range(cfg.num_layers):
         window = cfg.layer_windows[i] if cfg.layer_windows is not None else None
         x = layer(cfg, params[f"layer_{i}"], x, rope_cs, alibi, window)

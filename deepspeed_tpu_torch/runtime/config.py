@@ -105,6 +105,21 @@ class OffloadOptimizerConfig(ConfigModel):
     # narrows. "float32" (default) keeps full-width transport.
     grad_dtype: str = "float32"
 
+    def transport_dtype(self) -> torch.dtype:
+        """``grad_dtype`` as a torch dtype (JAX ``engine.py:646-658``).
+        fp16 is refused: the narrowing comes after the finite check, so an
+        fp16 overflow (|g| > 65504) would carry inf past it into the
+        masters; bf16 has fp32's exponent range and cannot overflow."""
+        table = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+                 "float32": torch.float32, "fp32": torch.float32}
+        raw = self.grad_dtype.lower()
+        if raw not in table:
+            raise ValueError(
+                f"offload_optimizer.grad_dtype={raw!r}: use 'float32' or 'bfloat16' "
+                "(fp16 transport would need its own overflow gate — bf16 is the "
+                "range-safe narrow dtype)")
+        return table[raw]
+
 
 @register_config
 @dataclass

@@ -77,9 +77,42 @@ list) at stages 1-3. ``utils/tensor_fragment.py`` reads and writes any leaf
 at every stage. At world size 1 ZeRO stages 0-3 are the same math and all
 run stage 0's path. Config sections this trainer cannot honour yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
+
+ZeRO-Offload (``zero_optimization.offload_optimizer``; JAX ``engine.py:286-308,
+534-566, 864-902, 1422-1462, 1617-1634``), in the JAX package's two tiers,
+chosen by its rule and logged, never because something failed:
+
+* the host-Adam tier: ``device: cpu``, no optimizer object passed, an Adam
+  type in the config, world size 1 (at world size > 1 the JAX rule takes
+  the storage tier). The fp32 masters and both moments live on the host in
+  ``ops/adam.DeepSpeedCPUAdam`` (``_host_adam``); the device keeps only the
+  compute-dtype leaves, which are the model's parameters (``_masters`` and
+  ``state.params`` hold them; ``state.opt_state`` is empty). Each leaf's
+  gradient is added in fp32 into a flat fp32 accumulator on the device as
+  autograd makes it and then freed (a post-accumulate-grad hook: the JAX
+  package sums ``acc + g.astype(f32)``, and autograd would sum two
+  micro-batches in the leaf's dtype). The step divides by ``gas``, takes
+  the global norm and clips on the device in fp32, narrows to
+  ``offload_optimizer.grad_dtype``, copies every leaf into pinned host
+  staging (asynchronously, one wait), runs the host step at
+  ``lr_schedule(global_steps + 1)`` (a non-finite norm skips it but counts
+  the step), and copies the new compute-dtype values from pinned staging
+  into the live leaves, stream-ordered before the next forward. fp16
+  raises ``ValueError``; the imperative ``step`` takes the same path.
+* the pinned-host storage tier: ``device: cpu`` with a caller's optimizer,
+  ``device: nvme``, and world size > 1. The optimizer state lives in host
+  memory between steps (pinned with a card, plain on the CPU), is copied to
+  the device for the update (at stages 0-3 the fused Adam kernel) and back:
+  the same kernel on the same values as without offload.
+
+``offload_states`` / ``reload_states`` move the optimizer state to host
+memory or, through ``runtime/zero/swapper.py``, to files and back (JAX
+``engine.py:1923-1997``); training in between raises.
 """
 
 import contextlib
+import os
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
@@ -119,13 +152,12 @@ def _check_supported(config: DeepSpeedTPUConfig, world_size: int) -> None:
                           "model-parallel axes beside dp")
     zc = config.zero_optimization
     cc = config.compressed_collectives
+    if zc.offload_param.device != "none":
+        raise NotImplementedError(
+            "zero_optimization.offload_param is refused on purpose: the JAX package "
+            "parses it, but its engine reads none of its fields, so there is no "
+            "behaviour to port (ROADMAP.md, deliberate differences)")
     checks = [
-        (zc.offload_optimizer.device != "none", "zero_optimization.offload_optimizer",
-         7, "ZeRO-Offload"),
-        (zc.offload_param.device != "none", "zero_optimization.offload_param",
-         7, "ZeRO-Offload"),
-        (config.activation_checkpointing.cpu_checkpointing,
-         "activation_checkpointing.cpu_checkpointing", 7, "ZeRO-Offload"),
         (zc.zero_quantized_weights or zc.zero_quantized_gradients
          or zc.zero_hpz_partition_size > 1,
          "ZeRO++ (zero_quantized_weights, zero_quantized_gradients, "
@@ -161,6 +193,12 @@ def _check_supported(config: DeepSpeedTPUConfig, world_size: int) -> None:
     for on, what, item, area in checks:
         if on:
             raise _not_ported(what, item, area)
+
+
+def _recorded_event() -> torch.cuda.Event:
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
 
 
 def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -231,6 +269,32 @@ class DeepSpeedTPUEngine:
         self.fp16 = config.fp16.enabled
         self.master_weights = config.bf16.master_weights if config.bf16.enabled else True
 
+        # --- ZeRO-Offload: the tier, by the JAX package's rule -------------
+        off = zc.offload_optimizer
+        self._grad_transport = off.transport_dtype()      # raises for fp16
+        self._offload_optimizer = off.device in ("cpu", "nvme")
+        self._host_adam = None
+        self._host_adam_mode = (
+            off.device == "cpu" and optimizer is None
+            and config.optimizer.type.lower().replace("_", "") in
+            ("adam", "adamw", "fusedadam", "cpuadam", "deepspeedcpuadam"))
+        if self._host_adam_mode and self.fp16:
+            raise ValueError(
+                "fp16 dynamic loss scaling is not supported with "
+                "offload_optimizer.device='cpu' (the host Adam step runs outside the "
+                "scaled step); use bf16")
+        if self._host_adam_mode and world > 1:
+            # the host step needs every rank's whole gradient: over several
+            # ranks the JAX rule keeps the state on the host between steps
+            # and updates it on the device
+            log_dist("offload_optimizer.device=cpu: world size > 1 — pinned-host "
+                     "optimizer state with the update on the device (the storage tier)")
+            self._host_adam_mode = False
+        self._offloaded: Dict[str, tuple] = {}
+        self._swappers: Dict[str, Any] = {}
+        #: seconds of the last host-Adam step's phases (``offload_timings``)
+        self._offload_marks: Optional[dict] = None
+
         # --- optimizer ---------------------------------------------------
         opt_params = dict(config.optimizer.params)
         base_lr = opt_params.get("lr", 1e-3)
@@ -254,10 +318,13 @@ class DeepSpeedTPUEngine:
         self.global_steps = 0
         self.skipped_steps = 0
         self._metrics_dev: Dict[str, Any] = {}
+        tier = ("host Adam" if self._host_adam_mode else
+                "pinned-host storage" if self._offload_optimizer else "none")
         log_dist(f"engine initialized on {self.device}: zero_stage="
                  f"{config.zero_optimization.stage}, gas={self.gas}, "
                  f"micro_bs={self.micro_batch_size}, dtype={self.compute_dtype}, "
-                 f"dp={self.dp_world}, dp_grad_reduce={self._dp_grad_mode or 'exact'}")
+                 f"dp={self.dp_world}, dp_grad_reduce={self._dp_grad_mode or 'exact'}, "
+                 f"optimizer offload={tier}")
 
     def _resolve_dp_grad_site(self) -> Optional[str]:
         """The compressed mode of the DP gradient reduction, or None for the
@@ -294,7 +361,9 @@ class DeepSpeedTPUEngine:
         self._flat_grad = None
         self._zero: Optional[FlatPartition] = None
         self._stage3 = False
-        if self.dp_world > 1 and self.config.zero_optimization.stage >= 1:
+        if self._host_adam_mode:
+            opt_state = self._build_host_adam(leaves)
+        elif self.dp_world > 1 and self.config.zero_optimization.stage >= 1:
             opt_state = self._build_zero(leaves, store)
         else:
             # .to() returns the tensor itself when it already has this
@@ -312,6 +381,8 @@ class DeepSpeedTPUEngine:
                     p.grad = self._flat_grad[offset:offset + p.numel()].view_as(p)
                     offset += p.numel()
             opt_state = self.tx.init(self._tree(self._masters))
+        if self._offload_optimizer and not self._host_adam_mode:
+            opt_state = pytree.tree_map(self._to_host_storage, opt_state)
         ls = make_loss_scale_state(self.config.fp16.initial_scale_power,
                                    self.config.fp16.loss_scale,
                                    self.config.fp16.hysteresis)
@@ -348,6 +419,58 @@ class DeepSpeedTPUEngine:
         self._shard_grad = torch.zeros(part.shard, dtype=store, device=self.device)
         self._g3: Optional[torch.Tensor] = None
         return self.tx.init([self._master_shard])
+
+    def _build_host_adam(self, leaves):
+        """The host-Adam tier: fp32 masters and moments on the host, the
+        compute-dtype leaves on the device (fresh tensors: their hooks must
+        not reach the caller's), one flat fp32 gradient accumulator beside
+        them, and the transfer staging, pinned once here when the device is
+        the card. Returns the (empty) device optimizer state."""
+        from ..ops.adam import DeepSpeedCPUAdam
+
+        op = dict(self.config.optimizer.params)
+        self._host_adam = DeepSpeedCPUAdam(
+            self._tree(leaves), lr=op.get("lr", 1e-3),
+            betas=tuple(op.get("betas", (0.9, 0.999))), eps=op.get("eps", 1e-8),
+            weight_decay=op.get("weight_decay", 0.0),
+            adamw_mode=op.get("adam_w_mode", op.get("adamw_mode", True)),
+            bias_correction=op.get("bias_correction", True))
+        self._masters = [p.detach().to(self.device, self.compute_dtype, copy=True)
+                         .contiguous().requires_grad_(True) for p in leaves]
+        sizes = [p.numel() for p in self._masters]
+        self._acc = torch.zeros(sum(sizes), dtype=torch.float32, device=self.device)
+        self._acc_leaves = [v.view_as(p) for v, p in
+                            zip(torch.split(self._acc, sizes), self._masters)]
+        for p, acc in zip(self._masters, self._acc_leaves):
+            p.register_post_accumulate_grad_hook(self._accumulate_into(acc))
+        if self.device.type == "cuda":
+            pinned = lambda dt: torch.empty(sum(sizes), dtype=dt, pin_memory=True)
+            g_flat, p_flat = pinned(self._grad_transport), pinned(self.compute_dtype)
+            self._grad_staging = [v.view_as(p) for v, p in
+                                  zip(torch.split(g_flat, sizes), self._masters)]
+            self._param_staging = [v.view_as(p) for v, p in
+                                   zip(torch.split(p_flat, sizes), self._masters)]
+        else:
+            # on the CPU the host step reads the narrowed gradients and
+            # writes the compute leaves directly
+            self._grad_staging = self._param_staging = None
+        return ()
+
+    @staticmethod
+    def _accumulate_into(acc: torch.Tensor):
+        def hook(p: torch.Tensor) -> None:
+            acc.add_(p.grad)      # the leaf's gradient widened exactly, summed in fp32
+            p.grad = None
+        return hook
+
+    def _to_host_storage(self, x):
+        """The storage tier's home of an optimizer-state tensor: host memory,
+        pinned when the device is the card."""
+        if not isinstance(x, torch.Tensor):
+            return x
+        host = torch.empty_like(x, device="cpu", pin_memory=self.device.type == "cuda")
+        host.copy_(x)
+        return host
 
     def _tree(self, leaves):
         return pytree.tree_unflatten(list(leaves), self._spec)
@@ -394,6 +517,8 @@ class DeepSpeedTPUEngine:
         return loss.detach()
 
     def _grads(self) -> List[torch.Tensor]:
+        if self._host_adam is not None:
+            return self._acc_leaves
         for p in self._masters:
             if p.grad is None:   # a leaf the loss does not reach
                 p.grad = torch.zeros_like(p)
@@ -433,6 +558,8 @@ class DeepSpeedTPUEngine:
         """Unscale, reduce across the dp ranks (unless ``reduced``), norm,
         clip, update (or skip on fp16 overflow), and reset the accumulators;
         returns the step's metrics (device tensors)."""
+        if self._host_adam is not None:
+            return self._apply_host()
         cfg = self.config
         ls = self.state.loss_scale
         scale = ls.scale if self.fp16 else 1.0
@@ -475,6 +602,71 @@ class DeepSpeedTPUEngine:
         return {"grad_norm": norm, "lr": float(self.lr_schedule(step + 1)),
                 "loss_scale": ls.scale, "overflow": overflow}
 
+    def _apply_host(self) -> Dict[str, Any]:
+        """The host-Adam tier's step (JAX ``_host_offload_step`` and
+        ``_apply_host_adam``): divide the fp32 accumulator by ``gas``, norm
+        and clip on the device, narrow to the transport dtype and copy every
+        leaf into pinned staging (one wait), then, if the norm is finite,
+        the host step and the copy of its compute-dtype output into the live
+        leaves. The step counts either way."""
+        grads = self._acc_leaves
+        self._acc.div_(self.gas)
+        norm = global_grad_norm(grads)
+        clip = self.config.gradient_clipping
+        if clip and clip > 0:
+            self._acc.mul_(torch.clamp(clip / (norm + 1e-6), max=1.0))
+        cuda = self.device.type == "cuda"
+        # each phase's time: a pair of CUDA events on the card, host seconds
+        # on the CPU (read by offload_timings)
+        marks: Dict[str, Any] = {}
+        t0 = time.perf_counter()
+        if cuda:
+            marks["d2h"] = _recorded_event(), torch.cuda.Event(enable_timing=True)
+            for stage, g in zip(self._grad_staging, grads):
+                stage.copy_(g.to(self._grad_transport), non_blocking=True)
+            marks["d2h"][1].record()
+            marks["d2h"][1].synchronize()
+            host_grads = self._grad_staging
+        else:
+            host_grads = [g.to(self._grad_transport) for g in grads]
+            marks["d2h"] = time.perf_counter() - t0
+        finite = bool(torch.isfinite(norm))
+        lr = float(self.lr_schedule(self.global_steps + 1))
+        if finite:
+            t1 = time.perf_counter()
+            out = self._param_staging if cuda else self._masters
+            with torch.no_grad():
+                self._host_adam.step(host_grads, lr=lr,
+                                     emit_bf16=self.compute_dtype == torch.bfloat16, out=out)
+            marks["host_adam"] = time.perf_counter() - t1
+            if cuda:
+                marks["h2d"] = _recorded_event(), torch.cuda.Event(enable_timing=True)
+                with torch.no_grad():
+                    for p, stage in zip(self._masters, self._param_staging):
+                        p.copy_(stage, non_blocking=True)
+                marks["h2d"][1].record()
+            else:
+                marks["h2d"] = 0.0           # the host step wrote the leaves
+        self._offload_marks = marks
+        self._acc.zero_()
+        step = self.state.step
+        self.state.step = step + 1
+        return {"grad_norm": norm, "lr": lr, "loss_scale": 1.0, "overflow": not finite}
+
+    def offload_timings(self) -> Dict[str, float]:
+        """Seconds of the last host-Adam step's phases: ``d2h`` (narrowing
+        and the copy into pinned staging), ``host_adam`` and ``h2d`` (the
+        copy into the live leaves; waited for here), from CUDA events on
+        the card and the host clock on the CPU; {} before a step, and no
+        ``host_adam`` / ``h2d`` after a skipped one."""
+        out = {}
+        for key, mark in (self._offload_marks or {}).items():
+            if isinstance(mark, tuple):
+                mark[1].synchronize()
+                mark = mark[0].elapsed_time(mark[1]) / 1e3
+            out[key] = mark
+        return out
+
     def _unscale_shard(self, scale: float, reduced: bool) -> torch.Tensor:
         """Stages 1-3: this rank's shard of the step's gradient, divided by
         ``scale * gas``, and the global norm. At stage 1 ``train_batch``
@@ -497,14 +689,40 @@ class DeepSpeedTPUEngine:
     def _update(self, grads, params):
         """One optimizer step of ``params`` (a tree congruent with the
         optimizer state) in place."""
+        home = self.state.opt_state
+        if self._offload_optimizer:
+            # the storage tier: the state visits the device for the update
+            self.state.opt_state = self._opt_on_device(home)
         apply = getattr(self.tx, "apply", None)
         leaves = pytree.tree_leaves(params)
         if apply is not None and all(p.dtype == torch.float32 for p in leaves):
             self.state.opt_state = apply(grads, self.state.opt_state, params)
-            return
-        updates, self.state.opt_state = self.tx.update(grads, self.state.opt_state, params)
-        for p, u in zip(leaves, pytree.tree_leaves(updates)):
-            p.copy_((p.float() + u.float()).to(p.dtype))
+        else:
+            updates, self.state.opt_state = self.tx.update(grads, self.state.opt_state,
+                                                           params)
+            for p, u in zip(leaves, pytree.tree_leaves(updates)):
+                p.copy_((p.float() + u.float()).to(p.dtype))
+        if self._offload_optimizer:
+            self.state.opt_state = self._opt_back_home(self.state.opt_state, home)
+
+    def _opt_on_device(self, tree):
+        return pytree.tree_map(
+            lambda x: x.to(self.device, non_blocking=True) if isinstance(x, torch.Tensor)
+            else x, tree)
+
+    def _opt_back_home(self, tree, home):
+        """Copy the updated state into its host tensors (``home``), one wait;
+        the non-tensor leaves (the step) come from ``tree``."""
+        new, spec = pytree.tree_flatten(tree)
+        out = []
+        for x, h in zip(new, pytree.tree_leaves(home)):
+            if isinstance(x, torch.Tensor):
+                h.copy_(x, non_blocking=True)
+                x = h
+            out.append(x)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return pytree.tree_unflatten(out, spec)
 
     # the whole tree at every stage (checkpoints, utils/tensor_fragment) -
     def _full_param(self, i: int) -> torch.Tensor:
@@ -512,16 +730,23 @@ class DeepSpeedTPUEngine:
         ranks (a collective: every rank calls it), else the master itself."""
         if self._stage3:
             return self._zero.gather(self._master_shard, i)
+        if self._host_adam is not None:
+            return self._host_adam.leaves()[0][i].to(self.device)
         return self._masters[i].detach()
 
     def _set_full_param(self, i: int, value: torch.Tensor) -> None:
         """Write a full value of leaf i into the masters (at stage 3: this
-        rank's fragment of it)."""
+        rank's fragment of it; under the host-Adam tier the host master and
+        its compute-dtype leaf on the device)."""
         shape = self._zero.shapes[i] if self._zero is not None else tuple(self._masters[i].shape)
         if tuple(value.shape) != shape:
             raise ValueError(f"parameter {i}: shape {tuple(value.shape)} does not match "
                              f"the engine's {shape}")
-        if self._stage3:
+        if self._host_adam is not None:
+            self._host_adam.leaves()[0][i].copy_(value)
+            with torch.no_grad():
+                self._masters[i].copy_(self._host_adam.leaves()[0][i])
+        elif self._stage3:
             self._zero.scatter(self._master_shard, i, value.to(self._master_shard.device))
         else:
             with torch.no_grad():
@@ -543,7 +768,10 @@ class DeepSpeedTPUEngine:
         layout, spec = self._opt_layout()
         n = len(self._zero.shapes)
         out = []
-        for leaf in pytree.tree_leaves(self.state.opt_state):
+        opt_state = self.state.opt_state
+        if self._offload_optimizer:
+            opt_state = self._opt_on_device(opt_state)    # the storage tier
+        for leaf in pytree.tree_leaves(opt_state):
             if isinstance(layout[len(out)], torch.Tensor):
                 out.extend(keep(self._zero.gather(leaf, i)) for i in range(n))
             else:
@@ -612,6 +840,7 @@ class DeepSpeedTPUEngine:
         if self._no_sync_depth > 0:
             raise RuntimeError("train_batch() applies the optimizer and is "
                                "incompatible with an open no_sync() context")
+        self._check_states_home()
         if self._compat_count > 0:
             raise RuntimeError(
                 f"train_batch() called with {self._compat_count} accumulated "
@@ -718,6 +947,7 @@ class DeepSpeedTPUEngine:
         the accumulation boundary, as in the reference."""
         if not self.is_gradient_accumulation_boundary():
             return
+        self._check_states_home()
         if self.dp_world > 1:
             if self._pending_local:
                 self._reduce_pending()
@@ -734,6 +964,8 @@ class DeepSpeedTPUEngine:
         for p in self._masters:
             if p.grad is not None:
                 p.grad.zero_()
+        if self._host_adam is not None:
+            self._acc.zero_()
         if self._compat_acc is not None:
             self._compat_acc.zero_()
         if self._zero is not None:
@@ -743,6 +975,101 @@ class DeepSpeedTPUEngine:
         self._pending_local = False
         self._compat_count = 0
         self._compat_pending = False
+
+    # state offload (JAX engine.py:1923-1997, reference offload_states) ---
+    def offload_states(self, include=("optimizer_state",), device: str = "cpu",
+                       nvme_path: Optional[str] = None) -> None:
+        """Move engine state off the device between training phases:
+        ``cpu`` = host memory (pinned with a card), ``nvme`` = files through
+        the aio swap tier (``runtime/zero/swapper.py``, the ``aio`` config's
+        threads and block size). Training is invalid until
+        ``reload_states``, as in the reference; here it raises. A tensor
+        already in host memory (the storage tier's) stays where it is for
+        ``cpu``."""
+        if device not in ("cpu", "nvme"):
+            raise ValueError(f"offload_states(device={device!r}): use 'cpu' or 'nvme'")
+        for raw_kind in include:
+            kind = self._canonical_kind(raw_kind)
+            if kind in self._offloaded:
+                continue
+            leaves, spec = pytree.tree_flatten(self._state_part(kind))
+            tensors = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
+            homes = {i: leaves[i].device for i in tensors}
+            if device == "nvme":
+                sw = self._get_swapper(nvme_path)
+                sw.swap_out(kind, [leaves[i] for i in tensors])
+                sw.synchronize(kind)
+                for i in tensors:
+                    leaves[i] = torch.empty_like(leaves[i], device="meta")
+                # the swapper's in-memory manifest is the only way back
+                self._offloaded[kind] = ("nvme", homes, sw)
+            else:
+                pin = self.device.type == "cuda"
+                for i in tensors:
+                    if leaves[i].device.type != "cpu":
+                        host = torch.empty_like(leaves[i], device="cpu", pin_memory=pin)
+                        leaves[i] = host.copy_(leaves[i], non_blocking=pin)
+                if pin:
+                    torch.cuda.current_stream(self.device).synchronize()
+                self._offloaded[kind] = ("cpu", homes, None)
+            self._set_state_part(kind, pytree.tree_unflatten(leaves, spec))
+
+    def reload_states(self) -> None:
+        """Bring every offloaded state back where it lived, bitwise."""
+        for kind, (where, homes, sw) in list(self._offloaded.items()):
+            leaves, spec = pytree.tree_flatten(self._state_part(kind))
+            if where == "nvme":
+                for i, x in zip(homes, sw.swap_in(kind, delete=True)):
+                    leaves[i] = x
+            pin = self.device.type == "cuda"
+            for i, home in homes.items():
+                if home.type != "cpu":
+                    leaves[i] = leaves[i].to(home)
+                elif pin and not leaves[i].is_pinned():
+                    leaves[i] = leaves[i].pin_memory()
+            self._set_state_part(kind, pytree.tree_unflatten(leaves, spec))
+            del self._offloaded[kind]
+
+    @staticmethod
+    def _canonical_kind(kind: str) -> str:
+        if kind in ("optimizer_state", "optimizer"):
+            return "optimizer_state"
+        if kind in ("params", "fp32_params", "hp_params"):
+            return "params"
+        raise ValueError(f"unknown offload kind {kind!r} "
+                         "(use 'optimizer_state' or 'params')")
+
+    def _state_part(self, kind: str):
+        if kind == "params":
+            # the masters are the leaves autograd runs through (views of
+            # flat buffers over several ranks): moving them is not ported
+            raise NotImplementedError(
+                "offload_states(include=('params',)) is not ported yet: ROADMAP.md "
+                "Queue A item 7 (ZeRO-Offload); the optimizer state offloads")
+        return self.state.opt_state
+
+    def _set_state_part(self, kind: str, tree) -> None:
+        self.state.opt_state = tree
+
+    def _get_swapper(self, nvme_path: Optional[str]):
+        path = nvme_path or self.config.zero_optimization.offload_optimizer.nvme_path
+        if not path:
+            raise ValueError(
+                "offload to nvme needs a path: pass nvme_path= or set "
+                "zero_optimization.offload_optimizer.nvme_path in the config")
+        if path not in self._swappers:
+            from .zero.swapper import AsyncTensorSwapper
+
+            aio = self.config.aio
+            self._swappers[path] = AsyncTensorSwapper(
+                os.path.join(path, "dstpu_swap"), num_threads=aio.thread_count,
+                block_size=aio.block_size)
+        return self._swappers[path]
+
+    def _check_states_home(self) -> None:
+        if self._offloaded:
+            raise RuntimeError(f"engine state {sorted(self._offloaded)} is offloaded: call "
+                               "reload_states() before training")
 
     # ------------------------------------------------------------------
     @property

@@ -1,6 +1,7 @@
 """``deepspeed.zero`` surface (reference ``deepspeed/runtime/zero/__init__.py``),
 ported from ``deepspeed_tpu/runtime/zero/__init__.py``: partitioning rules,
-memory estimators and tiling; the ZeRO++ pieces and the NVMe swapper raise
+memory estimators, tiling and the NVMe swapper of ZeRO-Offload
+(``swapper.AsyncTensorSwapper``); the ZeRO++ pieces raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 
 The reference's ``zero.Init`` context manager intercepts ``torch.nn``
@@ -20,6 +21,7 @@ from .memory_estimators import (estimate_zero2_model_states_mem_needs_all_live,
                                 estimate_zero3_model_states_mem_needs_all_live,
                                 estimate_zero_model_states_mem_needs)
 from .sharding import ZeroShardingRules, shard_param_spec
+from .swapper import AsyncTensorSwapper
 from .tiling import TiledLinear, tiled_matmul
 
 __all__ = ["Init", "ZeroShardingRules", "shard_param_spec",
@@ -34,15 +36,6 @@ __all__ = ["Init", "ZeroShardingRules", "shard_param_spec",
 def _not_ported(what: str, item: int, area: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue A item "
                                f"{item} ({area})")
-
-
-class AsyncTensorSwapper:
-    """The NVMe swapper of ZeRO-Offload (JAX ``runtime/zero/swapper.py``):
-    not ported."""
-
-    def __init__(self, swap_dir: str, num_threads: int = 8,
-                 block_size: int = 1 << 20, use_o_direct: bool = False):
-        raise _not_ported("zero.AsyncTensorSwapper", 7, "ZeRO-Offload")
 
 
 class ZeroPPState:

@@ -20,6 +20,12 @@ leaf (the JAX package's one chip's shard; the port has one device per rank,
 so ``device_index`` is 0). A setter writes what every rank passes; the full
 setters take the same value on every rank.
 
+Under ZeRO-Offload's host-Adam tier (JAX ``tensor_fragment.py:115-143,
+263-290``) the fp32 params and the optimizer state are the host optimizer's
+masters and moments: the getters copy them to the engine's device, and
+``safe_set_*_fp32_param`` writes the host master and its compute-dtype leaf
+on the device.
+
 Availability (as the reference): params and optimizer state are always
 readable and writable; gradients exist only inside an imperative
 ``forward``/``backward`` accumulation window (``train_batch`` consumes its
@@ -115,12 +121,17 @@ def safe_set_full_fp32_param(engine, path, value) -> None:
 def safe_get_local_fp32_param(engine, path, device_index: int = 0):
     _device(device_index)
     i = _leaf(engine, path)
+    if engine._host_adam is not None:
+        return engine._full_param(i).float().clone()
     return engine._masters[i].detach().float().clone()
 
 
 def safe_set_local_fp32_param(engine, path, value, device_index: int = 0):
     _device(device_index)
     i = _leaf(engine, path)
+    if engine._host_adam is not None:
+        engine._set_full_param(i, _value(engine, value, _shape(engine, i), path))
+        return
     dst = engine._masters[i]
     value = _value(engine, value, dst.shape, path)
     with torch.no_grad():
@@ -247,6 +258,12 @@ def _find_optim_subtree(opt_state, key: str):
 
 
 def _moment(engine, key: str):
+    if engine._host_adam is not None:
+        _, m, v = engine._host_adam.leaves()
+        if key not in ("exp_avg", "exp_avg_sq"):
+            raise ValueError(f"unknown optimizer state key {key!r} (the host Adam keeps "
+                             "exp_avg and exp_avg_sq)")
+        return m if key == "exp_avg" else v
     sub = _find_optim_subtree(engine.state.opt_state, key)
     if sub is None:
         raise ValueError(f"optimizer state has no {key!r} tree (optimizer: "
@@ -257,24 +274,31 @@ def _moment(engine, key: str):
 def _moment_leaf(engine, sub, i: int, path, full: bool) -> torch.Tensor:
     """The moment of leaf i: at stages 1-3 gathered (``full``) or this
     rank's fragment of the shard, else the tensor itself."""
+    if engine._host_adam is not None:
+        return sub[i].to(engine.device)
     if engine._zero is None:
         return _resolve(sub, path)
     shard = sub[0]
-    return engine._zero.gather(shard, i) if full else engine._zero.fragment(shard, i)
+    if full:
+        # the storage tier keeps the shard in host memory; gather on the device
+        return engine._zero.gather(shard.to(engine.device), i)
+    return engine._zero.fragment(shard, i)
 
 
 def safe_get_full_optimizer_state(engine, path, optim_state_key: str):
     """Full value of one optimizer-state tensor, e.g. ``exp_avg`` /
     ``exp_avg_sq`` (reference ``tensor_fragment.py:245``)."""
     sub = _moment(engine, optim_state_key)
-    return _moment_leaf(engine, sub, _leaf(engine, path), path, True).clone()
+    return _moment_leaf(engine, sub, _leaf(engine, path), path, True).to(engine.device,
+                                                                           copy=True)
 
 
 def safe_get_local_optimizer_state(engine, path, optim_state_key: str,
                                    device_index: int = 0):
     _device(device_index)
     sub = _moment(engine, optim_state_key)
-    return _moment_leaf(engine, sub, _leaf(engine, path), path, False).clone()
+    return _moment_leaf(engine, sub, _leaf(engine, path), path, False).to(engine.device,
+                                                                            copy=True)
 
 
 def safe_set_full_optimizer_state(engine, path, value, optim_state_key: str):
@@ -283,7 +307,9 @@ def safe_set_full_optimizer_state(engine, path, value, optim_state_key: str):
     sub = _moment(engine, optim_state_key)
     i = _leaf(engine, path)
     value = _value(engine, value, _shape(engine, i), path)
-    if engine._zero is not None:
+    if engine._host_adam is not None:
+        sub[i].copy_(value)
+    elif engine._zero is not None:
         engine._zero.scatter(sub[0], i, value)
     else:
         _resolve(sub, path).copy_(value)
@@ -294,5 +320,6 @@ def safe_set_local_optimizer_state(engine, path, value, optim_state_key: str,
     _device(device_index)
     sub = _moment(engine, optim_state_key)
     i = _leaf(engine, path)
-    dst = _moment_leaf(engine, sub, i, path, False)
+    dst = sub[i] if engine._host_adam is not None else _moment_leaf(engine, sub, i, path,
+                                                                     False)
     dst.copy_(_value(engine, value, dst.shape, path))

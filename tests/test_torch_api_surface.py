@@ -50,6 +50,11 @@ SURFACE = {
                               "safe_set_local_fp32_param", "safe_set_local_grad",
                               "safe_set_local_optimizer_state"],
     "": ["add_config_arguments", "version"],
+    # ZeRO-Offload's host libraries (DeepSpeedCPUAdam.step takes one more
+    # keyword, out=, and the swapper's swap_in a device for shardings:
+    # tests/test_torch_offload.py and test_torch_aio.py hold them)
+    "ops.adam": ["CPUAdamBuilder"],
+    "ops.aio": ["AsyncIOBuilder", "AsyncIOHandle"],
 }
 # kernel wrappers: port module -> (JAX module, names)
 WRAPPERS = {

@@ -1436,3 +1436,61 @@ def test_fused_vocab_nll_takes_a_sliced_head_on_card(monkeypatch):
     assert heads[0].data_ptr() == emb.data_ptr() and fl._layout(heads[0])[0] == 1
     lse_r, tgt_r = fl.fused_nll_fwd_ref(h.detach(), emb.T, t)
     torch.testing.assert_close(tied, lse_r - tgt_r, rtol=1e-5, atol=1e-4)
+
+
+def test_host_adam_matches_its_plain_version_on_the_cards_host():
+    """The host Adam built with the card machine's g++: bitwise its plain
+    version over three steps at odd sizes, AdamW and L2, fp32 and bf16
+    gradients, with the bf16 emission."""
+    _need_card()
+    from deepspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam, cpu_adam_reference
+
+    gen = torch.Generator().manual_seed(3)
+    sizes = [1, 3, 4097, 70001, 1 << 20]
+    for adamw in (True, False):
+        ps = [torch.randn(n, generator=gen) for n in sizes]
+        opt = DeepSpeedCPUAdam(ps, lr=3e-4, betas=(0.9, 0.95), weight_decay=0.1,
+                               adamw_mode=adamw)
+        ref = [(p.clone(), torch.zeros_like(p), torch.zeros_like(p)) for p in ps]
+        for step in range(1, 4):
+            gs = [0.1 * torch.randn(n, generator=gen) for n in sizes]
+            if step == 2:
+                gs = [g.to(torch.bfloat16) for g in gs]
+            out = opt.step(gs, emit_bf16=True)
+            ref = [cpu_adam_reference(*r, g, 3e-4, (0.9, 0.95), 1e-8, 0.1, adamw, True, step)
+                   for r, g in zip(ref, gs)]
+        for got, (p, m, v), o in zip(zip(*opt.leaves()), ref, out):
+            assert torch.equal(got[0], p) and torch.equal(got[1], m) and torch.equal(got[2], v)
+            assert torch.equal(o, p.to(torch.bfloat16))
+
+
+def test_offload_step_of_a_two_layer_model_on_card():
+    """One host-Adam step of a 2-layer bf16 model on the card: no optimizer
+    state on the card, no fused-Adam launch, the compute leaves bitwise the
+    bf16 of the host masters after the step, and the loss finite."""
+    _need_card()
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
+                                            make_loss_fn)
+
+    cfg = llama_config("1b", num_layers=2, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    eng, *_ = tds.initialize(
+        model=make_loss_fn(TransformerLM(cfg, params)), model_parameters=params,
+        config={"train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
+                "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+                "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+                "zero_optimization": {"offload_optimizer": {"device": "cpu",
+                                                            "grad_dtype": "bfloat16"}},
+                "steps_per_print": 10**9})
+    assert eng._host_adam is not None and eng.state.opt_state == ()
+    adam.reset_launch_counts()
+    batch = torch.randint(0, cfg.vocab_size, (2, 1, 512), device="cuda")
+    loss = float(eng.train_batch(batch))
+    torch.cuda.synchronize()
+    assert np.isfinite(loss) and adam.launch_counts["fused_adam"] == 0
+    assert eng._host_adam.step_count == 1
+    for leaf, master in zip(eng._masters, eng._host_adam.leaves()[0]):
+        assert leaf.dtype == torch.bfloat16 and leaf.is_cuda
+        assert torch.equal(leaf.detach().cpu(), master.to(torch.bfloat16))
+    assert set(eng.offload_timings()) == {"d2h", "host_adam", "h2d"}

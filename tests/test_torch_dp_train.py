@@ -29,7 +29,9 @@ batches as the references here:
   ``tensor_fragment`` accessors at stage 3 against the JAX package's at
   stage 3 (``ACCESSOR_RTOL`` / ``ACCESSOR_ATOL``: after three Adam steps);
   a stage-3 save resumed bitwise at stage 3 and at stage 0, and read by
-  ``zero_to_fp32``.
+  ``zero_to_fp32``;
+* ``offload_optimizer`` cpu at stage 1: the storage tier (the JAX rule at
+  world size > 1), bitwise stage 1.
 """
 
 import jax
@@ -254,6 +256,20 @@ def test_zero_masters_equal_across_ranks_and_adam_sharded(ranks, stage):
             assert all(len(s) == 1 for s in r[name + "/shapes"])
             assert sum(s[0] for s in r[name + "/shapes"]) <= -(-n // WORLD)
         assert sum(s[0] for r in ranks for s in r[name + "/shapes"]) == n
+
+
+def test_offload_at_world_two_is_the_storage_tier_and_bitwise_stage_one(ranks):
+    """offload_optimizer cpu over two ranks takes the pinned-host storage
+    tier (the JAX rule: the host step needs the whole gradient): the same
+    stage-1 update on the same values, so losses and masters are bitwise
+    stage 1's, and the full moments gather from host memory."""
+    for r in ranks:
+        assert r["stage1_offload"] == r["stage1"]
+        assert r["stage1_offload/tier"] == [True, True, ["cpu"]]
+        for a, b in zip(r["stage1_offload/full"], r["stage1/full"]):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(ranks[0]["stage1_offload/moments"], ranks[1]["stage1_offload/moments"]):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("stage", (2, 3))

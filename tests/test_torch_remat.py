@@ -162,14 +162,19 @@ def test_configure_matches_jax_and_refusals():
         tac.checkpoint_wrapper(lambda a: a, "offload_dot_with_no_batch_dims")
     tac._config["policy"] = None        # configure() keeps a policy once set
     tac.configure(checkpoint_in_cpu=True)
-    with pytest.raises(NotImplementedError, match="ZeRO-Offload"):
-        tac.checkpoint(lambda a: a.sum(), torch.ones(3))
+    # cpu_checkpointing keeps dots_saveable's products in host memory
+    # (tests/test_torch_offload.py holds its gradients bitwise)
+    x = torch.ones(3, 3, requires_grad=True)
+    out = tac.checkpoint(lambda a: (a @ a).sum(), x)
+    out.backward()
+    assert out.item() == 27.0 and torch.equal(x.grad, torch.full((3, 3), 6.0))
     _, tcfg, params = tiny()
     p = convert.params_from_jax(params, tcfg, device="cpu")
     loss_fn = ttf.make_loss_fn(ttf.TransformerLM(tcfg, p))
-    with pytest.raises(NotImplementedError, match="ZeRO-Offload"):
-        tds.initialize(model=loss_fn, model_parameters=p, device="cpu",
-                       config=dict(CONFIG, activation_checkpointing={"cpu_checkpointing": True}))
+    engine, *_ = tds.initialize(
+        model=loss_fn, model_parameters=p, device="cpu",
+        config=dict(CONFIG, activation_checkpointing={"cpu_checkpointing": True}))
+    assert engine.config.activation_checkpointing.cpu_checkpointing
     with pytest.raises(ValueError, match="save_from_both_policies"):
         tds.initialize(model=loss_fn, model_parameters=p, device="cpu",
                        config=dict(CONFIG, activation_checkpointing={

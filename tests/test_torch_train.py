@@ -259,11 +259,17 @@ def test_unported_paths_raise():
     p = convert.params_from_jax(params, tcfg, device="cpu")
     loss_fn = ttf.make_loss_fn(ttf.TransformerLM(tcfg, p))
     for over in ({"pipeline": {"stages": 2}}, {"sequence_parallel_size": 2},
-                 {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
+                 {"zero_optimization": {"offload_param": {"device": "cpu"}}},
                  {"resilience": "snapshots"}, {"data_parallel_size": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tds.initialize(model=loss_fn, model_parameters=p, device="cpu",
                            config=dict(TRAIN_CONFIG, **over))
+    # offload_param is refused on purpose: the JAX engine reads none of its
+    # fields (offload_optimizer trains: tests/test_torch_offload.py)
+    with pytest.raises(NotImplementedError, match="reads none of its fields"):
+        tds.initialize(model=loss_fn, model_parameters=p, device="cpu",
+                       config=dict(TRAIN_CONFIG, zero_optimization={
+                           "offload_param": {"device": "nvme"}}))
     for over in (dict(dropout=0.1),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttf.TransformerLM(dataclasses.replace(tcfg, **over), p)

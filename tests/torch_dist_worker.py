@@ -355,6 +355,16 @@ def _zero_stages(rank, inputs, workdir, batches, out):
         out[name + "/n"] = eng._zero.numel
         out[name + "/grad_norm"] = eng.get_global_grad_norm()
         reset_fastpath()
+    # offload_optimizer cpu at world size 2: the storage tier (the JAX rule),
+    # the stage-1 update on host-resident state
+    eng, *_ = _engine(inputs, {"zero_optimization": {
+        "stage": 1, "offload_optimizer": {"device": "cpu"}}})
+    out["stage1_offload"] = [float(eng.train_batch(b)) for b in batches]
+    out["stage1_offload/full"] = _full_masters(eng)
+    out["stage1_offload/tier"] = [eng._host_adam is None, eng._offload_optimizer,
+                                  [str(t.device) for t in eng.state.opt_state.exp_avg]]
+    out["stage1_offload/moments"] = _full_moments(eng)
+    reset_fastpath()
     # the imperative path (each micro-batch reduce-scattered) and no_sync
     for stage in (2, 3):
         eng, *_ = _engine(inputs, zero(stage))
