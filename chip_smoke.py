@@ -122,10 +122,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    engine, load, 2 steps, against 5 uninterrupted steps: the state is
    bitwise equal after the load, the losses are bitwise equal, and
    ``zero_to_fp32`` returns the saved masters; the same for the host-Adam
-   tier (host masters, moments and compute leaves); ``offload_states`` to
-   host memory and through the aio swapper to files under ``build/`` and
-   back mid-run: the card's memory drops by the state's bytes, the state
-   comes back bitwise and training goes on bitwise;
+   tier (host masters, moments and compute leaves); ``offload_states`` of
+   the optimizer state and of the params to host memory and through the
+   aio swapper to files under ``build/`` and back mid-run: the card's
+   memory drops by the optimizer state's bytes and by exactly the
+   allocator blocks holding the params, the state comes back bitwise (the
+   params the same tensors) and training goes on bitwise;
 10. block-quant kernels — quantize (nearest), quantize with stochastic
    rounding and dequantize against their plain versions at a ragged size
    (blocks 2048, 512, 128) and at TinyLlama-1.1B's flat gradient (n =
@@ -194,19 +196,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 18. full-depth ZeRO-3 — phase 11's world at TinyLlama-1.1B's 22 layers, 3
    steps at stage 0 and 3 at stage 3 from the same seed and batch:
    phase 11's gates, every flash, fused-loss and Adam launch exact per
-   rank, and stage 3's peak memory per rank at least half the estimator's
-   predicted saving (18P against 9P bytes) below stage 0's; both peaks,
-   the estimator's figures and the step times (two ranks sharing one card,
-   not a scaling number) are printed;
+   rank, stage 3's peak memory per rank at least three quarters of the
+   estimator's predicted saving (18P against 9P bytes) below stage 0's,
+   and at most two units gathered at once; both peaks, the estimator's
+   figures, the units gathered at once and the step times (two ranks
+   sharing one card, not a scaling number) are printed;
 19. ZeRO-Offload at full size — Llama-2-7B (or phi-3-mini-4k when the
-   host's MemAvailable is below the 130 GB 7B's host state needs) trained
-   on one card with the optimizer on the host: seq 4096, micro 1, gas 2,
-   per-layer remat, bf16, bf16 gradient transport, clipping 1.0, WarmupLR,
-   1 warm-up and 3 timed steps: losses finite and falling, no fused-Adam
-   launch and one host step a step, flash and fused-loss launches exact
-   and on ``wgmma``, the compute leaves on the card bitwise the bf16 of the
-   host masters, peak device memory below 9P; step time, tokens/s, MFU,
-   the D2H / host Adam / H2D seconds, peak memory and host memory printed.
+   host's MemAvailable is below the 7B's host need: 12P, the transfer
+   ring and HOST_REST_BYTES) trained on one card with the optimizer on the
+   host: seq 4096, micro 1, gas 2, per-layer remat, bf16, bf16 gradient
+   transport, clipping 1.0, WarmupLR, 1 warm-up and 3 timed steps: losses
+   finite and falling, no fused-Adam launch and one host step a step (a
+   host launch a slice of the ring's walk), flash and fused-loss launches
+   exact and on ``wgmma``, the compute leaves on the card bitwise the bf16
+   of the host masters, peak device memory below 9P; step time, tokens/s,
+   MFU, the D2H / host Adam / H2D seconds and the walk's wall, peak memory
+   and the host's resident bytes by stage printed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -216,6 +221,7 @@ checkout of the repository, the script exits non-zero and prints no result.
 import argparse
 import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -2438,7 +2444,9 @@ def offload_parity_phase():
         out[name] = dict(losses=np.array(losses), norms=np.array(norms), delta=delta,
                          fused=adam.launch_counts["fused_adam"],
                          host=host_adam.launch_counts["cpu_adam"],
-                         leaves=len(masters), state=state_home)
+                         slices=(sum(len(c) for c in engine._ring_plan)
+                                 if engine._host_adam is not None else 0),
+                         state=state_home)
         log(f"offload parity {name}: losses {losses}, grad norms {norms}, fused Adam "
             f"launches {out[name]['fused']}, host Adam launches {out[name]['host']}, "
             f"optimizer state on {sorted(state_home)}")
@@ -2452,14 +2460,14 @@ def offload_parity_phase():
         r = out[name]
         good = (all(d(name, "device") <= NOISE_FACTOR * d("device", "fp32")
                     for d in (dl, dn, du))
-                and r["fused"] == 0 and r["host"] == len(batches) * r["leaves"])
+                and r["fused"] == 0 and r["host"] == len(batches) * r["slices"])
         ok &= good
         log(f"offload parity {name} vs device (TinyLlama widths, 2 layers, 3 steps): "
             f"|dloss| {dl(name, 'device'):.3e}, |dgrad_norm| {dn(name, 'device'):.3e}, "
             f"||dupdate|| {du(name, 'device'):.3e}; device-fp32 {dl('device', 'fp32'):.3e}, "
             f"{dn('device', 'fp32'):.3e}, {du('device', 'fp32'):.3e}; need <= "
-            f"{NOISE_FACTOR:g}x on each, no fused-Adam launch, {r['leaves']} host launches "
-            f"a step: {'ok' if good else 'FAIL'}")
+            f"{NOISE_FACTOR:g}x on each, no fused-Adam launch, {r['slices']} host launches "
+            f"a step (a slice of the ring's walk each): {'ok' if good else 'FAIL'}")
     st, dv = out["storage"], out["device"]
     good = (np.array_equal(st["losses"], dv["losses"]) and np.array_equal(st["norms"],
                                                                           dv["norms"])
@@ -2710,14 +2718,33 @@ def offload_checkpoint_phase():
         raise SystemExit("offload checkpoint resume FAILED")
 
 
+def allocator_block_bytes(tensors) -> int:
+    """The bytes of the CUDA caching allocator's blocks that hold the
+    storages of ``tensors``: a block may exceed its request (512-byte
+    granules, and a cached block whose remainder is too small to split is
+    handed out whole)."""
+    starts = {t.untyped_storage().data_ptr() for t in tensors}
+    total = 0
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for block in seg["blocks"]:
+            if addr in starts and block["state"] == "active_allocated":
+                total += block["size"]
+            addr += block["size"]
+    return total
+
+
 def offload_states_phase():
     """offload_states / reload_states mid-run (TinyLlama widths at 2 layers,
-    the device path with fused Adam): 2 steps, the optimizer state to host
-    memory and back, 1 step, to files under build/ through the aio swapper
-    and back, 2 steps, against 5 uninterrupted steps: while offloaded the
-    card's allocated memory must drop by at least the state's bytes; after
-    each reload the state must equal the state before bitwise and the
-    losses the uninterrupted ones. Returns the aio requests of the run."""
+    the device path with fused Adam): 2 steps, the optimizer state and then
+    the params to host memory and back, 1 step, both to files under build/
+    through the aio swapper and back, 2 steps, against 5 uninterrupted
+    steps: while offloaded the card's allocated memory must drop by at
+    least the optimizer state's bytes, and by exactly the allocator blocks
+    that hold the params;
+    after each reload the state must equal the state before bitwise (the
+    params the same tensors) and the losses the uninterrupted ones. Returns
+    the aio requests of the run."""
     import shutil
 
     import deepspeed_tpu_torch as dst
@@ -2768,13 +2795,39 @@ def offload_states_phase():
             torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
             for a, b in zip(after, before))
         del before, after
-        got += [float(eng.train_batch(b)) for b in steps]
         good = same and drop >= nbytes
         ok &= good
         log(f"offload_states {where}: {nbytes / 2**30:.2f} GiB of optimizer state out in "
             f"{out_s:.2f} s, back in {in_s:.2f} s; the card's allocated memory dropped "
             f"{drop / 2**30:.2f} GiB while offloaded; state bitwise after reload: {same}: "
             f"{'ok' if good else 'FAIL'}")
+        # the params: the same tensors, their storage away and back; the
+        # card's allocator frees each storage's block (512-byte granules)
+        ids = [id(p) for p in eng._masters]
+        before = [p.detach().clone() for p in eng._masters]
+        pbytes = sum(p.numel() * p.element_size() for p in eng._masters)
+        blocks = allocator_block_bytes(eng._masters)
+        gc.collect()          # the step's unreachable tensors go before the count
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng.offload_states(include=("params",), device=where, nvme_path=str(nvme))
+        out_s = time.perf_counter() - t0
+        drop = mem0 - torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng.reload_states()
+        in_s = time.perf_counter() - t0
+        same = ids == [id(p) for p in eng._masters] and all(
+            torch.equal(p.detach(), b) for p, b in zip(eng._masters, before))
+        del before
+        good = same and drop == blocks
+        ok &= good
+        log(f"offload_states params {where}: {pbytes} bytes ({len(ids)} leaves, in "
+            f"{blocks} bytes of the allocator's blocks) out in {out_s:.2f} s, back in "
+            f"{in_s:.2f} s; the card's allocated memory dropped {drop} bytes, equal to the "
+            f"params' blocks: {drop == blocks}; the same tensors, bitwise after reload: "
+            f"{same}: {'ok' if good else 'FAIL'}")
+        got += [float(eng.train_batch(b)) for b in steps]
     requests = aio.launch_counts["aio"]
     good = got == want and requests > 0
     ok &= good
@@ -3038,7 +3091,12 @@ def dp_child(rank: int, workdir: Path) -> int:
                 "storage" if engine._offload_optimizer else "none",
                 ",".join(sorted({t.device.type for t in torch.utils._pytree.tree_leaves(
                     engine.state.opt_state) if isinstance(t, torch.Tensor)}))]
+        z3 = engine._z3
+        units = None if z3 is None else dict(
+            peak_units=z3.peak_units, peak_bytes=z3.peak_bytes, gathers=z3.gathers,
+            count=len(z3.units), largest=max(z3._nbytes), total=sum(z3._nbytes))
         out[mode] = dict(losses=losses, times=times, launches=launches, peak=peak,
+                         units=units,
                          ledger=totals, masters_equal=bool(same.item()), n=n,
                          reduce=engine._dp_grad_mode, stage=stage, tier=tier,
                          estimate=estimate["total_bytes"],
@@ -3232,12 +3290,14 @@ def zero3_phase(card):
     """Phase 18: TinyLlama-1.1B at all 22 layers, two ranks on cuda:0 over
     gloo (micro 2 x 2048 each, gas 2, bf16, fused loss), 3 steps at stage 0
     and 3 at stage 3 from the same seed and batch: check_dp's gates, every
-    flash, fused-loss and Adam launch exact per rank, and stage 3's peak per
-    rank at least half the estimator's predicted saving below stage 0's."""
+    flash, fused-loss and Adam launch exact per rank, stage 3's peak per
+    rank at least three quarters of the estimator's predicted saving below
+    stage 0's, and at stage 3 at most MAX_LIVE units gathered at once."""
     import shutil
 
     from deepspeed_tpu_torch import zero
     from deepspeed_tpu_torch.ops.fused_loss import chunk_width
+    from deepspeed_tpu_torch.runtime.zero.stage3 import MAX_LIVE
 
     spec = ZERO3_SPEC
     workdir = REPO / "build" / "zero3_smoke"
@@ -3263,20 +3323,31 @@ def zero3_phase(card):
     n = r0["none"]["n"]
     est0 = zero.estimate_zero_model_states_mem_needs(n, 0, spec["world"])["total_bytes"]
     est3 = zero.estimate_zero_model_states_mem_needs(n, 3, spec["world"])["total_bytes"]
-    need = (est0 - est3) / 2
+    need = 3 * (est0 - est3) / 4
     peaks0 = [r["none"]["peak"] for r in ranks]
     peaks3 = [r["stage3"]["peak"] for r in ranks]
     saved = min(a - b for a, b in zip(peaks0, peaks3))
     mem_ok = saved >= need
     ok &= mem_ok
+    units = [r["stage3"]["units"] for r in ranks]
+    live_ok = all(max(u["peak_units"].values()) <= MAX_LIVE for u in units)
+    ok &= live_ok
+    u0 = units[0]
+    log(f"zero3 stage 3 units (rank 0): {u0['count']} units, the largest "
+        f"{u0['largest'] / 2**20:.1f} MiB, all {u0['total'] / 2**30:.2f} GiB; most gathered "
+        f"at once: forward {u0['peak_units']['forward']} units "
+        f"({u0['peak_bytes']['forward'] / 2**20:.1f} MiB), backward "
+        f"{u0['peak_units']['backward']} units ({u0['peak_bytes']['backward'] / 2**20:.1f} "
+        f"MiB); unit gathers {u0['gathers']} over {spec['steps']} steps; at most "
+        f"{MAX_LIVE} on every rank: {'ok' if live_ok else 'FAIL'}")
     ms = {m: float(np.mean(r0[m]["times"][1:])) * 1e3 for m in spec["modes"]}
     log(f"zero3 [{card}]: TinyLlama-1.1B, 22 layers, {n} parameters, two ranks sharing "
         f"cuda:0 over gloo (not a scaling number): peak per rank stage 0 "
         f"{[round(p / 2**30, 2) for p in peaks0]} GiB, stage 3 "
         f"{[round(p / 2**30, 2) for p in peaks3]} GiB; the estimator's model state "
         f"{est0 / 2**30:.2f} GiB (18P) against {est3 / 2**30:.2f} GiB (9P); stage 3 "
-        f"saves {saved / 2**30:.2f} GiB per rank, at least half the predicted "
-        f"{(est0 - est3) / 2**30:.2f} GiB ({need / 2**30:.2f}) required: "
+        f"saves {saved / 2**30:.2f} GiB per rank, at least three quarters of the "
+        f"predicted {(est0 - est3) / 2**30:.2f} GiB ({need / 2**30:.2f}) required: "
         f"{'ok' if mem_ok else 'FAIL'}; step {ms['none']:.1f} ms at stage 0, "
         f"{ms['stage3']:.1f} ms at stage 3 (steps 2-{steps}); phase wall "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3289,8 +3360,8 @@ def zero3_phase(card):
 # ---------------------------------------------------------------------------
 
 # phase 19's run: meta-llama/Llama-2-7b-hf's widths (llama_config("7b"), as
-# --cards 4 runs them) when the host can hold 12P of masters and moments and
-# 4P of pinned staging, else microsoft/Phi-3-mini-4k-instruct's (PHI3_MINI)
+# --cards 4 runs them) when the host can hold its need (host_need), else
+# microsoft/Phi-3-mini-4k-instruct's (PHI3_MINI)
 OFFLOAD_CONFIG = {
     "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
     "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
@@ -3303,7 +3374,20 @@ OFFLOAD_CONFIG = {
     "training_fastpath": {"loss_impl": "auto"}, "steps_per_print": 10**9,
 }
 OFFLOAD_SEQ, OFFLOAD_WARMUP, OFFLOAD_STEPS = 4096, 1, 3
-LLAMA7B_HOST_BYTES = 130e9        # 12P + 4P of Llama-2-7B, with room for the rest
+#: what the host-Adam run adds to the process's resident bytes beyond 12P and
+#: the ring (the host step's transients, the leaf check's copies): 0.25 GB
+#: measured at Llama-2-7B on the one-card machine, rounded up to 1 GB
+HOST_REST_BYTES = 1e9
+
+
+def host_need(cfg) -> tuple:
+    """(P, bytes) the host-Adam tier adds to the host for ``cfg``: 12P of
+    fp32 masters and moments, the transfer ring, HOST_REST_BYTES."""
+    from deepspeed_tpu_torch.models.convert import param_shapes
+    from deepspeed_tpu_torch.runtime.engine import HOST_RING_CHUNK_BYTES, HOST_RING_SLOTS
+
+    n = sum(math.prod(s) for s in param_shapes(cfg).values())
+    return n, 12 * n + 2 * HOST_RING_SLOTS * HOST_RING_CHUNK_BYTES + HOST_REST_BYTES
 
 
 def host_memory():
@@ -3344,20 +3428,21 @@ def rss_bytes() -> int:
     return 0
 
 
-def offload_phase(card, mem_available, cpu_model):
+def offload_phase(card, cpu_model):
     """A model at its published size trained on one card with the optimizer
-    on the host (the host-Adam tier): Llama-2-7B if MemAvailable reaches
-    LLAMA7B_HOST_BYTES, else phi-3-mini-4k; seeded random weights made on
+    on the host (the host-Adam tier): Llama-2-7B if the host's MemAvailable
+    covers host_need, else phi-3-mini-4k; seeded random weights made on
     the card (an init closure: the engine takes the host masters and the
     bf16 leaves and drops the fp32 tree), seq 4096, micro 1, gas 2,
     per-layer remat, bf16, bf16 gradient transport, clipping 1.0, WarmupLR;
-    1 warm-up and 3 timed steps. Gates: losses finite and the last below
-    the first; no fused-Adam launch and one host step a step (a host Adam
-    launch a leaf); flash (forward twice under remat) and fused-loss
-    launches exact, all on wgmma; after the last step every compute leaf
-    on the card bitwise the bf16 rounding of its host master; peak device
-    memory from after initialize below 9P (no fp32 master or moment on the
-    card). Returns the host Adam's launches."""
+    1 warm-up and 3 timed steps; the process's resident bytes after each
+    stage of initialize and of the first step. Gates: losses finite and the
+    last below the first; no fused-Adam launch and one host step a step (a
+    host Adam launch a slice of the ring's walk); flash (forward twice
+    under remat) and fused-loss launches exact, all on wgmma; after the
+    last step every compute leaf on the card bitwise the bf16 rounding of
+    its host master; peak device memory from after initialize below 9P (no
+    fp32 master or moment on the card). Returns the host Adam's launches."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch import zero
     from deepspeed_tpu_torch.models import (TransformerConfig, TransformerLM, init_params,
@@ -3367,23 +3452,47 @@ def offload_phase(card, mem_available, cpu_model):
     from deepspeed_tpu_torch.ops import flash_attention, fused_adam, fused_loss
     from deepspeed_tpu_torch.ops.fused_loss import chunk_width
 
+    # pinned blocks earlier phases freed stay in the caching host allocator
+    rss_in = rss_bytes()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
     remat = dict(remat=True, remat_policy="nothing_saveable", dtype=torch.bfloat16)
-    if mem_available >= LLAMA7B_HOST_BYTES:
+    mem_available = host_memory()[0]
+    rss0 = rss_bytes()
+    log(f"offload: resident {rss_in / 1e9:.2f} GB at the phase's start, "
+        f"{rss0 / 1e9:.2f} GB after emptying the pinned-host cache "
+        f"({'torch._C._host_emptyCache' if empty else 'no host cache to empty'})")
+    n7, need7 = host_need(llama_config("7b"))
+    if mem_available >= need7:
         name, cfg = "Llama-2-7B", llama_config("7b", **remat)
     else:
-        name = "phi-3-mini-4k"
-        cfg = TransformerConfig(**PHI3_MINI, **remat)
-        log(f"offload: MemAvailable {mem_available / 1e9:.1f} GB is below the "
-            f"{LLAMA7B_HOST_BYTES / 1e9:.0f} GB Llama-2-7B's host state needs: "
-            f"{name} at its published size instead")
+        name, cfg = "phi-3-mini-4k", TransformerConfig(**PHI3_MINI, **remat)
+    log(f"offload: MemAvailable {mem_available / 1e9:.1f} GB now, resident {rss0 / 1e9:.1f} "
+        f"GB; Llama-2-7B's host need {need7 / 1e9:.1f} GB (12P = {12 * n7 / 1e9:.1f} GB, the "
+        f"ring, {HOST_REST_BYTES / 1e9:.0f} GB of rest): {name} at its published size")
+    stages = [("phase start", rss_in), ("pinned cache emptied", rss0)]
+    mark = lambda what: stages.append((what, rss_bytes()))
+    real_init = host_adam.DeepSpeedCPUAdam.__init__
+
+    def traced_init(self, *a, **kw):        # the host state's own share
+        mark("fp32 tree on the card")
+        real_init(self, *a, **kw)
+        mark("host masters and moments")
+
     t0 = time.perf_counter()
     meta = _nest({k: torch.empty(s, device="meta") for k, s in param_shapes(cfg).items()})
     init = zero.Init(lambda: init_params(cfg, seed=0, device="cuda", dtype=torch.float32))
-    engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, meta)),
-                                model_parameters=init, config=OFFLOAD_CONFIG)
+    host_adam.DeepSpeedCPUAdam.__init__ = traced_init
+    try:
+        engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, meta)),
+                                    model_parameters=init, config=OFFLOAD_CONFIG)
+    finally:
+        host_adam.DeepSpeedCPUAdam.__init__ = real_init
     del init
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    mark("after initialize")
     n = sum(p.numel() for p in engine._masters)
     n_matmul = n - cfg.vocab_size * cfg.hidden_size
     gas, micro = engine.gas, engine.micro_batch_size
@@ -3391,24 +3500,46 @@ def offload_phase(card, mem_available, cpu_model):
     gen.manual_seed(1)
     batch = torch.randint(0, cfg.vocab_size, (gas, micro, OFFLOAD_SEQ), generator=gen,
                           device="cuda")
+    slices = sum(len(c) for c in engine._ring_plan)
     log(f"offload {name} (hidden {cfg.hidden_size}, {cfg.num_layers} layers, "
         f"{cfg.num_heads}/{cfg.kv_heads} heads, D {cfg.head_dim}, ffn "
         f"{cfg.intermediate_size}, vocab {cfg.vocab_size}): {n} parameters, set-up "
-        f"{time.perf_counter() - t0:.1f} s; host: MemAvailable {mem_available / 1e9:.1f} GB "
-        f"at start, {cpu_model}; resident {rss_bytes() / 1e9:.1f} GB after initialize "
-        f"(12P = {12 * n / 1e9:.1f} GB of masters and moments, 4P = {4 * n / 1e9:.1f} GB "
-        f"pinned staging)")
+        f"{time.perf_counter() - t0:.1f} s; host {cpu_model}; the ring: "
+        f"{len(engine._ring_plan)} chunks of {engine._ring_chunk} elements, {slices} slices")
+    real_apply = engine._apply_host
+
+    def traced_apply():                     # the first step's stages
+        mark("first step: forward and backward")
+        out = real_apply()
+        mark("first step: after the host walk")
+        return out
+
+    engine._apply_host = traced_apply
     torch.cuda.reset_peak_memory_stats()
     for k in (flash_attention, fused_adam, fused_loss, host_adam):
         k.reset_launch_counts()
     losses, times, phases = [], [], []
-    for _ in range(OFFLOAD_WARMUP + OFFLOAD_STEPS):
+    for step in range(OFFLOAD_WARMUP + OFFLOAD_STEPS):
         t0 = time.perf_counter()
         loss = engine.train_batch(batch)
         losses.append(float(loss))
         times.append(time.perf_counter() - t0)
-        phases.append(engine.offload_timings())
+        phases.append(dict(engine.offload_timings(), walk=engine._offload_walk_s))
+        if step == 0:
+            del engine._apply_host
+            mark("after the first step")
     peak = torch.cuda.max_memory_allocated()
+    mark("after the last step")
+    from deepspeed_tpu_torch.runtime.engine import HOST_RING_CHUNK_BYTES, HOST_RING_SLOTS
+
+    ring = sum(t.numel() * t.element_size() for side in engine._ring for t in side)
+    rest = max(b for _, b in stages) - rss0 - 12 * n - ring
+    log(f"offload {name}: resident bytes by stage (GB): "
+        + "; ".join(f"{what} {b / 1e9:.2f}" for what, b in stages)
+        + f"; 12P = {12 * n / 1e9:.2f} GB, the ring {ring / 2**20:.0f} MiB pinned "
+        f"({2 * HOST_RING_SLOTS} x {HOST_RING_CHUNK_BYTES / 2**20:.0f} MiB at most); the rest "
+        f"beyond the phase's start, 12P and the ring {rest / 1e9:.2f} GB "
+        f"(HOST_REST_BYTES {HOST_REST_BYTES / 1e9:.0f} GB)")
     launches = {}
     for k in (flash_attention, fused_adam, fused_loss, host_adam):
         launches.update(k.launch_counts)
@@ -3417,15 +3548,18 @@ def offload_phase(card, mem_available, cpu_model):
     step_s = float(np.mean(times[OFFLOAD_WARMUP:]))
     flops = train_flops(cfg, n_matmul, tokens, OFFLOAD_SEQ)
     mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
-    mean = {k: float(np.mean([p[k] for p in phases[OFFLOAD_WARMUP:]]))
-            for k in ("d2h", "host_adam", "h2d")}
+    keys = ("d2h", "host_adam", "h2d", "walk")
+    mean = {k: float(np.mean([p[k] for p in phases[OFFLOAD_WARMUP:]])) for k in keys}
     log(f"offload {name}: losses {[round(x, 4) for x in losses]}; step times (s) "
-        f"{[round(x, 3) for x in times]}; D2H / host Adam / H2D (s) "
-        f"{[tuple(round(p[k], 3) for k in ('d2h', 'host_adam', 'h2d')) for p in phases]}")
+        f"{[round(x, 3) for x in times]}; D2H / host Adam / H2D summed over the chunks, "
+        f"and the walk's wall (s) {[tuple(round(p[k], 3) for k in keys) for p in phases]}")
     log(f"offload {name} [{card}; host {cpu_model}]: {step_s * 1e3:.1f} ms/step over "
         f"{OFFLOAD_STEPS} timed steps, {tokens / step_s:.0f} tokens/s, MFU {mfu:.4f} "
         f"({flops:.4e} model flop/step over 989 TFLOP/s bf16); per step D2H "
-        f"{mean['d2h']:.3f} s, host Adam {mean['host_adam']:.3f} s, H2D {mean['h2d']:.3f} s; "
+        f"{mean['d2h']:.3f} s, host Adam {mean['host_adam']:.3f} s, H2D {mean['h2d']:.3f} s "
+        f"summed over the chunks, the walk {mean['walk']:.3f} s of wall (overlap "
+        f"{mean['d2h'] + mean['host_adam'] + mean['h2d'] - mean['walk']:.3f} s), the rest of "
+        f"the step {step_s - mean['walk']:.3f} s; "
         f"peak device memory {peak / 2**30:.2f} GiB from after initialize (6P = "
         f"{6 * n / 2**30:.2f} GiB, gate 9P = {9 * n / 2**30:.2f} GiB); host resident "
         f"{rss_bytes() / 1e9:.1f} GB")
@@ -3434,7 +3568,7 @@ def offload_phase(card, mem_available, cpu_model):
             "flash_attention_bwd_dkdv": cfg.num_layers * gas * steps,
             "flash_attention_bwd_dq": cfg.num_layers * gas * steps,
             "fused_loss_fwd": gas * steps, "fused_loss_fwd_combine": gas * steps,
-            "fused_adam": 0, "cpu_adam": steps * len(engine._masters)}
+            "fused_adam": 0, "cpu_adam": steps * slices}
     for k in ("fused_loss_dlogits", "fused_loss_dh", "fused_loss_dk"):
         want[k] = gas * steps * chunks
     bad = {k: (launches[k], w) for k, w in want.items() if launches[k] != w}
@@ -3448,7 +3582,7 @@ def offload_phase(card, mem_available, cpu_model):
     checks = {
         "losses finite, the last below the first": (
             all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]),
-        "launches exact (no fused Adam, a host launch a leaf a step)": not bad,
+        "launches exact (no fused Adam, a host launch a slice a step)": not bad,
         "one host step a step": engine._host_adam.step_count == steps,
         "flash and fused loss all on wgmma": not off_route,
         "compute leaves bitwise the bf16 of the host masters": match,
@@ -3466,43 +3600,63 @@ def offload_phase(card, mem_available, cpu_model):
     return {"cpu_adam": host_launches}
 
 
-def cards_run(n_cards: int, card: str) -> int:
+#: --cards 4: the most Llama-2-7B's stage 3 may take a rank (18P / 4 = 28.2
+#: GiB of model state, the gathered units and the remat activations)
+ZERO3_7B_GIB = 40
+
+
+def zero3_7b_run(card: str, workdir: Path) -> bool:
+    """Llama-2-7B at ZeRO stage 3 on four cards (32 layers, seq 4096, micro
+    1 per rank, gas 2, per-layer remat): check_dp's gates and the peak per
+    rank at most ZERO3_7B_GIB, printed beside 18P / 4."""
+    from deepspeed_tpu_torch.runtime.zero.stage3 import MAX_LIVE
+
+    base = dict(DP_SPEC, backend="nccl", layers=22, micro=4, steps=6)
+    spec7 = dict(base, world=4, model="7b", layers=32, micro=1, seq=4096, steps=4,
+                 remat=True, modes=["stage3"])
+    ranks = run_dp_world(spec7, workdir)
+    ok, r0 = check_dp(spec7, ranks, card)
+    peaks = [r["stage3"]["peak"] for r in ranks]
+    n = r0["stage3"]["n"]
+    fits = max(peaks) <= ZERO3_7B_GIB * 2**30
+    u = r0["stage3"]["units"]
+    live_ok = all(max(r["stage3"]["units"]["peak_units"].values()) <= MAX_LIVE for r in ranks)
+    log(f"dp cards llama-2-7b stage 3 [{card}]: {n} parameters, peak per rank "
+        f"{[round(p / 2**30, 2) for p in peaks]} GiB against 18P / 4 = "
+        f"{18 * n / 4 / 2**30:.2f} GiB of model state, at most {ZERO3_7B_GIB} GiB: "
+        f"{'ok' if fits else 'FAIL'}; units gathered at once (rank 0) forward "
+        f"{u['peak_units']['forward']} ({u['peak_bytes']['forward'] / 2**30:.2f} GiB), "
+        f"backward {u['peak_units']['backward']} ({u['peak_bytes']['backward'] / 2**30:.2f} "
+        f"GiB) of {u['count']}, at most {MAX_LIVE}: {'ok' if live_ok else 'FAIL'}; stage 0 "
+        f"would need {18 * n / 1e9:.1f} GB of model state per rank (18P)")
+    return ok and fits and live_ok
+
+
+def cards_run(n_cards: int, card: str, only_7b: bool = False) -> int:
     """--cards N: data-parallel training over NCCL, one rank per card, at
     TinyLlama-1.1B's full depth (micro 4 x 2048 per rank, gas 2): one card
     with the exact reduction as the baseline, then N cards in every mode
     (stage 0 with each compressed_collectives mode, ZeRO stages 1-3), each
     held to check_dp. Prints tokens/s and the scaling over one card. On
-    four cards also Llama-2-7B at ZeRO stage 3 (32 layers, seq 4096, micro
-    1 per rank, per-layer remat): losses finite and falling, the peak per
-    rank under the card's memory."""
+    four cards also Llama-2-7B at ZeRO stage 3 (zero3_7b_run), alone with
+    ``only_7b``."""
     import shutil
 
     base = dict(DP_SPEC, backend="nccl", layers=22, micro=4, steps=6)
     workdir = REPO / "build" / "dp_cards"
-    ok1, one = check_dp(dict(base, world=1, modes=["none"]),
-                        run_dp_world(dict(base, world=1, modes=["none"]), workdir), card)
-    spec = dict(base, world=n_cards)
-    okn, many = check_dp(spec, run_dp_world(spec, workdir), card)
-    t1 = float(np.mean(one["none"]["times"][1:]))
-    for mode in spec["modes"]:
-        tn = float(np.mean(many[mode]["times"][1:]))
-        log(f"dp cards {mode}: {n_cards} cards {tn * 1e3:.1f} ms/step vs one card "
-            f"{t1 * 1e3:.1f} ms/step: {n_cards * t1 / tn:.2f}x the tokens/s of one card "
-            f"({t1 / tn:.3f} scaling efficiency)")
-    ok7 = True
-    if n_cards == 4:
-        spec7 = dict(base, world=4, model="7b", layers=32, micro=1, seq=4096, steps=4,
-                     remat=True, modes=["stage3"])
-        ranks = run_dp_world(spec7, workdir)
-        ok7, r0 = check_dp(spec7, ranks, card)
-        total = torch.cuda.get_device_properties(0).total_memory
-        peaks = [r["stage3"]["peak"] for r in ranks]
-        fits = max(peaks) < total
-        ok7 &= fits
-        log(f"dp cards llama-2-7b stage 3 [{card}]: {r0['stage3']['n']} parameters, peak "
-            f"per rank {[round(p / 2**30, 2) for p in peaks]} GiB under the card's "
-            f"{total / 2**30:.2f} GiB: {fits}; stage 0 would need "
-            f"{18 * r0['stage3']['n'] / 1e9:.1f} GB of model state per rank (18P)")
+    ok1 = okn = True
+    if not only_7b:
+        ok1, one = check_dp(dict(base, world=1, modes=["none"]),
+                            run_dp_world(dict(base, world=1, modes=["none"]), workdir), card)
+        spec = dict(base, world=n_cards)
+        okn, many = check_dp(spec, run_dp_world(spec, workdir), card)
+        t1 = float(np.mean(one["none"]["times"][1:]))
+        for mode in spec["modes"]:
+            tn = float(np.mean(many[mode]["times"][1:]))
+            log(f"dp cards {mode}: {n_cards} cards {tn * 1e3:.1f} ms/step vs one card "
+                f"{t1 * 1e3:.1f} ms/step: {n_cards * t1 / tn:.2f}x the tokens/s of one card "
+                f"({t1 / tn:.3f} scaling efficiency)")
+    ok7 = zero3_7b_run(card, workdir) if n_cards == 4 else True
     shutil.rmtree(workdir, ignore_errors=True)
     return 0 if ok1 and okn and ok7 else 1
 
@@ -3516,6 +3670,8 @@ def main() -> int:
     ap.add_argument("--cards", type=int, default=0,
                     help="instead of the phases: data-parallel training over NCCL on "
                          "this many cards, one rank each, at full depth")
+    ap.add_argument("--zero3-7b", action="store_true",
+                    help="with --cards 4: only Llama-2-7B at ZeRO stage 3")
     ap.add_argument("--dp-child", nargs=2, metavar=("RANK", "WORKDIR"),
                     help=argparse.SUPPRESS)   # one rank of a dp world, started by it
     args = ap.parse_args()
@@ -3576,7 +3732,7 @@ def main() -> int:
     if args.cards:
         if args.cards > count:
             raise SystemExit(f"--cards {args.cards}: only {count} cards")
-        return cards_run(args.cards, card)
+        return cards_run(args.cards, card, only_7b=args.zero3_7b)
 
     def timed(label, fn, *a, **kw):
         t = time.perf_counter()
@@ -3647,7 +3803,7 @@ def main() -> int:
     # phase 18: full-depth ZeRO-3, two ranks on one card
     timed("18 zero3 (TinyLlama-1.1B, 22 layers)", zero3_phase, card)
     # phase 19: ZeRO-Offload at full size on one card
-    launches.update(timed("19 offload", offload_phase, card, mem_available, cpu_model))
+    launches.update(timed("19 offload", offload_phase, card, cpu_model))
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"

@@ -10,12 +10,15 @@ here as on the card's host. A failed build raises: nothing falls back.
 
 ``DeepSpeedCPUAdam`` owns the host state of a whole parameter tree: the fp32
 masters and ``exp_avg`` / ``exp_avg_sq`` as contiguous CPU tensors (pageable:
-only the engine's transfer staging is pinned). ``step`` takes the gradient
+only the engine's transfer ring is pinned). ``step`` takes the gradient
 tree (fp32, or bf16, which the kernel widens in its loop), updates the
 masters and moments in place and returns the masters (copies) or their bf16
 rounding (``emit_bf16``), written into ``out`` when the caller gives
-buffers (the engine's pinned staging). ``cpu_adam_reference`` is the same
-update in plain torch fp32 operations, in the kernel's order, for the tests.
+buffers. ``begin_step`` + ``step_slices`` is the same update walked over
+element ranges of the leaves (the engine's ring chunks): one step counted
+for the whole walk, and the kernel's update being elementwise, the same
+bits as ``step``. ``cpu_adam_reference`` is the same update in plain torch
+fp32 operations, in the kernel's order, for the tests.
 """
 
 import ctypes
@@ -26,8 +29,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-#: kernel launches: one per leaf update (reset by callers that want a
-#: window's count)
+#: kernel launches: one per leaf update, or per slice of a leaf on a walk
+#: (reset by callers that want a window's count)
 launch_counts: Dict[str, int] = {"cpu_adam": 0}
 
 _SOURCE = "cpu_adam.cpp"
@@ -167,6 +170,33 @@ class DeepSpeedCPUAdam:
             else:
                 results.append(p.clone())
         return out if out is not None else pytree.tree_unflatten(results, self._spec)
+
+    def begin_step(self) -> int:
+        """Count one optimizer step (the bias correction's ``t``) for a walk
+        of :meth:`step_slices` over the leaves; returns the count."""
+        self.step_count += 1
+        return self.step_count
+
+    def step_slices(self, slices, lr: Optional[float] = None,
+                    emit_bf16: bool = False) -> None:
+        """Update element ranges of leaves at the step counted by the last
+        :meth:`begin_step`: ``slices`` holds ``(leaf, a, b, grad, out)``, the
+        flattened leaf's elements ``[a, b)``, their gradient (a contiguous
+        1-D CPU tensor, fp32 or bf16) and a contiguous 1-D CPU tensor that
+        receives their bf16 rounding (``emit_bf16``) or a copy of the
+        updated masters (None: nothing)."""
+        lr_t = self.lr if lr is None else float(lr)
+        for i, a, b, g, o in slices:
+            p, m, v = (x.view(-1)[a:b] for x in (self._p[i], self._m[i], self._v[i]))
+            if g.shape != p.shape or not g.is_contiguous() or g.device.type != "cpu":
+                raise ValueError(f"slice [{a}, {b}) of leaf {i}: a gradient of shape "
+                                 f"{tuple(g.shape)} on {g.device}")
+            if emit_bf16 and (o is None or o.dtype != torch.bfloat16
+                              or not o.is_contiguous() or o.shape != p.shape):
+                raise ValueError("emit_bf16 writes contiguous bf16 CPU slices")
+            self._leaf_step(p, m, v, g, lr_t, o if emit_bf16 else None)
+            if o is not None and not emit_bf16:
+                o.copy_(p)
 
     # -- checkpoint support ----------------------------------------------
     def state_dict(self):

@@ -50,12 +50,18 @@ reported loss is the rank mean.
   fp32 shard. Stage 2: the full buffer is reduce-scattered into the shard
   accumulator after every micro-batch (in buckets of ``reduce_bucket_size``
   elements) and reused by the next. Stage 3: each rank keeps only its fp32
-  master shard; before every micro-batch the shard is cast to the compute
-  dtype and all-gathered (buckets of ``allgather_bucket_size``) into a flat
-  compute buffer whose leaf views the loss runs on; their gradients land in
-  a flat buffer of the compute dtype and are reduce-scattered in fp32 into
-  the shard accumulator, and both buffers are freed after the micro-batch.
-  The cast commutes with the gather, so the forward sees the same compute
+  master shard, and the loss runs on compute-dtype leaves that gather a
+  unit (a top-level subtree: ``embed``, ``layer_i``, ...) at a time on use
+  and free it after (``runtime/zero/stage3.py``): the unit's slice of the
+  shards is cast to the compute dtype and gathered (each owning rank
+  broadcasts its part, in buckets of ``allgather_bucket_size``) at the
+  first torch call that touches it, at most two units stay gathered
+  through the forward, the backward gathers a unit again for its saved
+  tensors or its remat recompute, and once a unit's leaves all have their
+  gradients they are mean-reduced in fp32 (buckets of
+  ``reduce_bucket_size``), each rank adding its part into the shard
+  accumulator, and the unit is freed. No whole-model buffer exists. The
+  cast commutes with the gather, so the forward sees the same compute
   weights as at stage 0. Then the global norm is the square root of an
   ``all_reduce`` of the shards' squared sums, the clip scales the shard, and
   the optimizer updates the shard in one fused Adam launch over ``ceil(n /
@@ -66,7 +72,8 @@ reported loss is the rank mean.
 
 The imperative ``forward``/``backward``/``step`` path reduces each
 micro-batch through the same transport (a reduce-scatter into the shard
-accumulator at stages 1-3); ``no_sync`` defers it.
+accumulator at stages 1-3); ``no_sync`` defers it (at stage 3 the units'
+gradients wait in one full local fp32 buffer).
 
 What the state holds over several ranks: ``state.params`` and ``_masters``
 are the full fp32 masters at stages 0-2 (one leaf each) and this rank's
@@ -92,22 +99,26 @@ chosen by its rule and logged, never because something failed:
   autograd makes it and then freed (a post-accumulate-grad hook: the JAX
   package sums ``acc + g.astype(f32)``, and autograd would sum two
   micro-batches in the leaf's dtype). The step divides by ``gas``, takes
-  the global norm and clips on the device in fp32, narrows to
-  ``offload_optimizer.grad_dtype``, copies every leaf into pinned host
-  staging (asynchronously, one wait), runs the host step at
-  ``lr_schedule(global_steps + 1)`` (a non-finite norm skips it but counts
-  the step), and copies the new compute-dtype values from pinned staging
-  into the live leaves, stream-ordered before the next forward. fp16
-  raises ``ValueError``; the imperative ``step`` takes the same path.
+  the global norm and clips on the device in fp32; then (a non-finite norm
+  skips this but counts the step) it walks the leaves laid end to end in
+  chunks of ``HOST_RING_CHUNK_BYTES`` through a ring of two pinned chunk
+  buffers each way: chunk k + 1 is narrowed to
+  ``offload_optimizer.grad_dtype`` and copied to the host while the host
+  step runs on chunk k at ``lr_schedule(global_steps + 1)``, and chunk k's
+  new compute-dtype values are copied into the live leaves, stream-ordered
+  before the next forward. The host needs 12P for the masters and moments
+  and the ring's fixed 4 x 64 MiB. fp16 raises ``ValueError``; the
+  imperative ``step`` takes the same path.
 * the pinned-host storage tier: ``device: cpu`` with a caller's optimizer,
   ``device: nvme``, and world size > 1. The optimizer state lives in host
   memory between steps (pinned with a card, plain on the CPU), is copied to
   the device for the update (at stages 0-3 the fused Adam kernel) and back:
   the same kernel on the same values as without offload.
 
-``offload_states`` / ``reload_states`` move the optimizer state to host
-memory or, through ``runtime/zero/swapper.py``, to files and back (JAX
-``engine.py:1923-1997``); training in between raises.
+``offload_states`` / ``reload_states`` move the optimizer state or the
+params to host memory or, through ``runtime/zero/swapper.py``, to files and
+back (JAX ``engine.py:1923-1997``); the params' tensors keep their identity
+while their storage is away; training in between raises.
 """
 
 import contextlib
@@ -199,6 +210,32 @@ def _recorded_event() -> torch.cuda.Event:
     ev = torch.cuda.Event(enable_timing=True)
     ev.record()
     return ev
+
+
+#: the host-Adam tier's transfer ring: chunk bytes (a power of two, so the
+#: pinned allocator's power-of-two blocks waste nothing) of the wider of the
+#: transport and compute dtypes, and chunk buffers in each direction
+HOST_RING_CHUNK_BYTES = 1 << 26
+HOST_RING_SLOTS = 2
+
+
+def ring_plan(sizes: List[int], chunk: int) -> List[List[tuple]]:
+    """The leaves of ``sizes`` laid end to end and cut into chunks of
+    ``chunk`` elements: per chunk, ``(leaf, a, b, offset)`` for each run of
+    the flattened leaf's elements ``[a, b)`` that lies in it at ``offset``."""
+    plan, cur, used = [], [], 0
+    for i, n in enumerate(sizes):
+        a = 0
+        while a < n:
+            k = min(n - a, chunk - used)
+            cur.append((i, a, a + k, used))
+            a, used = a + k, used + k
+            if used == chunk:
+                plan.append(cur)
+                cur, used = [], 0
+    if cur:
+        plan.append(cur)
+    return plan
 
 
 def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -361,6 +398,7 @@ class DeepSpeedTPUEngine:
         self._flat_grad = None
         self._zero: Optional[FlatPartition] = None
         self._stage3 = False
+        self._z3 = None         # stage 3's unit gatherer (runtime/zero/stage3.py)
         if self._host_adam_mode:
             opt_state = self._build_host_adam(leaves)
         elif self.dp_world > 1 and self.config.zero_optimization.stage >= 1:
@@ -417,15 +455,25 @@ class DeepSpeedTPUEngine:
                 self._masters.append(master)
             self._master_shard = self._flat_master[part.start:part.start + part.shard]
         self._shard_grad = torch.zeros(part.shard, dtype=store, device=self.device)
-        self._g3: Optional[torch.Tensor] = None
+        if self._stage3:
+            from .zero.stage3 import UnitGather, tree_units
+
+            zc = self.config.zero_optimization
+            paths = [kp for kp, _ in pytree.tree_flatten_with_path(self._tree(leaves))[0]]
+            self._z3 = UnitGather(part, tree_units(paths), self._master_shard,
+                                  self._shard_grad, self.compute_dtype,
+                                  zc.allgather_bucket_size, zc.reduce_bucket_size)
         return self.tx.init([self._master_shard])
 
     def _build_host_adam(self, leaves):
         """The host-Adam tier: fp32 masters and moments on the host, the
         compute-dtype leaves on the device (fresh tensors: their hooks must
         not reach the caller's), one flat fp32 gradient accumulator beside
-        them, and the transfer staging, pinned once here when the device is
-        the card. Returns the (empty) device optimizer state."""
+        them, and the plan of the step's walk: the leaves laid end to end
+        and cut into chunks of ``HOST_RING_CHUNK_BYTES`` (a leaf may span
+        chunks), which pass through a ring of ``HOST_RING_SLOTS`` chunk
+        buffers each way, pinned at the first step when the device is the
+        card. Returns the (empty) device optimizer state."""
         from ..ops.adam import DeepSpeedCPUAdam
 
         op = dict(self.config.optimizer.params)
@@ -443,17 +491,12 @@ class DeepSpeedTPUEngine:
                             zip(torch.split(self._acc, sizes), self._masters)]
         for p, acc in zip(self._masters, self._acc_leaves):
             p.register_post_accumulate_grad_hook(self._accumulate_into(acc))
-        if self.device.type == "cuda":
-            pinned = lambda dt: torch.empty(sum(sizes), dtype=dt, pin_memory=True)
-            g_flat, p_flat = pinned(self._grad_transport), pinned(self.compute_dtype)
-            self._grad_staging = [v.view_as(p) for v, p in
-                                  zip(torch.split(g_flat, sizes), self._masters)]
-            self._param_staging = [v.view_as(p) for v, p in
-                                   zip(torch.split(p_flat, sizes), self._masters)]
-        else:
-            # on the CPU the host step reads the narrowed gradients and
-            # writes the compute leaves directly
-            self._grad_staging = self._param_staging = None
+        width = max(torch.empty(0, dtype=d).element_size()
+                    for d in (self._grad_transport, self.compute_dtype))
+        self._ring_chunk = max(1, HOST_RING_CHUNK_BYTES // width)
+        self._ring_plan = ring_plan(sizes, self._ring_chunk)
+        self._ring = None
+        self._offload_walk_s = 0.0
         return ()
 
     @staticmethod
@@ -475,45 +518,32 @@ class DeepSpeedTPUEngine:
     def _tree(self, leaves):
         return pytree.tree_unflatten(list(leaves), self._spec)
 
-    def _gather_compute(self) -> List[torch.Tensor]:
-        """Stage 3: the compute-dtype leaves of one micro-batch, views of
-        the all-gathered flat buffer; with grad enabled their ``.grad`` are
-        views of a zeroed flat buffer (``_g3``), which autograd fills."""
-        part = self._zero
-        zc = self.config.zero_optimization
-        flat = part.all_gather_flat(self._master_shard.to(self.compute_dtype),
-                                    zc.allgather_bucket_size)
-        leaves = [part.leaf(flat, i).detach().requires_grad_(True)
-                  for i in range(len(part.shapes))]
-        if torch.is_grad_enabled():
-            self._g3 = torch.zeros_like(flat)
-            for i, leaf in enumerate(leaves):
-                leaf.grad = part.leaf(self._g3, i)
-        return leaves
-
     def _loss(self, batch) -> torch.Tensor:
         """The loss of one micro-batch on the compute copy of the masters
-        (autograd runs through the cast, so gradients land in fp32; at
-        stage 3 on the gathered compute leaves)."""
-        if self._stage3:
-            compute = self._gather_compute()
+        (autograd runs through the cast, so gradients land in fp32); at
+        stage 3 on the unit leaves, which gather on use (the caller holds
+        ``_z3.on_use()`` open)."""
+        if self._z3 is not None:
+            compute = self._z3.leaves
         else:
             compute = [p.to(self.compute_dtype) for p in self._masters]
         return self._loss_call(self._tree(compute), batch).float()
 
     def _backward_micro(self, batch, scale: float) -> torch.Tensor:
+        if self._z3 is not None:
+            # each unit's gradients are reduced into the shard
+            # accumulator as the backward finishes them (added into the full
+            # local buffer inside no_sync)
+            z = self._z3
+            z.defer = self._no_sync_depth > 0
+            with torch.enable_grad(), z.on_use():
+                loss = self._loss(batch)
+                z.run_backward(loss * scale)
+                z.finish()
+            return loss.detach()
         with torch.enable_grad():
             loss = self._loss(batch)
             (loss * scale).backward()
-        if self._stage3:
-            # this micro-batch's compute-dtype gradients join the pending
-            # local ones (fp32 from the second on, as at stage 0)
-            g, self._g3 = self._g3, None
-            if self._flat_grad is None:
-                self._flat_grad = g
-            else:
-                self._flat_grad = self._flat_grad.to(self._shard_grad.dtype)
-                self._flat_grad.add_(g)
         return loss.detach()
 
     def _grads(self) -> List[torch.Tensor]:
@@ -605,65 +635,102 @@ class DeepSpeedTPUEngine:
     def _apply_host(self) -> Dict[str, Any]:
         """The host-Adam tier's step (JAX ``_host_offload_step`` and
         ``_apply_host_adam``): divide the fp32 accumulator by ``gas``, norm
-        and clip on the device, narrow to the transport dtype and copy every
-        leaf into pinned staging (one wait), then, if the norm is finite,
-        the host step and the copy of its compute-dtype output into the live
-        leaves. The step counts either way."""
-        grads = self._acc_leaves
+        and clip on the device; then, if the norm is finite, the walk
+        (:meth:`_host_walk`) at ``lr_schedule(global_steps + 1)``. The step
+        counts either way."""
         self._acc.div_(self.gas)
-        norm = global_grad_norm(grads)
+        norm = global_grad_norm(self._acc_leaves)
         clip = self.config.gradient_clipping
         if clip and clip > 0:
             self._acc.mul_(torch.clamp(clip / (norm + 1e-6), max=1.0))
-        cuda = self.device.type == "cuda"
-        # each phase's time: a pair of CUDA events on the card, host seconds
-        # on the CPU (read by offload_timings)
-        marks: Dict[str, Any] = {}
-        t0 = time.perf_counter()
-        if cuda:
-            marks["d2h"] = _recorded_event(), torch.cuda.Event(enable_timing=True)
-            for stage, g in zip(self._grad_staging, grads):
-                stage.copy_(g.to(self._grad_transport), non_blocking=True)
-            marks["d2h"][1].record()
-            marks["d2h"][1].synchronize()
-            host_grads = self._grad_staging
-        else:
-            host_grads = [g.to(self._grad_transport) for g in grads]
-            marks["d2h"] = time.perf_counter() - t0
         finite = bool(torch.isfinite(norm))
         lr = float(self.lr_schedule(self.global_steps + 1))
-        if finite:
-            t1 = time.perf_counter()
-            out = self._param_staging if cuda else self._masters
-            with torch.no_grad():
-                self._host_adam.step(host_grads, lr=lr,
-                                     emit_bf16=self.compute_dtype == torch.bfloat16, out=out)
-            marks["host_adam"] = time.perf_counter() - t1
-            if cuda:
-                marks["h2d"] = _recorded_event(), torch.cuda.Event(enable_timing=True)
-                with torch.no_grad():
-                    for p, stage in zip(self._masters, self._param_staging):
-                        p.copy_(stage, non_blocking=True)
-                marks["h2d"][1].record()
-            else:
-                marks["h2d"] = 0.0           # the host step wrote the leaves
-        self._offload_marks = marks
+        self._offload_marks = self._host_walk(lr) if finite else {}
         self._acc.zero_()
         step = self.state.step
         self.state.step = step + 1
         return {"grad_norm": norm, "lr": lr, "loss_scale": 1.0, "overflow": not finite}
 
+    def _ring_buffers(self):
+        """The ring's chunk buffers, (gradients, parameters), made at the
+        first step: pinned when the device is the card."""
+        if self._ring is None:
+            pin = self.device.type == "cuda"
+            make = lambda dt: [torch.empty(self._ring_chunk, dtype=dt, pin_memory=pin)
+                               for _ in range(HOST_RING_SLOTS)]
+            self._ring = make(self._grad_transport), make(self.compute_dtype)
+        return self._ring
+
+    def _host_walk(self, lr: float) -> Dict[str, Any]:
+        """One host step over the ring, chunk by chunk: narrow chunk k + 1
+        to the transport dtype and copy it to the host while the host step
+        runs on chunk k, then copy chunk k's new compute-dtype values into
+        the live leaves. On the card every copy is asynchronous on the
+        current stream (the last ones land before the next forward), and a
+        slot is written again only once the copy that last read it is done;
+        on the CPU the same walk copies synchronously. Returns each phase's
+        time: per copy direction a list of CUDA event pairs on the card,
+        host seconds on the CPU; the host step's host seconds."""
+        cuda = self.device.type == "cuda"
+        g_ring, p_ring = self._ring_buffers()
+        acc = [a.view(-1) for a in self._acc_leaves]
+        live = [p.detach().view(-1) for p in self._masters]
+        plan, slots = self._ring_plan, HOST_RING_SLOTS
+        marks: Dict[str, Any] = {"d2h": [] if cuda else 0.0, "host_adam": 0.0,
+                                 "h2d": [] if cuda else 0.0}
+        emit = self.compute_dtype == torch.bfloat16
+
+        def copies(key, pairs):
+            t0 = _recorded_event() if cuda else time.perf_counter()
+            for dst, src in pairs:
+                dst.copy_(src, non_blocking=cuda)
+            if not cuda:
+                marks[key] += time.perf_counter() - t0
+                return None
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            marks[key].append((t0, end))
+            return end
+
+        def send(k):
+            g = g_ring[k % slots]
+            return copies("d2h", [(g[o:o + b - a], acc[i][a:b].to(self._grad_transport))
+                                  for i, a, b, o in plan[k]])
+
+        self._host_adam.begin_step()
+        t_walk = time.perf_counter()
+        with torch.no_grad():
+            arrived = send(0)
+            for k, chunk in enumerate(plan):
+                if cuda:
+                    arrived.synchronize()
+                    if k >= slots:        # the copy that last read this slot
+                        marks["h2d"][k - slots][1].synchronize()
+                nxt = send(k + 1) if k + 1 < len(plan) else None
+                g, out = g_ring[k % slots], p_ring[k % slots]
+                t0 = time.perf_counter()
+                self._host_adam.step_slices(
+                    [(i, a, b, g[o:o + b - a], out[o:o + b - a]) for i, a, b, o in chunk],
+                    lr=lr, emit_bf16=emit)
+                marks["host_adam"] += time.perf_counter() - t0
+                copies("h2d", [(live[i][a:b], out[o:o + b - a]) for i, a, b, o in chunk])
+                arrived = nxt
+        self._offload_walk_s = time.perf_counter() - t_walk
+        return marks
+
     def offload_timings(self) -> Dict[str, float]:
-        """Seconds of the last host-Adam step's phases: ``d2h`` (narrowing
-        and the copy into pinned staging), ``host_adam`` and ``h2d`` (the
-        copy into the live leaves; waited for here), from CUDA events on
-        the card and the host clock on the CPU; {} before a step, and no
-        ``host_adam`` / ``h2d`` after a skipped one."""
+        """Seconds of the last host-Adam step's phases, each summed over the
+        ring's chunks: ``d2h`` (narrowing and the copies to the host),
+        ``host_adam`` and ``h2d`` (the copies into the live leaves; waited
+        for here), from CUDA events on the card and the host clock on the
+        CPU. The phases overlap; the walk's wall time is
+        ``_offload_walk_s``. {} before a step and after a skipped one."""
         out = {}
         for key, mark in (self._offload_marks or {}).items():
-            if isinstance(mark, tuple):
-                mark[1].synchronize()
-                mark = mark[0].elapsed_time(mark[1]) / 1e3
+            if isinstance(mark, list):
+                if mark:
+                    mark[-1][1].synchronize()
+                mark = sum(a.elapsed_time(b) for a, b in mark) / 1e3
             out[key] = mark
         return out
 
@@ -868,9 +935,10 @@ class DeepSpeedTPUEngine:
         return metrics["loss"]
 
     def eval_batch(self, batch, compute_loss: bool = True) -> float:
-        with torch.no_grad():
-            return float(self._loss(pytree.tree_map(
-                lambda x: torch.as_tensor(x, device=self.device), batch)))
+        batch = pytree.tree_map(lambda x: torch.as_tensor(x, device=self.device), batch)
+        with torch.no_grad(), (self._z3.on_use() if self._z3 is not None
+                               else contextlib.nullcontext()):
+            return float(self._loss(batch))
 
     # ------------------------------------------------------------------
     # reference-compat imperative API: forward -> backward (x gas) -> step
@@ -912,13 +980,15 @@ class DeepSpeedTPUEngine:
         (and any deferred by ``no_sync``): at stage 0 into the imperative
         path's accumulator, at stages 1-3 into the shard accumulator."""
         if self._zero is not None:
-            self._zero.reduce_scatter_flat(
-                self._flat_grad, self._shard_grad,
-                self.config.zero_optimization.reduce_bucket_size, accumulate=True)
-            if self._stage3:
-                self._flat_grad = None    # freed until the next micro-batch
-            else:
-                self._flat_grad.zero_()
+            full = self._z3.local if self._stage3 else self._flat_grad
+            if full is not None:
+                self._zero.reduce_scatter_flat(
+                    full, self._shard_grad,
+                    self.config.zero_optimization.reduce_bucket_size, accumulate=True)
+                if self._stage3:
+                    self._z3.local = None    # freed until the next no_sync
+                else:
+                    full.zero_()
             self._pending_local = False
             return
         if self._compat_acc is None:
@@ -971,7 +1041,7 @@ class DeepSpeedTPUEngine:
         if self._zero is not None:
             self._shard_grad.zero_()
             if self._stage3:
-                self._flat_grad = None
+                self._z3.local = None
         self._pending_local = False
         self._compat_count = 0
         self._compat_pending = False
@@ -985,14 +1055,21 @@ class DeepSpeedTPUEngine:
         threads and block size). Training is invalid until
         ``reload_states``, as in the reference; here it raises. A tensor
         already in host memory (the storage tier's) stays where it is for
-        ``cpu``."""
+        ``cpu``. ``params`` moves the storages under ``state.params``: the
+        masters (at stages 1-2 their flat buffer, at stage 3 this rank's
+        shard) or, under the host-Adam tier, the compute leaves on the
+        device; the tensors stay the same objects (autograd's leaves, the
+        views, the optimizer's references) with their storage emptied."""
         if device not in ("cpu", "nvme"):
             raise ValueError(f"offload_states(device={device!r}): use 'cpu' or 'nvme'")
         for raw_kind in include:
             kind = self._canonical_kind(raw_kind)
             if kind in self._offloaded:
                 continue
-            leaves, spec = pytree.tree_flatten(self._state_part(kind))
+            if kind == "params":
+                self._offload_params(device, nvme_path)
+                continue
+            leaves, spec = pytree.tree_flatten(self.state.opt_state)
             tensors = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
             homes = {i: leaves[i].device for i in tensors}
             if device == "nvme":
@@ -1012,12 +1089,16 @@ class DeepSpeedTPUEngine:
                 if pin:
                     torch.cuda.current_stream(self.device).synchronize()
                 self._offloaded[kind] = ("cpu", homes, None)
-            self._set_state_part(kind, pytree.tree_unflatten(leaves, spec))
+            self.state.opt_state = pytree.tree_unflatten(leaves, spec)
 
     def reload_states(self) -> None:
         """Bring every offloaded state back where it lived, bitwise."""
         for kind, (where, homes, sw) in list(self._offloaded.items()):
-            leaves, spec = pytree.tree_flatten(self._state_part(kind))
+            if kind == "params":
+                self._reload_params(where, homes, sw)
+                del self._offloaded[kind]
+                continue
+            leaves, spec = pytree.tree_flatten(self.state.opt_state)
             if where == "nvme":
                 for i, x in zip(homes, sw.swap_in(kind, delete=True)):
                     leaves[i] = x
@@ -1027,8 +1108,60 @@ class DeepSpeedTPUEngine:
                     leaves[i] = leaves[i].to(home)
                 elif pin and not leaves[i].is_pinned():
                     leaves[i] = leaves[i].pin_memory()
-            self._set_state_part(kind, pytree.tree_unflatten(leaves, spec))
+            self.state.opt_state = pytree.tree_unflatten(leaves, spec)
             del self._offloaded[kind]
+
+    def _param_storages(self) -> List[torch.Tensor]:
+        """One byte view (uint8, the whole storage) of each distinct storage
+        that holds ``state.params``, in tree order."""
+        if self._stage3:
+            tensors = [self._master_shard]
+        elif self._zero is not None:
+            tensors = [self._flat_master]
+        else:
+            tensors = self._masters
+        views, seen = [], set()
+        for t in tensors:
+            if not t.untyped_storage().resizable():
+                # memory the engine does not own (a numpy array's, at stage
+                # 0): the tensor moves onto a storage of its own first
+                home = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                                           device=t.device)
+                with torch.no_grad():
+                    home.copy_(t)
+                    t.set_(home.untyped_storage(), 0, t.size(), t.stride())
+            st = t.untyped_storage()
+            if st._cdata not in seen:
+                seen.add(st._cdata)
+                views.append(torch.empty(0, dtype=torch.uint8, device=t.device).set_(st))
+        return views
+
+    def _offload_params(self, device: str, nvme_path: Optional[str]) -> None:
+        """Copy each params storage to host memory (pinned with a card) or
+        to files, then empty it (``resize_(0)``)."""
+        views = self._param_storages()
+        if device == "nvme":
+            sw = self._get_swapper(nvme_path)
+            sw.swap_out("params", views)
+            sw.synchronize("params")
+            self._offloaded["params"] = ("nvme", views, sw)
+        else:
+            pin = self.device.type == "cuda"
+            host = [torch.empty(v.numel(), dtype=torch.uint8, pin_memory=pin)
+                    .copy_(v, non_blocking=pin) for v in views]
+            if pin:
+                torch.cuda.current_stream(self.device).synchronize()
+            self._offloaded["params"] = ("cpu", views, host)
+        for v in views:
+            v.untyped_storage().resize_(0)
+
+    def _reload_params(self, where: str, views: List[torch.Tensor], saved) -> None:
+        back = saved.swap_in("params", delete=True) if where == "nvme" else saved
+        for v, h in zip(views, back):
+            v.untyped_storage().resize_(h.numel())
+            v.copy_(h, non_blocking=h.is_pinned())
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     @staticmethod
     def _canonical_kind(kind: str) -> str:
@@ -1038,18 +1171,6 @@ class DeepSpeedTPUEngine:
             return "params"
         raise ValueError(f"unknown offload kind {kind!r} "
                          "(use 'optimizer_state' or 'params')")
-
-    def _state_part(self, kind: str):
-        if kind == "params":
-            # the masters are the leaves autograd runs through (views of
-            # flat buffers over several ranks): moving them is not ported
-            raise NotImplementedError(
-                "offload_states(include=('params',)) is not ported yet: ROADMAP.md "
-                "Queue A item 7 (ZeRO-Offload); the optimizer state offloads")
-        return self.state.opt_state
-
-    def _set_state_part(self, kind: str, tree) -> None:
-        self.state.opt_state = tree
 
     def _get_swapper(self, nvme_path: Optional[str]):
         path = nvme_path or self.config.zero_optimization.offload_optimizer.nvme_path
@@ -1061,9 +1182,11 @@ class DeepSpeedTPUEngine:
             from .zero.swapper import AsyncTensorSwapper
 
             aio = self.config.aio
+            where = os.path.join(path, "dstpu_swap")
+            if comm.get_world_size() > 1:    # ranks sharing a path keep apart
+                where = os.path.join(where, f"rank_{comm.get_rank()}")
             self._swappers[path] = AsyncTensorSwapper(
-                os.path.join(path, "dstpu_swap"), num_threads=aio.thread_count,
-                block_size=aio.block_size)
+                where, num_threads=aio.thread_count, block_size=aio.block_size)
         return self._swappers[path]
 
     def _check_states_home(self) -> None:

@@ -8,8 +8,13 @@ shard)``, ``shard = ceil(n / world)``. A leaf may straddle ranks; the part
 of leaf i that rank r owns is its *fragment* (:meth:`FlatPartition.span`).
 Moving a whole flat buffer between the full and the sharded form is one
 collective per direction (per bucket): :meth:`all_gather_flat` and
-:meth:`reduce_scatter_flat`. :meth:`gather` and :meth:`scatter` move one
-leaf for the accessors (``utils/tensor_fragment.py``) and checkpoints.
+:meth:`reduce_scatter_flat`. Stage 3 moves one contiguous range of the
+layout at a time (a unit of leaves, ``runtime/zero/stage3.py``):
+:meth:`all_gather_range` (a broadcast from each rank that owns part of
+the range) and :meth:`reduce_scatter_range` (an fp32 all-reduce of the
+range, of which each rank keeps its part). :meth:`gather` and
+:meth:`scatter` move one leaf for the accessors
+(``utils/tensor_fragment.py``) and checkpoints.
 
 The JAX package shards each leaf on its largest divisible dim instead
 (``sharding.py``); the math is the same, and values, not layouts, are
@@ -114,3 +119,44 @@ class FlatPartition:
                 shard[a:b].add_(red)
             else:
                 shard[a:b].copy_(red)
+
+    def range_parts(self, lo: int, hi: int) -> List[Tuple[int, int]]:
+        """Per rank, the elements ``[a, b)`` of the flat range ``[lo, hi)``
+        that it owns (``a == b`` when none), in rank order."""
+        parts = []
+        for r in range(self.world):
+            a = min(max(lo, r * self.shard), hi)
+            parts.append((a, max(a, min(hi, (r + 1) * self.shard))))
+        return parts
+
+    def all_gather_range(self, shard: torch.Tensor, lo: int, hi: int, out: torch.Tensor,
+                         bucket_elems: int) -> None:
+        """Write the flat elements ``[lo, hi)`` into ``out`` (``[hi - lo]``, in
+        ``out``'s dtype: the cast commutes with the gather) from the ranks'
+        shards: each rank that owns a part broadcasts it, in buckets of at
+        most ``bucket_elems`` elements (a range mostly lies in one or two
+        ranks' shards, so no rank sends padding)."""
+        for r, (a, b) in enumerate(self.range_parts(lo, hi)):
+            for c in range(a, b, max(1, bucket_elems)):
+                k = min(bucket_elems, b - c)
+                piece = out[c - lo:c - lo + k]
+                if r == self.rank:
+                    piece.copy_(shard[c - self.start:c - self.start + k])
+                comm.broadcast(piece, self.axis, src=r)
+
+    def reduce_scatter_range(self, full: torch.Tensor, lo: int, hi: int,
+                             shard: torch.Tensor, bucket_elems: int) -> None:
+        """Mean-reduce ``full`` (this rank's values of the flat elements
+        ``[lo, hi)``, any dtype) across the ranks in fp32 and add this rank's
+        part of the result into ``shard``: one all-reduce per bucket of at
+        most ``bucket_elems`` elements (the range's parts are uneven across
+        the ranks, so an all-reduce moves fewer bytes than a reduce-scatter
+        padded to the longest part)."""
+        a_me, b_me = self.range_parts(lo, hi)[self.rank]
+        for c in range(lo, hi, max(1, bucket_elems)):
+            k = min(bucket_elems, hi - c)
+            piece = full[c - lo:c - lo + k].to(shard.dtype, copy=True)
+            comm.all_reduce(piece, self.axis, op="mean")
+            x0, x1 = max(a_me, c), min(b_me, c + k)
+            if x1 > x0:
+                shard[x0 - self.start:x1 - self.start].add_(piece[x0 - c:x1 - c])

@@ -10,6 +10,7 @@ This file imports only torch, numpy, the port and the gloo-world launcher
 ``tests/torch_dist_worker.py`` (torch only).
 """
 
+import gc
 import importlib
 
 import numpy as np
@@ -1494,3 +1495,124 @@ def test_offload_step_of_a_two_layer_model_on_card():
         assert leaf.dtype == torch.bfloat16 and leaf.is_cuda
         assert torch.equal(leaf.detach().cpu(), master.to(torch.bfloat16))
     assert set(eng.offload_timings()) == {"d2h", "host_adam", "h2d"}
+
+
+def test_stage3_gathers_units_on_use_on_card(tmp_path):
+    """Two ranks share cuda:0 over gloo at ZeRO stage 3: the first loss
+    bitwise stage 0's, the later close, with and without per-layer remat
+    (whose recompute gathers each layer from the autograd engine's device
+    thread), at most MAX_LIVE units at once, none left gathered."""
+    _need_card()
+    from deepspeed_tpu_torch.models import convert, init_params
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    from deepspeed_tpu_torch.runtime.zero.stage3 import MAX_LIVE
+
+    rng = np.random.default_rng(1)
+    model = dict(vocab_size=97, hidden_size=64, intermediate_size=96, num_layers=2,
+                 num_heads=4, num_kv_heads=2, max_seq_len=32)
+    params = convert._flatten(init_params(TransformerConfig(**model), device="cpu",
+                                          dtype=torch.float32))
+    inputs = {"model": model, "params": convert._nest({k: v.numpy() for k, v in params.items()}),
+              "batches": [rng.integers(0, 97, (8, 32)).astype(np.int64) for _ in range(3)],
+              "config": {"train_micro_batch_size_per_gpu": 2,
+                         "gradient_accumulation_steps": 2, "steps_per_print": 10**9,
+                         "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+                         "training_fastpath": {"attn_impl": "xla", "loss_impl": "xla"}}}
+    r0, r1 = run_world("cuda_stage3", 2, tmp_path, inputs, timeout=300)
+    ref = r0["stage0"]
+    for name in ("stage3", "stage3_remat"):
+        got = r0[name]
+        assert r1[name] == got and got[0] == ref[0]
+        np.testing.assert_allclose(got[1:], ref[1:], rtol=1e-5)
+        for r in (r0, r1):
+            assert max(r[name + "/peaks"].values()) <= MAX_LIVE
+            assert r[name + "/live_after"] == []
+
+
+def test_ring_walk_on_card_is_bitwise_the_walk_on_the_cpu(monkeypatch):
+    """The host-Adam step through the pinned ring with 64 KiB chunks (leaves
+    split across them): the same weights and gradients on the card and on
+    the CPU (no clipping: the two devices' norms may round apart) give the
+    same host masters and moments and the same bf16 leaves, bitwise; one
+    step counted, a host launch per slice."""
+    _need_card()
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
+                                            make_loss_fn)
+    from deepspeed_tpu_torch.ops import adam as host_adam
+    from deepspeed_tpu_torch.runtime import engine as teng
+
+    monkeypatch.setattr(teng, "HOST_RING_CHUNK_BYTES", 1 << 16)
+    cfg = llama_config("tiny", num_layers=2, dtype=torch.bfloat16)
+    config = {"train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 2,
+              "bf16": {"enabled": True}, "gradient_clipping": 0.0,
+              "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+              "zero_optimization": {"offload_optimizer": {"device": "cpu",
+                                                          "grad_dtype": "bfloat16"}},
+              "steps_per_print": 10**9}
+    init = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    engines = {}
+    for device in ("cuda", "cpu"):
+        params = torch.utils._pytree.tree_map(lambda x: x.to(device, copy=True), init)
+        engines[device], *_ = tds.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                                             model_parameters=params, config=config,
+                                             device=device)
+    card, cpu = engines["cuda"], engines["cpu"]
+    slices = sum(len(c) for c in card._ring_plan)
+    assert len(card._ring_plan) > 1 and slices > len(card._masters)
+    gen = torch.Generator().manual_seed(5)
+    for _ in range(2):
+        g = torch.randn(card._acc.numel(), generator=gen)
+        host_adam.reset_launch_counts()
+        for eng in (card, cpu):
+            eng._acc.copy_(g)
+            eng._apply()
+        torch.cuda.synchronize()
+        assert host_adam.launch_counts["cpu_adam"] == 2 * slices
+    assert all(t.is_pinned() for side in card._ring for t in side)
+    assert card._host_adam.step_count == cpu._host_adam.step_count == 2
+    for a, b in zip(card._host_adam.leaves(), cpu._host_adam.leaves()):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for a, b in zip(card._masters, cpu._masters):
+        assert torch.equal(a.detach().cpu(), b.detach())
+    assert set(card.offload_timings()) == {"d2h", "host_adam", "h2d"}
+
+
+def test_offload_params_frees_the_cards_blocks_on_card():
+    """offload_states(include=("params",)) at stage 0 on the card: the
+    allocated memory drops by the allocator blocks that hold the params, the
+    tensors come back the same objects, bitwise."""
+    _need_card()
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models import (TransformerLM, init_params, llama_config,
+                                            make_loss_fn)
+
+    cfg = llama_config("tiny", num_layers=2, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    eng, *_ = tds.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                             model_parameters=params,
+                             config={"train_micro_batch_size_per_gpu": 1,
+                                     "bf16": {"enabled": True}, "steps_per_print": 10**9})
+    eng.train_batch(torch.randint(0, cfg.vocab_size, (1, 1, 64), device="cuda"))
+    ids = [id(p) for p in eng._masters]
+    before = [p.detach().clone() for p in eng._masters]
+    # the allocator's blocks that hold the params (a block may exceed its
+    # request: 512-byte granules, and a cached block whose remainder is too
+    # small to split is handed out whole)
+    starts = {p.untyped_storage().data_ptr() for p in eng._masters}
+    blocks = 0
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for block in seg["blocks"]:
+            if addr in starts and block["state"] == "active_allocated":
+                blocks += block["size"]
+            addr += block["size"]
+    assert blocks >= sum(p.numel() * p.element_size() for p in eng._masters)
+    gc.collect()              # the step's unreachable tensors go before the count
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    eng.offload_states(include=("params",), device="cpu")
+    assert mem0 - torch.cuda.memory_allocated() == blocks
+    eng.reload_states()
+    assert [id(p) for p in eng._masters] == ids
+    assert all(torch.equal(p.detach(), b) for p, b in zip(eng._masters, before))

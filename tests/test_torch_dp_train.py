@@ -31,7 +31,14 @@ batches as the references here:
   a stage-3 save resumed bitwise at stage 3 and at stage 0, and read by
   ``zero_to_fp32``;
 * ``offload_optimizer`` cpu at stage 1: the storage tier (the JAX rule at
-  world size > 1), bitwise stage 1.
+  world size > 1), bitwise stage 1;
+* stage 3's gather-on-use: at most ``MAX_LIVE`` units gathered at once in
+  the forward, the backward and the per-layer remat recompute, every unit
+  free between steps and no whole-model buffer; per-layer remat under
+  ``cpu_checkpointing`` bitwise ``dots_saveable``; a tied-embedding GPT-2
+  family model against the JAX engine's stage 3 and the port's stage 0; a
+  loss function that is not ``TransformerLM``'s against stage 0; the
+  params offloaded to cpu and nvme and back, training on bitwise.
 """
 
 import jax
@@ -58,6 +65,9 @@ CONFIG = {"train_micro_batch_size_per_gpu": MICRO, "gradient_accumulation_steps"
           "optimizer": {"type": "adamw", "params": {"lr": 1e-3, "weight_decay": 0.01}},
           "zero_optimization": {"stage": 0}, "gradient_clipping": 1.0,
           "steps_per_print": 10**9}
+# a GPT-2 family model (layernorm, gelu, learned positions, tied embedding)
+GPT2 = dict(norm="layernorm", activation="gelu", position="learned", tie_embeddings=True,
+            num_kv_heads=4)
 FIRST_RTOL, LATER_RTOL = 1e-5, 1e-4
 STAGE_RTOL = 1e-5
 ACCESSOR_RTOL, ACCESSOR_ATOL = 1e-4, 1e-6
@@ -91,21 +101,37 @@ def problem():
         for i in range(len(dataset) // step):
             batches.append(np.stack([dataset[j] for j in order[i * step:(i + 1) * step]]))
     micro = np.stack([dataset[j] for j in range(MICRO * WORLD)])   # the window's batch
-    return jmodel, params, dataset, batches[:3], micro
+    gcfg = jtf.TransformerConfig(**dict(MODEL, **GPT2), dtype=jnp.float32)
+    gmodel = jtf.TransformerLM(gcfg)
+    gtree = gmodel.init(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32))["params"]
+    gparams = jax.tree.map(lambda x: np.asarray(x, np.float32), jax.device_get(gtree))
+    return jmodel, params, dataset, batches[:3], micro, (gmodel, gparams)
+
+
+def _mlp_inputs():
+    rng = np.random.default_rng(9)
+    params = {"hidden": {"w": rng.standard_normal((16, 32)).astype(np.float32) * 0.3,
+                         "b": np.zeros(32, np.float32)},
+              "out": {"w": rng.standard_normal((32, 5)).astype(np.float32) * 0.3}}
+    n = MICRO * WORLD * GAS
+    batches = [(rng.standard_normal((n, 16)).astype(np.float32),
+                rng.integers(0, 5, n).astype(np.int64)) for _ in range(3)]
+    return {"params": params, "batches": batches}
 
 
 @pytest.fixture(scope="module")
 def ranks(problem, tmp_path_factory):
-    _, params, dataset, batches, micro = problem
+    _, params, dataset, batches, micro, (_, gparams) = problem
     inputs = {"model": MODEL, "params": params, "config": CONFIG, "batches": batches,
-              "dataset": dataset, "cc_block": 512, "paths": PATHS, "micro": micro}
+              "dataset": dataset, "cc_block": 512, "paths": PATHS, "micro": micro,
+              "gpt2": {"config": GPT2, "params": gparams}, "mlp": _mlp_inputs()}
     return run_world("train", WORLD, tmp_path_factory.mktemp("dp_train"), inputs,
-                     timeout=150)
+                     timeout=400)
 
 
 @pytest.fixture(scope="module")
 def one_process(problem):
-    _, params, _, batches, _ = problem
+    _, params, _, batches, _, _ = problem
     cfg = ttf.TransformerConfig(**MODEL, dtype=torch.float32)
     p = convert.params_from_jax(params, cfg, device="cpu")
     eng, *_ = tds.initialize(model=ttf.make_loss_fn(ttf.TransformerLM(cfg, p)),
@@ -116,8 +142,10 @@ def one_process(problem):
     return losses
 
 
-def _jax_engine(problem, stage):
-    jmodel, params, _, _, _ = problem
+def _jax_engine(problem, stage, gpt2=False):
+    jmodel, params, _, _, _, (gmodel, gparams) = problem
+    if gpt2:
+        jmodel, params = gmodel, gparams
     eng, *_ = jds.initialize(model=jtf.make_loss_fn(jmodel),
                              model_parameters=jax.tree.map(jnp.asarray, params),
                              config=dict(CONFIG, zero_optimization={"stage": stage}),
@@ -343,3 +371,90 @@ def test_stage3_checkpoint_resumes_at_stage3_and_stage0(ranks):
         np.testing.assert_allclose(r["ckpt3_to0"]["losses"], r["stage3"][2:],
                                    rtol=STAGE_RTOL)
     assert ranks[0]["ckpt3/zero_to_fp32"]
+
+
+@pytest.fixture(scope="module")
+def jax_gpt2_stage3(problem):
+    eng = _jax_engine(problem, 3, gpt2=True)
+    return [float(eng.train_batch(jnp.asarray(b))) for b in problem[3]]
+
+
+@pytest.mark.parametrize("name", ["units", "units_remat"])
+def test_stage3_gathers_a_bounded_number_of_units(ranks, name):
+    """At most MAX_LIVE units are gathered at once through the forward, the
+    backward and (per-layer remat) the recompute, which gathers each layer
+    again; between steps every unit is free, and the whole-model buffers
+    of the gather-everything stage 3 are gone."""
+    from deepspeed_tpu_torch.runtime.zero.stage3 import MAX_LIVE
+
+    for r in ranks:
+        u = r[name]
+        assert sorted(u["names"]) == sorted(
+            ["embed", "final_norm", "lm_head"] + [f"layer_{i}" for i in range(MODEL["num_layers"])])
+        assert 1 <= u["peak_units"]["forward"] <= MAX_LIVE
+        assert 1 <= u["peak_units"]["backward"] <= MAX_LIVE
+        assert max(u["peak_bytes"].values()) < sum(u["unit_bytes"])
+        steps = len(r["stage3"])
+        if name == "units_remat":     # each layer's recompute gathers it
+            assert u["gathers"]["backward"] >= MODEL["num_layers"] * GAS * steps
+        assert u["live_after"] == [] and not any(u["storages"])
+        assert u["whole_buffers"] == [False, False, False]
+    assert ranks[0]["units"]["losses"] == ranks[0]["stage3"]
+    np.testing.assert_allclose(ranks[0]["units_remat"]["losses"], ranks[0]["stage3"],
+                               rtol=STAGE_RTOL)
+
+
+def test_stage3_cpu_checkpointing_matches_dots_saveable(ranks):
+    for r in ranks:
+        assert r["remat_cpu"] == r["remat_dots"]
+        for a, b in zip(r["remat_cpu/full"], r["remat_dots/full"]):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(ranks[0]["remat_cpu"], ranks[0]["stage3"], rtol=STAGE_RTOL)
+
+
+def test_stage3_tied_embedding_matches_jax_engine(ranks, jax_gpt2_stage3):
+    """A GPT-2 family model: its tied embedding is one unit used at both
+    ends of the model, gathered again for the head."""
+    from deepspeed_tpu_torch.runtime.zero.stage3 import MAX_LIVE
+
+    got = ranks[0]["gpt2_stage3"]
+    assert ranks[1]["gpt2_stage3"] == got
+    _close(got, jax_gpt2_stage3)
+    ref = ranks[0]["gpt2_stage0"]
+    assert got[0] == ref[0]
+    np.testing.assert_allclose(got[1:], ref[1:], rtol=STAGE_RTOL)
+    assert got[-1] < got[0]
+    lr = CONFIG["optimizer"]["params"]["lr"]
+    for path, a, b, c in zip(ranks[0]["gpt2/paths"], ranks[0]["gpt2_stage3/full"],
+                             ranks[1]["gpt2_stage3/full"], ranks[0]["gpt2_stage0/full"]):
+        np.testing.assert_array_equal(a, b)
+        # Adam divides a gradient of rounding size by its own RMS, so the
+        # stages' summation orders may move such an element by up to lr a
+        # step either way: every element of the key bias (softmax ignores a
+        # bias shared by every key, so its gradient is 0 up to rounding), at
+        # most one in a thousand elsewhere
+        np.testing.assert_allclose(a, c, rtol=0, atol=2 * len(got) * lr, err_msg=path)
+        if not path.endswith("k_proj/bias"):
+            off = ~np.isclose(a, c, rtol=STAGE_RTOL, atol=1e-7)
+            assert off.mean() <= 1e-3, (path, int(off.sum()))
+    names, peaks = ranks[0]["gpt2_stage3/units"]
+    assert "embed" in names and "lm_head" not in names
+    assert max(peaks.values()) <= MAX_LIVE
+
+
+def test_stage3_trains_a_loss_that_is_not_transformerlm(ranks):
+    got, ref = ranks[0]["mlp_stage3"], ranks[0]["mlp_stage0"]
+    assert ranks[1]["mlp_stage3"] == got
+    assert got[0] == ref[0]
+    np.testing.assert_allclose(got[1:], ref[1:], rtol=STAGE_RTOL)
+    for a, b in zip(ranks[0]["mlp_stage3/full"], ranks[0]["mlp_stage0/full"]):
+        np.testing.assert_allclose(a, b, rtol=STAGE_RTOL, atol=1e-7)
+    assert ranks[0]["mlp_stage3/units"][0] == ["hidden", "out"]
+
+
+@pytest.mark.parametrize("where", ["cpu", "nvme"])
+def test_stage3_offload_params_round_trip_bitwise(ranks, where):
+    for r in ranks:
+        p = r[f"params_{where}"]
+        assert p["emptied"] and p["refused"] and p["same_objects"] and p["bitwise"]
+        assert p["losses"] == r["stage3"]

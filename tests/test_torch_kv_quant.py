@@ -50,6 +50,18 @@ from deepspeed_tpu_torch.models import params_from_jax
 from deepspeed_tpu_torch.ops import paged_attention as port
 from tests.test_torch_model import ARGS, _batches, tiny_pair
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread computes them as
+    fast, and under several test workers sharing the cores it keeps the
+    file from waiting on other processes' threads at every parallel op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LOGIT_TOL = 1e-4
 

@@ -16,7 +16,13 @@
   equals ``train_batch`` bitwise; a resume is bitwise; the storage tier (a
   caller's optimizer, and ``device: nvme``) is bitwise the run without
   offload; ``offload_states`` / ``reload_states`` to cpu and nvme round-trip
-  bitwise; the ``tensor_fragment`` accessors read the host masters.
+  bitwise, the optimizer state and the params (at stage 0 and under the
+  host-Adam tier: the same tensors, their storage emptied and refilled);
+  the ``tensor_fragment`` accessors read the host masters.
+* The host step's walk over the transfer ring with chunks small enough to
+  split leaves: bitwise the JAX engine's ``_apply_host_adam`` on the same
+  gradients (masters, moments, the device leaves), one step counted per
+  walk and a host launch per slice.
 * ``cpu_checkpointing``: bitwise ``dots_saveable``'s gradients, its pack
   hook seeing exactly the products' outputs.
 """
@@ -347,6 +353,90 @@ def test_offload_states_round_trip_bitwise(problem, tmp_path, where):
         eng.offload_states(include=("gradients",))
     with pytest.raises(ValueError, match="nvme_path"):
         _port(problem).offload_states(device="nvme")
+
+
+@pytest.mark.parametrize("where", ["cpu", "nvme"])
+@pytest.mark.parametrize("tier", ["stage0", "host_adam"])
+def test_offload_states_params_round_trip_bitwise(problem, tmp_path, where, tier):
+    """The params leave and come back as the same tensors (autograd's
+    leaves, the host-Adam hooks' targets), their storage emptied while
+    away; training after is bitwise training that never offloaded."""
+    over = OFFLOAD if tier == "host_adam" else {}
+    include = ("params",) if tier == "host_adam" else ("optimizer", "params")
+    batches = problem[2]
+    want = _train(_port(problem, over), batches[:4])
+    eng = _port(problem, over)
+    got = _train(eng, batches[:2])
+    ids = [id(p) for p in eng._masters]
+    before = [p.detach().clone() for p in eng._masters]
+    eng.offload_states(include=include, device=where, nvme_path=str(tmp_path))
+    assert all(p.untyped_storage().size() == 0 for p in eng._masters)
+    with pytest.raises(RuntimeError, match="reload_states"):
+        eng.train_batch(torch.from_numpy(batches[2]))
+    eng.reload_states()
+    assert [id(p) for p in eng._masters] == ids
+    assert all(p.is_leaf and p.requires_grad for p in eng._masters)
+    assert all(torch.equal(a.detach(), b) for a, b in zip(eng._masters, before))
+    got += _train(eng, batches[2:4])
+    assert got == want
+
+
+@pytest.mark.parametrize("compute,transport", [("float32", "float32"),
+                                               ("bfloat16", "float32"),
+                                               ("bfloat16", "bfloat16")])
+def test_ring_walk_with_split_leaves_is_bitwise_jax_apply_host_adam(problem, monkeypatch,
+                                                                    compute, transport):
+    """Chunks of 4 KiB split the leaves across the ring; the same gradients
+    go into the port's accumulator (times gas, which the step divides out
+    exactly) and into the JAX engine's ``_apply_host_adam`` (bf16 transport:
+    their bf16 rounding, which the port's kernel widens exactly); no clip."""
+    from deepspeed_tpu_torch.ops import adam as tadam
+    from deepspeed_tpu_torch.runtime import engine as teng
+
+    monkeypatch.setattr(teng, "HOST_RING_CHUNK_BYTES", 4096)
+    over = {"zero_optimization": {"stage": 2, "offload_optimizer": {
+        "device": "cpu", "grad_dtype": transport}}, "gradient_clipping": 0.0,
+        "bf16": {"enabled": compute == "bfloat16"}}
+    port = _port(problem, over)
+    jmodel, params, _ = problem
+    jeng, *_ = jds.initialize(model=jtf.make_loss_fn(jmodel),
+                              model_parameters=jax.tree.map(jnp.asarray, params),
+                              config=dict(CONFIG, **over),
+                              topology=Topology(TopologySpec(), devices=jax.devices()[:1]))
+    assert jeng._host_adam is not None
+    plan = port._ring_plan
+    slices = sum(len(c) for c in plan)
+    assert len(plan) > 1 and slices > len(port._masters)    # leaves split
+    assert all(sum(b - a for _, a, b, _ in c) <= 4096 // 4 * (2 if transport == compute
+                                                             == "bfloat16" else 1)
+               for c in plan)
+    names = list(convert._flatten(port.state.params))
+    shapes = {k: tuple(v.shape) for k, v in convert._flatten(port.state.params).items()}
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        grads = {k: rng.standard_normal(shapes[k]).astype(np.float32) for k in names}
+        if transport == "bfloat16":
+            grads = {k: np.asarray(torch.from_numpy(g).bfloat16().float()) for k, g in
+                     grads.items()}
+        port._acc.copy_(torch.cat([torch.from_numpy(grads[k]).reshape(-1) for k in names])
+                        * port.gas)
+        tadam.reset_launch_counts()
+        port._apply()
+        assert tadam.launch_counts["cpu_adam"] == slices
+        jeng._apply_host_adam(convert._nest({k: jnp.asarray(g) for k, g in grads.items()}),
+                              1.0)
+    assert port._host_adam.step_count == jeng._host_adam.step_count == 2
+    for mine, theirs in ((port._host_adam.master, jeng._host_adam.master),
+                         (port._host_adam.exp_avg, jeng._host_adam.exp_avg),
+                         (port._host_adam.exp_avg_sq, jeng._host_adam.exp_avg_sq)):
+        want = _flat(jax.tree.map(np.asarray, theirs))
+        for k, v in _flat(mine).items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+    want = convert._flatten(jax.tree.map(lambda x: torch.tensor(
+        np.asarray(x.astype(jnp.float32))), jeng.state.params))
+    for k, v in convert._flatten(port.state.params).items():
+        assert v.dtype == getattr(torch, compute)
+        assert torch.equal(v.detach().float(), want[k]), k
 
 
 def test_tensor_fragment_reads_and_writes_the_host_masters(problem):

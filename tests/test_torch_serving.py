@@ -16,6 +16,7 @@ the JAX engine's greedy tokens.
 
 import numpy as np
 import pytest
+import torch
 
 from deepspeed_tpu.inference.v2 import InferenceEngineV2 as JEngine
 from deepspeed_tpu.inference.v2 import RaggedInferenceEngineConfig as JEC
@@ -32,6 +33,18 @@ from deepspeed_tpu_torch.serving import (FINISH_CANCELLED, FINISH_LENGTH,
 from deepspeed_tpu_torch.serving import scheduler as tsched
 from deepspeed_tpu_torch.serving.request import ServedResponse as TResp
 from tests.test_torch_model import tiny_pair
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread computes them as
+    fast, and under several test workers sharing the cores it keeps the
+    file from waiting on other processes' threads at every parallel op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ENGINE = dict(token_budget=32, max_ragged_sequence_count=4, max_chunk_size=16,
               num_kv_blocks=96, kv_block_size=4, max_blocks_per_seq=24,

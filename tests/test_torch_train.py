@@ -44,6 +44,18 @@ from deepspeed_tpu_torch.ops.fastpath import reset_fastpath
 from deepspeed_tpu_torch.runtime import config as tconfig
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread computes them as
+    fast, and under several test workers sharing the cores it keeps the
+    file from waiting on other processes' threads at every parallel op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-5
 FAMILIES = {
     "llama": dict(num_kv_heads=2),

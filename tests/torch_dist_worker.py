@@ -197,13 +197,16 @@ def scenario_compressed(rank, world, inputs, workdir):
     return out
 
 
-def _engine(inputs, overrides=None, training_data=None, device="cpu"):
+def _engine(inputs, overrides=None, training_data=None, device="cpu", model=None):
     import deepspeed_tpu_torch as tds
     from deepspeed_tpu_torch.models import convert
     from deepspeed_tpu_torch.models import transformer as ttf
 
-    cfg = ttf.TransformerConfig(**inputs["model"], dtype=torch.float32)
-    params = convert.params_from_jax(inputs["params"], cfg, device=device)
+    model = model or {}
+    cfg = ttf.TransformerConfig(**dict(inputs["model"], **model.get("config", {})),
+                                dtype=torch.float32)
+    params = convert.params_from_jax(model.get("params", inputs["params"]), cfg,
+                                     device=device)
     config = dict(inputs["config"], **(overrides or {}))
     return tds.initialize(model=ttf.make_loss_fn(ttf.TransformerLM(cfg, params)),
                           model_parameters=params, config=config,
@@ -456,6 +459,8 @@ def _zero_stages(rank, inputs, workdir, batches, out):
                          "local_grad": [_np(tf.safe_get_local_grad(eng, p)) for p in paths]}
     reset_fastpath()
 
+    _stage3_units(inputs, workdir, batches, out)
+
     # a stage-3 save after two steps, resumed by fresh engines at stage 3
     # (bitwise against the uninterrupted run) and at stage 0
     ckpt = os.path.join(workdir, "ckpt3")
@@ -484,6 +489,101 @@ def _zero_stages(rank, inputs, workdir, batches, out):
                                     for p, a in zip(_paths(first), saved))
 
 
+def _mlp_loss(params, batch, rng=None):
+    """A loss function that is not TransformerLM's: a two-layer MLP
+    classifier on a nested tree (units ``hidden`` and ``out``)."""
+    h = torch.tanh(batch["x"] @ params["hidden"]["w"] + params["hidden"]["b"])
+    logits = h @ params["out"]["w"]
+    return torch.nn.functional.cross_entropy(logits, batch["y"].long())
+
+
+def _stage3_units(inputs, workdir, batches, out):
+    """Stage 3's gather-on-use: the units gathered at once in the forward
+    and the backward, with and without per-layer remat; per-layer remat
+    under cpu_checkpointing against dots_saveable; a tied-embedding GPT-2
+    family model at stages 0 and 3; a loss function that is not
+    TransformerLM's at stages 0 and 3; the params offloaded to cpu and nvme
+    and back between steps."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.ops.fastpath import reset_fastpath
+    from deepspeed_tpu_torch.runtime import activation_checkpointing as tac
+
+    zero = lambda stage: {"zero_optimization": {"stage": stage}}
+    for name, model in (("units", None),
+                        ("units_remat", {"config": {"remat": True}})):
+        eng, *_ = _engine(inputs, zero(3), model=model)
+        z = eng._z3
+        out[name] = {"losses": [float(eng.train_batch(b)) for b in batches],
+                     "peak_units": dict(z.peak_units), "peak_bytes": dict(z.peak_bytes),
+                     "gathers": dict(z.gathers), "names": [u[0] for u in z.units],
+                     "unit_bytes": list(z._nbytes), "live_after": z.live,
+                     "storages": [s.size() for s in z._storages],
+                     "whole_buffers": [hasattr(eng, "_gather_compute"),
+                                       getattr(eng, "_g3", None) is not None,
+                                       eng._flat_grad is not None]}
+        reset_fastpath()
+    # cpu_checkpointing (per-layer remat, no policy) against dots_saveable
+    saved = tac.get_config()
+    try:
+        for name, policy, cpu in (("remat_dots", "dots_saveable", False),
+                                  ("remat_cpu", None, True)):
+            tac._config.update(policy=None, cpu_checkpointing=cpu)
+            eng, *_ = _engine(inputs, zero(3), model={"config": {
+                "remat": True, "remat_policy": policy}})
+            out[name] = [float(eng.train_batch(b)) for b in batches]
+            out[name + "/full"] = _full_masters(eng)
+            reset_fastpath()
+    finally:
+        tac._config.update(saved)
+    # a tied-embedding GPT-2 family model
+    for stage in (0, 3):
+        eng, *_ = _engine(inputs, zero(stage), model=inputs["gpt2"])
+        out[f"gpt2_stage{stage}"] = [float(eng.train_batch(b)) for b in batches]
+        out[f"gpt2_stage{stage}/full"] = _full_masters(eng)
+        if stage == 3:
+            out["gpt2_stage3/units"] = ([u[0] for u in eng._z3.units],
+                                        dict(eng._z3.peak_units))
+            out["gpt2/paths"] = _paths(eng)
+        reset_fastpath()
+    # a loss function that is not TransformerLM's
+    mlp = inputs["mlp"]
+    for stage in (0, 3):
+        params = {k: {n: torch.from_numpy(v.copy()) for n, v in sub.items()}
+                  for k, sub in mlp["params"].items()}
+        config = dict(inputs["config"], **zero(stage))
+        eng, *_ = tds.initialize(model=_mlp_loss, model_parameters=params, config=config,
+                                 device="cpu")
+        out[f"mlp_stage{stage}"] = [
+            float(eng.train_batch({"x": torch.from_numpy(x), "y": torch.from_numpy(y)}))
+            for x, y in mlp["batches"]]
+        out[f"mlp_stage{stage}/full"] = _full_masters(eng)
+        if stage == 3:
+            out["mlp_stage3/units"] = ([u[0] for u in eng._z3.units],
+                                       dict(eng._z3.peak_units))
+        reset_fastpath()
+    # the params (this rank's shard) to cpu and nvme and back between steps
+    for where in ("cpu", "nvme"):
+        eng, *_ = _engine(inputs, zero(3))
+        losses = [float(eng.train_batch(b)) for b in batches[:2]]
+        before = [t.clone() for t in eng._masters]
+        ids = [id(t) for t in eng._masters]
+        eng.offload_states(include=("params",), device=where,
+                           nvme_path=os.path.join(workdir, f"swap_{where}"))
+        emptied = eng._master_shard.untyped_storage().size() == 0
+        try:
+            eng.train_batch(batches[2])
+            refused = False
+        except RuntimeError:
+            refused = True
+        eng.reload_states()
+        out[f"params_{where}"] = {
+            "emptied": emptied, "refused": refused,
+            "same_objects": ids == [id(t) for t in eng._masters],
+            "bitwise": all(torch.equal(a, b) for a, b in zip(eng._masters, before)),
+            "losses": losses + [float(eng.train_batch(b)) for b in batches[2:]]}
+        reset_fastpath()
+
+
 def scenario_cuda_step(rank, world, inputs, workdir):
     """Two ranks sharing cuda:0 over gloo: one int8-compressed step (the
     quant kernels run in both ranks)."""
@@ -497,9 +597,30 @@ def scenario_cuda_step(rank, world, inputs, workdir):
             "mode": eng._dp_grad_mode}
 
 
+def scenario_cuda_stage3(rank, world, inputs, workdir):
+    """Two ranks sharing cuda:0 over gloo: stage 0, then stage 3 with and
+    without per-layer remat, from the same weights on the same batches (the
+    backward's gathers run on the autograd engine's device thread)."""
+    from deepspeed_tpu_torch.ops.fastpath import reset_fastpath
+
+    batches = [torch.from_numpy(b).cuda() for b in inputs["batches"]]
+    out = {}
+    for name, stage, model in (("stage0", 0, None), ("stage3", 3, None),
+                               ("stage3_remat", 3, {"config": {"remat": True}})):
+        eng, *_ = _engine(inputs, {"zero_optimization": {"stage": stage}}, device="cuda",
+                          model=model)
+        out[name] = [float(eng.train_batch(b)) for b in batches]
+        if stage == 3:
+            out[name + "/peaks"] = dict(eng._z3.peak_units)
+            out[name + "/live_after"] = eng._z3.live
+        reset_fastpath()
+    return out
+
+
 SCENARIOS = {"comm": scenario_comm, "comm_rooted": scenario_comm_rooted,
              "compressed": scenario_compressed,
-             "train": scenario_train, "cuda_step": scenario_cuda_step}
+             "train": scenario_train, "cuda_step": scenario_cuda_step,
+             "cuda_stage3": scenario_cuda_stage3}
 
 
 def main():
