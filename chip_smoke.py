@@ -74,13 +74,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    timed beside its plain version and the library composite (bf16 matmul +
    F.cross_entropy), the forward and the backward's dl, dh and dK kernels
    on both routes at the main shape, and its peak extra memory against the
-   composite's; the host Adam of ZeRO-Offload bitwise its plain version
-   (odd sizes, AdamW and L2, bias correction on and off, bf16 out, a bf16
-   gradient step) and timed over TinyLlama-1.1B's 201 leaves beside
-   ``torch._fused_adamw_`` on CPU tensors and a host-bandwidth bound (a
-   measured torch CPU copy), and over one layer beside its plain version;
-   the aio pool's 256 MiB write and read back beside one thread's
-   ``os.pwrite`` / ``os.preadv``;
+   composite's; the host Adam of ZeRO-Offload, each route the host runs
+   (``avx512``, ``avx2``, ``scalar``) bitwise its plain version (every tail
+   length of 8 and 16 lanes, denormal masters, inf and NaN gradients, AdamW
+   and L2, bias correction on and off, bf16 out, a bf16 gradient step) and
+   one library call over many slices bitwise a call a slice, each route
+   timed over TinyLlama-1.1B's 201 leaves with fp32 and bf16 gradients
+   beside ``torch._fused_adamw_`` on CPU tensors and the bound (a measured
+   read-modify-write stream, an in-place ``add_``), and over one layer
+   beside its plain version; the aio pool's write and read split by
+   workers and block size, and its 256 MiB write and read back beside one
+   thread's ``os.pwrite`` / ``os.preadv`` and ``torch.save`` +
+   ``torch.load``;
 4. serving slice — Llama-2-7B at full width (bf16, seeded random weights
    made on the card) served by ``LLMServer`` over ``InferenceEngineV2``: 16
    requests with seeded prompt lengths in [128, 1024], 128 new tokens each.
@@ -202,8 +207,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    figures, the units gathered at once and the step times (two ranks
    sharing one card, not a scaling number) are printed;
 19. ZeRO-Offload at full size — Llama-2-7B (or phi-3-mini-4k when the
-   host's MemAvailable is below the 7B's host need: 12P, the transfer
-   ring and HOST_REST_BYTES) trained on one card with the optimizer on the
+   host's MemAvailable stays below the 7B's host need, 12P, the transfer
+   ring and HOST_REST_BYTES, for HOST_MEMORY_WAIT_S) trained on one card with the optimizer on the
    host: seq 4096, micro 1, gas 2, per-layer remat, bf16, bf16 gradient
    transport, clipping 1.0, WarmupLR, 1 warm-up and 3 timed steps: losses
    finite and falling, no fused-Adam launch and one host step a step (a
@@ -1411,8 +1416,8 @@ def adam_phase(adam):
 
 def host_copy_rate(nbytes: int = 2 << 30) -> float:
     """Bytes per second of one large torch copy in host memory (each byte
-    read once and written once, both counted): the host-bandwidth yardstick
-    of the host kernels' bounds. Best of three, after a warm-up."""
+    read once and written once, both counted), one of host_ceiling's
+    rates. Best of three, after a warm-up."""
     src = torch.ones(nbytes, dtype=torch.uint8)
     dst = torch.empty_like(src)
     dst.copy_(src)
@@ -1422,6 +1427,84 @@ def host_copy_rate(nbytes: int = 2 << 30) -> float:
         dst.copy_(src)
         best = min(best, time.perf_counter() - t0)
     return 2 * nbytes / best
+
+
+def host_rmw_rate(nbytes: int = 2 << 30) -> float:
+    """Bytes per second of an in-place ``a.add_(b)`` over two fp32 tensors of
+    ``nbytes`` each on all of torch's host threads, 12 B an element (a and b
+    read, a written): a read-modify-write stream, as the host Adam's are
+    (its outputs overwrite its inputs, so no write costs the extra read for
+    ownership that a copy's destination does). One of host_ceiling's
+    rates. Best of three, after a warm-up."""
+    a = torch.ones(nbytes // 4)
+    b = torch.ones(nbytes // 4)
+    a.add_(b)
+    best = math.inf
+    for _ in range(3):
+        t0 = time.perf_counter()
+        a.add_(b)
+        best = min(best, time.perf_counter() - t0)
+    return 12 * a.numel() / best
+
+
+#: dstpu_host_stream's kinds: (name, bytes an element)
+HOST_STREAMS = (("read", 4), ("a += b", 12), ("host Adam traffic", 30), ("streamed copy", 8))
+
+
+def host_stream_pass(kind: int, n: int = 1 << 27):
+    """A function that runs one pass of ``dstpu_host_stream`` ``kind`` (the
+    host Adam library's pool moving bytes with no Adam arithmetic) over
+    arrays of ``n`` elements made once, and returns that pass's bytes per
+    second."""
+    from deepspeed_tpu_torch.ops import adam as host_adam
+
+    lib = host_adam.CPUAdamBuilder().load()
+    arrays = [torch.ones(n) for _ in range(4)] + [torch.empty(n, dtype=torch.bfloat16)]
+
+    def run(arrays=arrays) -> float:
+        secs = lib.dstpu_host_stream(kind, *(t.data_ptr() for t in arrays), n, 0)
+        if secs <= 0:
+            raise SystemExit(f"dstpu_host_stream refused kind {kind}")
+        return HOST_STREAMS[kind][1] * n / secs
+
+    return run
+
+
+def host_ceiling() -> tuple:
+    """(rate, text): the host's memory ceiling in bytes per second, the
+    fastest of the library pool's streams (host_stream_pass: a read, an
+    in-place add, the host Adam's own traffic of 30 B an element with its
+    bf16 output streamed, a streamed copy; arrays of 512 MiB, the best of
+    ten passes after a warm-up each) and torch's in-place ``add_`` and copy.
+    None of them is a host kernel of the port, so a kernel is never held to
+    a bound it set; a host without avx512 keeps torch's two. Phase 3 times
+    the host Adam traffic stream again beside each kernel call."""
+    from deepspeed_tpu_torch.ops import adam as host_adam
+
+    rates = {"torch add_ (12 B)": host_rmw_rate(), "torch copy (2 x B)": host_copy_rate()}
+    if "avx512" in host_adam.supported_routes():
+        for kind, (name, width) in enumerate(HOST_STREAMS):
+            run = host_stream_pass(kind)
+            rates[f"pool {name} ({width} B)"] = max(run() for _ in range(11))
+            del run
+    best = max(rates, key=rates.get)
+    text = ", ".join(f"{k} {v / 1e9:.1f}" for k, v in rates.items())
+    return rates[best], f"{text} GB/s; the ceiling is the {best}'s"
+
+
+def host_bound(nbytes: float, rate: float, calls) -> tuple:
+    """(ms, note): the least time of ``nbytes`` of host memory traffic over
+    ``rate`` (host_ceiling's), or over the byte rate of the fastest of
+    ``calls`` (``(name, bytes, ms)``: calls that are not the kernel's own,
+    the library's and the plain version's) where one ran faster than
+    ``rate`` allows; the note then names it."""
+    best, note = rate, ""
+    for name, b, ms in calls:
+        if ms and b / ms * 1e3 > best:
+            best = b / ms * 1e3
+            note = (f"; {name} ran at {best / 1e9:.1f} GB/s, above the ceiling: the "
+                    f"bound is taken from its byte rate")
+    return nbytes / best * 1e3, note
 
 
 def host_ms(fn, iters: int = 2, warmup: int = 1) -> float:
@@ -1434,85 +1517,229 @@ def host_ms(fn, iters: int = 2, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def host_adam_phase(rate):
-    """The host Adam (ops/csrc/host/cpu_adam.cpp, built with g++ on this
-    machine) against its plain version bitwise: odd sizes (some split
-    across threads), AdamW and L2, bias correction on and off, three steps
-    with the bf16 emission, the second with bf16 gradients. Then timed over
-    TinyLlama-1.1B's 201 leaves (fp32 gradients, bf16 out) beside
-    torch._fused_adamw_ on the same CPU tensors and the host-bandwidth
-    bound (30 bytes an element over ``rate``), and over one decoder
-    layer's 9 leaves beside the plain version too (the plain version's
-    float64 fused multiply-adds are too slow for the whole tree)."""
-    from deepspeed_tpu_torch.models import llama_config, param_shapes
-    from deepspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam, cpu_adam_reference
+def host_rounds(calls: dict, rounds: int = 5) -> dict:
+    """Host-clock milliseconds of each of ``calls`` (name -> fn), one a
+    round, over ``rounds`` rounds that take the calls in turns, the order
+    reversed every other round, after one warm-up call each: the host's
+    memory is shared with its neighbours, so calls compared are timed side
+    by side. The rows take the median."""
+    for fn in calls.values():
+        fn()
+    times = {name: [] for name in calls}
+    for r in range(rounds):
+        for name in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            t0 = time.perf_counter()
+            calls[name]()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return times
 
-    gen = torch.Generator().manual_seed(11)
-    sizes = [1, 3, 4097, (1 << 16) + 1, 3 * (1 << 18) + 7]
+
+#: phase 3's host-Adam parity sizes: every tail length of 8 and 16 lanes,
+#: and leaves the pool splits over its threads
+HOST_ADAM_SIZES = list(range(1, 33)) + [4097, (1 << 16) + 1, 3 * (1 << 18) + 7]
+
+
+def host_adam_parity(route: str) -> bool:
+    """One route of the host Adam against its plain version bitwise (the
+    bits, NaNs included): HOST_ADAM_SIZES, denormal masters, AdamW and L2,
+    bias correction on and off, three steps with the bf16 emission, bf16
+    gradients in the second and infinite and NaN ones in the third; then
+    one library call over a plan of slices at odd offsets against the same
+    plan one call a slice, over two steps (fp32, then bf16 gradients)."""
+    from deepspeed_tpu_torch.ops import adam as host_adam
+    from deepspeed_tpu_torch.ops.adam import (DeepSpeedCPUAdam, bf16_reference,
+                                              cpu_adam_reference)
+
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    same = lambda x, y: torch.equal(bits(x), bits(y))
+    sizes = HOST_ADAM_SIZES
     ok = True
     for adamw in (True, False):
         for bc in (True, False):
+            gen = torch.Generator().manual_seed(11)
             ps = [torch.randn(n, generator=gen) for n in sizes]
+            for p in ps:
+                p[::5], p[1::7] = 1e-40, -3e-39          # denormal masters
             opt = DeepSpeedCPUAdam(ps, lr=3e-4, betas=(0.9, 0.95), weight_decay=0.1,
-                                   adamw_mode=adamw, bias_correction=bc)
+                                   adamw_mode=adamw, bias_correction=bc, route=route)
             ref = [(p.clone(), torch.zeros_like(p), torch.zeros_like(p)) for p in ps]
             for step in (1, 2, 3):
                 gs = [0.1 * torch.randn(n, generator=gen) for n in sizes]
+                if step == 3:
+                    for g in gs:
+                        g[1::9], g[2::13], g[3::17] = math.inf, math.nan, -math.inf
                 if step == 2:
                     gs = [g.to(torch.bfloat16) for g in gs]
                 out = opt.step(gs, emit_bf16=True)
                 ref = [cpu_adam_reference(*r, g, 3e-4, (0.9, 0.95), 1e-8, 0.1, adamw, bc,
                                           step) for r, g in zip(ref, gs)]
-            good = all(torch.equal(a, b) for got, want in zip(zip(*opt.leaves()), ref)
-                       for a, b in zip(got, want))
-            good &= all(torch.equal(o, r[0].to(torch.bfloat16)) for o, r in zip(out, ref))
+            good = all(same(x, y) for got, want in zip(zip(*opt.leaves()), ref)
+                       for x, y in zip(got, want))
+            good &= all(same(o, bf16_reference(r[0])) for o, r in zip(out, ref))
             ok &= good
-            log(f"parity cpu_adam adamw_mode={adamw} bias_correction={bc} sizes {sizes}, "
-                f"3 steps (bf16 gradients in the second), bf16 out: masters, moments and "
-                f"bf16 bitwise the plain version: {'ok' if good else 'FAIL'}")
-    if not ok:
+            log(f"parity cpu_adam route {route} adamw_mode={adamw} bias_correction={bc}: "
+                f"{len(sizes)} leaves of 1-32, 4097, 65537 and 786439 elements, denormal "
+                f"masters, 3 steps (bf16 gradients in the second, inf and NaN ones in the "
+                f"third), bf16 out: masters, moments and bf16 bitwise the plain version: "
+                f"{'ok' if good else 'FAIL'}")
+    gen = torch.Generator().manual_seed(12)
+    ps = [torch.randn(n, generator=gen) for n in sizes]
+    plan = [(i, a, b) for i, n in enumerate(sizes)
+            for a, b in zip([0, n // 3 | 1, 2 * n // 3 | 1], [n // 3 | 1, 2 * n // 3 | 1, n])
+            if a < b <= n]
+    batched, single = (DeepSpeedCPUAdam(ps, lr=3e-4, weight_decay=0.1, route=route)
+                       for _ in range(2))
+    calls = []
+    good = True
+    for dtype in (torch.float32, torch.bfloat16):
+        gs = [torch.randn(n, generator=gen).to(dtype) for n in sizes]
+        outs = [[torch.empty(n, dtype=torch.bfloat16) for n in sizes] for _ in range(2)]
+        for opt, o, per_slice in ((batched, outs[0], False), (single, outs[1], True)):
+            host_adam.reset_launch_counts()
+            opt.begin_step()
+            work = [(i, a, b, gs[i][a:b], o[i][a:b]) for i, a, b in plan]
+            for chunk in ([[w] for w in work] if per_slice else [work]):
+                opt.step_slices(chunk, emit_bf16=True)
+            calls.append((host_adam.call_counts["cpu_adam"], host_adam.launch_counts["cpu_adam"]))
+        good &= all(same(x, y) for x, y in zip(*outs))
+    good &= all(same(x, y) for a, b in zip(batched.leaves(), single.leaves())
+                for x, y in zip(a, b))
+    good &= calls == [(1, len(plan)), (len(plan), len(plan))] * 2
+    log(f"parity cpu_adam route {route}: one library call over {len(plan)} slices at odd "
+        f"offsets bitwise {len(plan)} calls of one slice each, 2 steps (fp32, bf16 "
+        f"gradients), (calls, launches) {calls}: {'ok' if good else 'FAIL'}")
+    return ok and good
+
+
+def host_adam_phase(rate):
+    """The host Adam (ops/csrc/host/cpu_adam.cpp, built with g++ on this
+    machine): every route this host runs bitwise its plain version
+    (host_adam_parity). Then each route timed over TinyLlama-1.1B's 201
+    leaves with fp32 and with bf16 gradients (bf16 out, all of the pool's
+    threads) beside torch._fused_adamw_ on the same CPU tensors and the
+    bound (30 B an element with fp32 gradients, 28 B with bf16 ones, over
+    host_ceiling's ``rate``); on an avx512 host that route against itself
+    without its streamed bf16 stores and without its prefetch too. Then the
+    widest route over one
+    decoder layer's 9 leaves beside the plain version (its float64 fused
+    multiply-adds are too slow for the whole tree): the kernels line's
+    row. Kernel and library times are medians of host_rounds."""
+    from deepspeed_tpu_torch.models import llama_config, param_shapes
+    from deepspeed_tpu_torch.ops import adam as host_adam
+    from deepspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam, cpu_adam_reference
+
+    routes = host_adam.supported_routes()
+    threads = host_adam.CPUAdamBuilder().load().dstpu_cpu_adam_threads()
+    log(f"host adam: this host runs the routes {routes}, widest {host_adam.best_route()}; "
+        f"a pool of {threads} threads (the CPUs this process may use; os.cpu_count() "
+        f"{os.cpu_count()})")
+    if not all([host_adam_parity(r) for r in routes]):
         raise SystemExit("cpu_adam parity FAILED")
 
-    def timed(shapes, label, plain):
-        n = sum(math.prod(s) for s in shapes)
+    def timed(shapes, label, routes, plain, rounds, stores=False):
+        sizes = [math.prod(s) for s in shapes]
+        n = sum(sizes)
         flat = torch.full((n,), 0.02)
-        leaves = list(torch.split(flat, [math.prod(s) for s in shapes]))
-        opt = DeepSpeedCPUAdam(leaves, lr=3e-4, weight_decay=0.1)
-        del flat, leaves
-        grads = list(torch.split(torch.full((n,), 1e-3), [math.prod(s) for s in shapes]))
-        outs = list(torch.split(torch.empty(n, dtype=torch.bfloat16),
-                                [math.prod(s) for s in shapes]))
-        ms = host_ms(lambda: opt.step(grads, emit_bf16=True, out=outs))
+        opt = DeepSpeedCPUAdam(list(torch.split(flat, sizes)), lr=3e-4, weight_decay=0.1)
+        del flat
+        grads = {torch.float32: list(torch.split(torch.full((n,), 1e-3), sizes))}
+        grads[torch.bfloat16] = list(torch.split(torch.full((n,), 1e-3, dtype=torch.bfloat16),
+                                                 sizes))
+        outs = list(torch.split(torch.empty(n, dtype=torch.bfloat16), sizes))
         p, m, v = opt.leaves()
         steps = [torch.tensor(1.0) for _ in p]
-        lib = host_ms(lambda: torch._fused_adamw_(
-            p, grads, m, v, [], steps, lr=3e-4, beta1=0.9, beta2=0.999, weight_decay=0.1,
-            eps=1e-8, amsgrad=False, maximize=False))
+
+        clib = opt.lib
+        ahead = clib.dstpu_cpu_adam_set_prefetch(0)       # the library's distance
+        clib.dstpu_cpu_adam_set_prefetch(ahead)
+
+        def kernel(route, dt, stream=1, prefetch=ahead):
+            opt.route = route
+            clib.dstpu_cpu_adam_set_stream(stream)
+            clib.dstpu_cpu_adam_set_prefetch(prefetch)
+            try:
+                opt.step(grads[dt], emit_bf16=True, out=outs)
+            finally:
+                clib.dstpu_cpu_adam_set_stream(1)
+                clib.dstpu_cpu_adam_set_prefetch(ahead)
+
+        calls = {"library": lambda: torch._fused_adamw_(
+            p, grads[torch.float32], m, v, [], steps, lr=3e-4, beta1=0.9, beta2=0.999,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False)}
+        calls.update({(r, dt): (lambda r=r, dt=dt: kernel(r, dt)) for r in routes
+                      for dt in grads})
+        # the avx512 route without each of its two tunings
+        variants = {"plain bf16 stores": dict(stream=0), "no prefetch": dict(prefetch=0)}
+        if stores:
+            calls.update({(f"avx512 {name}", dt): (lambda dt=dt, kw=kw: kernel("avx512", dt, **kw))
+                          for name, kw in variants.items() for dt in grads})
+        # the host Adam's traffic alone, in the same rounds: the ceiling
+        # where it runs faster than it did before the phase
+        ceiling = []
+        if "avx512" in host_adam.supported_routes():
+            traffic = host_stream_pass(2)
+            calls["ceiling"] = lambda: ceiling.append(traffic())
+        each = host_rounds(calls, rounds)
+        each.pop("ceiling", None)
+        row_rate = max([rate] + ceiling)
+        times = {k: float(np.median(t)) for k, t in each.items()}
+        lib = times.pop("library")
         plain_ms = (host_ms(lambda: [cpu_adam_reference(*a, 3e-4, weight_decay=0.1)
-                                     for a in zip(p, m, v, grads)], iters=1, warmup=0)
-                    if plain else None)
-        nbytes = 30 * n       # read p, m, v, g (fp32); write p, m, v (fp32), out (bf16)
-        b_ms = nbytes / rate * 1e3
-        log(f"timing cpu_adam ({label}: {len(shapes)} leaves, {n} elements, fp32 gradients, "
-            f"bf16 out, {os.cpu_count()} host threads): kernel {ms:.2f} ms, bound "
-            f"{b_ms:.2f} ms by bytes ({nbytes} B at the measured {rate / 1e9:.1f} GB/s), "
-            f"library (torch._fused_adamw_, CPU) {lib:.2f} ms"
-            + (f", plain {plain_ms:.2f} ms" if plain else ""))
-        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
-                    bound_by="bytes", max_abs_err=0.0)
+                                     for a in zip(p, m, v, grads[torch.float32])],
+                            iters=1, warmup=0) if plain else None)
+        width = {torch.float32: 30, torch.bfloat16: 28}   # B an element: p m v g in, p m v out
+        others = [("torch._fused_adamw_", 28 * n, lib)]
+        if plain:
+            others.append(("the plain version", 30 * n, plain_ms))
+        rows = {}
+        for (route, dt), ms in times.items():
+            if route not in routes:
+                continue
+            nbytes = width[dt] * n
+            b_ms, note = host_bound(nbytes, row_rate, others)
+            log(f"timing cpu_adam route {route} ({label}: {len(shapes)} leaves, {n} elements, "
+                f"{str(dt)[6:]} gradients, bf16 out, {threads} threads): kernel {ms:.2f} ms "
+                f"({nbytes / ms / 1e6:.1f} GB/s), bound {b_ms:.2f} ms by bytes ({nbytes} B at "
+                f"the measured {row_rate / 1e9:.1f} GB/s, the faster of the ceiling before "
+                f"the phase and the host Adam traffic stream's best in these rounds "
+                f"{max(ceiling, default=0) / 1e9:.1f}{note}), {b_ms / ms:.2f} of the bound"
+                + (" (the kernel ran ABOVE the host's measured ceiling)" if ms < b_ms else "")
+                + f"; library (torch._fused_adamw_, CPU, fp32 gradients, no bf16 out) "
+                f"{lib:.2f} ms, kernel / library {ms / lib:.2f}"
+                + (f", plain {plain_ms:.2f} ms" if plain else ""))
+            rows[route, dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                                   bound_by="bytes", max_abs_err=0.0)
+        for name in variants if stores else ():
+            for dt in grads:
+                kept, other = each["avx512", dt], each[f"avx512 {name}", dt]
+                log(f"timing cpu_adam avx512 against {name} ({label}, {str(dt)[6:]} "
+                    f"gradients, {rounds} rounds side by side; streamed stores and a prefetch "
+                    f"{ahead} elements ahead kept): kept {np.median(kept):.2f} ms (range "
+                    f"{min(kept):.2f}-{max(kept):.2f}), {name} {np.median(other):.2f} ms "
+                    f"(range {min(other):.2f}-{max(other):.2f}), kept / {name} "
+                    f"{np.median(kept) / np.median(other):.3f}, kept faster in "
+                    f"{sum(x < y for x, y in zip(kept, other))} of {rounds} rounds")
+        return rows
 
     shapes = param_shapes(llama_config("1b"))
-    timed(list(shapes.values()), "TinyLlama-1.1B", plain=False)
+    timed(list(shapes.values()), "TinyLlama-1.1B", routes, plain=False, rounds=7,
+          stores="avx512" in routes)
     layer = [s for k, s in shapes.items() if k.startswith("layer_0/")]
-    return {"cpu_adam": timed(layer, "one TinyLlama-1.1B layer", plain=True)}
+    best = host_adam.best_route()
+    rows = timed(layer, "one TinyLlama-1.1B layer", [best], plain=True, rounds=15)
+    return {"cpu_adam": rows[best, torch.float32]}
 
 
 def aio_phase(rate):
-    """The aio thread pool (ops/csrc/host/aio.cpp): 256 MiB written and read
-    back through AsyncIOHandle (8 threads, 1 MiB blocks) into build/, bitwise,
-    beside the plain version (one thread of os.pwrite / os.preadv) and the
-    bound of two host copies' bytes over ``rate`` (the page cache takes the
-    write and gives the read: warm, not the drive's rate)."""
+    """The aio pool (ops/csrc/host/aio.cpp) on 256 MiB under build/, page
+    cache warm: first the split, write-only and read-only at 1, 2, 4 and 8
+    workers and at 1 MiB and 8 MiB blocks beside the plain version's write
+    and read (one thread of os.pwrite / os.preadv); then the kernels line's
+    row, a write and a read back on 8 workers and 1 MiB blocks, bitwise,
+    beside the plain version's, torch.save then torch.load of the same
+    tensor in the same directory (the library call), and the bound: the
+    round trip's two copies read and write every byte once each (4 x 256
+    MiB) over ``rate``. The row's three times are medians of host_rounds."""
     import shutil
 
     from deepspeed_tpu_torch.ops import aio
@@ -1524,30 +1751,57 @@ def aio_phase(rate):
     src = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
                         generator=torch.Generator().manual_seed(12))
     dst = torch.empty_like(src)
-    h = aio.AsyncIOHandle(num_threads=8, block_size=1 << 20)
     path = str(workdir / "x.bin")
 
-    def through_aio():
-        assert h.pwrite(src, path) == nbytes and h.pread(dst, path) == nbytes
+    def write(h):
+        assert h.pwrite(src, path) == nbytes
 
-    def plain():
-        assert aio.plain_pwrite(src, path) == nbytes and aio.plain_pread(dst, path) == nbytes
+    def read(h):
+        assert h.pread(dst, path) == nbytes
 
-    ms = host_ms(through_aio)
+    plain_w = host_ms(lambda: aio.plain_pwrite(src, path), iters=3)
+    plain_r = host_ms(lambda: aio.plain_pread(dst, path), iters=3)
     good = torch.equal(dst, src)
+    split = []
+    for block in (1 << 20, 8 << 20):
+        for workers in (1, 2, 4, 8):
+            h = aio.AsyncIOHandle(num_threads=workers, block_size=block)
+            split.append((workers, block >> 20, host_ms(lambda: write(h), iters=3),
+                          host_ms(lambda: read(h), iters=3)))
+            h.close()
+    log("timing aio split (256 MiB, page cache warm; ms written / read): plain (one thread) "
+        f"{plain_w:.2f} / {plain_r:.2f}; "
+        + "; ".join(f"{w} workers {b} MiB blocks {wr:.2f} / {rd:.2f}"
+                    for w, b, wr, rd in split))
+    h = aio.AsyncIOHandle(num_threads=8, block_size=1 << 20)
     dst.zero_()
-    plain_ms = host_ms(plain)
+    write(h)
+    read(h)
     good &= torch.equal(dst, src)
+    dst.zero_()
+    lib_path = str(workdir / "x.pt")
+    loaded = []
+    times = host_rounds({
+        "aio": lambda: (write(h), read(h)),
+        "plain": lambda: (aio.plain_pwrite(src, path), aio.plain_pread(dst, path)),
+        "library": lambda: (torch.save(src, lib_path), loaded.append(torch.load(lib_path)))})
+    ms, plain_ms, lib_ms = (float(np.median(times[k])) for k in ("aio", "plain", "library"))
+    good &= torch.equal(dst, src) and torch.equal(loaded[-1], src)
     h.close()
+    del loaded
     shutil.rmtree(workdir, ignore_errors=True)
-    b_ms = 2 * nbytes / rate * 1e3
-    log(f"timing aio (256 MiB written then read back, 8 threads, 1 MiB blocks, page cache "
-        f"warm): kernel {ms:.2f} ms, plain (one thread) {plain_ms:.2f} ms, bound {b_ms:.2f} "
-        f"ms by bytes (512 MiB at {rate / 1e9:.1f} GB/s); read back bitwise: "
-        f"{'ok' if good else 'FAIL'}")
+    traffic = 4 * nbytes
+    b_ms, note = host_bound(traffic, rate, [("the plain version", traffic, plain_ms),
+                                            ("torch.save + torch.load", traffic, lib_ms)])
+    log(f"timing aio (256 MiB written then read back, 8 workers, 1 MiB blocks, page cache "
+        f"warm): kernel {ms:.2f} ms, plain (one thread) {plain_ms:.2f} ms, kernel / plain "
+        f"{ms / plain_ms:.2f} (8 workers no slower than one thread: "
+        f"{'yes' if ms <= plain_ms else 'NO'}), library (torch.save + torch.load) "
+        f"{lib_ms:.2f} ms, bound {b_ms:.2f} ms by bytes (1 GiB at {rate / 1e9:.1f} GB/s"
+        f"{note}); read back bitwise: {'ok' if good else 'FAIL'}")
     if not good:
         raise SystemExit("aio round trip FAILED")
-    return {"aio": dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+    return {"aio": dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                         bound_by="bytes", max_abs_err=0.0)}
 
 
@@ -2392,7 +2646,7 @@ def offload_parity_phase():
     caller's fused_adam with offload_optimizer cpu). Each host run's
     losses, gradient norms and master updates must sit within NOISE_FACTOR
     x the device path's own distance from float32, and launch the host
-    Adam once a leaf a step and fused Adam never; the storage tier must be
+    Adam once a slice of the ring's walk a step and fused Adam never; the storage tier must be
     bitwise the device path, with one fused-Adam launch a step and its
     state in pinned host memory."""
     import deepspeed_tpu_torch as dst
@@ -2444,11 +2698,13 @@ def offload_parity_phase():
         out[name] = dict(losses=np.array(losses), norms=np.array(norms), delta=delta,
                          fused=adam.launch_counts["fused_adam"],
                          host=host_adam.launch_counts["cpu_adam"],
+                         calls=host_adam.call_counts["cpu_adam"],
                          slices=(sum(len(c) for c in engine._ring_plan)
                                  if engine._host_adam is not None else 0),
                          state=state_home)
         log(f"offload parity {name}: losses {losses}, grad norms {norms}, fused Adam "
-            f"launches {out[name]['fused']}, host Adam launches {out[name]['host']}, "
+            f"launches {out[name]['fused']}, host Adam launches {out[name]['host']} in "
+            f"{out[name]['calls']} library calls, "
             f"optimizer state on {sorted(state_home)}")
         del engine, params, masters
         torch.cuda.empty_cache()
@@ -2702,6 +2958,11 @@ def offload_checkpoint_phase():
     load_s = time.perf_counter() - t0
     state_equal = same(state(resumed), saved)
     got += [float(resumed.train_batch(b)) for b in batches[3:]]
+    split = resumed.offload_timings()
+    log(f"offload checkpoint: the last step's host walk on the {resumed._host_adam.route} "
+        f"route: D2H {split['d2h']:.4f} s, host Adam {split['host_adam']:.4f} s, H2D "
+        f"{split['h2d']:.4f} s summed over {len(resumed._ring_plan)} ring chunks, the walk "
+        f"{resumed._offload_walk_s:.4f} s of wall")
     flat = zero_to_fp32(str(ckpt_dir))
     fp32_equal = set(flat) == set(masters) and all(
         np.array_equal(flat[k], masters[k]) for k in masters)
@@ -3378,6 +3639,8 @@ OFFLOAD_SEQ, OFFLOAD_WARMUP, OFFLOAD_STEPS = 4096, 1, 3
 #: the ring (the host step's transients, the leaf check's copies): 0.25 GB
 #: measured at Llama-2-7B on the one-card machine, rounded up to 1 GB
 HOST_REST_BYTES = 1e9
+#: how long phase 19 waits for MemAvailable to cover the 7B's host need
+HOST_MEMORY_WAIT_S = 120
 
 
 def host_need(cfg) -> tuple:
@@ -3420,6 +3683,19 @@ def host_memory():
     return avail, model, info.get("CPU(s)", str(os.cpu_count()))
 
 
+def meminfo_gb() -> dict:
+    """/proc/meminfo's MemAvailable, MemFree, Cached, AnonPages, Shmem and
+    Mapped in GB."""
+    keys = ("MemAvailable", "MemFree", "Cached", "AnonPages", "Shmem", "Mapped")
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if key in keys:
+                out[key] = int(val.split()[0]) * 1024 / 1e9
+    return out
+
+
 def rss_bytes() -> int:
     with open("/proc/self/status") as f:
         for line in f:
@@ -3431,9 +3707,10 @@ def rss_bytes() -> int:
 def offload_phase(card, cpu_model):
     """A model at its published size trained on one card with the optimizer
     on the host (the host-Adam tier): Llama-2-7B if the host's MemAvailable
-    covers host_need, else phi-3-mini-4k; seeded random weights made on
-    the card (an init closure: the engine takes the host masters and the
-    bf16 leaves and drops the fp32 tree), seq 4096, micro 1, gas 2,
+    covers host_need within HOST_MEMORY_WAIT_S, else phi-3-mini-4k; seeded
+    random weights made on the card (an init closure: the engine takes the
+    host masters and the bf16 leaves and drops the fp32 tree), seq 4096,
+    micro 1, gas 2,
     per-layer remat, bf16, bf16 gradient transport, clipping 1.0, WarmupLR;
     1 warm-up and 3 timed steps; the process's resident bytes after each
     stage of initialize and of the first step. Gates: losses finite and the
@@ -3452,23 +3729,35 @@ def offload_phase(card, cpu_model):
     from deepspeed_tpu_torch.ops import flash_attention, fused_adam, fused_loss
     from deepspeed_tpu_torch.ops.fused_loss import chunk_width
 
-    # pinned blocks earlier phases freed stay in the caching host allocator
+    # pinned blocks earlier phases freed stay in the caching host allocator,
+    # and tensors that only a reference cycle holds stay until a collection
     rss_in = rss_bytes()
+    gc.collect()
     empty = getattr(torch._C, "_host_emptyCache", None)
     if empty is not None:
         empty()
     remat = dict(remat=True, remat_policy="nothing_saveable", dtype=torch.bfloat16)
+    n7, need7 = host_need(llama_config("7b"))
+    # the pages of the child processes that phases 11 and 18 started return
+    # to MemAvailable some seconds after the children exit (12-19 GB short
+    # right after phase 11 or 18 on the one-card machine): wait for them
+    t_wait = time.perf_counter()
+    while (meminfo_gb()["MemAvailable"] * 1e9 < need7
+           and time.perf_counter() - t_wait < HOST_MEMORY_WAIT_S):
+        time.sleep(2)
+    waited = time.perf_counter() - t_wait
     mem_available = host_memory()[0]
     rss0 = rss_bytes()
     log(f"offload: resident {rss_in / 1e9:.2f} GB at the phase's start, "
-        f"{rss0 / 1e9:.2f} GB after emptying the pinned-host cache "
-        f"({'torch._C._host_emptyCache' if empty else 'no host cache to empty'})")
-    n7, need7 = host_need(llama_config("7b"))
+        f"{rss0 / 1e9:.2f} GB after a garbage collection and emptying the pinned-host "
+        f"cache ({'torch._C._host_emptyCache' if empty else 'no host cache to empty'}); "
+        f"host memory (GB) " + ", ".join(f"{k} {v:.2f}" for k, v in meminfo_gb().items()))
     if mem_available >= need7:
         name, cfg = "Llama-2-7B", llama_config("7b", **remat)
     else:
         name, cfg = "phi-3-mini-4k", TransformerConfig(**PHI3_MINI, **remat)
-    log(f"offload: MemAvailable {mem_available / 1e9:.1f} GB now, resident {rss0 / 1e9:.1f} "
+    log(f"offload: MemAvailable {mem_available / 1e9:.1f} GB after {waited:.0f} s of waiting "
+        f"for it (at most {HOST_MEMORY_WAIT_S} s), resident {rss0 / 1e9:.1f} "
         f"GB; Llama-2-7B's host need {need7 / 1e9:.1f} GB (12P = {12 * n7 / 1e9:.1f} GB, the "
         f"ring, {HOST_REST_BYTES / 1e9:.0f} GB of rest): {name} at its published size")
     stages = [("phase start", rss_in), ("pinned cache emptied", rss0)]
@@ -3579,16 +3868,22 @@ def offload_phase(card, cpu_model):
     off_route = {k: r for k, r in routes.items() if r.get("mma_sync", 0)}
     match = all(torch.equal(leaf.detach().cpu(), master.to(torch.bfloat16))
                 for leaf, master in zip(engine._masters, engine._host_adam.leaves()[0]))
+    chunks_walked = steps * len(engine._ring_plan)
     checks = {
         "losses finite, the last below the first": (
             all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]),
         "launches exact (no fused Adam, a host launch a slice a step)": not bad,
         "one host step a step": engine._host_adam.step_count == steps,
+        "one host library call a ring chunk": host_adam.call_counts["cpu_adam"] == chunks_walked,
         "flash and fused loss all on wgmma": not off_route,
         "compute leaves bitwise the bf16 of the host masters": match,
         "peak below 9P": peak < 9 * n,
         "no optimizer state on the card": engine.state.opt_state == (),
     }
+    log(f"offload {name}: host Adam on the {engine._host_adam.route} route, "
+        f"{host_adam.call_counts['cpu_adam']} library calls for {chunks_walked} ring chunks "
+        f"walked, launches by route {host_adam.route_counts}; the walk's wall minus the "
+        f"host Adam's sum {mean['walk'] - mean['host_adam']:.3f} s a step")
     log(f"offload {name}: launches {launches} (want {want}); routes {routes}; "
         + "; ".join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
     host_launches = launches["cpu_adam"]
@@ -3737,7 +4032,10 @@ def main() -> int:
     def timed(label, fn, *a, **kw):
         t = time.perf_counter()
         out = fn(*a, **kw)
-        log(f"phase time: {label} {time.perf_counter() - t:.1f} s")
+        mem = meminfo_gb()
+        log(f"phase time: {label} {time.perf_counter() - t:.1f} s; after it MemAvailable "
+            f"{mem['MemAvailable']:.1f} GB (Cached {mem['Cached']:.1f}, AnonPages "
+            f"{mem['AnonPages']:.1f}), resident {rss_bytes() / 1e9:.2f} GB")
         return out
 
     # phase 3
@@ -3746,9 +4044,9 @@ def main() -> int:
     rows.update(timed("3 flash", flash_phase, fa))
     rows.update(timed("3 sparse", sparse_phase, sa, fa))
     rows.update(timed("3 adam", adam_phase, adam))
-    rate = host_copy_rate()
-    log(f"host copy rate: {rate / 1e9:.1f} GB/s (2 GiB torch CPU copy, read and write "
-        f"counted; {cpu_model})")
+    rate, rates = host_ceiling()
+    log(f"host memory ceiling: {rate / 1e9:.1f} GB/s ({rates}; {torch.get_num_threads()} "
+        f"torch threads); {cpu_model}")
     rows.update(timed("3 host adam", host_adam_phase, rate))
     rows.update(timed("3 aio", aio_phase, rate))
     rows.update(timed("3 fused loss", fused_loss_phase, fl))

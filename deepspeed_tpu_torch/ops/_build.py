@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 HOST_CSRC = CSRC / "host"
 HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-march=native",
-              "-ffp-contract=off"]
+              "-ffp-contract=off", "-fno-math-errno"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

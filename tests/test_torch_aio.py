@@ -17,6 +17,16 @@ from deepspeed_tpu_torch.ops.aio import AsyncIOBuilder, AsyncIOHandle
 from deepspeed_tpu_torch.runtime.zero.swapper import AsyncTensorSwapper
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread keeps the file from
+    waiting on other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_builder_builds_once_and_loads():
     lib = AsyncIOBuilder().load()
     assert AsyncIOBuilder().load() is lib
@@ -147,3 +157,54 @@ def test_plain_versions_read_what_the_handle_writes(tmp_path):
     head = torch.empty(3, dtype=torch.int64)
     AsyncIOHandle(num_threads=1).pread(head, path)
     assert head[1:].tolist() == [0, 1]
+
+
+def test_write_into_the_middle_keeps_the_bytes_around_it(tmp_path):
+    """A striped write inside a longer file extends nothing and shrinks
+    nothing: the bytes on either side stay, as with the JAX handle."""
+    path = str(tmp_path / "mid.bin")
+    rng = np.random.default_rng(2)
+    base = rng.integers(0, 255, size=100_000, dtype=np.uint8)
+    mid = rng.integers(0, 255, size=30_001, dtype=np.uint8)
+    h = AsyncIOHandle(num_threads=8, block_size=4096)
+    assert h.pwrite(base, path) == base.nbytes
+    assert h.pwrite(torch.from_numpy(mid), path, offset=40_003) == mid.nbytes
+    want = base.copy()
+    want[40_003:70_004] = mid
+    assert os.path.getsize(path) == base.nbytes
+    back = np.empty_like(base)
+    assert JaxHandle(num_threads=2).pread(back, path) == base.nbytes
+    np.testing.assert_array_equal(back, want)
+    # past the end: the file grows to the write's end, its head kept
+    assert h.pwrite(mid, path, offset=90_000) == mid.nbytes
+    assert os.path.getsize(path) == 90_000 + mid.nbytes
+    grown = np.empty(90_000 + mid.nbytes, np.uint8)
+    assert h.pread(grown, path) == grown.nbytes
+    np.testing.assert_array_equal(grown[:90_000], want[:90_000])
+    np.testing.assert_array_equal(grown[90_000:], mid)
+
+
+def test_request_smaller_than_one_block_on_eight_workers(tmp_path):
+    h = AsyncIOHandle(num_threads=8, block_size=1 << 20)
+    data = torch.arange(777, dtype=torch.int16)
+    path = str(tmp_path / "small.bin")
+    reqs = [h.async_pwrite(data, path), h.async_pwrite(data[:5], str(tmp_path / "s2.bin"))]
+    assert [h.wait(r) for r in reqs] == [1554, 10]
+    back = torch.empty_like(data)
+    assert h.pread(back, path) == 1554 and torch.equal(back, data)
+    assert os.path.getsize(path) == 1554
+
+
+def test_read_past_eof_returns_the_short_count(tmp_path):
+    """Reads striped over 8 workers that run past the end of the file count
+    the bytes up to it, as the one-thread JAX handle does; a read that
+    starts past the end counts 0."""
+    path = str(tmp_path / "eof.bin")
+    data = np.random.default_rng(3).integers(0, 255, size=50_000, dtype=np.uint8)
+    h, j = AsyncIOHandle(num_threads=8, block_size=4096), JaxHandle(num_threads=1)
+    h.pwrite(data, path)
+    for offset, size in ((0, 1 << 17), (12_345, 40_000), (49_999, 4096), (60_000, 9000)):
+        mine, theirs = np.zeros(size, np.uint8), np.zeros(size, np.uint8)
+        got = h.pread(mine, path, offset=offset)
+        assert got == j.pread(theirs, path, offset=offset) == max(0, min(size, 50_000 - offset))
+        np.testing.assert_array_equal(mine, theirs)

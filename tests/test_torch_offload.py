@@ -27,6 +27,8 @@
   hook seeing exactly the products' outputs.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -171,6 +173,276 @@ def test_host_adam_refuses_wrong_leaves():
         opt.step({"w": torch.zeros(4), "x": torch.zeros(1)})
     with pytest.raises(ValueError, match="shape"):
         opt.step({"w": torch.zeros(5)})
+
+
+ROUTE_LENGTHS = (1, 15, 16, 17, 4097, 70001)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    t = t.contiguous()
+    return (t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)).numpy()
+
+
+def _route_or_skip(route):
+    from deepspeed_tpu_torch.ops.adam import supported_routes
+
+    if route not in supported_routes():
+        pytest.skip(f"this CPU does not run the {route} route")
+
+
+def _odd_plan(lengths, rng):
+    """Slices ``(leaf, a, b)`` that cut every leaf of more than one element
+    at odd offsets, in a shuffled order."""
+    plan = []
+    for i, n in enumerate(lengths):
+        odd = [int(c) | 1 for c in rng.integers(1, n - 1, 2)] if n > 2 else []
+        cuts = sorted({0, n, *odd})
+        plan += [(i, a, b) for a, b in zip(cuts, cuts[1:]) if a < b]
+    return [plan[k] for k in rng.permutation(len(plan))]
+
+
+@pytest.mark.parametrize("adamw,bias_correction", [(True, True), (True, False),
+                                                   (False, True), (False, False)])
+@pytest.mark.parametrize("route", ["avx512", "avx2", "scalar"])
+def test_host_adam_route_bitwise_jax_build_and_plain_version(route, adamw, bias_correction):
+    """Each route of the port's kernel, walked over slices at odd offsets
+    (one library call a step), against the JAX package's build of
+    csrc/adam/cpu_adam.cpp on whole leaves and against the plain version:
+    masters, moments and the bf16 emission bitwise over three steps, with
+    denormal masters, bf16 gradients in the second step and infinite and
+    NaN gradients in the third."""
+    from deepspeed_tpu_torch.ops.adam import bf16_reference
+
+    _route_or_skip(route)
+    rng = np.random.default_rng(5)
+    params = {f"l{n}": rng.standard_normal(n).astype(np.float32) for n in ROUTE_LENGTHS}
+    for v in params.values():
+        v[::5] = 1e-40                          # denormal masters
+        v[1::7] = -3e-39
+    kw = dict(lr=1e-2, betas=(0.9, 0.95), weight_decay=0.01, adamw_mode=adamw,
+              bias_correction=bias_correction)
+    jax_adam = JaxCPUAdam(params, **kw)
+    names = list(params)
+    port = DeepSpeedCPUAdam([torch.from_numpy(params[k]) for k in names], route=route, **kw)
+    plain = [(torch.from_numpy(params[k]), torch.zeros(params[k].size),
+              torch.zeros(params[k].size)) for k in names]
+    plan = _odd_plan(ROUTE_LENGTHS, rng)
+    assert any(a % 2 for _, a, _ in plan)
+    for step in range(1, 4):
+        grads = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+                 for n in ROUTE_LENGTHS]
+        if step == 3:
+            for g in grads:
+                g[1::9], g[2::13], g[3::17] = float("inf"), float("nan"), float("-inf")
+        if step == 2:
+            grads = [g.to(torch.bfloat16) for g in grads]
+        outs = [torch.empty(n, dtype=torch.bfloat16) for n in ROUTE_LENGTHS]
+        port.begin_step()
+        port.step_slices([(i, a, b, grads[i][a:b], outs[i][a:b]) for i, a, b in plan],
+                         lr=1e-2, emit_bf16=True)
+        want = jax_adam.step({k: g.float().numpy() for k, g in zip(names, grads)},
+                             emit_bf16=True)
+        plain = [cpu_adam_reference(*r, g, 1e-2, (0.9, 0.95), 1e-8, 0.01, adamw,
+                                    bias_correction, step) for r, g in zip(plain, grads)]
+        for k, o, r in zip(names, outs, plain):
+            np.testing.assert_array_equal(_bits(o), np.asarray(want[k]).view(np.int16),
+                                          err_msg=k)
+            np.testing.assert_array_equal(_bits(o), _bits(bf16_reference(r[0])), err_msg=k)
+    for mine, theirs, which in ((port._p, jax_adam.master, 0), (port._m, jax_adam.exp_avg, 1),
+                                (port._v, jax_adam.exp_avg_sq, 2)):
+        for j, k in enumerate(names):
+            np.testing.assert_array_equal(_bits(mine[j]), theirs[k].view(np.int32), err_msg=k)
+            np.testing.assert_array_equal(_bits(mine[j]), _bits(plain[j][which]), err_msg=k)
+    assert np.isnan(port._p[-1].numpy()).any() and np.isinf(port._m[-1].numpy()).any()
+
+
+@pytest.mark.parametrize("transport", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["avx512", "avx2", "scalar"])
+def test_slices_entry_is_bitwise_the_per_slice_calls(route, transport):
+    """One dstpu_cpu_adam_slices call over a plan of many small leaves and
+    large ones split at odd offsets (more elements than one thread's share,
+    so the call splits them over the pool) against the same plan walked one
+    per-leaf C call a slice; launch_counts counts a launch a slice either
+    way, call_counts one call for the batch."""
+    from deepspeed_tpu_torch.ops import adam as tadam
+
+    _route_or_skip(route)
+    rng = np.random.default_rng(6)
+    lengths = [int(n) for n in rng.integers(1, 40, 60)] + [3 * (1 << 16) + 5, 200003]
+    params = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)) for n in lengths]
+    batched = DeepSpeedCPUAdam(params, lr=3e-3, weight_decay=0.1, route=route)
+    single = DeepSpeedCPUAdam(params, lr=3e-3, weight_decay=0.1)
+    plan = _odd_plan(lengths, rng)
+    assert len(plan) > len(lengths)
+    lib = single.lib
+    for _ in range(2):
+        grads = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(transport)
+                 for n in lengths]
+        outs = [[torch.empty(n, dtype=torch.bfloat16) for n in lengths] for _ in range(2)]
+        tadam.reset_launch_counts()
+        batched.begin_step()
+        batched.step_slices([(i, a, b, grads[i][a:b], outs[0][i][a:b]) for i, a, b in plan],
+                            emit_bf16=True)
+        assert tadam.launch_counts["cpu_adam"] == tadam.route_counts[route] == len(plan)
+        assert tadam.call_counts["cpu_adam"] == 1
+        single.begin_step()
+        fn = lib.dstpu_cpu_adam_bf16g if transport == torch.bfloat16 else lib.dstpu_cpu_adam
+        for i, a, b in plan:
+            p, m, v = (x[i][a:b] for x in single.leaves())
+            fn(p.data_ptr(), m.data_ptr(), v.data_ptr(), grads[i][a:b].data_ptr(), b - a,
+               single.lr, single.b1, single.b2, single.eps, single.weight_decay,
+               single.step_count, 1, 1, outs[1][i][a:b].data_ptr(), 0)
+        for x, y in zip(outs[0], outs[1]):
+            assert torch.equal(x.view(torch.int16), y.view(torch.int16))
+    for mine, theirs in zip(batched.leaves(), single.leaves()):
+        for x, y in zip(mine, theirs):
+            assert torch.equal(x, y)
+
+
+def test_concurrent_callers_share_the_pool():
+    """Several Python threads step their own optimizers at once (ctypes lets
+    go of the interpreter lock, so their calls meet in the library's one
+    pool, more callers than the pool has threads): each result is bitwise
+    the one a lone caller gets."""
+    import threading
+
+    rng = np.random.default_rng(7)
+    n, callers = 3 * (1 << 16) + 3, 12
+    params = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+              for _ in range(callers)]
+    grads = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+             for _ in range(callers)]
+    alone = [DeepSpeedCPUAdam([p], lr=1e-2) for p in params]
+    for opt, g in zip(alone, grads):
+        for _ in range(3):
+            opt.step([g])
+    together = [DeepSpeedCPUAdam([p], lr=1e-2) for p in params]
+
+    def run(opt, g):
+        for _ in range(3):
+            opt.step([g])
+
+    threads = [threading.Thread(target=run, args=(o, g)) for o, g in zip(together, grads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for a, b in zip(alone, together):
+        assert all(torch.equal(x, y) for x, y in zip(sum(a.leaves(), []), sum(b.leaves(), [])))
+
+
+def test_more_threads_than_the_pool_is_bitwise_all_threads():
+    """nthreads above the pool's size (twice the CPUs the process may use)
+    on a call large enough to want that many shares: every element is
+    updated, bitwise the call that takes the pool's own size (nthreads 0),
+    over one large leaf and a plan of slices."""
+    from deepspeed_tpu_torch.ops import adam as tadam
+
+    threads = tadam.CPUAdamBuilder().load().dstpu_cpu_adam_threads()
+    rng = np.random.default_rng(8)
+    lengths = [(2 * threads + 3) * (1 << 16) + 7, 1000, 33]
+    params = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)) for n in lengths]
+    opts = [DeepSpeedCPUAdam(params, lr=1e-2, weight_decay=0.1, nthreads=k)
+            for k in (0, 2 * threads)]
+    plan = _odd_plan(lengths, rng)
+    for step in range(2):
+        grads = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+                 for n in lengths]
+        outs = [[torch.zeros(n, dtype=torch.bfloat16) for n in lengths] for _ in opts]
+        for opt, out in zip(opts, outs):
+            if step == 0:
+                opt.step(grads, emit_bf16=True, out=out)
+            else:
+                opt.begin_step()
+                opt.step_slices([(i, a, b, grads[i][a:b], out[i][a:b]) for i, a, b in plan],
+                                emit_bf16=True)
+        for x, y in zip(*outs):
+            assert torch.equal(x.view(torch.int16), y.view(torch.int16))
+    for a, b in zip(*(sum(o.leaves(), []) for o in opts)):
+        assert torch.equal(a, b)
+    assert not torch.equal(opts[1].leaves()[0][0], params[0])
+
+
+@pytest.mark.parametrize("hook,off,default", [("set_stream", 0, 1), ("set_prefetch", 0, 512)])
+def test_avx512_tuning_hooks_keep_the_bits(hook, off, default):
+    """The avx512 route streams its bf16 output (non-temporal stores) and
+    prefetches its inputs ahead; with either turned off by its hook
+    (dstpu_cpu_adam_set_stream / _set_prefetch) the masters, moments and
+    bf16 output are bitwise the same, at an output that starts off the
+    stores' 32-byte alignment."""
+    _route_or_skip("avx512")
+    rng = np.random.default_rng(9)
+    n = 3 * (1 << 16) + 37
+    p0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(torch.bfloat16)
+    opts = [DeepSpeedCPUAdam([p0], lr=1e-2, route="avx512") for _ in range(2)]
+    buffers = [torch.zeros(n + 8, dtype=torch.bfloat16) for _ in opts]
+    set_ = getattr(opts[0].lib, f"dstpu_cpu_adam_{hook}")
+    try:
+        for value, opt, buf in zip((default, off), opts, buffers):
+            set_(value)
+            for _ in range(2):
+                opt.step([g], emit_bf16=True, out=[buf[3:3 + n]])
+    finally:
+        assert set_(default) == off
+    assert torch.equal(buffers[0].view(torch.int16), buffers[1].view(torch.int16))
+    for a, b in zip(*(sum(o.leaves(), []) for o in opts)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3])
+def test_host_stream_probe_moves_the_bytes_it_counts(kind):
+    """dstpu_host_stream, the memory ceiling the host Adam's bound is taken
+    from: each kind does what it counts bytes for (read; a += b; the host
+    Adam's traffic: a, b, c += d and the top halves of a's bits out; a
+    streamed copy) over the pool, and refuses an array off 64-byte
+    alignment or a length not a multiple of 64."""
+    _route_or_skip("avx512")
+    lib = DeepSpeedCPUAdam([torch.zeros(1)]).lib
+    n = 64 * 4099
+    rng = np.random.default_rng(10)
+    # clones: torch's CPU allocator aligns to 64 bytes, numpy's need not
+    a, b, c, d = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).clone()
+                  for _ in range(4))
+    out = torch.zeros(n, dtype=torch.bfloat16)
+    a0, b0, c0 = a.clone(), b.clone(), c.clone()
+    ptrs = [t.data_ptr() for t in (a, b, c, d, out)]
+    assert all(p % 64 == 0 for p in ptrs)
+    assert lib.dstpu_host_stream(kind, *ptrs, n, 0) > 0
+    if kind == 1:
+        assert torch.equal(a, a0 + b0)
+    elif kind == 2:
+        assert torch.equal(a, a0 + d) and torch.equal(b, b0 + d) and torch.equal(c, c0 + d)
+        assert torch.equal(out.view(torch.int16), (a.view(torch.int32) >> 16).to(torch.int16))
+    elif kind == 3:
+        assert torch.equal(b, a0)
+    else:
+        assert torch.equal(a, a0)
+    assert lib.dstpu_host_stream(kind, *ptrs, n - 1, 0) == -1
+    assert lib.dstpu_host_stream(kind, a[1:].data_ptr(), *ptrs[1:], n - 64, 0) == -1
+    assert lib.dstpu_host_stream(4, *ptrs, n, 0) == -1
+
+
+def test_forcing_a_missing_route_raises(monkeypatch):
+    from deepspeed_tpu_torch.ops.adam import cpu_adam as tca
+
+    assert tca.best_route() in tca.supported_routes()
+    assert "scalar" in tca.supported_routes()
+    with pytest.raises(ValueError, match="route must be one of"):
+        DeepSpeedCPUAdam([torch.zeros(3)], route="sse4")
+    opt = DeepSpeedCPUAdam([torch.zeros(3)], route="scalar")
+    monkeypatch.setattr(tca, "supported_routes", lambda: ("scalar",))
+    for route in ("avx2", "avx512"):
+        with pytest.raises(ValueError, match="lacks"):
+            DeepSpeedCPUAdam([torch.zeros(3)], route=route)
+        with pytest.raises(ValueError, match="lacks"):
+            opt.route = route
+    assert opt.route == "scalar"
+    # the library refuses a route it does not know (it never falls back)
+    p = (ctypes.c_void_p * 1)(torch.zeros(1).data_ptr())
+    assert opt.lib.dstpu_cpu_adam_slices(1, p, p, p, p, None, (ctypes.c_int64 * 1)(1), 1e-3,
+                                         0.9, 0.999, 1e-8, 0.0, 1, 1, 1, 3, 0) == -1
 
 
 # ---------------------------------------------------------------------------
