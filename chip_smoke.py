@@ -107,7 +107,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every kernel must launch exactly as often as the path runs it (flash
    22 x gas x steps, fused loss forward and its combine gas x steps, each
    backward kernel once per vocab chunk, Adam once per step), every flash
-   and fused-loss launch on the ``wgmma`` route;
+   and fused-loss launch on the ``wgmma`` route; the optimizer step is
+   timed with CUDA events around the engine's ``_update``;
 7. training path parity — at 2 layers, at the widths of TinyLlama,
    Pythia-1B (D 256), Pythia-2.8B (D 80) and phi-3-mini (D 96): two ``train_batch``
    steps through the kernel path (flash kernels, Adam kernel, bf16), the
@@ -157,7 +158,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rank printed beside ``estimate_zero_model_states_mem_needs``; the none
    run against one process on the same global batch; ``init_distributed``
    on NCCL at world size 1 with one all-reduce. Its step time is two ranks
-   sharing one card, not a scaling number;
+   sharing one card, not a scaling number. Phase 20 (d) runs in the same
+   world after these modes;
 12. int8 KV serving — phase 4's run with ``kv_cache_dtype="int8"``: every
    request finishes, KV conservation, the decode kernel's int8 mode launches
    (``paged_flash_decode_int8``), every launch on the ``sm90`` route, and no
@@ -216,7 +218,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    exact and on ``wgmma``, the compute leaves on the card bitwise the bf16
    of the host masters, peak device memory below 9P; step time, tokens/s,
    MFU, the D2H / host Adam / H2D seconds and the walk's wall, peak memory
-   and the host's resident bytes by stage printed.
+   and the host's resident bytes by stage printed;
+20. the engine's remainder — (a) phase 6's TinyLlama-1.1B run with LAMB
+   (lr warmed up to 1e-2), dropout 0.1 and ``frozen_params=["embed"]`` (the
+   embedding table), its batches fed through ``PrefetchLoader``, 2 warm-up
+   and 5 timed steps: step time, tokens/s, MFU, peak memory and the
+   optimizer step (CUDA events) beside phase 6's AdamW; losses finite and
+   falling, the embedding bitwise unchanged, flash launches 22 x gas x
+   steps on ``wgmma``, the fused loss's exact, no fused-Adam launch, a
+   second engine's 3 steps from the same seed bitwise the first 3 losses,
+   layer 0's dropout mask keeping 0.9 of its elements within 4 sigma; (b)
+   Lion, Adagrad, SGD (momentum 0.9, nesterov) and MuAdamW (base_width
+   256) at TinyLlama's width and 2 layers, 3 steps each: losses finite and
+   falling, the third step's update of layer 0 and the final norm within
+   UPDATE_RTOL of the same step in float64 on the CPU from the same state,
+   fused Adam launched by MuAdamW only; (c) phase 8's per-layer remat at 2
+   layers with dropout 0.1: loss and gradient norm those of the run without
+   remat within REMAT_RTOL, at a lower peak; (d) in phase 11's world, LAMB
+   with the embedding frozen at 2 layers at ZeRO stages 0, 2 and 3: phase
+   11's loss rule against stage 0, the masters bitwise equal across ranks,
+   the frozen leaf bitwise its initial value, every step's trust ratios
+   within TRUST_RTOL of stage 0's.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -2437,11 +2459,48 @@ def train_flops(cfg, n_matmul, tokens, seq):
     return 6 * n_matmul * tokens + attn * (tokens // seq)
 
 
+@contextlib.contextmanager
+def timed_updates(engine):
+    """Within the block the engine's optimizer step (``_update``) runs
+    between CUDA events: the yielded list gets one (start, end) pair a
+    step. The wrapper goes on exit (it holds the engine: left in place, the
+    cycle would keep a deleted engine's memory until a collection)."""
+    marks, update = [], engine._update
+
+    def timed(grads, params):
+        start = _cuda_event()
+        update(grads, params)
+        marks.append((start, _cuda_event()))
+
+    engine._update = timed
+    try:
+        yield marks
+    finally:
+        del engine._update
+
+
+def _cuda_event():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def updates_ms(marks, skip: int) -> float:
+    torch.cuda.synchronize()
+    return float(np.mean([a.elapsed_time(b) for a, b in marks[skip:]]))
+
+
+#: phase 6's figures (step time, tokens/s, MFU, peak memory, optimizer ms a
+#: step) by model, beside which phase 20 prints LAMB's
+TRAIN_FIGURES = {}
+
+
 def train_phase(kernels, card, name, cfg, profile=False):
     """A model (``name``, ``cfg``: TinyLlama-1.1B in phase 6, Pythia-1B in
     phase 15) through initialize + train_batch, the optimizer and schedule
     from the config (AdamW takes the fused Adam kernel on the card),
-    ``loss_impl: auto`` (the fused loss kernels on the card)."""
+    ``loss_impl: auto`` (the fused loss kernels on the card); the optimizer
+    step timed with CUDA events."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models import TransformerLM, init_params, make_loss_fn
 
@@ -2469,11 +2528,13 @@ def train_phase(kernels, card, name, cfg, profile=False):
     for k in kernels:
         k.reset_launch_counts()
     losses, times = [], []
-    for step in range(WARMUP_STEPS + TIMED_STEPS):
-        t0 = time.perf_counter()
-        loss = engine.train_batch(batch)
-        losses.append(float(loss))          # waits for the step's device work
-        times.append(time.perf_counter() - t0)
+    with timed_updates(engine) as marks:
+        for step in range(WARMUP_STEPS + TIMED_STEPS):
+            t0 = time.perf_counter()
+            loss = engine.train_batch(batch)
+            losses.append(float(loss))          # waits for the step's device work
+            times.append(time.perf_counter() - t0)
+    opt_ms = updates_ms(marks, WARMUP_STEPS)
     launches = {}
     for k in kernels:
         launches.update(k.launch_counts)
@@ -2487,7 +2548,10 @@ def train_phase(kernels, card, name, cfg, profile=False):
     log(f"{tag} [{card}]: {step_s * 1e3:.1f} ms/step over {TIMED_STEPS} timed steps, "
         f"{tokens / step_s:.0f} tokens/s, MFU {mfu:.4f} ({flops:.4e} model flop/step: "
         f"6 x {n_matmul} matmul params x {tokens} tokens + causal attention; over "
-        f"989 TFLOP/s bf16), max_memory_allocated {peak / 2**30:.2f} GiB")
+        f"989 TFLOP/s bf16), max_memory_allocated {peak / 2**30:.2f} GiB, optimizer "
+        f"step {opt_ms:.2f} ms (CUDA events around _update)")
+    TRAIN_FIGURES[name] = dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s, mfu=mfu,
+                               peak_gib=peak / 2**30, opt_ms=opt_ms)
     log(f"{tag}: kernel launches {launches}")
     from deepspeed_tpu_torch.ops.fused_loss import chunk_width
 
@@ -3246,6 +3310,10 @@ ZERO_MODES = ["stage1", "stage2", "stage3"]
 # stage 1 with offload_optimizer cpu: over several ranks the JAX rule takes
 # the pinned-host storage tier (the stage-1 update on host-resident state)
 OFFLOAD_MODE = "stage1_offload"
+# phase 20 (d), run in phase 11's world after its modes: LAMB with the
+# embedding frozen at 2 layers, ZeRO stage 0, 2 and 3, 3 steps each
+LAMB_MODES = ["lamb_stage0", "lamb_stage2", "lamb_stage3"]
+LAMB_LAYERS, LAMB_STEPS = 2, 3
 DP_SPEC = {"world": 2, "backend": "gloo", "model": "1b", "layers": 4, "micro": 2,
            "seq": 2048, "steps": 5, "remat": False,
            "modes": ["none", "int8", "int8_sr"] + ZERO_MODES + [OFFLOAD_MODE]}
@@ -3260,7 +3328,9 @@ QUANT_KERNELS = ("quantize_int8", "quantize_int8_sr", "dequantize_int8")
 
 
 def dp_stage(mode: str) -> int:
-    return 1 if mode == OFFLOAD_MODE else int(mode[len("stage"):]) if mode in ZERO_MODES else 0
+    if mode == OFFLOAD_MODE:
+        return 1
+    return int(mode[-1]) if mode in ZERO_MODES or mode in LAMB_MODES else 0
 
 
 def dp_mode_config(mode: str) -> dict:
@@ -3269,6 +3339,9 @@ def dp_mode_config(mode: str) -> dict:
     compressed_collectives mode."""
     if mode == OFFLOAD_MODE:
         return {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}}
+    if mode in LAMB_MODES:
+        return {"zero_optimization": {"stage": dp_stage(mode)},
+                "optimizer": LAMB_CONFIG["optimizer"]}
     if mode in ZERO_MODES:
         return {"zero_optimization": {"stage": dp_stage(mode)}}
     return {"compressed_collectives": {"mode": mode, "block": 2048}}
@@ -3282,10 +3355,11 @@ def dp_batch(cfg, micro_total, seq=TRAIN_SEQ):
                          device="cuda")
 
 
-def dp_model(spec):
+def dp_model(spec, mode=None):
     from deepspeed_tpu_torch.models import llama_config
 
-    return llama_config(spec["model"], num_layers=spec["layers"], dtype=torch.bfloat16,
+    layers = LAMB_LAYERS if mode in LAMB_MODES else spec["layers"]
+    return llama_config(spec["model"], num_layers=layers, dtype=torch.bfloat16,
                         remat=spec["remat"],
                         remat_policy="nothing_saveable" if spec["remat"] else None)
 
@@ -3308,18 +3382,20 @@ def dp_child(rank: int, workdir: Path) -> int:
     spec = json.loads((workdir / "spec.json").read_text())
     comm.init_distributed(dist_backend=spec["backend"], init_method=f"file://{workdir}/store",
                           rank=rank, world_size=spec["world"], timeout=900)
-    cfg = dp_model(spec)
-    batch = dp_batch(cfg, spec["micro"] * spec["world"], spec["seq"])
-    # the module holds meta tensors: the engine's tree is what it runs on
-    meta = _nest({k: torch.empty(s, device="meta") for k, s in param_shapes(cfg).items()})
     kernels = (flash_attention, fused_adam, fused_loss, quant)
     out = {}
     for mode in spec["modes"]:
+        cfg = dp_model(spec, mode)
+        batch = dp_batch(cfg, spec["micro"] * spec["world"], spec["seq"])
+        # the module holds meta tensors: the engine's tree is what it runs on
+        meta = _nest({k: torch.empty(s, device="meta") for k, s in param_shapes(cfg).items()})
         config = dict(DP_CONFIG, train_micro_batch_size_per_gpu=spec["micro"],
                       **dp_mode_config(mode))
+        lamb = mode in LAMB_MODES
         init = zero.Init(lambda: init_params(cfg, seed=0, device="cuda", dtype=torch.float32))
         engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, meta)),
-                                    model_parameters=init, config=config)
+                                    model_parameters=init, config=config,
+                                    frozen_params=FROZEN if lamb else None)
         ledger = comm.get_comms_logger()
         ledger.reset()
         for k in kernels:
@@ -3327,11 +3403,13 @@ def dp_child(rank: int, workdir: Path) -> int:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()      # the closure's full tree is gone
         torch.cuda.reset_peak_memory_stats()
-        losses, times = [], []
-        for _ in range(spec["steps"]):
+        losses, times, trust = [], [], []
+        for _ in range(LAMB_STEPS if lamb else spec["steps"]):
             t0 = time.perf_counter()
             losses.append(float(engine.train_batch(batch)))
             times.append(time.perf_counter() - t0)
+            if lamb:
+                trust.append(engine.tx.update.last_trust.float().cpu().tolist())
         launches = {}
         for k in kernels:
             launches.update(k.launch_counts)
@@ -3344,6 +3422,12 @@ def dp_child(rank: int, workdir: Path) -> int:
             full = safe_get_full_fp32_param(engine, path)
             same &= torch.equal(full, comm.broadcast(full.clone(), src=0))
             n += full.numel()
+        frozen_equal = None
+        if lamb:
+            embed = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)["embed"]
+            frozen_equal = torch.equal(safe_get_full_fp32_param(engine, "embed/embedding"),
+                                       embed["embedding"])
+            del embed
         same = torch.tensor([int(same)], device="cuda")
         comm.all_reduce(same, op="min")
         stage = engine.zero_stage()
@@ -3357,7 +3441,9 @@ def dp_child(rank: int, workdir: Path) -> int:
             peak_units=z3.peak_units, peak_bytes=z3.peak_bytes, gathers=z3.gathers,
             count=len(z3.units), largest=max(z3._nbytes), total=sum(z3._nbytes))
         out[mode] = dict(losses=losses, times=times, launches=launches, peak=peak,
-                         units=units,
+                         units=units, trust=trust, frozen_equal=frozen_equal,
+                         n_frozen=math.prod(param_shapes(cfg)["embed/embedding"])
+                         if lamb else 0,
                          ledger=totals, masters_equal=bool(same.item()), n=n,
                          reduce=engine._dp_grad_mode, stage=stage, tier=tier,
                          estimate=estimate["total_bytes"],
@@ -3429,7 +3515,7 @@ def check_dp(spec, ranks, card):
     where = (f"{world} ranks on cuda:0 over gloo: a correctness run, not a scaling number"
              if spec["backend"] == "gloo" else f"{world} cards, one rank each, over NCCL")
     ok = True
-    for mode in spec["modes"]:
+    for mode in [m for m in spec["modes"] if m not in LAMB_MODES]:
         a = r0[mode]
         quant = lambda r: {k: r[mode]["launches"][k] for k in QUANT_KERNELS}
         checks = {
@@ -3488,19 +3574,22 @@ def check_dp(spec, ranks, card):
 
 def dp_phase(card):
     """Phase 11: DP_SPEC's world (dp_child), its checks, the none run against
-    one process on the same global batch, and NCCL at world size 1. Returns
-    the quant kernels' launches in the compressed runs."""
+    one process on the same global batch, and NCCL at world size 1; phase
+    20 (d) in the same world (LAMB_MODES, check_lamb_dp). Returns the quant
+    kernels' launches in the compressed runs."""
     import shutil
 
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.models import TransformerLM, init_params, make_loss_fn
 
-    spec = DP_SPEC
+    spec = dict(DP_SPEC, modes=DP_SPEC["modes"] + LAMB_MODES)
     workdir = REPO / "build" / "dp_smoke"
     t0 = time.perf_counter()
-    ok, r0 = check_dp(spec, run_dp_world(spec, workdir), card)
-    log(f"dp: phase wall {time.perf_counter() - t0:.1f} s")
+    ranks = run_dp_world(spec, workdir)
+    ok, r0 = check_dp(spec, ranks, card)
+    ok &= check_lamb_dp(spec, ranks, card)
+    log(f"dp: phase wall {time.perf_counter() - t0:.1f} s (with phase 20 (d))")
 
     # the none run against one process on the same global batch
     micro_total = spec["micro"] * spec["world"]
@@ -3900,6 +3989,371 @@ def offload_phase(card, cpu_model):
 ZERO3_7B_GIB = 40
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the training engine's remainder
+# ---------------------------------------------------------------------------
+
+#: phase 20 (a): phase 6's run with LAMB (lr warmed up to 1e-2: LAMB moves
+#: each tensor by lr times its norm, where Adam moves each element by lr),
+#: dropout 0.1 and the embedding frozen ("embed": the TransformerLM tree's
+#: name of the table, "embed/embedding")
+LAMB_CONFIG = dict(TRAIN_CONFIG, optimizer={"type": "Lamb", "params": {
+    "lr": 1e-2, "weight_decay": 0.01}}, scheduler={"type": "WarmupLR", "params": {
+        "warmup_min_lr": 0, "warmup_max_lr": 1e-2, "warmup_num_steps": 4}})
+FROZEN = ["embed"]
+EXTRAS_DROPOUT = 0.1
+EXTRAS_WARMUP, EXTRAS_STEPS, EXTRAS_REPEAT = 2, 5, 3
+#: phase 20 (b): each optimizer at 2 layers of TinyLlama, a constant lr
+OTHER_OPTIMIZERS = {
+    "Lion": {"type": "Lion", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+    "Adagrad": {"type": "Adagrad", "params": {"lr": 3e-4, "weight_decay": 0.01}},
+    "SGD": {"type": "SGD", "params": {"lr": 0.05, "momentum": 0.9, "nesterov": True,
+                                      "weight_decay": 0.01}},
+    "MuAdamW": {"type": "MuAdamW", "params": {"lr": 2e-3, "weight_decay": 0.01,
+                                              "base_width": 256}},
+}
+#: the card's update (fp32) against float64 on the CPU from the same state:
+#: the L2 error relative to the update's norm (fp32 rounds each of ~15
+#: operations at 6e-8; Adam's bias correction 1 - 0.999 ** t, taken in fp32
+#: as the JAX package takes it, is off by up to 1e-5 of itself at step 3, so
+#: MuAdamW's update sits ~4e-6 from float64). Lion's sign is compared where the float64 argument
+#: stands clear of fp32 rounding (|c| > SIGN_MARGIN (|b1 m| + |(1-b1) g|));
+#: at most SIGN_EXCLUDED of the elements may fall inside the margin
+UPDATE_RTOL, SIGN_MARGIN, SIGN_EXCLUDED = 1e-5, 1e-5, 1e-3
+#: phase 20 (d): LAMB's trust ratios at stages 2 and 3 against stage 0's
+#: (the per-leaf norms summed over two ranks in another order), relative
+TRUST_RTOL = 1e-3
+
+
+def extras_engine(cfg, init, config, frozen=None, seeds=None):
+    """An engine over a copy of ``init``; ``seeds`` collects the seed each
+    micro-batch's loss gets."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import TransformerLM, make_loss_fn
+
+    params = _cast(init, torch.float32, copy=True)
+    inner = make_loss_fn(TransformerLM(cfg, params))
+
+    def loss_fn(p, batch, rng=None):
+        if seeds is not None:
+            seeds.append(rng)
+        return inner(p, batch, rng)
+
+    engine, *_ = dst.initialize(model=loss_fn, model_parameters=params, config=config,
+                                frozen_params=frozen)
+    return engine
+
+
+def extras_phase(card, kernels):
+    """Phase 20 (a): TinyLlama-1.1B at phase 6's size and configuration with
+    LAMB, dropout 0.1 and the embedding frozen, the batches fed through
+    PrefetchLoader: 2 warm-up and 5 timed steps; step time, tokens/s, MFU,
+    peak memory and the optimizer step beside phase 6's AdamW; the gates:
+    losses finite and falling, the embedding bitwise unchanged, flash and
+    fused-loss launches exact and on wgmma, no fused-Adam launch, a second
+    engine's 3 steps from the same seed bitwise the first 3 losses, and one
+    layer's mask keeping 0.9 of its elements within 4 sigma."""
+    from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.models.transformer import dropout
+    from deepspeed_tpu_torch.ops import flash_attention, fused_loss
+    from deepspeed_tpu_torch.ops.fused_loss import chunk_width
+    from deepspeed_tpu_torch.ops.quant import fold_in
+    from deepspeed_tpu_torch.runtime.dataloader import PrefetchLoader
+
+    name, tag = "TinyLlama-1.1B", "extras (a)"
+    cfg = dataclasses.replace(train_models()[name], dropout=EXTRAS_DROPOUT)
+    init = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    embed = init["embed"]["embedding"].clone()
+    gas, micro = TRAIN_CONFIG["gradient_accumulation_steps"], TRAIN_CONFIG[
+        "train_micro_batch_size_per_gpu"]
+    host = np.random.default_rng(1).integers(0, cfg.vocab_size, (gas * micro, TRAIN_SEQ))
+    steps = EXTRAS_WARMUP + EXTRAS_STEPS
+    seeds = []
+    engine = extras_engine(cfg, init, LAMB_CONFIG, FROZEN, seeds)
+    n_params = sum(p.numel() for p in engine._masters)
+    n_matmul = n_params - cfg.vocab_size * cfg.hidden_size
+    for k in kernels:
+        k.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    with timed_updates(engine) as marks:
+        t0 = time.perf_counter()
+        for batch in PrefetchLoader([host] * steps):
+            losses.append(float(engine.train_batch(batch)))
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+    opt_ms = updates_ms(marks, EXTRAS_WARMUP)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {}
+    for k in kernels:
+        launches.update(k.launch_counts)
+    frozen_same = torch.equal(engine.state.params["embed"]["embedding"], embed)
+    trust = engine.tx.update.last_trust.float().cpu()
+    routes = {n: dict(flash_attention.route_counts[n]) for n in
+              ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")}
+    routes["fused_loss_fwd"] = dict(fused_loss.fwd_route_counts)
+    del engine
+    torch.cuda.empty_cache()
+    again = extras_engine(cfg, init, LAMB_CONFIG, FROZEN)
+    repeat = [float(again.train_batch(b)) for b in PrefetchLoader([host] * EXTRAS_REPEAT)]
+    del again, init
+    torch.cuda.empty_cache()
+    # one layer's mask: layer 0 of the first micro-batch, at its shape
+    ones = torch.ones(micro, TRAIN_SEQ, cfg.hidden_size, dtype=torch.bfloat16, device="cuda")
+    kept = float((dropout(ones, EXTRAS_DROPOUT, fold_in(seeds[0], 0)) != 0).float().mean())
+    n_mask = ones.numel()
+    sigma = math.sqrt(EXTRAS_DROPOUT * (1 - EXTRAS_DROPOUT) / n_mask)
+
+    tokens = gas * micro * TRAIN_SEQ
+    step_s = float(np.mean(times[EXTRAS_WARMUP:]))
+    mfu = train_flops(cfg, n_matmul, tokens, TRAIN_SEQ) / step_s / PEAK_FLOPS[torch.bfloat16]
+    adam = TRAIN_FIGURES.get(name)
+    log(f"{tag}: losses {losses}; step times (s) {[round(x, 4) for x in times]}")
+    log(f"{tag} [{card}]: {name} with LAMB, dropout {EXTRAS_DROPOUT}, frozen {FROZEN}, "
+        f"through PrefetchLoader: {step_s * 1e3:.1f} ms/step over {EXTRAS_STEPS} timed "
+        f"steps, {tokens / step_s:.0f} tokens/s, MFU {mfu:.4f} (phase 6's N_matmul "
+        f"{n_matmul}), max_memory_allocated {peak / 2**30:.2f} GiB, optimizer step "
+        f"{opt_ms:.2f} ms; phase 6 AdamW in this run: "
+        + (f"{adam['step_ms']:.1f} ms/step, {adam['tokens_s']:.0f} tokens/s, MFU "
+           f"{adam['mfu']:.4f}, {adam['peak_gib']:.2f} GiB, optimizer step "
+           f"{adam['opt_ms']:.2f} ms (LAMB / AdamW optimizer step "
+           f"{opt_ms / adam['opt_ms']:.2f}x)" if adam else "not run"))
+    log(f"{tag}: LAMB trust ratios of the last step: min {float(trust.min()):.4f}, max "
+        f"{float(trust.max()):.4f} over {trust.numel()} leaves")
+    chunks = -(-cfg.vocab_size // chunk_width(micro * TRAIN_SEQ, cfg.vocab_size, 2))
+    want = {n: cfg.num_layers * gas * steps for n in
+            ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")}
+    want.update(fused_adam=0, fused_loss_fwd=gas * steps, fused_loss_fwd_combine=gas * steps)
+    for n in ("fused_loss_dlogits", "fused_loss_dh", "fused_loss_dk"):
+        want[n] = gas * steps * chunks
+    checks = {
+        "losses finite, the last below the first": (all(map(math.isfinite, losses))
+                                                     and losses[-1] < losses[0]),
+        "embed/embedding bitwise unchanged": frozen_same,
+        "launches exact (flash 22 x gas x steps, fused loss, no fused Adam)": all(
+            launches[n] == w for n, w in want.items()),
+        "flash and fused-loss forward launches on wgmma": all(
+            r == {"wgmma": want[n], "mma_sync": 0} for n, r in routes.items()),
+        f"{EXTRAS_REPEAT} steps of a second engine bitwise the first "
+        f"{EXTRAS_REPEAT} losses": repeat == losses[:EXTRAS_REPEAT],
+        "layer 0's mask keeps 0.9 within 4 sigma": abs(kept - 0.9) <= 4 * sigma,
+    }
+    log(f"{tag}: launches {launches} (want {want}); routes {routes}; repeat {repeat}; "
+        f"mask kept share {kept:.6f} of {n_mask} (sigma {sigma:.2e})")
+    for what, ok in checks.items():
+        log(f"{tag}: {what}: {'ok' if ok else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit(f"{tag} FAILED")
+
+
+def mu_factor(path: str, shape: tuple, base_width: int) -> float:
+    """MuAdamW's factor of a TinyLlama leaf: base_width over the contracted
+    extent of a matrix (every dim but the last for o_proj and down_proj,
+    the leading dim otherwise), 1 for vectors and the input table."""
+    if len(shape) < 2 or path.startswith("embed/"):
+        return 1.0
+    fan_in = math.prod(shape[:-1]) if path.split("/")[-2] in ("o_proj", "down_proj") \
+        else shape[0]
+    return base_width / fan_in
+
+
+def reference_update(name, spec, g, p, state, step):
+    """The optimizer's update of one leaf in float64 from the state before
+    the step: (update, Lion's sign-argument margin mask or None)."""
+    params = spec["params"]
+    lr, wd = params["lr"], params.get("weight_decay", 0.0)
+    if name == "Lion":
+        m = state["exp_avg"]
+        c = 0.9 * m + 0.1 * g
+        clear = c.abs() > SIGN_MARGIN * (0.9 * m.abs() + 0.1 * g.abs())
+        return -lr * (torch.sign(c) + wd * p), clear
+    if name == "Adagrad":
+        g = g + wd * p
+        return -lr * g / ((state["sum_sq"] + g * g).sqrt() + 1e-10), None
+    if name == "SGD":
+        u = g + wd * p
+        t = u + params["momentum"] * state["trace"]
+        return -lr * (u + params["momentum"] * t), None
+    m = 0.9 * state["exp_avg"] + 0.1 * g
+    v = 0.999 * state["exp_avg_sq"] + 0.001 * g * g
+    u = -lr * (m / (1 - 0.9 ** step)) / ((v / (1 - 0.999 ** step)).sqrt() + 1e-8) - lr * wd * p
+    return u, None
+
+
+def other_optimizers_phase(card):
+    """Phase 20 (b): Lion, Adagrad, SGD (momentum 0.9, nesterov) and MuAdamW
+    (base_width 256) at TinyLlama's full width and 2 layers (micro 4 x
+    2048, gas 2, bf16, clipping 1.0, the fused loss), 3 steps each on one
+    batch: losses finite and falling; the last step's update of layer 0's
+    leaves and the final norm against the same step in float64 on the CPU
+    from the same state and gradients (UPDATE_RTOL; Lion's sign outside
+    SIGN_MARGIN); MuAdamW launches fused Adam once a step, the others
+    never."""
+    from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.ops import fused_adam
+    from deepspeed_tpu_torch.ops.optimizers import path_name
+
+    cfg = dataclasses.replace(train_models()["TinyLlama-1.1B"], num_layers=2)
+    init = init_params(cfg, seed=7, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    batch = torch.randint(0, cfg.vocab_size, (2, 4, TRAIN_SEQ), generator=gen, device="cuda")
+    base = {k: v for k, v in TRAIN_CONFIG.items() if k != "scheduler"}
+    checked = lambda path: path.startswith("layer_0/") or path.startswith("final_norm/")
+    ok = True
+    for name, spec in OTHER_OPTIMIZERS.items():
+        engine = extras_engine(cfg, init, dict(base, optimizer=spec))
+        seen = {}
+        update = engine.tx.update
+
+        def recording(grads, state, params, update=update, seen=seen):
+            # the state's tensors by (state key, leaf path), copied before
+            # the step changes them in place
+            before = {}
+            for kp, x in torch.utils._pytree.tree_flatten_with_path(state)[0]:
+                if isinstance(x, torch.Tensor):
+                    field = [getattr(e, "name", None) for e in kp if hasattr(e, "name")]
+                    path = path_name([e for e in kp if hasattr(e, "key")])
+                    if checked(path):
+                        before[(field[-1], path)] = x.double().cpu()
+            g = {path_name(kp): x.double().cpu() for kp, x in
+                 torch.utils._pytree.tree_flatten_with_path(grads)[0] if checked(path_name(kp))}
+            p = {path_name(kp): x.double().cpu() for kp, x in
+                 torch.utils._pytree.tree_flatten_with_path(params)[0]
+                 if checked(path_name(kp))}
+            u, new = update(grads, state, params)
+            seen.update(g=g, p=p, state=before, u={
+                path_name(kp): x.double().cpu() for kp, x in
+                torch.utils._pytree.tree_flatten_with_path(u)[0] if checked(path_name(kp))})
+            return u, new
+
+        engine.tx = engine.tx._replace(update=recording)
+        fused_adam.reset_launch_counts()
+        losses = [float(engine.train_batch(batch)) for _ in range(3)]
+        launches = fused_adam.launch_counts["fused_adam"]
+        shapes = dict(zip(engine._paths, (tuple(m.shape) for m in engine._masters)))
+        del engine
+        torch.cuda.empty_cache()
+        num = den = 0.0
+        excluded = total = 0
+        for path, g in seen["g"].items():
+            state = {k: v for (k, pth), v in seen["state"].items() if pth == path}
+            want, clear = reference_update(name, spec, g, seen["p"][path], state, 3)
+            if name == "MuAdamW":
+                want = want * mu_factor(path, shapes[path], spec["params"]["base_width"])
+            got = seen["u"][path].reshape(want.shape)
+            if clear is not None:
+                excluded += int((~clear).sum())
+                total += clear.numel()
+                want, got = want[clear], got[clear]
+            num += float((got - want).square().sum())
+            den += float(want.square().sum())
+        err = math.sqrt(num / den)
+        want_launches = 3 if name == "MuAdamW" else 0
+        good = (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+                and err <= UPDATE_RTOL and launches == want_launches
+                and (total == 0 or excluded <= SIGN_EXCLUDED * total))
+        ok &= good
+        log(f"extras (b) {name} (TinyLlama widths, 2 layers, 3 steps): losses {losses}; "
+            f"step 3's update of {len(seen['g'])} leaves against float64 on the CPU: "
+            f"relative L2 error {err:.3e} (<= {UPDATE_RTOL:g})"
+            + (f", {excluded} of {total} elements inside Lion's sign margin "
+               f"(<= {SIGN_EXCLUDED:g})" if total else "")
+            + f"; fused Adam launches {launches} (want {want_launches}): "
+            f"{'ok' if good else 'FAIL'}")
+    del init
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"extras (b) FAILED [{card}]")
+
+
+def dropout_remat_phase():
+    """Phase 20 (c): phase 8's remat ("nothing_saveable" per layer) at 2
+    layers of TinyLlama with dropout 0.1, one step (micro 4 x 2048, gas 2)
+    from the same weights, seed and batch as the run without remat: each
+    layer's mask comes from a seed fixed before the forward, so the
+    recompute draws it again and the loss and gradient norm agree within
+    REMAT_RTOL, at a lower peak."""
+    from deepspeed_tpu_torch.models import init_params
+
+    base = dataclasses.replace(train_models()["TinyLlama-1.1B"], num_layers=2,
+                               dropout=EXTRAS_DROPOUT)
+    init = init_params(base, seed=5, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    batch = torch.randint(0, base.vocab_size, (2, 4, TRAIN_SEQ), generator=gen, device="cuda")
+    out = {}
+    for name, over in (("none", {}), ("remat", dict(remat=True,
+                                                    remat_policy="nothing_saveable"))):
+        engine = extras_engine(dataclasses.replace(base, **over), init, TRAIN_CONFIG)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(engine.train_batch(batch))
+        out[name] = (loss, engine.get_global_grad_norm(),
+                     torch.cuda.max_memory_allocated() - base_mem)
+        del engine
+        torch.cuda.empty_cache()
+    (l0, n0, p0), (l1, n1, p1) = out["none"], out["remat"]
+    good = (abs(l1 - l0) <= REMAT_RTOL * abs(l0) and abs(n1 - n0) <= REMAT_RTOL * abs(n0)
+            and p1 < p0)
+    log(f"extras (c) remat with dropout {EXTRAS_DROPOUT} (TinyLlama widths, 2 layers): loss "
+        f"{l1!r} vs {l0!r}, grad norm {n1!r} vs {n0!r} (tol rel {REMAT_RTOL:g}), step "
+        f"peak {p1 / 2**30:.2f} vs {p0 / 2**30:.2f} GiB above the resident state: "
+        f"{'ok' if good else 'FAIL'}")
+    if not good:
+        raise SystemExit("extras (c) FAILED")
+
+
+def check_lamb_dp(spec, ranks, card):
+    """Phase 20 (d), in phase 11's world: LAMB with the embedding frozen at
+    2 layers at ZeRO stages 0, 2 and 3 (LAMB_MODES): stage 2's and 3's
+    first loss bitwise stage 0's and the later ones within 0.02 |ref| +
+    1e-3, the masters bitwise equal across ranks, the frozen leaf bitwise
+    its initial value, LAMB's trust ratios of every step within TRUST_RTOL
+    of stage 0's, the state over the trainable leaves' fragments only and
+    no fused-Adam launch."""
+    r0 = ranks[0]
+    ref = r0[LAMB_MODES[0]]
+    ok = True
+    for mode in LAMB_MODES:
+        a = r0[mode]
+        checks = {
+            "ranks report one loss": all(r[mode]["losses"] == a["losses"] for r in ranks),
+            "masters bitwise equal across ranks": all(r[mode]["masters_equal"]
+                                                      for r in ranks),
+            "frozen leaf bitwise unchanged": all(r[mode]["frozen_equal"] for r in ranks),
+            "losses finite and falling": (all(map(math.isfinite, a["losses"]))
+                                          and a["losses"][-1] < a["losses"][0]),
+            "no fused-Adam launch": all(r[mode]["launches"]["fused_adam"] == 0
+                                        for r in ranks),
+            "state over the trainable leaves only": (
+                sum(r[mode]["adam_elems"] for r in ranks) == a["n"] - a["n_frozen"]
+                if a["stage"] else a["adam_elems"] == a["n"] - a["n_frozen"]),
+        }
+        if mode != LAMB_MODES[0]:
+            trust = np.array(a["trust"]) / np.array(ref["trust"]) - 1
+            checks.update({
+                "first loss bitwise stage 0's": a["losses"][0] == ref["losses"][0],
+                "losses within 0.02|ref| + 1e-3 of stage 0's": all(
+                    abs(x - y) < 0.02 * abs(y) + 1e-3
+                    for x, y in zip(a["losses"], ref["losses"])),
+                f"trust ratios within {TRUST_RTOL:g} of stage 0's": (
+                    float(np.abs(trust).max()) <= TRUST_RTOL),
+            })
+            log(f"extras (d) {mode}: trust ratios' largest relative distance from stage "
+                f"0's {float(np.abs(trust).max()):.3e}")
+        good = all(checks.values())
+        ok &= good
+        log(f"extras (d) {mode} (world {spec['world']}, LAMB, frozen {FROZEN}, "
+            f"{LAMB_LAYERS} layers): losses {a['losses']}, peak per rank "
+            f"{[round(r[mode]['peak'] / 2**30, 2) for r in ranks]} GiB, "
+            f"{float(np.mean(a['times'][1:])) * 1e3:.1f} ms/step (two ranks sharing "
+            f"{card}): {'ok' if good else 'FAIL ' + str([k for k, v in checks.items() if not v])}")
+    return ok
+
+
 def zero3_7b_run(card: str, workdir: Path) -> bool:
     """Llama-2-7B at ZeRO stage 3 on four cards (32 layers, seq 4096, micro
     1 per rank, gas 2, per-layer remat): check_dp's gates and the peak per
@@ -4102,6 +4556,12 @@ def main() -> int:
     timed("18 zero3 (TinyLlama-1.1B, 22 layers)", zero3_phase, card)
     # phase 19: ZeRO-Offload at full size on one card
     launches.update(timed("19 offload", offload_phase, card, cpu_model))
+    # phase 20: the engine's remainder ((d) ran in phase 11's world)
+    timed("20 (a) LAMB, dropout, frozen, prefetch (TinyLlama-1.1B)", extras_phase, card,
+          (fa, adam, fl))
+    timed("20 (b) Lion, Adagrad, SGD, MuAdamW (TinyLlama widths)", other_optimizers_phase,
+          card)
+    timed("20 (c) remat with dropout (TinyLlama widths)", dropout_remat_phase)
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"

@@ -22,7 +22,14 @@ its layout and public names module by module. Three paths are ported:
   ``comm.compressed`` with the block-quant kernels (``ops/csrc/quant.cu``);
   at stages 1-3 the optimizer state, then the gradients, then the
   parameters partitioned over the ranks (``zero``), read and written leaf
-  by leaf through ``utils.tensor_fragment``.
+  by leaf through ``utils.tensor_fragment``;
+* ZeRO-Offload — the optimizer's masters and moments on the host
+  (``ops/csrc/host/cpu_adam.cpp``) or its state in pinned host memory;
+* the engine's remainder — every optimizer type of the JAX registry but
+  the 1-bit ones (``ops.optimizers``: LAMB, Lion, Adagrad, SGD, muP, plain
+  PyTorch beside the fused Adam kernel) at ZeRO stages 0-3, model dropout
+  seeded per micro-batch by the engine, ``frozen_params``, an optimizer
+  factory, and ``runtime.dataloader.PrefetchLoader``.
 
 Entry points take a ``device`` argument that defaults to ``"cuda"``; the
 plain PyTorch versions of the kernels run only when the caller passes

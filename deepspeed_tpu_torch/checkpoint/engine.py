@@ -8,9 +8,11 @@ The layout is the JAX package's, with ``torch.save`` in place of orbax:
 
   ``<save_dir>/<tag>/state/state.pt``  the training state tree: the fp32
                                       master weights, the optimizer state
-                                      (Adam m and v and its step), the step
-                                      (which is the LR schedule's position)
-                                      and the loss-scale state, on the host
+                                      (every leaf of the optimizer's state
+                                      tree; a frozen leaf has none), the step
+                                      (which is the LR schedule's position),
+                                      the engine's rng stream position and
+                                      the loss-scale state, on the host
   ``<save_dir>/<tag>/host_optimizer.pt``  under ZeRO-Offload's host-Adam
                                       tier: the host optimizer's step, fp32
                                       masters and moments (the JAX package's
@@ -199,7 +201,7 @@ def _state_to_tree(engine, keep) -> Dict[str, Any]:
         params = engine._tree([keep(engine._full_param(i))
                                for i in range(len(engine._zero.shapes))])
         opt_state = engine._full_opt_state(keep)
-    return {"step": int(s.step), "params": params,
+    return {"step": int(s.step), "rng_draws": engine._rng_draws, "params": params,
             "opt_state": {"leaves": pytree.tree_leaves(opt_state)},
             "loss_scale": {"scale": float(ls.scale), "good_steps": int(ls.good_steps),
                            "hysteresis": int(ls.hysteresis)}}
@@ -327,6 +329,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                     new.append(src)
             engine.state.opt_state = pytree.tree_unflatten(new, spec)
         engine.state.step = int(tree["step"])
+        engine._rng_draws = int(tree.get("rng_draws", 0))
         from ..runtime.loss_scaler import LossScaleState
 
         engine.state.loss_scale = LossScaleState(**tree["loss_scale"])

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import fold_in
+
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -42,7 +44,7 @@ class TransformerConfig:
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
-    dropout: float = 0.0                        # > 0 not ported (TransformerLM raises)
+    dropout: float = 0.0                        # on the attention output, given a seed
     # architecture flags (None = follow the norm-type heuristic)
     attn_qkv_bias: Optional[bool] = None
     attn_out_bias: Optional[bool] = None
@@ -373,8 +375,21 @@ def attention_core(q, k, v, *, causal: bool = True, impl: str = "auto",
     return out.reshape(b, sq, h, d)
 
 
-def _attention(cfg, ap, y, rope_cs, alibi, window):
-    """The training attention block: projections, rotary, core, o_proj."""
+def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """flax ``nn.Dropout``: each element kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)``, else 0. The mask comes from a fresh
+    generator seeded with ``seed`` on ``x``'s device, so a recompute that
+    passes the same seed draws the same mask."""
+    keep = 1.0 - rate
+    gen = torch.Generator(device=x.device).manual_seed(seed & ((1 << 63) - 1))
+    kept = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _attention(cfg, ap, y, rope_cs, alibi, window, seed=None):
+    """The training attention block: projections, rotary, core, o_proj, and
+    dropout on its output when ``seed`` is given (JAX: ``nn.Dropout`` after
+    ``o_proj``, the model's only dropout on this path)."""
     q, k, v = _dense(ap["q_proj"], y), _dense(ap["k_proj"], y), _dense(ap["v_proj"], y)
     if rope_cs is not None:
         cos, sin = rope_cs
@@ -388,7 +403,10 @@ def _attention(cfg, ap, y, rope_cs, alibi, window):
     out = attention_core(q.contiguous(), k.contiguous(), v.contiguous(),
                          causal=True, impl=impl, alibi=alibi, scale=cfg.attn_scale,
                          window=window, alibi_post_scale=cfg.alibi_post_scale)
-    return _dense_multi_in(ap["o_proj"], out)
+    out = _dense_multi_in(ap["o_proj"], out)
+    if seed is not None and cfg.dropout > 0:
+        out = dropout(out, cfg.dropout, seed)
+    return out
 
 
 _PARALLEL = "not ported yet: ROADMAP.md Queue A item 8 (parallelism side paths: {})"
@@ -411,10 +429,6 @@ def check_parallel_fields(cfg: TransformerConfig) -> None:
 
 
 def _check_trainable(cfg: TransformerConfig) -> None:
-    if cfg.dropout > 0:
-        raise NotImplementedError(
-            "dropout > 0 is " + _NOT_PORTED.format("model: dropout, which needs "
-                                                   "a seeded Philox mask"))
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE layers are " + _NOT_PORTED.format("model: mixtral / moe/*"))
@@ -424,13 +438,16 @@ def _check_trainable(cfg: TransformerConfig) -> None:
     check_parallel_fields(cfg)
 
 
-def _layer(cfg, lp, x, rope_cs, alibi, window):
-    """One decoder layer of the training forward."""
+def _layer(cfg, lp, x, rope_cs, alibi, window, seed=None):
+    """One decoder layer of the training forward (``seed``: its dropout
+    mask's)."""
     y = _norm(cfg, lp["attn_norm"], x)
-    return _block_out(cfg, lp, x, y, _attention(cfg, lp["attn"], y, rope_cs, alibi, window))
+    return _block_out(cfg, lp, x, y,
+                      _attention(cfg, lp["attn"], y, rope_cs, alibi, window, seed))
 
 
-def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = False):
+def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = False,
+               dropout_seed: Optional[int] = None):
     """The causal LM forward on a flax-layout parameter tree: tokens
     ``[B, S]`` -> logits ``[B, S, V]`` (fp32 for an untied head; the tied
     head attends in ``cfg.dtype``, as flax ``Embed.attend`` does). With
@@ -440,7 +457,9 @@ def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = Fal
     ``cfg.remat_policy`` (JAX: ``nn.remat(Block, policy=...)``); with no
     policy, under what ``checkpointing.checkpoint`` would do, so a
     configured ``cpu_checkpointing`` keeps each layer's matrix products in
-    pinned host memory."""
+    pinned host memory. With ``dropout_seed`` and ``cfg.dropout > 0`` layer
+    i drops out its attention output under the seed ``fold_in(dropout_seed,
+    i)``, an argument of the layer, so its recompute draws the same mask."""
     _check_trainable(cfg)
     tokens = tokens.long()
     dev = tokens.device
@@ -455,7 +474,8 @@ def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = Fal
         layer = layer_wrapper(_layer, cfg.remat_policy)
     for i in range(cfg.num_layers):
         window = cfg.layer_windows[i] if cfg.layer_windows is not None else None
-        x = layer(cfg, params[f"layer_{i}"], x, rope_cs, alibi, window)
+        seed = None if dropout_seed is None else fold_in(dropout_seed, i)
+        x = layer(cfg, params[f"layer_{i}"], x, rope_cs, alibi, window, seed)
     x = _norm(cfg, params["final_norm"], x)
     if return_hidden:
         return x.to(cfg.dtype)
@@ -500,8 +520,9 @@ class TransformerLM(nn.Module):
 
         return _nest(dict(self.params.items()))
 
-    def forward(self, tokens, return_hidden: bool = False):
-        return lm_forward(self.cfg, self.param_tree(), tokens, return_hidden)
+    def forward(self, tokens, return_hidden: bool = False,
+                dropout_seed: Optional[int] = None):
+        return lm_forward(self.cfg, self.param_tree(), tokens, return_hidden, dropout_seed)
 
 
 def causal_lm_loss(logits, tokens, loss_mask=None, z_loss: float = 0.0):
@@ -529,7 +550,9 @@ def make_loss_fn(model: TransformerLM):
     card, fp32 or bf16), the model returns its final hidden states and the
     fused kernels run on them and the head kernel, so the ``[B, S, V]``
     logits never exist; otherwise the model's dense logits go through
-    ``causal_lm_loss``."""
+    ``causal_lm_loss``. ``rng`` is an integer seed (the engine draws one per
+    micro-batch); with it and ``cfg.dropout > 0`` the model drops out, as
+    the JAX loss does when given a key."""
     from ..sequence.cross_entropy import _fused_lm_loss, _select_loss_impl
     from .convert import _flatten
 
@@ -558,8 +581,10 @@ def make_loss_fn(model: TransformerLM):
         mask = batch.get("loss_mask") if isinstance(batch, dict) else None
         headless = _headless(tokens.device)
         flat = {f"params.{k}": v for k, v in _flatten(params).items()}
-        out = torch.func.functional_call(model, flat, (tokens,),
-                                         {"return_hidden": headless})
+        kwargs = {"return_hidden": headless}
+        if rng is not None and cfg.dropout > 0:
+            kwargs["dropout_seed"] = int(rng)
+        out = torch.func.functional_call(model, flat, (tokens,), kwargs)
         return _ce(out, params, tokens, mask, headless)
 
     return loss_fn

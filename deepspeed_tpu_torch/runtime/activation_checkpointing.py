@@ -29,8 +29,11 @@ so no policy sees them and they re-run under every policy but
 ``everything_saveable``; in JAX a ``pallas_call`` is not a dot either, so
 ``dots_saveable`` recomputes them there too. Any other policy name raises.
 
-The wrapped function must be deterministic: dropout is not ported, so no
-RNG state is saved or restored around the recompute.
+No RNG state is saved or restored around the recompute, and restoring
+would not reach an explicit ``torch.Generator``: a wrapped function that
+draws random numbers takes its seed as an argument, as the model's dropout
+does (each layer's mask from a fresh generator seeded with a value fixed
+before the forward), so the recompute draws what the forward drew.
 """
 
 import collections

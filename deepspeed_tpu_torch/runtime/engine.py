@@ -64,8 +64,14 @@ reported loss is the rank mean.
   cast commutes with the gather, so the forward sees the same compute
   weights as at stage 0. Then the global norm is the square root of an
   ``all_reduce`` of the shards' squared sums, the clip scales the shard, and
-  the optimizer updates the shard in one fused Adam launch over ``ceil(n /
-  world)`` elements; stages 1 and 2 all-gather the updated shard back into
+  the optimizer updates the shard: the Adam family (a transformation with
+  an in-place ``apply``) in one fused Adam launch over ``ceil(n / world)``
+  elements; any other rule (LAMB's per-tensor trust ratio, muP's per-leaf
+  factor, a caller's transformation), and every run with frozen leaves,
+  over this rank's fragment of each leaf (1-D views of the shard, some
+  empty) under ``ops.optimizers.sharded_leaves``, which gives LAMB one
+  ``all_reduce`` of its per-leaf squared norms a step and muP each leaf's
+  full shape. Stages 1 and 2 all-gather the updated shard back into
   the full masters, which stay bitwise equal across ranks. fp16 overflow is
   read from the global norm, so every rank skips the same step. The
   compressed reduction is stage 0's only: other stages keep the exact one.
@@ -79,11 +85,25 @@ What the state holds over several ranks: ``state.params`` and ``_masters``
 are the full fp32 masters at stages 0-2 (one leaf each) and this rank's
 fragments of them at stage 3 (1-D views into the master shard, empty where
 the rank owns none of a leaf); ``state.opt_state`` holds the optimizer
-state of the whole tree at stage 0 and of this rank's shard (a one-leaf
-list) at stages 1-3. ``utils/tensor_fragment.py`` reads and writes any leaf
+state of the whole tree at stage 0 and at stages 1-3 that of this rank's
+fragments of the leaves or, for the Adam family, of its flat shard (a
+one-leaf list). ``utils/tensor_fragment.py`` reads and writes any leaf
 at every stage. At world size 1 ZeRO stages 0-3 are the same math and all
 run stage 0's path. Config sections this trainer cannot honour yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
+
+``frozen_params`` (JAX ``engine.py:150-172, 343-359, 817-824``): leaves
+whose path a pattern hits at a name boundary get no gradient (their
+masters do not require one; at stage 3 their fragments of the reduced
+gradient are zeroed), which is zero before the norm, and no update and no
+optimizer state: the optimizer sees the tree with each frozen leaf replaced
+by an empty node. A pattern that matches nothing raises ``ValueError``.
+
+A loss that takes an rng (``rng``, ``rngs`` or ``key``, or three
+positional parameters) gets an integer seed each micro-batch from the
+engine's stream (``_next_rng``: ``config.seed``, the draw count, the dp
+rank), which checkpoints save, so a resumed run draws the same dropout
+masks; ``eval_batch`` passes none.
 
 ZeRO-Offload (``zero_optimization.offload_optimizer``; JAX ``engine.py:286-308,
 534-566, 864-902, 1422-1462, 1617-1634``), in the JAX package's two tiers,
@@ -122,7 +142,9 @@ while their storage is away; training in between raises.
 """
 
 import contextlib
+import inspect
 import os
+import re
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
@@ -133,7 +155,7 @@ from torch.utils import _pytree as pytree
 from .. import comm
 from ..comm.compressed import configure_compression, quantized_all_reduce
 from ..ops.fastpath import configure_fastpath
-from ..ops.optimizers import build_optimizer
+from ..ops.optimizers import build_optimizer, path_name, sharded_leaves
 from ..ops.quant import fold_in, seeded_generator
 from ..parallel.topology import Topology, set_topology
 from ..utils.logging import log_dist
@@ -238,6 +260,36 @@ def ring_plan(sizes: List[int], chunk: int) -> List[List[tuple]]:
     return plan
 
 
+def _frozen_labels(paths: List[str], patterns) -> List[bool]:
+    """Per leaf (its ``"/"``-joined path), whether it is frozen (JAX
+    ``_frozen_label_tree``): a pattern hits a path at a name-component
+    boundary. A pattern matching nothing raises, so a typo cannot silently
+    train (and hold optimizer state for) everything."""
+    def hit(pattern: str, path: str) -> bool:
+        return re.search(rf"(^|[/_.\-]){re.escape(pattern)}([/_.\-]|$)", path) is not None
+
+    unmatched = [p for p in patterns if not any(hit(p, path) for path in paths)]
+    if unmatched:
+        raise ValueError(f"frozen_params patterns {unmatched} match no "
+                         f"parameter path; available paths include "
+                         f"{paths[:8]}...")
+    return [any(hit(p, path) for p in patterns) for path in paths]
+
+
+def _accepts_rng(fn) -> bool:
+    """Whether a loss function takes a third, rng argument (JAX
+    ``_accepts_rng``): three positional parameters, or one named rng, rngs
+    or key."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return False
+    n_positional = sum(1 for p in sig.parameters.values()
+                       if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD))
+    return n_positional >= 3 or any(p.name in ("rng", "rngs", "key")
+                                    for p in sig.parameters.values())
+
+
 def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """L2 norm across all gradients (reference ``clip_grad_norm_``), a 0-dim
     fp32 tensor on the gradients' device."""
@@ -250,8 +302,9 @@ class TrainState:
     """Engine state: ``params`` are the fp32 master weights (the compute
     dtype's when ``bf16.master_weights`` is off), nested like the tree the
     caller gave: whole leaves at ZeRO stages 0-2, this rank's 1-D fragments
-    of them at stage 3 over several ranks. ``opt_state`` covers the whole
-    tree at stage 0 and this rank's flat shard at stages 1-3."""
+    of them at stage 3 over several ranks. ``opt_state`` covers the tree's
+    trainable leaves at stage 0, and at stages 1-3 this rank's fragments of
+    them or (the Adam family) its flat shard."""
     step: int
     params: Any
     opt_state: Any
@@ -261,7 +314,7 @@ class TrainState:
 class DeepSpeedTPUEngine:
     def __init__(self, loss_fn: Callable, params: Any, config: DeepSpeedTPUConfig,
                  optimizer=None, lr_scheduler: Optional[Callable] = None,
-                 device="cuda"):
+                 device="cuda", frozen_params: Optional[List[str]] = None):
         from ..accelerator import resolve_device
 
         if isinstance(loss_fn, torch.nn.Module):
@@ -286,6 +339,10 @@ class DeepSpeedTPUEngine:
         configure_fastpath(attn_impl=tf.attn_impl, loss_impl=tf.loss_impl,
                            embedding_overlap=tf.embedding_overlap)
         self.loss_fn_raw = loss_fn
+        # a loss that takes an rng gets a fresh seed every micro-batch
+        # (_next_rng), from config.seed
+        self._loss_takes_rng = _accepts_rng(loss_fn)
+        self._rng_draws = 0
         # engine-level remat (JAX engine.py): with engine_wrap, ``policy``
         # wraps the whole loss call (an unknown policy raises here); None
         # never wraps
@@ -332,11 +389,39 @@ class DeepSpeedTPUEngine:
         #: seconds of the last host-Adam step's phases (``offload_timings``)
         self._offload_marks: Optional[dict] = None
 
+        if callable(params) and not isinstance(params, torch.Tensor):
+            # zero.Init or a bare zero-arg closure (JAX engine.py:503-518):
+            # its tree is built here and dropped once the masters (at stage
+            # 3 over several ranks: this rank's shard) are taken from it
+            params = params()
+        keypaths = [kp for kp, _ in pytree.tree_flatten_with_path(params)[0]]
+        self._keypaths = [tuple(kp) for kp in keypaths]
+        self._paths = [path_name(kp) for kp in keypaths]
+
+        # --- frozen parameters (JAX engine.py:343-359): no gradient, no
+        # update, no optimizer state ---------------------------------------
+        self._frozen = _frozen_labels(self._paths, tuple(frozen_params or ()))
+        if any(self._frozen) and self._host_adam_mode:
+            log_dist("frozen_params: host-Adam offload tier does not mask updates — "
+                     "using pinned-host state with on-device compute instead")
+            self._host_adam_mode = False
+
         # --- optimizer ---------------------------------------------------
         opt_params = dict(config.optimizer.params)
         base_lr = opt_params.get("lr", 1e-3)
         self.lr_schedule = lr_scheduler or build_lr_schedule(
             config.scheduler.type, dict(config.scheduler.params), base_lr)
+        if optimizer is not None and callable(optimizer) and not hasattr(optimizer, "update"):
+            # a client factory (reference DeepSpeedOptimizerCallable): called
+            # with the tree's structure and shapes, as meta tensors (JAX
+            # passes the abstract tree)
+            optimizer = optimizer(pytree.tree_map(
+                lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params))
+            if not hasattr(optimizer, "update"):
+                raise TypeError(
+                    "optimizer callable must return an optax "
+                    f"GradientTransformation, got {type(optimizer).__name__}")
+            log_dist("using client callable to create basic optimizer")
         if optimizer is not None:
             if not hasattr(optimizer, "update"):
                 raise TypeError("optimizer must be a GradientTransformation "
@@ -386,17 +471,13 @@ class DeepSpeedTPUEngine:
     # ------------------------------------------------------------------
     def _build_state(self, params):
         store = torch.float32 if self.master_weights else self.compute_dtype
-        if callable(params) and not isinstance(params, torch.Tensor):
-            # zero.Init or a bare zero-arg closure (JAX engine.py:503-518):
-            # its tree is built here and dropped once the masters (at stage
-            # 3 over several ranks: this rank's shard) are taken from it
-            params = params()
         leaves, self._spec = pytree.tree_flatten(params)
         for p in leaves:
             if not p.is_floating_point():
                 raise ValueError(f"model_parameters must be floating tensors, got {p.dtype}")
         self._flat_grad = None
         self._zero: Optional[FlatPartition] = None
+        self._leafwise = False  # stages 1-3: the optimizer sees leaf fragments
         self._stage3 = False
         self._z3 = None         # stage 3's unit gatherer (runtime/zero/stage3.py)
         if self._host_adam_mode:
@@ -406,8 +487,8 @@ class DeepSpeedTPUEngine:
         else:
             # .to() returns the tensor itself when it already has this
             # device and dtype: such parameters are trained in place
-            self._masters = [p.detach().to(self.device, store).requires_grad_(True)
-                             for p in leaves]
+            self._masters = [p.detach().to(self.device, store).requires_grad_(not f)
+                             for p, f in zip(leaves, self._frozen)]
             if self.dp_world > 1:
                 # one flat buffer, reduced with one collective per step: the
                 # masters' .grad are views into it, which autograd
@@ -418,7 +499,7 @@ class DeepSpeedTPUEngine:
                 for p in self._masters:
                     p.grad = self._flat_grad[offset:offset + p.numel()].view_as(p)
                     offset += p.numel()
-            opt_state = self.tx.init(self._tree(self._masters))
+            opt_state = self.tx.init(self._opt_tree(self._masters))
         if self._offload_optimizer and not self._host_adam_mode:
             opt_state = pytree.tree_map(self._to_host_storage, opt_state)
         ls = make_loss_scale_state(self.config.fp16.initial_scale_power,
@@ -450,7 +531,7 @@ class DeepSpeedTPUEngine:
             for i, p in enumerate(leaves):
                 master = part.leaf(self._flat_master, i)
                 master.copy_(p.detach())
-                master = master.detach().requires_grad_(True)
+                master = master.detach().requires_grad_(not self._frozen[i])
                 master.grad = part.leaf(self._flat_grad, i)
                 self._masters.append(master)
             self._master_shard = self._flat_master[part.start:part.start + part.shard]
@@ -463,7 +544,22 @@ class DeepSpeedTPUEngine:
             self._z3 = UnitGather(part, tree_units(paths), self._master_shard,
                                   self._shard_grad, self.compute_dtype,
                                   zc.allgather_bucket_size, zc.reduce_bucket_size)
+        # the Adam family (an in-place ``apply``) updates the shard as one
+        # flat tensor; any other rule, and any run with frozen leaves, gets
+        # this rank's fragment of each leaf
+        self._leafwise = getattr(self.tx, "apply", None) is None or any(self._frozen)
+        if self._leafwise:
+            return self.tx.init(self._opt_tree(self._fragments(self._master_shard)))
         return self.tx.init([self._master_shard])
+
+    def _fragments(self, shard: torch.Tensor) -> List[torch.Tensor]:
+        return [self._zero.fragment(shard, i) for i in range(len(self._zero.shapes))]
+
+    def _opt_tree(self, leaves):
+        """The tree the optimizer sees: ``leaves`` in the parameters'
+        structure, a frozen leaf replaced by an empty node (JAX routes it to
+        ``set_to_zero``: no state, no update)."""
+        return self._tree([() if f else x for x, f in zip(leaves, self._frozen)])
 
     def _build_host_adam(self, leaves):
         """The host-Adam tier: fp32 masters and moments on the host, the
@@ -518,18 +614,30 @@ class DeepSpeedTPUEngine:
     def _tree(self, leaves):
         return pytree.tree_unflatten(list(leaves), self._spec)
 
-    def _loss(self, batch) -> torch.Tensor:
+    def _next_rng(self) -> int:
+        """The next seed of the engine's stream (JAX: the step key split per
+        micro-batch): draw k gives ``fold_in(fold_in(config.seed, k), dp
+        rank)``, so every micro-batch and rank gets its own masks and a run
+        resumed at draw k (``_rng_draws``, saved in checkpoints) draws what
+        an uninterrupted run draws."""
+        seed = fold_in(fold_in(self.config.seed, self._rng_draws), self.dp_rank)
+        self._rng_draws += 1
+        return seed
+
+    def _loss(self, batch, rng: Optional[int] = None) -> torch.Tensor:
         """The loss of one micro-batch on the compute copy of the masters
         (autograd runs through the cast, so gradients land in fp32); at
         stage 3 on the unit leaves, which gather on use (the caller holds
-        ``_z3.on_use()`` open)."""
+        ``_z3.on_use()`` open). ``rng`` reaches a loss that takes one."""
         if self._z3 is not None:
             compute = self._z3.leaves
         else:
             compute = [p.to(self.compute_dtype) for p in self._masters]
-        return self._loss_call(self._tree(compute), batch).float()
+        args = (self._tree(compute), batch) + ((rng,) if self._loss_takes_rng else ())
+        return self._loss_call(*args).float()
 
     def _backward_micro(self, batch, scale: float) -> torch.Tensor:
+        rng = self._next_rng() if self._loss_takes_rng else None
         if self._z3 is not None:
             # each unit's gradients are reduced into the shard
             # accumulator as the backward finishes them (added into the full
@@ -537,12 +645,12 @@ class DeepSpeedTPUEngine:
             z = self._z3
             z.defer = self._no_sync_depth > 0
             with torch.enable_grad(), z.on_use():
-                loss = self._loss(batch)
+                loss = self._loss(batch, rng)
                 z.run_backward(loss * scale)
                 z.finish()
             return loss.detach()
         with torch.enable_grad():
-            loss = self._loss(batch)
+            loss = self._loss(batch, rng)
             (loss * scale).backward()
         return loss.detach()
 
@@ -602,6 +710,11 @@ class DeepSpeedTPUEngine:
                 g.div_(scale * self.gas)
             if self.dp_world > 1 and not reduced:
                 self._reduce_grads(self._sr_generator(self.state.step))
+            # frozen gradients are zeroed before the norm (JAX
+            # engine.py:817-824), so they neither count nor clip
+            for g, f in zip(grads, self._frozen):
+                if f:
+                    g.zero_()
             norm = global_grad_norm(grads)
         overflow = self.fp16 and not bool(torch.isfinite(norm))
         clip = cfg.gradient_clipping
@@ -612,14 +725,21 @@ class DeepSpeedTPUEngine:
         step = self.state.step
         if not overflow:
             with torch.no_grad():
-                if self._zero is not None:
+                if self._zero is not None and self._leafwise:
+                    shapes = dict(zip(self._paths, self._zero.shapes))
+                    reduce = lambda v: comm.all_reduce(v, self.topo.dp_axes, op="sum")
+                    with sharded_leaves(shapes, reduce):
+                        self._update(self._opt_tree(self._fragments(self._shard_grad)),
+                                     self._opt_tree(self._fragments(self._master_shard)))
+                elif self._zero is not None:
                     self._update(grads, [self._master_shard])
+                if self._zero is not None:
                     if not self._stage3:
                         self._zero.all_gather_flat(
                             self._master_shard, cfg.zero_optimization.allgather_bucket_size,
                             out=self._flat_master)
                 else:
-                    self._update(self._tree(grads), self._tree(self._masters))
+                    self._update(self._opt_tree(grads), self._opt_tree(self._masters))
         for g in grads:
             g.zero_()
         self.state.loss_scale = update_loss_scale(
@@ -740,7 +860,8 @@ class DeepSpeedTPUEngine:
         leaves the gas-sum in the full buffer, which is divided (as at stage
         0) and reduce-scattered here; otherwise the shard accumulator holds
         it already. The norm is the square root of the ranks' summed squared
-        shard norms, so every rank reads the same value."""
+        shard norms, so every rank reads the same value. Frozen leaves'
+        fragments are zeroed first."""
         if reduced or self.config.zero_optimization.stage >= 2:
             self._shard_grad.div_(scale * self.gas)
         else:
@@ -749,6 +870,9 @@ class DeepSpeedTPUEngine:
                 self._flat_grad, self._shard_grad,
                 self.config.zero_optimization.reduce_bucket_size, accumulate=False)
             self._flat_grad.zero_()
+        for i, f in enumerate(self._frozen):
+            if f:
+                self._zero.fragment(self._shard_grad, i).zero_()
         sq = torch.linalg.vector_norm(self._shard_grad).square().reshape(1)
         comm.all_reduce(sq, self.topo.dp_axes, op="sum")
         return sq.sqrt()[0]
@@ -828,16 +952,38 @@ class DeepSpeedTPUEngine:
                            for s in self._zero.shapes])
         return pytree.tree_flatten(self.tx.init(meta))
 
+    def _state_owners(self, state) -> List[Optional[int]]:
+        """For each leaf of an optimizer state over the (masked) parameter
+        tree, the index of the parameter it belongs to (the longest
+        parameter key path its own key path ends with), or None for the
+        leaves no parameter owns (a step count)."""
+        owners = []
+        for kp, x in pytree.tree_flatten_with_path(state)[0]:
+            hit = None
+            if isinstance(x, torch.Tensor):
+                for i, pp in enumerate(self._keypaths):
+                    if (0 < len(pp) <= len(kp) and tuple(kp[-len(pp):]) == pp
+                            and (hit is None or len(pp) > len(self._keypaths[hit]))):
+                        hit = i
+            owners.append(hit)
+        return owners
+
     def _full_opt_state(self, keep: Callable):
         """Stages 1-3: the optimizer state in its stage-0 layout, every
-        shard tensor gathered leaf by leaf (a collective) and passed through
-        ``keep`` (e.g. to the host, or to None where it is not needed)."""
-        layout, spec = self._opt_layout()
-        n = len(self._zero.shapes)
-        out = []
+        shard tensor (or, leaf by leaf, every fragment) gathered leaf by
+        leaf (a collective) and passed through ``keep`` (e.g. to the host,
+        or to None where it is not needed)."""
         opt_state = self.state.opt_state
         if self._offload_optimizer:
             opt_state = self._opt_on_device(opt_state)    # the storage tier
+        if self._leafwise:
+            leaves, spec = pytree.tree_flatten(opt_state)
+            return pytree.tree_unflatten(
+                [x if i is None else keep(self._zero.gather_fragment(x, i))
+                 for x, i in zip(leaves, self._state_owners(opt_state))], spec)
+        layout, spec = self._opt_layout()
+        n = len(self._zero.shapes)
+        out = []
         for leaf in pytree.tree_leaves(opt_state):
             if isinstance(layout[len(out)], torch.Tensor):
                 out.extend(keep(self._zero.gather(leaf, i)) for i in range(n))
@@ -848,11 +994,28 @@ class DeepSpeedTPUEngine:
     def _load_opt_state(self, leaves: List[Any]) -> None:
         """Stages 1-3: the optimizer state from the leaves of its stage-0
         layout, this rank's part of each tensor written into its shard."""
+        cur, spec = pytree.tree_flatten(self.state.opt_state)
+        if self._leafwise:
+            if len(leaves) != len(cur):
+                raise ValueError(f"optimizer state has {len(leaves)} leaves, the engine's "
+                                 f"stage-0 layout {len(cur)}")
+            new = []
+            for k, (x, i) in enumerate(zip(cur, self._state_owners(self.state.opt_state))):
+                if i is None:
+                    new.append(leaves[k])
+                    continue
+                if tuple(leaves[k].shape) != self._zero.shapes[i]:
+                    raise ValueError(f"optimizer leaf {k}: shape {tuple(leaves[k].shape)}, "
+                                     f"the engine's {self._zero.shapes[i]}")
+                a, b = self._zero.span(i)
+                x.copy_(leaves[k].reshape(-1)[a:b])
+                new.append(x)
+            self.state.opt_state = pytree.tree_unflatten(new, spec)
+            return
         layout, _ = self._opt_layout()
         if len(leaves) != len(layout):
             raise ValueError(f"optimizer state has {len(leaves)} leaves, the engine's "
                              f"stage-0 layout {len(layout)}")
-        cur, spec = pytree.tree_flatten(self.state.opt_state)
         new, k = [], 0
         for leaf in cur:
             if isinstance(layout[k], torch.Tensor):
@@ -914,15 +1077,17 @@ class DeepSpeedTPUEngine:
                 "microbatch gradient(s) pending from backward(); finish the "
                 "window with backward()+step() or discard it with zero_grad()")
         if batch is None:
-            mbs = [next(data_iter) for _ in range(self.gas)]
-            batch = self._shape_batch(pytree.tree_map(lambda *xs: torch.stack(
-                [torch.as_tensor(x) for x in xs]), *mbs))
+            # this rank's micro-batches, each moved to the device (no copy
+            # when a prefetching loader put it there already)
+            micro = [pytree.tree_map(lambda x: torch.as_tensor(x, device=self.device),
+                                     next(data_iter)) for _ in range(self.gas)]
         else:
             batch = self._rank_slice(self._shape_batch(batch), 1)
+            micro = [pytree.tree_map(lambda x: x[i], batch) for i in range(self.gas)]
         scale = self.state.loss_scale.scale if self.fp16 else 1.0
         losses = []
-        for i in range(self.gas):
-            losses.append(self._backward_micro(pytree.tree_map(lambda x: x[i], batch), scale))
+        for mb in micro:
+            losses.append(self._backward_micro(mb, scale))
             if self._zero is not None and self.config.zero_optimization.stage >= 2:
                 self._reduce_pending()
         metrics = self._apply()
@@ -1233,20 +1398,25 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
                config=None, config_params=None, device="cuda", **kwargs):
     """Create an engine (reference ``deepspeed.initialize``; the JAX
     package's signature vocabulary). ``model`` is a loss function
-    ``loss = f(params, batch[, rng])`` (``models.make_loss_fn(model)``),
-    ``model_parameters`` the parameter tree. The engine runs on ``device``,
-    the card unless the caller passes ``"cpu"``. Returns ``(engine,
-    optimizer, dataloader, lr_schedule)``; with ``training_data`` (an
-    indexable dataset) the dataloader yields this rank's micro-batches, else
-    it is None. Joins the process group first (``comm.init_distributed``:
-    the launcher's environment; a no-op at world size 1)."""
-    if mpu is not None or kwargs.get("frozen_params"):
-        raise _not_ported("mpu / frozen_params", 7, "engine extras")
+    ``loss = f(params, batch[, rng])`` (``models.make_loss_fn(model)``; a
+    loss that takes ``rng`` gets an integer seed per micro-batch),
+    ``model_parameters`` the parameter tree. ``optimizer`` is a
+    ``GradientTransformation`` or a factory called with the tree's shapes
+    (meta tensors) that returns one. ``frozen_params`` (a keyword) lists
+    path patterns of leaves that get no gradient, update or optimizer
+    state. ``mpu`` is accepted and unused, as in the JAX package, whose
+    mesh topology replaces it. The engine runs on ``device``, the card
+    unless the caller passes ``"cpu"``. Returns ``(engine, optimizer,
+    dataloader, lr_schedule)``; with ``training_data`` (an indexable
+    dataset) the dataloader yields this rank's micro-batches, else it is
+    None. Joins the process group first (``comm.init_distributed``: the
+    launcher's environment; a no-op at world size 1)."""
     cfg = load_config(config if config is not None else config_params)
     if dist_init_required is not False:
         comm.init_distributed()
     engine = DeepSpeedTPUEngine(model, model_parameters, cfg, optimizer=optimizer,
-                                lr_scheduler=lr_scheduler, device=device)
+                                lr_scheduler=lr_scheduler, device=device,
+                                frozen_params=kwargs.get("frozen_params"))
     dataloader = None
     if training_data is not None:
         from .dataloader import DeepSpeedDataLoader

@@ -66,12 +66,17 @@ class FlatPartition:
     def gather(self, shard: torch.Tensor, i: int) -> torch.Tensor:
         """Leaf i in full, assembled from every rank's fragment of it (a
         collective: every rank calls it)."""
+        return self.gather_fragment(self.fragment(shard, i), i)
+
+    def gather_fragment(self, mine: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf i in full from this rank's fragment ``mine`` of it (any 1-D
+        tensor of the fragment's length, e.g. an optimizer moment) and every
+        other rank's (a collective)."""
         spans = [self.span(i, r) for r in range(self.world)]
         m = max(b - a for a, b in spans)
-        out = torch.empty(self.numels[i], dtype=shard.dtype, device=shard.device)
+        out = torch.empty(self.numels[i], dtype=mine.dtype, device=mine.device)
         if m:
-            send = torch.zeros(m, dtype=shard.dtype, device=shard.device)
-            mine = self.fragment(shard, i)
+            send = torch.zeros(m, dtype=mine.dtype, device=mine.device)
             send[:mine.numel()] = mine
             got = comm.all_gather(send, self.axis)
             at = 0

@@ -236,8 +236,10 @@ def safe_set_local_grad(engine, path, value, device_index: int = 0):
 
 def _find_optim_subtree(opt_state, key: str):
     """The moment tree named ``key`` (reference state keys: exp_avg /
-    exp_avg_sq; ``ScaleByAdamState`` uses the same names): params-congruent
-    at stage 0, the one-leaf list of this rank's shard at stages 1-3."""
+    exp_avg_sq; ``ScaleByAdamState`` uses the same names, Lion exp_avg,
+    Adagrad sum_sq, SGD trace): params-congruent at stage 0 and, leaf by
+    leaf, at stages 1-3 (this rank's fragments), else the one-leaf list of
+    this rank's flat shard."""
     found = []
 
     def walk(node):
@@ -273,14 +275,19 @@ def _moment(engine, key: str):
 
 def _moment_leaf(engine, sub, i: int, path, full: bool) -> torch.Tensor:
     """The moment of leaf i: at stages 1-3 gathered (``full``) or this
-    rank's fragment of the shard, else the tensor itself."""
+    rank's fragment, else the tensor itself. A frozen leaf has none."""
     if engine._host_adam is not None:
         return sub[i].to(engine.device)
+    if engine._frozen[i]:
+        raise ValueError(f"{path!r} is frozen (frozen_params): it has no optimizer state")
     if engine._zero is None:
         return _resolve(sub, path)
+    if engine._leafwise:
+        frag = _resolve(sub, path)
+        # the storage tier keeps the state in host memory; gather on the device
+        return engine._zero.gather_fragment(frag.to(engine.device), i) if full else frag
     shard = sub[0]
     if full:
-        # the storage tier keeps the shard in host memory; gather on the device
         return engine._zero.gather(shard.to(engine.device), i)
     return engine._zero.fragment(shard, i)
 
@@ -310,9 +317,10 @@ def safe_set_full_optimizer_state(engine, path, value, optim_state_key: str):
     if engine._host_adam is not None:
         sub[i].copy_(value)
     elif engine._zero is not None:
-        engine._zero.scatter(sub[0], i, value)
+        a, b = engine._zero.span(i)
+        _moment_leaf(engine, sub, i, path, False).copy_(value.reshape(-1)[a:b])
     else:
-        _resolve(sub, path).copy_(value)
+        _moment_leaf(engine, sub, i, path, False).copy_(value)
 
 
 def safe_set_local_optimizer_state(engine, path, value, optim_state_key: str,

@@ -55,6 +55,14 @@ SURFACE = {
     # tests/test_torch_offload.py and test_torch_aio.py hold them)
     "ops.adam": ["CPUAdamBuilder"],
     "ops.aio": ["AsyncIOBuilder", "AsyncIOHandle"],
+    # the optimizer library, the error-feedback compression and the
+    # device-prefetch loader (ROADMAP.md Queue A items 7.5-7.6)
+    "ops.optimizers": ["fused_adam", "fused_lamb", "fused_lion", "adagrad", "sgd",
+                       "mu_optimizer", "build_optimizer", "ScaleByAdamState",
+                       "ScaleByLionState", "ScaleByAdagradState"],
+    "compression.onebit": ["ErrorFeedbackState", "init_error_feedback", "onebit_compress",
+                           "compressed_allreduce", "server_error_shape"],
+    "runtime.dataloader": ["PrefetchLoader", "RepeatingLoader"],
 }
 # kernel wrappers: port module -> (JAX module, names)
 WRAPPERS = {

@@ -1616,3 +1616,52 @@ def test_offload_params_frees_the_cards_blocks_on_card():
     eng.reload_states()
     assert [id(p) for p in eng._masters] == ids
     assert all(torch.equal(p.detach(), b) for p, b in zip(eng._masters, before))
+
+
+def test_prefetch_loader_copies_on_a_side_stream_on_card():
+    """PrefetchLoader's default device is the card: each yielded leaf is a
+    CUDA tensor equal to its host batch, in order, over a pool of pinned
+    buffers reused across more batches than it holds; the consumer's
+    stream waited for the copies, so a kernel reading the batch sees it
+    whole."""
+    _need_card()
+    from deepspeed_tpu_torch.runtime.dataloader import PrefetchLoader
+
+    batches = [{"tokens": np.full((4, 2048), i, np.int64),
+                "mask": np.full((4, 2048), i % 2, np.float32)} for i in range(9)]
+    pf = PrefetchLoader(batches, depth=2)
+    sums, devices = [], set()
+    for b in pf:
+        sums.append((b["tokens"].sum(), b["mask"].sum()))
+        devices |= {b["tokens"].device.type, b["mask"].device.type}
+    assert devices == {"cuda"}
+    assert [(int(a), float(m)) for a, m in sums] == [(i * 4 * 2048, (i % 2) * 4 * 2048)
+                                                     for i in range(9)]
+    assert all(len(pool) <= pf.depth + 1 for pool in pf._pool.values())
+    assert all(buf.is_pinned() for pool in pf._pool.values() for buf, _ in pool)
+
+
+def test_lamb_step_on_card_matches_the_cpu():
+    """One LAMB step (the config route) on tensors on the card equals the
+    same step on the CPU within fp32 summation noise: the Adam direction,
+    the per-tensor trust ratio and no fused-Adam launch."""
+    _need_card()
+    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+
+    gen = torch.Generator().manual_seed(0)
+    host = {"w": torch.randn(300, 70, generator=gen), "b": torch.randn(70, generator=gen),
+            "z": torch.zeros(5)}
+    grads = {k: 0.1 * torch.randn(v.shape, generator=gen) for k, v in host.items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tx = build_optimizer("Lamb", {"lr": 1e-2, "weight_decay": 0.01})
+        p = {k: v.to(dev) for k, v in host.items()}
+        state = tx.init(p)
+        adam.reset_launch_counts()
+        u, state = tx.update({k: v.to(dev) for k, v in grads.items()}, state, p)
+        assert adam.launch_counts["fused_adam"] == 0 and state.step == 1
+        out[dev] = ({k: v.cpu() for k, v in u.items()}, tx.update.last_trust.cpu())
+    for k in host:
+        _close(out["cuda"][0][k], out["cpu"][0][k], 1e-5)
+    _close(out["cuda"][1], out["cpu"][1], 1e-5)
+    assert float(out["cuda"][1][2]) == 1.0        # ||p|| = 0: trust ratio 1

@@ -24,7 +24,6 @@
   ``test_torch_remat.py``).
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -282,9 +281,6 @@ def test_unported_paths_raise():
         tds.initialize(model=loss_fn, model_parameters=p, device="cpu",
                        config=dict(TRAIN_CONFIG, zero_optimization={
                            "offload_param": {"device": "nvme"}}))
-    for over in (dict(dropout=0.1),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttf.TransformerLM(dataclasses.replace(tcfg, **over), p)
 
 
 def test_dataloader_matches_jax_and_feeds_train_batch():

@@ -197,7 +197,8 @@ def scenario_compressed(rank, world, inputs, workdir):
     return out
 
 
-def _engine(inputs, overrides=None, training_data=None, device="cpu", model=None):
+def _engine(inputs, overrides=None, training_data=None, device="cpu", model=None,
+            frozen_params=None):
     import deepspeed_tpu_torch as tds
     from deepspeed_tpu_torch.models import convert
     from deepspeed_tpu_torch.models import transformer as ttf
@@ -210,7 +211,8 @@ def _engine(inputs, overrides=None, training_data=None, device="cpu", model=None
     config = dict(inputs["config"], **(overrides or {}))
     return tds.initialize(model=ttf.make_loss_fn(ttf.TransformerLM(cfg, params)),
                           model_parameters=params, config=config,
-                          training_data=training_data, device=device)
+                          training_data=training_data, device=device,
+                          frozen_params=frozen_params)
 
 
 def _masters(eng):
@@ -617,10 +619,86 @@ def scenario_cuda_stage3(rank, world, inputs, workdir):
     return out
 
 
+def scenario_zero_optimizers(rank, world, inputs, workdir):
+    """LAMB, MuAdamW and frozen leaves at ZeRO stages 0-3 from the same
+    weights on the same batches: the losses, the full masters, the
+    frozen leaf, LAMB's trust ratios and the full first moments, the
+    optimizer's fragments (empty ones and one across the rank boundary);
+    a stage-2 LAMB run with a frozen leaf saved after two steps and resumed
+    by a fresh engine."""
+    from deepspeed_tpu_torch.ops.fastpath import reset_fastpath
+    from deepspeed_tpu_torch.utils import (safe_get_full_optimizer_state,
+                                           safe_set_full_optimizer_state)
+
+    batches = [torch.from_numpy(b) for b in inputs["batches"]]
+    out = {}
+    for name, (optimizer, frozen) in inputs["runs"].items():
+        for stage in (0, 1, 2, 3):
+            eng, *_ = _engine(inputs, {"optimizer": optimizer,
+                                       "zero_optimization": {"stage": stage}},
+                              frozen_params=frozen)
+            key = f"{name}/stage{stage}"
+            out[key] = [float(eng.train_batch(b)) for b in batches]
+            out["paths"] = _paths(eng)
+            out[key + "/masters"] = _full_masters(eng)
+            out[key + "/leafwise"] = eng._leafwise
+            trust = getattr(eng.tx.update, "last_trust", None)
+            out[key + "/trust"] = None if trust is None else _np(trust)
+            out[key + "/exp_avg"] = [
+                None if f else _np(safe_get_full_optimizer_state(eng, p, "exp_avg"))
+                for p, f in zip(_paths(eng), eng._frozen)]
+            if eng._zero is not None:
+                out[key + "/spans"] = [eng._zero.span(i) for i in range(len(eng._frozen))]
+                # a moment written in full and read back, on a leaf both
+                # ranks hold part of
+                part = eng._zero
+                i = next(i for i in range(len(part.shapes))
+                         if all(a < b for a, b in (part.span(i, r) for r in range(world))))
+                value = torch.arange(part.numels[i], dtype=torch.float32).view(part.shapes[i])
+                path = _paths(eng)[i]
+                safe_set_full_optimizer_state(eng, path, value, "exp_avg")
+                out[key + "/set_get"] = (path, torch.equal(
+                    safe_get_full_optimizer_state(eng, path, "exp_avg"), value))
+                out[key + "/state_elems"] = sum(
+                    t.numel() for t in torch.utils._pytree.tree_leaves(eng.state.opt_state)
+                    if isinstance(t, torch.Tensor))
+            reset_fastpath()
+    # the storage tier (offload_optimizer cpu over several ranks) with a
+    # frozen leaf at stage 2: its state in host memory, none for the leaf
+    optimizer, frozen = inputs["runs"]["frozen"]
+    eng, *_ = _engine(inputs, {"optimizer": optimizer, "zero_optimization": {
+        "stage": 2, "offload_optimizer": {"device": "cpu"}}}, frozen_params=frozen)
+    out["frozen_offload"] = [float(eng.train_batch(b)) for b in batches]
+    out["frozen_offload/masters"] = _full_masters(eng)
+    out["frozen_offload/state"] = (
+        eng._host_adam is None and eng._offload_optimizer,
+        {t.device.type for t in torch.utils._pytree.tree_leaves(eng.state.opt_state)
+         if isinstance(t, torch.Tensor)},
+        sum(t.numel() for t in torch.utils._pytree.tree_leaves(eng.state.opt_state)
+            if isinstance(t, torch.Tensor)))
+    reset_fastpath()
+    # save a stage-2 LAMB run with a frozen leaf after two steps; a fresh
+    # engine resumes it
+    optimizer, frozen = inputs["runs"]["lamb_frozen"]
+    over = {"optimizer": optimizer, "zero_optimization": {"stage": 2}}
+    ckpt = os.path.join(workdir, "ckpt")
+    first, *_ = _engine(inputs, over, frozen_params=frozen)
+    for b in batches[:2]:
+        first.train_batch(b)
+    first.save_checkpoint(ckpt)
+    resumed, *_ = _engine(inputs, over, frozen_params=frozen)
+    resumed.load_checkpoint(ckpt)
+    out["resumed"] = float(resumed.train_batch(batches[2]))
+    out["resumed/masters"] = _full_masters(resumed)
+    reset_fastpath()
+    return out
+
+
 SCENARIOS = {"comm": scenario_comm, "comm_rooted": scenario_comm_rooted,
              "compressed": scenario_compressed,
              "train": scenario_train, "cuda_step": scenario_cuda_step,
-             "cuda_stage3": scenario_cuda_stage3}
+             "cuda_stage3": scenario_cuda_stage3,
+             "zero_optimizers": scenario_zero_optimizers}
 
 
 def main():
