@@ -238,7 +238,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with the embedding frozen at 2 layers at ZeRO stages 0, 2 and 3: phase
    11's loss rule against stage 0, the masters bitwise equal across ranks,
    the frozen leaf bitwise its initial value, every step's trust ratios
-   within TRUST_RTOL of stage 0's.
+   within TRUST_RTOL of stage 0's;
+21. mixture of experts — (a) Mixtral-8x7B's widths (hidden 4096, 32/8
+   heads, ffn 14336, 8 experts, top-2, vocab 32000) at 2 of its 32 layers
+   through phase 6's recipe, once on the capacity path (factor 1.25) and
+   once dropless: phase 6's gates, peak memory below 18 B a parameter plus
+   MOE_ACTIVATION_BYTES; step time, tokens/s, MFU over the parameters a
+   token runs through, the MoE blocks' share of the step (CUDA events),
+   one step's host syncs and the dropped assignments printed; (b) one
+   Mixtral block in bf16 against float32 on both paths: top-2 agreement and
+   the error on agreeing tokens within MOE_BF16_RTOL; (c) Mixtral-8x7B's
+   widths at 8 layers and Qwen1.5-MoE-A2.7B (60 experts, top-4, a shared
+   expert) at its published size served with phase 16's gates, then phase
+   5's path parity for both at 2 layers with the routing of the kernel
+   run replayed (ROUTE_AGREE of tokens routing alike).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -2197,15 +2210,16 @@ def kv_quant_phase(pa, card, bf16_run, profile=False):
     return {"paged_flash_decode_int8": launches["paged_flash_decode_int8"]}
 
 
-def wide_serving_phase(pa, card, models, profile=False):
+def wide_serving_phase(pa, card, models, profile=False, names=("phi-3-mini", "Pythia-1B")):
     """Phase 16: phi-3-mini-4k (head dim 96) and Pythia-1B (256) served at
-    their published sizes through ``slice_phase`` (16 requests, 128 new
-    tokens each, 1024 KV blocks of 32 slots), with phase 4's gates and
-    theirs: both paged kernels launch, every launch on ``sm90``, a whole
-    number per layer, and the engine resolves the kernels on both paths by
-    its heuristic. Returns each model's launches."""
+    their published sizes (phase 21: ``names`` of the MoE models) through
+    ``slice_phase`` (16 requests, 128 new tokens each, 1024 KV blocks of 32
+    slots), with phase 4's gates and theirs: both paged kernels launch,
+    every launch on ``sm90``, a whole number per layer, and the engine
+    resolves the kernels on both paths by its heuristic. Returns each
+    model's run."""
     out = {}
-    for name in ("phi-3-mini", "Pythia-1B"):
+    for name in names:
         run = slice_phase(pa, card, profile=profile, name=name, cfg=models[name])
         layers = run["cfg"].num_layers
         checks = {"engine resolves pallas / pallas (heuristic)":
@@ -2219,7 +2233,7 @@ def wide_serving_phase(pa, card, models, profile=False):
             f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
         if not all(checks.values()):
             raise SystemExit(f"serving {name} FAILED")
-        out[name] = run["launches"]
+        out[name] = run
     return out
 
 
@@ -2228,12 +2242,65 @@ def wide_serving_phase(pa, card, models, profile=False):
 # ---------------------------------------------------------------------------
 
 
+class RouteReplay:
+    """Phase 21's rule for routing near-ties in path parity. An MoE model's
+    bf16 runs round activations at different places, so a token whose k-th
+    and (k+1)-th router probabilities nearly tie can pick another expert on
+    each path, and its logits then differ by O(1) whatever the attention
+    kernels do. So the kernel run records each dropless call's top-k choice
+    (``moe.sharded_moe._top_k``), the einsum runs (bf16 and float32) replay
+    it with their own gate values, and the logits compare as a dense
+    model's do. Each replaying call counts the tokens whose own choice was
+    the recorded one; their share must reach ``ROUTE_AGREE``."""
+
+    def __init__(self):
+        self.recorded, self.pos, self.agree, self.total = [], 0, 0, 0
+
+    @contextlib.contextmanager
+    def __call__(self, record: bool):
+        from deepspeed_tpu_torch.moe import sharded_moe
+
+        orig = sharded_moe._top_k
+        if record:
+            self.recorded = []
+        self.pos = 0
+
+        def top_k(x, k):
+            vals, idx = orig(x, k)
+            if record:
+                self.recorded.append(idx)
+                return vals, idx
+            want = self.recorded[self.pos]
+            self.pos += 1
+            same = (idx.sort(-1).values == want.sort(-1).values).all(-1)
+            self.agree += int(same.sum())
+            self.total += same.numel()
+            return torch.gather(x, -1, want), want
+
+        sharded_moe._top_k = top_k
+        try:
+            yield
+        finally:
+            sharded_moe._top_k = orig
+
+    def share(self):
+        share = self.agree / max(self.total, 1)
+        self.agree = self.total = 0
+        return share
+
+
+ROUTE_AGREE = 0.9
+
+
 def path_phase(cfg=None, name="Llama-2-7B"):
-    """Phase 5 (Llama-2-7B widths at 4 layers) and 17 (``cfg``): one packed
-    step and one fused decode step / chunk through the kernel path (every
-    paged launch on ``sm90``, once per layer), the einsum path in bf16 and
-    the einsum path in float32 on identical pools; the kernel path's logits
-    within ``NOISE_FACTOR`` x the einsum path's distance from float32."""
+    """Phase 5 (Llama-2-7B widths at 4 layers), 17 and 21 (``cfg``): one
+    packed step and one fused decode step / chunk through the kernel path
+    (every paged launch on ``sm90``, once per layer), the einsum path in
+    bf16 and the einsum path in float32 on identical pools; the kernel
+    path's logits within ``NOISE_FACTOR`` x the einsum path's distance from
+    float32. An MoE model's packed and decode steps route as the kernel
+    run did (:class:`RouteReplay`); the 16-step ``decode_loop`` routes each
+    run its own way (its token agreement is printed, not gated)."""
     from deepspeed_tpu_torch.inference.v2 import model
     from deepspeed_tpu_torch.inference.v2.ragged import RaggedBatchWrapper
     from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import \
@@ -2276,13 +2343,17 @@ def path_phase(cfg=None, name="Llama-2-7B"):
     params32 = _cast(params, torch.float32)
     runs = {"kernel": ("pallas", cfg, params), "einsum": ("einsum", cfg, params),
             "fp32": ("einsum", cfg32, params32)}
+    routing = RouteReplay() if cfg.num_experts else None
+    routed = lambda run: (routing(run == "kernel") if routing is not None
+                          else contextlib.nullcontext())
     pools, packed, sm90 = {}, {}, {}
     for run, (impl, c, p) in runs.items():
         kk, vv = k0.to(c.dtype, copy=True), v0.to(c.dtype, copy=True)
         pa.reset_launch_counts()
-        packed[run], _, _ = model.ragged_forward(
-            p, c, kk, vv, *[t(getattr(batch, f)) for f in fields],
-            attn_impl=impl)
+        with routed(run):
+            packed[run], _, _ = model.ragged_forward(
+                p, c, kk, vv, *[t(getattr(batch, f)) for f in fields],
+                attn_impl=impl)
         sm90[run] = pa.route_counts["paged_attention"]["sm90"]
         pools[run] = (kk, vv)
     dist = lambda a, b: (packed[a] - packed[b]).abs().max().item()
@@ -2290,6 +2361,12 @@ def path_phase(cfg=None, name="Llama-2-7B"):
     agree = (packed["kernel"].argmax(-1) == packed["einsum"].argmax(-1)
              ).float().mean().item()
     tag = f"{name} widths, {cfg.num_layers} layers, D {cfg.head_dim}"
+    agreed = {}
+    if routing is not None:
+        agreed["packed"] = routing.share()
+        log(f"path parity packed step ({tag}): einsum and fp32 runs replay the kernel "
+            f"run's routing; share of tokens whose own top-{cfg.moe_top_k} set agreed "
+            f"{agreed['packed']:.4f} (need >= {ROUTE_AGREE})")
     log(f"path parity packed step ({tag}, 8 seqs, ctx 100..900): "
         f"max|dlogits| kernel-einsum={d_logits:.3e}, einsum-fp32={noise:.3e}, "
         f"kernel-fp32={dist('kernel', 'fp32'):.3e} (need kernel-einsum <= "
@@ -2309,8 +2386,9 @@ def path_phase(cfg=None, name="Llama-2-7B"):
                          dtype=c.dtype, device=dev)
         wv = torch.zeros_like(wk)
         pa.reset_launch_counts()
-        step_logits[run] = model.decode_step(p, c, kk, vv, wk, wv, first,
-                                             pos0, pos0, bt, active, 0, impl)
+        with routed(run):
+            step_logits[run] = model.decode_step(p, c, kk, vv, wk, wv, first,
+                                                 pos0, pos0, bt, active, 0, impl)
         sm90[run] = (sm90[run], pa.route_counts["paged_flash_decode"]["sm90"])
         toks[run], _, _ = model.decode_loop(p, c, kk, vv, first, pos0, bt,
                                             active, None, 1.0, n_steps=W,
@@ -2329,6 +2407,12 @@ def path_phase(cfg=None, name="Llama-2-7B"):
                         "fp32": (0, 0)}
     log(f"path parity ({tag}): sm90 launches of the packed and decode kernel by run "
         f"{sm90} {'ok' if launched else 'FAIL'}")
+    if routing is not None:
+        agreed["decode"] = routing.share()
+        log(f"path parity decode step ({tag}): routing replayed from the kernel run; "
+            f"own top-{cfg.moe_top_k} set agreed for {agreed['decode']:.4f} of tokens "
+            f"(need >= {ROUTE_AGREE})")
+        launched = launched and min(agreed.values()) >= ROUTE_AGREE
     if d_logits > NOISE_FACTOR * noise or d_step > NOISE_FACTOR * step_noise or not launched:
         raise SystemExit(f"path parity FAILED ({tag})")
     del pools, runs, params
@@ -2495,12 +2579,15 @@ def updates_ms(marks, skip: int) -> float:
 TRAIN_FIGURES = {}
 
 
-def train_phase(kernels, card, name, cfg, profile=False):
+def train_phase(kernels, card, name, cfg, profile=False, n_matmul=None, after=None):
     """A model (``name``, ``cfg``: TinyLlama-1.1B in phase 6, Pythia-1B in
-    phase 15) through initialize + train_batch, the optimizer and schedule
-    from the config (AdamW takes the fused Adam kernel on the card),
-    ``loss_impl: auto`` (the fused loss kernels on the card); the optimizer
-    step timed with CUDA events."""
+    phase 15, Mixtral-8x7B widths in phase 21) through initialize +
+    train_batch, the optimizer and schedule from the config (AdamW takes
+    the fused Adam kernel on the card), ``loss_impl: auto`` (the fused loss
+    kernels on the card); the optimizer step timed with CUDA events.
+    ``n_matmul``: the matrix parameters a token runs through (default: all
+    but the embedding; an MoE model's k of E experts); ``after(engine,
+    batch)`` runs once the gates hold, before the engine goes."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models import TransformerLM, init_params, make_loss_fn
 
@@ -2511,7 +2598,8 @@ def train_phase(kernels, card, name, cfg, profile=False):
     engine, *_ = dst.initialize(model=make_loss_fn(model), model_parameters=params,
                                 config=TRAIN_CONFIG)
     n_params = sum(p.numel() for p in engine._masters)
-    n_matmul = n_params - cfg.vocab_size * cfg.hidden_size      # no embedding gather
+    if n_matmul is None:
+        n_matmul = n_params - cfg.vocab_size * cfg.hidden_size  # no embedding gather
     gas, micro = engine.gas, engine.micro_batch_size
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -2551,7 +2639,8 @@ def train_phase(kernels, card, name, cfg, profile=False):
         f"989 TFLOP/s bf16), max_memory_allocated {peak / 2**30:.2f} GiB, optimizer "
         f"step {opt_ms:.2f} ms (CUDA events around _update)")
     TRAIN_FIGURES[name] = dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s, mfu=mfu,
-                               peak_gib=peak / 2**30, opt_ms=opt_ms)
+                               peak_gib=peak / 2**30, opt_ms=opt_ms, n_params=n_params,
+                               losses=losses)
     log(f"{tag}: kernel launches {launches}")
     from deepspeed_tpu_torch.ops.fused_loss import chunk_width
 
@@ -2596,6 +2685,8 @@ def train_phase(kernels, card, name, cfg, profile=False):
         with trace:
             float(engine.train_batch(batch))
         device_time_breakdown(trace, time.perf_counter() - t0, top=30)
+    if after is not None:
+        after(engine, batch)
     del engine, model, params, batch
     torch.cuda.empty_cache()
     return launches
@@ -4354,6 +4445,246 @@ def check_lamb_dp(spec, ranks, card):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# phase 21: mixture of experts
+# ---------------------------------------------------------------------------
+
+# Qwen/Qwen1.5-MoE-A2.7B config.json, mapped as the JAX package's
+# inference/hf.py maps qwen2_moe: hidden_size 2048, num_hidden_layers 24,
+# num_attention_heads 16 = num_key_value_heads (head dim 128), vocab_size
+# 151936, intermediate_size 5632, moe_intermediate_size 1408,
+# shared_expert_intermediate_size 5632, num_experts 60, num_experts_per_tok
+# 4, norm_topk_prob false, decoder_sparse_step 1, rope_theta 1e6,
+# rms_norm_eps 1e-6, max_position_embeddings 8192, q/k/v biases, untied
+# lm_head; served dropless, as the JAX serving path always is
+QWEN_MOE = dict(vocab_size=151936, hidden_size=2048, intermediate_size=5632, num_layers=24,
+                num_heads=16, num_kv_heads=16, max_seq_len=8192, norm="rmsnorm",
+                activation="swiglu", position="rope", rope_theta=1e6, norm_eps=1e-6,
+                attn_qkv_bias=True, tie_embeddings=False, num_experts=60, moe_top_k=4,
+                moe_every=1, moe_offset=0, moe_intermediate_size=1408,
+                moe_shared_expert_size=5632, moe_norm_topk=False, moe_dropless=True)
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_SERVE_LAYERS = 2, 8
+# the trainer's model state: fp32 master, first and second moment and
+# gradient, and the bf16 compute copy; activations at micro 4 x 2048 of two
+# Mixtral layers (the capacity path keeps ~3.4 GiB a layer: the [E, G, C, F]
+# expert intermediates and the [G, S, E, C] gating tensors) within the rest
+MOE_STATE_BYTES_PER_PARAM = 18
+MOE_ACTIVATION_BYTES = 16 * 2**30
+# the bf16 MoE block against the same block in float32 (bf16 weights and
+# inputs cast up): on the tokens whose top-k set agrees, the output within
+# this share of the float32 output's largest magnitude (bf16 rounds each
+# expert product's operands and the combine once, unit roundoff 2^-9)
+MOE_BF16_RTOL = 3e-2
+
+
+def mixtral_models():
+    from deepspeed_tpu_torch.models import TransformerConfig, mixtral_config
+
+    return {"Mixtral-8x7B": mixtral_config("8x7b", dtype=torch.bfloat16),
+            "Qwen1.5-MoE-A2.7B": TransformerConfig(**QWEN_MOE, dtype=torch.bfloat16)}
+
+
+class MoEProbe:
+    """Phase 21's instruments on the MoE blocks of a training run: CUDA
+    events around each block's forward and, through gradient hooks on its
+    output and its input, its backward; the capacity path's kept
+    assignments; while ``syncs`` is a list, the host syncs a block causes
+    (``torch.cuda.set_sync_debug_mode`` warnings)."""
+
+    def __init__(self):
+        self.blocks, self.kept, self.syncs = [], [], None
+        self.block_syncs = 0
+
+    @contextlib.contextmanager
+    def installed(self):
+        from deepspeed_tpu_torch.moe import layer
+
+        block, gating = layer.moe_block, layer.topk_gating
+
+        def timed_block(cfg, p, x, used_token=None, seed=None, return_counts=False):
+            n0 = None if self.syncs is None else len(self.syncs)
+            ev = {"f0": _cuda_event()}
+            out = block(cfg, p, x, used_token, seed=seed, return_counts=return_counts)
+            ev["f1"] = _cuda_event()
+            if n0 is not None:
+                self.block_syncs += syncs_in(self.syncs, n0)
+            if out[0].requires_grad:
+                out[0].register_hook(lambda g: ev.setdefault("b0", _cuda_event()) and None)
+                x.register_hook(lambda g: ev.setdefault("b1", _cuda_event()) and None)
+            self.blocks.append(ev)
+            return out
+
+        def counted_gating(logits, k, capacity, *args, **kwargs):
+            dispatch, combine, aux = gating(logits, k, capacity, *args, **kwargs)
+            self.kept.append((dispatch.sum(), k * logits.shape[0] * logits.shape[1]))
+            return dispatch, combine, aux
+
+        layer.moe_block, layer.topk_gating = timed_block, counted_gating
+        try:
+            yield self
+        finally:
+            layer.moe_block, layer.topk_gating = block, gating
+
+    def block_ms(self, first: int, last: int) -> float:
+        """Forward plus backward milliseconds of the block calls
+        ``[first, last)``, summed."""
+        torch.cuda.synchronize()
+        ms = 0.0
+        for ev in self.blocks[first:last]:
+            ms += ev["f0"].elapsed_time(ev["f1"])
+            if "b0" in ev and "b1" in ev:
+                ms += ev["b0"].elapsed_time(ev["b1"])
+        return ms
+
+    def dropped(self) -> float:
+        kept = sum(int(n) for n, _ in self.kept)
+        return 1.0 - kept / max(sum(m for _, m in self.kept), 1)
+
+
+@contextlib.contextmanager
+def sync_log():
+    """The CUDA sync debug mode on: yields the live list of the warnings
+    recorded meanwhile; :func:`syncs_in` counts the synchronizing calls
+    among them (the autograd engine hands its threads' warnings over when
+    the backward ends)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def syncs_in(seen, start: int = 0) -> int:
+    return sum("synchronizing" in str(w.message) for w in seen[start:])
+
+
+def moe_train_phase(card, kernels):
+    """Phase 21 (a): Mixtral-8x7B's widths at 2 of its 32 layers (the
+    whole model is 93 GB in bf16) through phase 6's recipe, on the capacity
+    path (factor 1.25) and on the dropless path: phase 6's gates (losses
+    finite and falling, flash / fused-loss / fused-Adam launches exact and
+    on ``wgmma``) and peak memory below 18 B a parameter plus
+    MOE_ACTIVATION_BYTES. MFU counts the matrix parameters a token runs
+    through (k of E experts); the MoE blocks' share of the step comes from
+    CUDA events around their forward and backward over the timed steps;
+    the host syncs of one more step are counted with the sync debug mode;
+    the capacity path's dropped assignments are counted over the run."""
+    from deepspeed_tpu_torch.models.convert import param_shapes
+
+    base = dataclasses.replace(mixtral_models()["Mixtral-8x7B"],
+                               num_layers=MIXTRAL_TRAIN_LAYERS)
+    ok = True
+    for path, cfg in (("capacity", dataclasses.replace(base, moe_capacity_factor=1.25)),
+                      ("dropless", dataclasses.replace(base, moe_dropless=True))):
+        name = f"Mixtral-8x7B widths, {cfg.num_layers} layers, {path}"
+        shapes = param_shapes(cfg)
+        numel = lambda keys: sum(math.prod(shapes[k]) for k in keys)
+        experts = numel([k for k in shapes if "/moe/expert_" in k])
+        n_all = numel(shapes)
+        n_active = (n_all - cfg.vocab_size * cfg.hidden_size
+                    - experts * (cfg.num_experts - cfg.moe_top_k) // cfg.num_experts)
+        probe = MoEProbe()
+        syncs = {}
+
+        def after(engine, batch):
+            probe.block_syncs = 0
+            with sync_log() as seen:
+                probe.syncs = seen
+                float(engine.train_batch(batch))
+            probe.syncs = None
+            syncs.update(step=syncs_in(seen), blocks=probe.block_syncs)
+
+        with probe.installed():
+            train_phase(kernels, card, name, cfg, n_matmul=n_active, after=after)
+        fig = TRAIN_FIGURES[name]
+        per_step = cfg.num_layers * TRAIN_CONFIG["gradient_accumulation_steps"]
+        moe_ms = probe.block_ms(WARMUP_STEPS * per_step,
+                                (WARMUP_STEPS + TIMED_STEPS) * per_step) / TIMED_STEPS
+        budget = MOE_STATE_BYTES_PER_PARAM * fig["n_params"] + MOE_ACTIVATION_BYTES
+        peak = fig["peak_gib"] * 2**30
+        dropped = probe.dropped() if path == "capacity" else 0.0
+        log(f"moe train [{name}] [{card}]: {fig['n_params']} parameters ({n_active} "
+            f"matrix parameters a token runs through: top-{cfg.moe_top_k} of "
+            f"{cfg.num_experts} experts), {fig['step_ms']:.1f} ms/step, "
+            f"{fig['tokens_s']:.0f} tokens/s, MFU {fig['mfu']:.4f}, peak "
+            f"{fig['peak_gib']:.2f} GiB (budget {MOE_STATE_BYTES_PER_PARAM} B x params + "
+            f"{MOE_ACTIVATION_BYTES / 2**30:.0f} GiB = {budget / 2**30:.2f} GiB); MoE "
+            f"blocks {moe_ms:.1f} ms/step forward + backward = "
+            f"{moe_ms / fig['step_ms']:.3f} of the step (CUDA events); host syncs in one "
+            f"step {syncs['step']} ({syncs['blocks']} inside MoE block forwards); "
+            f"assignments dropped by capacity {dropped:.4f}")
+        if peak > budget:
+            log(f"moe train [{name}]: peak above the budget FAIL")
+            ok = False
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("moe train phase FAILED")
+
+
+def moe_block_phase(card):
+    """Phase 21 (b): one Mixtral-8x7B MoE block (D 4096, F 14336, 8
+    experts, top-2) on 4 x 2048 seeded tokens, on the capacity and the
+    dropless path, in bf16 against the same block in float32 (the bf16
+    weights and inputs cast up, TF32 off): the share of tokens whose top-2
+    set agrees, and on those tokens the largest output error over the
+    float32 output's largest magnitude, within MOE_BF16_RTOL."""
+    from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.moe.layer import moe_block
+
+    cfg = dataclasses.replace(mixtral_models()["Mixtral-8x7B"], num_layers=1)
+    params = init_params(cfg, seed=5, device="cuda", dtype=torch.bfloat16)["layer_0"]["moe"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    x = torch.randn((4, TRAIN_SEQ, cfg.hidden_size), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ok = True
+    for path in ("capacity", "dropless"):
+        c = dataclasses.replace(cfg, moe_dropless=path == "dropless")
+        out = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            with torch.no_grad():
+                p = _cast(params, dtype)
+                y, aux = moe_block(dataclasses.replace(c, dtype=dtype), p, x.to(dtype))
+                gates = torch.softmax(x.float() @ p["router"]["kernel"].float(), dim=-1)
+                top = sharded_moe._top_k(gates, c.moe_top_k)[1].sort(-1).values
+            out[dtype] = (y.float(), aux.item(), top)
+        (yb, ab, tb), (yf, af, tf) = out[torch.bfloat16], out[torch.float32]
+        agree = (tb == tf).all(-1)
+        err = ((yb - yf).abs().amax(-1)[agree].max() / yf.abs().max()).item()
+        share = agree.float().mean().item()
+        good = err <= MOE_BF16_RTOL and share >= ROUTE_AGREE and math.isfinite(ab)
+        log(f"moe block bf16 vs fp32 [{path}, Mixtral-8x7B widths, 4 x {TRAIN_SEQ} tokens] "
+            f"[{card}]: top-{c.moe_top_k} set agrees for {share:.4f} of tokens (need >= "
+            f"{ROUTE_AGREE}); on those max|y_bf16 - y_fp32| / max|y_fp32| = {err:.3e} (need "
+            f"<= {MOE_BF16_RTOL:g}); aux bf16 {ab:.6f} fp32 {af:.6f} "
+            f"{'ok' if good else 'FAIL'}")
+        ok = ok and good
+    del params, x
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("moe block phase FAILED")
+
+
+def moe_serving_phase(pa, card):
+    """Phase 21 (c): Mixtral-8x7B's widths at 8 of 32 layers and
+    Qwen1.5-MoE-A2.7B at its published size served through ``slice_phase``
+    with phase 16's gates (every packed and decode launch on ``sm90``, a
+    whole number per layer); then phase 5's path parity for both at 2
+    layers, routing replayed from the kernel run (:class:`RouteReplay`)."""
+    models = mixtral_models()
+    models["Mixtral-8x7B"] = dataclasses.replace(models["Mixtral-8x7B"],
+                                                 num_layers=MIXTRAL_SERVE_LAYERS)
+    wide_serving_phase(pa, card, models, names=tuple(models))
+    for name, cfg in models.items():
+        path_phase(dataclasses.replace(cfg, num_layers=2), name)
+
+
 def zero3_7b_run(card: str, workdir: Path) -> bool:
     """Llama-2-7B at ZeRO stage 3 on four cards (32 layers, seq 4096, micro
     1 per rank, gas 2, per-layer remat): check_dp's gates and the peak per
@@ -4562,6 +4893,13 @@ def main() -> int:
     timed("20 (b) Lion, Adagrad, SGD, MuAdamW (TinyLlama widths)", other_optimizers_phase,
           card)
     timed("20 (c) remat with dropout (TinyLlama widths)", dropout_remat_phase)
+    # phase 21: mixture of experts (no kernel of its own: the trainer and
+    # the servers run the flash, fused-loss, Adam and paged kernels)
+    timed("21 (a) MoE training (Mixtral-8x7B widths, 2 layers)", moe_train_phase, card,
+          (fa, adam, fl))
+    timed("21 (b) MoE block bf16 vs fp32 (Mixtral-8x7B widths)", moe_block_phase, card)
+    timed("21 (c) MoE serving (Mixtral-8x7B widths at 8 layers, Qwen1.5-MoE-A2.7B)",
+          moe_serving_phase, pa, card)
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"

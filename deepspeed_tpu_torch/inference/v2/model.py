@@ -34,9 +34,10 @@ import torch
 
 from ... import comm
 from ...models.transformer import (TransformerConfig, _block_out, _dense,
-                                   _dense_multi_in, _embed, _lm_logits, _norm,
+                                   _dense_multi_in, _embed, _lm_logits, _mlp, _norm,
                                    _rope_tables, apply_rope, check_parallel_fields,
                                    merge_partial_attention)
+from ...moe.sharded_moe import dropless_moe
 from ...ops.paged_attention import (NEG_INF, attention_over_pages,
                                     gather_pages, paged_flash_decode,
                                     pool_layer, pool_values, storage_bits)
@@ -55,13 +56,10 @@ def exact_fp32() -> None:
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for the model families this slice does not serve."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE layers (_moe_mlp) " + _LEFT_OUT.format("3 (MoE/ALiBi/window families)"))
     if cfg.position == "alibi" or cfg.layer_windows is not None:
         raise NotImplementedError(
             "ALiBi and windowed attention " + _LEFT_OUT.format(
-                "3 (MoE/ALiBi/window families)"))
+                "3 (ALiBi/window families)"))
     if cfg.no_lm_head:
         raise NotImplementedError("serving a model without an LM head (no_lm_head) "
                                   + _LEFT_OUT.format("3 (model families)"))
@@ -164,6 +162,34 @@ def _qkv(cfg, ap, y, rope_cs, positions):
     return qt, kt, vt
 
 
+def _moe_mlp(cfg, lp, y):
+    """The MoE block over a flat token buffer ``[T, D]``: always the
+    dropless grouped GEMM (exact routing, no capacity drops), whatever
+    ``moe_dropless`` says, and the qwen2_moe shared expert; no aux loss."""
+    logits = y.float() @ lp["router"]["kernel"].float()
+    gates = torch.softmax(logits, dim=-1)                       # [T, E]
+    out = dropless_moe(y[None], gates[None], cfg.moe_top_k,
+                       lp.get("expert_gate_proj"), lp["expert_up_proj"],
+                       lp["expert_down_proj"], activation=cfg.activation,
+                       norm_topk=cfg.moe_norm_topk, b_up=lp.get("expert_up_bias"),
+                       b_down=lp.get("expert_down_bias"),
+                       b_gate=lp.get("expert_gate_bias"))[0]
+    out = out.to(y.dtype)
+    if "shared_gate_proj" in lp:                                # qwen2_moe shared expert
+        h = (torch.nn.functional.silu(y @ lp["shared_gate_proj"].to(y.dtype))
+             * (y @ lp["shared_up_proj"].to(y.dtype)))
+        mod = torch.sigmoid(y.float() @ lp["shared_router"].float())
+        out = out + (h @ lp["shared_down_proj"].to(y.dtype)) * mod.to(y.dtype)
+    return out
+
+
+def _ffn(cfg, lp, y):
+    """Dense MLP or MoE, by the layer's parameters."""
+    if "moe" in lp:
+        return _moe_mlp(cfg, lp["moe"], y)
+    return _mlp(cfg, lp["mlp"], y)
+
+
 def _sample(logits, generator, temperature, greedy):
     if greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -244,7 +270,7 @@ def _ragged_hidden(params, cfg: TransformerConfig, kv_k, kv_v, tokens,
         flat = torch.zeros((T + 1, h, d), dtype=out.dtype, device=out.device)
         flat[flat_idx] = out.reshape(-1, h, d)
         attn_out = _dense_multi_in(ap["o_proj"], flat[:T])          # [T, H]
-        x = _block_out(cfg, lp, x, y, attn_out)
+        x = _block_out(cfg, lp, x, y, attn_out, _ffn)
     return _norm(cfg, params["final_norm"], x)
 
 
@@ -360,7 +386,7 @@ def decode_step(params, cfg: TransformerConfig, kv_k, kv_v, wk, wv, toks, pos,
                                          l1.reshape(S, Hk, G), o2, m2, l2)
         attn_tok = merged.reshape(S, Hq, D).to(cfg.dtype)
         attn_out = _dense_multi_in(ap["o_proj"], attn_tok)
-        x = _block_out(cfg, lp, x, y, attn_out)
+        x = _block_out(cfg, lp, x, y, attn_out, _ffn)
     x = _norm(cfg, params["final_norm"], x)
     return _lm_logits(cfg, params, x)
 

@@ -21,12 +21,9 @@ from .transformer import TransformerConfig
 
 
 def param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
-    """``"/"``-joined parameter path -> shape, for the dense decoder families
-    the serving slice runs."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md, modules left out: "
-            "MoE/ALiBi/window families)")
+    """``"/"``-joined parameter path -> shape. Layer i holds an MoE block
+    (``layer_i/moe/...``) in place of its ``mlp`` when :func:`is_moe_layer`
+    says so."""
     H, F_, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     Hq, Hk, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     shapes = {"embed/embedding": (V, H)}
@@ -56,6 +53,9 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
             shapes[f"{p}/attn/o_proj/bias"] = (H,)
         if not (cfg.parallel_residual and cfg.parallel_shared_norm):
             norm(f"{p}/mlp_norm")
+        if is_moe_layer(cfg, i):
+            shapes.update(moe_shapes(cfg, f"{p}/moe"))
+            continue
         if cfg.activation == "swiglu":
             dense(f"{p}/mlp/gate_proj", (H, F_), cfg.ffn_bias)
         dense(f"{p}/mlp/up_proj", (H, F_), cfg.ffn_bias)
@@ -63,6 +63,43 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
     norm("final_norm")
     if not cfg.tie_embeddings:
         dense("lm_head", (H, V), cfg.lm_head_bias)
+    return shapes
+
+
+def is_moe_layer(cfg: TransformerConfig, i: int) -> bool:
+    """Layer i holds an MoE block: ``i % moe_every == moe_offset %
+    moe_every`` (HF qwen2_moe's ``decoder_sparse_step``), as in the JAX
+    block."""
+    return cfg.num_experts > 0 and i % cfg.moe_every == cfg.moe_offset % cfg.moe_every
+
+
+def moe_shapes(cfg: TransformerConfig, prefix: str) -> Dict[str, tuple]:
+    """The MoE block's leaves under ``prefix`` (JAX ``moe/layer.py``)."""
+    D, E = cfg.hidden_size, cfg.num_experts
+    F_ = cfg.moe_intermediate_size or cfg.intermediate_size
+    swiglu = cfg.activation == "swiglu"
+    shapes = {f"{prefix}/router/kernel": (D, E)}
+    if swiglu:
+        shapes[f"{prefix}/expert_gate_proj"] = (E, D, F_)
+    shapes[f"{prefix}/expert_up_proj"] = (E, D, F_)
+    shapes[f"{prefix}/expert_down_proj"] = (E, F_, D)
+    if cfg.ffn_bias:
+        shapes[f"{prefix}/expert_up_bias"] = (E, F_)
+        shapes[f"{prefix}/expert_down_bias"] = (E, D)
+        if swiglu:
+            shapes[f"{prefix}/expert_gate_bias"] = (E, F_)
+    fs = cfg.moe_shared_expert_size
+    if fs:
+        shapes.update({f"{prefix}/shared_gate_proj": (D, fs),
+                       f"{prefix}/shared_up_proj": (D, fs),
+                       f"{prefix}/shared_down_proj": (fs, D),
+                       f"{prefix}/shared_router": (D, 1)})
+    if cfg.moe_use_residual:
+        shapes[f"{prefix}/residual_up_proj"] = (D, F_)
+        shapes[f"{prefix}/residual_down_proj"] = (F_, D)
+        if swiglu:
+            shapes[f"{prefix}/residual_gate_proj"] = (D, F_)
+        shapes[f"{prefix}/residual_coefficient"] = (D, 2)
     return shapes
 
 
@@ -116,7 +153,9 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda",
     """Seeded random weights drawn on ``device`` from a ``torch.Generator``
     (so a full-size model never exists on the host): norm scales 1, biases
     0, embeddings N(0, 1), kernels N(0, 1/fan_in) — the flax initializers'
-    scales, which keep activations O(1) through a deep stack."""
+    scales, which keep activations O(1) through a deep stack. An expert
+    stack ``[E, in, out]`` has fan-in ``E * in``, as flax's ``lecun_normal``
+    counts a leading dimension as a receptive field."""
     from ..accelerator import resolve_device
 
     dev = resolve_device(device)
@@ -127,12 +166,12 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda",
         leaf = path.rsplit("/", 1)[-1]
         if leaf == "scale":
             t = torch.ones(shape, dtype=dtype, device=dev)
-        elif leaf == "bias":
+        elif leaf.endswith("bias"):
             t = torch.zeros(shape, dtype=dtype, device=dev)
         else:
             if path in ("embed/embedding", "pos_embed"):
                 std = 1.0
-            elif path.endswith("o_proj/kernel"):
+            elif path.endswith("o_proj/kernel") or leaf.startswith("expert_"):
                 std = 1.0 / math.sqrt(shape[0] * shape[1])
             else:
                 std = 1.0 / math.sqrt(shape[0])

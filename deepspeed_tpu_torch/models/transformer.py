@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..moe import layer as moe_layer
 from ..ops.quant import fold_in
 
 
@@ -61,8 +62,8 @@ class TransformerConfig:
     vocab_parallel_loss: bool = False           # tp-sharded CE (not ported: raises)
     attn_scale: Optional[float] = None          # gpt-neo trains UNSCALED (1.0)
     layer_windows: Optional[Any] = None         # gpt-neo local attention
-    # MoE (mixtral / qwen2_moe), the JAX package's fields; num_experts > 0
-    # is not ported (TransformerLM and the serving model raise)
+    # MoE (mixtral / qwen2_moe): layer i is an MoE block when
+    # i % moe_every == moe_offset % moe_every (moe/layer.py)
     num_experts: int = 0
     moe_top_k: int = 2
     moe_every: int = 1
@@ -254,13 +255,18 @@ def _mlp(cfg, mp, y):
     return _dense(mp["down_proj"], hid)
 
 
-def _block_out(cfg, lp, x, y, attn_out):
-    """Residual wiring after attention (sequential or parallel)."""
+def _dense_ffn(cfg, lp, z):
+    return _mlp(cfg, lp["mlp"], z)
+
+
+def _block_out(cfg, lp, x, y, attn_out, ffn=_dense_ffn):
+    """Residual wiring after attention (sequential or parallel); ``ffn(cfg,
+    lp, z)`` is the layer's MLP or MoE block on its input ``z``."""
     if cfg.parallel_residual:
         y_mlp = y if cfg.parallel_shared_norm else _norm(cfg, lp["mlp_norm"], x)
-        return x + attn_out + _mlp(cfg, lp["mlp"], y_mlp)
+        return x + attn_out + ffn(cfg, lp, y_mlp)
     x = x + attn_out
-    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], x))
+    return x + ffn(cfg, lp, _norm(cfg, lp["mlp_norm"], x))
 
 
 def _embed(cfg, params, tokens, positions):
@@ -429,25 +435,34 @@ def check_parallel_fields(cfg: TransformerConfig) -> None:
 
 
 def _check_trainable(cfg: TransformerConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE layers are " + _NOT_PORTED.format("model: mixtral / moe/*"))
     if cfg.no_lm_head:
         raise NotImplementedError(
             "no_lm_head (a CLIP-style encoder) is " + _NOT_PORTED.format("model"))
     check_parallel_fields(cfg)
 
 
-def _layer(cfg, lp, x, rope_cs, alibi, window, seed=None):
-    """One decoder layer of the training forward (``seed``: its dropout
-    mask's)."""
+def _layer(cfg, lp, x, rope_cs, alibi, window, seed=None, gating_seed=None):
+    """One decoder layer of the training forward: ``(out, aux)``, ``aux``
+    the MoE block's scaled aux loss (None for a dense layer). ``seed`` is
+    its dropout mask's, ``gating_seed`` its MoE gating's."""
+    aux = []
+
+    def ffn(cfg, lp, z):
+        if "moe" not in lp:
+            return _dense_ffn(cfg, lp, z)
+        out, a = moe_layer.moe_block(cfg, lp["moe"], z, seed=gating_seed)
+        aux.append(a)
+        return out
+
     y = _norm(cfg, lp["attn_norm"], x)
-    return _block_out(cfg, lp, x, y,
-                      _attention(cfg, lp["attn"], y, rope_cs, alibi, window, seed))
+    out = _block_out(cfg, lp, x, y,
+                     _attention(cfg, lp["attn"], y, rope_cs, alibi, window, seed), ffn)
+    return out, (aux[0] if aux else None)
 
 
 def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = False,
-               dropout_seed: Optional[int] = None):
+               dropout_seed: Optional[int] = None, gating_seed: Optional[int] = None,
+               return_aux: bool = False):
     """The causal LM forward on a flax-layout parameter tree: tokens
     ``[B, S]`` -> logits ``[B, S, V]`` (fp32 for an untied head; the tied
     head attends in ``cfg.dtype``, as flax ``Embed.attend`` does). With
@@ -459,7 +474,10 @@ def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = Fal
     configured ``cpu_checkpointing`` keeps each layer's matrix products in
     pinned host memory. With ``dropout_seed`` and ``cfg.dropout > 0`` layer
     i drops out its attention output under the seed ``fold_in(dropout_seed,
-    i)``, an argument of the layer, so its recompute draws the same mask."""
+    i)``, an argument of the layer, so its recompute draws the same mask;
+    ``gating_seed`` seeds the MoE layers' gating noise the same way. With
+    ``return_aux`` it returns ``(out, aux)``, ``aux`` the list of the MoE
+    layers' scaled aux losses in layer order."""
     _check_trainable(cfg)
     tokens = tokens.long()
     dev = tokens.device
@@ -472,16 +490,22 @@ def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = Fal
         from ..runtime.activation_checkpointing import layer_wrapper
 
         layer = layer_wrapper(_layer, cfg.remat_policy)
+    auxes = []
     for i in range(cfg.num_layers):
         window = cfg.layer_windows[i] if cfg.layer_windows is not None else None
         seed = None if dropout_seed is None else fold_in(dropout_seed, i)
-        x = layer(cfg, params[f"layer_{i}"], x, rope_cs, alibi, window, seed)
+        gseed = None if gating_seed is None else fold_in(gating_seed, i)
+        x, aux = layer(cfg, params[f"layer_{i}"], x, rope_cs, alibi, window, seed, gseed)
+        if aux is not None:
+            auxes.append(aux)
     x = _norm(cfg, params["final_norm"], x)
     if return_hidden:
-        return x.to(cfg.dtype)
-    if cfg.tie_embeddings:
-        return x.to(cfg.dtype) @ params["embed"]["embedding"].to(cfg.dtype).T
-    return _lm_logits(cfg, params, x)
+        out = x.to(cfg.dtype)
+    elif cfg.tie_embeddings:
+        out = x.to(cfg.dtype) @ params["embed"]["embedding"].to(cfg.dtype).T
+    else:
+        out = _lm_logits(cfg, params, x)
+    return (out, auxes) if return_aux else out
 
 
 class TransformerLM(nn.Module):
@@ -521,8 +545,10 @@ class TransformerLM(nn.Module):
         return _nest(dict(self.params.items()))
 
     def forward(self, tokens, return_hidden: bool = False,
-                dropout_seed: Optional[int] = None):
-        return lm_forward(self.cfg, self.param_tree(), tokens, return_hidden, dropout_seed)
+                dropout_seed: Optional[int] = None, gating_seed: Optional[int] = None,
+                return_aux: bool = False):
+        return lm_forward(self.cfg, self.param_tree(), tokens, return_hidden, dropout_seed,
+                          gating_seed, return_aux)
 
 
 def causal_lm_loss(logits, tokens, loss_mask=None, z_loss: float = 0.0):
@@ -552,7 +578,9 @@ def make_loss_fn(model: TransformerLM):
     logits never exist; otherwise the model's dense logits go through
     ``causal_lm_loss``. ``rng`` is an integer seed (the engine draws one per
     micro-batch); with it and ``cfg.dropout > 0`` the model drops out, as
-    the JAX loss does when given a key."""
+    the JAX loss does when given a key. A model with experts adds the mean
+    of its MoE layers' aux losses; its gating stays deterministic, as the
+    JAX loss passes no gating rng."""
     from ..sequence.cross_entropy import _fused_lm_loss, _select_loss_impl
     from .convert import _flatten
 
@@ -581,11 +609,12 @@ def make_loss_fn(model: TransformerLM):
         mask = batch.get("loss_mask") if isinstance(batch, dict) else None
         headless = _headless(tokens.device)
         flat = {f"params.{k}": v for k, v in _flatten(params).items()}
-        kwargs = {"return_hidden": headless}
+        kwargs = {"return_hidden": headless, "return_aux": True}
         if rng is not None and cfg.dropout > 0:
             kwargs["dropout_seed"] = int(rng)
-        out = torch.func.functional_call(model, flat, (tokens,), kwargs)
-        return _ce(out, params, tokens, mask, headless)
+        out, auxes = torch.func.functional_call(model, flat, (tokens,), kwargs)
+        loss = _ce(out, params, tokens, mask, headless)
+        return loss + sum(auxes) / len(auxes) if auxes else loss
 
     return loss_fn
 
@@ -602,6 +631,16 @@ def gpt2_config(size: str = "small", **overrides) -> TransformerConfig:
     base = dict(vocab_size=50257, hidden_size=d, intermediate_size=4 * d, num_layers=l,
                 num_heads=h, max_seq_len=1024, norm="layernorm", activation="gelu",
                 position="learned", tie_embeddings=True)
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def mixtral_config(size: str = "tiny", **overrides) -> TransformerConfig:
+    dims = {"tiny": (256, 4, 8, 8, 512, 4), "8x7b": (4096, 32, 32, 8, 14336, 8)}[size]
+    d, l, h, hk, f, e = dims
+    base = dict(vocab_size=32000, hidden_size=d, intermediate_size=f, num_layers=l,
+                num_heads=h, num_kv_heads=hk, max_seq_len=4096, norm="rmsnorm",
+                activation="swiglu", position="rope", num_experts=e, moe_top_k=2)
     base.update(overrides)
     return TransformerConfig(**base)
 

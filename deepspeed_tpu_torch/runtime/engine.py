@@ -201,7 +201,9 @@ def _check_supported(config: DeepSpeedTPUConfig, world_size: int) -> None:
          "tensor_parallel.tp_size > 1", 8, "sharding/, module_inject/auto_tp.py"),
         (config.sequence_parallel_size > 1, "sequence_parallel_size > 1", 8,
          "sequence/{layer,ring}.py"),
-        (config.moe.enabled, "moe", 8, "moe/*"),
+        (config.moe.enabled and config.moe.ep_size > 1,
+         f"moe.ep_size={config.moe.ep_size} (expert parallelism)", 8,
+         "the ep axis and the moe exchange sites"),
         (cc.mode != "none" and cc.hierarchical, "compressed_collectives.hierarchical",
          8, "hierarchical_quantized_all_reduce over the expert axis split"),
         (config.comm_planner.mode != "off", "comm_planner", 9, "comm/planner/*"),
@@ -451,14 +453,15 @@ class DeepSpeedTPUEngine:
     def _resolve_dp_grad_site(self) -> Optional[str]:
         """The compressed mode of the DP gradient reduction, or None for the
         exact all-reduce (JAX ``engine.py:664-690``): the site needs pure
-        data parallelism at ZeRO stage 0 over more than one rank, and no
-        fp16, whose overflow check needs the non-finite values the exact
+        data parallelism at ZeRO stage 0 over more than one rank, no
+        ``moe`` section (its expert gradients keep the exact reduction), and
+        no fp16, whose overflow check needs the non-finite values the exact
         reduction carries."""
         cc = self.config.compressed_collectives
         configure_compression(cc.mode, block=cc.block, hierarchical=cc.hierarchical,
                               sites=cc.site_map())
         eligible = (self.config.zero_optimization.stage == 0 and self.dp_world > 1
-                    and not self.config.fp16.enabled)
+                    and not self.config.moe.enabled and not self.config.fp16.enabled)
         if cc.mode == "none" or not cc.dp_gradients:
             return None
         if not eligible:

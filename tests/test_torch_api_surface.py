@@ -5,8 +5,9 @@ For every name that the landed slices were missing (ROADMAP.md Queue C item
 accessors, the port has it, and its parameters carry the JAX counterpart's names in
 the JAX order (``inspect.signature``; defaults may differ where the port's
 types do). A JAX ``mixtral_config`` constructs the port's
-``TransformerConfig``, and the model (so the trainer) and the server refuse it
-with ``NotImplementedError`` naming the ROADMAP.md Queue A item. The kernel
+``TransformerConfig``, trains a step and serves; ALiBi and window serving
+and an expert-parallel ``moe`` section are refused with
+``NotImplementedError`` naming the ROADMAP.md Queue A item. The kernel
 wrappers accept the Pallas ``interpret`` switch and ignore it; the block
 kwargs refuse the sizes the JAX functions refuse, and every size they accept
 gives the same result (on the CPU, the plain versions).
@@ -63,6 +64,11 @@ SURFACE = {
     "compression.onebit": ["ErrorFeedbackState", "init_error_feedback", "onebit_compress",
                            "compressed_allreduce", "server_error_shape"],
     "runtime.dataloader": ["PrefetchLoader", "RepeatingLoader"],
+    # mixture of experts (ROADMAP.md Queue A item 7.7)
+    "moe.sharded_moe": ["compute_capacity", "load_balance_aux", "topk_gating",
+                        "moe_dispatch", "expert_ffn", "moe_combine", "dropless_moe",
+                        "quantized_ep_ready", "quantized_ep_moe"],
+    "models.transformer": ["mixtral_config"],
 }
 # kernel wrappers: port module -> (JAX module, names)
 WRAPPERS = {
@@ -181,15 +187,42 @@ def test_transformer_config_fields_match_jax():
             == [f.name for f in dataclasses.fields(jtransformer.TransformerConfig)])
 
 
-def test_mixtral_config_constructs_and_is_refused_by_name():
+def test_mixtral_config_trains_and_serves():
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.models import make_loss_fn, mixtral_config
+
+    cfg = _port_config(jtransformer.mixtral_config("tiny", num_layers=1, vocab_size=128,
+                                                   hidden_size=64, intermediate_size=64))
+    assert cfg == mixtral_config("tiny", num_layers=1, vocab_size=128, hidden_size=64,
+                                 intermediate_size=64, dtype=torch.float32)
+    assert cfg.num_experts == 4 and cfg.moe_top_k == 2
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    config = {"train_micro_batch_size_per_gpu": 2, "steps_per_print": 10**9,
+              "moe": {"enabled": True, "ep_size": 1}}
+    engine, *_ = tds.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                                model_parameters=params, config=config, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 16)))
+    assert np.isfinite(float(engine.train_batch(tokens)))
+    serve = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+        kv_block_size=8, num_kv_blocks=16, dtype="float32"), device="cpu")
+    (out,) = serve.generate([np.arange(5, dtype=np.int32)], max_new_tokens=4)
+    assert len(out) == 4 and all(0 <= t < 128 for t in out)
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        tds.initialize(model=make_loss_fn(TransformerLM(cfg, params)),
+                       model_parameters=params, device="cpu",
+                       config=dict(config, moe={"enabled": True, "ep_size": 2}))
+
+
+@pytest.mark.parametrize("field, value", [("position", "alibi"),
+                                          ("layer_windows", (None, 8))])
+def test_alibi_and_window_serving_are_refused_by_name(field, value):
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
 
-    cfg = _port_config(jtransformer.mixtral_config("tiny", num_layers=1, vocab_size=128))
-    assert cfg.num_experts == 4 and cfg.moe_top_k == 2
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        TransformerLM(cfg, seed=0, device="cpu")
-    dense = dataclasses.replace(cfg, num_experts=0)
-    params = init_params(dense, seed=0, device="cpu", dtype=torch.float32)
+    cfg = _port_config(jtransformer.TransformerConfig(
+        vocab_size=128, hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2,
+        norm="layernorm", activation="gelu",
+        position="learned" if field == "layer_windows" else "rope"), **{field: value})
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="Queue A item 3"):
         InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(kv_block_size=8),
                           device="cpu")

@@ -200,7 +200,9 @@ def test_merge_partial_attention_matches_jax():
 
 @pytest.mark.parametrize("preset,size", [("llama_config", "7b"),
                                          ("llama_config", "tiny"),
-                                         ("gpt2_config", "small")])
+                                         ("gpt2_config", "small"),
+                                         ("mixtral_config", "tiny"),
+                                         ("mixtral_config", "8x7b")])
 def test_presets_match_jax(preset, size):
     j, t = getattr(jtf, preset)(size), getattr(ttf, preset)(size)
     for f in dataclasses.fields(t):
@@ -213,10 +215,10 @@ def test_presets_match_jax(preset, size):
 
 def test_left_out_families_raise():
     _, tcfg, _ = tiny_pair("llama")
-    for over in (dict(num_experts=4), dict(position="alibi"),
-                 dict(layer_windows=(None, 4))):
+    for over in (dict(position="alibi"), dict(layer_windows=(None, 4))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmodel.check_supported(dataclasses.replace(tcfg, **over))
+    tmodel.check_supported(dataclasses.replace(tcfg, num_experts=4))   # MoE is served
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.verify_step()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -694,11 +694,35 @@ def scenario_zero_optimizers(rank, world, inputs, workdir):
     return out
 
 
+def scenario_moe(rank, world, inputs, workdir):
+    """An MoE model at ZeRO stages 0, 1 and 3 from the same weights on the
+    same batches (the losses and the full masters), stage 3's peak of
+    gathered units, and the DP gradient site that a ``moe`` section keeps
+    exact under ``compressed_collectives: int8``."""
+    from deepspeed_tpu_torch.ops.fastpath import reset_fastpath
+
+    batches = [torch.from_numpy(b) for b in inputs["batches"]]
+    out = {}
+    for stage in (0, 1, 3):
+        eng, *_ = _engine(inputs, {"zero_optimization": {"stage": stage}})
+        out[f"stage{stage}"] = [float(eng.train_batch(b)) for b in batches]
+        out[f"stage{stage}/masters"] = _full_masters(eng)
+        if stage == 3:
+            out["stage3/peak_units"] = eng._z3.peak_units
+        reset_fastpath()
+    for moe in (False, True):
+        eng, *_ = _engine(inputs, {"compressed_collectives": "int8",
+                                   "moe": {"enabled": moe, "ep_size": 1}})
+        out[f"dp_grad_mode/moe={moe}"] = eng._dp_grad_mode
+        reset_fastpath()
+    return out
+
+
 SCENARIOS = {"comm": scenario_comm, "comm_rooted": scenario_comm_rooted,
              "compressed": scenario_compressed,
              "train": scenario_train, "cuda_step": scenario_cuda_step,
              "cuda_stage3": scenario_cuda_stage3,
-             "zero_optimizers": scenario_zero_optimizers}
+             "zero_optimizers": scenario_zero_optimizers, "moe": scenario_moe}
 
 
 def main():
