@@ -251,7 +251,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    widths at 8 layers and Qwen1.5-MoE-A2.7B (60 experts, top-4, a shared
    expert) at its published size served with phase 16's gates, then phase
    5's path parity for both at 2 layers with the routing of the kernel
-   run replayed (ROUTE_AGREE of tokens routing alike).
+   run replayed (ROUTE_AGREE of tokens routing alike);
+22. every decoder family the JAX package loads — (a) BLOOM-1b7 (ALiBi)
+   and GPT-Neo-1.3B (alternating 256-token windows, unscaled) at their
+   published sizes, their HF configs as dicts in this script and seeded
+   HF-named bf16 state dicts drawn on the host, loaded through
+   ``inference.params_from_hf`` and served by phase 4's ``slice_phase``
+   (16 requests, prompts of 300..1024 tokens, 64 new tokens): phase 4's
+   gates, no paged-kernel launch (both attention paths on the einsum, the
+   decode's source ``fallback``), ``attn_backend="pallas"`` refused with
+   the ``ValueError``; (b) at 2 layers of BLOOM-1b7's, GPT-Neo-1.3B's and
+   MPT-7B's widths (post-scale ALiBi): the last packed step of a chunked
+   prefill over prompts that cross pages and windows, a fused decode step
+   and a 16-step ``decode_loop`` in float32 and bf16, against the dense
+   ``lm_forward`` over the same sequences: float32 within
+   ``FAMILY_FP32_RTOL`` of the largest logit, bf16 within ``NOISE_FACTOR``
+   x the bf16 dense forward's distance; (c) speculative decoding on
+   Llama-2-7B at phase 4's full depth: 16 requests of a seeded 64-token
+   segment repeated 4 times, 64 new tokens, ``spec_decode_k=4`` against
+   spec off: the packed kernel launched in the spec run, a whole number
+   per layer, all on ``sm90``; each spec stream equal to the spec-off
+   stream or first differing where both tokens' logits lie within
+   ``SPEC_TIE_MARGIN`` of the float32 recompute's largest; spec_steps, drafted,
+   accepted, acceptance and tok/s of both runs printed. The ``kernels``
+   line's launches stay the counts of the path each kernel's row names
+   (the packed kernel's: phase 4's run).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -2071,14 +2095,15 @@ def device_time_breakdown(prof, wall_s: float, top: int = 15) -> None:
 
 
 def slice_phase(pa, card, profile=False, kv=None, num_layers=None,
-                n_requests=16, new_tokens=128, name="Llama-2-7B", cfg=None):
-    """Serve ``n_requests`` seeded prompts (lengths 128..1024) for
-    ``new_tokens`` each through ``LLMServer`` at the widths of ``name``
-    (``cfg``; default Llama-2-7B) with the KV storage ``kv``
-    (``kv_cache_dtype``). Kernel launch counts are reset just before and
-    read just after the run. Gates: every request finishes by length with
-    in-vocabulary tokens, the server drains, KV conservation holds. Returns
-    what the run measured."""
+                n_requests=16, new_tokens=128, name="Llama-2-7B", cfg=None,
+                params=None, lens=(128, 1024)):
+    """Serve ``n_requests`` seeded prompts (lengths ``lens``, default
+    128..1024) for ``new_tokens`` each through ``LLMServer`` at the widths
+    of ``name`` (``cfg``; default Llama-2-7B; seeded random weights unless
+    ``params`` are given) with the KV storage ``kv`` (``kv_cache_dtype``).
+    Kernel launch counts are reset just before and read just after the run.
+    Gates: every request finishes by length with in-vocabulary tokens, the
+    server drains, KV conservation holds. Returns what the run measured."""
     from deepspeed_tpu_torch.accelerator import get_accelerator
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceEngineConfig)
@@ -2090,7 +2115,8 @@ def slice_phase(pa, card, profile=False, kv=None, num_layers=None,
     cfg = (llama_config("7b", dtype=torch.bfloat16, **over) if cfg is None
            else dataclasses.replace(cfg, **over))
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    if params is None:
+        params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     engine = InferenceEngineV2(
         cfg, params, RaggedInferenceEngineConfig(**SLICE, kv_cache_dtype=kv),
         device="cuda")
@@ -2105,7 +2131,7 @@ def slice_phase(pa, card, profile=False, kv=None, num_layers=None,
         f"({engine.decode_attn_source}), set-up {time.perf_counter() - t0:.1f} s")
     server = LLMServer(engine, fused_decode_chunk=16)
     rng = np.random.default_rng(7)
-    lens = rng.integers(128, 1025, 16)[:n_requests]
+    lens = rng.integers(lens[0], lens[1] + 1, 16)[:n_requests]
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
 
     acc.reset_peak_memory_stats()
@@ -4685,6 +4711,375 @@ def moe_serving_phase(pa, card):
         path_phase(dataclasses.replace(cfg, num_layers=2), name)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the HF families the JAX package loads, served; speculative decoding
+# ---------------------------------------------------------------------------
+
+# bigscience/bloom-1b7 config.json, the fields inference/hf.py reads: ALiBi
+# (slopes rounded through bf16), the embedding layernorm, biased LayerNorms
+# and projections, per-head interleaved fused qkv, tied embeddings
+BLOOM_1B7 = {"model_type": "bloom", "vocab_size": 250880, "hidden_size": 2048,
+             "n_layer": 24, "n_head": 16, "layer_norm_epsilon": 1e-5}
+# EleutherAI/gpt-neo-1.3B config.json: global and local (window 256)
+# layers alternating, unscaled attention, learned positions, tied embeddings
+GPT_NEO_1P3B = {"model_type": "gpt_neo", "vocab_size": 50257, "hidden_size": 2048,
+                "num_layers": 24, "num_heads": 16, "max_position_embeddings": 2048,
+                "attention_types": [[["global", "local"], 12]], "window_size": 256,
+                "intermediate_size": None, "layer_norm_epsilon": 1e-5}
+# mosaicml/mpt-7b config.json: post-scale ALiBi (fp32 slopes), fused Wqkv,
+# bias-free projections and norms, exact gelu, tied embeddings
+MPT_7B = {"model_type": "mpt", "vocab_size": 50432, "d_model": 4096, "n_layers": 32,
+          "n_heads": 32, "max_seq_len": 2048, "layer_norm_epsilon": 1e-5,
+          "attn_config": {"alibi": True, "softmax_scale": None, "clip_qkv": None}}
+HF_FAMILIES = {"BLOOM-1b7": BLOOM_1B7, "GPT-Neo-1.3B": GPT_NEO_1P3B, "MPT-7B": MPT_7B}
+# the family path parity: the engine's float32 logits (packed step, fused
+# decode step) against the dense float32 forward over the same sequences,
+# within this share of the dense logits' largest magnitude (both sum in
+# fp32 in other orders through 2 layers and a 2048-4096-wide head)
+FAMILY_FP32_RTOL = 1e-4
+# speculative decoding against the spec-off run, bf16 at full depth: where
+# a stream first differs, both tokens' logits in the float32 recompute must
+# lie within this of its largest (so its top-2 gap does too): random
+# weights give logits of unit scale, and bf16 paths at 2 layers already sit
+# 1-3e-2 from float32 (phase 21 (c)); at 32 layers bf16 picks among float32
+# near-ties of several tokens, not only the top 2 (2.9e-3 across the top 4)
+SPEC_TIE_MARGIN = 0.25
+SPEC_K, SPEC_SEGMENT, SPEC_REPEATS, SPEC_NEW = 4, 64, 4, 64
+
+
+def hf_shapes(hf: dict) -> dict:
+    """HF's own state-dict names and shapes for the three families phase 22
+    builds (the tied ``lm_head.weight`` left out, as the loader reads the
+    embedding)."""
+    mt = hf["model_type"]
+    if mt == "bloom":
+        H, L, V = hf["hidden_size"], hf["n_layer"], hf["vocab_size"]
+        out = {"transformer.word_embeddings.weight": (V, H)}
+        for n in ("word_embeddings_layernorm", "ln_f"):
+            out.update({f"transformer.{n}.weight": (H,), f"transformer.{n}.bias": (H,)})
+        for i in range(L):
+            p = f"transformer.h.{i}."
+            for n, shape in (("self_attention.query_key_value", (3 * H, H)),
+                             ("self_attention.dense", (H, H)),
+                             ("mlp.dense_h_to_4h", (4 * H, H)),
+                             ("mlp.dense_4h_to_h", (H, 4 * H)),
+                             ("input_layernorm", (H,)), ("post_attention_layernorm", (H,))):
+                out[p + n + ".weight"] = shape
+                out[p + n + ".bias"] = shape[:1]
+        return out
+    if mt == "gpt_neo":
+        H, L = hf["hidden_size"], hf["num_layers"]
+        out = {"transformer.wte.weight": (hf["vocab_size"], H),
+               "transformer.wpe.weight": (hf["max_position_embeddings"], H),
+               "transformer.ln_f.weight": (H,), "transformer.ln_f.bias": (H,)}
+        for i in range(L):
+            p = f"transformer.h.{i}."
+            for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                out[p + f"attn.attention.{n}.weight"] = (H, H)
+            out[p + "attn.attention.out_proj.bias"] = (H,)
+            for n, shape in (("mlp.c_fc", (4 * H, H)), ("mlp.c_proj", (H, 4 * H)),
+                             ("ln_1", (H,)), ("ln_2", (H,))):
+                out[p + n + ".weight"] = shape
+                out[p + n + ".bias"] = shape[:1]
+        return out
+    H, L = hf["d_model"], hf["n_layers"]                   # mpt
+    out = {"transformer.wte.weight": (hf["vocab_size"], H), "transformer.norm_f.weight": (H,)}
+    for i in range(L):
+        p = f"transformer.blocks.{i}."
+        out.update({p + "norm_1.weight": (H,), p + "norm_2.weight": (H,),
+                    p + "attn.Wqkv.weight": (3 * H, H), p + "attn.out_proj.weight": (H, H),
+                    p + "ffn.up_proj.weight": (4 * H, H),
+                    p + "ffn.down_proj.weight": (H, 4 * H)})
+    return out
+
+
+def hf_state_dict(hf: dict, seed: int) -> dict:
+    """A seeded bf16 state dict on the host with HF's names and shapes:
+    norm weights 1, biases 0, embedding tables N(0, 1), projections
+    N(0, 1 / fan_in) (``init_params``' scales). Each block of up to 2^25
+    values draws from its own ``torch.Generator`` seeded from ``seed`` and
+    its place, the blocks spread over the host's cores."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out, jobs = {}, []
+    for n, (name, shape) in enumerate(hf_shapes(hf).items()):
+        t = torch.empty(shape, dtype=torch.bfloat16)
+        out[name] = t
+        if len(shape) == 1:
+            t.fill_(1.0 if name.endswith("weight") else 0.0)
+            continue
+        std = 1.0 if ("wte" in name or "wpe" in name or "word_embeddings" in name) \
+            else shape[1] ** -0.5
+        flat, step = t.view(-1), 1 << 25
+        jobs += [(flat[a:a + step], std, seed * 1_000_003 + n * 4096 + a // step)
+                 for a in range(0, flat.numel(), step)]
+
+    def draw(job):
+        block, std, block_seed = job
+        block.normal_(0.0, std, generator=torch.Generator().manual_seed(block_seed))
+
+    with ThreadPoolExecutor(max(1, os.cpu_count() or 1)) as pool:
+        list(pool.map(draw, jobs))
+    return out
+
+
+def hf_model(name: str, num_layers=None, seed: int = 0):
+    """``(cfg, params)`` of an HF-format model through the port's loader
+    (``params_from_hf`` on the card), its weights cast to bf16; with
+    ``num_layers`` the config's depth is cut to it."""
+    from deepspeed_tpu_torch.inference import params_from_hf
+    from deepspeed_tpu_torch.models.convert import _flatten
+
+    hf = dict(HF_FAMILIES[name])
+    if num_layers is not None:
+        key = {"bloom": "n_layer", "gpt_neo": "num_layers", "mpt": "n_layers"}[hf["model_type"]]
+        hf[key] = num_layers
+        if hf["model_type"] == "gpt_neo":
+            hf["attention_types"] = [[["global", "local"], num_layers // 2]]
+    t0 = time.perf_counter()
+    sd = hf_state_dict(hf, seed)
+    t1 = time.perf_counter()
+    cfg, params = params_from_hf(sd, hf, device="cuda")
+    del sd
+    params = _cast(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"hf {name}: {sum(p.numel() for p in _flatten(params).values()) / 1e9:.3f} B "
+        f"parameters, "
+        f"state dict drawn in {t1 - t0:.1f} s, params_from_hf + bf16 in "
+        f"{time.perf_counter() - t1:.1f} s")
+    return dataclasses.replace(cfg, dtype=torch.bfloat16), params
+
+
+def hf_serving_phase(pa, card):
+    """Phase 22 (a): BLOOM-1b7 and GPT-Neo-1.3B at their published sizes,
+    loaded from seeded HF-named state dicts through ``params_from_hf`` and
+    served by ``slice_phase`` (16 requests, prompts of 300..1024 tokens so
+    that GPT-Neo's 256-token window bites in every one, 64 new tokens):
+    phase 4's gates and no paged-kernel launch (both attention paths on the
+    einsum, the decode's source ``fallback``), and ``attn_backend="pallas"``
+    refused with the JAX engine's ``ValueError``."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+
+    for name in ("BLOOM-1b7", "GPT-Neo-1.3B"):
+        cfg, params = hf_model(name)
+        try:
+            InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+                **SLICE, attn_backend="pallas"), device="cuda")
+            refused = False
+        except ValueError as e:
+            refused = "plain scaled causal" in str(e)
+        run = slice_phase(pa, card, name=name, cfg=cfg, params=params, lens=(300, 1024),
+                          new_tokens=64)
+        del params
+        torch.cuda.empty_cache()
+        checks = {"no paged kernel launched": not any(run["launches"].values()),
+                  "einsum / einsum (fallback)": run["resolution"] == ("einsum", "einsum",
+                                                                     "fallback"),
+                  "attn_backend='pallas' refused (ValueError)": refused}
+        log(f"serving {name} (ALiBi {cfg.position == 'alibi'}, windows "
+            f"{sorted(set(cfg.layer_windows or ()), key=str)}): attn_impl {run['resolution'][0]}, "
+            f"decode_attn_impl {run['resolution'][1]} ({run['resolution'][2]}); "
+            + ", ".join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+        if not all(checks.values()):
+            raise SystemExit(f"serving {name} FAILED")
+
+
+def family_parity_phase():
+    """Phase 22 (b): at 2 layers of the widths of BLOOM-1b7, GPT-Neo-1.3B
+    and MPT-7B (HF-named state dicts through ``params_from_hf``), four
+    sequences of 300..1000 prompt tokens prefilled through ``ragged_forward``
+    in chunks that cross pages and GPT-Neo's window, one packed step with
+    each sequence's last chunk, then a fused decode step and a 16-step
+    ``decode_loop``, in bf16 and in float32 (each on its own pools of one
+    layout). The dense forward (``lm_forward``) over the same whole
+    sequences in float32 and bf16 is the reference: the float32 engine
+    within ``FAMILY_FP32_RTOL`` of it, the bf16 engine within
+    ``NOISE_FACTOR`` x the bf16 dense forward's distance from it."""
+    from deepspeed_tpu_torch.inference.v2 import model
+    from deepspeed_tpu_torch.inference.v2.ragged import RaggedBatchWrapper
+    from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import \
+        DSSequenceDescriptor
+    from deepspeed_tpu_torch.models.transformer import lm_forward
+
+    dev = torch.device("cuda")
+    t = lambda a: torch.from_numpy(a).to(dev)
+    fields = ("tokens", "positions", "gather_idx", "block_table", "kv_len",
+              "logits_idx", "start_pos", "chunk_len")
+    for name in HF_FAMILIES:
+        cfg, params = hf_model(name, num_layers=2, seed=3)
+        runs = {"fp32": (dataclasses.replace(cfg, dtype=torch.float32, attn_impl="xla"),
+                         _cast(params, torch.float32)),
+                "bf16": (dataclasses.replace(cfg, attn_impl="xla"), params)}
+        rng = np.random.default_rng(17)
+        plens, last = [300, 517, 733, 1000], [37, 1, 64, 5]
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in plens]
+        S, bs, B = len(prompts), 32, 40
+        shape = (cfg.num_layers, 1 + S * B, cfg.kv_heads, bs, cfg.head_dim)
+        packed, step, toks, dense, dense_step = {}, {}, {}, {}, {}
+        for run, (c, p) in runs.items():
+            kk = torch.zeros(shape, dtype=c.dtype, device=dev)
+            vv = torch.zeros_like(kk)
+            seqs = []
+            for s, pr in enumerate(prompts):
+                seq = DSSequenceDescriptor(uid=s, prompt_tokens=pr)
+                seq.blocks = list(range(1 + s * B, 1 + (s + 1) * B))
+                seqs.append(seq)
+            wrapper = RaggedBatchWrapper(token_budget=512, max_seqs=S, max_chunk=128,
+                                         max_blocks_per_seq=B)
+            while True:                       # every chunk but each sequence's last
+                sched = []
+                for seq, n in zip(seqs, last):
+                    left = len(seq.prompt_tokens) - n - seq.seen_tokens
+                    if left > 0:
+                        sched.append((seq, seq.next_tokens(min(left, 128))))
+                if not sched:
+                    break
+                batch = wrapper.pack(sched, bs)
+                model.ragged_forward(p, c, kk, vv, *[t(getattr(batch, f)) for f in fields])
+                for seq, tk in sched:
+                    seq.seen_tokens += len(tk)
+            batch = wrapper.pack([(seq, seq.next_tokens(n)) for seq, n in zip(seqs, last)],
+                                 bs)
+            packed[run], _, _ = model.ragged_forward(
+                p, c, kk, vv, *[t(getattr(batch, f)) for f in fields])
+            first = packed["fp32"].argmax(-1).to(torch.int32)
+            pos0 = t(np.asarray(plens, np.int32))
+            bt = t(batch.block_table)
+            active = torch.ones(S, dtype=torch.bool, device=dev)
+            wk = torch.zeros((c.num_layers, 16, S, c.kv_heads, c.head_dim), dtype=c.dtype,
+                             device=dev)
+            step[run] = model.decode_step(p, c, kk, vv, wk, torch.zeros_like(wk), first,
+                                          pos0, pos0, bt, active, 0, "einsum")
+            toks[run], _, _ = model.decode_loop(p, c, kk, vv, first, pos0, bt, active, None,
+                                                1.0, n_steps=16)
+            with torch.no_grad():
+                rows = [lm_forward(c, p, t(np.concatenate([pr, [int(f)]]).astype(
+                    np.int64))[None])[0, -2:].float() for pr, f in zip(prompts, first.tolist())]
+            dense[run] = torch.stack([r[0] for r in rows])
+            dense_step[run] = torch.stack([r[1] for r in rows])
+        d = lambda a, b: (a - b).abs().max().item()
+        top = dense["fp32"].abs().max().item()
+        checks = {
+            "packed fp32": d(packed["fp32"], dense["fp32"]) <= FAMILY_FP32_RTOL * top,
+            "decode fp32": d(step["fp32"], dense_step["fp32"]) <= FAMILY_FP32_RTOL * top,
+            "packed bf16": d(packed["bf16"], dense["fp32"])
+            <= NOISE_FACTOR * d(dense["bf16"], dense["fp32"]),
+            "decode bf16": d(step["bf16"], dense_step["fp32"])
+            <= NOISE_FACTOR * d(dense_step["bf16"], dense_step["fp32"]),
+        }
+        agree = lambda a, b: (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        log(f"family parity ({name} widths, 2 layers, D {cfg.head_dim}, "
+            f"{cfg.position}, windows {cfg.layer_windows}): packed max|d| fp32 engine-dense "
+            f"{d(packed['fp32'], dense['fp32']):.3e}, bf16 engine-dense fp32 "
+            f"{d(packed['bf16'], dense['fp32']):.3e}, bf16 dense-dense fp32 "
+            f"{d(dense['bf16'], dense['fp32']):.3e}; decode step fp32 engine-dense "
+            f"{d(step['fp32'], dense_step['fp32']):.3e}, bf16 engine-dense fp32 "
+            f"{d(step['bf16'], dense_step['fp32']):.3e}, bf16 dense-dense fp32 "
+            f"{d(dense_step['bf16'], dense_step['fp32']):.3e} (logits max {top:.2f}; need fp32 "
+            f"<= {FAMILY_FP32_RTOL:g} x max, bf16 <= {NOISE_FACTOR:g} x dense bf16); greedy "
+            f"agreement packed bf16-fp32 {agree(packed['bf16'], packed['fp32']):.3f}, "
+            f"decode_loop 16 steps bf16-fp32 "
+            f"{(toks['bf16'] == toks['fp32']).float().mean().item():.3f}; "
+            + ", ".join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+        if not all(checks.values()):
+            raise SystemExit(f"family parity FAILED ({name} widths)")
+        del runs, params
+        torch.cuda.empty_cache()
+
+
+def spec_phase(pa, card):
+    """Phase 22 (c): speculative decoding on Llama-2-7B at full width and
+    depth: 16 requests, each a seeded random 64-token segment repeated 4
+    times, 64 new tokens, served by ``LLMServer`` with ``spec_decode_k=4``
+    and then with spec off (fused decode chunks of 16). Gates: the packed
+    kernel launched during the spec run, a whole number of times per layer,
+    every launch on ``sm90``; each spec stream equals the spec-off stream,
+    or first differs where both tokens' logits lie within
+    ``SPEC_TIE_MARGIN`` of the largest in a float32 recompute (the dense
+    einsum forward over the common prefix), which puts its top-2 gap under
+    the margin too."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    from deepspeed_tpu_torch.models.transformer import lm_forward
+    from deepspeed_tpu_torch.serving import LLMServer, Request
+
+    cfg = llama_config("7b", dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(23)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, SPEC_SEGMENT).astype(np.int32),
+                       SPEC_REPEATS) for _ in range(16)]
+    runs = {}
+    for mode, k in (("spec", SPEC_K), ("off", 0)):
+        engine = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            **SLICE, spec_decode_k=k), device="cuda")
+        server = LLMServer(engine, fused_decode_chunk=16)
+        pa.reset_launch_counts()
+        t0 = time.perf_counter()
+        resps = [server.submit(Request(p, max_new_tokens=SPEC_NEW), block=True)
+                 for p in prompts]
+        for r in resps:
+            r.wait(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(pa.launch_counts)
+        routes = {n: dict(r) for n, r in pa.route_counts.items()}
+        if not server.drain(timeout=60) or server.error is not None:
+            raise SystemExit(f"spec phase: the {mode} server failed: {server.error}")
+        snap = server.metrics.snapshot()
+        runs[mode] = dict(streams=[list(r.tokens) for r in resps], launches=launches,
+                          routes=routes, snap=snap, wall=wall)
+        tokens = sum(len(r.tokens) for r in resps)
+        log(f"spec[{mode}, Llama-2-7B] [{card}]: {tokens / wall:.1f} generated tok/s over "
+            f"{wall:.2f} s, TTFT p50 {snap['ttft']['p50_ms']:.1f} ms p99 "
+            f"{snap['ttft']['p99_ms']:.1f} ms; spec_steps {snap['spec_steps']}, drafted "
+            f"{snap['spec_drafted']}, accepted {snap['spec_accepted']}, acceptance rate "
+            f"{snap['spec_acceptance_rate']}; engine steps {engine.steps}, kernel launches "
+            f"{launches}, routes {routes}")
+        del server, engine
+        torch.cuda.empty_cache()
+    n = runs["spec"]["launches"]["paged_attention"]
+    launched = (n > 0 and n % cfg.num_layers == 0
+                and runs["spec"]["routes"]["paged_attention"] == {"sm90": n, "cuda_core": 0})
+    # where a stream first differs: the float32 recompute's top 2 there
+    firsts = []
+    for i, (a, b) in enumerate(zip(runs["spec"]["streams"], runs["off"]["streams"])):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            firsts.append((i, j))
+    params32 = _cast(params, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, attn_impl="xla")
+    ties = []
+    for i, j in firsts:
+        a, b = runs["spec"]["streams"][i][j], runs["off"]["streams"][i][j]
+        ctx = np.concatenate([prompts[i], np.asarray(runs["off"]["streams"][i][:j], np.int32)])
+        with torch.no_grad():
+            logits = lm_forward(cfg32, params32, torch.from_numpy(ctx.astype(np.int64))
+                                .cuda()[None])[0, -1]
+        vals, idx = logits.topk(4)
+        below = [(vals[0] - logits[x]).item() for x in (a, b)]
+        ok = max(below) < SPEC_TIE_MARGIN
+        ties.append(ok)
+        log(f"spec stream {i}: first differs at token {j} ({a} against {b}), "
+            f"{below[0]:.4e} and {below[1]:.4e} below the float32 maximum; float32 top 4 "
+            f"{idx.tolist()}, top-2 gap {(vals[0] - vals[1]).item():.4e} "
+            f"{'ok' if ok else 'FAIL'}")
+    del params32
+    torch.cuda.empty_cache()
+    full = len(prompts) - len(firsts)
+    log(f"spec against spec-off (Llama-2-7B, {SPEC_NEW} tokens x 16): streams equal to the "
+        f"end {full}/16, first differing at a float32 near-tie {sum(ties)}/{len(firsts)}; "
+        f"packed kernel launches in the spec run {n}, routes "
+        f"{runs['spec']['routes']['paged_attention']} {'ok' if launched else 'FAIL'}; "
+        f"tok/s spec {16 * SPEC_NEW / runs['spec']['wall']:.1f} against off "
+        f"{16 * SPEC_NEW / runs['off']['wall']:.1f}")
+    if not (launched and all(ties)):
+        raise SystemExit("spec phase FAILED")
+
+
 def zero3_7b_run(card: str, workdir: Path) -> bool:
     """Llama-2-7B at ZeRO stage 3 on four cards (32 layers, seq 4096, micro
     1 per rank, gas 2, per-layer remat): check_dp's gates and the peak per
@@ -4900,6 +5295,12 @@ def main() -> int:
     timed("21 (b) MoE block bf16 vs fp32 (Mixtral-8x7B widths)", moe_block_phase, card)
     timed("21 (c) MoE serving (Mixtral-8x7B widths at 8 layers, Qwen1.5-MoE-A2.7B)",
           moe_serving_phase, pa, card)
+    # phase 22: ALiBi and windowed families loaded from HF-named state dicts
+    # and served on the einsum; speculative decoding over the packed kernel
+    timed("22 (a) HF families served (BLOOM-1b7, GPT-Neo-1.3B)", hf_serving_phase, pa, card)
+    timed("22 (b) family path parity (BLOOM-1b7, GPT-Neo-1.3B, MPT-7B widths, 2 layers)",
+          family_parity_phase)
+    timed("22 (c) speculative decoding (Llama-2-7B)", spec_phase, pa, card)
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"

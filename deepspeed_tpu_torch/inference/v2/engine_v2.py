@@ -16,10 +16,13 @@ scatter; prompt chunks attend on the gathered-dequant path, fused decode on
 the decode kernel's int8 mode); any float dtype name, such as
 ``"float8_e4m3fn"``, is a storage cast served on the gathered path. The
 resolution of both attention paths follows the JAX engine and is visible in
-``attn_impl``, ``decode_attn_impl`` and ``decode_attn_source``.
+``attn_impl``, ``decode_attn_impl`` and ``decode_attn_source``: ALiBi and
+windowed families (bloom, mpt, falcon-rw, gpt-neo, starcoder2) run both on
+the einsum, since the paged kernels compute plain scaled causal attention.
+``spec_decode_batch`` is n-gram speculative decoding: drafts from the
+sequence's own context, verified in one packed dispatch (``verify_step``).
 
-Left out (ROADMAP.md): speculative decoding (``spec_decode_batch``) and the
-collective planner's decode-attention hook.
+Left out (ROADMAP.md): the collective planner's decode-attention hook.
 """
 
 from dataclasses import dataclass
@@ -32,7 +35,8 @@ from ...accelerator import resolve_device
 from ...models.transformer import TransformerConfig
 from ...ops.paged_attention import _HEAD_DIMS as _PAGED_HEAD_DIMS
 from ...utils.logging import logger
-from .model import check_supported, decode_loop, ragged_step
+from .model import (check_supported, decode_loop, ragged_step,
+                    special_attention, verify_step)
 from .ragged.kv_cache import BlockedKVCache
 from .ragged.prefix_index import ROOT_HASH, chain_hashes, hash_block
 from .ragged.ragged_manager import DSStateManager
@@ -78,17 +82,26 @@ class RaggedInferenceEngineConfig:
     max_fused_window: int = 512
     # content-addressed prefix KV reuse (ragged/prefix_index.py)
     enable_prefix_cache: bool = False
+    # n-gram speculative decoding (spec_decode_batch): draft up to k tokens
+    # per live sequence from the most recent prior occurrence of its last
+    # spec_ngram tokens, verify them in one packed dispatch, commit the
+    # accepted prefix and the model's correction. Greedy only. 0 = off.
+    spec_decode_k: int = 0
+    spec_ngram: int = 2
 
 
 @dataclass
 class ReuseStats:
-    """Cumulative prefix-cache counters (the serving tier samples these into
-    ServingMetrics gauges)."""
+    """Cumulative prefix-cache / speculative-decode counters (the serving
+    tier samples these into ServingMetrics gauges)."""
     prefix_lookups: int = 0          # put() admissions that consulted the index
     prefix_hits: int = 0             # admissions that mapped >= 1 cached block
     prefix_tokens_reused: int = 0    # prompt tokens never re-prefilled
     prefix_blocks_shared: int = 0    # pages mapped shared (blocks saved)
     cow_forks: int = 0               # shared blocks copy-on-write-forked
+    spec_steps: int = 0              # verify dispatches
+    spec_drafted: int = 0            # draft tokens proposed
+    spec_accepted: int = 0           # draft tokens accepted
 
 
 _WARNED = set()
@@ -136,10 +149,24 @@ class InferenceEngineV2:
         self.cfg = cfg
         self.device = resolve_device(device)
         check_supported(cfg)
+        # ALiBi / layer_windows families: the einsum path on both steps
+        self._special_attn = special_attention(cfg)
         for knob in (c.attn_backend, c.decode_attn_backend, cfg.decode_attn_impl):
             if knob not in _BACKENDS:
                 raise ValueError(f"attn backend must be auto|pallas|einsum, "
                                  f"got {knob!r}")
+        if c.spec_decode_k < 0 or c.spec_ngram < 1:
+            raise ValueError(f"spec_decode_k={c.spec_decode_k} must be >= 0 "
+                             f"and spec_ngram={c.spec_ngram} >= 1")
+        if c.spec_decode_k > 0 and not c.greedy:
+            raise ValueError(
+                "spec_decode_k > 0 requires greedy=True: the acceptance rule "
+                "compares argmax streams, which has no sampled analogue here")
+        if c.attn_backend == "pallas" and self._special_attn:
+            raise ValueError(
+                "attn_backend='pallas' computes plain scaled causal "
+                "attention; ALiBi / layer_windows families "
+                "run on the einsum path — use attn_backend='auto'")
         dtype = getattr(torch, c.dtype)
         kv_dtype = kv_storage_dtype(c.kv_cache_dtype, dtype)
         self.params = _cast_tree(params, dtype, self.device)
@@ -157,13 +184,15 @@ class InferenceEngineV2:
         self._generator.manual_seed(int(c.seed))
         # packed (prompt-chunk) path: the packed kernel takes compute-dtype
         # pools; quantized and storage-cast pools dequantize on the gather,
-        # and a head dim the paged kernels do not build takes the einsum
+        # and ALiBi / windowed families and a head dim the paged kernels do
+        # not build take the einsum
         if c.attn_backend == "auto":
-            reason = _head_dim_bail(cfg.head_dim)
+            reason = None if self._special_attn else _head_dim_bail(cfg.head_dim)
             if reason:
                 _warn_once(f"attn_backend='auto' but {reason} — packed prompt "
                            "steps run the gathered-page einsum (one-time notice)")
-            self.attn_impl = "pallas" if kv_dtype == dtype and not reason else "einsum"
+            self.attn_impl = ("pallas" if kv_dtype == dtype and not reason
+                              and not self._special_attn else "einsum")
         elif c.attn_backend == "pallas" and kv_dtype != dtype:
             _warn_once(
                 f"attn_backend='pallas' with kv_cache_dtype={c.kv_cache_dtype}: "
@@ -181,8 +210,7 @@ class InferenceEngineV2:
     def _decode_structural_bail(self, kv_dtype, dtype) -> Optional[str]:
         """Why the decode kernel cannot serve this model and pool, or None.
         It computes plain scaled causal attention over compute-dtype or int8
-        ``(values, scales)`` pools. (The ALiBi and window clauses stay
-        unreachable while ``check_supported`` refuses those families.)"""
+        ``(values, scales)`` pools."""
         if self.cfg.position == "alibi":
             return "the ALiBi per-head bias rides the logits"
         if self.cfg.layer_windows is not None:
@@ -502,6 +530,94 @@ class InferenceEngineV2:
         if n < 1:
             return {}
         return self._accept(seqs, self._run_decode(seqs, n), n)
+
+    def _ngram_propose(self, seq, k: int) -> List[int]:
+        """Draft up to ``k`` tokens by n-gram lookup: the tokens that
+        followed the most recent PRIOR occurrence of the sequence's last
+        ``spec_ngram`` tokens in prompt + generated. Host work only."""
+        n = self.config.spec_ngram
+        ctx = (np.concatenate([seq.prompt_tokens,
+                               np.asarray(seq.generated, np.int32)])
+               if seq.generated else seq.prompt_tokens)
+        L = len(ctx)
+        if k < 1 or L <= n:
+            return []
+        key = ctx[L - n:]
+        for start in range(L - n - 1, -1, -1):
+            if np.array_equal(ctx[start:start + n], key):
+                return [int(t) for t in ctx[start + n:start + n + k]]
+        return []
+
+    def spec_decode_batch(self, k: Optional[int] = None) -> Dict[int, List[int]]:
+        """N-gram speculative decode: per live sequence, pack the chunk
+        ``[last sampled] + drafts`` and verify every position in one packed
+        dispatch (``model.verify_step``: the greedy argmax after each input
+        token). The accepted drafts plus the model's own token at the first
+        mismatch are committed; ``seen_tokens`` rewinds past the rejected
+        suffix (those rows are masked by ``kv_len`` and rewritten when their
+        positions are reached). Every committed token is an argmax the
+        sequential path would produce, so the stream is ``decode_batch``'s.
+        A sequence without a match rides along as a 1-token chunk. Same
+        preconditions as ``decode_batch``; returns {uid: committed tokens}."""
+        c = self.config
+        if not c.greedy:
+            raise RuntimeError("spec_decode_batch requires greedy=True (the "
+                               "acceptance rule compares argmax streams)")
+        k = c.spec_decode_k if k is None else int(k)
+        seqs = self._live_decoders("spec_decode_batch")
+        if not seqs:
+            return {}
+        bs = c.kv_block_size
+        share = max(1, c.token_budget // len(seqs))
+        scheduled: List[Tuple] = []
+        drafted: List[List[int]] = []
+        for seq in seqs:
+            # 1 + k_i inputs must fit the chunk cap and the budget share,
+            # k_i + 1 commits must not overrun max_new_tokens, and every
+            # input's KV row must fit the block table
+            cap = min(k, c.max_chunk_size - 1, share - 1,
+                      seq.max_new_tokens - len(seq.generated) - 1,
+                      c.max_blocks_per_seq * bs - seq.seen_tokens - 1)
+            drafts = self._ngram_propose(seq, cap) if cap > 0 else []
+            toks = np.asarray([seq.generated[-1]] + drafts, np.int32)
+            self.kv.reserve(seq, len(toks))
+            scheduled.append((seq, toks))
+            drafted.append(drafts)
+        batch = self.wrapper.pack(scheduled, bs)
+        kv_k, kv_v = self.kv.pool_args()
+        d = self._dev
+        nexts, new_k, new_v = verify_step(
+            self.params, self.cfg, kv_k, kv_v, d(batch.tokens), d(batch.positions),
+            d(batch.gather_idx), d(batch.block_table), d(batch.kv_len),
+            d(batch.start_pos), d(batch.chunk_len), attn_impl=self.attn_impl)
+        self.kv.update(new_k, new_v)
+        nexts = nexts.cpu().numpy()        # [T] int32 — the only D2H transfer
+        out: Dict[int, List[int]] = {}
+        cursor = 0
+        for (seq, toks), drafts in zip(scheduled, drafted):
+            preds = nexts[cursor:cursor + len(toks)]
+            cursor += len(toks)
+            j = 0
+            while j < len(drafts) and int(preds[j]) == drafts[j]:
+                j += 1
+            self.reuse.spec_drafted += len(drafts)
+            self.reuse.spec_accepted += j
+            accepted: List[int] = []
+            for t in drafts[:j] + [int(preds[j])]:
+                accepted.append(int(t))
+                if ((seq.eos_token_id is not None and int(t) == seq.eos_token_id)
+                        or len(seq.generated) + len(accepted) >= seq.max_new_tokens):
+                    seq.done = True
+                    break
+            seq.generated.extend(accepted)
+            # the inputs [last] + drafts[:j] are committed content with
+            # their KV written; the rejected suffix is rewound
+            seq.seen_tokens += 1 + j
+            self._register_full_blocks(seq)
+            out[seq.uid] = accepted
+        self.reuse.spec_steps += 1
+        self.steps += 1
+        return out
 
     def decode_stream(self, total_steps: int) -> Dict[int, List[int]]:
         """Fused decode of ``min(total_steps, min remaining)`` tokens, in

@@ -13,7 +13,11 @@ so the engine reads the same. Attention takes one of two paths per call:
 ``"pallas"`` — the name of the kernel path, kept from the JAX package — runs
 the paged kernels of ``ops/paged_attention.py`` (hand-written Hopper
 kernels on a CUDA device, their plain versions on the CPU), ``"einsum"``
-runs the gathered-page reference path.
+runs the gathered-page reference path. The paged kernels compute plain
+scaled causal attention, so ALiBi and windowed families (bloom, mpt,
+falcon-rw, gpt-neo, starcoder2) run the einsum path, which adds the bias
+and the window mask (:func:`paged_attention`). ``verify_step`` is the
+packed forward with a greedy token at every row, for speculative decoding.
 
 KV pool forms: a pool argument is a tensor ``[L, N, Hk, bs, D]`` (compute
 dtype, or a storage dtype such as ``torch.float8_e4m3fn`` that rows are
@@ -35,8 +39,8 @@ import torch
 from ... import comm
 from ...models.transformer import (TransformerConfig, _block_out, _dense,
                                    _dense_multi_in, _embed, _lm_logits, _mlp, _norm,
-                                   _rope_tables, apply_rope, check_parallel_fields,
-                                   merge_partial_attention)
+                                   _rope_tables, alibi_slopes, apply_rope,
+                                   check_parallel_fields, merge_partial_attention)
 from ...moe.sharded_moe import dropless_moe
 from ...ops.paged_attention import (NEG_INF, attention_over_pages,
                                     gather_pages, paged_flash_decode,
@@ -56,14 +60,37 @@ def exact_fp32() -> None:
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for the model families this slice does not serve."""
-    if cfg.position == "alibi" or cfg.layer_windows is not None:
-        raise NotImplementedError(
-            "ALiBi and windowed attention " + _LEFT_OUT.format(
-                "3 (ALiBi/window families)"))
     if cfg.no_lm_head:
         raise NotImplementedError("serving a model without an LM head (no_lm_head) "
                                   + _LEFT_OUT.format("3 (model families)"))
     check_parallel_fields(cfg)
+
+
+def special_attention(cfg: TransformerConfig) -> bool:
+    """The families whose attention needs a per-head logit bias (ALiBi) or
+    a key window: the paged kernels compute plain scaled causal attention,
+    so these run on the einsum path (JAX ``engine_v2._special_attn``)."""
+    return cfg.position == "alibi" or cfg.layer_windows is not None
+
+
+def _check_kernel_family(cfg: TransformerConfig, attn_impl: str) -> None:
+    if attn_impl == "pallas" and special_attention(cfg):
+        raise ValueError("attn_impl='pallas' runs the paged kernels, which compute "
+                         "plain scaled causal attention; ALiBi / layer_windows "
+                         "families run attn_impl='einsum'")
+
+
+def _alibi(cfg: TransformerConfig, device):
+    """The per-head ALiBi slopes ``[Hq]`` fp32 on ``device``, or None."""
+    if cfg.position != "alibi":
+        return None
+    return torch.as_tensor(alibi_slopes(cfg.num_heads,
+                                        bf16_round=not cfg.alibi_post_scale),
+                           dtype=torch.float32, device=device)
+
+
+def _window(cfg: TransformerConfig, i: int):
+    return cfg.layer_windows[i] if cfg.layer_windows is not None else None
 
 
 # the JAX module's names for the pool-form helpers
@@ -199,7 +226,8 @@ def _sample(logits, generator, temperature, greedy):
 
 
 def paged_attention(qg, k_pool, v_pool, block_table, positions_g, q_valid,
-                    kv_len, return_stats: bool = False, scale=None):
+                    kv_len, return_stats: bool = False, alibi=None,
+                    alibi_post_scale: bool = False, scale=None, window=None):
     """Grouped paged attention over gathered pages — the ``"einsum"`` path.
 
     qg: [S, Q, Hq, D] grouped queries; k/v_pool: [N, Hk, bs, D] this layer's
@@ -207,11 +235,51 @@ def paged_attention(qg, k_pool, v_pool, block_table, positions_g, q_valid,
     gather); block_table: [S, B]; positions_g: [S, Q] absolute positions;
     q_valid: [S, Q] bool; kv_len: [S]. Returns [S, Q, Hq, D] (and the
     softmax ``(m, l)`` per row with ``return_stats``). ``scale`` overrides
-    1/sqrt(d)."""
+    1/sqrt(d).
+
+    Family knobs (JAX ``model.paged_attention``): ``alibi`` per-head slopes
+    [Hq] subtract ``slope * (q_pos - k_pos)`` from the logits — a gathered
+    slot's index is the key's absolute position, so the distance is exact
+    under paging; falcon / bloom fold ``scale`` into the slope, mpt
+    (``alibi_post_scale``) adds the raw slope; ``window`` masks keys at
+    distance ``>= window``. Without them this is
+    ``ops.paged_attention.attention_over_pages``, the kernels' plain
+    version."""
     kg = _gather_pages(k_pool, block_table, qg.dtype)
     vg = _gather_pages(v_pool, block_table, qg.dtype)
-    return attention_over_pages(qg, kg, vg, positions_g, q_valid, kv_len,
-                                sm_scale=scale, return_stats=return_stats)
+    if alibi is None and window is None:
+        return attention_over_pages(qg, kg, vg, positions_g, q_valid, kv_len,
+                                    sm_scale=scale, return_stats=return_stats)
+    S, Q, Hq, D = qg.shape
+    _, B, Hk, bs, _ = kg.shape
+    G = Hq // Hk
+    kg = kg.permute(0, 2, 1, 3, 4).reshape(S, Hk, B * bs, D)
+    vg = vg.permute(0, 2, 1, 3, 4).reshape(S, Hk, B * bs, D)
+    qq = qg.reshape(S, Q, Hk, G, D).permute(0, 2, 3, 1, 4)
+    sm = (1.0 / math.sqrt(D)) if scale is None else float(scale)
+    logits = torch.einsum("shgqd,shkd->shgqk", qq.float(), kg.float()) * sm
+    slot = torch.arange(B * bs, device=qg.device)
+    dist = positions_g.long()[..., None] - slot                     # [S, Q, K]
+    if alibi is not None:
+        sl = ((1.0 if alibi_post_scale else sm)
+              * torch.as_tensor(alibi, dtype=torch.float32, device=qg.device))
+        logits = logits - sl.reshape(Hk, G)[None, :, :, None, None] * dist.float()[:, None, None]
+    valid = ((dist >= 0) & q_valid[..., None]
+             & (slot < kv_len.long()[:, None, None]))
+    if window is not None:
+        valid = valid & (dist < window)
+    valid = valid[:, None, None]
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1)                                         # [S,Hk,G,Q]
+    p = torch.where(valid, torch.exp(logits - m[..., None]), torch.zeros_like(logits))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("shgqk,shkd->shgqd", p.to(qg.dtype).float(), vg.float())
+    out = (acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]).to(qg.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(S, Q, Hq, D)
+    if return_stats:
+        stats = lambda a: a.permute(0, 3, 1, 2).reshape(S, Q, Hq)
+        return out, stats(m), stats(l)
+    return out
 
 
 def _ragged_hidden(params, cfg: TransformerConfig, kv_k, kv_v, tokens,
@@ -219,14 +287,17 @@ def _ragged_hidden(params, cfg: TransformerConfig, kv_k, kv_v, tokens,
                    chunk_len, attn_impl: str):
     """The packed ragged forward up to the final norm: final-norm hidden
     states for EVERY packed token (``x [T, H]``). Writes this step's KV rows
-    into the pools in place. ``attn_impl``: "einsum" or "pallas"."""
+    into the pools in place. ``attn_impl``: "einsum" or "pallas" (plain
+    scaled causal families only: ALiBi and windows ride the einsum)."""
     check_supported(cfg)
+    _check_kernel_family(cfg, attn_impl)
     T = tokens.shape[0]
     bs = _pool_values(kv_k).shape[3]
     tokens, positions = tokens.long(), positions.long()
     gidx = gather_idx.long()
     x = _embed(cfg, params, tokens, positions)                      # [T, H]
     rope_cs = _rope_tables(cfg, tokens.device)
+    alibi = _alibi(cfg, tokens.device)
 
     q_valid = gidx < T                                              # [S, Q]
     safe_gather = torch.clamp(gidx, max=T - 1)
@@ -264,8 +335,9 @@ def _ragged_hidden(params, cfg: TransformerConfig, kv_k, kv_v, tokens,
                                          sm_scale=cfg.attn_scale)
         else:
             out = paged_attention(qg, _kv_layer(kv_k, i), _kv_layer(kv_v, i),
-                                  block_table, pos_g, q_valid, kv_len,
-                                  scale=cfg.attn_scale)
+                                  block_table, pos_g, q_valid, kv_len, alibi=alibi,
+                                  alibi_post_scale=cfg.alibi_post_scale,
+                                  scale=cfg.attn_scale, window=_window(cfg, i))
         # ungroup back to the flat token buffer ([T+1] with pad row dropped)
         flat = torch.zeros((T + 1, h, d), dtype=out.dtype, device=out.device)
         flat[flat_idx] = out.reshape(-1, h, d)
@@ -321,10 +393,22 @@ def ragged_step(params, cfg: TransformerConfig, kv_k, kv_v, tokens, positions,
     return _sample(logits, generator, temperature, greedy), kv_k, kv_v
 
 
-def verify_step(*args, **kwargs):
-    """Speculative-decode verification (JAX ``verify_step``)."""
-    raise NotImplementedError(
-        "verify_step " + _LEFT_OUT.format("1 (speculative decoding)"))
+@torch.inference_mode()
+def verify_step(params, cfg: TransformerConfig, kv_k, kv_v, tokens, positions,
+                gather_idx, block_table, kv_len, start_pos, chunk_len,
+                attn_impl: str = "einsum"):
+    """Speculative-decode verification: the packed ragged forward with a
+    greedy argmax at EVERY packed token, not just ``logits_idx``. Each
+    sequence's chunk is ``[last committed token, draft_1..draft_k]``; row
+    ``t`` of the returned ``[T] int32`` is the model's next token after
+    input token ``t``. KV rows for every input are written (in place); the
+    engine rewinds ``seen_tokens`` past a rejected suffix, whose rows are
+    masked by ``kv_len`` and rewritten when their positions are reached.
+    Returns (next tokens, kv_k, kv_v)."""
+    exact_fp32()
+    x = _ragged_hidden(params, cfg, kv_k, kv_v, tokens, positions, gather_idx,
+                       block_table, kv_len, start_pos, chunk_len, attn_impl)
+    return torch.argmax(_lm_logits(cfg, params, x), dim=-1).to(torch.int32), kv_k, kv_v
 
 
 @torch.inference_mode()
@@ -335,8 +419,11 @@ def decode_step(params, cfg: TransformerConfig, kv_k, kv_v, wk, wv, toks, pos,
     rows into the in-window buffers ``wk``/``wv`` ``[L, W, S, Hk, D]`` at
     step ``t``. Attention is over the FROZEN pool (``pool_len`` tokens per
     sequence, paged kernel with stats) merged with the window (dense,
-    masked to steps ``<= t``) by the flash combine."""
+    masked to steps ``<= t``) by the flash combine. ALiBi and the layer's
+    window apply to both halves: in-window token ``w`` sits at ``pool_len +
+    w``, so the query is at distance ``t - w`` from it in every sequence."""
     check_supported(cfg)
+    _check_kernel_family(cfg, attn_impl)
     S = toks.shape[0]
     Hq, Hk, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     G = Hq // Hk
@@ -345,7 +432,9 @@ def decode_step(params, cfg: TransformerConfig, kv_k, kv_v, wk, wv, toks, pos,
     toks, pos = toks.long(), pos.long()
     rope_cs = _rope_tables(cfg, toks.device)
     x = _embed(cfg, params, toks, pos)                              # [S, H]
-    wmask = torch.arange(W, device=toks.device) <= t                # [W]
+    alibi = _alibi(cfg, toks.device)
+    widx = torch.arange(W, device=toks.device)
+    wdist = (t - widx).float()                                      # [W]
     for i in range(cfg.num_layers):
         lp = params[f"layer_{i}"]
         y = _norm(cfg, lp["attn_norm"], x)
@@ -367,12 +456,20 @@ def decode_step(params, cfg: TransformerConfig, kv_k, kv_v, wk, wv, toks, pos,
             o1, m1, l1 = paged_attention(
                 qt[:, None], _kv_layer(kv_k, i), _kv_layer(kv_v, i),
                 block_table, pos[:, None], active[:, None], pool_len,
-                return_stats=True, scale=cfg.attn_scale)
+                return_stats=True, alibi=alibi,
+                alibi_post_scale=cfg.alibi_post_scale, scale=cfg.attn_scale,
+                window=_window(cfg, i))
             o1, m1, l1 = o1[:, 0], m1[:, 0], l1[:, 0]
         # dense attention over the in-window tokens (incl. this one)
         qr = qt.reshape(S, Hk, G, D)
         lg2 = torch.einsum("shgd,wshd->shgw", qr.float(),
                            wk[i].to(qt.dtype).float()) * sm
+        if alibi is not None:
+            sl = (1.0 if cfg.alibi_post_scale else sm) * alibi
+            lg2 = lg2 - sl.reshape(Hk, G)[None, :, :, None] * wdist
+        wmask = widx <= t                                           # [W]
+        if _window(cfg, i) is not None:
+            wmask = wmask & (t - widx < _window(cfg, i))
         lg2 = torch.where(wmask, lg2, torch.full_like(lg2, NEG_INF))
         m2 = lg2.amax(dim=-1)                                       # [S,Hk,G]
         p2 = torch.where(wmask, torch.exp(lg2 - m2[..., None]),

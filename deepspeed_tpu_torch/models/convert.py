@@ -61,7 +61,7 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
         dense(f"{p}/mlp/up_proj", (H, F_), cfg.ffn_bias)
         dense(f"{p}/mlp/down_proj", (F_, H), cfg.ffn_bias)
     norm("final_norm")
-    if not cfg.tie_embeddings:
+    if not (cfg.tie_embeddings or cfg.no_lm_head):
         dense("lm_head", (H, V), cfg.lm_head_bias)
     return shapes
 

@@ -4,8 +4,9 @@ Port of ``deepspeed_tpu/serving/metrics.py``. The numbers a serving tier is
 judged by (blogs/deepspeed-fastgen: TTFT / per-token latency / effective
 throughput): time-to-first-token, time per output token, end-to-end latency
 — each a percentile histogram — plus queue depth, KV-pool occupancy, and
-tokens/s. Per-tenant slices, canary and speculative-decode counters wait
-for the server features that feed them (ROADMAP.md).
+tokens/s, and the engine's prefix-cache and speculative-decode counters.
+Per-tenant slices and canary counters wait for the server features that
+feed them (ROADMAP.md).
 """
 
 import bisect
@@ -93,7 +94,7 @@ class ServingMetrics:
         self.inflight = 0
         self.kv_free_blocks = 0
         self.kv_total_blocks = 0
-        # prefix-cache counters, mirrored from the
+        # prefix-cache / speculative-decode counters, mirrored from the
         # engine's cumulative ReuseStats each loop (sample_reuse) — the
         # engine is the source of truth, these are its last-seen values
         self.prefix_lookups = 0
@@ -101,6 +102,9 @@ class ServingMetrics:
         self.prefix_tokens_reused = 0
         self.prefix_blocks_shared = 0
         self.cow_forks = 0
+        self.spec_steps = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         # implementation stamp: which attention path served this server
         # (engine_v2 resolution) — readers must know which decode path
         # produced a latency row
@@ -156,10 +160,11 @@ class ServingMetrics:
         self.kv_total_blocks = int(kv_total_blocks)
 
     def sample_reuse(self, reuse) -> None:
-        """Mirror the engine's cumulative prefix-cache counters
-        (``engine_v2.ReuseStats``)."""
+        """Mirror the engine's cumulative prefix-cache / speculative-decode
+        counters (``engine_v2.ReuseStats``)."""
         for name in ("prefix_lookups", "prefix_hits", "prefix_tokens_reused",
-                     "prefix_blocks_shared", "cow_forks"):
+                     "prefix_blocks_shared", "cow_forks", "spec_steps",
+                     "spec_drafted", "spec_accepted"):
             setattr(self, name, int(getattr(reuse, name, 0)))
 
     def prefix_hit_rate(self) -> Optional[float]:
@@ -168,6 +173,13 @@ class ServingMetrics:
         if not self.prefix_lookups:
             return None
         return self.prefix_hits / self.prefix_lookups
+
+    def spec_acceptance_rate(self) -> Optional[float]:
+        """Fraction of drafted tokens the verify pass accepted (None until
+        the first draft)."""
+        if not self.spec_drafted:
+            return None
+        return self.spec_accepted / self.spec_drafted
 
     # ------------------------------------------------------------------
     @property
@@ -210,4 +222,10 @@ class ServingMetrics:
             "prefix_tokens_reused": self.prefix_tokens_reused,
             "prefix_blocks_shared": self.prefix_blocks_shared,
             "cow_forks": self.cow_forks,
+            "spec_steps": self.spec_steps,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_acceptance_rate": (None
+                                     if (ar := self.spec_acceptance_rate())
+                                     is None else round(ar, 4)),
         }

@@ -9,14 +9,15 @@ it continuously while clients submit/await requests from any thread.
   :class:`~.scheduler.ContinuousBatchScheduler`;
 * **engine thread** — drains ingress, admits per policy, runs
   ``engine.step()`` (SplitFuse packed prefill+decode) or, in steady decode,
+  ``engine.spec_decode_batch()`` (the engine's ``spec_decode_k`` > 0) or
   ``engine.decode_batch(fused_decode_chunk)``, and streams sampled tokens
   into each request's :class:`~.request.ServedResponse`;
 * **drain** — ``drain()`` stops admission of NEW requests and returns once
   every in-flight sequence has finished.
 
 Left out of this slice (ROADMAP.md): chaos drills, telemetry spans, control
-ticks, the integrity canary, heartbeats, tenancy, speculative decoding and
-the fleet/router hooks.
+ticks, the integrity canary, heartbeats, tenancy and the fleet/router
+hooks.
 
 Engine-affinity rule: every engine/scheduler touch happens on the engine
 thread; client threads only enqueue, cancel (a flag), and wait on events.
@@ -200,8 +201,11 @@ class LLMServer:
                 self.scheduler.admit(now)
                 progressed = False
                 if self.engine.has_work():
-                    if self._fusable_decode():
-                        multi = self.engine.decode_batch(self.fused_decode_chunk)
+                    mode = ("spec" if self._spec_decode_ready()
+                            else "fused" if self._fusable_decode() else "step")
+                    if mode != "step":
+                        multi = (self.engine.spec_decode_batch() if mode == "spec"
+                                 else self.engine.decode_batch(self.fused_decode_chunk))
                         self._deliver_multi(multi)
                         progressed = bool(multi)
                     else:
@@ -275,6 +279,21 @@ class LLMServer:
             return False
         return min(s.max_new_tokens - len(s.generated)
                    for s in seqs) >= self.fused_decode_chunk
+
+    def _spec_decode_ready(self) -> bool:
+        """True when this step runs n-gram speculative decode
+        (``engine.spec_decode_batch``): opt-in through the engine's
+        ``spec_decode_k`` (greedy only), every live sequence in steady
+        decode, the batch fits one dispatch, nothing queued (the fused
+        path's admission-latency bias). No full-chunk gate: accept counts
+        vary per step. When both are eligible speculation wins."""
+        cfg = self.engine.config
+        if cfg.spec_decode_k < 1 or not cfg.greedy or self.scheduler.pending:
+            return False
+        seqs = [s for s in self.engine.state_manager.all() if not s.done]
+        return (bool(seqs)
+                and len(seqs) <= cfg.max_ragged_sequence_count
+                and all((not s.in_prefill) and s.generated for s in seqs))
 
     def _finish_if_done(self, uid: int, resp, now: float) -> None:
         seq = self.engine.state_manager.get(uid)

@@ -5,15 +5,17 @@ For every name that the landed slices were missing (ROADMAP.md Queue C item
 accessors, the port has it, and its parameters carry the JAX counterpart's names in
 the JAX order (``inspect.signature``; defaults may differ where the port's
 types do). A JAX ``mixtral_config`` constructs the port's
-``TransformerConfig``, trains a step and serves; ALiBi and window serving
-and an expert-parallel ``moe`` section are refused with
-``NotImplementedError`` naming the ROADMAP.md Queue A item. The kernel
+``TransformerConfig``, trains a step and serves; ALiBi and windowed models
+serve the JAX engine's stream and refuse the paged kernels' backend; an
+expert-parallel ``moe`` section is refused with ``NotImplementedError``
+naming the ROADMAP.md Queue A item. The kernel
 wrappers accept the Pallas ``interpret`` switch and ignore it; the block
 kwargs refuse the sizes the JAX functions refuse, and every size they accept
 gives the same result (on the CPU, the plain versions).
 """
 
 import dataclasses
+import functools
 import importlib
 import inspect
 
@@ -69,6 +71,16 @@ SURFACE = {
                         "moe_dispatch", "expert_ffn", "moe_combine", "dropless_moe",
                         "quantized_ep_ready", "quantized_ep_moe"],
     "models.transformer": ["mixtral_config"],
+    # the HF loader, ALiBi / windowed serving and speculative decoding
+    # (ROADMAP.md Queue A items 1, 3 and 8's inference/hf.py)
+    "inference.hf": ["config_from_hf", "params_from_hf"],
+    "inference.v2.model": ["paged_attention", "verify_step"],
+    "inference.v2.engine_v2": ["RaggedInferenceEngineConfig", "ReuseStats",
+                               "InferenceEngineV2.spec_decode_batch",
+                               "InferenceEngineV2._ngram_propose"],
+    "serving.metrics": ["ServingMetrics.spec_acceptance_rate",
+                        "ServingMetrics.sample_reuse"],
+    "serving.server": ["LLMServer._spec_decode_ready"],
 }
 # kernel wrappers: port module -> (JAX module, names)
 WRAPPERS = {
@@ -87,7 +99,10 @@ def _module(pkg: str, name: str):
 
 
 def _params(obj):
-    return list(inspect.signature(obj).parameters)
+    """Parameter names; a keyword-only ``device`` (the port's entry points
+    place their results on the card unless told otherwise) is left out."""
+    return [n for n, p in inspect.signature(obj).parameters.items()
+            if not (n == "device" and p.kind is inspect.Parameter.KEYWORD_ONLY)]
 
 
 def _cases():
@@ -102,8 +117,9 @@ def _cases():
 @pytest.mark.parametrize("mod, jmod, name", list(_cases()),
                          ids=lambda v: v if isinstance(v, str) else None)
 def test_name_exists_with_the_jax_signature(mod, jmod, name):
-    port = getattr(_module("deepspeed_tpu_torch", mod), name)
-    ref = getattr(_module("deepspeed_tpu", jmod), name)
+    # a dotted name is a class's method
+    port = functools.reduce(getattr, name.split("."), _module("deepspeed_tpu_torch", mod))
+    ref = functools.reduce(getattr, name.split("."), _module("deepspeed_tpu", jmod))
     if inspect.ismodule(ref):                       # the top level's ``version``
         assert inspect.ismodule(port) and port.__version__
     elif callable(ref):
@@ -216,16 +232,31 @@ def test_mixtral_config_trains_and_serves():
 @pytest.mark.parametrize("field, value", [("position", "alibi"),
                                           ("layer_windows", (None, 8))])
 def test_alibi_and_window_serving_are_refused_by_name(field, value):
+    """ALiBi and windowed families are served, on the einsum path, with the
+    JAX engine's greedy stream; what stays refused by name is the paged
+    kernels' backend, which computes plain scaled causal attention."""
+    from deepspeed_tpu.inference.v2 import InferenceEngineV2 as JEngine
+    from deepspeed_tpu.inference.v2 import RaggedInferenceEngineConfig as JEC
     from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedInferenceEngineConfig
+    from deepspeed_tpu_torch.models.convert import _flatten, _nest
 
-    cfg = _port_config(jtransformer.TransformerConfig(
+    jcfg = dataclasses.replace(jtransformer.TransformerConfig(
         vocab_size=128, hidden_size=32, intermediate_size=64, num_layers=2, num_heads=2,
         norm="layernorm", activation="gelu",
         position="learned" if field == "layer_windows" else "rope"), **{field: value})
+    cfg = _port_config(jcfg)
     params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(kv_block_size=8),
-                          device="cpu")
+    engine = dict(kv_block_size=8, num_kv_blocks=16, dtype="float32")
+    prompt = np.random.default_rng(1).integers(0, 128, 13).astype(np.int32)
+    (got,) = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(**engine),
+                               device="cpu").generate([prompt], max_new_tokens=6)
+    numpy_params = _nest({k: v.numpy() for k, v in _flatten(params).items()})
+    (want,) = JEngine(jtransformer.TransformerLM(jcfg), numpy_params,
+                      JEC(**engine)).generate([prompt], max_new_tokens=6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    with pytest.raises(ValueError, match="ALiBi / layer_windows"):
+        InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            **engine, attn_backend="pallas"), device="cpu")
 
 
 @pytest.mark.parametrize("field, value, item", [

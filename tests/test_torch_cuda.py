@@ -636,6 +636,74 @@ def test_engine_kernel_path_matches_einsum_path_on_card():
         np.testing.assert_array_equal(a, b)
 
 
+def test_verify_step_on_the_packed_kernel_matches_einsum_on_card():
+    """``verify_step`` (speculative decoding's check) over chunks of 1 + k
+    tokens: the packed kernel, launched once per layer, gives the einsum
+    path's next tokens and pools in float32, and the engine's
+    ``spec_decode_batch`` streams on the kernel path are the einsum path's."""
+    _need_card()
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig, model)
+    from deepspeed_tpu_torch.inference.v2.ragged import RaggedBatchWrapper
+    from deepspeed_tpu_torch.inference.v2.ragged.sequence_descriptor import \
+        DSSequenceDescriptor
+    from deepspeed_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=97, hidden_size=256, intermediate_size=192,
+                            num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=256,
+                            dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(9)
+    bs, S, B = 8, 4, 16
+    seqs = []
+    for s, (ctx, k) in enumerate(((30, 4), (7, 0), (53, 2), (16, 4))):
+        seq = DSSequenceDescriptor(uid=s, prompt_tokens=rng.integers(
+            0, 97, ctx + 1 + k).astype(np.int32))
+        seq.seen_tokens = ctx
+        seq.blocks = list(range(1 + s * B, 1 + s * B + -(-(ctx + 1 + k) // bs)))
+        seqs.append((seq, 1 + k))
+    batch = RaggedBatchWrapper(token_budget=64, max_seqs=S, max_chunk=16,
+                               max_blocks_per_seq=B).pack(
+        [(seq, seq.next_tokens(n)) for seq, n in seqs], bs)
+    shape = (cfg.num_layers, 1 + S * B, cfg.kv_heads, bs, cfg.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k0 = torch.randn(shape, generator=gen, device="cuda")
+    v0 = torch.randn(shape, generator=gen, device="cuda")
+    d = lambda a: torch.from_numpy(a).cuda()
+    fields = ("tokens", "positions", "gather_idx", "block_table", "kv_len",
+              "start_pos", "chunk_len")
+    got = {}
+    for impl in ("pallas", "einsum"):
+        kk, vv = k0.clone(), v0.clone()
+        port.reset_launch_counts()
+        nxt, _, _ = model.verify_step(params, cfg, kk, vv,
+                                      *[d(getattr(batch, f)) for f in fields],
+                                      attn_impl=impl)
+        got[impl] = (nxt.cpu().numpy(), kk, vv, port.launch_counts["paged_attention"])
+    assert got["pallas"][3] == cfg.num_layers and got["einsum"][3] == 0
+    np.testing.assert_array_equal(got["pallas"][0], got["einsum"][0])
+    # layer 0's rows are the same products; later layers' sum in another order
+    for i in (1, 2):
+        torch.testing.assert_close(got["pallas"][i][0], got["einsum"][i][0], rtol=0, atol=0)
+        torch.testing.assert_close(got["pallas"][i], got["einsum"][i], rtol=1e-4, atol=1e-4)
+
+    prompts = [np.tile(rng.integers(0, 97, n).astype(np.int32), 3) for n in (5, 8, 11)]
+    streams = []
+    for backend in ("pallas", "einsum"):
+        eng = InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
+            token_budget=32, max_ragged_sequence_count=4, max_chunk_size=16,
+            num_kv_blocks=64, kv_block_size=8, max_blocks_per_seq=16,
+            attn_backend=backend, spec_decode_k=4), device="cuda")
+        eng.put([0, 1, 2], prompts, max_new_tokens=16)
+        while any(s.in_prefill for s in eng.state_manager.all()):
+            eng.step()
+        while any(not s.done for s in eng.state_manager.all()):
+            eng.spec_decode_batch()
+        streams.append([eng.query(u)[1] for u in (0, 1, 2)])
+    for a, b in zip(*streams):
+        np.testing.assert_array_equal(a, b)
+
+
 def _close(got, want, tol):
     """Within ``tol`` of the reference's largest magnitude: the kernels sum
     in another order, and in bf16 a value may round one ulp apart."""

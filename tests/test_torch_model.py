@@ -216,10 +216,12 @@ def test_presets_match_jax(preset, size):
 def test_left_out_families_raise():
     _, tcfg, _ = tiny_pair("llama")
     for over in (dict(position="alibi"), dict(layer_windows=(None, 4))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmodel.check_supported(dataclasses.replace(tcfg, **over))
+        special = dataclasses.replace(tcfg, **over)
+        tmodel.check_supported(special)            # served on the einsum path
+        assert tmodel.special_attention(special)
+    assert not tmodel.special_attention(tcfg)
     tmodel.check_supported(dataclasses.replace(tcfg, num_experts=4))   # MoE is served
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.verify_step()
+        tmodel.check_supported(dataclasses.replace(tcfg, no_lm_head=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.tp_decode_matmul(None, None, "tp")
