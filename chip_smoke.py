@@ -32,8 +32,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and the main packed step's 14 decode rows and two prompt chunks timed
    alone on both routes; the same parity (routes, tolerances, bitwise
    repeats; packed, decode, the int8 mode, bf16 and fp32) at the attention
-   widths of phi-3-mini (32/32, D 96), Pythia-1B (8/8, D 256) and
-   Pythia-2.8B (32/32, D 80), a GQA 16/4 case at D 256 and pages of 16
+   widths of phi-3-mini (32/32, D 96), Pythia-1B (8/8, D 256),
+   Pythia-2.8B (32/32, D 80) and Megatron GPT-2 345M (16/16, D 64), a GQA
+   16/4 case at D 256 and pages of 16
    slots at D 80, each kernel timed on both routes at each width's serving
    shapes beside its bound, its plain version and the library composite;
    the
@@ -157,9 +158,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ceil(n / 2) elements and no quant launch; each mode's peak memory per
    rank printed beside ``estimate_zero_model_states_mem_needs``; the none
    run against one process on the same global batch; ``init_distributed``
-   on NCCL at world size 1 with one all-reduce. Its step time is two ranks
-   sharing one card, not a scaling number. Phase 20 (d) runs in the same
-   world after these modes;
+   on NCCL at world size 1 with one all-reduce; stage 2's peak per rank at
+   least 2P bytes (half the full fp32 gradient buffer stage 1 keeps) below
+   stage 1's (phase 23 (d)). Its step time is two ranks sharing one card,
+   not a scaling number. Phase 20 (d) runs in the same world after these
+   modes;
 12. int8 KV serving — phase 4's run with ``kv_cache_dtype="int8"``: every
    request finishes, KV conservation, the decode kernel's int8 mode launches
    (``paged_flash_decode_int8``), every launch on the ``sm90`` route, and no
@@ -196,7 +199,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whole number per layer, and the engine resolving ``pallas`` for both
    paths by its heuristic;
 17. serving path parity at the new head dims — phases 5 and 13 at 2
-   layers of the widths of phi-3-mini, Pythia-1B and Pythia-2.8B (D 80):
+   layers of the widths of phi-3-mini, Pythia-1B, Pythia-2.8B (D 80) and
+   Megatron GPT-2 345M (D 64):
    the kernel path's packed-step and decode-step logits (and the int8
    decode step's) within twice the einsum path's distance from float32,
    each paged launch of the kernel path on ``sm90``;
@@ -273,9 +277,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per layer, all on ``sm90``; each spec stream equal to the spec-off
    stream or first differing where both tokens' logits lie within
    ``SPEC_TIE_MARGIN`` of the float32 recompute's largest; spec_steps, drafted,
-   accepted, acceptance and tok/s of both runs printed. The ``kernels``
-   line's launches stay the counts of the path each kernel's row names
-   (the packed kernel's: phase 4's run).
+   accepted, acceptance and tok/s of both runs printed;
+23. checkpoint interchange — (a) ``nvidia/megatron-gpt2-345m``'s args
+   (hidden 1024, 24 layers, 16 heads of D 64, ffn 4096, 1024 positions,
+   padded vocab 50304) written with seeded fp16 weights as two tp ranks in
+   Megatron-LM's layout (``build/megatron_smoke/mp_rank_0r/model_optim_rng.pt``,
+   checkpoint version 2.0), read by ``load_megatron_checkpoint``, merged by
+   ``SDLoaderFactory`` (``layout="megatron"``), mapped by
+   ``megatron_config`` / ``megatron_params``, put on the card by
+   ``params_from_jax`` and served by phase 4's ``slice_phase`` (prompts of
+   128..896 tokens) with phase 16's gates at D 64; (b) resharding bitwise:
+   the merged dict split into 4 and merged back, ``params_to_megatron`` of
+   ``megatron_params``, the written shards split again; (c) phase 11's
+   world on the 345M at full depth at stage 0 and stage 2 (micro 2 x 1024,
+   gas 2, 3 steps): phase 11's gates, launches exact (flash 24 x gas x
+   steps a kernel on ``wgmma``), the stage-2 run saved, consolidated by
+   ``python -m deepspeed_tpu_torch.utils.zero_to_fp32`` (bitwise
+   ``safe_get_full_fp32_param``), exported as two tp shards through
+   ``python -m deepspeed_tpu_torch.checkpoint.ds_to_universal --format
+   megatron`` (bitwise the masters), and the universal tree trained a
+   step at world size 1 (loss finite); (d) runs in phase 11's world, (e)
+   in phase 3. The ``kernels`` line's launches stay the counts of the path
+   each kernel's row names (the packed kernel's: phase 4's run).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -816,16 +839,17 @@ def log_paged_rows(rows, label):
             f"(sm90 / cuda_core {r['ms'] / r['cuda_core_ms']:.3f})")
 
 
-#: the paged kernels' head dims past 64 and 128 at published attention
-#: widths (phase 3): phi-3-mini and Pythia-1B (phase 16 serves them), and
-#: Pythia-2.8B
+#: the paged kernels' head dims other than 128 at published attention
+#: widths (phase 3): phi-3-mini and Pythia-1B (phase 16 serves them),
+#: Pythia-2.8B, and Megatron GPT-2 345M at D 64 (phase 23 serves it)
 PAGED_WIDE = {"phi-3-mini 32/32 D96": dict(Hq=32, Hk=32, D=96),
               "pythia-1b 8/8 D256": dict(Hq=8, Hk=8, D=256),
-              "pythia-2.8b 32/32 D80": dict(Hq=32, Hk=32, D=80)}
+              "pythia-2.8b 32/32 D80": dict(Hq=32, Hk=32, D=80),
+              "megatron-gpt2-345m 16/16 D64": dict(Hq=16, Hk=16, D=64)}
 
 
 def wide_paged_phase(pa):
-    """Phase 3 at the head dims 96, 256 and 80: at each width a serving
+    """Phase 3 at the head dims 96, 256, 80 and 64: at each width a serving
     step (16 sequences: 14 decode rows, two 121-token prompt chunks) and a
     decode batch (16 sequences, an empty slot, a partial page), plus a GQA
     16/4 case at D 256 and pages of 16 slots at D 80, each through
@@ -2246,21 +2270,28 @@ def wide_serving_phase(pa, card, models, profile=False, names=("phi-3-mini", "Py
     model's run."""
     out = {}
     for name in names:
-        run = slice_phase(pa, card, profile=profile, name=name, cfg=models[name])
-        layers = run["cfg"].num_layers
-        checks = {"engine resolves pallas / pallas (heuristic)":
-                  run["resolution"] == ("pallas", "pallas", "heuristic")}
-        for kernel in ("paged_attention", "paged_flash_decode"):
-            n = run["launches"][kernel]
-            checks[f"{kernel} launched {n} times, all on sm90, a whole number per layer"] = (
-                n > 0 and n % layers == 0
-                and run["routes"][kernel] == {"sm90": n, "cuda_core": 0})
-        log(f"serving {name} (D {run['cfg'].head_dim}): " + ", ".join(
-            f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
-        if not all(checks.values()):
-            raise SystemExit(f"serving {name} FAILED")
-        out[name] = run
+        out[name] = check_kernel_serving(
+            slice_phase(pa, card, profile=profile, name=name, cfg=models[name]), name)
     return out
+
+
+def check_kernel_serving(run, name):
+    """Phase 16's gates on a ``slice_phase`` run: both paged kernels launch,
+    every launch on ``sm90``, a whole number per layer, and the engine
+    resolves the kernels on both paths by its heuristic. Returns the run."""
+    layers = run["cfg"].num_layers
+    checks = {"engine resolves pallas / pallas (heuristic)":
+              run["resolution"] == ("pallas", "pallas", "heuristic")}
+    for kernel in ("paged_attention", "paged_flash_decode"):
+        n = run["launches"][kernel]
+        checks[f"{kernel} launched {n} times, all on sm90, a whole number per layer"] = (
+            n > 0 and n % layers == 0
+            and run["routes"][kernel] == {"sm90": n, "cuda_core": 0})
+    log(f"serving {name} (D {run['cfg'].head_dim}): " + ", ".join(
+        f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit(f"serving {name} FAILED")
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -2463,7 +2494,10 @@ def int8_path_phase(cfg=None, name="Llama-2-7B"):
     params = init_params(cfg, seed=2, device=dev, dtype=torch.bfloat16)
     S, bs, B, W = 8, 32, 64, 16
     rng = np.random.default_rng(13)
-    pos0 = torch.from_numpy(rng.integers(100, 1900, S).astype(np.int32)).to(dev)
+    # contexts of up to 1900 tokens, fewer where the model has fewer
+    # positions (learned ones: Megatron GPT-2 345M's 1024)
+    hi = min(1900, cfg.max_seq_len - W)
+    pos0 = torch.from_numpy(rng.integers(100, hi, S).astype(np.int32)).to(dev)
     first = torch.from_numpy(rng.integers(0, cfg.vocab_size, S).astype(np.int32)).to(dev)
     bt = (1 + torch.arange(S * B, dtype=torch.int32, device=dev)).reshape(S, B)
     shape = (cfg.num_layers, 1 + S * B, cfg.kv_heads, bs, cfg.head_dim)
@@ -2494,7 +2528,7 @@ def int8_path_phase(cfg=None, name="Llama-2-7B"):
     agree = lambda a, b: (toks[a] == toks[b]).float().mean().item()
     good = d_step <= NOISE_FACTOR * noise and pa_counts["kernel"] == W * cfg.num_layers
     log(f"int8 path parity decode step ({name} widths, 2 layers, D {cfg.head_dim}, 8 seqs, "
-        f"ctx 100..1900): "
+        f"ctx 100..{hi}): "
         f"max|dlogits| kernel-einsum={d_step:.3e}, einsum-fp32={noise:.3e}, "
         f"kernel-fp32={sdist('kernel', 'fp32'):.3e} (need kernel-einsum <= "
         f"{NOISE_FACTOR:g} x einsum-fp32); decode_loop {W} greedy steps: int8 kernel "
@@ -3475,6 +3509,8 @@ def dp_batch(cfg, micro_total, seq=TRAIN_SEQ):
 def dp_model(spec, mode=None):
     from deepspeed_tpu_torch.models import llama_config
 
+    if spec["model"] == MEGATRON_MODEL:
+        return megatron_345m_config(spec["megatron_args"], num_layers=spec["layers"])
     layers = LAMB_LAYERS if mode in LAMB_MODES else spec["layers"]
     return llama_config(spec["model"], num_layers=layers, dtype=torch.bfloat16,
                         remat=spec["remat"],
@@ -3488,7 +3524,10 @@ def dp_child(rank: int, workdir: Path) -> int:
     on the same global batch; writes losses, step times, peak memory beside
     the ZeRO estimator's model-state bytes, every kernel's launches, the
     ledger and whether the full masters (``safe_get_full_fp32_param``, leaf
-    by leaf) equal rank 0's bitwise to workdir/out_<rank>.json."""
+    by leaf) equal rank 0's bitwise to workdir/out_<rank>.json. A Megatron
+    spec (phase 23) starts each mode from the tree merged from the shards
+    under ``spec["megatron_dir"]`` and, with ``spec["export"]``, saves the
+    stage-2 run and consolidates and exports it (``megatron_export``)."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch import comm, zero
     from deepspeed_tpu_torch.models import TransformerLM, init_params, make_loss_fn
@@ -3509,7 +3548,11 @@ def dp_child(rank: int, workdir: Path) -> int:
         config = dict(DP_CONFIG, train_micro_batch_size_per_gpu=spec["micro"],
                       **dp_mode_config(mode))
         lamb = mode in LAMB_MODES
-        init = zero.Init(lambda: init_params(cfg, seed=0, device="cuda", dtype=torch.float32))
+        if spec["model"] == MEGATRON_MODEL:
+            init = zero.Init(lambda: megatron_tree_on_card(Path(spec["megatron_dir"]), cfg))
+        else:
+            init = zero.Init(lambda: init_params(cfg, seed=0, device="cuda",
+                                                 dtype=torch.float32))
         engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, meta)),
                                     model_parameters=init, config=config,
                                     frozen_params=FROZEN if lamb else None)
@@ -3530,6 +3573,7 @@ def dp_child(rank: int, workdir: Path) -> int:
         launches = {}
         for k in kernels:
             launches.update(k.launch_counts)
+        flash_routes = {k: dict(v) for k, v in flash_attention.route_counts.items()}
         peak = torch.cuda.max_memory_allocated()
         totals = ledger.totals().get("quantized_all_reduce")
         paths = ["/".join(str(k.key) for k in kp) for kp, _ in
@@ -3557,7 +3601,11 @@ def dp_child(rank: int, workdir: Path) -> int:
         units = None if z3 is None else dict(
             peak_units=z3.peak_units, peak_bytes=z3.peak_bytes, gathers=z3.gathers,
             count=len(z3.units), largest=max(z3._nbytes), total=sum(z3._nbytes))
+        export = None
+        if spec.get("export") and stage == 2:
+            export = megatron_export(engine, cfg, paths, workdir, rank, spec["megatron_args"])
         out[mode] = dict(losses=losses, times=times, launches=launches, peak=peak,
+                         flash_routes=flash_routes, export=export,
                          units=units, trust=trust, frozen_equal=frozen_equal,
                          n_frozen=math.prod(param_shapes(cfg)["embed/embedding"])
                          if lamb else 0,
@@ -3682,11 +3730,36 @@ def check_dp(spec, ranks, card):
             f"estimator's stage-{a['stage']} model state {a['estimate'] / 2**30:.2f} GiB; "
             f"launches {a['launches']}; ledger {a['ledger']}; "
             f"{'ok' if good else 'FAIL ' + str([k for k, v in checks.items() if not v])}")
-    log(f"dp [{card}]: llama {spec['model']} widths, {spec['layers']} layers ({n} "
+    model = spec["model"] if spec["model"] == MEGATRON_MODEL else f"llama {spec['model']}"
+    log(f"dp [{card}]: {model} widths, {spec['layers']} layers ({n} "
         f"parameters), micro {spec['micro']} x {spec['seq']} per rank, gas "
         f"{DP_CONFIG['gradient_accumulation_steps']}, {steps} steps per mode, {where}; "
         f"wire bytes per int8 reduction {wire} vs logical {4 * n} ({4 * n / wire:.2f}x)")
     return ok, r0
+
+
+def check_stage2_saving(ranks, card):
+    """Phase 23 (d), read in phase 11's world: stage 2 holds no full fp32
+    gradient buffer, so its peak per rank must lie at least half of that
+    buffer's 4P bytes below stage 1's (P the model's parameters; the
+    saving is about 4P less the largest unit's transient buffer). Prints
+    the difference beside 4P and the estimator's stage-1 and stage-2
+    model-state figures."""
+    from deepspeed_tpu_torch import zero
+
+    n, world = ranks[0]["stage1"]["n"], len(ranks)
+    saved = [r["stage1"]["peak"] - r["stage2"]["peak"] for r in ranks]
+    est = {s: zero.estimate_zero_model_states_mem_needs(n, s, world)["total_bytes"]
+           for s in (1, 2)}
+    ok = min(saved) >= 2 * n
+    log(f"dp stage 2 against stage 1 [{card}]: peak per rank stage 1 "
+        f"{[r['stage1']['peak'] for r in ranks]} B, stage 2 "
+        f"{[r['stage2']['peak'] for r in ranks]} B: stage 2 lower by {saved} B "
+        f"({[round(x / 2**30, 3) for x in saved]} GiB) against the full buffer's 4P = "
+        f"{4 * n} B ({4 * n / 2**30:.3f} GiB), at least 2P = {2 * n} B required: "
+        f"{'ok' if ok else 'FAIL'}; the estimator's model state stage 1 {est[1]} B "
+        f"({est[1] / 2**30:.3f} GiB), stage 2 {est[2]} B ({est[2] / 2**30:.3f} GiB)")
+    return ok
 
 
 def dp_phase(card):
@@ -3706,6 +3779,7 @@ def dp_phase(card):
     ranks = run_dp_world(spec, workdir)
     ok, r0 = check_dp(spec, ranks, card)
     ok &= check_lamb_dp(spec, ranks, card)
+    ok &= check_stage2_saving(ranks, card)
     log(f"dp: phase wall {time.perf_counter() - t0:.1f} s (with phase 20 (d))")
 
     # the none run against one process on the same global batch
@@ -3746,6 +3820,35 @@ def dp_phase(card):
                                 + r0["int8_sr"]["launches"]["dequantize_int8"])}
 
 
+def exact_launches(spec, ranks, tag):
+    """Every rank's flash, fused-loss and Adam launches in each mode of a
+    data-parallel world exactly what its path runs (flash: layers x gas x
+    steps a kernel; the fused loss's forward and combine gas x steps, each
+    backward kernel once per vocab chunk; Adam once a step), and every
+    flash launch on ``wgmma``. Returns whether they were."""
+    from deepspeed_tpu_torch.ops.fused_loss import chunk_width
+
+    cfg = dp_model(spec)
+    gas, steps = DP_CONFIG["gradient_accumulation_steps"], spec["steps"]
+    chunks = -(-cfg.vocab_size // chunk_width(spec["micro"] * spec["seq"], cfg.vocab_size, 2))
+    want = {k: cfg.num_layers * gas * steps for k in FLASH_NAMES}
+    want.update(fused_adam=steps, fused_loss_fwd=gas * steps,
+                fused_loss_fwd_combine=gas * steps)
+    for k in ("fused_loss_dlogits", "fused_loss_dh", "fused_loss_dk"):
+        want[k] = gas * steps * chunks
+    ok = True
+    for mode in spec["modes"]:
+        bad = {k: [r[mode]["launches"][k] for r in ranks] for k, w in want.items()
+               if any(r[mode]["launches"][k] != w for r in ranks)}
+        off_route = {k: r[mode]["flash_routes"][k] for r in ranks for k in FLASH_NAMES
+                     if r[mode]["flash_routes"][k]["mma_sync"]}
+        log(f"{tag} {mode}: launches per rank {ranks[0][mode]['launches']} (want {want}), "
+            f"flash routes {ranks[0][mode]['flash_routes']} "
+            f"{'ok' if not bad and not off_route else 'FAIL ' + str((bad, off_route))}")
+        ok &= not bad and not off_route
+    return ok
+
+
 # ---------------------------------------------------------------------------
 # phase 18: full-depth ZeRO-3 on one card
 # ---------------------------------------------------------------------------
@@ -3763,7 +3866,6 @@ def zero3_phase(card):
     import shutil
 
     from deepspeed_tpu_torch import zero
-    from deepspeed_tpu_torch.ops.fused_loss import chunk_width
     from deepspeed_tpu_torch.runtime.zero.stage3 import MAX_LIVE
 
     spec = ZERO3_SPEC
@@ -3772,21 +3874,7 @@ def zero3_phase(card):
     ranks = run_dp_world(spec, workdir)
     ok, r0 = check_dp(spec, ranks, card)
     shutil.rmtree(workdir, ignore_errors=True)
-    cfg = dp_model(spec)
-    gas, steps = DP_CONFIG["gradient_accumulation_steps"], spec["steps"]
-    chunks = -(-cfg.vocab_size // chunk_width(spec["micro"] * spec["seq"], cfg.vocab_size, 2))
-    want = {k: cfg.num_layers * gas * steps for k in
-            ("flash_attention_fwd", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")}
-    want.update(fused_adam=steps, fused_loss_fwd=gas * steps,
-                fused_loss_fwd_combine=gas * steps)
-    for k in ("fused_loss_dlogits", "fused_loss_dh", "fused_loss_dk"):
-        want[k] = gas * steps * chunks
-    for mode in spec["modes"]:
-        bad = {k: [r[mode]["launches"][k] for r in ranks] for k, w in want.items()
-               if any(r[mode]["launches"][k] != w for r in ranks)}
-        log(f"zero3 {mode}: launches per rank {r0[mode]['launches']} (want {want}) "
-            f"{'ok' if not bad else 'FAIL ' + str(bad)}")
-        ok &= not bad
+    ok &= exact_launches(spec, ranks, "zero3")
     n = r0["none"]["n"]
     est0 = zero.estimate_zero_model_states_mem_needs(n, 0, spec["world"])["total_bytes"]
     est3 = zero.estimate_zero_model_states_mem_needs(n, 3, spec["world"])["total_bytes"]
@@ -3816,7 +3904,7 @@ def zero3_phase(card):
         f"saves {saved / 2**30:.2f} GiB per rank, at least three quarters of the "
         f"predicted {(est0 - est3) / 2**30:.2f} GiB ({need / 2**30:.2f}) required: "
         f"{'ok' if mem_ok else 'FAIL'}; step {ms['none']:.1f} ms at stage 0, "
-        f"{ms['stage3']:.1f} ms at stage 3 (steps 2-{steps}); phase wall "
+        f"{ms['stage3']:.1f} ms at stage 3 (steps 2-{spec['steps']}); phase wall "
         f"{time.perf_counter() - t0:.1f} s")
     if not ok:
         raise SystemExit("zero3 phase FAILED")
@@ -5080,6 +5168,332 @@ def spec_phase(pa, card):
         raise SystemExit("spec phase FAILED")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: checkpoint interchange
+# ---------------------------------------------------------------------------
+
+# nvidia/megatron-gpt2-345m, the numbers of its checkpoint's ``args`` that
+# megatron_config reads: hidden 1024, 24 layers, 16 heads (head dim 64),
+# ffn 4096, max_position_embeddings 1024, padded_vocab_size 50304 (GPT-2:
+# learned positions, LayerNorm, gelu, biased projections, the word
+# embedding tied to the head)
+MEGATRON_345M = dict(hidden_size=1024, num_layers=24, num_attention_heads=16,
+                     ffn_hidden_size=4096, max_position_embeddings=1024,
+                     padded_vocab_size=50304, layernorm_epsilon=1e-5)
+MEGATRON_MODEL = "megatron-gpt2-345m"
+MEGATRON_TP = 2            # the shards are written as two tensor-parallel ranks
+MEGATRON_VERSION = 2       # checkpoint_version 2.0: per-head [q, k, v] rows
+MEGATRON_INIT_STD = 0.02   # Megatron-LM's init_method_std
+MEGATRON_DIR = REPO / "build" / "megatron_smoke"
+# phase 23 (c): phase 11's world on the 345M at full depth, stage 0 against
+# stage 2, the stage-2 run saved, consolidated and exported
+MEGATRON_DP_SPEC = dict(DP_SPEC, model=MEGATRON_MODEL, megatron_args=MEGATRON_345M,
+                        layers=24, micro=2, seq=1024, steps=3, modes=["none", "stage2"],
+                        export=True)
+
+
+def megatron_345m_config(args=MEGATRON_345M, **over):
+    from deepspeed_tpu_torch.inference.megatron import megatron_config
+
+    return dataclasses.replace(megatron_config(args), dtype=torch.bfloat16, **over)
+
+
+def megatron_shapes(args) -> dict:
+    """Megatron-LM GPT's state-dict keys (the ``model.`` prefix the
+    converters read) and full shapes, torch ``[out, in]`` layout."""
+    H, F_, L = args["hidden_size"], args["ffn_hidden_size"], args["num_layers"]
+    pre = "model.language_model."
+    shapes = {pre + "embedding.word_embeddings.weight": (args["padded_vocab_size"], H),
+              pre + "embedding.position_embeddings.weight":
+              (args["max_position_embeddings"], H)}
+    for i in range(L):
+        t = f"{pre}transformer.layers.{i}."
+        for name, shape in (("input_layernorm", (H,)), ("attention.query_key_value", (3 * H, H)),
+                            ("attention.dense", (H, H)), ("post_attention_layernorm", (H,)),
+                            ("mlp.dense_h_to_4h", (F_, H)), ("mlp.dense_4h_to_h", (H, F_))):
+            shapes[t + name + ".weight"] = shape
+            shapes[t + name + ".bias"] = shape[:1]
+    for part in ("weight", "bias"):
+        shapes[f"{pre}transformer.final_layernorm.{part}"] = (H,)
+    return shapes
+
+
+def write_megatron_shards(args, out_dir: Path, tp: int = MEGATRON_TP, seed: int = 0):
+    """Seeded random weights written as ``tp`` tensor-parallel ranks in
+    Megatron-LM's on-disk layout: ``mp_rank_0r/model_optim_rng.pt``, each
+    ``{"model": {"language_model": {"embedding": ..., "transformer":
+    {"layers.0. ...": ...}}}, "args": Namespace, "checkpoint_version": 2.0}``
+    in fp16, as Megatron-LM saves the published 345M. Megatron's init:
+    weights N(0, 0.02), the two output projections N(0, 0.02 / sqrt(2L)),
+    LayerNorm weights 1, biases 0. A leaf the layout table shards is drawn
+    per rank (its rank's slice: for the fused QKV its heads' [q, k, v]
+    rows); a replicated one once. Returns the files and their bytes."""
+    import argparse as ap
+
+    from deepspeed_tpu_torch.checkpoint.state_dict_factory import megatron_specs
+    from deepspeed_tpu_torch.module_inject.auto_tp import sharded_dim
+
+    shapes = megatron_shapes(args)
+    specs = megatron_specs({k: np.broadcast_to(np.float32(0), v) for k, v in shapes.items()})
+    out_std = MEGATRON_INIT_STD / math.sqrt(2 * args["num_layers"])
+    files = []
+    for rank in range(tp):
+        model = {"language_model": {"embedding": {}, "transformer": {}}}
+        for n, (key, shape) in enumerate(shapes.items()):
+            dim = sharded_dim(specs[key], "tp")
+            local = list(shape)
+            if dim is not None:
+                local[dim] //= tp
+            if len(shape) == 1:
+                t = torch.full(local, 1.0 if "layernorm.weight" in key else 0.0)
+            else:
+                gen = torch.Generator(device="cuda").manual_seed(
+                    seed * 1_000_003 + n * 64 + (rank + 1 if dim is not None else 0))
+                std = out_std if key.endswith(("attention.dense.weight",
+                                               "dense_4h_to_h.weight")) else MEGATRON_INIT_STD
+                t = torch.randn(local, generator=gen, device="cuda").mul_(std)
+            t = t.half().cpu()
+            name = key[len("model.language_model."):]
+            if name.startswith("embedding."):
+                table = name.split(".")[1]
+                model["language_model"]["embedding"][table] = {"weight": t}
+            else:
+                model["language_model"]["transformer"][name[len("transformer."):]] = t
+        path = out_dir / f"mp_rank_{rank:02d}" / "model_optim_rng.pt"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({"model": model, "args": ap.Namespace(
+            **args, tensor_model_parallel_size=tp, checkpoint_version=2.0),
+            "checkpoint_version": 2.0, "iteration": 0}, path)
+        files.append(path)
+    return files, sum(f.stat().st_size for f in files)
+
+
+def megatron_load(files):
+    """The shards through the port's loader: each read by
+    ``load_megatron_checkpoint``, merged by ``SDLoaderFactory`` (the
+    Megatron layout table, version-2 fused QKV), mapped by
+    ``megatron_config`` / ``megatron_params``. Returns (args, the shards,
+    the merged state dict, the config, the float32 numpy tree, seconds by
+    step)."""
+    from deepspeed_tpu_torch.checkpoint.state_dict_factory import SDLoaderFactory
+    from deepspeed_tpu_torch.inference.megatron import (load_megatron_checkpoint,
+                                                        megatron_config, megatron_params)
+
+    t0 = time.perf_counter()
+    loaded = [load_megatron_checkpoint(str(f)) for f in files]
+    args, shards = loaded[0][0], [sd for _, sd in loaded]
+    t1 = time.perf_counter()
+    merged = SDLoaderFactory.get_sd_loader(shards, version=MEGATRON_VERSION,
+                                           num_heads=args["num_attention_heads"],
+                                           layout="megatron").load(1, 0)
+    t2 = time.perf_counter()
+    cfg = megatron_config(args, sd=merged)
+    tree = megatron_params(merged, cfg, version=MEGATRON_VERSION)
+    t3 = time.perf_counter()
+    return args, shards, merged, cfg, tree, {"load": t1 - t0, "merge": t2 - t1,
+                                             "convert": t3 - t2}
+
+
+def megatron_tree_on_card(out_dir: Path, cfg):
+    """The fp32 tree merged from the shards under ``out_dir``, on the card
+    (the init closure of phase 23 (c)'s ranks)."""
+    from deepspeed_tpu_torch.models import params_from_jax
+
+    files = sorted(out_dir.glob("mp_rank_*/model_optim_rng.pt"))
+    return params_from_jax(megatron_load(files)[4], cfg, device="cuda")
+
+
+def _tree_bitwise(got, want) -> bool:
+    """Two flat dicts of arrays: the same keys, shapes, dtypes and bits."""
+    return set(got) == set(want) and all(
+        np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
+        and np.array_equal(np.asarray(got[k]), np.asarray(want[k])) for k in want)
+
+
+def megatron_export(engine, cfg, paths, workdir: Path, rank: int, margs: dict):
+    """Phase 23 (c), after the stage-2 run: ``save_checkpoint``; then rank 0
+    runs ``python -m deepspeed_tpu_torch.utils.zero_to_fp32`` in a
+    subprocess and holds the ``.npz`` against ``safe_get_full_fp32_param``
+    of every leaf, maps it through ``params_to_megatron``, writes two tp
+    shards with ``save_shard_npz`` and runs ``python -m
+    deepspeed_tpu_torch.checkpoint.ds_to_universal --format megatron`` on
+    them; the universal tree (``load_universal``) must be bitwise the
+    consolidated masters. Returns rank 0's results (None on the others)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.checkpoint.ds_to_universal import load_universal
+    from deepspeed_tpu_torch.checkpoint.state_dict_factory import (megatron_specs,
+                                                                   save_shard_npz,
+                                                                   split_state_dict)
+    from deepspeed_tpu_torch.inference.megatron import params_to_megatron
+    from deepspeed_tpu_torch.models.convert import _flatten, _nest
+    from deepspeed_tpu_torch.utils import safe_get_full_fp32_param
+
+    ckpt = workdir / "ckpt"
+    t0 = time.perf_counter()
+    engine.save_checkpoint(str(ckpt))
+    save_s = time.perf_counter() - t0
+    result = None
+    if rank == 0:
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        run = lambda *cmd: subprocess.run([sys.executable, "-m", *cmd], cwd=REPO, env=env,
+                                          check=True, capture_output=True, text=True,
+                                          timeout=600)
+        npz, universal = workdir / "fp32.npz", workdir / "universal"
+        t0 = time.perf_counter()
+        run("deepspeed_tpu_torch.utils.zero_to_fp32", str(ckpt), str(npz))
+        t1 = time.perf_counter()
+        with np.load(npz) as z:
+            flat = {k: z[k] for k in z.files}
+        masters = {p: safe_get_full_fp32_param(engine, p).cpu().numpy() for p in paths}
+        npz_equal = _tree_bitwise(flat, masters)
+        del masters
+        sd = params_to_megatron(_nest(flat), cfg, version=MEGATRON_VERSION)
+        specs = megatron_specs(sd)
+        qkv = {k: "interleaved" for k in sd if "query_key_value" in k}
+        files = []
+        for r in range(MEGATRON_TP):
+            shard, repl = split_state_dict(sd, r, MEGATRON_TP, specs, qkv_leaves=qkv,
+                                           num_heads=cfg.num_heads, return_replicated=True)
+            files.append(workdir / f"export_mp_rank_{r:02d}.npz")
+            save_shard_npz(str(files[-1]), shard, replicated_paths=repl)
+        del sd, shard
+        args_file = workdir / "margs.json"
+        args_file.write_text(json.dumps(margs))
+        t2 = time.perf_counter()
+        run("deepspeed_tpu_torch.checkpoint.ds_to_universal", "--input", *map(str, files),
+            "--output", str(universal), "--version", str(MEGATRON_VERSION),
+            "--num-heads", str(cfg.num_heads), "--format", "megatron", "--config",
+            str(args_file))
+        t3 = time.perf_counter()
+        back = {k: v.numpy() for k, v in _flatten(load_universal(str(universal))).items()}
+        result = dict(npz_equal=npz_equal, universal_equal=_tree_bitwise(back, flat),
+                      leaves=len(flat), save_s=save_s, zero_to_fp32_s=t1 - t0,
+                      ds_to_universal_s=t3 - t2,
+                      ckpt_bytes=sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file()),
+                      npz_bytes=npz.stat().st_size,
+                      shard_bytes=sum(f.stat().st_size for f in files),
+                      universal_bytes=sum(f.stat().st_size for f in universal.rglob("*")
+                                          if f.is_file()))
+    comm.barrier()
+    return result
+
+
+def megatron_phase(pa, card):
+    """Phase 23 (a) and (b): Megatron GPT-2 345M written as two tp shards
+    (``write_megatron_shards``), read, merged and converted by the port
+    (``megatron_load``), moved to the card by ``params_from_jax`` and served
+    by ``slice_phase`` at bf16 (16 requests, prompts of 128..896 tokens,
+    the model's 1024 positions holding their 128 new tokens) with phase
+    16's gates at D 64; then the resharding round trips, all bitwise: the
+    merged dict split into 4 and merged back, ``params_to_megatron`` of
+    ``megatron_params``, and the two written shards split again from the
+    merged dict. Returns the shards' directory."""
+    import shutil
+
+    from deepspeed_tpu_torch.checkpoint.state_dict_factory import (megatron_specs,
+                                                                   merge_state_dicts,
+                                                                   split_state_dict)
+    from deepspeed_tpu_torch.inference.megatron import params_to_megatron
+    from deepspeed_tpu_torch.models import params_from_jax
+
+    shutil.rmtree(MEGATRON_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    files, nbytes = write_megatron_shards(MEGATRON_345M, MEGATRON_DIR)
+    write_s = time.perf_counter() - t0
+    args, shards, merged, cfg, tree, secs = megatron_load(files)
+    t0 = time.perf_counter()
+    params = _cast(params_from_jax(tree, cfg, device="cuda"), torch.bfloat16)
+    torch.cuda.synchronize()
+    to_card_s = time.perf_counter() - t0
+    merged_bytes = sum(v.nbytes for v in merged.values())
+    log(f"megatron {MEGATRON_MODEL}: {len(files)} tp shards of {nbytes} B (fp16) written "
+        f"in {write_s:.2f} s; load_megatron_checkpoint {secs['load']:.2f} s, merge "
+        f"(SDLoader.load(1, 0)) {secs['merge']:.2f} s to {len(merged)} leaves of "
+        f"{merged_bytes} B (fp32), megatron_config + megatron_params {secs['convert']:.2f} s, "
+        f"params_from_jax + bf16 on the card {to_card_s:.2f} s")
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    check_kernel_serving(slice_phase(pa, card, name=MEGATRON_MODEL, cfg=cfg, params=params,
+                                     lens=(128, 896)), MEGATRON_MODEL)
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    specs = megatron_specs(merged)
+    qkv = {k: "interleaved" for k in merged if "query_key_value" in k}
+    heads = args["num_attention_heads"]
+    four = [split_state_dict(merged, r, 4, specs, qkv_leaves=qkv, num_heads=heads,
+                             return_replicated=True) for r in range(4)]
+    back = merge_state_dicts([sd for sd, _ in four], specs, qkv_leaves=qkv,
+                             replicated_paths=four[0][1])
+    checks = {"split into 4 and merged back: bitwise the merged dict":
+              _tree_bitwise(back, merged)}
+    del four, back
+    checks["params_to_megatron(megatron_params(sd)): bitwise sd"] = _tree_bitwise(
+        params_to_megatron(tree, cfg, version=MEGATRON_VERSION), merged)
+    checks["the written shards split again from the merged dict: bitwise"] = all(
+        _tree_bitwise(split_state_dict(merged, r, MEGATRON_TP, specs, qkv_leaves=qkv,
+                                       num_heads=heads), shards[r])
+        for r in range(MEGATRON_TP))
+    log(f"megatron resharding ({time.perf_counter() - t0:.2f} s): " + ", ".join(
+        f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise SystemExit("megatron resharding FAILED")
+
+
+def megatron_train_phase(card):
+    """Phase 23 (c): phase 11's world (two ranks on cuda:0 over gloo) trains
+    the 345M from the merged shards at full depth, at stage 0 and at stage
+    2 (micro 2 x 1024 a rank, gas 2, bf16, the fused loss on the tied
+    head, AdamW through the fused Adam kernel, 3 steps): ``check_dp``'s
+    gates, ``exact_launches`` (flash 24 x gas x steps a kernel on
+    ``wgmma`` at D 64), the stage-2 run saved, consolidated by
+    ``zero_to_fp32`` and exported through ``ds_to_universal``
+    (``megatron_export``), both bitwise the masters; then one engine at
+    world size 1 trains a step from the universal tree: its loss finite."""
+    import shutil
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.ds_to_universal import load_universal
+    from deepspeed_tpu_torch.models import TransformerLM, make_loss_fn
+    from deepspeed_tpu_torch.models.convert import _nest, param_shapes
+
+    spec = dict(MEGATRON_DP_SPEC, megatron_dir=str(MEGATRON_DIR))
+    workdir = MEGATRON_DIR / "dp"
+    t0 = time.perf_counter()
+    ranks = run_dp_world(spec, workdir)
+    ok, r0 = check_dp(spec, ranks, card)
+    ok &= exact_launches(spec, ranks, "megatron")
+    ex = r0["stage2"]["export"]
+    ok &= ex["npz_equal"] and ex["universal_equal"]
+    peaks = {m: [round(r[m]["peak"] / 2**30, 3) for r in ranks] for m in spec["modes"]}
+    ms = {m: round(float(np.mean(r0[m]["times"][1:])) * 1e3, 1) for m in spec["modes"]}
+    log(f"megatron export [{card}]: save_checkpoint {ex['save_s']:.2f} s ({ex['ckpt_bytes']} "
+        f"B), zero_to_fp32 {ex['zero_to_fp32_s']:.2f} s ({ex['npz_bytes']} B, {ex['leaves']} "
+        f"leaves) bitwise safe_get_full_fp32_param: {'ok' if ex['npz_equal'] else 'FAIL'}; "
+        f"two tp shards ({ex['shard_bytes']} B) through ds_to_universal "
+        f"{ex['ds_to_universal_s']:.2f} s ({ex['universal_bytes']} B) bitwise the masters: "
+        f"{'ok' if ex['universal_equal'] else 'FAIL'}; peak per rank {peaks} GiB, step "
+        f"{ms} ms (steps 2-{spec['steps']}, two ranks sharing one card); world wall "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    cfg = dp_model(spec)
+    tree = load_universal(str(workdir / "universal"))
+    meta = _nest({k: torch.empty(s, device="meta") for k, s in param_shapes(cfg).items()})
+    engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, meta)),
+                                model_parameters=tree,
+                                config=dict(DP_CONFIG, comms_logger={"enabled": False},
+                                            train_micro_batch_size_per_gpu=spec["micro"]))
+    loss = float(engine.train_batch(dp_batch(cfg, spec["micro"], spec["seq"])))
+    one_ok = math.isfinite(loss)
+    log(f"megatron universal tree at world size 1: one train_batch, loss {loss} finite: "
+        f"{'ok' if one_ok else 'FAIL'}")
+    del engine, tree
+    torch.cuda.empty_cache()
+    shutil.rmtree(MEGATRON_DIR, ignore_errors=True)
+    if not (ok and one_ok):
+        raise SystemExit("megatron training and export FAILED")
+
+
 def zero3_7b_run(card: str, workdir: Path) -> bool:
     """Llama-2-7B at ZeRO stage 3 on four cards (32 layers, seq 4096, micro
     1 per rank, gas 2, per-layer remat): check_dp's gates and the peak per
@@ -5256,8 +5670,10 @@ def main() -> int:
     # size, and serving path parity at the widths of D 96, 256 and 80
     timed("16 serving (phi-3-mini, Pythia-1B)", wide_serving_phase, pa, card, models,
                  profile=args.profile)
-    for name in ("phi-3-mini", "Pythia-1B", "Pythia-2.8B"):
-        cfg = dataclasses.replace(models[name], num_layers=2)
+    for name, cfg in (("phi-3-mini", models["phi-3-mini"]), ("Pythia-1B", models["Pythia-1B"]),
+                      ("Pythia-2.8B", models["Pythia-2.8B"]),
+                      (MEGATRON_MODEL, megatron_345m_config())):
+        cfg = dataclasses.replace(cfg, num_layers=2)
         timed(f"17 serving parity ({name} widths)", path_phase, cfg, name)
         timed(f"17 int8 path parity ({name} widths)", int8_path_phase, cfg, name)
     # phase 6, 7: the training path
@@ -5301,6 +5717,12 @@ def main() -> int:
     timed("22 (b) family path parity (BLOOM-1b7, GPT-Neo-1.3B, MPT-7B widths, 2 layers)",
           family_parity_phase)
     timed("22 (c) speculative decoding (Llama-2-7B)", spec_phase, pa, card)
+    # phase 23: checkpoint interchange ((d) ran in phase 11's world, (e) in
+    # phase 3)
+    timed("23 (a, b) Megatron GPT-2 345M from two tp shards: served, resharded",
+          megatron_phase, pa, card)
+    timed("23 (c) Megatron GPT-2 345M at ZeRO 2: trained, consolidated, exported",
+          megatron_train_phase, card)
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"

@@ -15,8 +15,9 @@ residual, optional ALiBi), gpt_neox (partial rotary), opt (position offset
 2, ReLU), bloom (ALiBi, embedding layernorm), gptj (rotate-every-two
 rotary, biased lm_head), gpt_neo (unscaled attention, alternating local
 windows), phi, starcoder2 (sliding window), stablelm, mpt (post-scale
-ALiBi, bias-free norms) and clip_text_model (no LM head: its config and
-parameters convert, serving it raises). The encoder families (bert,
+ALiBi, bias-free norms) and clip_text_model (no LM head: the model returns
+its hidden states and trains on them; serving it raises, as a deliberate
+difference). The encoder families (bert,
 distilbert) need ``models/bert.py`` and raise.
 """
 

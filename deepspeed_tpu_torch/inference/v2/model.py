@@ -61,8 +61,11 @@ def exact_fp32() -> None:
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for the model families this slice does not serve."""
     if cfg.no_lm_head:
-        raise NotImplementedError("serving a model without an LM head (no_lm_head) "
-                                  + _LEFT_OUT.format("3 (model families)"))
+        raise NotImplementedError(
+            "serving a model without an LM head (no_lm_head) is refused on purpose: "
+            "the ragged engine samples from the head's logits, and the JAX package's "
+            "ragged model reads params['lm_head'] as well (ROADMAP.md, deliberate "
+            "differences)")
     check_parallel_fields(cfg)
 
 

@@ -128,8 +128,9 @@ def _nest(flat):
 def params_from_jax(params_np, cfg: TransformerConfig, device="cuda"):
     """The JAX package's parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.device_get(model.init(...)["params"])``) as the port's parameters:
-    the same nested keys, each leaf a float32 tensor on ``device`` with its
-    flax layout unchanged. Raises on a missing, extra or misshapen leaf."""
+    the same nested keys, each leaf a contiguous float32 tensor on
+    ``device`` with its flax layout unchanged. Raises on a missing, extra or
+    misshapen leaf."""
     from ..accelerator import resolve_device
 
     dev = resolve_device(device)
@@ -144,7 +145,8 @@ def params_from_jax(params_np, cfg: TransformerConfig, device="cuda"):
         arr = np.asarray(arr)
         if tuple(arr.shape) != want[path]:
             raise ValueError(f"{path}: shape {arr.shape} != {want[path]}")
-        out[path] = torch.from_numpy(np.array(arr, np.float32)).to(dev)
+        # a contiguous copy: converters hand over transposed views
+        out[path] = torch.from_numpy(np.array(arr, np.float32, order="C")).to(dev)
     return _nest(out)
 
 

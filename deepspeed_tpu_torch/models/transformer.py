@@ -58,7 +58,7 @@ class TransformerConfig:
     embed_norm: bool = False                    # bloom word_embeddings_layernorm
     alibi_post_scale: bool = False
     lm_head_bias: bool = False                  # gpt-j / phi biased lm_head
-    no_lm_head: bool = False                    # clip text encoder (not ported: raises)
+    no_lm_head: bool = False                    # clip text encoder: the hidden states
     vocab_parallel_loss: bool = False           # tp-sharded CE (not ported: raises)
     attn_scale: Optional[float] = None          # gpt-neo trains UNSCALED (1.0)
     layer_windows: Optional[Any] = None         # gpt-neo local attention
@@ -188,9 +188,6 @@ def merge_partial_attention(out1, m1, l1, out2, m2, l2):
 # ---------------------------------------------------------------------------
 # Shared functional numerics (the serving forward and the training forward)
 # ---------------------------------------------------------------------------
-
-_NOT_PORTED = "not ported yet: ROADMAP.md Queue A item 7 ({})"
-
 
 @functools.lru_cache(maxsize=8)
 def _rope_cs(device: str, seq_len: int, dim: int, theta: float):
@@ -435,9 +432,6 @@ def check_parallel_fields(cfg: TransformerConfig) -> None:
 
 
 def _check_trainable(cfg: TransformerConfig) -> None:
-    if cfg.no_lm_head:
-        raise NotImplementedError(
-            "no_lm_head (a CLIP-style encoder) is " + _NOT_PORTED.format("model"))
     check_parallel_fields(cfg)
 
 
@@ -467,7 +461,9 @@ def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = Fal
     ``[B, S]`` -> logits ``[B, S, V]`` (fp32 for an untied head; the tied
     head attends in ``cfg.dtype``, as flax ``Embed.attend`` does). With
     ``return_hidden`` it returns the final-norm hidden states ``[B, S, E]``
-    in ``cfg.dtype`` instead (the fused loss consumes them). With
+    in ``cfg.dtype`` instead (the fused loss consumes them), as a model
+    without an LM head (``cfg.no_lm_head``: a CLIP-style text encoder)
+    always does. With
     ``cfg.remat`` each layer is recomputed in the backward under
     ``cfg.remat_policy`` (JAX: ``nn.remat(Block, policy=...)``); with no
     policy, under what ``checkpointing.checkpoint`` would do, so a
@@ -499,7 +495,7 @@ def lm_forward(cfg: TransformerConfig, params, tokens, return_hidden: bool = Fal
         if aux is not None:
             auxes.append(aux)
     x = _norm(cfg, params["final_norm"], x)
-    if return_hidden:
+    if cfg.no_lm_head or return_hidden:
         out = x.to(cfg.dtype)
     elif cfg.tie_embeddings:
         out = x.to(cfg.dtype) @ params["embed"]["embedding"].to(cfg.dtype).T
@@ -576,7 +572,9 @@ def make_loss_fn(model: TransformerLM):
     card, fp32 or bf16), the model returns its final hidden states and the
     fused kernels run on them and the head kernel, so the ``[B, S, V]``
     logits never exist; otherwise the model's dense logits go through
-    ``causal_lm_loss``. ``rng`` is an integer seed (the engine draws one per
+    ``causal_lm_loss``. A model without an LM head takes ``causal_lm_loss``
+    over the hidden states it returns, as the JAX loss does (the token ids
+    then index the hidden dims). ``rng`` is an integer seed (the engine draws one per
     micro-batch); with it and ``cfg.dropout > 0`` the model drops out, as
     the JAX loss does when given a key. A model with experts adds the mean
     of its MoE layers' aux losses; its gating stays deterministic, as the
@@ -595,6 +593,8 @@ def make_loss_fn(model: TransformerLM):
         """True when the loss should consume hidden states + the head
         kernel: the fused loss chosen (a biased head keeps the dense path,
         as in the JAX package)."""
+        if cfg.no_lm_head:
+            return False
         return _select_loss_impl(cfg.loss_impl, cfg.vocab_size, device, cfg.dtype,
                                  cfg.lm_head_bias) == "fused"
 

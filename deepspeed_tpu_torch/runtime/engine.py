@@ -47,12 +47,16 @@ reported loss is the rank mean.
   contiguous slice r). Stage 1: full fp32 masters on every rank (views of
   one flat buffer), gradients accumulated over ``gas`` in the full flat
   buffer as at stage 0, then one mean ``reduce_scatter`` into this rank's
-  fp32 shard. Stage 2: the full buffer is reduce-scattered into the shard
-  accumulator after every micro-batch (in buckets of ``reduce_bucket_size``
-  elements) and reused by the next. Stage 3: each rank keeps only its fp32
-  master shard, and the loss runs on compute-dtype leaves that gather a
-  unit (a top-level subtree: ``embed``, ``layer_i``, ...) at a time on use
-  and free it after (``runtime/zero/stage3.py``): the unit's slice of the
+  fp32 shard. Stage 2 holds no full gradient buffer (JAX: the accumulators
+  are dp-sharded from stage 2): a post-accumulate-grad hook on each master
+  copies its gradient into its unit's buffer (a top-level subtree, as at
+  stage 3) and drops it, and once the unit's last leaf has its gradient the
+  buffer is mean-reduced in fp32 (buckets of ``reduce_bucket_size``), each
+  rank adding its part into the shard accumulator, every micro-batch
+  (``runtime/zero/stage3.py``, ``UnitReduce``). Stage 3: each rank keeps
+  only its fp32 master shard, and the loss runs on compute-dtype leaves
+  that gather a unit (a top-level subtree: ``embed``, ``layer_i``, ...) at
+  a time on use and free it after (``runtime/zero/stage3.py``): the unit's slice of the
   shards is cast to the compute dtype and gathered (each owning rank
   broadcasts its part, in buckets of ``allgather_bucket_size``) at the
   first torch call that touches it, at most two units stay gathered
@@ -78,8 +82,8 @@ reported loss is the rank mean.
 
 The imperative ``forward``/``backward``/``step`` path reduces each
 micro-batch through the same transport (a reduce-scatter into the shard
-accumulator at stages 1-3); ``no_sync`` defers it (at stage 3 the units'
-gradients wait in one full local fp32 buffer).
+accumulator at stages 1-3); ``no_sync`` defers it (at stages 2 and 3 the
+units' gradients wait in one full local fp32 buffer).
 
 What the state holds over several ranks: ``state.params`` and ``_masters``
 are the full fp32 masters at stages 0-2 (one leaf each) and this rank's
@@ -157,7 +161,7 @@ from ..comm.compressed import configure_compression, quantized_all_reduce
 from ..ops.fastpath import configure_fastpath
 from ..ops.optimizers import build_optimizer, path_name, sharded_leaves
 from ..ops.quant import fold_in, seeded_generator
-from ..parallel.topology import Topology, set_topology
+from ..parallel.topology import Topology, TopologySpec, set_topology
 from ..utils.logging import log_dist
 from .config import DeepSpeedTPUConfig, load_config
 from .loss_scaler import LossScaleState, make_loss_scale_state, update_loss_scale
@@ -316,7 +320,8 @@ class TrainState:
 class DeepSpeedTPUEngine:
     def __init__(self, loss_fn: Callable, params: Any, config: DeepSpeedTPUConfig,
                  optimizer=None, lr_scheduler: Optional[Callable] = None,
-                 device="cuda", frozen_params: Optional[List[str]] = None):
+                 device="cuda", frozen_params: Optional[List[str]] = None,
+                 topology: Optional[Topology] = None):
         from ..accelerator import resolve_device
 
         if isinstance(loss_fn, torch.nn.Module):
@@ -327,7 +332,7 @@ class DeepSpeedTPUEngine:
         config.finalize(world_dp_size=world)
         _check_supported(config, world)
         self.device = resolve_device(device)
-        self.topo = Topology()
+        self.topo = topology if topology is not None else Topology()
         set_topology(self.topo)
         self.dp_world = self.topo.dp_size
         self.dp_rank = comm.axis_index(self.topo.dp_axes)
@@ -483,6 +488,7 @@ class DeepSpeedTPUEngine:
         self._leafwise = False  # stages 1-3: the optimizer sees leaf fragments
         self._stage3 = False
         self._z3 = None         # stage 3's unit gatherer (runtime/zero/stage3.py)
+        self._units = None      # stages 2-3: the units' gradient reduction
         if self._host_adam_mode:
             opt_state = self._build_host_adam(leaves)
         elif self.dp_world > 1 and self.config.zero_optimization.stage >= 1:
@@ -528,25 +534,42 @@ class DeepSpeedTPUEngine:
             self._masters = [part.fragment(self._master_shard, i)
                              for i in range(len(leaves))]
         else:
+            # stage 1 accumulates the step's gradients in a full flat buffer
+            # (the masters' .grad are views into it); stage 2 holds none
+            stage1 = self.config.zero_optimization.stage == 1
             self._flat_master = torch.zeros(part.padded, dtype=store, device=self.device)
-            self._flat_grad = torch.zeros_like(self._flat_master)
+            if stage1:
+                self._flat_grad = torch.zeros_like(self._flat_master)
             self._masters = []
             for i, p in enumerate(leaves):
                 master = part.leaf(self._flat_master, i)
                 master.copy_(p.detach())
                 master = master.detach().requires_grad_(not self._frozen[i])
-                master.grad = part.leaf(self._flat_grad, i)
+                if stage1:
+                    master.grad = part.leaf(self._flat_grad, i)
                 self._masters.append(master)
             self._master_shard = self._flat_master[part.start:part.start + part.shard]
         self._shard_grad = torch.zeros(part.shard, dtype=store, device=self.device)
-        if self._stage3:
-            from .zero.stage3 import UnitGather, tree_units
+        zc = self.config.zero_optimization
+        if zc.stage >= 2:
+            from .zero.stage3 import UnitGather, UnitReduce, tree_units
 
-            zc = self.config.zero_optimization
             paths = [kp for kp, _ in pytree.tree_flatten_with_path(self._tree(leaves))[0]]
-            self._z3 = UnitGather(part, tree_units(paths), self._master_shard,
-                                  self._shard_grad, self.compute_dtype,
-                                  zc.allgather_bucket_size, zc.reduce_bucket_size)
+            if self._stage3:
+                self._z3 = self._units = UnitGather(
+                    part, tree_units(paths), self._master_shard, self._shard_grad,
+                    self.compute_dtype, zc.allgather_bucket_size, zc.reduce_bucket_size)
+            else:
+                # each unit's gradients are reduce-scattered into the shard
+                # as the backward finishes them
+                self._units = UnitReduce(part, tree_units(paths), self._shard_grad,
+                                         zc.reduce_bucket_size,
+                                         trainable=[not f for f in self._frozen])
+                for u, (_, i0, i1, lo, _) in enumerate(self._units.units):
+                    for i in range(i0, i1):
+                        if not self._frozen[i]:
+                            self._masters[i].register_post_accumulate_grad_hook(
+                                self._units.grad_hook(u, part.offsets[i] - lo))
         # the Adam family (an in-place ``apply``) updates the shard as one
         # flat tensor; any other rule, and any run with frozen leaves, gets
         # this rank's fragment of each leaf
@@ -641,16 +664,20 @@ class DeepSpeedTPUEngine:
 
     def _backward_micro(self, batch, scale: float) -> torch.Tensor:
         rng = self._next_rng() if self._loss_takes_rng else None
-        if self._z3 is not None:
-            # each unit's gradients are reduced into the shard
+        if self._units is not None:
+            # stages 2-3: each unit's gradients are reduced into the shard
             # accumulator as the backward finishes them (added into the full
             # local buffer inside no_sync)
-            z = self._z3
-            z.defer = self._no_sync_depth > 0
-            with torch.enable_grad(), z.on_use():
+            units, z = self._units, self._z3
+            units.defer = self._no_sync_depth > 0
+            with torch.enable_grad(), (z.on_use() if z is not None
+                                       else contextlib.nullcontext()):
                 loss = self._loss(batch, rng)
-                z.run_backward(loss * scale)
-                z.finish()
+                if z is not None:
+                    z.run_backward(loss * scale)
+                else:
+                    (loss * scale).backward()
+                units.finish()
             return loss.detach()
         with torch.enable_grad():
             loss = self._loss(batch, rng)
@@ -1091,8 +1118,6 @@ class DeepSpeedTPUEngine:
         losses = []
         for mb in micro:
             losses.append(self._backward_micro(mb, scale))
-            if self._zero is not None and self.config.zero_optimization.stage >= 2:
-                self._reduce_pending()
         metrics = self._apply()
         metrics["loss"] = self._rank_mean(torch.stack(losses).mean())
         self._metrics_dev = metrics
@@ -1148,13 +1173,13 @@ class DeepSpeedTPUEngine:
         (and any deferred by ``no_sync``): at stage 0 into the imperative
         path's accumulator, at stages 1-3 into the shard accumulator."""
         if self._zero is not None:
-            full = self._z3.local if self._stage3 else self._flat_grad
+            full = self._units.local if self._units is not None else self._flat_grad
             if full is not None:
                 self._zero.reduce_scatter_flat(
                     full, self._shard_grad,
                     self.config.zero_optimization.reduce_bucket_size, accumulate=True)
-                if self._stage3:
-                    self._z3.local = None    # freed until the next no_sync
+                if self._units is not None:
+                    self._units.local = None    # freed until the next no_sync
                 else:
                     full.zero_()
             self._pending_local = False
@@ -1208,8 +1233,8 @@ class DeepSpeedTPUEngine:
             self._compat_acc.zero_()
         if self._zero is not None:
             self._shard_grad.zero_()
-            if self._stage3:
-                self._z3.local = None
+            if self._units is not None:
+                self._units.local = None
         self._pending_local = False
         self._compat_count = 0
         self._compat_pending = False
@@ -1395,10 +1420,43 @@ class DeepSpeedTPUEngine:
         return _load(self, load_dir, tag=tag, **kw)
 
 
+def _initial_topology(topology, param_specs, batch_spec,
+                      world_size: int) -> Optional[Topology]:
+    """The topology ``initialize`` was given, resolved over the world: a
+    port ``Topology``, or a ``TopologySpec`` built into one, whose pp, ep,
+    sp and tp are 1 and whose dp is the world's (None when none was given).
+    Any other topology, and any ``param_specs`` or ``batch_spec``, raise
+    ``NotImplementedError``: they place tensors over the model-parallel
+    axes, which are not ported."""
+    if param_specs is not None or batch_spec is not None:
+        named = " and ".join(n for n, v in (("param_specs", param_specs),
+                                             ("batch_spec", batch_spec)) if v is not None)
+        raise _not_ported(f"initialize({named}=...)", 8,
+                          "sharding/ and the sharded parameter and batch layouts")
+    if topology is None:
+        return None
+    if not isinstance(topology, (Topology, TopologySpec)):
+        raise _not_ported(f"initialize(topology={type(topology).__name__}) (a topology "
+                          "other than the port's Topology or TopologySpec)", 8,
+                          "the model-parallel axes of parallel/topology.py")
+    spec = topology.spec if isinstance(topology, Topology) else topology
+    over = {k: getattr(spec, k) for k in ("pp", "ep", "sp", "tp") if getattr(spec, k) > 1}
+    if over:
+        raise _not_ported(f"initialize(topology=...) with {over}", 8,
+                          "the model-parallel axes of parallel/topology.py")
+    dp = topology.dp_size if isinstance(topology, Topology) else spec.dp
+    if dp is not None and dp != world_size:
+        raise _not_ported(f"initialize(topology=...) with dp={dp} at world size "
+                          f"{world_size} (a dp degree other than the world's)", 8,
+                          "model-parallel axes beside dp")
+    return topology if isinstance(topology, Topology) else Topology(spec)
+
+
 def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
                model_parameters=None, training_data=None, lr_scheduler=None,
                distributed_port=None, mpu=None, dist_init_required=None,
-               config=None, config_params=None, device="cuda", **kwargs):
+               config=None, config_params=None, topology=None, param_specs=None,
+               batch_spec=None, *, device="cuda", **kwargs):
     """Create an engine (reference ``deepspeed.initialize``; the JAX
     package's signature vocabulary). ``model`` is a loss function
     ``loss = f(params, batch[, rng])`` (``models.make_loss_fn(model)``; a
@@ -1408,8 +1466,12 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
     (meta tensors) that returns one. ``frozen_params`` (a keyword) lists
     path patterns of leaves that get no gradient, update or optimizer
     state. ``mpu`` is accepted and unused, as in the JAX package, whose
-    mesh topology replaces it. The engine runs on ``device``, the card
-    unless the caller passes ``"cpu"``. Returns ``(engine, optimizer,
+    mesh topology replaces it. ``topology`` (a port ``Topology`` or
+    ``TopologySpec``) is set as the process's topology and used by the
+    engine when its only axis above 1 is dp and dp is the world size; any
+    other topology, and ``param_specs`` or ``batch_spec``, raise
+    ``NotImplementedError`` (ROADMAP.md Queue A item 8). The engine runs on
+    ``device``, the card unless the caller passes ``"cpu"``. Returns ``(engine, optimizer,
     dataloader, lr_schedule)``; with ``training_data`` (an indexable
     dataset) the dataloader yields this rank's micro-batches, else it is
     None. Joins the process group first (``comm.init_distributed``: the
@@ -1417,9 +1479,10 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
     cfg = load_config(config if config is not None else config_params)
     if dist_init_required is not False:
         comm.init_distributed()
+    topo = _initial_topology(topology, param_specs, batch_spec, comm.get_world_size())
     engine = DeepSpeedTPUEngine(model, model_parameters, cfg, optimizer=optimizer,
                                 lr_scheduler=lr_scheduler, device=device,
-                                frozen_params=kwargs.get("frozen_params"))
+                                frozen_params=kwargs.get("frozen_params"), topology=topo)
     dataloader = None
     if training_data is not None:
         from .dataloader import DeepSpeedDataLoader

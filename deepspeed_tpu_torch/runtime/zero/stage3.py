@@ -36,6 +36,12 @@ counters). The storage is empty (``resize_(0)``) until the unit is needed:
   the units whose gradients did not all arrive (a leaf the loss does not
   reach), in unit order, and frees every unit.
 
+The gradient half is :class:`UnitReduce`, which stage 2 uses alone: its
+fp32 masters are whole on every rank, and each unit's gradients are
+reduced into the shard accumulator as the backward finishes them, so no
+rank holds a full gradient buffer (JAX: the gradient accumulators take a
+dp-sharded spec from stage 2, ``sharding.py``).
+
 Every rank runs the same collectives in the same order as long as the
 ranks' graphs are the same, which data parallelism gives.
 """
@@ -100,33 +106,123 @@ class _GatherOnUse(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
-class UnitGather:
+class UnitReduce:
+    """The gradients of the leaves over ``part``, reduced into
+    ``shard_grad`` a unit at a time as the backward finishes each unit: a
+    leaf's post-accumulate-grad hook (:meth:`grad_hook`) copies its
+    gradient into the unit's buffer and drops it; once the unit's last
+    trainable leaf (``trainable``, default all) has its gradient, the buffer
+    is mean-reduced in fp32 and this rank's part added into ``shard_grad``
+    (``reduce_scatter_range``, buckets of ``reduce_bucket`` elements), or,
+    while :attr:`defer` is set (``no_sync``), added into the full local fp32
+    buffer :attr:`local`. At most the units whose leaves are arriving hold
+    a buffer at once."""
+
+    def __init__(self, part: FlatPartition, units: Sequence[Tuple[str, int, int]],
+                 shard_grad: torch.Tensor, reduce_bucket: int,
+                 trainable: Optional[Sequence[bool]] = None):
+        self.part, self.shard_grad, self.reduce_bucket = part, shard_grad, reduce_bucket
+        trainable = [True] * len(part.shapes) if trainable is None else list(trainable)
+        #: per unit: (name, first leaf, end leaf, flat lo, flat hi)
+        self.units = []
+        for name, i0, i1 in units:
+            lo = part.offsets[i0] if i1 > i0 else 0
+            hi = part.offsets[i1 - 1] + part.numels[i1 - 1] if i1 > i0 else 0
+            self.units.append((name, i0, i1, lo, hi))
+        self._need = [sum(trainable[i0:i1]) for _, i0, i1, _, _ in self.units]
+        self._left = list(self._need)
+        self._grad_buf: Dict[int, torch.Tensor] = {}
+        self._reduced = set()
+        self.busy = False
+        #: add the units' gradients into ``local`` instead of reducing them
+        self.defer = False
+        self.local: Optional[torch.Tensor] = None
+        #: the most bytes of unit gradient buffers alive at once
+        self.peak_buffer_bytes = 0
+
+    def grad_hook(self, u: int, off: int):
+        """The post-accumulate-grad hook of the leaf at element ``off`` of
+        unit ``u``."""
+        def hook(p: torch.Tensor) -> None:
+            self.busy = True
+            try:
+                buf = self._grad_buf.get(u)
+                if buf is None:
+                    _, _, _, lo, hi = self.units[u]
+                    buf = self._grad_buf[u] = torch.zeros(hi - lo, dtype=p.grad.dtype,
+                                                          device=p.grad.device)
+                    self.peak_buffer_bytes = max(self.peak_buffer_bytes, sum(
+                        b.numel() * b.element_size() for b in self._grad_buf.values()))
+                buf[off:off + p.numel()].copy_(p.grad.reshape(-1))
+                p.grad = None
+                self._left[u] -= 1
+                if self._left[u] == 0:
+                    self._reduce(u)
+            finally:
+                self.busy = False
+        return hook
+
+    def _reduce(self, u: int) -> None:
+        """The unit's gradients (zeros where none arrived) into the shard
+        accumulator, or into ``local`` while deferred."""
+        _, i0, i1, lo, hi = self.units[u]
+        buf = self._grad_buf.pop(u, None)
+        if buf is None:
+            buf = torch.zeros(hi - lo, dtype=self.shard_grad.dtype,
+                              device=self.shard_grad.device)
+        with torch.no_grad():
+            if self.defer:
+                if self.local is None:
+                    self.local = torch.zeros(self.part.padded, dtype=self.shard_grad.dtype,
+                                             device=self.shard_grad.device)
+                self.local[lo:hi].add_(buf)
+            else:
+                self.part.reduce_scatter_range(buf, lo, hi, self.shard_grad,
+                                               self.reduce_bucket)
+        self._reduced.add(u)
+        self._left[u] = self._need[u]
+        self._unit_done(u)
+
+    def _unit_done(self, u: int) -> None:
+        """Called once unit ``u``'s gradients are reduced."""
+
+    def finish(self) -> None:
+        """After a backward: reduce every unit with trainable leaves not
+        reduced yet (a leaf the loss does not reach), in unit order, so
+        every rank calls the same collectives."""
+        self.busy = True
+        try:
+            for u in range(len(self.units)):
+                if u not in self._reduced and self._need[u]:
+                    self._reduce(u)
+        finally:
+            self.busy = False
+        self._reduced.clear()
+
+
+class UnitGather(UnitReduce):
     """The compute-dtype leaves of stage 3 over ``part`` (one per leaf, in
     tree order: :attr:`leaves`), gathered a unit at a time from ``shard``
     (this rank's fp32 masters) on use, their gradients reduce-scattered
-    into ``shard_grad`` a unit at a time."""
+    into ``shard_grad`` a unit at a time (:class:`UnitReduce`), after
+    which the unit is freed."""
 
     def __init__(self, part: FlatPartition, units: Sequence[Tuple[str, int, int]],
                  shard: torch.Tensor, shard_grad: torch.Tensor, dtype: torch.dtype,
                  gather_bucket: int, reduce_bucket: int):
-        self.part, self.shard, self.shard_grad, self.dtype = part, shard, shard_grad, dtype
-        self.gather_bucket, self.reduce_bucket = gather_bucket, reduce_bucket
+        super().__init__(part, units, shard_grad, reduce_bucket)
+        self.shard, self.dtype, self.gather_bucket = shard, dtype, gather_bucket
         dev = shard.device
-        #: per unit: (name, first leaf, end leaf, flat lo, flat hi)
-        self.units = []
         self.leaves: List[torch.Tensor] = []
         self._storages, self._writers = [], []
         self._by_storage: Dict[int, int] = {}
-        for u, (name, i0, i1) in enumerate(units):
-            lo = part.offsets[i0] if i1 > i0 else 0
-            hi = part.offsets[i1 - 1] + part.numels[i1 - 1] if i1 > i0 else 0
-            self.units.append((name, i0, i1, lo, hi))
+        for u, (_, i0, i1, lo, hi) in enumerate(self.units):
             storage = torch.empty(hi - lo, dtype=dtype, device=dev).untyped_storage()
             alias = lambda off, shape: torch.empty(0, dtype=dtype, device=dev).set_(
                 storage, off, shape)
             for i in range(i0, i1):
                 leaf = alias(part.offsets[i] - lo, part.shapes[i]).requires_grad_(True)
-                leaf.register_post_accumulate_grad_hook(self._grad_hook(u, part.offsets[i] - lo))
+                leaf.register_post_accumulate_grad_hook(self.grad_hook(u, part.offsets[i] - lo))
                 self.leaves.append(leaf)
             self._writers.append(alias(0, (hi - lo,)))
             self._storages.append(storage)
@@ -135,14 +231,7 @@ class UnitGather:
         size = torch.empty(0, dtype=dtype).element_size()
         self._nbytes = [(hi - lo) * size for _, _, _, lo, hi in self.units]
         self._live: "collections.OrderedDict[int, None]" = collections.OrderedDict()
-        self._grad_buf: Dict[int, torch.Tensor] = {}
-        self._left = [i1 - i0 for _, i0, i1, _, _ in self.units]
-        self._reduced = set()
-        self.busy = False
         self.backward = False
-        #: add the units' gradients into ``local`` instead of reducing them
-        self.defer = False
-        self.local: Optional[torch.Tensor] = None
         #: the most units, and their bytes, gathered at once, and the unit
         #: gathers, in the forward and in the backward
         self.peak_units = {"forward": 0, "backward": 0}
@@ -207,57 +296,15 @@ class UnitGather:
             self._free(u)
 
     # -- gradients -------------------------------------------------------
-    def _grad_hook(self, u: int, off: int):
-        def hook(p: torch.Tensor) -> None:
-            self.busy = True
-            try:
-                buf = self._grad_buf.get(u)
-                if buf is None:
-                    _, _, _, lo, hi = self.units[u]
-                    buf = self._grad_buf[u] = torch.zeros(hi - lo, dtype=p.grad.dtype,
-                                                          device=p.grad.device)
-                buf[off:off + p.numel()].copy_(p.grad.reshape(-1))
-                p.grad = None
-                self._left[u] -= 1
-                if self._left[u] == 0:
-                    self._reduce(u)
-            finally:
-                self.busy = False
-        return hook
-
-    def _reduce(self, u: int) -> None:
-        """The unit's gradients (zeros where none arrived) into the shard
-        accumulator, or into ``local`` while deferred; then the unit is
-        freed, its gradients being done."""
-        _, i0, i1, lo, hi = self.units[u]
-        buf = self._grad_buf.pop(u, None)
-        if buf is None:
-            buf = torch.zeros(hi - lo, dtype=self.dtype, device=self.shard.device)
-        with torch.no_grad():
-            if self.defer:
-                if self.local is None:
-                    self.local = torch.zeros(self.part.padded, dtype=self.shard_grad.dtype,
-                                             device=self.shard.device)
-                self.local[lo:hi].add_(buf)
-            else:
-                self.part.reduce_scatter_range(buf, lo, hi, self.shard_grad,
-                                               self.reduce_bucket)
-        self._reduced.add(u)
-        self._left[u] = i1 - i0
+    def _unit_done(self, u: int) -> None:
+        # its gradients are done: the unit is not needed again this backward
         if u in self._live:
             self._free(u)
 
     def finish(self) -> None:
         """After a backward: reduce every unit not reduced yet (in unit
-        order, so every rank calls the same collectives), free every unit."""
-        self.busy = True
-        try:
-            for u in range(len(self.units)):
-                if u not in self._reduced:
-                    self._reduce(u)
-        finally:
-            self.busy = False
-        self._reduced.clear()
+        order), free every unit."""
+        super().finish()
         self.free_all()
 
     # -- the contexts ------------------------------------------------------

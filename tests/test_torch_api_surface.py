@@ -37,6 +37,7 @@ SURFACE = {
     "checkpoint.engine": ["CheckpointEngine"],
     "utils.fs": ["fsync_dir"],
     "utils.groups": ["initialize"],
+    "runtime.engine": ["initialize"],
     "accelerator": ["set_accelerator", "set_accelerator_by_name"],
     "runtime.config": ["AUTO"],
     "runtime.zero": ["Init", "ZeroShardingRules", "shard_param_spec",
@@ -81,6 +82,14 @@ SURFACE = {
     "serving.metrics": ["ServingMetrics.spec_acceptance_rate",
                         "ServingMetrics.sample_reuse"],
     "serving.server": ["LLMServer._spec_decode_ready"],
+    # checkpoint interchange (ROADMAP.md Queue A item 7.8)
+    "checkpoint.state_dict_factory": ["SDLoaderFactory", "SDLoader", "merge_state_dicts",
+                                      "split_state_dict", "merge_qkv", "split_qkv",
+                                      "megatron_specs", "save_shard_npz"],
+    "inference.megatron": ["load_megatron_checkpoint", "megatron_config", "megatron_params",
+                           "params_to_megatron"],
+    "module_inject.auto_tp": ["flatten_with_paths", "tp_parser", "infer_tp_roles",
+                              "sharded_dim", "shard_checkpoint_leaf", "AutoTPResult"],
 }
 # kernel wrappers: port module -> (JAX module, names)
 WRAPPERS = {
@@ -229,6 +238,54 @@ def test_mixtral_config_trains_and_serves():
                        config=dict(config, moe={"enabled": True, "ep_size": 2}))
 
 
+def _tiny_loss_and_params():
+    from deepspeed_tpu_torch.models import make_loss_fn
+
+    cfg = TransformerConfig(vocab_size=64, hidden_size=16, intermediate_size=32,
+                            num_layers=1, num_heads=2, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    return make_loss_fn(TransformerLM(cfg, params)), params
+
+
+@pytest.mark.parametrize("kind", ["Topology", "TopologySpec"])
+def test_initialize_honours_a_dp_only_topology(kind):
+    """``initialize(topology=...)`` with the port's dp-only topology: the
+    engine runs on that topology and it is the process's topology."""
+    from deepspeed_tpu_torch.parallel import Topology, TopologySpec, get_topology
+
+    loss, params = _tiny_loss_and_params()
+    given = Topology() if kind == "Topology" else TopologySpec(dp=1)
+    engine, *_ = tds.initialize(model=loss, model_parameters=params, device="cpu",
+                                config={"train_micro_batch_size_per_gpu": 1},
+                                topology=given)
+    if kind == "Topology":
+        assert engine.topo is given
+    else:
+        assert engine.topo.spec is given
+    assert get_topology() is engine.topo and engine.dp_world == 1
+
+
+@pytest.mark.parametrize("over", ["tp", "pp", "dp", "jax_topology", "param_specs",
+                                  "batch_spec"])
+def test_initialize_refuses_what_it_cannot_honour(over):
+    """Any topology but a dp-only one over the world, and any
+    ``param_specs`` or ``batch_spec``, raise naming ROADMAP.md Queue A
+    item 8, where they were once dropped without a word."""
+    from deepspeed_tpu.parallel import TopologySpec as JaxTopologySpec
+    from deepspeed_tpu_torch.parallel import TopologySpec
+
+    loss, params = _tiny_loss_and_params()
+    kwargs = {"tp": {"topology": TopologySpec(tp=2)},
+              "pp": {"topology": TopologySpec(pp=2)},
+              "dp": {"topology": TopologySpec(dp=2)},
+              "jax_topology": {"topology": JaxTopologySpec()},
+              "param_specs": {"param_specs": {"embed": {"embedding": (None, "tp")}}},
+              "batch_spec": {"batch_spec": ("dp",)}}[over]
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        tds.initialize(model=loss, model_parameters=params, device="cpu",
+                       config={"train_micro_batch_size_per_gpu": 1}, **kwargs)
+
+
 @pytest.mark.parametrize("field, value", [("position", "alibi"),
                                           ("layer_windows", (None, 8))])
 def test_alibi_and_window_serving_are_refused_by_name(field, value):
@@ -260,13 +317,26 @@ def test_alibi_and_window_serving_are_refused_by_name(field, value):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("no_lm_head", True, 7), ("vocab_parallel_loss", True, 8),
+    ("no_lm_head", True, "deliberate"), ("vocab_parallel_loss", True, 8),
     ("sequence_parallel", True, 8), ("embed_overlap", "ring", 8),
     ("overlap_collective_matmul", True, 8)])
 def test_unported_config_fields_raise_naming_their_item(field, value, item):
+    """Each field the port cannot run raises naming its ROADMAP.md item; a
+    model without an LM head trains (its forward is the hidden states) and
+    serving it is refused on purpose, as the JAX ragged model cannot serve
+    one either."""
     cfg = _port_config(jtransformer.TransformerConfig(vocab_size=128, hidden_size=32,
                                                       intermediate_size=64, num_layers=1,
                                                       num_heads=2), **{field: value})
+    if item == "deliberate":
+        from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                      RaggedInferenceEngineConfig)
+
+        model = TransformerLM(cfg, seed=0, device="cpu")
+        with pytest.raises(NotImplementedError, match="deliberate differences"):
+            InferenceEngineV2(cfg, model.param_tree(), RaggedInferenceEngineConfig(
+                kv_block_size=8, num_kv_blocks=16, dtype="float32"), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
         TransformerLM(cfg, seed=0, device="cpu")
 

@@ -10,6 +10,7 @@ This file imports only torch, numpy, the port and the gloo-world launcher
 ``tests/torch_dist_worker.py`` (torch only).
 """
 
+import dataclasses
 import gc
 import importlib
 
@@ -632,6 +633,79 @@ def test_engine_kernel_path_matches_einsum_path_on_card():
             num_kv_blocks=64, kv_block_size=8, max_blocks_per_seq=16,
             attn_backend=backend), device="cuda")
         outs.append(eng.generate(prompts, max_new_tokens=12))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_megatron_shards_serve_on_the_paged_kernels_at_d64_on_card(tmp_path):
+    """Megatron GPT-2 345M's widths at 2 layers (hidden 1024, 16 heads of D
+    64, ffn 4096, vocab 50304), fp32: seeded weights saved as two tp
+    shards of ``model_optim_rng.pt`` in Megatron's nesting, read by
+    ``load_megatron_checkpoint``, merged by ``SDLoaderFactory`` (version 2),
+    converted by ``megatron_config`` / ``megatron_params`` and put on the
+    card; the engine's kernel path gives the einsum path's greedy tokens,
+    its paged launches on the ``cuda_core`` route (fp32), a whole number
+    per layer, and the einsum path launches none."""
+    _need_card()
+    import argparse
+
+    from deepspeed_tpu_torch.checkpoint.state_dict_factory import (SDLoaderFactory,
+                                                                   megatron_specs,
+                                                                   split_state_dict)
+    from deepspeed_tpu_torch.inference.megatron import (load_megatron_checkpoint,
+                                                        megatron_config, megatron_params,
+                                                        params_to_megatron)
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    from deepspeed_tpu_torch.models import init_params, params_from_jax
+    from deepspeed_tpu_torch.models.convert import _flatten, _nest
+
+    args = dict(hidden_size=1024, num_layers=2, num_attention_heads=16, ffn_hidden_size=4096,
+                max_position_embeddings=1024, padded_vocab_size=50304)
+    cfg = megatron_config(args)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    host = _nest({k: v.numpy() for k, v in _flatten(
+        init_params(cfg32, seed=2, device="cpu", dtype=torch.float32)).items()})
+    sd = params_to_megatron(host, cfg, version=2)
+    qkv = {k: "interleaved" for k in sd if "query_key_value" in k}
+    files = []
+    for r in range(2):
+        shard = split_state_dict(sd, r, 2, megatron_specs(sd), qkv_leaves=qkv, num_heads=16)
+        nested = {}
+        for k, v in shard.items():
+            node = nested
+            parts = k.split(".")[1:]
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = torch.from_numpy(np.array(v))
+        files.append(tmp_path / f"mp_rank_{r:02d}" / "model_optim_rng.pt")
+        files[-1].parent.mkdir()
+        torch.save({"model": nested, "args": argparse.Namespace(**args),
+                    "checkpoint_version": 2.0}, files[-1])
+    loaded = [load_megatron_checkpoint(str(f)) for f in files]
+    merged = SDLoaderFactory.get_sd_loader([flat for _, flat in loaded], version=2,
+                                           num_heads=16, layout="megatron").load(1, 0)
+    assert megatron_config(loaded[0][0], sd=merged) == cfg
+    params = params_from_jax(megatron_params(merged, cfg, version=2), cfg32, device="cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 50304, n).astype(np.int32) for n in (9, 70, 200)]
+    outs = []
+    for backend in ("pallas", "einsum"):
+        eng = InferenceEngineV2(cfg32, params, RaggedInferenceEngineConfig(
+            token_budget=64, max_ragged_sequence_count=4, max_chunk_size=32,
+            num_kv_blocks=64, kv_block_size=16, max_blocks_per_seq=16,
+            attn_backend=backend, decode_attn_backend=backend), device="cuda")
+        port.reset_launch_counts()
+        outs.append(eng.generate(prompts, max_new_tokens=12))
+        launches = {k: port.launch_counts[k] for k in ("paged_attention",
+                                                         "paged_flash_decode")}
+        routes = {k: dict(port.route_counts[k]) for k in launches}
+        if backend == "pallas":
+            for k, n in launches.items():
+                assert n > 0 and n % cfg.num_layers == 0, (k, n)
+                assert routes[k] == {"sm90": 0, "cuda_core": n}, (k, routes[k])
+        else:
+            assert not any(launches.values()), launches
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
 

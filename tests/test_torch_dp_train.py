@@ -24,10 +24,13 @@ batches as the references here:
   port's stage 0 (the first loss bitwise equal, the later within
   ``STAGE_RTOL``: the reductions and the norm sum in other orders); the full
   masters equal on both ranks, the Adam state ``ceil(n / 2)`` elements per
-  rank, at stage 3 no full master on either rank; the imperative path and
+  rank, at stage 3 no full master on either rank, at stages 2 and 3 no full
+  gradient buffer (at most one unit's beside the shard accumulator, whose
+  reduction runs per micro-batch as the backward finishes each unit, so
+  stage 2's bits need not be stage 1's); the imperative path and
   ``no_sync`` at stages 2 and 3; an fp16 overflow skipped on both ranks; the
-  ``tensor_fragment`` accessors at stage 3 against the JAX package's at
-  stage 3 (``ACCESSOR_RTOL`` / ``ACCESSOR_ATOL``: after three Adam steps);
+  ``tensor_fragment`` accessors at stages 2 and 3 against the JAX package's
+  at stage 3 (``ACCESSOR_RTOL`` / ``ACCESSOR_ATOL``: after three Adam steps);
   a stage-3 save resumed bitwise at stage 3 and at stage 0, and read by
   ``zero_to_fp32``;
 * ``offload_optimizer`` cpu at stage 1: the storage tier (the JAX rule at
@@ -284,6 +287,43 @@ def test_zero_masters_equal_across_ranks_and_adam_sharded(ranks, stage):
             assert all(len(s) == 1 for s in r[name + "/shapes"])
             assert sum(s[0] for s in r[name + "/shapes"]) <= -(-n // WORLD)
         assert sum(s[0] for r in ranks for s in r[name + "/shapes"]) == n
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_zero_gradient_storage(ranks, stage):
+    """Stage 1 accumulates a step's gradients in a full flat fp32 buffer;
+    stages 2 and 3 hold none (JAX: dp-sharded accumulators from stage 2):
+    between steps no gradient is held but the shard accumulator, and while
+    the backward runs no more than one unit's buffer besides it."""
+    for r in ranks:
+        g = r[f"stage{stage}/grad_storage"]
+        n = r[f"stage{stage}/n"]
+        assert g["shard_bytes"] == 4 * -(-n // WORLD)
+        assert not g["grads_on_masters"] or stage == 1
+        if stage == 1:
+            assert g["full_buffer"] and g["peak_buffer_bytes"] is None
+            continue
+        assert not g["full_buffer"] and not g["local"]
+        assert 0 < g["peak_buffer_bytes"] <= g["largest_unit_bytes"] < 4 * n
+
+
+def test_tensor_fragment_at_stage2_matches_jax(ranks, jax_zero):
+    """The accessors at stage 2 after three steps, then inside an
+    imperative window: against the JAX package's (``ACCESSOR_RTOL`` /
+    ``ACCESSOR_ATOL``), bitwise across ranks, a local gradient this rank's
+    span of the full one."""
+    acc = [r["accessors2"] for r in ranks]
+    for key in ("param", "exp_avg", "grad"):
+        for i, want in enumerate(jax_zero[key]):
+            np.testing.assert_array_equal(acc[0][key][i], acc[1][key][i])
+            np.testing.assert_allclose(acc[0][key][i], want, rtol=ACCESSOR_RTOL,
+                                       atol=ACCESSOR_ATOL, err_msg=f"{key} {PATHS[i]}")
+    for a in acc:
+        assert a["grad_outside"] is None
+        for i in range(len(PATHS)):
+            lo, hi = a["spans"][i]
+            np.testing.assert_array_equal(a["local_grad"][i],
+                                          a["grad"][i].reshape(-1)[lo:hi])
 
 
 def test_offload_at_world_two_is_the_storage_tier_and_bitwise_stage_one(ranks):

@@ -155,11 +155,10 @@ def test_family_converts_as_the_jax_loader_does(seed, family):
 
     toks = np.random.default_rng(seed).integers(0, tcfg.vocab_size, (2, 10))
     if tcfg.no_lm_head:
-        with pytest.raises(NotImplementedError, match="Queue A item"):
-            lm_forward(tcfg, tparams, torch.from_numpy(toks))
-        with pytest.raises(NotImplementedError, match="no_lm_head"):
+        # the forward returns the final-norm hidden states, as JAX's does
+        # (compared below); serving one is refused on purpose
+        with pytest.raises(NotImplementedError, match="no_lm_head.*deliberate"):
             tmodel.check_supported(tcfg)
-        return
     # MoE blocks route dropless in both packages (exact routing, no drops)
     dropless = tcfg.num_experts > 0
     jmodel = JLM(dataclasses.replace(jcfg, dtype=jnp.float32, moe_dropless=dropless))

@@ -66,7 +66,9 @@ def test_port_sources_exist():
                 "utils/comms_logging.py", "utils/groups.py",
                 "inference/v2/model.py", "inference/v2/engine_v2.py", "inference/hf.py",
                 "inference/v2/ragged/kv_cache.py", "runtime/zero/sharding.py",
-                "runtime/zero/partition.py", "utils/tensor_fragment.py"):
+                "runtime/zero/partition.py", "utils/tensor_fragment.py",
+                "checkpoint/state_dict_factory.py", "checkpoint/ds_to_universal.py",
+                "inference/megatron.py", "module_inject/auto_tp.py", "utils/zero_to_fp32.py"):
         assert f"deepspeed_tpu_torch/{mod}" in names
 
 

@@ -221,7 +221,50 @@ def test_left_out_families_raise():
         assert tmodel.special_attention(special)
     assert not tmodel.special_attention(tcfg)
     tmodel.check_supported(dataclasses.replace(tcfg, num_experts=4))   # MoE is served
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="deliberate differences"):
         tmodel.check_supported(dataclasses.replace(tcfg, no_lm_head=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.tp_decode_matmul(None, None, "tp")
+
+
+# a CLIP-text-like model at 2 layers (clip_text_model's fields as the
+# loaders map them: pre-LN LayerNorm, quick_gelu, learned positions, no LM
+# head); the token ids stay below the hidden width, since the JAX loss then
+# indexes the hidden dims with them
+HEADLESS = dict(vocab_size=97, hidden_size=64, intermediate_size=96, num_layers=2,
+                num_heads=4, max_seq_len=32, norm="layernorm", activation="quick_gelu",
+                position="learned", no_lm_head=True, tie_embeddings=False)
+HEADLESS_TOL = 1e-5
+
+
+def test_headless_forward_and_loss_match_jax():
+    """A model without an LM head: the forward is the final-norm hidden
+    states and the loss ``causal_lm_loss`` over them within HEADLESS_TOL of
+    the JAX package's, the gradients within 1e-4 relative (float32; the
+    packages sum in other orders through two layers)."""
+    jcfg = jtf.TransformerConfig(**HEADLESS, dtype=jnp.float32)
+    tcfg = ttf.TransformerConfig(**HEADLESS, dtype=torch.float32)
+    jm = jtf.TransformerLM(jcfg)
+    params = _np_tree(jm.init(jax.random.PRNGKey(4), jnp.zeros((1, 8), jnp.int32))["params"])
+    assert "lm_head" not in params
+    toks = np.random.default_rng(12).integers(0, HEADLESS["hidden_size"], (2, 16))
+    want_h = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(toks, jnp.int32)))
+    jloss, jgrad = jax.jit(jax.value_and_grad(jtf.make_loss_fn(jm)))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(toks, jnp.int32))
+
+    tp = convert.params_from_jax(params, tcfg, device="cpu")
+    model = ttf.TransformerLM(tcfg, tp)
+    tokens = torch.from_numpy(toks)
+    with torch.no_grad():
+        got_h = model(tokens)
+    assert tuple(got_h.shape) == (2, 16, HEADLESS["hidden_size"])
+    np.testing.assert_allclose(got_h.numpy(), want_h, rtol=HEADLESS_TOL, atol=HEADLESS_TOL)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in convert._flatten(tp).items()}
+    loss = ttf.make_loss_fn(model)(convert._nest(leaves), tokens)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=HEADLESS_TOL)
+    want_g = convert._flatten(_np_tree(jgrad))
+    for k, v in leaves.items():
+        np.testing.assert_allclose(v.grad.numpy(), want_g[k], rtol=1e-4,
+                                   atol=HEADLESS_TOL, err_msg=k)

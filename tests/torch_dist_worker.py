@@ -359,6 +359,15 @@ def _zero_stages(rank, inputs, workdir, batches, out):
         out[name + "/adam"] = [tuple(t.shape) for t in m]
         out[name + "/n"] = eng._zero.numel
         out[name + "/grad_norm"] = eng.get_global_grad_norm()
+        units = eng._units
+        out[name + "/grad_storage"] = {
+            "full_buffer": eng._flat_grad is not None,
+            "grads_on_masters": any(p.grad is not None for p in eng._masters),
+            "shard_bytes": eng._shard_grad.numel() * eng._shard_grad.element_size(),
+            "peak_buffer_bytes": None if units is None else units.peak_buffer_bytes,
+            "largest_unit_bytes": None if units is None else max(
+                (hi - lo) * 4 for _, _, _, lo, hi in units.units),
+            "local": None if units is None else units.local is not None}
         reset_fastpath()
     # offload_optimizer cpu at world size 2: the storage tier (the JAX rule),
     # the stage-1 update on host-resident state
@@ -448,6 +457,22 @@ def _zero_stages(rank, inputs, workdir, batches, out):
                   "local_exp_avg_sq": _np(tf.safe_get_full_optimizer_state(
                       eng, split, "exp_avg_sq"))}
     out["accessors"] = acc
+    reset_fastpath()
+    # the same window at stage 2, whose units' gradients are reduced into
+    # the shard accumulator as the backward makes them
+    eng, *_ = _engine(inputs, zero(2))
+    for b in batches:
+        eng.train_batch(b)
+    acc2 = {"param": [_np(tf.safe_get_full_fp32_param(eng, p)) for p in paths],
+            "exp_avg": [_np(tf.safe_get_full_optimizer_state(eng, p, "exp_avg"))
+                        for p in paths],
+            "grad_outside": tf.safe_get_full_grad(eng, paths[0])}
+    eng.forward(torch.from_numpy(inputs["micro"]))
+    eng.backward()
+    acc2["grad"] = [_np(tf.safe_get_full_grad(eng, p)) for p in paths]
+    acc2["local_grad"] = [_np(tf.safe_get_local_grad(eng, p)) for p in paths]
+    acc2["spans"] = [eng._zero.span(_paths(eng).index(p)) for p in paths]
+    out["accessors2"] = acc2
     reset_fastpath()
     # the same window at stage 0, whose gradients sit in the reduced flat
     # accumulator
