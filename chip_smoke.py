@@ -298,7 +298,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    megatron`` (bitwise the masters), and the universal tree trained a
    step at world size 1 (loss finite); (d) runs in phase 11's world, (e)
    in phase 3. The ``kernels`` line's launches stay the counts of the path
-   each kernel's row names (the packed kernel's: phase 4's run).
+   each kernel's row names (the packed kernel's: phase 4's run);
+24. the serving fleet — (a) two Llama-2-7B replicas (bf16, seeded weights
+   of their own, 512 KV blocks of 32 slots each) built by
+   ``LLMServer.from_config`` from a ``serving:`` block (heartbeats every
+   0.5 s into ``build/fleet_smoke``, tenants gold and bronze on
+   ``DEFAULT_CLASSES``, the deadline policy with a 120 s SLA, the canary
+   every 16 steps, fused decode chunks of 16) behind a
+   ``ReplicaRouter(dead_after_s=3.0)``, a ``ControlSupervisor`` ticking on
+   replica 0 every 25 steps and a ``TelemetryManager`` tracing;
+   ``OpenLoopTraffic`` (seed 11) sends 48 requests at 3 a second (prompts
+   128..1024, 128 new tokens, tenants alternating) while a chaos schedule
+   kills replica 1 at its serving step 60, stalls a prefill of replica 0,
+   drops 4 of its token deliveries and reads the pool dry once, and a host
+   loop calls ``router.check()`` every 0.25 s. Gates: every request
+   finishes by length, each stream callback fires once per token index in
+   order, replica 1 is declared dead within 5 s of the kill, the requeues
+   equal replica 1's unfinished book at takeover and each resumed on
+   replica 0 keeping its checkpointed tokens, the survivor drains with KV
+   conservation, the packed kernel launched on both replicas before the
+   kill and both paged kernels on the survivor after it, every launch on
+   ``sm90`` and a whole number per layer per engine thread
+   (``ThreadLaunches``), replica 0's canary ran >= 3 probes with no fail,
+   the Chrome trace holds both threads' step and deliver spans, the
+   registry exports replica 0's ``dstpu_serving_*`` and not the dead
+   replica's, the tenants' completions sum to 48 and the supervisor
+   ticked; (b) the SDC drill: two replicas at 8 layers, the canary every 8
+   steps, replica 0's layer-0 ``o_proj`` negated after both learned their
+   hash: its next probe fails, the router takes it over and the requests
+   sent after the verdict finish on replica 1, whose canary stays clean.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -5494,6 +5522,393 @@ def megatron_train_phase(card):
         raise SystemExit("megatron training and export FAILED")
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the serving fleet
+# ---------------------------------------------------------------------------
+
+FLEET_DIR = REPO / "build" / "fleet_smoke"
+#: phase 4's slice with half its pool a replica (8 GiB at Llama-2-7B), so two
+#: replicas' weights (2 x 13.5 GB) and pools (2 x 8 GiB) fit one card
+FLEET_SLICE = dict(SLICE, num_kv_blocks=512)
+FLEET_REQUESTS = 48
+FLEET_RATE = 3.0                     # requests a second, Poisson arrivals
+FLEET_NEW = 128
+FLEET_KILL_STEP = 60                 # replica 1's serving step the chaos kill lands at
+#: beacons every 0.5 s from their own thread; phase 4's steps take well
+#: under a second (16 requests, 128 new tokens, about 20 s in all), so 3 s of
+#: silence is six missed beacons, never a long step
+FLEET_DEAD_AFTER_S = 3.0
+FLEET_DETECT_SLACK_S = 2.0
+FLEET_DEADLINE_S = 120.0             # the SLA every request carries
+FLEET_CANARY = 16                    # replica 0's probe cadence, engine steps
+FLEET_TENANCY = {"tenants": {"gold": "gold", "bronze": "bronze"}}   # DEFAULT_CLASSES
+SDC_LAYERS = 8
+SDC_CANARY = 8
+
+
+def fleet_block(hb_dir, canary_steps, engine):
+    """The ``serving:`` block each replica is built from."""
+    return {"serving": {"enabled": True, "policy": "deadline",
+                        "heartbeat_dir": str(hb_dir), "heartbeat_interval_s": 0.5,
+                        "tenancy": FLEET_TENANCY, "default_deadline_s": FLEET_DEADLINE_S,
+                        "canary_interval_steps": canary_steps,
+                        "fused_decode_chunk": 16, "engine": dict(engine)}}
+
+
+class ThreadLaunches:
+    """The paged wrappers' launches tallied by the launching thread's name
+    (``llm-server-<replica>``), beside the wrappers' own counts, which sum
+    every replica's: ``with ThreadLaunches(pa) as t`` wraps the wrappers'
+    one counting point while it lasts."""
+
+    def __init__(self, pa):
+        import threading
+
+        self.pa, self._orig, self._lock, self._tally = pa, pa._counted, threading.Lock(), {}
+
+    def __enter__(self):
+        import threading
+
+        def counted(kernel, route, err, combined=False):
+            self._orig(kernel, route, err, combined)
+            with self._lock:
+                t = self._tally.setdefault(threading.current_thread().name, {})
+                for name in (kernel, "paged_combine") if combined else (kernel,):
+                    by_route = t.setdefault(name, {"sm90": 0, "cuda_core": 0})
+                    by_route[route] += 1
+        self.pa._counted = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.pa._counted = self._orig
+        return False
+
+    def snapshot(self):
+        """{thread: {kernel: {route: launches}}}, taken under the lock."""
+        with self._lock:
+            return {t: {k: dict(r) for k, r in c.items()} for t, c in self._tally.items()}
+
+
+def _pct(xs, p):
+    return float(np.percentile(np.asarray(xs) * 1e3, p)) if xs else float("nan")
+
+
+def fleet_servers(cfg, block, n=2):
+    from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.serving import LLMServer
+
+    return [LLMServer.from_config(cfg, init_params(cfg, seed=rid, device="cuda",
+                                                   dtype=torch.bfloat16),
+                                  block, replica_id=rid) for rid in range(n)]
+
+
+def fleet_phase(pa, card):
+    """Phase 24 (a): two Llama-2-7B replicas (bf16, seeded weights of their
+    own, an 8 GiB pool each) built by ``LLMServer.from_config`` behind a
+    ``ReplicaRouter(dead_after_s=3.0)`` on one card, with tenancy (gold and
+    bronze on ``DEFAULT_CLASSES``), the deadline policy, the canary every
+    16 steps, a ``ControlSupervisor`` ticking on replica 0
+    every 25 steps and a ``TelemetryManager`` tracing. ``OpenLoopTraffic``
+    (seed 11): 48 requests at 3 a second, prompts 128..1024, 128 new tokens,
+    tenants alternating; a chaos schedule kills replica 1 at its serving
+    step 60, stalls one prefill of replica 0 by 0.05 s, drops 4 of its token
+    deliveries and reads the pool dry once. A host loop calls
+    ``router.check()`` every 0.25 s. Returns the launch counts."""
+    import shutil
+    import threading
+
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.control import ControlSupervisor, describe_action
+    from deepspeed_tpu_torch.models import llama_config
+    from deepspeed_tpu_torch.runtime.config import ControlConfig, TelemetryConfig
+    from deepspeed_tpu_torch.runtime.resilience.chaos import (ChaosEvent, ChaosSchedule,
+                                                              configure_chaos)
+    from deepspeed_tpu_torch.runtime.resilience.heartbeat import FileHeartbeatTransport
+    from deepspeed_tpu_torch.serving import (FINISH_LENGTH, LengthDist, OpenLoopTraffic,
+                                             ReplicaRouter, TrafficConfig)
+
+    acc = get_accelerator()
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    hb_dir = FLEET_DIR / "heartbeats"
+    tm = telemetry.TelemetryManager(TelemetryConfig(enabled=True, max_spans=1 << 18,
+                                                    flight_steps=0), rank=0)
+    cfg = llama_config("7b", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    servers = fleet_servers(cfg, fleet_block(hb_dir, FLEET_CANARY, FLEET_SLICE))
+    acc.synchronize()
+    tm.attach_engine(servers[0].engine)           # the device-memory gauges
+    router = ReplicaRouter(servers, transport=FileHeartbeatTransport(str(hb_dir)),
+                           dead_after_s=FLEET_DEAD_AFTER_S)
+    sup = ControlSupervisor(ControlConfig.from_dict({"enabled": True}))
+    ticks = []
+    tick = sup.on_serving_tick
+    sup.on_serving_tick = lambda server: (ticks.append(server._steps), tick(server))
+    sup.attach_server(servers[0], interval_steps=25)
+    log(f"fleet: 2 x Llama-2-7B (bf16, seeds 0 / 1), pools "
+        f"{servers[0].engine.kv.pool_nbytes() / 2**30:.2f} GiB each, set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    kill = {}
+    chaos_step = servers[1]._chaos_step
+
+    def killing_step(chaos):
+        killed = chaos_step(chaos)
+        if killed:
+            kill["t"] = time.perf_counter()
+            kill["tally"] = tally.snapshot()
+        return killed
+    servers[1]._chaos_step = killing_step
+    takeovers = []
+    take_over = router._take_over
+
+    def recorded_take_over(rid):
+        with router._lock:
+            book = [r for r in router._assigned[rid].values() if not r.done]
+        kept = {id(r): list(r.tokens[:r._ckpt_len]) for r in book}
+        ok = take_over(rid)
+        if ok:    # from check() (the host loop) or a submit refused by the corpse
+            takeovers.append((rid, time.perf_counter(), book, kept,
+                              threading.current_thread() is threading.main_thread()))
+        return ok
+    router._take_over = recorded_take_over
+
+    traffic = OpenLoopTraffic(TrafficConfig(
+        rate_rps=FLEET_RATE, num_requests=FLEET_REQUESTS, seed=11,
+        vocab_size=cfg.vocab_size, prompt_len=LengthDist("uniform", 128, 1024),
+        output_len=LengthDist("fixed", FLEET_NEW, FLEET_NEW)))
+    streams, submitted = {}, []
+
+    def submit(req):
+        i = len(submitted)
+        req.tenant = ("gold", "bronze")[i % 2]
+        streams[i] = []
+        req.stream = lambda tok, resp, i=i: streams[i].append(resp._delivered - 1)
+        resp = router.submit(req)
+        submitted.append(resp)
+        if len(submitted) == 2:
+            # live once both replicas hold a request: an idle engine loop
+            # consults the admission site a thousand times a second, so an
+            # index counted from the start would land on an idle cycle
+            configure_chaos(schedule)
+        return resp
+
+    schedule = ChaosSchedule([
+        ChaosEvent(kind="replica_kill", site="replica1", at=FLEET_KILL_STEP),
+        ChaosEvent(kind="slow_prefill", site="replica0", at=10, param=0.05),
+        ChaosEvent(kind="drop_token", site="replica0", at=200, count=4),
+        ChaosEvent(kind="kv_exhaustion", site="scheduler.admit", at=40)])
+    ran = {}
+    try:
+        acc.reset_peak_memory_stats()
+        pa.reset_launch_counts()
+        with ThreadLaunches(pa) as tally:
+            router.start()
+            t0 = time.perf_counter()
+            feeder = threading.Thread(target=lambda: ran.update(zip(
+                ("resps", "rejected"), traffic.run(submit))), daemon=True)
+            feeder.start()
+            while feeder.is_alive() or not all(r.done for r in submitted):
+                router.check()
+                if time.perf_counter() - t0 > 600:
+                    raise SystemExit("fleet: requests still running after 600 s")
+                time.sleep(0.25)
+            wall = time.perf_counter() - t0
+            text = tm.registry.exposition()          # before the loops end
+            mem = tm.sample_memory()
+            # a probe still in flight finishes in the drain: the counts after
+            # it are whole steps
+            drained = router.drain(timeout=120)
+            acc.synchronize()
+            final = tally.snapshot()
+        launches = dict(pa.launch_counts)
+        routes = {n: dict(r) for n, r in pa.route_counts.items()}
+        trace_path = tm.export_trace(str(FLEET_DIR / "spans.trace.json"))
+    finally:
+        configure_chaos(None)
+        router.close()
+        tm.close()
+    fired_classes = schedule.classes_fired()
+    resps = ran["resps"]
+    peak = acc.max_memory_allocated()
+
+    layers = cfg.num_layers
+    names = ("paged_attention", "paged_flash_decode")
+    r0, r1 = (f"llm-server-{i}" for i in range(2))
+    at_kill = kill.get("tally", {})
+
+    def sm90(tally, thread, n):
+        return tally.get(thread, {}).get(n, {}).get("sm90", 0)
+    before = {n: sm90(at_kill, r0, n) + sm90(at_kill, r1, n) for n in names}
+    after = {n: sm90(final, r0, n) - sm90(at_kill, r0, n) for n in names}
+    t0f, t1 = final.get(r0, {}), final.get(r1, {})
+    take = [t for t in takeovers if t[0] == 1]
+    detect_s = take[0][1] - kill["t"] if take and "t" in kill else float("inf")
+    held = take[0][2] if take else []
+    kept = take[0][3] if take else {}
+    by = ("router.check()" if take and take[0][4] else "a submit the dead replica refused")
+    survivor = servers[0].engine
+    survivor.kv.assert_conservation([s.blocks for s in survivor.state_manager.all()])
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    span_tids = {}
+    for e in events:
+        span_tids.setdefault(e["name"], set()).add(e.get("tid"))
+    step_names = ("serve/prefill", "serve/decode", "serve/mixed")
+    serving_lines = [ln for ln in text.splitlines() if ln.startswith("dstpu_serving_")]
+    tenants = {}
+    for s in servers:
+        for name, ts in s.metrics.tenants.items():
+            tenants[name] = tenants.get(name, 0) + ts.completed
+    checks = {
+        f"{FLEET_REQUESTS} requests submitted, none shed": (
+            len(resps) == FLEET_REQUESTS and not ran["rejected"]),
+        f"every request finished by length with {FLEET_NEW} tokens": all(
+            r.finish_reason == FINISH_LENGTH and len(r.tokens) == FLEET_NEW for r in resps),
+        "each stream callback once per token index, in order": all(
+            streams[i] == list(range(FLEET_NEW)) for i in range(len(resps))),
+        "chaos fired replica_kill, slow_prefill, drop_token, kv_exhaustion": set(
+            fired_classes) == {"replica_kill", "slow_prefill", "drop_token", "kv_exhaustion"},
+        f"replica 1 declared dead within {FLEET_DEAD_AFTER_S + FLEET_DETECT_SLACK_S:g} s "
+        f"of the kill": len(take) == 1 and detect_s <= FLEET_DEAD_AFTER_S + FLEET_DETECT_SLACK_S,
+        "router.requeues == replica 1's unfinished book at takeover": (
+            router.requeues == len(held) > 0),
+        "every requeued response resumed on replica 0, its checkpointed tokens kept": all(
+            r.preemptions >= 1 and r.replica_id == 0
+            and r.tokens[:len(kept[id(r)])] == kept[id(r)] for r in held),
+        "survivor drained, KV conservation holds": (
+            drained and not survivor.state_manager.all()
+            and survivor.kv.free_blocks == survivor.kv.num_blocks - 1),
+        # an open-loop prefill is always in flight before the kill, so the
+        # fused decode (steady decode, nothing queued) cannot run there
+        "the packed kernel on sm90 on both replicas before the kill": (
+            sm90(at_kill, r0, names[0]) > 0 and sm90(at_kill, r1, names[0]) > 0),
+        "both paged kernels on sm90 on the survivor after it": all(after[n] > 0 for n in names),
+        "every launch on sm90, a whole number per layer per replica": all(
+            routes[n] == {"sm90": launches[n], "cuda_core": 0} and launches[n] % layers == 0
+            and sm90(final, r0, n) % layers == 0 and sm90(final, r1, n) % layers == 0
+            and sm90(final, r0, n) + sm90(final, r1, n) == launches[n] for n in names),
+        "replica 0's canary: >= 3 probes, no fail": (
+            servers[0].metrics.canary_probes >= 3 and servers[0].metrics.canary_fails == 0
+            and servers[0].error is None),
+        "the trace holds serve/prefill|decode|mixed and serve/deliver of both threads": all(
+            any(s._thread.ident in span_tids.get(n, ()) for n in step_names)
+            and s._thread.ident in span_tids.get("serve/deliver", ()) for s in servers),
+        "registry: replica 0's dstpu_serving_* samples, none of replica 1's": (
+            any('replica="0"' in ln for ln in serving_lines)
+            and not any('replica="1"' in ln for ln in serving_lines)),
+        f"TenantStats.completed sums to {FLEET_REQUESTS}": sum(tenants.values()) == FLEET_REQUESTS,
+        "the supervisor ticked": len(ticks) > 0,
+    }
+    ttft = [r.ttft_s for r in resps]
+    per = {t: [r.ttft_s for r in resps if r.request.tenant == t] for t in ("gold", "bronze")}
+    tokens = sum(len(r.tokens) for r in resps)
+    log(f"fleet [{card}]: {tokens} tokens in {wall:.2f} s = {tokens / wall:.1f} generated tok/s "
+        f"over two replicas; TTFT p50 {_pct(ttft, 50):.1f} ms p99 {_pct(ttft, 99):.1f} ms; "
+        + "; ".join(f"{t} p50 {_pct(v, 50):.1f} p99 {_pct(v, 99):.1f} ms ({len(v)})"
+                    for t, v in per.items()))
+    log(f"fleet [{card}]: replica 1 killed at its step {FLEET_KILL_STEP}, declared dead "
+        f"{detect_s:.2f} s later by {by} (dead_after_s {FLEET_DEAD_AFTER_S}); requeues "
+        f"{router.requeues}; canary probes {servers[0].metrics.canary_probes} / "
+        f"{servers[1].metrics.canary_probes}, fails {servers[0].metrics.canary_fails}; "
+        f"supervisor ticks {len(ticks)}, ledger entries {len(sup.ledger)}"
+        + "".join(f"\n  control: {describe_action(e)}" for e in sup.ledger.snapshot()))
+    log(f"fleet [{card}]: max_memory_allocated {peak / 2**30:.2f} GiB; dstpu_mem gauge "
+        f"{mem}; launches {launches} (replica 0 {t0f}, replica 1 {t1}; before the kill "
+        f"{before}, survivor after {after}); tenants completed {tenants}; steps "
+        f"{[s._steps for s in servers]}; spans {len(events)}")
+    log("fleet: " + ", ".join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    del router, servers, survivor, tm, sup, resps, held, submitted
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    if not all(checks.values()):
+        raise SystemExit("fleet phase FAILED")
+    return {n: launches[n] for n in names}
+
+
+def sdc_phase(card):
+    """Phase 24 (b): two replicas at Llama-2-7B's widths with 8 layers and
+    the canary every 8 steps learn their probes' hashes; then replica 0's
+    ``o_proj`` of layer 0 is negated on the card. Its next probe must fail
+    (``canary_fails`` 1, ``server.error`` set), the router must take it over
+    once its beacon goes stale, and every request submitted after the
+    verdict finishes on replica 1, whose canary stays clean."""
+    import shutil
+
+    from deepspeed_tpu_torch.models import llama_config
+    from deepspeed_tpu_torch.runtime.resilience.heartbeat import FileHeartbeatTransport
+    from deepspeed_tpu_torch.serving import FINISH_LENGTH, ReplicaRouter, Request
+
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    hb_dir = FLEET_DIR / "sdc_heartbeats"
+    cfg = llama_config("7b", dtype=torch.bfloat16, num_layers=SDC_LAYERS)
+    servers = fleet_servers(cfg, fleet_block(hb_dir, SDC_CANARY, FLEET_SLICE))
+    router = ReplicaRouter(servers, transport=FileHeartbeatTransport(str(hb_dir)),
+                           dead_after_s=FLEET_DEAD_AFTER_S).start()
+    rng = np.random.default_rng(24)
+
+    def requests(n):
+        return [router.submit(Request(rng.integers(0, cfg.vocab_size, int(k)).astype(np.int32),
+                                      max_new_tokens=64), block=True)
+                for k in rng.integers(128, 1024, n)]
+
+    def wait(cond, what, limit=120.0):
+        t = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t > limit:
+                raise SystemExit(f"sdc: {what} not within {limit:g} s")
+            time.sleep(0.05)
+        return time.perf_counter() - t
+
+    try:
+        warm = requests(4)
+        wait(lambda: all(s.canary_expect is not None for s in servers)
+             and all(r.done for r in warm), "both canaries learned")
+        learned = [s.canary_expect for s in servers]
+        probes = servers[0].metrics.canary_probes
+        servers[0].engine.params["layer_0"]["attn"]["o_proj"]["kernel"].neg_()
+        t_verdict = wait(lambda: servers[0].error is not None, "replica 0's verdict")
+        after = requests(8)
+
+        def taken_over():
+            router.check()
+            return 0 in router.dead_ids()
+        t_takeover = wait(taken_over, "the takeover", FLEET_DEAD_AFTER_S + 10)
+        wait(lambda: all(r.done for r in after), "the requests after the verdict", 300)
+        drained = router.drain(timeout=120)
+    finally:
+        router.close()
+    checks = {
+        "both replicas learned their hash": all(learned),
+        "replica 0's next probe failed: canary_fails 1, error set": (
+            servers[0].metrics.canary_fails == 1
+            and "integrity canary failed" in str(servers[0].error)
+            and servers[0].metrics.canary_probes <= probes + 2),
+        "the router took replica 0 over": 0 in router.dead_ids(),
+        "every request after the verdict finished by length on replica 1": all(
+            r.finish_reason == FINISH_LENGTH and r.replica_id == 1 and len(r.tokens) == 64
+            for r in after),
+        "the warm-up requests finished by length": all(
+            r.finish_reason == FINISH_LENGTH for r in warm),
+        "replica 1's canary clean": (servers[1].error is None
+                                     and servers[1].metrics.canary_fails == 0
+                                     and servers[1].metrics.canary_probes >= 2),
+        "replica 1 drained": drained,
+    }
+    log(f"sdc [{card}]: {SDC_LAYERS} layers; hashes learned {learned}; verdict "
+        f"{t_verdict:.2f} s after the corruption ({servers[0].error}); takeover "
+        f"{t_takeover:.2f} s after it; replica 1 probes {servers[1].metrics.canary_probes}, "
+        f"fails {servers[1].metrics.canary_fails}")
+    log("sdc: " + ", ".join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    del router, servers
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    if not all(checks.values()):
+        raise SystemExit("sdc phase FAILED")
+
+
 def zero3_7b_run(card: str, workdir: Path) -> bool:
     """Llama-2-7B at ZeRO stage 3 on four cards (32 layers, seq 4096, micro
     1 per rank, gas 2, per-layer remat): check_dp's gates and the peak per
@@ -5723,6 +6138,12 @@ def main() -> int:
           megatron_phase, pa, card)
     timed("23 (c) Megatron GPT-2 345M at ZeRO 2: trained, consolidated, exported",
           megatron_train_phase, card)
+    # phase 24: the serving fleet
+    fleet = timed("24 (a) two Llama-2-7B replicas behind the router, chaos, tenancy, canary",
+                  fleet_phase, pa, card)
+    log(f"fleet launches: {fleet} (phase 4's run: {launches['paged_attention']} / "
+        f"{launches['paged_flash_decode']})")
+    timed("24 (b) the SDC drill (Llama-2-7B widths, 8 layers)", sdc_phase, card)
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"

@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree
 
+from ..telemetry.collective import record_launch
 from ..utils.comms_logging import CommsLogger, timed_op
 from ..utils.logging import logger
 
@@ -72,6 +73,20 @@ def log_compressed(op: str, logical_bytes: int, wire_bytes: int, latency_s: floa
     ``wire_bytes`` what its int8 payload and scales moved."""
     _COMMS_LOGGER.append(op, int(logical_bytes), latency_s, wire_bytes=int(wire_bytes),
                          hop_class=link)
+    record_launch(op, shape=(int(logical_bytes),), axes=_axes_names(axes), impl=impl,
+                  link=link)
+
+
+def _axes_names(axes) -> Optional[Sequence[str]]:
+    """A flight-record ``axes`` field: names as given, a process group by
+    its name."""
+    if axes is None:
+        return None
+    if isinstance(axes, str):
+        return (axes,)
+    if isinstance(axes, dist.ProcessGroup):
+        return (axes.group_name,)
+    return tuple(str(a) for a in axes)
 
 
 def log_local(op: str, nbytes: int) -> None:
@@ -251,7 +266,9 @@ def get_global_rank(group=None, group_rank: int = 0) -> int:
 
 
 def barrier(name: str = "barrier", axis: Axis = None) -> None:
-    with timed_op(_COMMS_LOGGER, "barrier", 0):
+    # recorded with its NAME: two ranks both "at a barrier" may be at
+    # different barriers, which is exactly a desync
+    with timed_op(_COMMS_LOGGER, "barrier", 0, detail=name):
         if get_world_size(axis) > 1:
             dist.barrier(group=_group(axis))
 
@@ -559,6 +576,7 @@ def log_chunked(op: str, nbytes: int, wire_bytes: Optional[int] = None,
     """Ledger entry of a ring-chunked collective: one entry for the chunk
     hops of one ring pass, so totals match a fused collective's."""
     _COMMS_LOGGER.append(op, int(nbytes), wire_bytes=wire_bytes)
+    record_launch(op, shape=(int(nbytes),), axes=_axes_names(axes), impl="ring")
 
 
 def ppermute(x, axis, perm):

@@ -53,6 +53,7 @@ dtype before the fp32-accumulated PV product.
 import ctypes
 import functools
 import math
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -73,6 +74,7 @@ ROUTES = ("sm90", "cuda_core")
 #: launches per kernel and route (see :func:`paged_route`)
 route_counts: Dict[str, Dict[str, int]] = {name: {route: 0 for route in ROUTES}
                                            for name in launch_counts}
+_COUNTS_LOCK = threading.Lock()
 
 # the int8 mode's instantiations build from sources of their own, in
 # parallel with the others
@@ -431,9 +433,10 @@ def _check_q(q) -> None:
 def _counted(kernel: str, route: str, err: int, combined: bool = False) -> None:
     """One launch of ``kernel`` on ``route``, and one of ``paged_combine``
     after it when the launch split its decode rows' contexts."""
-    for name in (kernel, "paged_combine") if combined else (kernel,):
-        launch_counts[name] += 1
-        route_counts[name][route] += 1
+    with _COUNTS_LOCK:             # engine threads of several replicas
+        for name in (kernel, "paged_combine") if combined else (kernel,):
+            launch_counts[name] += 1
+            route_counts[name][route] += 1
     _check_launch(f"{kernel} ({route})", err)
 
 

@@ -1,20 +1,26 @@
 """Serving metrics: latency histograms, throughput, occupancy gauges.
 
-Port of ``deepspeed_tpu/serving/metrics.py``. The numbers a serving tier is
-judged by (blogs/deepspeed-fastgen: TTFT / per-token latency / effective
-throughput): time-to-first-token, time per output token, end-to-end latency
-— each a percentile histogram — plus queue depth, KV-pool occupancy, and
-tokens/s, and the engine's prefix-cache and speculative-decode counters.
-Per-tenant slices and canary counters wait for the server features that
-feed them (ROADMAP.md).
+The numbers a serving tier is judged by (blogs/deepspeed-fastgen: TTFT /
+per-token latency / effective throughput): time-to-first-token, time per
+output token, end-to-end latency — each a percentile histogram — plus queue
+depth, KV-pool occupancy, and tokens/s. ``monitor_events`` emits them as
+``Serving/*`` events through the same ``Monitor.write_events`` contract the
+ledger→monitor bridge uses, so they land in TensorBoard / W&B / CSV /
+JSONL next to the training metrics.
+
+Port of ``deepspeed_tpu/serving/metrics.py``; ``tokens_per_sec_per_chip``
+counts the visible cards (1 where there is none).
 """
 
 import bisect
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .request import (FINISH_CANCELLED, FINISH_EOS, FINISH_FAILED,
                       FINISH_LENGTH, ServedResponse)
+
+Event = Tuple[str, Any, int]
+
 
 class LatencyHistogram:
     """Exact percentiles over a bounded, sorted sample set.
@@ -68,8 +74,39 @@ class LatencyHistogram:
                 "mean_ms": ms(self.mean), "count": self.count}
 
 
+class TenantStats:
+    """Per-tenant slice of the serving counters (fleet/tenancy.py SLA
+    classes). Deliberately lean — counters plus TTFT/e2e histograms —
+    because one row exists per tenant label and telemetry cardinality
+    is bounded by the tenants actually seen, not a config."""
+
+    def __init__(self):
+        self.submitted = 0
+        self.completed = 0
+        self.cancelled = 0
+        self.failed = 0
+        self.rejected = 0
+        self.sla_violations = 0
+        self.sla_tracked = 0
+        self.tokens_out = 0
+        self.ttft = LatencyHistogram(cap=8192)
+        self.e2e = LatencyHistogram(cap=8192)
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "submitted": self.submitted, "completed": self.completed,
+            "cancelled": self.cancelled, "failed": self.failed,
+            "rejected": self.rejected,
+            "sla_violations": self.sla_violations,
+            "sla_tracked": self.sla_tracked,
+            "tokens_out": self.tokens_out,
+            "ttft": self.ttft.snapshot_ms(),
+            "e2e": self.e2e.snapshot_ms(),
+        }
+
+
 class ServingMetrics:
-    """Aggregated serving-tier metrics for one server."""
+    """Aggregated serving-tier metrics for one server (or one router)."""
 
     def __init__(self, clock: Callable[[], float] = time.monotonic):
         self.clock = clock
@@ -85,8 +122,14 @@ class ServingMetrics:
         self.failed = 0
         self.rejected = 0          # bounded-ingress overload rejections
         self.preemptions = 0
+        self.requeues = 0          # replica-loss / drain requeues
         self.sla_violations = 0
         self.sla_tracked = 0
+        # integrity canary: periodic self-submitted seeded
+        # greedy probes whose token hash must match a known-good value —
+        # a fail means this replica decodes WRONG BITS while looking alive
+        self.canary_probes = 0
+        self.canary_fails = 0
         self.tokens_out = 0
         self.prompt_tokens = 0
         # last-sampled gauges
@@ -105,11 +148,31 @@ class ServingMetrics:
         self.spec_steps = 0
         self.spec_drafted = 0
         self.spec_accepted = 0
-        # implementation stamp: which attention path served this server
-        # (engine_v2 resolution) — readers must know which decode path
-        # produced a latency row
+        # implementation stamp: which attention kernels served this replica
+        # (engine_v2 resolution) — the sv/pd ladder rungs and post-hoc
+        # readers must know which decode path produced a latency row
         self.attn_impl: Optional[str] = None
         self.decode_attn_impl: Optional[str] = None
+        # per-tenant slices, lazily created on first sighting of a tenant
+        # name (requests with tenant=None aggregate only into the fleet
+        # totals above — no phantom "None" tenant row)
+        self.tenants: Dict[str, TenantStats] = {}
+
+    def tenant(self, name: str) -> TenantStats:
+        """The (lazily created) per-tenant slice for ``name``."""
+        ts = self.tenants.get(name)
+        if ts is None:
+            ts = self.tenants[name] = TenantStats()
+        return ts
+
+    def _tenant_of(self, obj) -> Optional[TenantStats]:
+        """Per-tenant slice for a ServedResponse OR a bare Request (the
+        door-shed reject path has no response yet); None when untenanted."""
+        if obj is None:
+            return None
+        req = getattr(obj, "request", obj)
+        name = getattr(req, "tenant", None)
+        return None if name is None else self.tenant(name)
 
     def stamp_impls(self, attn_impl: Optional[str] = None,
                     decode_attn_impl: Optional[str] = None) -> None:
@@ -123,17 +186,30 @@ class ServingMetrics:
     # ------------------------------------------------------------------
     def on_submit(self, resp: ServedResponse) -> None:
         self.submitted += 1
+        ts = self._tenant_of(resp)
+        if ts is not None:
+            ts.submitted += 1
 
     def on_reject(self, resp=None) -> None:
-        """An overload rejection."""
+        """An overload/shed rejection. ``resp`` (optional, back-compat: a
+        ServedResponse or the bare Request) attributes the rejection to
+        its tenant's slice."""
         self.rejected += 1
+        ts = self._tenant_of(resp)
+        if ts is not None:
+            ts.rejected += 1
 
     def on_finish(self, resp: ServedResponse) -> None:
+        ts = self._tenant_of(resp)
         if resp.finish_reason == FINISH_CANCELLED:
             self.cancelled += 1
+            if ts is not None:
+                ts.cancelled += 1
             return
         if resp.finish_reason == FINISH_FAILED:
             self.failed += 1
+            if ts is not None:
+                ts.failed += 1
             return
         if resp.finish_reason in (FINISH_EOS, FINISH_LENGTH):
             self.completed += 1
@@ -151,6 +227,16 @@ class ServingMetrics:
             if v is not None:
                 self.sla_tracked += 1
                 self.sla_violations += int(v)
+            if ts is not None:
+                ts.completed += 1
+                ts.tokens_out += len(resp.tokens)
+                if resp.ttft_s is not None:
+                    ts.ttft.record(resp.ttft_s)
+                if resp.e2e_s is not None:
+                    ts.e2e.record(resp.e2e_s)
+                if v is not None:
+                    ts.sla_tracked += 1
+                    ts.sla_violations += int(v)
 
     def sample(self, *, queue_depth: int, inflight: int,
                kv_free_blocks: int, kv_total_blocks: int) -> None:
@@ -161,7 +247,8 @@ class ServingMetrics:
 
     def sample_reuse(self, reuse) -> None:
         """Mirror the engine's cumulative prefix-cache / speculative-decode
-        counters (``engine_v2.ReuseStats``)."""
+        counters (``engine_v2.ReuseStats`` or any object with the same
+        attribute names)."""
         for name in ("prefix_lookups", "prefix_hits", "prefix_tokens_reused",
                      "prefix_blocks_shared", "cow_forks", "spec_steps",
                      "spec_drafted", "spec_accepted"):
@@ -189,6 +276,14 @@ class ServingMetrics:
     def tokens_per_sec(self) -> float:
         return self.tokens_out / self.elapsed_s
 
+    def tokens_per_sec_per_chip(self, n_chips: Optional[int] = None) -> float:
+        if n_chips is None:
+            import torch
+
+            n_chips = (max(1, torch.cuda.device_count())
+                       if torch.cuda.is_available() else 1)
+        return self.tokens_per_sec() / n_chips
+
     def kv_occupancy(self) -> Optional[float]:
         if not self.kv_total_blocks:
             return None
@@ -205,8 +300,11 @@ class ServingMetrics:
             "submitted": self.submitted, "completed": self.completed,
             "cancelled": self.cancelled, "failed": self.failed,
             "rejected": self.rejected, "preemptions": self.preemptions,
+            "requeues": self.requeues,
             "sla_violations": self.sla_violations,
             "sla_tracked": self.sla_tracked,
+            "canary_probes": self.canary_probes,
+            "canary_fails": self.canary_fails,
             "tokens_out": self.tokens_out,
             "prompt_tokens": self.prompt_tokens,
             "tokens_per_sec": round(self.tokens_per_sec(), 2),
@@ -228,4 +326,41 @@ class ServingMetrics:
             "spec_acceptance_rate": (None
                                      if (ar := self.spec_acceptance_rate())
                                      is None else round(ar, 4)),
+            "tenants": {name: ts.snapshot()
+                        for name, ts in sorted(self.tenants.items())},
         }
+
+    def monitor_events(self, step: int, prefix: str = "Serving") -> List[Event]:
+        """``Monitor.write_events``-compatible ``Serving/*`` events (the
+        ledger→monitor bridge contract, ``utils/comms_logging.py``)."""
+        events: List[Event] = []
+
+        def put(name, value):
+            if value is not None:
+                events.append((f"{prefix}/{name}", value, step))
+
+        for hname, h in (("ttft", self.ttft), ("tpot", self.tpot),
+                         ("e2e", self.e2e), ("queue_wait", self.queue_wait)):
+            put(f"{hname}_p50_ms", None if h.p50 is None else h.p50 * 1e3)
+            put(f"{hname}_p99_ms", None if h.p99 is None else h.p99 * 1e3)
+        put("tokens_per_sec", self.tokens_per_sec())
+        put("queue_depth", self.queue_depth)
+        put("inflight", self.inflight)
+        put("kv_occupancy", self.kv_occupancy())
+        put("completed", self.completed)
+        put("preemptions", self.preemptions)
+        put("requeues", self.requeues)
+        put("rejected", self.rejected)
+        put("sla_violations", self.sla_violations)
+        put("canary_probes", self.canary_probes)
+        put("canary_fails", self.canary_fails)
+        put("prefix_hit_rate", self.prefix_hit_rate())
+        put("prefix_tokens_reused", self.prefix_tokens_reused)
+        put("prefix_blocks_shared", self.prefix_blocks_shared)
+        put("cow_forks", self.cow_forks)
+        put("spec_acceptance_rate", self.spec_acceptance_rate())
+        for name, ts in sorted(self.tenants.items()):
+            put(f"tenant/{name}/completed", ts.completed)
+            put(f"tenant/{name}/rejected", ts.rejected)
+            put(f"tenant/{name}/sla_violations", ts.sla_violations)
+        return events

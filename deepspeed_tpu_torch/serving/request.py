@@ -10,6 +10,8 @@ admission / first token / finish), the finish reason, and cancellation.
 SLA vocabulary: ``priority`` (higher = more important) and ``deadline_s``
 (end-to-end latency budget from arrival) drive the scheduler's admission
 order; neither changes the engine's per-step work.
+
+Port of ``deepspeed_tpu/serving/request.py``.
 """
 
 import threading
@@ -24,7 +26,8 @@ FINISH_CANCELLED = "cancelled"
 FINISH_FAILED = "failed"      # unschedulable (exceeds model/pool limits)
 
 #: default generation-state checkpoint cadence (tokens) — the one source
-#: of truth for ServedResponse/LLMServer
+#: of truth for ServedResponse/LLMServer; ServingConfig documents the same
+#: value declaratively in runtime/config.py
 DEFAULT_RESUME_CHECKPOINT_TOKENS = 16
 
 
@@ -38,10 +41,20 @@ class Request:
     deadline_s: Optional[float] = None  # e2e SLA budget from arrival
     # per-token streaming callback(token_id, response) — called from the
     # engine thread, must be cheap and never raise. Delivery is
-    # exactly-once per token index, across preemption restarts included
+    # exactly-once per token index, across replica-loss restarts included
     # (the response's delivered-token cursor dedups replays).
     stream: Optional[Callable[[int, "ServedResponse"], None]] = None
     request_id: Optional[str] = None   # client-side correlation id
+    # multi-tenancy: which tenant submitted this request. Resolved to an
+    # SLA class (weight / default deadline / shed watermark) by the
+    # server's TenancyMap (fleet/tenancy.py); None = the default class.
+    # The tenant rides the Request object itself, so replica-loss
+    # requeues across the fleet preserve tenant identity for free.
+    tenant: Optional[str] = None
+    # replica-loss requeue budget: after this many router requeues the next
+    # one fails the handle (FINISH_FAILED) instead of bouncing it between
+    # dying replicas forever; scheduler preemptions don't count
+    max_restarts: int = 3
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -66,12 +79,15 @@ class ServedResponse:
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
         self.finish_reason: Optional[str] = None
-        self.preemptions = 0           # times restarted by preemption
+        self.preemptions = 0           # times restarted (preempt / replica loss)
+        self.requeues = 0              # replica-loss restarts only (budgeted)
+        self.replica_id: Optional[int] = None
+        self.is_canary = False         # the server's integrity probe
         self.tokens: List[int] = []
         # resumable generation: every ckpt_every tokens the response
         # checkpoints its generation state (token count + sampling state);
-        # a requeue then resumes from the last checkpoint via one prefill
-        # over prompt+generated instead of a full replay.
+        # a replica-loss requeue then resumes from the last checkpoint via
+        # one prefill over prompt+generated instead of a full replay.
         # 0 disables checkpointing (requeues replay from scratch).
         self.ckpt_every = DEFAULT_RESUME_CHECKPOINT_TOKENS
         self._ckpt_len = 0
@@ -81,6 +97,9 @@ class ServedResponse:
         self._delivered = 0
         self._done = threading.Event()
         self._cancel = threading.Event()
+        # router hook (replica.py): called exactly once when the response
+        # finishes, from the finishing server's engine thread
+        self.on_finish: Optional[Callable[["ServedResponse"], None]] = None
 
     # -- engine-thread side -------------------------------------------------
     def _on_admit(self, now: float) -> None:
@@ -125,12 +144,15 @@ class ServedResponse:
         self.finish_reason = reason
         self.finish_time = now
         self._done.set()
+        cb = self.on_finish
+        if cb is not None:
+            cb(self)
 
     def _on_requeue(self, resume: bool = False) -> None:
-        """Reset generation state for a restart after a preemption. With
-        ``resume`` and a live checkpoint, the generated prefix up to the
-        last checkpoint survives — the restart is one prefill over
-        prompt+generated — and the
+        """Reset generation state for a restart on another replica (or
+        after a preemption). With ``resume`` and a live checkpoint, the
+        generated prefix up to the last checkpoint survives — the restart
+        is one prefill over prompt+generated on the new replica — and the
         delivered-token cursor keeps stream callbacks exactly-once across
         the re-generated span. Without it, the prompt replays from
         scratch. Either way arrival time and the SLA clock keep running."""
@@ -144,8 +166,10 @@ class ServedResponse:
         self.preemptions += 1
 
     def derived_finish_reason(self) -> str:
-        """EOS vs length, derived from the generated tokens (the server's
-        finish path, ``server._finish_if_done``)."""
+        """EOS vs length, derived from the generated tokens — the ONE
+        definition shared by the engine's finish path
+        (``server._finish_if_done``) and the router's dead-replica
+        completion (``replica._requeue_or_fail``)."""
         req = self.request
         if (req.eos_token_id is not None and self.tokens
                 and self.tokens[-1] == req.eos_token_id):
@@ -193,7 +217,7 @@ class ServedResponse:
             raise RuntimeError(f"request uid={self.uid} was cancelled")
         if self.finish_reason == FINISH_FAILED:
             raise RuntimeError(f"request uid={self.uid} failed "
-                               "(unschedulable or its engine thread died)")
+                               "(unschedulable or its replica died)")
         return np.asarray(self.tokens, np.int32)
 
     # -- latency views (seconds; None until the event happened) -------------

@@ -1,7 +1,6 @@
 """Continuous-batching admission scheduler.
 
-Port of ``deepspeed_tpu/serving/scheduler.py`` (tenant weighting and chaos
-drills wait, ROADMAP.md). Reference: the FastGen
+Port of ``deepspeed_tpu/serving/scheduler.py``. Reference: the FastGen
 ``RaggedBatchBase.schedule_requests`` loop
 (mii/batching/ragged_batching.py) — which requests join the engine's ragged
 batch next. The engine itself (``inference/v2/engine_v2.py``) already packs
@@ -15,7 +14,11 @@ Policies
 ``priority``  higher ``Request.priority`` first; lower-priority *prefill*
               sequences are preempted-and-requeued when the pool runs dry.
 ``deadline``  earliest SLA deadline first (EDF); a later-deadline prefill
-              can be preempted for a tighter one.
+              can be preempted for a tighter one. With a ``tenancy`` map
+              installed (fleet/tenancy.py) the sort deadline is *weighted*
+              — ``arrival + deadline_s / class_weight`` — so high-class
+              tenants are admitted sooner and low-class tenants are the
+              preemption victims, under the SAME EDF machinery.
 
 Backpressure is exact, not heuristic: admission goes through the engine's
 ``can_schedule`` (worst-case block commitment over the WHOLE pool including
@@ -27,13 +30,12 @@ thread (``server.py``); cross-thread traffic arrives via the server's
 ingress queue.
 """
 
-import logging
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..runtime.resilience.chaos import get_chaos
+from ..utils.logging import logger
 from .request import (FINISH_CANCELLED, FINISH_FAILED, ServedResponse)
-
-logger = logging.getLogger(__name__)
 
 POLICIES = ("fcfs", "priority", "deadline")
 
@@ -41,13 +43,14 @@ POLICIES = ("fcfs", "priority", "deadline")
 class ContinuousBatchScheduler:
     def __init__(self, engine, policy: str = "fcfs", *, preempt: bool = True,
                  max_inflight: Optional[int] = None, metrics=None,
-                 clock: Callable[[], float] = time.monotonic):
+                 tenancy=None, clock: Callable[[], float] = time.monotonic):
         if policy not in POLICIES:
             raise ValueError(f"unknown scheduling policy {policy!r}; "
                              f"choose from {POLICIES}")
         self.engine = engine
         self.policy = policy
         self.metrics = metrics       # ServingMetrics.on_finish sink (optional)
+        self.tenancy = tenancy       # TenancyMap (duck-typed; optional)
         self.preempt = bool(preempt) and policy != "fcfs"
         # cap concurrently-admitted sequences at the engine's ragged slot
         # count: admitting more only moves queueing INSIDE the engine, where
@@ -72,13 +75,20 @@ class ContinuousBatchScheduler:
         return bool(self.pending or self.inflight)
 
     # ------------------------------------------------------------------
+    def _sort_deadline(self, resp: ServedResponse) -> Optional[float]:
+        """The deadline EDF sorts by: the response's own when no tenancy
+        map is installed, the tenant-weighted one when it is."""
+        if self.tenancy is not None:
+            return self.tenancy.effective_deadline_time(resp)
+        return resp.deadline_time
+
     def _key(self, resp: ServedResponse) -> Tuple:
         """Sort key: smaller = admitted sooner. The (arrival, uid) tail keeps
         every policy a stable FCFS tie-break."""
         if self.policy == "priority":
             return (-resp.request.priority, resp.arrival_time, resp.uid)
         if self.policy == "deadline":
-            d = resp.deadline_time
+            d = self._sort_deadline(resp)
             return (d if d is not None else float("inf"),
                     resp.arrival_time, resp.uid)
         return (resp.arrival_time, resp.uid)
@@ -89,7 +99,7 @@ class ContinuousBatchScheduler:
         if self.policy == "priority":
             return cand.request.priority > other.request.priority
         if self.policy == "deadline":
-            cd, od = cand.deadline_time, other.deadline_time
+            cd, od = self._sort_deadline(cand), self._sort_deadline(other)
             return cd is not None and (od is None or cd < od)
         return False
 
@@ -189,6 +199,13 @@ class ContinuousBatchScheduler:
         admitted either — skipping ahead would starve large requests."""
         now = self.clock() if now is None else now
         admitted: List[ServedResponse] = []
+        chaos = get_chaos()
+        if chaos is not None and chaos.fire("kv_exhaustion",
+                                            "scheduler.admit"):
+            # serving-layer drill: the pool reads dry for this admit cycle
+            # — queued requests must wait it out exactly as they would a
+            # real block-pressure transient, not fail or deadlock
+            return admitted
         # one sort per admit() call: pops keep the order, and the only
         # in-loop append (a preempted victim rejoining pending) re-sorts
         # below — a per-iteration sort of a deep backlog would otherwise run
@@ -252,8 +269,11 @@ class ContinuousBatchScheduler:
 
     def evict_all(self) -> List[ServedResponse]:
         """Flush every in-flight sequence and return ALL unfinished
-        responses (queued + in-flight) — the server's crash path. Engine-side state is
-        released here; the RESPONSE state is not touched."""
+        responses (queued + in-flight) — the replica router's dead/draining
+        takeover path and the server's crash path. Engine-side state is
+        released here; the RESPONSE state is not touched — exactly one
+        caller (the router's requeue loop) applies ``_on_requeue``, so
+        ``preemptions`` counts each restart once."""
         out: List[ServedResponse] = []
         for resp in list(self.inflight.values()):
             self.engine.flush(resp.uid)

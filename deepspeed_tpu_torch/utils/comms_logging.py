@@ -9,11 +9,18 @@ payload (what the exact collective would move) and the bytes that rode the
 wire: compressed collectives report their int8 payload and scales there.
 The JAX ledger's planner, memory and static-audit tables belong to the
 comm planner, which is not ported (ROADMAP.md Queue A item 9).
+
+Every ``timed_op`` also appends one launch record to the collective flight
+recorder (``telemetry/collective.py``) when a ``TelemetryManager`` turned
+it on, ``shape`` being the payload's byte count: the port's collectives
+run eagerly, so each record is a real launch.
 """
 
 import time
 from collections import defaultdict
 from typing import Any, Dict, List, Optional
+
+from ..telemetry.collective import record_launch
 
 
 def get_msg_size(nbytes: int) -> str:
@@ -134,14 +141,18 @@ class timed_op:
     """Context manager timing an eager collective into the ledger."""
 
     def __init__(self, ledger: CommsLogger, op_name: str, size_bytes: int,
-                 wire_bytes: Optional[int] = None, hop_class: Optional[str] = None):
+                 wire_bytes: Optional[int] = None, hop_class: Optional[str] = None,
+                 detail: Optional[str] = None):
         self.ledger = ledger
         self.op_name = op_name
         self.size_bytes = size_bytes
         self.wire_bytes = wire_bytes
         self.hop_class = hop_class
+        self.detail = detail
 
     def __enter__(self):
+        record_launch(self.op_name, shape=(int(self.size_bytes),), link=self.hop_class,
+                      eager=True, detail=self.detail)
         self.t0 = time.perf_counter()
         return self
 

@@ -90,6 +90,46 @@ SURFACE = {
                            "params_to_megatron"],
     "module_inject.auto_tp": ["flatten_with_paths", "tp_parser", "infer_tp_roles",
                               "sharded_dim", "shard_checkpoint_leaf", "AutoTPResult"],
+    # the serving fleet (ROADMAP.md Queue A items 5 and 6): retry, chaos,
+    # heartbeats, telemetry, tenancy, the control plane, the router, traffic
+    "utils.retry": ["RetryPolicy", "retry_call", "RetryError", "retry_log_snapshot",
+                    "clear_retry_log", "add_retry_monitor", "remove_retry_monitor"],
+    "runtime.resilience.faults": ["FaultPlan"],
+    "runtime.resilience.chaos": ["FAULT_CLASSES", "ChaosEvent", "ChaosSchedule",
+                                 "configure_chaos",
+                                 "install_chaos_from_config", "clear_config_chaos",
+                                 "get_chaos", "chaos_active"],
+    "runtime.resilience.heartbeat": ["FileHeartbeatTransport", "ObjectStoreHeartbeatTransport",
+                                     "_LocalBucketStub", "HeartbeatWriter", "HealthTable",
+                                     "HostHealth"],
+    "runtime.resilience": ["FaultPlan", "ChaosSchedule", "HeartbeatWriter", "HealthTable",
+                           "configure_chaos", "get_chaos", "chaos_active"],
+    "telemetry.spans": ["SpanTracer", "span", "get_tracer", "configure_tracer",
+                        "chrome_trace", "export_chrome"],
+    "telemetry.registry": ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+                           "MetricsServer", "get_registry", "reset_registry"],
+    "telemetry.flight": ["FlightRecorder", "flightdump_path"],
+    "telemetry.collective": ["CollectiveRecorder", "configure_collective_recorder",
+                             "get_collective_recorder", "record_launch"],
+    "telemetry.manager": ["TelemetryManager", "register_serving_metrics",
+                          "telemetry_active", "device_memory_sampler",
+                          "serving_metrics_samples", "comms_ledger_samples"],
+    "telemetry": ["TelemetryManager", "register_serving_metrics", "telemetry_active"],
+    "fleet.tenancy": ["SLAClass", "TenancyMap"],
+    "fleet": ["SLAClass", "TenancyMap"],
+    "control.ledger": ["ControlAction", "ControlLedger", "describe_action"],
+    "control.guard": ["FlapGuard"],
+    "control.policy": ["POLICY_TABLE", "RULE_NAMES", "rule_straggler", "rule_memory",
+                       "rule_rollbacks", "rule_integrity", "rule_sla"],
+    "control.supervisor": ["ControlSupervisor"],
+    "control": ["ControlSupervisor", "FlapGuard", "ControlLedger"],
+    "serving.request": ["Request", "ServedResponse"],
+    "serving.metrics": ["TenantStats", "ServingMetrics"],
+    "serving.scheduler": ["ContinuousBatchScheduler"],
+    "serving.replica": ["ReplicaRouter"],
+    "serving.traffic": ["LengthDist", "TrafficConfig", "OpenLoopTraffic"],
+    "serving": ["TenantStats", "ReplicaRouter", "LengthDist", "OpenLoopTraffic",
+                "TrafficConfig", "LLMServer"],
 }
 # kernel wrappers: port module -> (JAX module, names)
 WRAPPERS = {

@@ -1807,3 +1807,66 @@ def test_lamb_step_on_card_matches_the_cpu():
         _close(out["cuda"][0][k], out["cpu"][0][k], 1e-5)
     _close(out["cuda"][1], out["cpu"][1], 1e-5)
     assert float(out["cuda"][1][2]) == 1.0        # ||p|| = 0: trust ratio 1
+
+
+def test_two_replica_kill_drill_at_two_layers_on_card(tmp_path):
+    """Two replicas of a 2-layer model at Llama-2-7B's widths (bf16) on
+    ``cuda:0`` behind a ``ReplicaRouter``: a chaos ``replica_kill`` stops
+    replica 1 mid-generation, its beacon ages past ``dead_after_s`` on an
+    injected clock, ``check()`` takes it over, and every request finishes by
+    length on replica 0, the requeued ones resumed (their tokens up to the
+    checkpoint kept). Both paged kernels launched on ``sm90``, a whole
+    number of times per layer."""
+    _need_card()
+    import time
+
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    from deepspeed_tpu_torch.runtime.resilience import chaos
+    from deepspeed_tpu_torch.runtime.resilience.heartbeat import FileHeartbeatTransport
+    from deepspeed_tpu_torch.serving import (FINISH_LENGTH, LLMServer, ReplicaRouter,
+                                             Request)
+
+    cfg = llama_config("7b", dtype=torch.bfloat16, num_layers=2)
+    block = {"policy": "deadline", "fused_decode_chunk": 8, "heartbeat_interval_s": 0.005,
+             "engine": dict(token_budget=256, max_ragged_sequence_count=8,
+                            max_chunk_size=128, kv_block_size=32, max_blocks_per_seq=16,
+                            num_kv_blocks=96, dtype="bfloat16")}
+    wall = [1000.0]
+    servers = [LLMServer.from_config(cfg, init_params(cfg, seed=i, device="cuda",
+                                                      dtype=torch.bfloat16),
+                                     block, replica_id=i) for i in range(2)]
+    router = ReplicaRouter(servers, transport=FileHeartbeatTransport(str(tmp_path)),
+                           dead_after_s=5.0, clock=lambda: wall[0]).start()
+    chaos.configure_chaos(chaos.ChaosSchedule([
+        chaos.ChaosEvent(kind="replica_kill", site="replica1", at=10)]))
+    try:
+        port.reset_launch_counts()
+        rng = np.random.default_rng(3)
+        resps = [router.submit(Request(rng.integers(0, 32000, n).astype(np.int32),
+                                       max_new_tokens=48), block=True)
+                 for n in (40, 200, 90, 300, 17, 128)]
+        deadline = time.monotonic() + 300
+        while servers[1]._thread.is_alive():
+            assert time.monotonic() < deadline, "the chaos kill never landed"
+            time.sleep(0.01)
+        held = [r for r in router._assigned[1].values() if not r.done]
+        kept = {id(r): list(r.tokens[:r._ckpt_len]) for r in held}
+        wall[0] += 10.0
+        while servers[0].heartbeat.transport.read_all()[0]["wall_time"] < wall[0]:
+            time.sleep(0.01)
+        assert router.check() == [1] and router.requeues == len(held) > 0
+        for r in resps:
+            assert r.wait(300) and r.finish_reason == FINISH_LENGTH and len(r.tokens) == 48
+        for r in held:
+            assert r.preemptions >= 1 and r.replica_id == 0
+            assert r.tokens[:len(kept[id(r)])] == kept[id(r)]
+        assert router.drain(timeout=300)
+    finally:
+        chaos.configure_chaos(None)
+    eng = servers[0].engine
+    eng.kv.assert_conservation([s.blocks for s in eng.state_manager.all()])
+    assert eng.kv.free_blocks == eng.kv.num_blocks - 1
+    for kernel in ("paged_attention", "paged_flash_decode"):
+        n = port.launch_counts[kernel]
+        assert n > 0 and n % cfg.num_layers == 0, (kernel, n)
+        assert port.route_counts[kernel] == {"sm90": n, "cuda_core": 0}

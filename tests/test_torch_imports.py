@@ -68,7 +68,15 @@ def test_port_sources_exist():
                 "inference/v2/ragged/kv_cache.py", "runtime/zero/sharding.py",
                 "runtime/zero/partition.py", "utils/tensor_fragment.py",
                 "checkpoint/state_dict_factory.py", "checkpoint/ds_to_universal.py",
-                "inference/megatron.py", "module_inject/auto_tp.py", "utils/zero_to_fp32.py"):
+                "inference/megatron.py", "module_inject/auto_tp.py", "utils/zero_to_fp32.py",
+                "utils/retry.py", "runtime/resilience/faults.py", "runtime/resilience/chaos.py",
+                "runtime/resilience/heartbeat.py", "runtime/resilience/__init__.py",
+                "telemetry/spans.py", "telemetry/registry.py", "telemetry/flight.py",
+                "telemetry/collective.py", "telemetry/manager.py", "telemetry/__init__.py",
+                "fleet/tenancy.py", "fleet/__init__.py", "control/ledger.py", "control/guard.py",
+                "control/policy.py", "control/supervisor.py", "control/__init__.py",
+                "serving/request.py", "serving/metrics.py", "serving/scheduler.py",
+                "serving/server.py", "serving/replica.py", "serving/traffic.py"):
         assert f"deepspeed_tpu_torch/{mod}" in names
 
 
