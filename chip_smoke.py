@@ -204,7 +204,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the kernel path's packed-step and decode-step logits (and the int8
    decode step's) within twice the einsum path's distance from float32,
    each paged launch of the kernel path on ``sm90``;
-18. full-depth ZeRO-3 — phase 11's world at TinyLlama-1.1B's 22 layers, 3
+18. ZeRO-3 at depth — phase 11's world at 11 of TinyLlama-1.1B's 22 layers, 3
    steps at stage 0 and 3 at stage 3 from the same seed and batch:
    phase 11's gates, every flash, fused-loss and Adam launch exact per
    rank, stage 3's peak memory per rank at least three quarters of the
@@ -258,7 +258,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    run replayed (ROUTE_AGREE of tokens routing alike);
 22. every decoder family the JAX package loads — (a) BLOOM-1b7 (ALiBi)
    and GPT-Neo-1.3B (alternating 256-token windows, unscaled) at their
-   published sizes, their HF configs as dicts in this script and seeded
+   published widths and 12 of their 24 layers, their HF configs as dicts
+   in this script and seeded
    HF-named bf16 state dicts drawn on the host, loaded through
    ``inference.params_from_hf`` and served by phase 4's ``slice_phase``
    (16 requests, prompts of 300..1024 tokens, 64 new tokens): phase 4's
@@ -326,7 +327,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ticked; (b) the SDC drill: two replicas at 8 layers, the canary every 8
    steps, replica 0's layer-0 ``o_proj`` negated after both learned their
    hash: its next probe fails, the router takes it over and the requests
-   sent after the verdict finish on replica 1, whose canary stays clean.
+   sent after the verdict finish on replica 1, whose canary stays clean;
+25. the fleet's warm join — (a) a measuring comm planner on a fresh cache
+   under ``build/fleet_join_smoke`` (margin 8, probe pools of 4M values:
+   the paged decode kernel against the gathered-page einsum at the serving
+   site), a ``FleetManager`` of 1..2 Llama-2-7B replicas (bf16, seeded
+   weights of their own, phase 24's pool) started with one, a
+   ``ControlSupervisor`` ticking on it every 32 steps with
+   ``manager.scale_out`` as its ``scale_fn``; ``OpenLoopTraffic`` (seed
+   25) sends 40 requests at 3 a second (prompts 128..1024, 64 new tokens,
+   a 3 s deadline each) so ``rule_sla`` scales out, and once the fleet
+   idles ``manager.poll()`` drains the less loaded replica. Gates: every
+   request finishes by length; replica 0's engine resolved ``decode_attn``
+   from the planner (both probes built, the decision measured) and its warm
+   ran the two winner probes; replica 1 joined with zero probes (the cached
+   winner, the planner's decision, no probe built); no request reached
+   replica 1 before its JOINED time; the ledger holds ``replica_join``
+   (``fleet_start``), ``serving_scale``, ``replica_join``
+   (``fleet_scale_out``) and ``serving_scale_in`` drained clean; each
+   replica's KV conservation; the decode kernel launched iff the planner
+   picked it and fused chunks ran; every launch on ``sm90``, a whole number
+   per layer in all and per engine thread (replica 1's warm runs on replica
+   0's thread, inside its control tick); the plan table names
+   ``decode_attn``. (b) a router over replica 0 in this process and a
+   ``SubprocessReplica`` replica 1 (``python -m
+   deepspeed_tpu_torch.fleet.subproc`` with the factory
+   ``chip_smoke:fleet_join_child_server``), both at Llama-2-7B's widths with
+   8 layers and seed 0: the child's ``hello`` shows a zero-probe join from
+   (a)'s caches, the counts its factory writes show the paged kernels on
+   ``sm90``, its streams equal replica 0's for the same prompts (phase 22's
+   tie rule), and after a SIGKILL mid-run ``router.check()`` takes it over
+   within 5 s and every request finishes by length on replica 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -3878,14 +3909,16 @@ def exact_launches(spec, ranks, tag):
 
 
 # ---------------------------------------------------------------------------
-# phase 18: full-depth ZeRO-3 on one card
+# phase 18: ZeRO-3 at depth on one card
 # ---------------------------------------------------------------------------
 
-ZERO3_SPEC = dict(DP_SPEC, layers=22, steps=3, modes=["none", "stage3"])
+#: 11 of TinyLlama-1.1B's 22 layers (its widths whole), so the script stays
+#: within its time limit; the memory gate is computed from the parameters
+ZERO3_SPEC = dict(DP_SPEC, layers=11, steps=3, modes=["none", "stage3"])
 
 
 def zero3_phase(card):
-    """Phase 18: TinyLlama-1.1B at all 22 layers, two ranks on cuda:0 over
+    """Phase 18: TinyLlama-1.1B at 11 of its 22 layers, two ranks on cuda:0 over
     gloo (micro 2 x 2048 each, gas 2, bf16, fused loss), 3 steps at stage 0
     and 3 at stage 3 from the same seed and batch: check_dp's gates, every
     flash, fused-loss and Adam launch exact per rank, stage 3's peak per
@@ -3924,7 +3957,7 @@ def zero3_phase(card):
         f"MiB); unit gathers {u0['gathers']} over {spec['steps']} steps; at most "
         f"{MAX_LIVE} on every rank: {'ok' if live_ok else 'FAIL'}")
     ms = {m: float(np.mean(r0[m]["times"][1:])) * 1e3 for m in spec["modes"]}
-    log(f"zero3 [{card}]: TinyLlama-1.1B, 22 layers, {n} parameters, two ranks sharing "
+    log(f"zero3 [{card}]: TinyLlama-1.1B, {spec['layers']} layers, {n} parameters, two ranks sharing "
         f"cuda:0 over gloo (not a scaling number): peak per rank stage 0 "
         f"{[round(p / 2**30, 2) for p in peaks0]} GiB, stage 3 "
         f"{[round(p / 2**30, 2) for p in peaks3]} GiB; the estimator's model state "
@@ -4966,9 +4999,15 @@ def hf_model(name: str, num_layers=None, seed: int = 0):
     return dataclasses.replace(cfg, dtype=torch.bfloat16), params
 
 
+#: phase 22 (a)'s depth: 12 of the two models' 24 layers (their widths,
+#: vocabularies and attention rules whole), so the script stays within its
+#: time limit; the loading and the einsum path scale with depth
+HF_SERVING_LAYERS = 12
+
+
 def hf_serving_phase(pa, card):
-    """Phase 22 (a): BLOOM-1b7 and GPT-Neo-1.3B at their published sizes,
-    loaded from seeded HF-named state dicts through ``params_from_hf`` and
+    """Phase 22 (a): BLOOM-1b7 and GPT-Neo-1.3B at their published widths
+    and 12 of their 24 layers, loaded from seeded HF-named state dicts through ``params_from_hf`` and
     served by ``slice_phase`` (16 requests, prompts of 300..1024 tokens so
     that GPT-Neo's 256-token window bites in every one, 64 new tokens):
     phase 4's gates and no paged-kernel launch (both attention paths on the
@@ -4978,7 +5017,7 @@ def hf_serving_phase(pa, card):
                                                   RaggedInferenceEngineConfig)
 
     for name in ("BLOOM-1b7", "GPT-Neo-1.3B"):
-        cfg, params = hf_model(name)
+        cfg, params = hf_model(name, num_layers=HF_SERVING_LAYERS)
         try:
             InferenceEngineV2(cfg, params, RaggedInferenceEngineConfig(
                 **SLICE, attn_backend="pallas"), device="cuda")
@@ -5589,6 +5628,17 @@ class ThreadLaunches:
             return {t: {k: dict(r) for k, r in c.items()} for t, c in self._tally.items()}
 
 
+def tally_minus(a, b):
+    """``a - b`` of two ``ThreadLaunches`` snapshots."""
+    return {t: {k: {r: n - b.get(t, {}).get(k, {}).get(r, 0) for r, n in by.items()}
+                for k, by in c.items()} for t, c in a.items()}
+
+
+def tally_sum(snap, kernel):
+    """Launches of ``kernel`` in a ``ThreadLaunches`` snapshot, every route."""
+    return sum(sum(c.get(kernel, {}).values()) for c in snap.values())
+
+
 def _pct(xs, p):
     return float(np.percentile(np.asarray(xs) * 1e3, p)) if xs else float("nan")
 
@@ -5909,6 +5959,486 @@ def sdc_phase(card):
         raise SystemExit("sdc phase FAILED")
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the fleet's warm join
+# ---------------------------------------------------------------------------
+
+JOIN_DIR = REPO / "build" / "fleet_join_smoke"
+#: the plan and winner caches of phase 25, wiped at its start: a cache left
+#: by an earlier run would let replica 0 join without probes
+JOIN_CACHE = JOIN_DIR / "cache"
+#: measure mode on the serving site: the cost model prices the einsum 4x the
+#: paged kernel, so the default margin of 3 would prune it untimed; a margin
+#: of 8 times both. The probe pool is capped at 4M values (16 pages of 64
+#: slots a sequence at Llama-2-7B's KV widths), where the default cap of 64K
+#: leaves one page
+JOIN_PLANNER = dict(margin=8.0, measure_max_elems=1 << 22)
+JOIN_REQUESTS = 40
+JOIN_RATE = 3.0                      # requests a second, Poisson arrivals
+JOIN_NEW = 64
+#: one replica at 3 a second misses it (its TTFT p50 was 1.4-2.6 s at 128
+#: new tokens, the p99 over 20 s), so rule_sla fires at a judged tick
+JOIN_DEADLINE_S = 3.0
+JOIN_CONTROL = {"enabled": True,
+                "guard": {"trigger_streak": 1, "cooldown_s": 600.0},
+                "supervisor": {"sla_min_tracked": 3}}
+#: the tick must see sla_min_tracked finishes: at one token a step (fused
+#: chunks off) 16 sequences of 64 tokens finish about 8 a 32 steps
+JOIN_TICK_STEPS = 32
+#: (b): the subprocess replica and its in-process peer at Llama-2-7B's
+#: widths with 8 layers (the drill needs a process and a kill, not depth;
+#: the serving site's signature has no depth, so the caches of (a) apply)
+JOIN_CHILD_LAYERS = 8
+JOIN_CHILD_PROMPTS = 6
+JOIN_KILL_REQUESTS = 8
+JOIN_CHILD_NEW = 64
+#: the kill drill's requests run long enough that the kill lands mid-run
+JOIN_KILL_NEW = 512
+JOIN_KILL_AFTER_S = 1.0
+JOIN_CHILD_START_S = 300.0
+
+
+def join_block(hb_dir):
+    """The ``serving:`` block of phase 25's replicas (no tenancy, no canary:
+    the deadline rides on each request)."""
+    return {"serving": {"enabled": True, "policy": "deadline",
+                        "heartbeat_dir": str(hb_dir), "heartbeat_interval_s": 0.5,
+                        "fused_decode_chunk": 16, "engine": dict(FLEET_SLICE)}}
+
+
+def join_planner():
+    """Phase 25's measuring planner on its own cache directory."""
+    from deepspeed_tpu_torch.comm.planner import configure_planner
+
+    return configure_planner("measure", cache_dir=str(JOIN_CACHE), **JOIN_PLANNER)
+
+
+def join_server(rid, layers=None, seed=None):
+    """One Llama-2-7B replica (bf16, seeded weights on the card)."""
+    from deepspeed_tpu_torch.models import init_params, llama_config
+    from deepspeed_tpu_torch.serving import LLMServer
+
+    over = {} if layers is None else {"num_layers": layers}
+    cfg = llama_config("7b", dtype=torch.bfloat16, **over)
+    params = init_params(cfg, seed=rid if seed is None else seed, device="cuda",
+                         dtype=torch.bfloat16)
+    return LLMServer.from_config(cfg, params, join_block(JOIN_DIR / "heartbeats"),
+                                 replica_id=rid)
+
+
+def fleet_join_child_server(replica_id):
+    """Phase 25 (b)'s child factory (``python -m
+    deepspeed_tpu_torch.fleet.subproc --factory chip_smoke:fleet_join_child_server``):
+    the same planner and caches as the parent, a replica of 8 layers with
+    seed 0, and the paged wrappers' counts written to
+    ``heartbeats/launches_<id>.json`` every 0.25 s and at exit (the protocol
+    carries no counts)."""
+    import atexit
+    import threading
+
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    # the worker's lifecycle handle reads the winner cache at the default
+    # directory, which this variable names
+    os.environ["DSTPU_PLAN_CACHE"] = str(JOIN_CACHE)
+    join_planner()
+    path = JOIN_DIR / "heartbeats" / f"launches_{replica_id}.json"
+
+    def write():
+        tmp = path.with_suffix(".tmp")
+        tmp.write_text(json.dumps({"launches": dict(pa.launch_counts),
+                                   "routes": {n: dict(r) for n, r in pa.route_counts.items()}}))
+        os.replace(tmp, path)
+
+    def loop():
+        while True:
+            write()
+            time.sleep(0.25)
+    atexit.register(write)
+    threading.Thread(target=loop, daemon=True, name="launch-counts").start()
+    return join_server(replica_id, layers=JOIN_CHILD_LAYERS, seed=0)
+
+
+def join_phase(pa, card):
+    """Phase 25 (a): the scale arc in one process. A measuring planner on a
+    fresh cache, a ``FleetManager`` (1..2 replicas of Llama-2-7B, bf16,
+    seeded weights of their own) started with one replica, a
+    ``ControlSupervisor`` ticking on it every 32 steps with the manager's
+    ``scale_out`` as its ``scale_fn``; ``OpenLoopTraffic`` (seed 25) sends
+    40 requests at 3 a second (prompts 128..1024, 64 new tokens, a 3 s
+    deadline each), so ``rule_sla`` scales out; a host loop calls
+    ``router.check()`` and ``manager.poll()`` every 0.25 s, and once the
+    traffic is done the poll drains the less loaded replica. Returns the
+    phase's numbers for (b)."""
+    import shutil
+    import threading
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm.planner import microbench, probe_stats
+    from deepspeed_tpu_torch.control import ControlSupervisor, describe_action
+    from deepspeed_tpu_torch.fleet import JOINED, FleetManager
+    from deepspeed_tpu_torch.models import llama_config
+    from deepspeed_tpu_torch.runtime.config import ControlConfig
+    from deepspeed_tpu_torch.runtime.resilience.heartbeat import FileHeartbeatTransport
+    from deepspeed_tpu_torch.serving import FINISH_LENGTH, LengthDist, OpenLoopTraffic, TrafficConfig
+
+    from deepspeed_tpu_torch.comm.planner import reset_probe_memo
+
+    shutil.rmtree(JOIN_DIR, ignore_errors=True)
+    hb_dir = JOIN_DIR / "heartbeats"
+    hb_dir.mkdir(parents=True)
+    reset_probe_memo()
+    planner = join_planner()
+    cfg = llama_config("7b", dtype=torch.bfloat16)
+    dispatched = {}        # replica -> monotonic times of its submits
+
+    def factory(rid):
+        server = join_server(rid)
+        submit = server.submit
+
+        def recorded(*a, **k):
+            dispatched.setdefault(rid, []).append(time.monotonic())
+            return submit(*a, **k)
+        server.submit = recorded
+        return server
+
+    sup = ControlSupervisor(ControlConfig.from_dict(JOIN_CONTROL))
+    mgr = FleetManager(factory, supervisor=sup, min_replicas=1, max_replicas=2,
+                       autotune_cache_dir=str(JOIN_CACHE))
+    scale, watch = {}, {}
+    scale_out = mgr.scale_out
+
+    def timed_scale_out(s=None):
+        # replica 1's build and warm run here, on replica 0's engine thread:
+        # the tally's snapshots around it split that thread's launches into
+        # replica 1's warm and replica 0's served traffic
+        scale["t0"] = time.monotonic()
+        scale["built0"] = probe_stats()["built"]
+        scale["launches0"] = watch["tally"].snapshot()
+        try:
+            return scale_out(s)
+        finally:
+            scale["t1"] = time.monotonic()
+            scale["built1"] = probe_stats()["built"]
+            scale["launches1"] = watch["tally"].snapshot()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    router = mgr.start(1, transport=FileHeartbeatTransport(str(hb_dir)),
+                       dead_after_s=FLEET_DEAD_AFTER_S)
+    start_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start_launches = dict(pa.launch_counts)
+    h0 = mgr.handles[0]
+    s0 = h0.server
+    r0 = h0.report
+    decision = planner.plan.decisions.get(s0.engine._decode_attn_site(torch.bfloat16)
+                                          .signature())
+    probes = {k[1]: v for k, v in microbench._PROBE_MEMO.items() if k[0].startswith("decode:")}
+    stats_after_start = probe_stats()
+    sup.attach_server(s0, interval_steps=JOIN_TICK_STEPS, scale_fn=timed_scale_out)
+    traffic = OpenLoopTraffic(TrafficConfig(
+        rate_rps=JOIN_RATE, num_requests=JOIN_REQUESTS, seed=25,
+        vocab_size=cfg.vocab_size, prompt_len=LengthDist("uniform", 128, 1024),
+        output_len=LengthDist("fixed", JOIN_NEW, JOIN_NEW), deadline_s=JOIN_DEADLINE_S))
+    ran, polls, t_done = {}, [], None
+    try:
+        pa.reset_launch_counts()
+        with ThreadLaunches(pa) as tally:
+            watch["tally"] = tally
+            t0 = time.perf_counter()
+            feeder = threading.Thread(target=lambda: ran.update(zip(
+                ("resps", "rejected"), traffic.run(router.submit))), daemon=True)
+            feeder.start()
+            while True:
+                router.check()
+                drained = mgr.poll()
+                if drained is not None:
+                    polls.append((drained, time.perf_counter() - t0))
+                done = not feeder.is_alive() and all(r.done for r in ran.get("resps", []))
+                if done and t_done is None:
+                    t_done = time.perf_counter()
+                # the scale-in comes from the poll once the fleet idles; a
+                # fleet that never scaled out has none to make
+                if done and (polls or time.perf_counter() - t_done > 30):
+                    break
+                if time.perf_counter() - t0 > 600:
+                    raise SystemExit("fleet join: still running after 600 s")
+                time.sleep(0.25)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            final = tally.snapshot()
+        launches = dict(pa.launch_counts)
+        routes = {n: dict(r) for n, r in pa.route_counts.items()}
+        handles = dict(mgr.handles)
+        survivors = [h for h in handles.values() if h.state == JOINED]
+        drained_all = router.drain(timeout=120)
+        conservation = {}
+        for rid, h in handles.items():
+            eng = h.server.engine
+            eng.kv.assert_conservation([s.blocks for s in eng.state_manager.all()])
+            conservation[rid] = (not eng.state_manager.all()
+                                 and eng.kv.free_blocks == eng.kv.num_blocks - 1)
+    finally:
+        mgr.close()
+    resps = ran["resps"]
+    h1 = handles.get(1)
+    r1 = h1.report if h1 is not None else None
+    joined_at = {rid: next((t for s, t in h.transitions if s == JOINED), None)
+                 for rid, h in handles.items()}
+    ledger = [(e.action, e.rule, e.outcome, dict(e.params or {})) for e in sup.ledger.entries()]
+    kinds = [(a, r) for a, r, _, _ in ledger]
+    scale_ins = [p for a, _, _, p in ledger if a == "serving_scale_in"]
+    names = ("paged_attention", "paged_flash_decode")
+    layers = cfg.num_layers
+    threads = {t: c for t, c in final.items()}
+    engine_impls = {rid: (h.server.engine.decode_attn_impl, h.server.engine.decode_attn_source)
+                    for rid, h in handles.items()}
+    impl = decision.impl if decision is not None else None
+    used = {n: launches[n] for n in names}
+    # replica 1's warm (on replica 0's thread, inside scale_out) against the
+    # traffic each engine thread served: replica 1's thread starts at its
+    # JOINED, so all of its launches are served ones
+    thread0 = "llm-server-0"
+    warm1 = tally_minus({thread0: scale.get("launches1", {}).get(thread0, {})},
+                        {thread0: scale.get("launches0", {}).get(thread0, {})})
+    served = tally_minus(threads, warm1)
+    warm_decode = tally_sum(warm1, "paged_flash_decode")
+    served_decode = tally_sum(served, "paged_flash_decode")
+    chunk = handles[0].server.fused_decode_chunk
+    # replica 1's warm generation (``engine.generate``: SplitFuse steps,
+    # then fused decode) runs the decided decode path whatever the winner;
+    # served traffic runs it only where the winner keeps fused chunks on
+    # (packed steps never launch the decode kernel)
+    warm_gate = (warm_decode > 0) == (impl == "pallas")
+    if chunk > 1:
+        served_name = (f"served traffic (fused chunks of {chunk}) ran decode_attn {impl}: "
+                       "the decode kernel launched after JOINED iff it is the pick")
+        served_gate = (served_decode > 0) == (impl == "pallas")
+    else:
+        served_name = (f"served traffic ran packed steps only (winner {r0.winner_name}, "
+                       f"fused chunks off), so decode_attn {impl} governed no served "
+                       "request: no decode launch after JOINED")
+        served_gate = served_decode == 0
+    served_gate = served_gate and all(
+        tally_sum({t: served.get(t, {})}, "paged_attention") > 0
+        for t in ("llm-server-0", "llm-server-1"))
+    stall = scale.get("t1", 0.0) - scale.get("t0", 0.0)
+    sla_to_joined = (joined_at.get(1) - scale["t0"]) if "t0" in scale and joined_at.get(1) else None
+    served1 = sum(1 for r in resps if r.replica_id == 1)
+    checks = {
+        f"{JOIN_REQUESTS} requests submitted, none shed": (
+            len(resps) == JOIN_REQUESTS and not ran["rejected"]),
+        f"every request finished by length with {JOIN_NEW} tokens": all(
+            r.finish_reason == FINISH_LENGTH and len(r.tokens) == JOIN_NEW for r in resps),
+        "replica 0 resolved decode_attn through the planner": (
+            engine_impls[0] == (impl, "planner") and decision.source == "measured"),
+        "replica 0 built both decode probes; its warm ran the 2 winner probes": (
+            stats_after_start["built"] == 2 and len(probes) == 2
+            and r0.autotune_probes == 2 and not r0.autotune_from_cache),
+        "replica 1 joined with zero probes: cached winner, planner decision, no build": (
+            r1 is not None and r1.zero_probe_join() and r1.autotune_from_cache
+            and r1.winner_name == r0.winner_name and engine_impls.get(1) == (impl, "planner")
+            and scale.get("built1") == scale.get("built0") == stats_after_start["built"]),
+        "no request dispatched to replica 1 before its JOINED time": (
+            joined_at.get(1) is not None
+            and all(t >= joined_at[1] for t in dispatched.get(1, []))),
+        "ledger: replica_join (fleet_start), serving_scale, replica_join "
+        "(fleet_scale_out), serving_scale_in drained clean": (
+            ("replica_join", "fleet_start") in kinds
+            and any(a == "serving_scale" and o == "ok" for a, _, o, _ in ledger)
+            and ("replica_join", "fleet_scale_out") in kinds
+            and len(scale_ins) == 1 and scale_ins[0].get("drained_clean") == "True"),
+        "each replica's KV conservation": len(conservation) == 2 and all(conservation.values()),
+        "the router drained the survivor": drained_all and len(survivors) == 1,
+        f"replica 1's warm ran decode_attn {impl}: the decode kernel launched in it iff "
+        "it is the pick": warm_gate,
+        served_name + "; both engine threads served packed steps": served_gate,
+        "every launch on sm90, a whole number per layer in all, per engine thread, "
+        "in replica 1's warm and in served traffic": all(
+            routes[n] == {"sm90": launches[n], "cuda_core": 0} and launches[n] % layers == 0
+            and all(c.get(n, {}).get("sm90", 0) % layers == 0
+                    and c.get(n, {}).get("cuda_core", 0) == 0
+                    for part in (threads, warm1, served) for c in part.values())
+            for n in names) and used["paged_attention"] > 0,
+        "the plan table names decode_attn": any(
+            r.get("op") == "decode_attn" for r in comm.get_comms_logger().plan_records.values()),
+    }
+    ttft = [r.ttft_s for r in resps]
+    tokens = sum(len(r.tokens) for r in resps)
+    log(f"fleet join [{card}]: planner decision for {s0.engine._decode_attn_site(torch.bfloat16).signature()}: "
+        f"{decision.to_dict() if decision else None}; probes "
+        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in sorted(probes.items()))
+        + f"; probe_stats after start {stats_after_start}; start(1) {start_s:.2f} s "
+        f"(launches in it {start_launches})")
+    log(f"fleet join [{card}]: replica 0 warm {r0.to_params()}")
+    log(f"fleet join [{card}]: replica 1 warm {r1.to_params() if r1 else None}")
+    log(f"fleet join [{card}]: SLA firing to JOINED {sla_to_joined if sla_to_joined is None else round(sla_to_joined, 3)} s; "
+        f"replica 0's loop stalled {stall:.3f} s in scale_out (replica 1's build and warm run "
+        f"on its engine thread); replica 1 served {served1} of {len(resps)} requests, first "
+        f"dispatch {min(dispatched.get(1, [float('nan')])) - joined_at.get(1, 0.0) if joined_at.get(1) else None} s "
+        f"after its JOINED time; scale-in {polls}")
+    log(f"fleet join [{card}]: {tokens} tokens in {wall:.2f} s = {tokens / wall:.1f} generated "
+        f"tok/s; TTFT p50 {_pct(ttft, 50):.1f} ms p99 {_pct(ttft, 99):.1f} ms; SLA "
+        f"violations {sum(1 for r in resps if r.sla_violated())}/{len(resps)}; engines {engine_impls}")
+    log(f"fleet join [{card}]: launches {launches} by thread {threads}; replica 1's warm "
+        f"{warm1}; served after JOINED {served} (fused_decode_chunk {chunk})")
+    log("fleet join: ledger" + "".join(f"\n  control: {describe_action(e)}"
+                                       for e in sup.ledger.snapshot()))
+    log("fleet join: " + ", ".join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    del router, handles, survivors, mgr, sup, resps, h0, s0, h1
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise SystemExit("fleet join phase FAILED")
+    return {"impl": impl, "launches": used}
+
+
+def subproc_phase(pa, card, impl):
+    """Phase 25 (b): a ``ReplicaRouter`` over replica 0 in this process and
+    a ``SubprocessReplica`` replica 1 (``python -m
+    deepspeed_tpu_torch.fleet.subproc``, factory
+    ``chip_smoke:fleet_join_child_server``), both Llama-2-7B widths at 8
+    layers with seed 0, sharing a heartbeat directory. Gates: the child's
+    hello shows a zero-probe join from (a)'s caches; the child launched
+    the paged kernels; its completed streams equal replica 0's for the same
+    prompts under phase 22's tie rule; then the child is killed with
+    SIGKILL mid-run, ``router.check()`` takes it over within
+    ``dead_after_s`` + 2 s, and every request finishes by length on replica
+    0."""
+    import shutil
+    import signal
+
+    from deepspeed_tpu_torch.comm.planner import reset_planner
+    from deepspeed_tpu_torch.fleet import ReplicaHandle, SubprocessReplica
+    from deepspeed_tpu_torch.models.transformer import lm_forward
+    from deepspeed_tpu_torch.runtime.resilience.heartbeat import FileHeartbeatTransport
+    from deepspeed_tpu_torch.serving import FINISH_LENGTH, ReplicaRouter, Request
+
+    hb_dir = JOIN_DIR / "heartbeats"
+    for f in hb_dir.glob("*"):
+        f.unlink()
+    h0 = ReplicaHandle(0, lambda rid: join_server(rid, layers=JOIN_CHILD_LAYERS, seed=0),
+                       autotune_cache_dir=str(JOIN_CACHE))
+    h0.spawn()
+    r0 = h0.warm()
+    s0 = h0.server
+    router = ReplicaRouter([s0], transport=FileHeartbeatTransport(str(hb_dir)),
+                           dead_after_s=FLEET_DEAD_AFTER_S).start()
+    child = None
+    rng = np.random.default_rng(252)
+    vocab = s0.engine.cfg.vocab_size
+    try:
+        t0 = time.perf_counter()
+        child = SubprocessReplica(1, "chip_smoke:fleet_join_child_server",
+                                  heartbeat_dir=str(hb_dir),
+                                  hello_timeout_s=JOIN_CHILD_START_S)
+        start_s = time.perf_counter() - t0
+        hello = dict(child.warm_params)
+        router.add_replica(child)
+        prompts = [rng.integers(0, vocab, int(n)).astype(np.int32)
+                   for n in rng.integers(128, 512, JOIN_CHILD_PROMPTS)]
+        mine = [child.submit(Request(p, max_new_tokens=JOIN_CHILD_NEW)) for p in prompts]
+        ref = [s0.submit(Request(p, max_new_tokens=JOIN_CHILD_NEW)) for p in prompts]
+        for r in mine + ref:
+            if not r.wait(300):
+                raise SystemExit("subproc: a stream did not finish within 300 s")
+        counts_path = hb_dir / "launches_1.json"
+        time.sleep(0.5)          # the child's writer runs every 0.25 s
+        child_counts = json.loads(counts_path.read_text())
+        # the kill drill: requests through the router, the child killed mid-run
+        kill_reqs = [router.submit(Request(rng.integers(0, vocab, int(n)).astype(np.int32),
+                                           max_new_tokens=JOIN_KILL_NEW))
+                     for n in rng.integers(128, 512, JOIN_KILL_REQUESTS)]
+        on_child = [r for r in kill_reqs if r.replica_id == 1]
+        time.sleep(JOIN_KILL_AFTER_S)
+        child_done_before_kill = sum(1 for r in on_child if r.done)
+        os.kill(child.proc.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        child.proc.wait(30)
+        detect = None
+        while time.perf_counter() - t_kill < FLEET_DEAD_AFTER_S + 30:
+            router.check()
+            if 1 in router.dead_ids():
+                detect = time.perf_counter() - t_kill
+                break
+            time.sleep(0.25)
+        for r in kill_reqs:
+            if not r.wait(300):
+                raise SystemExit("subproc: a request after the kill did not finish in 300 s")
+        requeues = router.requeues
+        drained = router.drain(timeout=120)
+        eng = s0.engine
+        eng.kv.assert_conservation([s.blocks for s in eng.state_manager.all()])
+    finally:
+        router.close()
+        if child is not None and child.proc.poll() is None:
+            child.proc.kill()
+            child.proc.wait(30)
+    # phase 22's tie rule on the streams that differ
+    firsts = []
+    for i, (a, b) in enumerate(zip(mine, ref)):
+        j = next((j for j, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y), None)
+        if j is not None:
+            firsts.append((i, j))
+    ties = []
+    if firsts:
+        cfg32 = dataclasses.replace(eng.cfg, dtype=torch.float32, attn_impl="xla")
+        params32 = _cast(eng.params, torch.float32, copy=True)
+        for i, j in firsts:
+            a, b = mine[i].tokens[j], ref[i].tokens[j]
+            ctx = np.concatenate([prompts[i], np.asarray(ref[i].tokens[:j], np.int32)])
+            with torch.no_grad():
+                logits = lm_forward(cfg32, params32, torch.from_numpy(
+                    ctx.astype(np.int64)).cuda()[None])[0, -1]
+            below = [(logits.max() - logits[x]).item() for x in (a, b)]
+            ties.append(max(below) < SPEC_TIE_MARGIN)
+            log(f"subproc stream {i}: first differs at token {j} ({a} against {b}), "
+                f"{below[0]:.4e} and {below[1]:.4e} below the float32 maximum")
+        del params32
+    layers = JOIN_CHILD_LAYERS
+    cl, cr = child_counts["launches"], child_counts["routes"]
+    checks = {
+        "the child's hello: plan_from_cache >= 1, probes_built 0, autotune_probes 0, "
+        "autotune_from_cache": (
+            int(hello.get("plan_from_cache", 0)) >= 1 and hello.get("probes_built") == "0"
+            and hello.get("autotune_probes") == "0"
+            and hello.get("autotune_from_cache") == "True"),
+        "replica 0 warmed with zero probes from (a)'s caches": r0.zero_probe_join(),
+        "the child launched the paged kernels on sm90": (
+            cl["paged_attention"] > 0 and cr["paged_attention"]["cuda_core"] == 0
+            and (cl["paged_flash_decode"] > 0) == (impl == "pallas")
+            and cr["paged_flash_decode"]["cuda_core"] == 0),
+        f"{JOIN_CHILD_PROMPTS} child streams finished by length": all(
+            r.finish_reason == FINISH_LENGTH and len(r.tokens) == JOIN_CHILD_NEW for r in mine),
+        "child streams equal replica 0's or first differ at a float32 near-tie": all(ties),
+        f"the child declared dead within {FLEET_DEAD_AFTER_S + FLEET_DETECT_SLACK_S:g} s of "
+        "the SIGKILL": detect is not None and detect <= FLEET_DEAD_AFTER_S + FLEET_DETECT_SLACK_S,
+        "the kill landed mid-run on the child": len(on_child) > child_done_before_kill,
+        "every request finished by length on replica 0": all(
+            r.finish_reason == FINISH_LENGTH and len(r.tokens) == JOIN_KILL_NEW
+            and r.replica_id == 0 for r in kill_reqs),
+        "replica 0 drained with KV conservation": (
+            drained and not eng.state_manager.all()
+            and eng.kv.free_blocks == eng.kv.num_blocks - 1),
+    }
+    log(f"subproc [{card}]: child start-up to hello {start_s:.2f} s; its warm {hello}; "
+        f"replica 0 warm {r0.to_params()}; child launches {cl} routes {cr} "
+        f"(per layer {cl['paged_attention'] / layers:.1f} / {cl['paged_flash_decode'] / layers:.1f})")
+    log(f"subproc [{card}]: streams equal to the end {JOIN_CHILD_PROMPTS - len(firsts)}/"
+        f"{JOIN_CHILD_PROMPTS}; kill with {len(on_child) - child_done_before_kill} of "
+        f"{len(on_child)} child requests unfinished; declared dead "
+        f"{'none' if detect is None else f'{detect:.2f}'} s after the SIGKILL "
+        f"(dead_after_s {FLEET_DEAD_AFTER_S}); requeues {requeues}")
+    log("subproc: " + ", ".join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    del router, s0, h0, eng, child
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_planner()
+    shutil.rmtree(JOIN_DIR, ignore_errors=True)
+    if not all(checks.values()):
+        raise SystemExit("subprocess replica phase FAILED")
+
+
 def zero3_7b_run(card: str, workdir: Path) -> bool:
     """Llama-2-7B at ZeRO stage 3 on four cards (32 layers, seq 4096, micro
     1 per rank, gas 2, per-layer remat): check_dp's gates and the peak per
@@ -6109,8 +6639,8 @@ def main() -> int:
     # phase 11: data-parallel training, the compressed gradient all-reduce
     # and ZeRO stages 1-3
     launches.update(timed("11 data parallel", dp_phase, card))
-    # phase 18: full-depth ZeRO-3, two ranks on one card
-    timed("18 zero3 (TinyLlama-1.1B, 22 layers)", zero3_phase, card)
+    # phase 18: ZeRO-3 at 11 layers, two ranks on one card
+    timed("18 zero3 (TinyLlama-1.1B, 11 layers)", zero3_phase, card)
     # phase 19: ZeRO-Offload at full size on one card
     launches.update(timed("19 offload", offload_phase, card, cpu_model))
     # phase 20: the engine's remainder ((d) ran in phase 11's world)
@@ -6144,6 +6674,14 @@ def main() -> int:
     log(f"fleet launches: {fleet} (phase 4's run: {launches['paged_attention']} / "
         f"{launches['paged_flash_decode']})")
     timed("24 (b) the SDC drill (Llama-2-7B widths, 8 layers)", sdc_phase, card)
+    # phase 25: the fleet's warm join
+    join = timed("25 (a) the scale arc: FleetManager 1 -> 2 Llama-2-7B replicas under SLA "
+                 "pressure, warm join, scale-in", join_phase, pa, card)
+    log(f"fleet join launches: {join['launches']} (phase 4's run: "
+        f"{launches['paged_attention']} / {launches['paged_flash_decode']})")
+    timed("25 (b) a subprocess replica: zero-probe join across a process, streams, "
+          "SIGKILL takeover (Llama-2-7B widths, 8 layers)", subproc_phase, pa, card,
+          join["impl"])
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"

@@ -1,30 +1,28 @@
-"""Fleet tier of the port: per-tenant SLA classes (:mod:`tenancy`).
+"""Fleet tier of the port: elastic multi-replica serving.
 
-Port of ``deepspeed_tpu/fleet/``. The replica lifecycle
-(``lifecycle.py``), the scale actuator (``manager.py``) and the
-subprocess replica (``subproc.py``) are not ported yet: looking one of
-their names up here raises ``NotImplementedError`` naming ROADMAP.md Queue
-A item 6.
+Port of ``deepspeed_tpu/fleet/``. The serving package gives one process N
+routed replicas; this package makes that a *fleet*: real replica
+lifecycle with a warm-join contract (:mod:`lifecycle` — SPAWNING →
+WARMING → JOINED → DRAINING → DEAD, cached comm plans and autotune winners
+applied so a joining replica runs zero probes), the control supervisor's
+scale actuator with flap-guarded scale-in and reap-on-failure
+(:mod:`manager`), per-tenant SLA classes weighting admission and shed
+order (:mod:`tenancy`), and a subprocess-backed replica speaking the same
+protocol (:mod:`subproc`).
 """
 
+from .lifecycle import (DEAD, DRAINING, JOINED, SPAWNING, STATES, WARMING,
+                        ReplicaHandle, ReplicaSpawnError, WarmReport,
+                        serving_space_signature)
+from .manager import FleetAtCapacity, FleetManager
+from .subproc import SubprocessReplica
 from .tenancy import DEFAULT_CLASSES, SLAClass, TenancyMap
 
-_NOT_PORTED = {
-    **dict.fromkeys(("SPAWNING", "WARMING", "JOINED", "DRAINING", "DEAD",
-                     "STATES", "ReplicaHandle", "ReplicaSpawnError",
-                     "WarmReport", "serving_space_signature"),
-                    "fleet/lifecycle.py"),
-    **dict.fromkeys(("FleetManager", "FleetAtCapacity"), "fleet/manager.py"),
-    "SubprocessReplica": "fleet/subproc.py",
-}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP.md Queue A item 6 "
-            f"({_NOT_PORTED[name]})")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-__all__ = ["SLAClass", "TenancyMap", "DEFAULT_CLASSES"]
+__all__ = [
+    "SPAWNING", "WARMING", "JOINED", "DRAINING", "DEAD", "STATES",
+    "ReplicaHandle", "ReplicaSpawnError", "WarmReport",
+    "serving_space_signature",
+    "FleetManager", "FleetAtCapacity",
+    "SubprocessReplica",
+    "SLAClass", "TenancyMap", "DEFAULT_CLASSES",
+]

@@ -21,8 +21,10 @@ windowed families (bloom, mpt, falcon-rw, gpt-neo, starcoder2) run both on
 the einsum, since the paged kernels compute plain scaled causal attention.
 ``spec_decode_batch`` is n-gram speculative decoding: drafts from the
 sequence's own context, verified in one packed dispatch (``verify_step``).
-
-Left out (ROADMAP.md): the collective planner's decode-attention hook.
+With a comm planner active (``comm.planner.configure_planner``), the fused
+decode path is one of its sites (``decode_attn``): a static planner prices
+the paged kernel against the einsum, a measuring one times both on the
+card, and the pick is recorded in the comms ledger's plan table.
 """
 
 from dataclasses import dataclass
@@ -204,8 +206,28 @@ class InferenceEngineV2:
             self.attn_impl = c.attn_backend
         self.decode_attn_impl, self.decode_attn_source = \
             self._resolve_decode_attn(kv_dtype, dtype)
+        self._record_decode_plan(kv_dtype)
         self.steps = 0
         self.last_num_scheduled = 0
+
+    # ------------------------------------------------------------------
+    # decode-attention resolution (model field > serving/engine config >
+    # planner > heuristic — the resolve_loss_impl order)
+    # ------------------------------------------------------------------
+    def _decode_attn_site(self, kv_dtype):
+        """The planner-IR site for this engine's fused-decode attention:
+        ``shape`` is the gathered pool view one decode step would
+        materialize on the einsum path ([S, B*bs, Hk, D], ONE pool) in the
+        STORAGE dtype — the cost model's decode-shape regime prices both
+        impls from it."""
+        from ...comm.planner.ir import make_site
+
+        c = self.config
+        return make_site(op="decode_attn",
+                         shape=(c.max_ragged_sequence_count,
+                                c.max_blocks_per_seq * c.kv_block_size,
+                                self.cfg.kv_heads, self.cfg.head_dim),
+                         dtype=kv_dtype, axes=(), consumer="decode")
 
     def _decode_structural_bail(self, kv_dtype, dtype) -> Optional[str]:
         """Why the decode kernel cannot serve this model and pool, or None.
@@ -223,22 +245,43 @@ class InferenceEngineV2:
     def _resolve_decode_attn(self, kv_dtype, dtype) -> Tuple[str, str]:
         """Fused-decode attention path as ``(impl, source)``: the model field
         (``"model"``) > ``decode_attn_backend``, then ``attn_backend``
-        (``"config"``) > the kernel path (``"heuristic"``). A structural bail
+        (``"config"``) > a planner decision (``"planner"``, when a planner
+        is active) > the kernel path (``"heuristic"``). A structural bail
         demotes a kernel pick to einsum with a one-time warning
         (``"fallback"``); a head dim the paged kernels do not build demotes
-        only the heuristic pick, so an explicit ``"pallas"`` reaches the
-        kernel (which raises on the card)."""
+        only the planner's and the heuristic pick, so an explicit
+        ``"pallas"`` reaches the kernel (which raises on the card). A
+        planner that fails is passed over with a one-time warning, except
+        for a probe that failed on the card (``ProbeError``), which
+        raises."""
         c = self.config
-        want, source = "pallas", "heuristic"
+        want, source = "auto", "heuristic"
         if self.cfg.decode_attn_impl != "auto":
             want, source = self.cfg.decode_attn_impl, "model"
         elif c.decode_attn_backend != "auto":
             want, source = c.decode_attn_backend, "config"
         elif c.attn_backend != "auto":
             want, source = c.attn_backend, "config"
+        if want == "auto":
+            from ...comm.planner.microbench import ProbeError
+
+            try:
+                from ...comm.planner import get_planner, planner_active
+
+                if planner_active():
+                    d = get_planner().resolve(self._decode_attn_site(kv_dtype))
+                    if d.impl in ("pallas", "einsum"):
+                        want, source = d.impl, "planner"
+            except ProbeError:
+                raise  # a kernel that fails its probe on the card would fail serving too
+            except Exception as e:  # planning must never block engine bring-up
+                _warn_once(f"decode_attn: the comm planner failed ({e!r}); "
+                           "resolving without it (one-time notice)")
+        if want == "auto":
+            want, source = "pallas", "heuristic"
         if want == "pallas":
             reason = self._decode_structural_bail(kv_dtype, dtype)
-            if reason is None and source == "heuristic":
+            if reason is None and source in ("heuristic", "planner"):
                 reason = _head_dim_bail(self.cfg.head_dim)
             if reason:
                 _warn_once(
@@ -247,6 +290,23 @@ class InferenceEngineV2:
                     "reference (one-time notice)")
                 return "einsum", "fallback"
         return want, source
+
+    def _record_decode_plan(self, kv_dtype) -> None:
+        """Plan-table row for the resolved decode path: planner-sourced
+        decisions were already recorded by ``resolve()``; every other
+        source records here, so ``comm.log_summary()``'s plan table always
+        names which decode attention implementation serves this engine."""
+        if self.decode_attn_source == "planner":
+            return
+        from ...comm import get_comms_logger
+
+        site = self._decode_attn_site(kv_dtype)
+        get_comms_logger().record_plan(site.signature(), {
+            "consumer": "decode", "op": "decode_attn",
+            "shape": "x".join(str(d) for d in site.shape),
+            "axes": "", "impl": self.decode_attn_impl, "block": None,
+            "source": self.decode_attn_source, "est_us": None,
+            "mode": "engine"})
 
     # ------------------------------------------------------------------
     # admission (reference put/query/can_schedule)

@@ -7,8 +7,9 @@ entry is timed on the host around the call (for NCCL that is the enqueue;
 gloo returns when the exchange is done). Each entry keeps the LOGICAL
 payload (what the exact collective would move) and the bytes that rode the
 wire: compressed collectives report their int8 payload and scales there.
-The JAX ledger's planner, memory and static-audit tables belong to the
-comm planner, which is not ported (ROADMAP.md Queue A item 9).
+The comm planner's decisions land in ``plan_records`` (``record_plan``),
+printed as the plan table by ``log_summary``; the JAX ledger's memory and
+static-audit tables read compiled XLA programs and have no counterpart.
 
 Every ``timed_op`` also appends one launch record to the collective flight
 recorder (``telemetry/collective.py``) when a ``TelemetryManager`` turned
@@ -60,6 +61,9 @@ class CommsLogger:
         # link class ("ici" | "dcn" | "host") -> wire bytes, for callers that
         # tag their traffic with the link it rides
         self.hop_bytes: Dict[str, int] = defaultdict(int)
+        # site signature -> planner decision info (comm/planner): per-mesh
+        # facts, not per-step counters — reset() deliberately keeps them
+        self.plan_records: Dict[str, Dict[str, Any]] = {}
 
     def configure(self, enabled=None, verbose=None, prof_all=None, prof_ops=None, debug=None):
         if enabled is not None:
@@ -95,6 +99,33 @@ class CommsLogger:
             logger.info(f"comm op: {op_name} | size: {get_msg_size(size_bytes)} | "
                         f"{latency_s * 1e3:.2f} ms")
 
+    def record_plan(self, signature: str, info: Dict[str, Any]) -> None:
+        """Record one resolved planner decision (``comm/planner``). Stored
+        unconditionally — plan facts are cheap and ``log_summary`` prints
+        them as the plan table; unlike traffic rows they survive
+        ``reset()`` (the plan is per-topology, not per-step)."""
+        self.plan_records[signature] = dict(info)
+
+    def plan_table_lines(self) -> List[str]:
+        """The resolved-plan table (one row per site), empty when nothing
+        has been recorded."""
+        if not self.plan_records:
+            return []
+        header = (f"{'Consumer':<12}{'Op':<16}{'Shape':<18}"
+                  f"{'Axes':<16}{'Impl':<14}{'Block':<8}{'Source':<12}"
+                  f"{'Est(us)':<10}")
+        lines = ["Collective plan:", header, "-" * len(header)]
+        for sig in sorted(self.plan_records):
+            r = self.plan_records[sig]
+            lines.append(
+                f"{r.get('consumer', '?'):<12}{r.get('op', '?'):<16}"
+                f"{r.get('shape', '?'):<18}{r.get('axes', '?'):<16}"
+                f"{r.get('impl', '?'):<14}{str(r.get('block') or '-'):<8}"
+                f"{r.get('source', '?'):<12}"
+                f"{str(r.get('est_us') if r.get('est_us') is not None else '-'):<10}"
+                + (f" {r['program']}" if r.get("program") else ""))
+        return lines
+
     def totals(self) -> Dict[str, Dict[str, Any]]:
         """op -> {count, bytes (logical), wire_bytes, total_latency_ms}."""
         out: Dict[str, Dict[str, Any]] = {}
@@ -126,6 +157,9 @@ class CommsLogger:
                 lines.append(f"{op_name:<28}{get_msg_size(size):<16}{count:<8}"
                              f"{total_lat * 1e3:<15.2f}{avg * 1e3:<13.3f}{algbw:<13.2f}"
                              f"{busbw:<13.2f}{ratio:<10}")
+        plan = self.plan_table_lines()
+        if plan:
+            lines += [""] + plan
         print("\n".join(lines), flush=True)
         return self.totals()
 

@@ -116,13 +116,37 @@ SURFACE = {
                           "serving_metrics_samples", "comms_ledger_samples"],
     "telemetry": ["TelemetryManager", "register_serving_metrics", "telemetry_active"],
     "fleet.tenancy": ["SLAClass", "TenancyMap"],
-    "fleet": ["SLAClass", "TenancyMap"],
+    "fleet": ["SLAClass", "TenancyMap", "ReplicaHandle", "WarmReport", "FleetManager",
+              "SubprocessReplica", "SPAWNING", "WARMING", "JOINED",
+              "DRAINING", "DEAD", "STATES", "serving_space_signature"],
+    # the fleet's warm join (ROADMAP.md Queue A items 6 and 9): the replica
+    # lifecycle, the scale actuator, subprocess replicas, the winner cache
+    # and the comm planner
+    "fleet.lifecycle": ["ReplicaHandle", "WarmReport", "serving_space_signature", "SERVING_SPACE_DIMS",
+                        "SERVING_SPACE_METRIC"],
+    "fleet.manager": ["FleetManager"],
+    "fleet.subproc": ["SubprocessReplica", "worker_main"],
+    "control.winners": ["WinnerCache", "space_signature"],
+    "comm.planner": ["CollectiveSite", "Plan", "PlanDecision", "PhaseStep", "FusedCompute",
+                     "make_site", "make_phase", "program_summary", "synthesize_programs",
+                     "compile_programs", "legacy_menu_programs", "program_capable",
+                     "MeshFingerprint", "CostModel", "LinkParams", "PlanCache",
+                     "default_cache_dir", "benchmark_site", "probe_stats",
+                     "reset_probe_memo", "CollectivePlanner", "configure_planner",
+                     "configure_from_config", "get_planner", "planner_active",
+                     "reset_planner", "resolve_site", "IMPLEMENTATIONS", "OP_MENU",
+                     "CONSUMERS", "MODES"],
+    "comm.planner.planner": ["CollectivePlanner.replan_around",
+                             "CollectivePlanner.calibrate_overlap_credit"],
+    "comm.planner.microbench": ["build_probe"],
+    "utils.comms_logging": ["CommsLogger.record_plan", "CommsLogger.plan_table_lines"],
     "control.ledger": ["ControlAction", "ControlLedger", "describe_action"],
     "control.guard": ["FlapGuard"],
     "control.policy": ["POLICY_TABLE", "RULE_NAMES", "rule_straggler", "rule_memory",
                        "rule_rollbacks", "rule_integrity", "rule_sla"],
     "control.supervisor": ["ControlSupervisor"],
-    "control": ["ControlSupervisor", "FlapGuard", "ControlLedger"],
+    "control": ["ControlSupervisor", "FlapGuard", "ControlLedger", "WinnerCache",
+                "space_signature"],
     "serving.request": ["Request", "ServedResponse"],
     "serving.metrics": ["TenantStats", "ServingMetrics"],
     "serving.scheduler": ["ContinuousBatchScheduler"],

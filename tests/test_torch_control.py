@@ -137,9 +137,13 @@ def test_engine_wiring_and_autotuner_raise_naming_item_9():
         tcontrol.ControlSupervisor.for_engine(object(), ControlConfig())
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         sup.on_step(1)
-    for name in ("ControlAutotuner", "WinnerCache", "space_signature", "build_space"):
+    for name in ("ControlAutotuner", "build_space"):
         with pytest.raises(NotImplementedError, match="Queue A item 9"):
             getattr(tcontrol, name)
+    # the winner cache is ported (the fleet's warm join reads it)
+    assert tcontrol.WinnerCache.__name__ == "WinnerCache"
+    assert tcontrol.space_signature({"d": ["a", "b"]}, "m") == jcontrol.space_signature(
+        {"d": ["b", "a"]}, "m")
     assert sup.can_replan() is False and sup.slow_link_axes() == ()
 
 

@@ -76,7 +76,12 @@ def test_port_sources_exist():
                 "fleet/tenancy.py", "fleet/__init__.py", "control/ledger.py", "control/guard.py",
                 "control/policy.py", "control/supervisor.py", "control/__init__.py",
                 "serving/request.py", "serving/metrics.py", "serving/scheduler.py",
-                "serving/server.py", "serving/replica.py", "serving/traffic.py"):
+                "serving/server.py", "serving/replica.py", "serving/traffic.py",
+                "comm/planner/__init__.py", "comm/planner/ir.py", "comm/planner/topo.py",
+                "comm/planner/cache.py", "comm/planner/compiler.py",
+                "comm/planner/microbench.py", "comm/planner/planner.py",
+                "control/winners.py", "fleet/lifecycle.py", "fleet/manager.py",
+                "fleet/subproc.py", "fleet/_testing.py"):
         assert f"deepspeed_tpu_torch/{mod}" in names
 
 
