@@ -204,7 +204,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the kernel path's packed-step and decode-step logits (and the int8
    decode step's) within twice the einsum path's distance from float32,
    each paged launch of the kernel path on ``sm90``;
-18. ZeRO-3 at depth — phase 11's world at 11 of TinyLlama-1.1B's 22 layers, 3
+18. ZeRO-3 at depth — phase 11's world at 6 of TinyLlama-1.1B's 22 layers, 3
    steps at stage 0 and 3 at stage 3 from the same seed and batch:
    phase 11's gates, every flash, fused-loss and Adam launch exact per
    rank, stage 3's peak memory per rank at least three quarters of the
@@ -336,7 +336,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``ControlSupervisor`` ticking on it every 32 steps with
    ``manager.scale_out`` as its ``scale_fn``; ``OpenLoopTraffic`` (seed
    25) sends 40 requests at 3 a second (prompts 128..1024, 64 new tokens,
-   a 3 s deadline each) so ``rule_sla`` scales out, and once the fleet
+   a 1 s deadline each) so ``rule_sla`` scales out, and once the fleet
    idles ``manager.poll()`` drains the less loaded replica. Gates: every
    request finishes by length; replica 0's engine resolved ``decode_attn``
    from the planner (both probes built, the decision measured) and its warm
@@ -345,19 +345,51 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    replica 1 before its JOINED time; the ledger holds ``replica_join``
    (``fleet_start``), ``serving_scale``, ``replica_join``
    (``fleet_scale_out``) and ``serving_scale_in`` drained clean; each
-   replica's KV conservation; the decode kernel launched iff the planner
-   picked it and fused chunks ran; every launch on ``sm90``, a whole number
+   replica's KV conservation; the serving winner was timed with the
+   server's batch in flight and keyed by the model (ROADMAP C3), and served
+   traffic ran the decided path: the decode kernel launched after JOINED
+   iff ``fd8`` won and the planner picked the kernel; every launch on
+   ``sm90``, a whole number
    per layer in all and per engine thread (replica 1's warm runs on replica
    0's thread, inside its control tick); the plan table names
    ``decode_attn``. (b) a router over replica 0 in this process and a
    ``SubprocessReplica`` replica 1 (``python -m
    deepspeed_tpu_torch.fleet.subproc`` with the factory
    ``chip_smoke:fleet_join_child_server``), both at Llama-2-7B's widths with
-   8 layers and seed 0: the child's ``hello`` shows a zero-probe join from
-   (a)'s caches, the counts its factory writes show the paged kernels on
+   8 layers and seed 0: replica 0 times the serving winner of its depth
+   (a's 32-layer winner does not apply), the child's ``hello`` shows a
+   zero-probe join from (a)'s plan and replica 0's winner, the counts its
+   factory writes show the paged kernels on
    ``sm90``, its streams equal replica 0's for the same prompts (phase 22's
    tie rule), and after a SIGKILL mid-run ``router.check()`` takes it over
-   within 5 s and every request finishes by length on replica 0.
+   within 5 s and every request finishes by length on replica 0;
+26. tensor parallelism — (a) two ranks on cuda:0 over gloo (``--tp-child``,
+   ``build/tp_smoke``), ``tensor_parallel.tp_size`` 2: TinyLlama-1.1B's
+   widths at 4 of 22 layers (seeded weights, each leaf sliced to its rank by
+   the generic rule pack), micro 2 x 2048, gas 2, bf16,
+   ``vocab_parallel_loss`` with the fused loss on a 16000-wide vocab shard,
+   AdamW, ZeRO 0, 4 steps. Gates: losses finite, falling and one value on
+   both ranks; the first within 1e-3 |ref| of a tp 1 run of the same
+   weights and batches in this process; every replicated leaf bitwise
+   equal on both ranks; launches a rank exact (flash = layers x gas x
+   steps, the fused loss's forward and combine gas x steps and each
+   backward kernel gas x steps x chunks, fused Adam one a step), all on
+   ``wgmma``; the fused-loss kernels on each rank's vocab shard at the
+   path's shape (4096 x 2048 x 16000, target ids shifted by rank x 16000,
+   so half of them out of the shard, on rank 1 negative) against their
+   plain versions (lse / tgt rel 1e-4, dl / dh / dK rel 2e-2, as phase
+   3's), the target logit 0 on every out-of-shard id, and
+   ``fused_vocab_nll(axis_name="tp")`` against the plain NLL over the
+   whole head; prints the step time, tokens/s and the peak per rank beside
+   18P / 2. (b) ``all_gather_matmul`` and ``matmul_reduce_scatter`` at
+   TinyLlama's MLP shape (4096 tokens, 2048 x 5632 split over tp), exact
+   within bf16 rounding; over the int8 wire the all-gather within one bf16
+   rounding of the product of the chunks through the plain quantizer and
+   back, the reduce-scatter within half a step (absmax / 254) of its one
+   hop's partial sum; the quant kernels launched. (c) the five TP decode functions at Llama-2-7B's
+   widths (32 sequences, hidden 4096, vocab 32000) against the dense
+   products, ``tp_greedy_token`` equal to the dense argmax. The world's
+   launches add to the ``kernels`` line's counts.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or run outside a
@@ -3682,9 +3714,10 @@ def dp_child(rank: int, workdir: Path) -> int:
     return 0
 
 
-def run_dp_world(spec, workdir: Path):
-    """Start spec["world"] ranks (this script with --dp-child), one card each
-    over NCCL or all on cuda:0 over gloo; returns their results."""
+def run_dp_world(spec, workdir: Path, child: str = "--dp-child"):
+    """Start spec["world"] ranks (this script with ``child``: --dp-child or
+    --tp-child), one card each over NCCL or all on cuda:0 over gloo; returns
+    their results."""
     import shutil
 
     shutil.rmtree(workdir, ignore_errors=True)
@@ -3693,7 +3726,7 @@ def run_dp_world(spec, workdir: Path):
     world = spec["world"]
     logs = [open(workdir / f"log_{r}.txt", "w+") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--dp-child", str(r), str(workdir)],
+        [sys.executable, str(Path(__file__).resolve()), child, str(r), str(workdir)],
         env=dict(os.environ, LOCAL_RANK=str(r if spec["backend"] == "nccl" else 0)),
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
     try:
@@ -3912,13 +3945,14 @@ def exact_launches(spec, ranks, tag):
 # phase 18: ZeRO-3 at depth on one card
 # ---------------------------------------------------------------------------
 
-#: 11 of TinyLlama-1.1B's 22 layers (its widths whole), so the script stays
-#: within its time limit; the memory gate is computed from the parameters
-ZERO3_SPEC = dict(DP_SPEC, layers=11, steps=3, modes=["none", "stage3"])
+#: 6 of TinyLlama-1.1B's 22 layers (its widths whole), so the script stays
+#: within its time limit (11 until phase 26 came); the memory gate is
+#: computed from the parameters
+ZERO3_SPEC = dict(DP_SPEC, layers=6, steps=3, modes=["none", "stage3"])
 
 
 def zero3_phase(card):
-    """Phase 18: TinyLlama-1.1B at 11 of its 22 layers, two ranks on cuda:0 over
+    """Phase 18: TinyLlama-1.1B at 6 of its 22 layers, two ranks on cuda:0 over
     gloo (micro 2 x 2048 each, gas 2, bf16, fused loss), 3 steps at stage 0
     and 3 at stage 3 from the same seed and batch: check_dp's gates, every
     flash, fused-loss and Adam launch exact per rank, stage 3's peak per
@@ -5976,9 +6010,12 @@ JOIN_PLANNER = dict(margin=8.0, measure_max_elems=1 << 22)
 JOIN_REQUESTS = 40
 JOIN_RATE = 3.0                      # requests a second, Poisson arrivals
 JOIN_NEW = 64
-#: one replica at 3 a second misses it (its TTFT p50 was 1.4-2.6 s at 128
-#: new tokens, the p99 over 20 s), so rule_sla fires at a judged tick
-JOIN_DEADLINE_S = 3.0
+#: one replica misses it on every request, so rule_sla fires at the first
+#: judged tick: 64 tokens at one a step (fused chunks off) meet 1 s only at
+#: steps under 16 ms, where the serving winner's probe times a Llama-2-7B
+#: step at 47 ms with 16 sequences in flight. At 3 s one replica once
+#: finished all 40 requests in time, and the fleet never scaled out
+JOIN_DEADLINE_S = 1.0
 JOIN_CONTROL = {"enabled": True,
                 "guard": {"trigger_streak": 1, "cooldown_s": 600.0},
                 "supervisor": {"sla_min_tracked": 3}}
@@ -5987,7 +6024,8 @@ JOIN_CONTROL = {"enabled": True,
 JOIN_TICK_STEPS = 32
 #: (b): the subprocess replica and its in-process peer at Llama-2-7B's
 #: widths with 8 layers (the drill needs a process and a kill, not depth;
-#: the serving site's signature has no depth, so the caches of (a) apply)
+#: the planner's site has no depth, so (a)'s plan applies; the serving winner
+#: is keyed by depth, so replica 0 times it and the child reads replica 0's)
 JOIN_CHILD_LAYERS = 8
 JOIN_CHILD_PROMPTS = 6
 JOIN_KILL_REQUESTS = 8
@@ -6065,7 +6103,7 @@ def join_phase(pa, card):
     seeded weights of their own) started with one replica, a
     ``ControlSupervisor`` ticking on it every 32 steps with the manager's
     ``scale_out`` as its ``scale_fn``; ``OpenLoopTraffic`` (seed 25) sends
-    40 requests at 3 a second (prompts 128..1024, 64 new tokens, a 3 s
+    40 requests at 3 a second (prompts 128..1024, 64 new tokens, a 1 s
     deadline each), so ``rule_sla`` scales out; a host loop calls
     ``router.check()`` and ``manager.poll()`` every 0.25 s, and once the
     traffic is done the poll drains the less loaded replica. Returns the
@@ -6210,15 +6248,14 @@ def join_phase(pa, card):
     # served traffic runs it only where the winner keeps fused chunks on
     # (packed steps never launch the decode kernel)
     warm_gate = (warm_decode > 0) == (impl == "pallas")
-    if chunk > 1:
-        served_name = (f"served traffic (fused chunks of {chunk}) ran decode_attn {impl}: "
-                       "the decode kernel launched after JOINED iff it is the pick")
-        served_gate = (served_decode > 0) == (impl == "pallas")
-    else:
-        served_name = (f"served traffic ran packed steps only (winner {r0.winner_name}, "
-                       f"fused chunks off), so decode_attn {impl} governed no served "
-                       "request: no decode launch after JOINED")
-        served_gate = served_decode == 0
+    # the winner was timed at the serving batch (ROADMAP C3): served traffic
+    # runs the decided path, so the decode kernel launches after JOINED iff
+    # fused chunks won and the planner picked the kernel
+    fused_won = r0.winner_name == "fd8" and chunk == 8
+    served_name = (f"served traffic ran the decided path (winner {r0.winner_name}, fused "
+                   f"chunk {chunk}, decode_attn {impl}): the decode kernel launched after "
+                   "JOINED iff fd8 won and the kernel is the pick")
+    served_gate = (served_decode > 0) == (fused_won and impl == "pallas")
     served_gate = served_gate and all(
         tally_sum({t: served.get(t, {})}, "paged_attention") > 0
         for t in ("llm-server-0", "llm-server-1"))
@@ -6298,8 +6335,10 @@ def subproc_phase(pa, card, impl):
     a ``SubprocessReplica`` replica 1 (``python -m
     deepspeed_tpu_torch.fleet.subproc``, factory
     ``chip_smoke:fleet_join_child_server``), both Llama-2-7B widths at 8
-    layers with seed 0, sharing a heartbeat directory. Gates: the child's
-    hello shows a zero-probe join from (a)'s caches; the child launched
+    layers with seed 0, sharing a heartbeat directory. Gates: replica 0
+    times the serving winner of its depth (a's plan applies, a's 32-layer
+    winner does not); the child's hello shows a zero-probe join from the
+    plan of (a) and replica 0's winner; the child launched
     the paged kernels; its completed streams equal replica 0's for the same
     prompts under phase 22's tie rule; then the child is killed with
     SIGKILL mid-run, ``router.check()`` takes it over within
@@ -6403,7 +6442,9 @@ def subproc_phase(pa, card, impl):
             int(hello.get("plan_from_cache", 0)) >= 1 and hello.get("probes_built") == "0"
             and hello.get("autotune_probes") == "0"
             and hello.get("autotune_from_cache") == "True"),
-        "replica 0 warmed with zero probes from (a)'s caches": r0.zero_probe_join(),
+        "replica 0 (8 layers) found no winner of its depth in (a)'s caches: it timed "
+        "the 2 candidates and built no planner probe": (
+            r0.probes_built == 0 and r0.autotune_probes == 2 and not r0.autotune_from_cache),
         "the child launched the paged kernels on sm90": (
             cl["paged_attention"] > 0 and cr["paged_attention"]["cuda_core"] == 0
             and (cl["paged_flash_decode"] > 0) == (impl == "pallas")
@@ -6495,6 +6536,365 @@ def cards_run(n_cards: int, card: str, only_7b: bool = False) -> int:
     return 0 if ok1 and okn and ok7 else 1
 
 
+# ---------------------------------------------------------------------------
+# phase 26: tensor parallelism
+# ---------------------------------------------------------------------------
+
+#: (a): two ranks on cuda:0 over gloo, tensor_parallel.tp_size 2 (dp 1),
+#: TinyLlama-1.1B's widths at 4 of 22 layers (phase 11's cut), micro 2 x
+#: 2048, gas 2, bf16, vocab_parallel_loss with the fused loss, AdamW, ZeRO 0
+TP_SPEC = {"world": 2, "tp": 2, "backend": "gloo", "model": "1b", "layers": 4,
+           "micro": 2, "seq": 2048, "steps": 4}
+TP_CONFIG = {
+    "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+    "zero_optimization": {"stage": 0}, "bf16": {"enabled": True},
+    "gradient_clipping": 1.0, "steps_per_print": 10**9,
+    "tensor_parallel": {"enabled": True, "tp_size": 2},
+}
+#: (b): the rings at TinyLlama's MLP shape (tokens micro x seq, hidden 2048,
+#: ffn 5632), bf16
+TP_RING = {"tokens": 4096, "hidden": 2048, "ffn": 5632}
+#: (c): Llama-2-7B's decode widths, 32 sequences
+TP_DECODE = {"seqs": 32, "hidden": 4096, "vocab": 32000}
+
+
+def tp_model(spec):
+    from deepspeed_tpu_torch.models import llama_config
+
+    return llama_config(spec["model"], num_layers=spec["layers"], dtype=torch.bfloat16,
+                        vocab_parallel_loss=True, loss_impl="fused")
+
+
+def tp_rings(rank, tp):
+    """(b) in a tp world: ``all_gather_matmul`` and ``matmul_reduce_scatter``,
+    exact and over the int8 wire (block 2048), at TinyLlama's MLP shape
+    against the gathered product (the int8 all-gather against the product
+    of the chunks through the plain quantizer and back); returns errors,
+    bounds, the quant kernels' launches and times."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import collective_matmul as cm
+    from deepspeed_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26 + rank)
+    T, H, Fd = TP_RING["tokens"], TP_RING["hidden"], TP_RING["ffn"]
+    x = torch.randn((1, T // tp, H), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((H, Fd // tp), generator=gen, device="cuda") / H ** 0.5).to(torch.bfloat16)
+    hid = torch.randn((1, T, Fd // tp), generator=gen, device="cuda").to(torch.bfloat16)
+    wd = (torch.randn((Fd // tp, H), generator=gen, device="cuda") / Fd ** 0.5).to(torch.bfloat16)
+    x_full = comm.all_gather(x, "tp", gather_dim=1).float()
+    ag_ref = x_full @ w.float()
+    # the int8 wire's all-gather reference: every rank's chunk through the
+    # plain block quantizer and back (ops/quant.py), then the fp32 product
+    n_el, block = x.numel(), cm._WIRE_BLOCK
+    nb = -(-n_el // block)
+    ag_q_ref = torch.cat([quant.dequantize_ref(*quant.quantize_ref(
+        c.reshape(-1).contiguous(), n_el, nb, block), n_el).reshape(c.shape)
+        for c in x_full.split(T // tp, dim=1)], dim=1) @ w.float()
+    part = hid.float() @ wd.float()
+    rs_ref = comm.all_reduce(part.clone(), "tp").narrow(1, rank * (T // tp), T // tp)
+    out = {}
+    quant.reset_launch_counts()
+    for wire in ("exact", "int8"):
+        ag = cm.all_gather_matmul(x, w, "tp", wire_dtype=wire).float()
+        rs = cm.matmul_reduce_scatter(hid, wd, "tp", wire_dtype=wire).float()
+        out[f"ag_{wire}"] = float((ag - (ag_q_ref if wire == "int8" else ag_ref)).abs().max())
+        out[f"rs_{wire}"] = float((rs - rs_ref).abs().max())
+    out["quant_launches"] = dict(quant.launch_counts)
+    # bounds: bf16 outputs one rounding (2^-8 relative) from fp32 values
+    # summed in another order (the reduce-scatter adds two rounded
+    # partials); the int8 all-gather's fp32 output against the plain
+    # quantizer's chunks: one bf16 rounding of its scale (the kernels and
+    # the plain version quantize alike, the products differ in order only);
+    # the int8 reduce-scatter: half a quantization step of the one hop's
+    # partial sum (absmax / 254, ops/quant.py)
+    pmax = float(comm.all_reduce(part.abs().amax().reshape(1), "tp", op="max"))
+    out["ag_exact_bound"] = 2 ** -7 * float(ag_ref.abs().max())
+    out["rs_exact_bound"] = 2 ** -6 * max(pmax, float(rs_ref.abs().max()))
+    out["ag_int8_bound"] = 2 ** -8 * float(ag_q_ref.abs().max())
+    out["rs_int8_bound"] = pmax / 254 + 2 ** -7 * pmax + 1e-5
+    for wire in ("exact", "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            cm.all_gather_matmul(x, w, "tp", wire_dtype=wire)
+            cm.matmul_reduce_scatter(hid, wd, "tp", wire_dtype=wire)
+        torch.cuda.synchronize()
+        out[f"ms_{wire}"] = (time.perf_counter() - t0) / 5 * 1e3
+    return out
+
+
+def tp_loss_shard(rank, tp, T, E, vloc):
+    """(a)'s fused-loss kernels on this rank's vocab shard at the main
+    path's shape (``T`` tokens, hidden ``E``, shard ``vloc``, bf16) with
+    global target ids shifted by ``rank * vloc``, as
+    ``fused_vocab_nll(axis_name="tp")`` shifts them (on rank 0 half of them
+    past the shard, on rank 1 half negative), against their plain versions
+    on the same inputs: lse, the target logit, dh and dK (the mean loss's
+    cotangents through the cross-rank combine), the first and last dl
+    chunks (where a clamped id would land); the target logit of every
+    out-of-shard id exactly 0; and ``fused_vocab_nll``'s combined per-token
+    NLL against the plain NLL over the whole gathered head."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import fused_loss as fl
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2600)                      # the same tokens on both ranks
+    h = torch.randn(T, E, generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.randint(0, vloc * tp, (T,), generator=gen, device="cuda", dtype=torch.int32)
+    k_full = (0.02 * torch.randn(E, vloc * tp, generator=gen, device="cuda")).to(torch.bfloat16)
+    k = k_full[:, rank * vloc:(rank + 1) * vloc].contiguous()
+    tl = t - rank * vloc
+    outside = (tl < 0) | (tl >= vloc)
+    lse, tgt = fl.fused_nll_forward(h, k, tl)
+    lse_r, tgt_r = fl.fused_nll_fwd_ref(h, k, tl)
+    m = comm.all_reduce(lse_r.clone(), "tp", op="max")
+    logz = torch.log(comm.all_reduce(torch.exp(lse_r - m), "tp")) + m
+    g_lse = torch.exp(lse_r - logz) / T
+    g_tgt = torch.full_like(lse_r, -1.0 / T)
+    dh, dk = fl.fused_nll_backward(h, k, tl, lse_r, g_lse, g_tgt)
+    dh_r, dk_r = fl.fused_nll_bwd_ref(h, k, tl, lse_r, g_lse, g_tgt)
+    e = {"lse": scaled_err(lse, lse_r), "tgt": scaled_err(tgt, tgt_r),
+         "dh": scaled_err(dh, dh_r), "dk": scaled_err(dk, dk_r)}
+    kvt, base = fl._layout(k)
+    vc = fl.chunk_width(T, vloc, h.element_size())
+    ws = torch.empty((T, vc), dtype=h.dtype, device="cuda")
+    for name, v0 in (("dl_first", 0), ("dl_last", (vloc - 1) // vc * vc)):
+        width = min(vc, vloc - v0)
+        fl.launch_dlogits(h, base, tl, lse_r, g_lse, g_tgt, ws, v0, width, kvt,
+                          fl.loss_route(h, base))
+        e[name] = scaled_err(ws[:, :width], fl.fused_dlogits_ref(h, k, tl, lse_r, g_lse,
+                                                                 g_tgt, v0, width))
+    lse_f, tgt_f = fl.fused_nll_fwd_ref(h, k_full, t)
+    e["nll"] = scaled_err(fl.fused_vocab_nll(h, k, t, axis_name="tp"), lse_f - tgt_f)
+    torch.cuda.synchronize()
+    return {"errs": e, "outside": int(outside.sum()), "negative": int((tl < 0).sum()),
+            "tgt_zero_outside": bool((tgt[outside] == 0).all()),
+            "route": fl.loss_route(h, base)}
+
+
+def tp_decode(rank, tp):
+    """(c) in a tp world: the five TP decode functions at Llama-2-7B's widths
+    (32 sequences, hidden 4096, vocab 32000, bf16) against the dense
+    products; ``tp_greedy_token`` against the dense argmax."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference.v2 import model as tmodel
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(260 + rank)
+    S, H, V = TP_DECODE["seqs"], TP_DECODE["hidden"], TP_DECODE["vocab"]
+    bf = torch.bfloat16
+    x = torch.randn((S // tp, H), generator=gen, device="cuda").to(bf)
+    wqkv = (torch.randn((H, 3 * H // tp), generator=gen, device="cuda") / H ** 0.5).to(bf)
+    attn = torch.randn((S, H // tp), generator=gen, device="cuda").to(bf)
+    wo = (torch.randn((H // tp, H), generator=gen, device="cuda") / H ** 0.5).to(bf)
+    wv = (torch.randn((H, V // tp), generator=gen, device="cuda") / H ** 0.5).to(bf)
+    x_full = comm.all_gather(x, "tp", gather_dim=0)
+    part = attn.float() @ wo.float()
+    dense = {"matmul": (x_full @ wqkv).float(),
+             "logits": (x_full @ wv).float(),
+             "out": comm.all_reduce(part.clone(), "tp").narrow(0, rank * (S // tp), S // tp)}
+    scale = {k: float(v.abs().max()) for k, v in dense.items()}
+    scale["out"] = max(scale["out"], float(comm.all_reduce(part.abs().amax().reshape(1),
+                                                           "tp", op="max")))
+    out = {"impl": tmodel.resolve_decode_tp_impl("tp", x.shape, x.dtype)}
+    for impl in ("xla", "fused_matmul"):
+        got = {"matmul": tmodel.tp_decode_matmul(x, wqkv, "tp", impl=impl),
+               "out": tmodel.tp_decode_out_proj(attn, wo, "tp", impl=impl),
+               "logits": tmodel.tp_decode_logits(x, wv, "tp", impl=impl)}
+        for k, v in got.items():
+            out[f"{k}_{impl}"] = float((v.float() - dense[k]).abs().max())
+            out[f"{k}_{impl}_bound"] = 2 ** -6 * scale[k]
+        full = comm.all_gather(got["logits"].contiguous(), "tp", gather_dim=1)
+        greedy = tmodel.tp_greedy_token(got["logits"], "tp")
+        out[f"greedy_{impl}"] = bool(torch.equal(greedy.long(), full.float().argmax(-1)))
+    return out
+
+
+def tp_child(rank: int, workdir: Path) -> int:
+    """One rank of phase 26's world (workdir/spec.json): (a) trains
+    ``steps`` steps at tp 2 from seeded weights (an init closure on the
+    card; the engine slices each leaf to this rank's shard), then the
+    fused-loss kernels on its vocab shard against their plain versions
+    (``tp_loss_shard``), (b) and (c); writes losses, step times, peak
+    memory, every kernel's launches and routes on the training steps,
+    whether each whole (replicated) leaf equals rank 0's bitwise, and the
+    checks' numbers to workdir/out_<rank>.json."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm, zero
+    from deepspeed_tpu_torch.models import TransformerLM, init_params, make_loss_fn
+    from deepspeed_tpu_torch.models.convert import _nest, param_shapes
+    from deepspeed_tpu_torch.ops import flash_attention, fused_adam, fused_loss, quant
+
+    spec = json.loads((workdir / "spec.json").read_text())
+    comm.init_distributed(dist_backend=spec["backend"], init_method=f"file://{workdir}/store",
+                          rank=rank, world_size=spec["world"], timeout=900)
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references: no TF32
+    cfg = tp_model(spec)
+    dp = spec["world"] // spec["tp"]
+    batch = dp_batch(cfg, spec["micro"] * dp, spec["seq"])
+    meta = _nest({k: torch.empty(s, device="meta") for k, s in param_shapes(cfg).items()})
+    init = zero.Init(lambda: init_params(cfg, seed=0, device="cuda", dtype=torch.float32))
+    engine, *_ = dst.initialize(model=make_loss_fn(TransformerLM(cfg, meta)),
+                                model_parameters=init,
+                                config=dict(TP_CONFIG, train_micro_batch_size_per_gpu=spec["micro"]))
+    kernels = (flash_attention, fused_adam, fused_loss, quant)
+    for k in kernels:
+        k.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(spec["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {}
+    for k in kernels:
+        launches.update(k.launch_counts)
+    routes = {"flash": {k: dict(v) for k, v in flash_attention.route_counts.items()},
+              "loss_fwd": dict(fused_loss.fwd_route_counts),
+              "loss_bwd": dict(fused_loss.route_counts)}
+    peak = torch.cuda.max_memory_allocated()
+    same, n_params = True, 0
+    for p, d in zip(engine._masters, engine._tp_dims):
+        n_params += p.numel() * (1 if d is None else spec["tp"])
+        if d is None:
+            same &= torch.equal(p, comm.broadcast(p.detach().clone(), src=0))
+    same = torch.tensor([int(same)], device="cuda")
+    comm.all_reduce(same, op="min")
+    vloc = [p.shape for path, p in zip(engine._paths, engine._masters)
+            if path == "lm_head/kernel"][0][1]
+    del engine, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"losses": losses, "times": times, "launches": launches, "routes": routes,
+           "peak": peak, "replicated_equal": bool(same.item()), "params": n_params,
+           "vocab_shard": vloc, "tp_rank": comm.axis_index("tp")}
+    out["loss_shard"] = tp_loss_shard(rank, spec["tp"], spec["micro"] * spec["seq"],
+                                      cfg.hidden_size, vloc)
+    out["rings"] = tp_rings(rank, spec["tp"])
+    out["decode"] = tp_decode(rank, spec["tp"])
+    (workdir / f"out_{rank}.json").write_text(json.dumps(out))
+    comm.barrier()
+    comm.destroy_process_group()
+    return 0
+
+
+def tp_phase(card):
+    """Phase 26: TP_SPEC's world (tp_child) and its gates, and the first
+    loss against a tp 1 run of the same weights and batches in this
+    process. Returns the world's kernel launches on rank 0 ((a)'s, and
+    (b)'s quant launches)."""
+    import shutil
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import TransformerLM, init_params, make_loss_fn
+    from deepspeed_tpu_torch.ops.fused_loss import chunk_width
+
+    spec = TP_SPEC
+    workdir = REPO / "build" / "tp_smoke"
+    t0 = time.perf_counter()
+    ranks = run_dp_world(spec, workdir, child="--tp-child")
+    wall = time.perf_counter() - t0
+    cfg = tp_model(spec)
+    gas, steps = TP_CONFIG["gradient_accumulation_steps"], spec["steps"]
+    r0 = ranks[0]
+    # the tp 1 reference: the same weights and batches in one process
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    ref_cfg = dataclasses.replace(cfg, vocab_parallel_loss=False)
+    engine, *_ = dst.initialize(
+        model=make_loss_fn(TransformerLM(ref_cfg, params)), model_parameters=params,
+        config=dict(TP_CONFIG, tensor_parallel={"enabled": False},
+                    train_micro_batch_size_per_gpu=spec["micro"]))
+    batch = dp_batch(cfg, spec["micro"], spec["seq"])
+    ref = float(engine.train_batch(batch))
+    del engine, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = gas * spec["micro"] * spec["seq"] * (spec["world"] // spec["tp"])
+    vloc = r0["vocab_shard"]
+    chunks = -(-vloc // chunk_width(spec["micro"] * spec["seq"], vloc, 2))
+    want = {k: cfg.num_layers * gas * steps for k in FLASH_NAMES}
+    want.update(fused_adam=steps, fused_loss_fwd=gas * steps,
+                fused_loss_fwd_combine=gas * steps)
+    for k in ("fused_loss_dlogits", "fused_loss_dh", "fused_loss_dk"):
+        want[k] = gas * steps * chunks
+    losses = r0["losses"]
+    step_s = sum(r0["times"][1:]) / (steps - 1)
+    p_full = r0["params"]
+    rings, dec = [r["rings"] for r in ranks], [r["decode"] for r in ranks]
+    checks = {
+        "losses finite, falling, one value on both ranks": (
+            all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and all(r["losses"] == losses for r in ranks)),
+        f"first loss within 1e-3 |ref| of the tp 1 run ({ref:.6f})": (
+            abs(losses[0] - ref) <= 1e-3 * abs(ref)),
+        "every replicated leaf bitwise equal on both ranks": all(
+            r["replicated_equal"] for r in ranks),
+        f"launches a rank exactly {want}": all(
+            r["launches"][k] == w for r in ranks for k, w in want.items()),
+        "flash and the fused loss on wgmma": all(
+            r["routes"]["flash"][k]["mma_sync"] == 0 and r["routes"]["flash"][k]["wgmma"] > 0
+            for r in ranks for k in FLASH_NAMES) and all(
+            r["routes"]["loss_fwd"]["mma_sync"] == r["routes"]["loss_bwd"]["mma_sync"] == 0
+            and r["routes"]["loss_bwd"]["wgmma"] == 3 * gas * steps * chunks for r in ranks),
+        f"the head is a vocab shard of {cfg.vocab_size // spec['tp']}": (
+            vloc == cfg.vocab_size // spec["tp"]),
+        "(a) fused-loss kernels on the shard with shifted ids against their plain "
+        "versions (lse / tgt / NLL rel 1e-4, dl / dh / dK rel 2e-2), on wgmma": all(
+            all(r["loss_shard"]["errs"][k][1] <= (1e-4 if k in ("lse", "tgt", "nll") else 2e-2)
+                for k in r["loss_shard"]["errs"]) and r["loss_shard"]["route"] == "wgmma"
+            for r in ranks),
+        "(a) the target logit of every out-of-shard id is 0 (rank 1: negative ids)": all(
+            r["loss_shard"]["tgt_zero_outside"] and r["loss_shard"]["outside"] > 0
+            for r in ranks) and ranks[1]["loss_shard"]["negative"] > 0,
+        "(b) rings exact within bf16 rounding, int8 within the block-quant bound": all(
+            r[f"{op}_{w}"] <= r[f"{op}_{w}_bound"] for r in rings
+            for op in ("ag", "rs") for w in ("exact", "int8")),
+        "(b) the int8 wire launched the quant kernels": all(
+            r["quant_launches"]["quantize_int8"] > 0 and r["quant_launches"]["dequantize_int8"] > 0
+            for r in rings),
+        "(c) TP decode projections within bf16 rounding of the dense products": all(
+            d[f"{k}_{i}"] <= d[f"{k}_{i}_bound"] for d in dec
+            for k in ("matmul", "out", "logits") for i in ("xla", "fused_matmul")),
+        "(c) tp_greedy_token equals the dense argmax": all(
+            d["greedy_xla"] and d["greedy_fused_matmul"] for d in dec),
+        "(c) no planner: the decode row gather resolves to xla": all(
+            d["impl"] == "xla" for d in dec),
+    }
+    log(f"tp [{card}]: TinyLlama-1.1B widths, {cfg.num_layers} layers, tp 2 (two ranks on "
+        f"cuda:0 over gloo), micro {spec['micro']} x {spec['seq']}, gas {gas}: losses "
+        f"{losses}; tp 1 first loss {ref}; step {step_s * 1e3:.1f} ms "
+        f"(steps 2-{steps}, times {[round(t, 4) for t in r0['times']]}), "
+        f"{tokens / step_s:.1f} tokens/s; peak per rank "
+        f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB beside 18P / 2 = "
+        f"{18 * p_full / 2 / 2**30:.3f} GiB (P {p_full}); world wall {wall:.1f} s")
+    log(f"tp: launches a rank {r0['launches']}; routes {r0['routes']}; vocab shard {vloc}, "
+        f"{chunks} backward chunks")
+    log("tp (a) fused-loss kernels on the vocab shard, shifted ids: " + "; ".join(
+        f"rank {i} route {r['loss_shard']['route']}, {r['loss_shard']['outside']} ids "
+        f"outside ({r['loss_shard']['negative']} negative), tgt 0 on them "
+        f"{r['loss_shard']['tgt_zero_outside']}, " + ", ".join(
+            f"{k} max|err|={a:.3e} (rel {q:.2e})" for k, (a, q) in r["loss_shard"]["errs"].items())
+        for i, r in enumerate(ranks)))
+    log(f"tp (b) rings at tokens {TP_RING['tokens']}, hidden {TP_RING['hidden']}, ffn "
+        f"{TP_RING['ffn']} (bf16): " + "; ".join(
+            f"rank {i} {r}" for i, r in enumerate(rings)))
+    log(f"tp (c) decode at Llama-2-7B widths ({TP_DECODE}): " + "; ".join(
+        f"rank {i} {d}" for i, d in enumerate(dec)))
+    log("tp: " + ", ".join(f"{k}: {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not all(checks.values()):
+        raise SystemExit("tp phase FAILED")
+    out = dict(r0["launches"])
+    for k in ("quantize_int8", "dequantize_int8"):
+        out[k] = out.get(k, 0) + r0["rings"]["quant_launches"][k]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6508,6 +6908,8 @@ def main() -> int:
                     help="with --cards 4: only Llama-2-7B at ZeRO stage 3")
     ap.add_argument("--dp-child", nargs=2, metavar=("RANK", "WORKDIR"),
                     help=argparse.SUPPRESS)   # one rank of a dp world, started by it
+    ap.add_argument("--tp-child", nargs=2, metavar=("RANK", "WORKDIR"),
+                    help=argparse.SUPPRESS)   # one rank of phase 26's tp world
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6520,6 +6922,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if args.dp_child:
         return dp_child(int(args.dp_child[0]), Path(args.dp_child[1]))
+    if args.tp_child:
+        return tp_child(int(args.tp_child[0]), Path(args.tp_child[1]))
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import fused_adam as adam
@@ -6639,8 +7043,8 @@ def main() -> int:
     # phase 11: data-parallel training, the compressed gradient all-reduce
     # and ZeRO stages 1-3
     launches.update(timed("11 data parallel", dp_phase, card))
-    # phase 18: ZeRO-3 at 11 layers, two ranks on one card
-    timed("18 zero3 (TinyLlama-1.1B, 11 layers)", zero3_phase, card)
+    # phase 18: ZeRO-3 at 6 layers, two ranks on one card
+    timed("18 zero3 (TinyLlama-1.1B, 6 layers)", zero3_phase, card)
     # phase 19: ZeRO-Offload at full size on one card
     launches.update(timed("19 offload", offload_phase, card, cpu_model))
     # phase 20: the engine's remainder ((d) ran in phase 11's world)
@@ -6682,6 +7086,15 @@ def main() -> int:
     timed("25 (b) a subprocess replica: zero-probe join across a process, streams, "
           "SIGKILL takeover (Llama-2-7B widths, 8 layers)", subproc_phase, pa, card,
           join["impl"])
+    # phase 26: tensor parallelism (the tp path's launches add to the rows'
+    # counts: the fused loss on a vocab shard, the quant kernels on the
+    # rings' int8 wire)
+    tp = timed("26 tensor parallelism: TinyLlama-1.1B widths at tp 2, the rings, TP decode",
+               tp_phase, card)
+    log(f"tp launches added to the kernels line: {tp}")
+    for k, n in tp.items():
+        if k in launches:
+            launches[k] += n
 
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"

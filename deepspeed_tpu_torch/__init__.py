@@ -31,12 +31,18 @@ its layout and public names module by module. Three paths are ported:
   seeded per micro-batch by the engine, ``frozen_params``, an optimizer
   factory, and ``runtime.dataloader.PrefetchLoader``.
 
+* tensor parallelism — ``tensor_parallel.tp_size`` > 1: each leaf sliced
+  to its rank by a rule pack (``sharding``), the model laid out Megatron-
+  style (``parallel.tensor_parallel``), the vocab-parallel fused loss, the
+  ring collective matmuls (``ops.collective_matmul``) over ``comm.ppermute``,
+  ZeRO 0-1 over the dp group, the TP decode projections.
+
 Entry points take a ``device`` argument that defaults to ``"cuda"``; the
 plain PyTorch versions of the kernels run only when the caller passes
 ``device="cpu"``.
 """
 
-from . import comm
+from . import comm, sharding
 from .comm import init_distributed
 from .runtime import activation_checkpointing as checkpointing
 from .runtime import zero
@@ -46,6 +52,9 @@ from .version import __version__
 
 # reference name for the engine class (deepspeed/__init__.py:24)
 DeepSpeedEngine = DeepSpeedTPUEngine
+
+# AutoTP: an HF-shaped checkpoint -> a tensor-parallel engine (sharding/autotp.py)
+autotp_initialize = sharding.autotp_initialize
 
 
 def add_config_arguments(parser):
@@ -62,5 +71,6 @@ def add_config_arguments(parser):
 
 
 __all__ = ["DeepSpeedEngine", "DeepSpeedTPUConfig", "DeepSpeedTPUEngine",
-           "TrainState", "add_config_arguments", "checkpointing", "comm",
+           "TrainState", "add_config_arguments", "autotp_initialize", "checkpointing",
+           "comm", "sharding",
            "init_distributed", "initialize", "load_config", "version", "zero"]

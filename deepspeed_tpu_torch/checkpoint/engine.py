@@ -109,11 +109,24 @@ class TorchCheckpointEngine(CheckpointEngine):
 
     def load(self, path: str, template: Any = None, shardings: Any = None) -> Any:
         """The saved tree (``torch.load`` keeps its structure, so
-        ``template`` is not needed); ``shardings`` (a sharded restore) is the
-        parallelism side paths' work."""
-        if shardings is not None:
-            raise NotImplementedError("a sharded restore (shardings=...) is not ported yet: "
-                                      "ROADMAP.md Queue A item 8 (parallelism side paths)")
+        ``template`` is not needed). ``shardings``: a tree of the same
+        structure whose leaves are specs (tuples of axis names per dim, e.g.
+        ``(None, "tp")``; None or ``()`` keeps a leaf whole): each leaf is
+        sliced to this rank's part along each axis of the live topology
+        (JAX: the restore lays the global arrays out on the new shardings,
+        so a tag written at one topology loads under any other)."""
+        tree = self._read(path)
+        if shardings is None:
+            return tree
+        from ..module_inject.auto_tp import _flatten, _is_spec, unflatten
+
+        spaths, specs, _ = _flatten(shardings, is_leaf=lambda x: x is None or _is_spec(x))
+        paths, leaves, treedef = _flatten(tree)
+        by_path = dict(zip(spaths, specs))
+        return unflatten(treedef, [_slice_to_rank(x, by_path.get(p)) for p, x in
+                                   zip(paths, leaves)])
+
+    def _read(self, path: str) -> Any:
         target = os.path.join(path, STATE_FILE)
         if not os.path.exists(target):
             what = ("an orbax directory (a JAX package checkpoint), which the port "
@@ -135,6 +148,31 @@ class TorchCheckpointEngine(CheckpointEngine):
 # restart-recovery — must be able to rendezvous with it.
 _PENDING_COMMITS: Dict[str, threading.Thread] = {}
 _PENDING_LOCK = threading.Lock()
+
+
+def _slice_to_rank(x, spec):
+    """This rank's part of ``x`` under ``spec`` (axis names per dim,
+    resolved on the live topology): each split dim narrowed to the rank's
+    contiguous block."""
+    if spec is None or not isinstance(x, torch.Tensor):
+        return x
+    from .. import comm
+    from ..parallel.topology import get_topology
+
+    topo = get_topology()
+    for dim, entry in enumerate(tuple(spec)):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        size = topo.axis_size(*names)
+        if size == 1:
+            continue
+        if x.shape[dim] % size:
+            raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not split over "
+                             f"{names} of size {size}")
+        n = x.shape[dim] // size
+        x = x.narrow(dim, comm.axis_index(names) * n, n)
+    return x.contiguous()
 
 
 def wait_pending_commits(ckpt_dir: str) -> None:
@@ -192,8 +230,8 @@ def read_latest_tag(ckpt_dir: str) -> Optional[str]:
 
 def _state_to_tree(engine, keep) -> Dict[str, Any]:
     """The state in the stage-0 layout. At ZeRO stages 1-3 over several
-    ranks this gathers (every rank calls it) and passes each gathered tensor
-    through ``keep``."""
+    ranks, and over tp > 1, this gathers (every rank calls it) and passes
+    each gathered tensor through ``keep``."""
     s = engine.state
     ls = s.loss_scale
     params, opt_state = s.params, s.opt_state
@@ -201,6 +239,14 @@ def _state_to_tree(engine, keep) -> Dict[str, Any]:
         params = engine._tree([keep(engine._full_param(i))
                                for i in range(len(engine._zero.shapes))])
         opt_state = engine._full_opt_state(keep)
+    elif engine._tp_dims is not None:
+        # tp > 1: every split leaf (and its optimizer state) gathered whole
+        params = engine._tree([keep(engine._full_param(i))
+                               for i in range(len(engine._masters))])
+        leaves, spec = pytree.tree_flatten(opt_state)
+        opt_state = pytree.tree_unflatten(
+            [x if i is None else keep(engine._tp_gather(i, x))
+             for x, i in zip(leaves, engine._state_owners(opt_state))], spec)
     return {"step": int(s.step), "rng_draws": engine._rng_draws, "params": params,
             "opt_state": {"leaves": pytree.tree_leaves(opt_state)},
             "loss_scale": {"scale": float(ls.scale), "good_steps": int(ls.good_steps),
@@ -242,7 +288,8 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         "global_steps": engine.global_steps,
         "skipped_steps": engine.skipped_steps,
         "config": engine.config.to_dict(),
-        "topology": {"pp": 1, "dp": engine.dp_world, "ep": 1, "sp": 1, "tp": 1},
+        "topology": {"pp": 1, "dp": engine.dp_world, "ep": 1, "sp": 1,
+                     "tp": engine.topo.tp_size},
         "client_state": client_state or {},
     }
     sampler = getattr(engine, "data_sampler", None)
@@ -305,7 +352,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if saved_spec != engine._spec:
         raise ValueError(f"checkpoint {path}: its parameter tree does not match the "
                          "engine's")
-    if engine._zero is not None:
+    if engine._zero is not None or engine._tp_dims is not None:
         for i, src in enumerate(saved):
             engine._set_full_param(i, src)
     else:
@@ -320,6 +367,10 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
             if len(leaves) != len(cur):
                 raise ValueError(f"checkpoint {path}: optimizer state has {len(leaves)} "
                                  f"leaves, the engine's {len(cur)}")
+            if engine._tp_dims is not None:
+                owners = engine._state_owners(engine.state.opt_state)
+                leaves = [src if o is None else engine._tp_slice(o, src)
+                          for src, o in zip(leaves, owners)]
             new = []
             for i, (dst, src) in enumerate(zip(cur, leaves)):
                 if isinstance(dst, torch.Tensor):

@@ -14,6 +14,14 @@ reduce into their argument in place and return it (PyTorch idiom: the flat
 gradient buffer is reduced where it lies); the others return new tensors.
 A mean is a sum followed by a division, since gloo has no ``AVG``.
 
+``ppermute`` (and the ring shifts ``send_next_recv_prev`` /
+``send_prev_recv_next``) is one batch of ``isend`` / ``irecv`` over the
+axis's group; ``ppermute_start`` returns it in flight, so a ring collective
+(``ops/collective_matmul.py``) issues the next hop before the resident
+chunk's product. gloo carries only host tensors point to point: a CUDA
+tensor over a gloo group is staged through pinned host buffers, each copy
+an entry ``ppermute_host_stage`` in the ledger.
+
 Every collective appends one entry to the comms ledger
 (``utils/comms_logging.py``) when it is enabled (``configure``).
 
@@ -40,11 +48,6 @@ from ..utils.logging import logger
 Axis = Union[None, str, Sequence[str], "dist.ProcessGroup"]
 
 _COMMS_LOGGER = CommsLogger()
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue A item 8 "
-                               "(pipeline and model parallelism)")
 
 
 def get_comms_logger() -> CommsLogger:
@@ -579,16 +582,122 @@ def log_chunked(op: str, nbytes: int, wire_bytes: Optional[int] = None,
     record_launch(op, shape=(int(nbytes),), axes=_axes_names(axes), impl="ring")
 
 
-def ppermute(x, axis, perm):
-    raise _not_ported("ppermute (pipeline point-to-point)")
+def _p2p_stage(x: torch.Tensor, group) -> bool:
+    """Whether a point-to-point transfer of ``x`` goes through host memory:
+    gloo carries only host tensors point to point, so a CUDA tensor over a
+    gloo group (two ranks sharing a card) is staged through pinned host
+    buffers, one copy each way, each counted in the comms ledger."""
+    backend = dist.get_backend(group) if group is not None else dist.get_backend()
+    return x.is_cuda and backend == "gloo"
 
 
-def send_next_recv_prev(x, axis):
-    raise _not_ported("send_next_recv_prev (pipeline point-to-point)")
+class PendingPermute:
+    """A ppermute in flight (:func:`ppermute_start`): ``wait()`` returns the
+    received tensor. The ring collectives start the next hop, run the
+    resident chunk's product, then wait."""
+
+    def __init__(self, out, works, finish):
+        self._out, self._works, self._finish = out, works, finish
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        self._works = []
+        if self._finish is not None:
+            self._finish()
+            self._finish = None
+        return self._out
 
 
-def send_prev_recv_next(x, axis):
-    raise _not_ported("send_prev_recv_next (pipeline point-to-point)")
+def ppermute_start(x: torch.Tensor, axis: Axis, perm) -> PendingPermute:
+    """Start one point-to-point permutation of ``x`` over ``axis`` (no
+    autograd, no ledger entry): this rank sends to every ``dst`` of a
+    ``(me, dst)`` pair and receives from the ``src`` of a ``(src, me)``
+    pair; a rank that receives nothing gets zeros (``lax.ppermute``)."""
+    size = get_world_size(axis)
+    perm = [(int(s), int(d)) for s, d in perm]
+    for s, d in perm:
+        if not (0 <= s < size and 0 <= d < size):
+            raise ValueError(f"ppermute pair {(s, d)} outside an axis of size {size}")
+    if len({s for s, _ in perm}) != len(perm) or len({d for _, d in perm}) != len(perm):
+        raise ValueError(f"ppermute perm {perm} repeats a source or a destination")
+    me = axis_index(axis)
+    x = x.contiguous()
+    sends = [d for s, d in perm if s == me]
+    srcs = [s for s, d in perm if d == me]
+    out = torch.zeros_like(x)
+    if srcs == [me]:
+        out.copy_(x)
+    remote_send = [d for d in sends if d != me]
+    remote_recv = [s for s in srcs if s != me]
+    if not (remote_send or remote_recv):
+        return PendingPermute(out, [], None)
+    group = _group(axis)
+    peer = (lambda r: r) if group is None else (lambda r: dist.get_global_rank(group, r))
+    send_buf, recv_buf = x, out
+    if _p2p_stage(x, group):
+        if remote_send:
+            send_buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            send_buf.copy_(x)
+            _COMMS_LOGGER.append("ppermute_host_stage", _nbytes(x))
+        if remote_recv:
+            recv_buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    ops = [dist.P2POp(dist.isend, send_buf, peer(d), group) for d in remote_send]
+    ops += [dist.P2POp(dist.irecv, recv_buf, peer(s), group) for s in remote_recv]
+    works = dist.batch_isend_irecv(ops)
+    finish = None
+    if remote_recv and recv_buf is not out:
+        def finish():
+            out.copy_(recv_buf)
+            _COMMS_LOGGER.append("ppermute_host_stage", _nbytes(x))
+    return PendingPermute(out, works, finish)
+
+
+def _ppermute_raw(x: torch.Tensor, axis: Axis, perm) -> torch.Tensor:
+    return ppermute_start(x, axis, perm).wait()
+
+
+class _PPermute(torch.autograd.Function):
+    """ppermute with its transpose as the backward: the gradient travels the
+    inverse permutation (``lax.ppermute``'s transpose rule)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, perm):
+        ctx.axis, ctx.perm = axis, perm
+        return _ppermute_raw(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute_raw(g, ctx.axis, [(d, s) for s, d in ctx.perm]), None, None
+
+
+def ppermute(x: torch.Tensor, axis: Axis, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Point-to-point permutation over ``axis`` (reference p2p ``send`` /
+    ``recv``, ``runtime/pipe/p2p.py``): for each ``(src, dst)`` of ``perm``
+    (indices along the axis) ``dst`` receives ``src``'s ``x``, and a rank
+    that receives nothing gets zeros. One batch of ``isend`` / ``irecv``
+    over the axis's group; differentiable (the gradient takes the inverse
+    permutation)."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    with timed_op(_COMMS_LOGGER, "ppermute", _nbytes(x)):
+        if torch.is_grad_enabled() and x.requires_grad:
+            out = _PPermute.apply(x, axis, perm)
+        else:
+            out = _ppermute_raw(x, axis, perm)
+    return out
+
+
+def send_next_recv_prev(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Ring shift by +1 over the axis (pipeline forward sends): rank i
+    receives rank i - 1's ``x``."""
+    n = get_world_size(axis)
+    return ppermute(x, axis, [(i, (i + 1) % n) for i in range(n)])
+
+
+def send_prev_recv_next(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Ring shift by -1: rank i receives rank i + 1's ``x``."""
+    n = get_world_size(axis)
+    return ppermute(x, axis, [(i, (i - 1) % n) for i in range(n)])
 
 
 # ---------------------------------------------------------------------------

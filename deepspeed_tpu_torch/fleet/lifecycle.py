@@ -87,6 +87,21 @@ def serving_space_signature() -> str:
     return space_signature(SERVING_SPACE_DIMS, SERVING_SPACE_METRIC)
 
 
+def serving_winner_signature(engine) -> str:
+    """The key a serving winner is stored under inside one mesh's file: the
+    search space and the served model's widths, depth and KV dtype, so a
+    winner timed on one model is never applied to another (the JAX key,
+    ``serving_space_signature``, holds the space only)."""
+    from ..control.winners import space_signature
+
+    cfg = engine.cfg
+    model = (f"L{cfg.num_layers}-H{cfg.hidden_size}-h{cfg.num_heads}"
+             f"-kv{cfg.kv_heads}-d{cfg.head_dim}-V{cfg.vocab_size}"
+             f"-{str(engine.kv.k.dtype).replace('torch.', '')}")
+    return space_signature({**SERVING_SPACE_DIMS, "model": model},
+                           SERVING_SPACE_METRIC)
+
+
 @dataclass
 class WarmReport:
     """What one replica's warm-up actually did — the evidence the
@@ -266,12 +281,23 @@ class ReplicaHandle:
             self.report.warm_tokens += self._run_decode(engine, chunk,
                                                         self.warm_new_tokens)
 
-    def _run_decode(self, engine, chunk: int, new_tokens: int) -> int:
-        """Prefill one probe sequence, then decode ``new_tokens`` via the
-        requested path (fused chunks when ``chunk > 1``, packed
+    def _probe_sequences(self, engine) -> int:
+        """Sequences in flight while a candidate is timed: as many as the
+        server admits at once (its scheduler's cap, at most the engine's
+        ragged slots), and never fewer than two (the JAX probe times one)."""
+        slots = int(engine.config.max_ragged_sequence_count)
+        sched = getattr(self.server, "scheduler", None)
+        cap = int(getattr(sched, "max_inflight", slots) or slots)
+        return max(2, min(slots, cap))
+
+    def _run_decode(self, engine, chunk: int, new_tokens: int,
+                    n_seqs: int = 1) -> int:
+        """Prefill ``n_seqs`` probe sequences, then decode ``new_tokens``
+        each via the requested path (fused chunks when ``chunk > 1``, packed
         single-token steps otherwise). Returns tokens generated."""
-        uid = 1_000_000 + self.replica_id
-        engine.put([uid], [self._warm_prompt()], max_new_tokens=new_tokens)
+        uids = [1_000_000 + 1000 * self.replica_id + i for i in range(n_seqs)]
+        engine.put(uids, [self._warm_prompt()] * n_seqs,
+                   max_new_tokens=new_tokens)
         while any(s.in_prefill for s in engine.state_manager.all()
                   if not s.done):
             engine.step()
@@ -279,11 +305,13 @@ class ReplicaHandle:
                 break
         produced = 0
         while True:
-            seq = engine.state_manager.get(uid)
-            if seq is None or seq.done or produced >= new_tokens:
+            live = [s for s in map(engine.state_manager.get, uids)
+                    if s is not None and not s.done]
+            if not live or produced >= new_tokens * n_seqs:
                 break
             if chunk > 1 and hasattr(engine, "decode_batch"):
-                out = engine.decode_batch(min(chunk, new_tokens - produced))
+                left = max(new_tokens - len(s.generated) for s in live)
+                out = engine.decode_batch(min(chunk, max(1, left)))
                 produced += sum(len(t) for t in (out or {}).values())
                 if not out:
                     break
@@ -292,7 +320,8 @@ class ReplicaHandle:
                 produced += len(out or {})
                 if engine.last_num_scheduled == 0 and not out:
                     break
-        engine.flush(uid)
+        for uid in uids:
+            engine.flush(uid)
         return produced
 
     def _apply_winner(self) -> None:
@@ -311,7 +340,7 @@ class ReplicaHandle:
 
             fp = MeshFingerprint.capture()
             cache = WinnerCache(self.autotune_cache_dir)
-            sig = serving_space_signature()
+            sig = serving_winner_signature(engine)
             hit = cache.lookup(fp, sig)
         except Exception as e:
             logger.warning(f"fleet: winner cache unavailable "
@@ -328,13 +357,16 @@ class ReplicaHandle:
                         f"serving winner {hit.get('winner')!r} "
                         f"(fused_decode_chunk={chunk}) — zero probes")
             return
-        # miss: probe once, on the warm engine, BEFORE taking traffic
+        # miss: probe once, on the warm engine, BEFORE taking traffic, with
+        # the server's batch in flight
         timings: Dict[str, float] = {}
+        n_seqs = self._probe_sequences(engine)
         for name in SERVING_SPACE_DIMS["fused_decode_chunk"]:
             chunk = _CHUNK_OF[name]
-            self._run_decode(engine, chunk, self.probe_new_tokens)  # compile
+            self._run_decode(engine, chunk, self.probe_new_tokens, n_seqs)  # compile
             t0 = self.clock()
-            produced = self._run_decode(engine, chunk, self.probe_new_tokens)
+            produced = self._run_decode(engine, chunk, self.probe_new_tokens,
+                                        n_seqs)
             dt = max(1e-9, self.clock() - t0)
             timings[name] = produced / dt
             self.report.autotune_probes += 1

@@ -48,8 +48,6 @@ from ...ops.paged_attention import (NEG_INF, attention_over_pages,
 from ...ops.paged_attention import paged_attention as paged_attention_kernel
 from ...ops.quant import quantize_rows
 
-_LEFT_OUT = "is not ported yet: ROADMAP.md Queue A item {}"
-
 
 def exact_fp32() -> None:
     """Full-precision fp32 matmuls and convolutions (no TF32): the fp32
@@ -540,15 +538,90 @@ def decode_loop(params, cfg: TransformerConfig, kv_k, kv_v, tokens0, pos0,
 
 
 # ---------------------------------------------------------------------------
-# TP-sharded decode projections (JAX model.py:612-707) wait for the comm
-# substrate of a later slice.
+# TP-sharded decode projections (JAX model.py:612-707). Each rank is a
+# process holding its shards (the JAX functions run inside shard_map).
+#
+# Decode TP layout: the S decode rows are split over the axis ([S/p, H] a
+# rank) and the projection weights stay column-split ([H, n/p]: each rank
+# keeps its head / vocab shard resident, no weight moves). The collective
+# of a step is the small row gather, and ``impl="fused_matmul"`` hides it
+# behind the projection matmul (ops/collective_matmul.all_gather_matmul /
+# matmul_reduce_scatter); ``"xla"`` gathers (or reduce-scatters) first.
+# ``auto`` asks an active comm planner (op ``gather_matmul``, consumer
+# ``decode``), else takes ``xla``.
 # ---------------------------------------------------------------------------
 
 
-def _tp_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "tensor-parallel decode " + _LEFT_OUT.format("4 (TP decode)"))
+def resolve_decode_tp_impl(axis: str, shape, dtype) -> str:
+    """``"fused_matmul" | "xla"`` for the decode projections' row gather:
+    the planner's decision when one is active (a decision it cannot make is
+    ``xla``, as in the JAX package), the unfused gather otherwise."""
+    from ...comm.planner import planner_active, resolve_site
+
+    if not planner_active():
+        return "xla"
+    try:
+        d = resolve_site(op="gather_matmul", shape=tuple(int(s) for s in shape),
+                         dtype=dtype, axes=(str(axis),), consumer="decode")
+        return "fused_matmul" if d.impl == "fused_matmul" else "xla"
+    except Exception:
+        return "xla"
 
 
-resolve_decode_tp_impl = tp_decode_matmul = tp_decode_out_proj = \
-    tp_decode_logits = tp_greedy_token = _tp_not_ported
+def tp_decode_matmul(x, w, axis: str, *, impl: str = "auto"):
+    """Column-parallel decode projection: ``[S/p, H]`` local decode rows x
+    ``[H, n_local]`` resident weight shard -> ``[S, n_local]`` (every
+    sequence, this rank's output columns). ``fused_matmul`` rides
+    ``all_gather_matmul`` (the row ring behind the partial matmuls);
+    ``xla`` gathers the rows first."""
+    from ... import comm
+    from ...ops.collective_matmul import all_gather_matmul
+
+    if impl == "auto":
+        impl = resolve_decode_tp_impl(axis, x.shape, x.dtype)
+    if impl == "fused_matmul":
+        return all_gather_matmul(x, w, axis)
+    full = comm.all_gather(x.contiguous(), axis, gather_dim=0)
+    return full @ w.to(full.dtype)
+
+
+def tp_decode_out_proj(attn, wo, axis: str, *, impl: str = "auto"):
+    """Row-parallel decode output projection: ``[S, n_local]`` per-rank
+    attention columns x ``[n_local, H]`` shard, summed over the ranks and
+    row-scattered back to ``[S/p, H]``. ``fused_matmul`` rides
+    ``matmul_reduce_scatter`` (needs ``S % p == 0``)."""
+    from ... import comm
+    from ...ops.collective_matmul import matmul_reduce_scatter
+
+    if impl == "auto":
+        impl = resolve_decode_tp_impl(axis, attn.shape, attn.dtype)
+    if impl == "fused_matmul":
+        return matmul_reduce_scatter(attn, wo, axis)
+    return comm.reduce_scatter((attn @ wo.to(attn.dtype)).contiguous(), axis, scatter_dim=0)
+
+
+def tp_decode_logits(h, w_vocab, axis: str, *, impl: str = "auto"):
+    """Vocab-parallel LM head for decode: ``[S/p, H]`` local rows x ``[H,
+    V/p]`` vocab shard -> ``[S, V/p]`` this rank's vocab columns of every
+    sequence's logits. Pair with :func:`tp_greedy_token` to sample without
+    gathering ``[S, V]``."""
+    return tp_decode_matmul(h, w_vocab, axis, impl=impl)
+
+
+def tp_greedy_token(local_logits, axis: str):
+    """The global greedy argmax from vocab-split logits ``[S, V/p]``: each
+    rank contributes its ``(best value, global token id)`` pair, so only
+    ``[S]``-sized values ride the wire. Ties go as in the dense ``argmax``
+    (the lowest global id: each shard's argmax takes its lowest local id,
+    the cross-shard argmax the first, lowest-offset, shard)."""
+    from ... import comm
+
+    vloc = local_logits.shape[-1]
+    off = comm.axis_index(axis) * vloc
+    loc = local_logits.float()
+    best = loc.amax(dim=-1)                                        # [S]
+    idx = (torch.argmax(loc, dim=-1) + off).to(torch.int64)
+    bests = comm.gather_stack(best, axis)                          # [p, S]
+    idxs = comm.gather_stack(idx, axis)
+    win = torch.argmax(bests, dim=0)                               # [S]
+    return torch.take_along_dim(idxs, win[None], dim=0)[0].to(torch.int32)

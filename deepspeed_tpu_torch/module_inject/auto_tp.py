@@ -12,10 +12,11 @@ tuple of names; ``()`` replicates. Trees are nested dicts (and lists or
 tuples) flattened as the JAX package flattens them: dict keys in sorted
 order, ``None`` an empty node.
 
-The JAX package also classifies weights by walking the model's traced
-jaxpr (``infer_tp_roles``, ``tp_parser(apply_fn=...)``). That analysis,
-and everything else of AutoTP, belongs to the tensor-parallel path, which
-is not ported: both raise ``NotImplementedError``.
+``tp_parser(params, tp_size=)`` is what the training engine's
+``param_specs="auto"`` runs at tp > 1. The JAX package also classifies
+weights by walking the model's traced jaxpr (``infer_tp_roles``,
+``tp_parser(apply_fn=...)``); the port has no traced graph, so both raise
+``NotImplementedError`` naming ROADMAP.md Queue A item 9 (analysis).
 """
 
 import dataclasses
@@ -41,8 +42,9 @@ _EMBED_PATTERNS = ("embed", "embedding", "embeddings", "wte",
                    "word_embeddings", "lm_head", "embed_out")
 _NORM_PATTERNS = ("norm", "ln", "layernorm", "ln_f", "ln_1", "ln_2")
 
-_TP_PATH = ("is not ported yet: ROADMAP.md Queue A item 8 (parallelism side paths: "
-            "module_inject/auto_tp.py's jaxpr analysis)")
+_TP_PATH = ("needs a traced graph of the model, which the port does not have yet: "
+            "ROADMAP.md Queue A item 9 (analysis/*, module_inject/auto_tp.py's jaxpr "
+            "analysis)")
 
 
 def _is_spec(x) -> bool:
@@ -216,11 +218,12 @@ def sharded_dim(spec: Tuple, axis: str):
     return None
 
 
-def shard_checkpoint_leaf(value: np.ndarray, spec: Tuple, axis: str,
-                          axis_index: int, axis_size: int) -> np.ndarray:
-    """Slice one checkpoint leaf to this tp rank's shard on the host
-    (reference ``ReplaceWithTensorSlicing.copy``), so a whole checkpoint
-    never has to fit on the device."""
+def shard_checkpoint_leaf(value, spec: Tuple, axis: str,
+                          axis_index: int, axis_size: int):
+    """Slice one checkpoint leaf (a numpy array or a tensor) to this tp
+    rank's contiguous shard (reference ``ReplaceWithTensorSlicing.copy``).
+    On the host a whole checkpoint never has to fit on the device; the
+    training engine slices its parameters with it too."""
     if axis_size == 1:
         return value
     dim = sharded_dim(spec, axis)
@@ -233,4 +236,5 @@ def shard_checkpoint_leaf(value: np.ndarray, spec: Tuple, axis: str,
     step = value.shape[dim] // axis_size
     idx = [slice(None)] * value.ndim
     idx[dim] = slice(axis_index * step, (axis_index + 1) * step)
-    return np.ascontiguousarray(value[tuple(idx)])
+    out = value[tuple(idx)]
+    return np.ascontiguousarray(out) if isinstance(value, np.ndarray) else out.contiguous()

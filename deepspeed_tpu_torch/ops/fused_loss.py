@@ -463,16 +463,24 @@ def fused_vocab_nll(hidden, kernel, targets, *, axis_name: Optional[str] = None,
 
     On the CPU the plain version follows the JAX contract: the vocab must
     satisfy :func:`fused_loss_ready`. The CUDA kernels mask ragged token
-    and vocab edges, so any sizes take them. ``axis_name`` (a vocab-sharded
-    head) needs the comm substrate. ``block_t`` / ``block_v`` are the JAX
+    and vocab edges, so any sizes take them. ``block_t`` / ``block_v`` are the JAX
     function's TPU tiles, checked (:func:`_check_blocks`) and otherwise
     unused; ``interpret`` (the Pallas interpreter switch) is accepted and
-    ignored."""
+    ignored.
+
+    With ``axis_name`` (a mesh axis, e.g. ``"tp"``, or a process group),
+    ``kernel`` is this rank's contiguous vocab shard ``[E, Vloc]``, shard
+    ``i`` holding ids ``[i * Vloc, (i + 1) * Vloc)``, and ``targets`` are
+    GLOBAL ids. The targets shift by ``rank * Vloc``, so an id outside the
+    shard (or negative) matches no column of it: its target logit is 0 and
+    its gradient has no one-hot. The kernels run on the shard and the
+    per-shard ``(lse, tgt)`` combine over the axis as JAX combines them: a
+    max (no gradient) and a sum of ``exp(lse - m)`` for the partition
+    function, a sum of the target logits. The result is the same on every
+    rank; its gradient with respect to ``hidden`` is this rank's share of
+    the whole (the caller sums it over the axis, as the hidden states'
+    column-parallel entry ``parallel.tensor_parallel.copy_to_tp`` does)."""
     _check_blocks(block_t, block_v, kernel.shape[-1])
-    if axis_name is not None:
-        raise NotImplementedError(
-            "fused_vocab_nll(axis_name=...) (a vocab-sharded head) is not ported "
-            "yet: ROADMAP.md Queue A item 8 (parallelism side paths)")
     vloc = kernel.shape[-1]
     if hidden.device.type == "cpu" and not fused_loss_ready(vloc):
         raise ValueError(f"fused loss needs a 128-multiple vocab shard, got "
@@ -486,7 +494,21 @@ def fused_vocab_nll(hidden, kernel, targets, *, axis_name: Optional[str] = None,
         # padded past the vocab: a contiguous copy (autograd returns dK to
         # the view); a tied [V, E] head is still read in place
         k2 = k2.contiguous()
+    if axis_name is not None:
+        from .. import comm
+
+        # global ids -> shard-relative: out-of-shard targets match no column
+        tg = tg - comm.axis_index(axis_name) * vloc
     lse, tgt = _FusedNLL.apply(h2, k2, tg)
+    if axis_name is not None:
+        from ..parallel.tensor_parallel import reduce_from_tp
+
+        # the cross-shard combine; the chain rule through it hands the
+        # backward kernels g_lse = exp(lse - logz) on every shard
+        m = comm.all_reduce(lse.detach().clone(), axis_name, op="max")
+        sumexp = reduce_from_tp(torch.exp(lse - m), axis_name)
+        lse = torch.log(sumexp) + m
+        tgt = reduce_from_tp(tgt, axis_name)
     nll = lse - tgt
     if z_loss > 0.0:
         nll = nll + z_loss * torch.square(lse)

@@ -8,9 +8,12 @@ a group by its axes; the data-parallel group is the axis pair
 dimension groups are the process groups that ``comm`` collectives run over
 when they are given axis names.
 
-This slice builds the data-parallel axis only: ``pp``, ``ep``, ``sp`` or
-``tp`` above 1 raise ``NotImplementedError`` (ROADMAP.md Queue A item 8), so
-``dp_outer`` is the whole world and the size-1 axes need no group.
+This port builds the data-parallel and the tensor-parallel axes: ``pp``,
+``ep`` or ``sp`` above 1 raise ``NotImplementedError`` (ROADMAP.md Queue A
+item 8), so ``dp_outer`` is the dp axis and the other size-1 axes need no
+group. The mesh is ``(dp, tp)`` with ``tp`` innermost, as the JAX mesh puts
+it: the ranks of one tp row are consecutive, ``rank = dp_index * tp +
+tp_index``, and each tp row and each dp column is a process group.
 """
 
 import dataclasses
@@ -54,30 +57,31 @@ class Topology:
     def __init__(self, spec: TopologySpec = TopologySpec()):
         from .. import comm
 
-        over = {k: getattr(spec, k) for k in ("pp", "ep", "sp", "tp") if getattr(spec, k) > 1}
+        over = {k: getattr(spec, k) for k in ("pp", "ep", "sp") if getattr(spec, k) > 1}
         if over:
             raise NotImplementedError(
                 f"parallel axes {over} are not ported yet: ROADMAP.md Queue A item 8 "
-                "(pipeline, expert, sequence and tensor parallelism)")
+                "(pipeline, expert and sequence parallelism)")
         self.spec = spec
         self.world_size = comm.get_world_size()
         self.dp_size = spec.resolve_dp(self.world_size)
-        self.pp_size = self.ep_size = self.sp_size = self.tp_size = 1
+        self.tp_size = int(spec.tp)
+        self.pp_size = self.ep_size = self.sp_size = 1
         self.dp_outer_size = self.dp_size
         self._sizes = {PP_AXIS: 1, DP_OUTER_AXIS: self.dp_size, EP_AXIS: 1, SP_AXIS: 1,
-                       TP_AXIS: 1, DP_AXIS: self.dp_size}
+                       TP_AXIS: self.tp_size, DP_AXIS: self.dp_size}
         self.mesh = None
-        if self.dp_size > 1:
+        if self.world_size > 1:
             import torch.distributed as dist
             from torch.distributed.device_mesh import init_device_mesh
 
-            if not comm.is_initialized() or dist.get_world_size() != self.dp_size:
-                raise ValueError(f"a dp axis of {self.dp_size} ranks needs a process group "
+            if not comm.is_initialized() or dist.get_world_size() != self.world_size:
+                raise ValueError(f"a mesh of {self.world_size} ranks needs a process group "
                                  "of that size (comm.init_distributed)")
             # gloo carries CUDA tensors too; a mesh over it is a host mesh
             device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-            self.mesh = init_device_mesh(device_type, (self.dp_size,),
-                                         mesh_dim_names=(DP_AXIS,))
+            self.mesh = init_device_mesh(device_type, (self.dp_size, self.tp_size),
+                                         mesh_dim_names=(DP_AXIS, TP_AXIS))
 
     # ---- group-like accessors (reference deepspeed/utils/groups.py) -----
     @property
@@ -105,16 +109,44 @@ class Topology:
     def group(self, *names: str):
         """The process group over the named axes (only axes of size above 1
         count; collectives over a size-1 axis never ask for one)."""
-        live = [n for n in names if self.axis_size(n) > 1]
-        if live in ([DP_OUTER_AXIS], [DP_AXIS]):
+        live = {DP_AXIS if n == DP_OUTER_AXIS else n
+                for n in names if self.axis_size(n) > 1}
+        if live == {DP_AXIS}:
             return self.mesh.get_group(DP_AXIS)
+        if live == {TP_AXIS}:
+            return self.mesh.get_group(TP_AXIS)
+        if live == {DP_AXIS, TP_AXIS}:
+            import torch.distributed as dist
+
+            return dist.group.WORLD
         raise ValueError(f"no process group for axes {names} (sizes "
                          f"{[self.axis_size(n) for n in names]})")
 
     @property
     def dp_group(self):
         """The data-parallel process group (None at dp size 1)."""
-        return self.mesh.get_group(DP_AXIS) if self.mesh is not None else None
+        return self.mesh.get_group(DP_AXIS) if self.dp_size > 1 else None
+
+    @property
+    def tp_group(self):
+        """The tensor-parallel process group of this rank's tp row (None at
+        tp size 1)."""
+        return self.mesh.get_group(TP_AXIS) if self.tp_size > 1 else None
+
+    def filter_spec(self, spec, shape) -> tuple:
+        """Drop spec entries whose dim does not divide over their mesh axes
+        (JAX ``Topology.filter_spec``: e.g. GQA kv heads fewer than tp, which
+        AutoTP replicates). A spec is a tuple of axis names, tuples of names
+        or None, one per leading dim."""
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+
+        def ok(i, entry):
+            if entry is None:
+                return False
+            names = entry if isinstance(entry, tuple) else (entry,)
+            return shape[i] % self.axis_size(*names) == 0
+
+        return tuple(e if ok(i, e) else None for i, e in enumerate(entries))
 
     def __repr__(self):
         return (f"Topology(pp={self.pp_size}, dp={self.dp_size} (outer={self.dp_outer_size},"

@@ -130,8 +130,16 @@ def layer_wrapper(function: Callable, policy: Optional[str] = None) -> Callable:
 def model_parallel_reconfigure_tp_seed(seed) -> torch.Generator:
     """Reference ``model_parallel_reconfigure_tp_seed``. The JAX package
     returns a key the caller threads; the port returns a ``torch.Generator``
-    seeded with ``seed`` for the caller to pass on (there is no tp axis to
-    fold in until the comm substrate is ported)."""
+    for the caller to pass on, seeded with ``seed`` folded with this rank's
+    tp index when the live topology has a tp axis above 1 (so the ranks'
+    streams differ), else with ``seed``."""
+    from ..parallel.topology import get_topology
+
+    if get_topology().tp_size > 1:
+        from .. import comm
+        from ..ops.quant import fold_in
+
+        seed = fold_in(int(seed), comm.axis_index("tp"))
     return torch.Generator().manual_seed(int(seed))
 
 

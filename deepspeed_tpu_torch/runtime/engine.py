@@ -85,6 +85,18 @@ micro-batch through the same transport (a reduce-scatter into the shard
 accumulator at stages 1-3); ``no_sync`` defers it (at stages 2 and 3 the
 units' gradients wait in one full local fp32 buffer).
 
+Tensor parallelism (``tensor_parallel.tp_size`` > 1; JAX
+``engine.py:240-286``): the world is ``dp x tp`` (``parallel/topology.py``,
+tp innermost). Each rank is handed the whole tree and keeps its shard of
+every leaf, cut along the dim its spec splits over ``tp`` (``param_specs``:
+a ``sharding.RuleSet``, ``"auto"`` by names, an explicit spec tree, or for a
+``make_loss_fn`` loss the generic Megatron pack; indivisible dims stay
+whole); the loss lays the shards out itself. Gradients are mean-reduced
+over the dp group only; the global norm sums each split leaf's squares over
+tp and counts each whole leaf once; ZeRO stages 0 and 1 partition over the
+dp group, stages 2-3 raise (ROADMAP.md Queue A item 8). Checkpoints hold
+the gathered tree, so a tag resumes at any tp.
+
 What the state holds over several ranks: ``state.params`` and ``_masters``
 are the full fp32 masters at stages 0-2 (one leaf each) and this rank's
 fragments of them at stage 3 (1-D views into the master shard, empty where
@@ -179,14 +191,19 @@ def _not_ported(what: str, item: int, area: str) -> NotImplementedError:
         f"{what} is not ported yet: ROADMAP.md Queue A item {item} ({area})")
 
 
-def _check_supported(config: DeepSpeedTPUConfig, world_size: int) -> None:
+def _config_tp(config: DeepSpeedTPUConfig) -> int:
+    tpc = config.tensor_parallel
+    return int(tpc.tp_size) if tpc.enabled else 1
+
+
+def _check_supported(config: DeepSpeedTPUConfig, world_size: int, tp: int = 1) -> None:
     """Raise for every switched-on section the trainer cannot honour yet,
     rather than ignore it."""
     dp = config.data_parallel_size
-    if dp is not None and dp != world_size:
-        raise _not_ported(f"data_parallel_size={dp} at world size {world_size} (a dp "
-                          "degree other than the world's)", 8,
-                          "model-parallel axes beside dp")
+    if dp is not None and dp * tp != world_size:
+        raise _not_ported(f"data_parallel_size={dp} at world size {world_size} and tp "
+                          f"{tp} (a dp degree other than world / tp)", 8,
+                          "model-parallel axes beside dp and tp")
     zc = config.zero_optimization
     cc = config.compressed_collectives
     if zc.offload_param.device != "none":
@@ -201,8 +218,10 @@ def _check_supported(config: DeepSpeedTPUConfig, world_size: int) -> None:
          "zero_hpz_partition_size)", 8, "runtime/zero/zeropp.py"),
         ((config.pipeline.stages or 1) > 1, "pipeline.stages > 1", 8,
          "runtime/pipe/pipeline.py"),
-        (config.tensor_parallel.enabled and config.tensor_parallel.tp_size > 1,
-         "tensor_parallel.tp_size > 1", 8, "sharding/, module_inject/auto_tp.py"),
+        (tp > 1 and zc.stage >= 2,
+         f"zero_optimization.stage={zc.stage} at tensor_parallel.tp_size={tp} (stages 0 "
+         "and 1 partition over the dp group at tp > 1)", 8,
+         "ZeRO stages 2-3 beside the tp axis"),
         (config.sequence_parallel_size > 1, "sequence_parallel_size > 1", 8,
          "sequence/{layer,ring}.py"),
         (config.moe.enabled and config.moe.ep_size > 1,
@@ -321,7 +340,7 @@ class DeepSpeedTPUEngine:
     def __init__(self, loss_fn: Callable, params: Any, config: DeepSpeedTPUConfig,
                  optimizer=None, lr_scheduler: Optional[Callable] = None,
                  device="cuda", frozen_params: Optional[List[str]] = None,
-                 topology: Optional[Topology] = None):
+                 topology: Optional[Topology] = None, param_specs: Any = None):
         from ..accelerator import resolve_device
 
         if isinstance(loss_fn, torch.nn.Module):
@@ -329,11 +348,17 @@ class DeepSpeedTPUEngine:
                             "for a TransformerLM pass make_loss_fn(model)")
         world = comm.get_world_size()
         self.config = config
-        config.finalize(world_dp_size=world)
-        _check_supported(config, world)
+        _check_supported(config, world,
+                         topology.tp_size if topology is not None else _config_tp(config))
+        if topology is None:
+            topology = Topology(TopologySpec(tp=_config_tp(config)))
+        config.finalize(world_dp_size=topology.dp_size)
         self.device = resolve_device(device)
-        self.topo = topology if topology is not None else Topology()
+        self.topo = topology
         set_topology(self.topo)
+        from ..ops.collective_matmul import set_overlap_enabled
+
+        set_overlap_enabled(bool(config.tensor_parallel.overlap_collective_matmul))
         self.dp_world = self.topo.dp_size
         self.dp_rank = comm.axis_index(self.topo.dp_axes)
         zc = config.zero_optimization
@@ -401,6 +426,9 @@ class DeepSpeedTPUEngine:
             # its tree is built here and dropped once the masters (at stage
             # 3 over several ranks: this rank's shard) are taken from it
             params = params()
+        # tensor parallelism: each leaf sliced to this rank's shard by the
+        # parameter specs (its split dim in _tp_dims, None when whole)
+        params, self._tp_dims = self._shard_for_tp(params, param_specs)
         keypaths = [kp for kp, _ in pytree.tree_flatten_with_path(params)[0]]
         self._keypaths = [tuple(kp) for kp in keypaths]
         self._paths = [path_name(kp) for kp in keypaths]
@@ -455,6 +483,102 @@ class DeepSpeedTPUEngine:
                  f"dp={self.dp_world}, dp_grad_reduce={self._dp_grad_mode or 'exact'}, "
                  f"optimizer offload={tier}")
 
+    def _shard_for_tp(self, params, param_specs):
+        """``(params, dims)``: at tp > 1 every leaf sliced to this rank's
+        contiguous shard along the dim its spec splits over ``tp``
+        (``module_inject.shard_checkpoint_leaf``; JAX ``engine.py:240-286``
+        resolves the same specs and hands them to GSPMD), ``dims`` the
+        leaves' split dims in tree order. The specs: a ``RuleSet`` (matched
+        with indivisible dims replicated), ``"auto"``
+        (``module_inject.tp_parser`` by names), an explicit spec tree, or
+        None, which for a loss that lays out its own shards (one with a
+        ``bind_tp_layout``, as ``make_loss_fn``'s has) is the generic
+        Megatron pack and for any other raises ``ForeignModelShardingError``.
+        Such a loss is handed the split dims by path once, here (None at tp
+        1). At tp 1 ``params`` is returned as it is and ``dims`` is None."""
+        tp = self.topo.tp_size
+        bind = getattr(self.loss_fn_raw, "bind_tp_layout", None)
+        if tp == 1:
+            if param_specs is not None and not isinstance(param_specs, str):
+                from ..sharding.rules import RuleSet
+
+                if not isinstance(param_specs, (RuleSet, dict)):
+                    raise TypeError(f"param_specs must be a RuleSet, 'auto' or a spec "
+                                    f"tree, got {type(param_specs).__name__}")
+            if bind is not None:
+                bind(None)
+            return params, None
+        from ..module_inject.auto_tp import (_flatten, _is_spec, shard_checkpoint_leaf,
+                                             sharded_dim, tp_parser)
+        from ..sharding.packs import generic_pack
+        from ..sharding.rules import ForeignModelShardingError, RuleSet, spec_tree_axis_sizes
+
+        specs = param_specs
+        if specs is None:
+            if bind is None:
+                raise ForeignModelShardingError(
+                    f"tp_size={tp} with no param_specs and a loss that does not lay out "
+                    "its own shards: parameters would replicate over the tp axis. Pass "
+                    "param_specs='auto' (AutoTP inference), a sharding.RuleSet (e.g. "
+                    "sharding.get_pack(...)), an explicit spec tree, or load the "
+                    "checkpoint through sharding.autotp_initialize()")
+            specs = generic_pack()
+        if isinstance(specs, str):
+            if specs != "auto":
+                raise ValueError(f"param_specs must be a RuleSet, 'auto' or a spec tree, "
+                                 f"got {specs!r}")
+            specs = tp_parser(params, tp_size=tp)
+        if isinstance(specs, RuleSet):
+            specs = specs.match(params, axis_sizes=spec_tree_axis_sizes(self.topo))
+        spaths, sleaves, _ = _flatten(specs, is_leaf=_is_spec)
+        by_path = dict(zip(spaths, sleaves))
+        flat, spec = pytree.tree_flatten_with_path(params)
+        rank = comm.axis_index("tp")
+        leaves, dims = [], {}
+        for kp, leaf in flat:
+            path = path_name(kp)
+            if path not in by_path:
+                raise ValueError(f"param_specs has no spec for parameter {path!r}")
+            entry = self.topo.filter_spec(tuple(by_path[path]), tuple(leaf.shape))
+            dims[path] = sharded_dim(entry, "tp")
+            leaves.append(leaf if dims[path] is None else
+                          shard_checkpoint_leaf(leaf.detach(), entry, "tp", rank, tp))
+        if bind is not None:
+            bind(dims)
+        return pytree.tree_unflatten(leaves, spec), list(dims.values())
+
+    def _tp_gather(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf i (or a tensor of its shape, e.g. a moment) whole: gathered
+        over tp along its split dim (a collective: every tp rank calls it)."""
+        dim = self._tp_dims[i] if self._tp_dims is not None else None
+        if dim is None:
+            return x
+        return comm.all_gather(x.contiguous(), "tp", gather_dim=dim)
+
+    def _tp_slice(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a whole value of leaf i."""
+        from ..module_inject.auto_tp import shard_checkpoint_leaf
+
+        dim = self._tp_dims[i] if self._tp_dims is not None else None
+        if dim is None:
+            return x
+        return shard_checkpoint_leaf(x, (None,) * dim + ("tp",), "tp",
+                                     comm.axis_index("tp"), self.topo.tp_size)
+
+    def _tp_grad_norm(self, pieces, over_dp: bool = False) -> torch.Tensor:
+        """The global L2 norm at tp > 1 of ``pieces``, (gradient, leaf's
+        split dim) pairs: each split leaf's squares summed over tp, each
+        whole leaf's counted once (it is the same on every tp rank), and
+        ``over_dp`` (ZeRO shards) everything summed over the dp group first,
+        so every rank reads the same norm."""
+        sq = torch.zeros(2, dtype=torch.float32, device=self.device)
+        for g, dim in pieces:
+            sq[0 if dim is None else 1] += torch.linalg.vector_norm(g.float()).square()
+        if over_dp:
+            comm.all_reduce(sq, self.topo.dp_axes, op="sum")
+        split = comm.all_reduce(sq[1:].clone(), "tp", op="sum")
+        return (sq[0] + split[0]).sqrt()
+
     def _resolve_dp_grad_site(self) -> Optional[str]:
         """The compressed mode of the DP gradient reduction, or None for the
         exact all-reduce (JAX ``engine.py:664-690``): the site needs pure
@@ -466,6 +590,7 @@ class DeepSpeedTPUEngine:
         configure_compression(cc.mode, block=cc.block, hierarchical=cc.hierarchical,
                               sites=cc.site_map())
         eligible = (self.config.zero_optimization.stage == 0 and self.dp_world > 1
+                    and self.topo.tp_size == 1
                     and not self.config.moe.enabled and not self.config.fp16.enabled)
         if cc.mode == "none" or not cc.dp_gradients:
             return None
@@ -643,9 +768,11 @@ class DeepSpeedTPUEngine:
     def _next_rng(self) -> int:
         """The next seed of the engine's stream (JAX: the step key split per
         micro-batch): draw k gives ``fold_in(fold_in(config.seed, k), dp
-        rank)``, so every micro-batch and rank gets its own masks and a run
-        resumed at draw k (``_rng_draws``, saved in checkpoints) draws what
-        an uninterrupted run draws."""
+        rank)``, so every micro-batch and dp replica gets its own masks and a
+        run resumed at draw k (``_rng_draws``, saved in checkpoints) draws
+        what an uninterrupted run draws. ``dp_rank`` is the dp coordinate
+        (the index in the dp group), so the tp ranks of one replica draw the
+        same masks on their replicated activations."""
         seed = fold_in(fold_in(self.config.seed, self._rng_draws), self.dp_rank)
         self._rng_draws += 1
         return seed
@@ -745,7 +872,8 @@ class DeepSpeedTPUEngine:
             for g, f in zip(grads, self._frozen):
                 if f:
                     g.zero_()
-            norm = global_grad_norm(grads)
+            norm = (global_grad_norm(grads) if self._tp_dims is None
+                    else self._tp_grad_norm(zip(grads, self._tp_dims)))
         overflow = self.fp16 and not bool(torch.isfinite(norm))
         clip = cfg.gradient_clipping
         if clip and clip > 0:
@@ -903,9 +1031,12 @@ class DeepSpeedTPUEngine:
         for i, f in enumerate(self._frozen):
             if f:
                 self._zero.fragment(self._shard_grad, i).zero_()
-        sq = torch.linalg.vector_norm(self._shard_grad).square().reshape(1)
-        comm.all_reduce(sq, self.topo.dp_axes, op="sum")
-        return sq.sqrt()[0]
+        if self._tp_dims is None:
+            sq = torch.linalg.vector_norm(self._shard_grad).square().reshape(1)
+            comm.all_reduce(sq, self.topo.dp_axes, op="sum")
+            return sq.sqrt()[0]
+        return self._tp_grad_norm(((self._zero.fragment(self._shard_grad, i), dim)
+                                   for i, dim in enumerate(self._tp_dims)), over_dp=True)
 
     def _update(self, grads, params):
         """One optimizer step of ``params`` (a tree congruent with the
@@ -948,17 +1079,19 @@ class DeepSpeedTPUEngine:
     # the whole tree at every stage (checkpoints, utils/tensor_fragment) -
     def _full_param(self, i: int) -> torch.Tensor:
         """Leaf i of the masters in full: gathered at stage 3 over several
-        ranks (a collective: every rank calls it), else the master itself."""
+        ranks and over tp at tp > 1 (collectives: every rank calls it), else
+        the master itself."""
         if self._stage3:
             return self._zero.gather(self._master_shard, i)
         if self._host_adam is not None:
             return self._host_adam.leaves()[0][i].to(self.device)
-        return self._masters[i].detach()
+        return self._tp_gather(i, self._masters[i].detach())
 
     def _set_full_param(self, i: int, value: torch.Tensor) -> None:
         """Write a full value of leaf i into the masters (at stage 3: this
         rank's fragment of it; under the host-Adam tier the host master and
-        its compute-dtype leaf on the device)."""
+        its compute-dtype leaf on the device; at tp > 1 this rank's shard)."""
+        value = self._tp_slice(i, value)
         shape = self._zero.shapes[i] if self._zero is not None else tuple(self._masters[i].shape)
         if tuple(value.shape) != shape:
             raise ValueError(f"parameter {i}: shape {tuple(value.shape)} does not match "
@@ -1009,14 +1142,15 @@ class DeepSpeedTPUEngine:
         if self._leafwise:
             leaves, spec = pytree.tree_flatten(opt_state)
             return pytree.tree_unflatten(
-                [x if i is None else keep(self._zero.gather_fragment(x, i))
+                [x if i is None else keep(self._tp_gather(i, self._zero.gather_fragment(x, i)))
                  for x, i in zip(leaves, self._state_owners(opt_state))], spec)
         layout, spec = self._opt_layout()
         n = len(self._zero.shapes)
         out = []
         for leaf in pytree.tree_leaves(opt_state):
             if isinstance(layout[len(out)], torch.Tensor):
-                out.extend(keep(self._zero.gather(leaf, i)) for i in range(n))
+                out.extend(keep(self._tp_gather(i, self._zero.gather(leaf, i)))
+                           for i in range(n))
             else:
                 out.append(leaf)
         return pytree.tree_unflatten(out, spec)
@@ -1034,6 +1168,7 @@ class DeepSpeedTPUEngine:
                 if i is None:
                     new.append(leaves[k])
                     continue
+                leaves[k] = self._tp_slice(i, leaves[k])
                 if tuple(leaves[k].shape) != self._zero.shapes[i]:
                     raise ValueError(f"optimizer leaf {k}: shape {tuple(leaves[k].shape)}, "
                                      f"the engine's {self._zero.shapes[i]}")
@@ -1050,6 +1185,7 @@ class DeepSpeedTPUEngine:
         for leaf in cur:
             if isinstance(layout[k], torch.Tensor):
                 for i, shape in enumerate(self._zero.shapes):
+                    leaves[k + i] = self._tp_slice(i, leaves[k + i])
                     if tuple(leaves[k + i].shape) != shape:
                         raise ValueError(f"optimizer leaf {k + i}: shape "
                                          f"{tuple(leaves[k + i].shape)}, the engine's {shape}")
@@ -1420,19 +1556,16 @@ class DeepSpeedTPUEngine:
         return _load(self, load_dir, tag=tag, **kw)
 
 
-def _initial_topology(topology, param_specs, batch_spec,
-                      world_size: int) -> Optional[Topology]:
+def _initial_topology(topology, batch_spec, world_size: int) -> Optional[Topology]:
     """The topology ``initialize`` was given, resolved over the world: a
-    port ``Topology``, or a ``TopologySpec`` built into one, whose pp, ep,
-    sp and tp are 1 and whose dp is the world's (None when none was given).
-    Any other topology, and any ``param_specs`` or ``batch_spec``, raise
-    ``NotImplementedError``: they place tensors over the model-parallel
-    axes, which are not ported."""
-    if param_specs is not None or batch_spec is not None:
-        named = " and ".join(n for n, v in (("param_specs", param_specs),
-                                             ("batch_spec", batch_spec)) if v is not None)
-        raise _not_ported(f"initialize({named}=...)", 8,
-                          "sharding/ and the sharded parameter and batch layouts")
+    port ``Topology``, or a ``TopologySpec`` built into one, whose pp, ep
+    and sp are 1 and whose dp times tp is the world's (None when none was
+    given: the engine builds one from ``tensor_parallel``). Any other
+    topology, and a ``batch_spec``, raise ``NotImplementedError``: they
+    place tensors over the axes that are not ported."""
+    if batch_spec is not None:
+        raise _not_ported("initialize(batch_spec=...)", 8,
+                          "sharding/ and the sharded batch layouts of pp / sp")
     if topology is None:
         return None
     if not isinstance(topology, (Topology, TopologySpec)):
@@ -1440,15 +1573,15 @@ def _initial_topology(topology, param_specs, batch_spec,
                           "other than the port's Topology or TopologySpec)", 8,
                           "the model-parallel axes of parallel/topology.py")
     spec = topology.spec if isinstance(topology, Topology) else topology
-    over = {k: getattr(spec, k) for k in ("pp", "ep", "sp", "tp") if getattr(spec, k) > 1}
+    over = {k: getattr(spec, k) for k in ("pp", "ep", "sp") if getattr(spec, k) > 1}
     if over:
         raise _not_ported(f"initialize(topology=...) with {over}", 8,
                           "the model-parallel axes of parallel/topology.py")
     dp = topology.dp_size if isinstance(topology, Topology) else spec.dp
-    if dp is not None and dp != world_size:
-        raise _not_ported(f"initialize(topology=...) with dp={dp} at world size "
-                          f"{world_size} (a dp degree other than the world's)", 8,
-                          "model-parallel axes beside dp")
+    if dp is not None and dp * spec.tp != world_size:
+        raise _not_ported(f"initialize(topology=...) with dp={dp} and tp={spec.tp} at "
+                          f"world size {world_size} (a dp degree other than world / tp)", 8,
+                          "model-parallel axes beside dp and tp")
     return topology if isinstance(topology, Topology) else Topology(spec)
 
 
@@ -1468,8 +1601,12 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
     state. ``mpu`` is accepted and unused, as in the JAX package, whose
     mesh topology replaces it. ``topology`` (a port ``Topology`` or
     ``TopologySpec``) is set as the process's topology and used by the
-    engine when its only axis above 1 is dp and dp is the world size; any
-    other topology, and ``param_specs`` or ``batch_spec``, raise
+    engine when its only axes above 1 are dp and tp; else the engine builds
+    one from ``tensor_parallel.tp_size`` (dp the rest of the world). Over
+    tp > 1 ``model_parameters`` is the whole tree (every rank passes it)
+    and ``param_specs`` (a ``sharding.RuleSet``, ``"auto"``, an explicit
+    spec tree, or None for a ``make_loss_fn`` loss) says how each leaf
+    splits. pp / ep / sp and ``batch_spec`` raise
     ``NotImplementedError`` (ROADMAP.md Queue A item 8). The engine runs on
     ``device``, the card unless the caller passes ``"cpu"``. Returns ``(engine, optimizer,
     dataloader, lr_schedule)``; with ``training_data`` (an indexable
@@ -1479,10 +1616,11 @@ def initialize(args=None, model: Optional[Callable] = None, optimizer=None,
     cfg = load_config(config if config is not None else config_params)
     if dist_init_required is not False:
         comm.init_distributed()
-    topo = _initial_topology(topology, param_specs, batch_spec, comm.get_world_size())
+    topo = _initial_topology(topology, batch_spec, comm.get_world_size())
     engine = DeepSpeedTPUEngine(model, model_parameters, cfg, optimizer=optimizer,
                                 lr_scheduler=lr_scheduler, device=device,
-                                frozen_params=kwargs.get("frozen_params"), topology=topo)
+                                frozen_params=kwargs.get("frozen_params"), topology=topo,
+                                param_specs=param_specs)
     dataloader = None
     if training_data is not None:
         from .dataloader import DeepSpeedDataLoader

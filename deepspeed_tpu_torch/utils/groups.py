@@ -4,8 +4,8 @@ Port of ``deepspeed_tpu/utils/groups.py``. As in the JAX package a group is
 named by mesh axes of the live topology (``parallel/topology.py``): the
 accessors return the axis names that ``comm`` collectives take as ``axis``,
 and the topology resolves them to a ``torch.distributed`` process group.
-This slice has the data-parallel axis only; the expert, model and sequence
-groups raise (ROADMAP.md Queue A item 8).
+The data-parallel and the model-parallel (tensor) axes are ported; the
+expert and sequence groups raise (ROADMAP.md Queue A item 8).
 """
 
 from typing import Tuple, Union
@@ -17,7 +17,7 @@ Axis = Union[str, Tuple[str, ...]]
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"the {what} group is not ported yet: ROADMAP.md Queue A "
-                               "item 8 (expert, tensor and sequence parallelism)")
+                               "item 8 (expert and sequence parallelism)")
 
 
 def initialize(ep_size: int = 1, mpu=None) -> None:
@@ -52,8 +52,13 @@ def _clone_world_group() -> Axis:
     return get_topology().all_axes
 
 
-def _get_model_parallel_group():
-    raise _not_ported("model-parallel")
+def _get_model_parallel_group() -> Axis:
+    """The tensor-parallel axis: ``comm`` resolves it to this rank's tp row."""
+    return "tp"
+
+
+def _get_model_parallel_world_size() -> int:
+    return get_topology().tp_size
 
 
 def _get_expert_parallel_group(group_name: str = "ep"):

@@ -32,11 +32,14 @@ SURFACE = {
     "comm.comm": ["reduce", "gather", "scatter", "all_reduce_coalesced",
                   "all_gather_coalesced", "group_all_reduce", "monitored_barrier",
                   "inference_all_reduce", "mpi_discovery", "initialize_mesh_device",
-                  "MeshGroup", "log_chunked", "init_distributed"],
+                  "MeshGroup", "log_chunked", "init_distributed",
+                  # tensor parallelism (ROADMAP.md Queue A item 8)
+                  "ppermute", "send_next_recv_prev", "send_prev_recv_next"],
     "comm.compressed": ["feedback_state", "store_feedback", "clear_feedback"],
     "checkpoint.engine": ["CheckpointEngine"],
     "utils.fs": ["fsync_dir"],
-    "utils.groups": ["initialize"],
+    "utils.groups": ["initialize", "_get_model_parallel_group",
+                     "_get_model_parallel_world_size"],
     "runtime.engine": ["initialize"],
     "accelerator": ["set_accelerator", "set_accelerator_by_name"],
     "runtime.config": ["AUTO"],
@@ -75,7 +78,10 @@ SURFACE = {
     # the HF loader, ALiBi / windowed serving and speculative decoding
     # (ROADMAP.md Queue A items 1, 3 and 8's inference/hf.py)
     "inference.hf": ["config_from_hf", "params_from_hf"],
-    "inference.v2.model": ["paged_attention", "verify_step"],
+    "inference.v2.model": ["paged_attention", "verify_step",
+                           # TP decode (ROADMAP.md Queue A item 4)
+                           "resolve_decode_tp_impl", "tp_decode_matmul",
+                           "tp_decode_out_proj", "tp_decode_logits", "tp_greedy_token"],
     "inference.v2.engine_v2": ["RaggedInferenceEngineConfig", "ReuseStats",
                                "InferenceEngineV2.spec_decode_batch",
                                "InferenceEngineV2._ngram_propose"],
@@ -154,6 +160,31 @@ SURFACE = {
     "serving.traffic": ["LengthDist", "TrafficConfig", "OpenLoopTraffic"],
     "serving": ["TenantStats", "ReplicaRouter", "LengthDist", "OpenLoopTraffic",
                 "TrafficConfig", "LLMServer"],
+    # tensor parallelism (ROADMAP.md Queue A items 8 and 4): the tp axis, the
+    # rings, the rules layer, the vocab-parallel loss and TP decode
+    "ops.collective_matmul": ["all_gather_matmul", "matmul_reduce_scatter",
+                              "fused_qkv_all_gather_matmul", "ring_all_gather",
+                              "ring_reduce_scatter", "fused_ring_all_gather",
+                              "fused_ring_reduce_scatter", "ring_embedding_gather",
+                              "ring_tied_lm_head", "embedding_overlap_ready",
+                              "overlap_ready", "overlap_enabled", "set_overlap_enabled"],
+    "sharding.rules": ["Rule", "RuleSet", "spec_tree_axis_sizes", "RULES_FORMAT"],
+    "sharding.packs": ["generic_pack", "llama_pack", "mistral_pack", "gpt2_pack",
+                       "gpt_neox_pack", "mixtral_pack", "get_pack", "pack_for_config"],
+    "sharding.sites": ["replicated", "seq_sharded_act", "heads_sharded_act", "ulysses_act",
+                       "col_kernel3", "col_bias2", "row_kernel3", "col_kernel2",
+                       "row_kernel2", "col_bias1", "vocab_sharded_table", "tokens_act",
+                       "embed_act", "kv_cache_entry", "moe_batch_act",
+                       "moe_expert_major_act", "moe_expert_weight", "zero_flat_shard",
+                       "batch_layout"],
+    "sharding.derive": ["derive_rules", "derived_matches_parser"],
+    "sharding.autotp": ["resolve_rules", "shard_checkpoint_tree",
+                        "register_param_collectives", "autotp_initialize"],
+    "sharding.audit_entry": ["toy_hf_checkpoint", "family_engine", "family_audit_report",
+                             "llama", "mistral", "gpt_neox", "mixtral", "FAMILIES"],
+    "sequence.cross_entropy": ["vocab_parallel_cross_entropy",
+                               "vocab_sequence_parallel_cross_entropy", "sharded_lm_loss"],
+    "runtime.activation_checkpointing": ["model_parallel_reconfigure_tp_seed"],
 }
 # kernel wrappers: port module -> (JAX module, names)
 WRAPPERS = {
@@ -211,7 +242,7 @@ def test_checkpoint_engine_is_the_base_class():
     assert issubclass(TorchCheckpointEngine, CheckpointEngine)
     with pytest.raises(NotImplementedError):
         CheckpointEngine().save({}, "unused")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(FileNotFoundError, match="missing"):
         TorchCheckpointEngine().load("unused", shardings={})
 
 
@@ -329,25 +360,61 @@ def test_initialize_honours_a_dp_only_topology(kind):
     assert get_topology() is engine.topo and engine.dp_world == 1
 
 
-@pytest.mark.parametrize("over", ["tp", "pp", "dp", "jax_topology", "param_specs",
-                                  "batch_spec"])
+@pytest.mark.parametrize("over", ["tp", "pp", "sp", "ep", "dp", "jax_topology",
+                                  "batch_spec", "zero2_tp"])
 def test_initialize_refuses_what_it_cannot_honour(over):
-    """Any topology but a dp-only one over the world, and any
-    ``param_specs`` or ``batch_spec``, raise naming ROADMAP.md Queue A
-    item 8, where they were once dropped without a word."""
+    """A topology with pp / sp / ep above 1, a dp degree other than world /
+    tp, a JAX topology, a ``batch_spec`` and ZeRO 2-3 beside a tp axis raise
+    naming ROADMAP.md Queue A item 8, where they were once dropped without a
+    word; a tp axis the world cannot hold (tp 2 in one process) raises as
+    the JAX ``TopologySpec`` does."""
     from deepspeed_tpu.parallel import TopologySpec as JaxTopologySpec
     from deepspeed_tpu_torch.parallel import TopologySpec
 
     loss, params = _tiny_loss_and_params()
+    config = {"train_micro_batch_size_per_gpu": 1}
     kwargs = {"tp": {"topology": TopologySpec(tp=2)},
               "pp": {"topology": TopologySpec(pp=2)},
+              "sp": {"topology": TopologySpec(sp=2)},
+              "ep": {"topology": TopologySpec(ep=2)},
               "dp": {"topology": TopologySpec(dp=2)},
               "jax_topology": {"topology": JaxTopologySpec()},
-              "param_specs": {"param_specs": {"embed": {"embedding": (None, "tp")}}},
-              "batch_spec": {"batch_spec": ("dp",)}}[over]
+              "batch_spec": {"batch_spec": ("dp",)},
+              "zero2_tp": {"config": dict(config, zero_optimization={"stage": 2},
+                                          tensor_parallel={"enabled": True,
+                                                           "tp_size": 2})}}[over]
+    kwargs.setdefault("config", config)
+    if over == "tp":
+        with pytest.raises(ValueError, match="not divisible"):
+            tds.initialize(model=loss, model_parameters=params, device="cpu", **kwargs)
+        return
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        tds.initialize(model=loss, model_parameters=params, device="cpu",
-                       config={"train_micro_batch_size_per_gpu": 1}, **kwargs)
+        tds.initialize(model=loss, model_parameters=params, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("specs", ["rule_set", "auto", "tree"])
+def test_initialize_takes_param_specs(specs):
+    """``param_specs`` as a ``RuleSet``, ``"auto"`` or an explicit spec tree
+    (JAX ``engine.py:240-286``); over a tp axis of 1 every leaf stays whole
+    and the engine trains as without them. A loss that is not
+    ``make_loss_fn``'s at tp 2 with no specs raises
+    ``ForeignModelShardingError`` (tests/test_torch_tp.py, in a world of
+    tp 2)."""
+    from deepspeed_tpu_torch import sharding
+
+    loss, params = _tiny_loss_and_params()
+    given = {"rule_set": sharding.llama_pack(), "auto": "auto",
+             "tree": sharding.generic_pack().match(params)}[specs]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (2, 8)))
+    config = {"train_micro_batch_size_per_gpu": 2}
+    base, *_ = tds.initialize(model=loss, model_parameters=params, device="cpu",
+                              config=config)
+    want = float(base.train_batch(tokens))
+    _, params = _tiny_loss_and_params()
+    engine, *_ = tds.initialize(model=loss, model_parameters=params, device="cpu",
+                                config=config, param_specs=given)
+    assert engine._tp_dims is None
+    assert float(engine.train_batch(tokens)) == want
 
 
 @pytest.mark.parametrize("field, value", [("position", "alibi"),
@@ -381,14 +448,15 @@ def test_alibi_and_window_serving_are_refused_by_name(field, value):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("no_lm_head", True, "deliberate"), ("vocab_parallel_loss", True, 8),
-    ("sequence_parallel", True, 8), ("embed_overlap", "ring", 8),
-    ("overlap_collective_matmul", True, 8)])
+    ("no_lm_head", True, "deliberate"), ("vocab_parallel_loss", True, "runs"),
+    ("sequence_parallel", True, 8), ("embed_overlap", "ring", "runs"),
+    ("overlap_collective_matmul", True, "runs")])
 def test_unported_config_fields_raise_naming_their_item(field, value, item):
     """Each field the port cannot run raises naming its ROADMAP.md item; a
     model without an LM head trains (its forward is the hidden states) and
     serving it is refused on purpose, as the JAX ragged model cannot serve
-    one either."""
+    one either. The tensor-parallel fields run (over a tp axis of 1 the
+    dense path; tests/test_torch_tp.py holds them at tp 2)."""
     cfg = _port_config(jtransformer.TransformerConfig(vocab_size=128, hidden_size=32,
                                                       intermediate_size=64, num_layers=1,
                                                       num_heads=2), **{field: value})
@@ -401,8 +469,23 @@ def test_unported_config_fields_raise_naming_their_item(field, value, item):
             InferenceEngineV2(cfg, model.param_tree(), RaggedInferenceEngineConfig(
                 kv_block_size=8, num_kv_blocks=16, dtype="float32"), device="cpu")
         return
+    if item == "runs":
+        from deepspeed_tpu_torch.models import make_loss_fn
+
+        model = TransformerLM(cfg, seed=0, device="cpu")
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 8)))
+        dense = make_loss_fn(TransformerLM(dataclasses.replace(cfg, **{field: _OFF[field]}),
+                                           model.param_tree(), device="cpu"))
+        params = model.param_tree()
+        torch.testing.assert_close(make_loss_fn(model)(params, tokens), dense(params, tokens),
+                                   rtol=1e-6, atol=1e-6)
+        return
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
         TransformerLM(cfg, seed=0, device="cpu")
+
+
+_OFF = {"vocab_parallel_loss": False, "embed_overlap": "auto",
+        "overlap_collective_matmul": False}
 
 
 def test_default_blocks_match_jax():

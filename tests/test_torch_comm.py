@@ -95,6 +95,11 @@ def test_new_group_ledger_and_topology(world):
             assert out["group_size"] == 2
         assert out["topology"] == (w, w, ("dp_outer", "ep"), w, r, w, w)
         assert out["raised"] == [True, True, True]
+        assert out["model_parallel"] == ("tp", 1)
+        np.testing.assert_array_equal(out["send_next"], x[(r - 1) % w])
+        np.testing.assert_array_equal(out["send_prev"], x[(r + 1) % w])
+        np.testing.assert_array_equal(out["ppermute_partial"],
+                                      x[0] if r == 1 else np.zeros_like(x[0]))
         ledger = out["ledger"]
         n_reduce = 5 + (r < 2)
         assert ledger["all_reduce"]["count"] == n_reduce
@@ -124,7 +129,10 @@ def test_world_of_one_needs_no_process_group(monkeypatch):
     topo = get_topology()
     assert (topo.dp_size, topo.dp_group) == (1, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Topology(TopologySpec(tp=2))
+        Topology(TopologySpec(sp=2))
+    with pytest.raises(ValueError, match="not divisible"):
+        Topology(TopologySpec(tp=2))        # a tp axis of 2 needs two ranks
+    np.testing.assert_array_equal(comm.send_next_recv_prev(x, "tp"), x)
     with pytest.raises(ValueError):
         comm.all_reduce(torch.arange(3), op="mean")
 

@@ -34,19 +34,26 @@ import deepspeed_tpu_torch.comm.planner.topo as ttopo
 EST_RTOL = 1e-12
 
 
+def _clear_ledgers():
+    """Both packages' planners, probe memos and plan records reset; the JAX
+    ledger also drops the executable-memory and audit rows that a JAX
+    engine compiled by an earlier test in this process left in its plan
+    table (the port's ledger keeps neither)."""
+    for pkg, dist in ((jplan, jdist), (tplan, tdist)):
+        pkg.reset_planner()
+        pkg.reset_probe_memo()
+        dist.get_comms_logger().plan_records.clear()
+    jdist.get_comms_logger().memory_records.clear()
+    jdist.get_comms_logger().analysis_records.clear()
+
+
 @pytest.fixture(autouse=True)
 def _clean_state():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    for pkg, dist in ((jplan, jdist), (tplan, tdist)):
-        pkg.reset_planner()
-        pkg.reset_probe_memo()
-        dist.get_comms_logger().plan_records.clear()
+    _clear_ledgers()
     yield
-    for pkg, dist in ((jplan, jdist), (tplan, tdist)):
-        pkg.reset_planner()
-        pkg.reset_probe_memo()
-        dist.get_comms_logger().plan_records.clear()
+    _clear_ledgers()
     torch.set_num_threads(threads)
 
 

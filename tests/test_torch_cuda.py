@@ -1421,6 +1421,66 @@ def test_two_rank_gloo_step_on_card(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_loss_on_a_vocab_shard_with_out_of_shard_ids_on_card(dtype):
+    """The fused-loss kernels on rank 1's shard of a vocab split over tp 2
+    (``fused_vocab_nll(axis_name=)`` shifts the targets by ``rank *
+    Vloc``): ids below the shard (negative after the shift), past it, and
+    -1 match no column, so their target logit is 0 and their dl has no
+    one-hot; the forward, dl, dh and dK against the plain versions, bf16 on
+    the wgmma route, fp32 on mma_sync, with several backward chunks."""
+    _need_card()
+    from deepspeed_tpu_torch.ops import fused_loss as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    T, E, vloc = 517, 256, 1024
+    h = torch.randn(T, E, generator=gen, device="cuda").to(dtype)
+    k = (0.05 * torch.randn(E, vloc, generator=gen, device="cuda")).to(dtype)
+    ids = torch.randint(-1, 2 * vloc + 5, (T,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    t = ids - vloc                                   # rank 1 of tp 2
+    outside = (t < 0) | (t >= vloc)
+    assert outside.any() and (~outside).any() and (t < -1).any()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    fl.reset_launch_counts()
+    lse, tgt = fl.fused_nll_forward(h, k, t)
+    lse_r, tgt_r = fl.fused_nll_fwd_ref(h, k, t)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(tgt, tgt_r, rtol=1e-5, atol=1e-4)
+    assert torch.all(tgt[outside] == 0)
+    g_lse = torch.rand(T, generator=gen, device="cuda") / T
+    g_tgt = -torch.ones(T, device="cuda") / T
+    old = fl.WORKSPACE_BYTES
+    fl.WORKSPACE_BYTES = T * 256 * h.element_size()   # 4 chunks
+    try:
+        dh, dk = fl.fused_nll_backward(h, k, t, lse_r, g_lse, g_tgt)
+    finally:
+        fl.WORKSPACE_BYTES = old
+    for g, w in zip((dh, dk), fl.fused_nll_bwd_ref(h, k, t, lse_r, g_lse, g_tgt)):
+        _close(g, w, tol)
+    # an out-of-shard row's dl is the softmax term alone
+    dl = fl.fused_dlogits_ref(h, k, t, lse_r, g_lse, g_tgt)
+    soft = (g_lse[:, None] * torch.exp(h.float() @ k.float() - lse_r[:, None])).to(dtype)
+    assert torch.equal(dl[outside], soft[outside])
+    route = "wgmma" if dtype == torch.bfloat16 else "mma_sync"
+    assert fl.route_counts[route] == 12 and fl.fwd_route_counts[route] == 1
+
+
+def test_ring_hop_of_cuda_tensors_over_gloo_on_card(tmp_path):
+    """Two ranks share cuda:0 over gloo: ``ppermute`` of a bf16 CUDA tensor
+    (staged through pinned host buffers, each copy in the comms ledger),
+    ``all_gather_matmul`` of CUDA tensors exact and over the int8 wire (the
+    quant kernels launched), against the gathered product."""
+    _need_card()
+    r0, r1 = run_world("cuda_ring_hop", 2, tmp_path, {"seed": 26}, timeout=300)
+    for r, other in ((r0, r1), (r1, r0)):
+        np.testing.assert_array_equal(r["received"], other["sent"])
+        assert r["staged"] >= 2                     # one copy each way
+        assert r["agmm_err"] <= r["agmm_bound"]
+        assert r["agmm_int8_err"] <= r["agmm_int8_bound"]
+        assert r["quant"]["quantize_int8"] > 0 and r["quant"]["dequantize_int8"] > 0
+
+
 def test_auto_attention_takes_flash_kernels_at_the_new_head_dims_on_card():
     """``attn_impl: auto`` picks the kernels at D 80, 96 and 256 on the card,
     bf16 on ``wgmma``: one launch of each kernel per forward and backward."""

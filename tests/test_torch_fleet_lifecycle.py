@@ -429,6 +429,55 @@ def test_warm_join_zero_probe_via_winner_cache(tmp_path):
         srv.halt()
 
 
+def test_cold_winner_probe_runs_the_serving_batch(tmp_path):
+    """ROADMAP C3: each candidate is timed with more than one sequence in
+    flight (the server's admission cap, at most the engine's ragged slots),
+    where the JAX probe times one."""
+    from deepspeed_tpu_torch.fleet._testing import make_tiny_server
+
+    srv = make_tiny_server(0)
+    puts = []
+    put = srv.engine.put
+    srv.engine.put = lambda uids, *a, **k: puts.append(list(uids)) or put(uids, *a, **k)
+    h = tfleet.ReplicaHandle(0, lambda rid: srv, autotune_cache_dir=str(tmp_path))
+    h.spawn()
+    report = h.warm()
+    assert report.autotune_probes == 2 and not report.autotune_from_cache
+    slots = srv.engine.config.max_ragged_sequence_count
+    probe_puts = [u for u in puts if len(u) > 1]
+    # two candidates, each a compile run and a timed run
+    assert len(probe_puts) == 4
+    assert all(1 < len(u) <= min(slots, srv.scheduler.max_inflight) for u in probe_puts)
+    assert not srv.engine.state_manager.all()
+    srv.halt()
+
+
+def test_winner_of_another_model_is_not_applied(tmp_path):
+    """ROADMAP C3: the stored winner is keyed by the model's widths and depth
+    too; a server of other widths or depth on the same mesh probes afresh."""
+    from deepspeed_tpu_torch.fleet import _testing
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import init_params
+    from deepspeed_tpu_torch.serving import LLMServer
+
+    def server(**over):
+        cfg = dataclasses.replace(_testing.tiny_config(), **over)
+        params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+        return LLMServer(InferenceEngineV2(cfg, params, _testing.tiny_engine_config(),
+                                           device="cpu"), replica_id=0)
+
+    cache = str(tmp_path)
+    reports = []
+    for over in ({}, {}, {"num_layers": 1}, {"hidden_size": 64}):
+        srv = server(**over)
+        h = tfleet.ReplicaHandle(0, lambda rid, s=srv: s, autotune_cache_dir=cache)
+        h.spawn()
+        reports.append(h.warm())
+        srv.halt()
+    assert [(r.autotune_from_cache, r.autotune_probes) for r in reports] == [
+        (False, 2), (True, 0), (False, 2), (False, 2)]
+
+
 def test_warm_generation_gives_jax_tokens():
     """The warm step's generation (the packed step the first request would
     otherwise build) through each package's engine from the same weights."""

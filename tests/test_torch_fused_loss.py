@@ -249,13 +249,17 @@ def test_fused_loss_ready_gate_and_unported_axis():
     with pytest.raises(ValueError, match="128-multiple"):
         tfl.fused_vocab_nll(torch.zeros(4, 8), torch.zeros(8, 100),
                             torch.zeros(4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        tfl.fused_vocab_nll(torch.zeros(4, 8), torch.zeros(8, 128),
-                            torch.zeros(4, dtype=torch.int32), axis_name="tp")
+    # over a tp axis of 1 the vocab shard is the whole head
+    h, k = torch.randn(4, 8), torch.randn(8, 128)
+    tg = torch.tensor([0, 5, 127, 64], dtype=torch.int32)
+    torch.testing.assert_close(tfl.fused_vocab_nll(h, k, tg, axis_name="tp"),
+                               tfl.fused_vocab_nll(h, k, tg), rtol=0, atol=0)
+    # a sequence axis above 1 is not ported
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         tce.sharded_lm_loss(torch.zeros(1, 4, 8), torch.zeros(8, 128),
                             torch.zeros(1, 4, dtype=torch.long),
-                            topo=dataclasses.make_dataclass("Topo", ["tp_size"])(2))
+                            topo=dataclasses.make_dataclass("Topo", ["tp_size", "sp_size"])(
+                                1, 2))
 
 
 def _models(tie, vocab, seed):

@@ -223,8 +223,13 @@ def test_left_out_families_raise():
     tmodel.check_supported(dataclasses.replace(tcfg, num_experts=4))   # MoE is served
     with pytest.raises(NotImplementedError, match="deliberate differences"):
         tmodel.check_supported(dataclasses.replace(tcfg, no_lm_head=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.tp_decode_matmul(None, None, "tp")
+    # the TP decode projections (ROADMAP Queue A item 4) run; over a tp axis
+    # of 1 they are the dense products (tests/test_torch_collective_matmul.py
+    # holds them at tp 2)
+    x, w = torch.randn(3, 8), torch.randn(8, 5)
+    torch.testing.assert_close(tmodel.tp_decode_matmul(x, w, "tp"), x @ w)
+    torch.testing.assert_close(tmodel.tp_decode_out_proj(x, w, "tp"), x @ w)
+    assert tmodel.tp_greedy_token(x @ w, "tp").tolist() == (x @ w).argmax(-1).tolist()
 
 
 # a CLIP-text-like model at 2 layers (clip_text_model's fields as the

@@ -13,6 +13,7 @@ them under a time limit, so a hang fails the test instead of stalling it.
 import os
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -108,14 +109,21 @@ def scenario_comm(rank, world, inputs, workdir):
                        groups._get_data_parallel_rank(),
                        comm.get_world_size(groups._get_data_parallel_group()),
                        comm.get_world_size(topo.dp_group))
+    from deepspeed_tpu_torch.parallel import Topology, TopologySpec
+
     raised = []
-    for fn in (lambda: comm.ppermute(x, "pp", [(0, 1)]),
-               groups._get_model_parallel_group, groups._get_sequence_parallel_group):
+    for fn in (lambda: Topology(TopologySpec(pp=2)), groups._get_expert_parallel_group,
+               groups._get_sequence_parallel_group):
         try:
             fn()
         except NotImplementedError as e:
             raised.append("ROADMAP" in str(e))
     out["raised"] = raised
+    out["model_parallel"] = (groups._get_model_parallel_group(),
+                             groups._get_model_parallel_world_size())
+    out["send_next"] = _np(comm.send_next_recv_prev(x, None))
+    out["send_prev"] = _np(comm.send_prev_recv_next(x, None))
+    out["ppermute_partial"] = _np(comm.ppermute(x, None, [(0, 1)]))
     return out
 
 
@@ -624,6 +632,37 @@ def scenario_cuda_step(rank, world, inputs, workdir):
             "mode": eng._dp_grad_mode}
 
 
+def scenario_cuda_ring_hop(rank, world, inputs, workdir):
+    """Two ranks sharing cuda:0 over gloo: one ``ppermute`` hop of a bf16
+    CUDA tensor and ``all_gather_matmul`` exact and over the int8 wire."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import collective_matmul as cm
+    from deepspeed_tpu_torch.ops import quant
+    from deepspeed_tpu_torch.parallel import Topology, TopologySpec, set_topology
+
+    set_topology(Topology(TopologySpec(tp=world)))
+    gen = torch.Generator(device="cuda").manual_seed(inputs["seed"] + rank)
+    x = torch.randn(64, 256, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(256, 384, generator=gen, device="cuda") / 16).to(torch.bfloat16)
+    ledger = comm.get_comms_logger()
+    ledger.configure(enabled=True, prof_all=True)
+    ledger.reset()
+    received = comm.send_next_recv_prev(x, "tp")
+    staged = ledger.totals().get("ppermute_host_stage", {}).get("count", 0)
+    ledger.configure(enabled=False)
+    ref = comm.all_gather(x, "tp", gather_dim=0).float() @ w.float()
+    quant.reset_launch_counts()
+    agmm = cm.all_gather_matmul(x, w, "tp").float()
+    agmm8 = cm.all_gather_matmul(x, w, "tp", wire_dtype="int8", block=512).float()
+    step = float(comm.all_reduce(x.float().abs().amax().reshape(1), "tp", op="max")) / 254
+    return {"sent": _np(x.float()), "received": _np(received.float()),
+            "staged": staged, "quant": dict(quant.launch_counts),
+            "agmm_err": float((agmm - ref).abs().max()),
+            "agmm_bound": 2 ** -7 * float(ref.abs().max()),
+            "agmm_int8_err": float((agmm8 - ref).abs().max()),
+            "agmm_int8_bound": step * float(w.float().abs().sum(0).max()) + 1e-5}
+
+
 def scenario_cuda_stage3(rank, world, inputs, workdir):
     """Two ranks sharing cuda:0 over gloo: stage 0, then stage 3 with and
     without per-layer remat, from the same weights on the same batches (the
@@ -743,10 +782,220 @@ def scenario_moe(rank, world, inputs, workdir):
     return out
 
 
-SCENARIOS = {"comm": scenario_comm, "comm_rooted": scenario_comm_rooted,
+def scenario_tp_collectives(rank, world, inputs, workdir):
+    """The ring collectives of ``ops/collective_matmul.py``, ``ppermute``,
+    the TP decode functions and ``fused_vocab_nll(axis_name=)`` over a tp
+    axis of ``world`` ranks, each on this rank's shards of the test's
+    inputs, with the gradients of ``sum(out * cot)`` where the function is
+    differentiable."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference.v2 import model as tmodel
+    from deepspeed_tpu_torch.ops import collective_matmul as cm
+    from deepspeed_tpu_torch.ops.fused_loss import fused_vocab_nll
+    from deepspeed_tpu_torch.parallel import Topology, TopologySpec, set_topology
+
+    set_topology(Topology(TopologySpec(tp=world)))
+    t = {k: torch.from_numpy(v[rank]) if isinstance(v, np.ndarray) else v
+         for k, v in inputs.items()}
+    out = {}
+
+    def grads(name, fn, *args):
+        args = [a.clone().requires_grad_(a.is_floating_point()) for a in args]
+        y = fn(*args)
+        out[name] = _np(y)
+        (y.float() * t[name + "/cot"]).sum().backward()
+        out[name + "/grads"] = [_np(a.grad) if a.grad is not None else None for a in args]
+
+    grads("agmm", lambda x, w: cm.all_gather_matmul(x, w, "tp"), t["x_rows"], t["w_col"])
+    grads("agmm_bidir", lambda x, w: cm.all_gather_matmul(x, w, "tp", bidirectional=True),
+          t["x_rows"], t["w_col"])
+    grads("agmm_int8", lambda x, w: cm.all_gather_matmul(x, w, "tp", wire_dtype="int8",
+                                                         block=128),
+          t["x_rows"], t["w_col"])
+    grads("mmrs", lambda x, w: cm.matmul_reduce_scatter(x, w, "tp"), t["x_k"], t["w_row"])
+    grads("mmrs_int8", lambda x, w: cm.matmul_reduce_scatter(x, w, "tp", wire_dtype="int8",
+                                                             block=128),
+          t["x_k"], t["w_row"])
+    out["qkv"] = [_np(v) for v in cm.fused_qkv_all_gather_matmul(
+        t["x_rows"], t["wq"], t["wk"], t["wv"], [], inputs["head_dim"], "tp")]
+    grads("ring_ag", lambda x: cm.ring_all_gather(x, "tp"), t["ring_x"])
+    grads("ring_rs", lambda x: cm.ring_reduce_scatter(x, "tp"), t["ring_y"])
+    grads("embed", lambda tab: cm.ring_embedding_gather(t["tokens"], tab, "tp"), t["table"])
+    grads("tied", lambda x, tab: cm.ring_tied_lm_head(x, tab, "tp"), t["hid"], t["table"])
+    for wire in ("exact", "int8"):
+        out[f"fused_ag/{wire}"] = _np(cm.fused_ring_all_gather(t["flat"], "tp",
+                                                               wire_dtype=wire, block=128))
+        out[f"fused_rs/{wire}"] = _np(cm.fused_ring_reduce_scatter(t["flat_rs"], "tp",
+                                                                   wire_dtype=wire,
+                                                                   block=128))
+    from deepspeed_tpu_torch.telemetry.collective import configure_collective_recorder
+
+    rec = configure_collective_recorder(enabled=True)
+    rec.clear()
+    cm.fused_ring_all_gather(t["flat"], "tp", wire_dtype="int8", block=128, tag="zpp")
+    cm.fused_ring_reduce_scatter(t["flat_rs"], "tp", block=128, tag="zpp")
+    out["fused_records"] = [(r["op"], r["impl"], r["detail"]) for r in rec.snapshot()]
+    configure_collective_recorder(enabled=False)
+    rec.clear()
+    out["ppermute"] = _np(comm.ppermute(t["ring_x"], "tp", inputs["perm"]))
+    out["send_next"] = _np(comm.send_next_recv_prev(t["ring_x"], "tp"))
+    out["send_prev"] = _np(comm.send_prev_recv_next(t["ring_x"], "tp"))
+    # item 4: the TP decode projections
+    out["decode_impl"] = tmodel.resolve_decode_tp_impl("tp", t["dec_x"].shape,
+                                                       t["dec_x"].dtype)
+    for impl in ("xla", "fused_matmul"):
+        out[f"decode_matmul/{impl}"] = _np(tmodel.tp_decode_matmul(
+            t["dec_x"], t["dec_w"], "tp", impl=impl))
+        out[f"decode_out/{impl}"] = _np(tmodel.tp_decode_out_proj(
+            t["dec_attn"], t["dec_wo"], "tp", impl=impl))
+        out[f"decode_logits/{impl}"] = _np(tmodel.tp_decode_logits(
+            t["dec_x"], t["dec_vocab"], "tp", impl=impl))
+    out["greedy"] = _np(tmodel.tp_greedy_token(t["dec_logits"], "tp"))
+    # the vocab-sharded fused loss: out-of-shard and negative ids
+    grads("nll", lambda h, k: fused_vocab_nll(h, k, t["nll_targets"], axis_name="tp",
+                                              z_loss=inputs["z_loss"]),
+          t["nll_h"], t["nll_k"])
+    # the vocab-parallel cross entropy on this rank's logits shard
+    from deepspeed_tpu_torch.sequence.cross_entropy import vocab_parallel_cross_entropy
+
+    grads("vpce", lambda lg: vocab_parallel_cross_entropy(
+        lg, t["nll_targets"], axis_name="tp", z_loss=inputs["z_loss"]), t["vpce_logits"])
+    return out
+
+
+def scenario_tp_train(rank, world, inputs, workdir):
+    """Training at dp x tp = (world / 2) x 2 through ``initialize`` +
+    ``train_batch``: the generic pack (the default for a ``make_loss_fn``
+    loss), ``vocab_parallel_loss`` with the fused loss and with the
+    vocab-parallel cross entropy, ZeRO 1 over the dp group, ``param_specs``
+    as ``"auto"``, a ``RuleSet`` and an explicit tree, replicated kv heads,
+    dropout, a checkpoint resumed at tp 2 and loaded at tp 1, the loss's
+    gradients on the shards, and the gates."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch import comm, sharding
+    from deepspeed_tpu_torch.checkpoint.engine import TorchCheckpointEngine
+    from deepspeed_tpu_torch.models import convert
+    from deepspeed_tpu_torch.models import transformer as ttf
+    from deepspeed_tpu_torch.ops.fastpath import reset_fastpath
+    from deepspeed_tpu_torch.parallel import Topology, TopologySpec
+
+    tp = 2
+    batches = [torch.from_numpy(b) for b in inputs["batches"]]
+    base = dict(inputs["config"], tensor_parallel={"enabled": True, "tp_size": tp})
+    out = {"dp_rank": None}
+
+    def build(model=None, overrides=None, specs=None, params=None, config=None,
+              topology=None):
+        cfg = ttf.TransformerConfig(**dict(inputs["model"], **(model or {})),
+                                    dtype=torch.float32)
+        full = convert.params_from_jax(params or inputs["params"], cfg, device="cpu")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng, *_ = tds.initialize(model=ttf.make_loss_fn(ttf.TransformerLM(cfg, full)),
+                                     model_parameters=full, device="cpu",
+                                     config=dict(config or base, **(overrides or {})),
+                                     param_specs=specs, topology=topology)
+        # what the layout said at initialize (the leaves it gathers)
+        eng.layout_warnings = [str(w.message) for w in caught if "tp 2:" in str(w.message)]
+        return eng, cfg
+
+    def full_masters(eng):
+        return [_np(eng._full_param(i)).copy() for i in range(len(eng._masters))]
+
+    def run(name, eng, steps=None):
+        out[name] = [float(eng.train_batch(b)) for b in (steps or batches)]
+        out[name + "/full"] = full_masters(eng)
+        out[name + "/local"] = [_np(p).copy() for p in eng._masters]
+        out[name + "/dims"] = list(eng._tp_dims)
+        out[name + "/norm"] = eng.get_global_grad_norm()
+        out[name + "/warned"] = eng.layout_warnings
+        reset_fastpath()
+        return eng
+
+    eng, _ = build()
+    out["dp_rank"], out["tp_rank"] = eng.dp_rank, comm.axis_index("tp")
+    out["topo"] = (eng.topo.dp_size, eng.topo.tp_size, eng.dp_world)
+    # the loss's gradients on this rank's shards, gathered whole
+    tree = eng._tree([p.detach().clone().requires_grad_(True) for p in eng._masters])
+    leaves = [p for p in torch.utils._pytree.tree_leaves(tree)]
+    loss = eng.loss_fn_raw(tree, torch.from_numpy(inputs["grad_batch"]))
+    loss.backward()
+    out["grad_loss"] = float(loss)
+    out["grads/local"] = [_np(p.grad).copy() for p in leaves]
+    out["grads"] = [_np(eng._tp_gather(i, p.grad)).copy() for i, p in enumerate(leaves)]
+    # train two steps, save, then the third
+    out["pack0"] = [float(eng.train_batch(b)) for b in batches[:2]]
+    out["pack0/full2"] = full_masters(eng)
+    ckpt = os.path.join(workdir, "ckpt")
+    eng.save_checkpoint(ckpt, tag="t2")
+    out["pack0"].append(float(eng.train_batch(batches[2])))
+    out["pack0/full"] = full_masters(eng)
+    out["pack0/local"] = [_np(p).copy() for p in eng._masters]
+    out["pack0/dims"] = list(eng._tp_dims)
+    out["pack0/warned"] = eng.layout_warnings
+    out["paths"] = list(eng._paths)
+    reset_fastpath()
+    # resumed at tp 2: the third step bitwise
+    eng, _ = build()
+    eng.load_checkpoint(ckpt, tag="t2")
+    out["resume"] = float(eng.train_batch(batches[2]))
+    out["resume/full"] = full_masters(eng)
+    reset_fastpath()
+    # the low-level sharded restore: this rank's slices of the saved tree
+    specs = sharding.generic_pack().match(inputs["params"],
+                                          axis_sizes=sharding.spec_tree_axis_sizes())
+    restored = TorchCheckpointEngine().load(os.path.join(ckpt, "t2", "state"),
+                                            shardings={"params": specs})
+    out["restored/embed"] = _np(restored["params"]["embed"]["embedding"])
+    out["restored/q"] = _np(restored["params"]["layer_0"]["attn"]["q_proj"]["kernel"])
+    # loaded at tp 1 (dp = world) in the same world
+    eng, _ = build(config=dict(inputs["config"]), topology=Topology(TopologySpec(tp=1)))
+    eng.load_checkpoint(ckpt, tag="t2")
+    out["tp1_load/full"] = full_masters(eng)
+    reset_fastpath()
+    comm.barrier()
+    run("vp0", build(model={"vocab_parallel_loss": True, "loss_impl": "fused"})[0])
+    run("pack1", build(overrides={"zero_optimization": {"stage": 1}})[0])
+    run("vp1", build(model={"vocab_parallel_loss": True, "loss_impl": "xla"},
+                     overrides={"zero_optimization": {"stage": 1}})[0])
+    run("auto", build(specs="auto")[0])
+    run("rules", build(specs=sharding.llama_pack())[0])
+    tree_specs = sharding.generic_pack().match(inputs["params"])
+    for i in range(inputs["model"]["num_layers"]):
+        for n in ("gate_proj", "up_proj", "down_proj"):
+            tree_specs[f"layer_{i}"]["mlp"][n]["kernel"] = sharding.PartitionSpec(None, None)
+    run("tree", build(specs=tree_specs)[0])
+    run("overlap", build(model={"overlap_collective_matmul": True, "embed_overlap": "ring"})[0])
+    run("kvrep", build(model=inputs["kvrep"]["model"], params=inputs["kvrep"]["params"])[0])
+    eng = run("dropout", build(model={"dropout": 0.1})[0])
+    out["dropout/seed"] = eng._next_rng()
+    # AutoTP: a raw HF-layout llama checkpoint through autotp_initialize at
+    # tp 2 (the llama pack), one step on the fixture's batch
+    from deepspeed_tpu_torch.sharding import audit_entry
+
+    eng, batch = audit_entry.family_engine("llama", zero_stage=1, batch=2, device="cpu")
+    out["autotp"] = float(eng.train_batch(batch))
+    out["autotp/dims"] = dict(zip(eng._paths, eng._tp_dims))
+    reset_fastpath()
+    # the gates
+    gates = {}
+    try:
+        tds.initialize(model=lambda p, b: p["w"].sum(), model_parameters={"w": torch.ones(4)},
+                       device="cpu", config=base)
+    except sharding.ForeignModelShardingError as e:
+        gates["foreign"] = str(e)
+    try:
+        build(overrides={"zero_optimization": {"stage": 2}})
+    except NotImplementedError as e:
+        gates["zero2"] = str(e)
+    out["gates"] = gates
+    return out
+
+
+SCENARIOS = {"tp_train": scenario_tp_train, "tp_collectives": scenario_tp_collectives, "comm": scenario_comm, "comm_rooted": scenario_comm_rooted,
              "compressed": scenario_compressed,
              "train": scenario_train, "cuda_step": scenario_cuda_step,
-             "cuda_stage3": scenario_cuda_stage3,
+             "cuda_stage3": scenario_cuda_stage3, "cuda_ring_hop": scenario_cuda_ring_hop,
              "zero_optimizers": scenario_zero_optimizers, "moe": scenario_moe}
 
 
